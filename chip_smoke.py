@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/H100 port (``deeplearning4j_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It drives the port only (no JAX, nothing of ``deeplearning4j_tpu``),
+prints one JSON line per phase, and ends with
+``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises
+and exits nonzero without that line; without CUDA it exits 2 at once.
+
+Phases:
+  1. build   — compile every CUDA source under deeplearning4j_torch/kernels/
+               csrc (one nvcc per source, all at once) and load them.
+  2. kernel  — the paged decode kernel (K1) against its plain PyTorch
+               version on the card: the serving path's shapes (8 slots, 6
+               heads of 128, block 16, 64-entry tables) at mixed positions,
+               the pangrams checkpoint's shapes, block size 8; f32 and
+               bf16.  Tables point at shuffled blocks; block 0 and every
+               row past a slot's position are NaN in the kernel's pool, so
+               a finite, matching result proves it never reads past pos.
+  3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
+               the card (f32) equals the port's offline generate(), up to
+               the near-tie rule; a shared prefix runs the cache-hit path.
+  4. full    — default-width zoo.Gpt() (12 x 768, 6 x 128 heads, vocab
+               32000, seeded random weights): (a) f32 greedy against
+               offline generate(); (b) bf16, 16 mixed greedy/sampled
+               requests, 4 sharing a 256-token system prompt — the main
+               path, with K1's launch count reset before and read after.
+  5. timings — K1, its plain version and one PyTorch SDPA call at the
+               path shapes (CUDA events, medians), beside the memory bound.
+
+``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
+phase ``profile`` (not run by default) traces a steady bf16 decode window
+of the full-width server with ``torch.profiler``: device busy share,
+kernel launches per tick and the top kernels by device time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+PHASES = ("build", "kernel", "pangrams", "full", "timings")
+EXTRA_PHASES = ("profile",)       # run only when asked for
+# near-tie rule: where a served stream and the offline stream diverge,
+# the teacher-forced logits of the two tokens at the first divergence
+# must lie within this much of each other (f32 logits; the two paths
+# sum in different orders, so only a genuine near tie may flip argmax)
+NEAR_TIE_F32 = 1e-4
+# kernel vs plain: f32 differs only by summation order (online softmax
+# over 64-row tiles vs one softmax over the row) — ~1e-6 on outputs of
+# magnitude <= ~3; bf16 differs by rounding points (the plain version
+# rounds scores and P to bf16 and multiplies P.V in bf16, the kernel
+# keeps scores and the accumulator in f32) — a few bf16 ulps of outputs
+# of magnitude <= ~3
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 2 -----------------------------------------------------------
+def kernel_case(torch, pa, B, h, dh, bs, mb, positions, dtype, seed):
+    """K1 vs the plain version on shuffled tables with NaN poison past
+    every slot's position.  Returns the max abs error."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    need = [p // bs + 1 for p in positions]
+    assert max(need) <= mb
+    nb = 1 + sum(need) + 5
+    kp = torch.randn((nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, h, dh), generator=g, device=dev).to(dtype)
+    perm = (torch.randperm(nb - 1, generator=g, device=dev) + 1).tolist()
+    table = torch.zeros((B, mb), dtype=torch.int32)
+    k_bad, v_bad = kp.clone(), vp.clone()
+    k_bad[0] = float("nan")
+    v_bad[0] = float("nan")
+    for b, n in enumerate(need):
+        ids, perm = perm[:n], perm[n:]
+        table[b, :n] = torch.tensor(ids, dtype=torch.int32)
+        last, off = ids[-1], positions[b] % bs
+        k_bad[last, :, off + 1:] = float("nan")
+        v_bad[last, :, off + 1:] = float("nan")
+    table = table.to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(dh)
+    out = pa.paged_decode_attention(q, k_bad, v_bad, table, pos, scale)
+    ref = pa.paged_decode_attention_reference(q, kp, vp, table, pos, scale)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"kernel read poisoned rows (B={B} h={h} "
+                             f"dh={dh} bs={bs} {dtype})")
+    return float((out.float() - ref.float()).abs().max())
+
+
+def phase_kernel(torch, pa):
+    path_pos = [0, 15, 16, 17, 511, 1023, 700, 250]
+    cases = [
+        ("path", dict(B=8, h=6, dh=128, bs=16, mb=64, positions=path_pos)),
+        ("pangrams", dict(B=4, h=4, dh=16, bs=8, mb=8,
+                          positions=[0, 7, 8, 63])),
+        ("bs8", dict(B=8, h=6, dh=128, bs=8, mb=128,
+                     positions=[0, 7, 8, 9, 511, 1023, 300, 64])),
+    ]
+    errs = {}
+    for name, kw in cases:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            err = kernel_case(torch, pa, dtype=dtype, seed=len(errs), **kw)
+            errs[f"{name}/{dname}"] = err
+            if not err <= TOL[dname]:
+                raise AssertionError(f"K1 {name}/{dname}: max abs err "
+                                     f"{err} > {TOL[dname]}")
+    emit({"phase": "kernel", "max_abs_err": errs, "tolerance": TOL})
+    return errs
+
+
+# -- serving helpers ---------------------------------------------------
+def check_streams(torch, gen, pairs, tol):
+    """Served vs offline streams; a divergence passes only as a near tie
+    (teacher-forced logit margin <= tol at the first divergence)."""
+    emb_p, blk_ps, head_p = gen._serving_params()
+    ties = []
+    for served, ref in pairs:
+        if served.shape == ref.shape and (served == ref).all():
+            continue
+        n = min(len(served), len(ref))
+        i = int(next(j for j in range(n) if served[j] != ref[j]))
+        ctx = torch.as_tensor(served[None, :i].astype("int64"),
+                              device=gen.device)
+        logits = gen._prefill_rows(emb_p, blk_ps, head_p, ctx)[0][0]
+        margin = float((logits[int(served[i])]
+                        - logits[int(ref[i])]).abs())
+        if margin > tol:
+            raise AssertionError(
+                f"served stream diverges from offline generate() at "
+                f"{i} with logit margin {margin} > {tol}")
+        ties.append({"index": i, "margin": margin})
+    return ties
+
+
+def serve(srv, reqs, timeout=900):
+    """Submit (prompt, n_new, sampling) requests; returns outputs, TTFTs
+    and wall seconds."""
+    t0 = time.perf_counter()
+    hs = [srv.submit_async(p, n, sampling=s) for p, n, s in reqs]
+    outs = [h.result(timeout) for h in hs]
+    return outs, [h.ttft for h in hs], time.perf_counter() - t0
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(math.ceil(q * len(xs))) - 1)]
+
+
+# -- phase 3 -----------------------------------------------------------
+def phase_pangrams(torch, np, root):
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.utils import restore_model
+
+    net = restore_model(os.path.join(
+        root, "deeplearning4j_tpu/zoo/weights/Gpt_pangrams-char.zip"),
+        device="cuda")
+    gen = TransformerGenerator(net, device="cuda")
+    hits = telemetry.get_registry().counter("prefix_cache_hits_total")
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 28, 17).astype(np.int32)
+    first = np.concatenate([shared, [3, 5]]).astype(np.int32)
+    others = [np.concatenate([shared, [9]]).astype(np.int32)] + [
+        rng.integers(0, 28, int(t)).astype(np.int32)
+        for t in rng.integers(4, 30, 4)]
+    n_new = 24
+    h0 = hits.value
+    with GenerationServer(net, n_slots=4, block_size=8, tick_batch=8,
+                          device="cuda") as srv:
+        h_first = srv.submit_async(first, n_new)
+        deadline = time.monotonic() + 120
+        while h_first.emitted == 0 and not h_first.done():
+            if time.monotonic() > deadline:
+                raise TimeoutError("first pangrams request never decoded")
+            time.sleep(0.001)
+        hs = [srv.submit_async(p, n_new) for p in others]
+        outs = [h_first.result(300)] + [h.result(300) for h in hs]
+    prompts = [first] + others
+    refs = [gen.generate(p[None], n_new)[0] for p in prompts]
+    ties = check_streams(torch, gen, list(zip(outs, refs)), NEAR_TIE_F32)
+    if hits.value - h0 < 1:
+        raise AssertionError("pangrams: the shared prefix never hit")
+    emit({"phase": "pangrams", "requests": len(prompts),
+          "prefix_hits": hits.value - h0, "near_ties": ties})
+
+
+# -- phase 4 -----------------------------------------------------------
+def phase_full(torch, np, pa):
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.zoo import Gpt
+
+    reg = telemetry.get_registry()
+    ticks = reg.counter("generation_server_ticks_total")
+    hits = reg.counter("prefix_cache_hits_total")
+    t_init = time.perf_counter()
+    net = Gpt(seed=0).init_graph(device="cuda")
+    torch.cuda.synchronize()
+    n_layers = len(net.layers) - 2
+    vocab = 32000
+    kw = dict(n_slots=8, max_len=1024, block_size=16, tick_batch=8,
+              device="cuda")
+    emit({"phase": "full/init", "params": net.num_params(),
+          "layers": n_layers, "seconds": time.perf_counter() - t_init})
+
+    # (a) f32 greedy vs offline generate()
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, vocab, int(t)).astype(np.int32), 32, None)
+            for t in rng.integers(64, 769, 8)]
+    with GenerationServer(net, compute_dtype=None, **kw) as srv:
+        k0, l0 = ticks.value, pa.paged_decode_attention.launches
+        outs, _, wall = serve(srv, reqs)
+        dt, dl = ticks.value - k0, pa.paged_decode_attention.launches - l0
+    if dl < n_layers * dt:
+        raise AssertionError(f"f32: {dl} kernel launches < {n_layers} "
+                             f"layers x {dt} ticks")
+    gen = TransformerGenerator(net, device="cuda")
+    refs = [gen.generate(p[None], n)[0] for p, n, _ in reqs]
+    ties = check_streams(torch, gen, list(zip(outs, refs)), NEAR_TIE_F32)
+    emit({"phase": "full/f32", "requests": len(reqs), "ticks": dt,
+          "launches": dl, "near_ties": ties, "seconds": wall})
+
+    # (b) bf16 mixed greedy/sampled, shared system prompt — the main path
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, vocab, 256).astype(np.int32)
+    reqs = []
+    for i in range(16):
+        if i < 4:
+            tail = rng.integers(0, vocab, int(rng.integers(16, 200)))
+            prompt = np.concatenate([system, tail]).astype(np.int32)
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(64, 769))) \
+                .astype(np.int32)
+        samp = ({"temperature": 0.8, "top_k": 40, "seed": i}
+                if i % 2 else None)
+        reqs.append((prompt, int(rng.integers(64, 129)), samp))
+    with GenerationServer(net, compute_dtype="bfloat16", **kw) as srv:
+        # warm-up off the window; it also seeds the system prompt's
+        # blocks into the prefix cache
+        srv.submit(np.concatenate([system, [7, 7, 7]]).astype(np.int32), 8)
+        torch.cuda.synchronize()
+        k0, h0 = ticks.value, hits.value
+        pa.paged_decode_attention.launches = 0
+        outs, ttfts, wall = serve(srv, reqs)
+        launches = pa.paged_decode_attention.launches
+        dt, dh = ticks.value - k0, hits.value - h0
+    for (p, n, _), out in zip(reqs, outs):
+        if out.shape != (len(p) + n,):
+            raise AssertionError(f"request did not finish: {out.shape}")
+        if not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError("token outside the vocabulary")
+    if dh < 1:
+        raise AssertionError("bf16: no prefix-cache hit")
+    if launches < n_layers * dt:
+        raise AssertionError(f"bf16: {launches} kernel launches < "
+                             f"{n_layers} layers x {dt} ticks")
+    new_tokens = sum(n for _, n, _ in reqs)
+    emit({"phase": "full/bf16", "requests": len(reqs),
+          "new_tokens": new_tokens, "seconds": wall,
+          "new_tokens_per_s": new_tokens / wall,
+          "ttft_p50_s": pct(ttfts, 0.50), "ttft_p99_s": pct(ttfts, 0.99),
+          "ticks": dt, "ticks_per_s": dt / wall, "launches": launches,
+          "prefix_hits": dh})
+    # the timing phase's positions: contexts this run's first 8 requests
+    # decode at, halfway through their budgets
+    mid = [len(p) + n // 2 for p, n, _ in reqs[:8]]
+    return launches, mid
+
+
+# -- phase 5 -----------------------------------------------------------
+def time_ms(torch, fn, n_inner=24, reps=9):
+    """Median device milliseconds per call of ``fn(i)``.  The calls are
+    captured once in a CUDA graph and the graph is replayed between two
+    events, so the time is the card's, not the Python launch rate (a
+    plain loop of launches would measure the host: each wrapper call
+    costs more host time than the kernel runs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up off the capture
+        for i in range(n_inner):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_inner):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n_inner)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_timings(torch, pa, positions):
+    """Median per-call times at the path shapes (bf16, 8 slots, 6 heads
+    of 128, block 16, 64-entry tables).  Calls cycle over 12 layers'
+    pools (~300 MB), as one decode tick does, so the 50 MB L2 cannot hold
+    the working set."""
+    import torch.nn.functional as F
+    dev, dtype = "cuda", torch.bfloat16
+    B, h, dh, bs, mb, NL = 8, 6, 128, 16, 64, 12
+    g = torch.Generator(device=dev).manual_seed(5)
+    nb = 1 + B * mb
+    kp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, h, dh), generator=g, device=dev).to(dtype)
+    table = (torch.randperm(nb - 1, generator=g, device=dev)[:B * mb]
+             .reshape(B, mb) + 1).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(dh)
+    kern = lambda i: pa.paged_decode_attention(q, kp[i % NL], vp[i % NL],
+                                               table, pos, scale)
+    plain = lambda i: pa.paged_decode_attention_reference(
+        q, kp[i % NL], vp[i % NL], table, pos, scale)
+    # yardstick: one SDPA call over the ALREADY-GATHERED contiguous K/V
+    # (the gather is excluded); the port never calls it
+    kl = [pa.paged_gather(kp[i], table) for i in range(NL)]
+    vl = [pa.paged_gather(vp[i], table) for i in range(NL)]
+    mask = (torch.arange(mb * bs, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib = lambda i: F.scaled_dot_product_attention(
+        q4, kl[i % NL], vl[i % NL], attn_mask=mask, scale=scale)
+    err = float((kern(0).float() - plain(0).float()).abs().max())
+    ms = {name: time_ms(torch, fn) for name, fn in
+          (("kernel", kern), ("plain", plain), ("library", lib),
+           ("kernel_again", kern))}
+    ctx = sum(p + 1 for p in positions)
+    esz = 2
+    n_bytes = (ctx * h * dh * 2 * esz              # K and V rows read
+               + 2 * B * h * dh * esz              # q read, out written
+               + sum(p // bs + 1 for p in positions) * 4 + B * 4)
+    n_flops = 4 * ctx * h * dh
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    out = {"phase": "timings", "shapes": {"B": B, "h": h, "dh": dh,
+                                          "bs": bs, "max_blocks": mb,
+                                          "dtype": "bfloat16",
+                                          "pos": positions},
+           "kernel_ms": ms["kernel"], "kernel_ms_again": ms["kernel_again"],
+           "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "bound_ms": bound, "bound_by": ("bytes" if t_bytes >= t_ops
+                                           else "operations"),
+           "bytes": n_bytes, "flops": n_flops, "max_abs_err": err,
+           "card": card_line()}
+    emit(out)
+    return out
+
+
+# -- extra phase: profile ---------------------------------------------
+def phase_profile(torch, np):
+    """A steady decode window of the full-width bf16 server (8 greedy
+    requests, 256-token prompts, 504 new tokens each; admissions done
+    before the windows).  Window A, unprofiled: wall per tick.  Window B,
+    CUDA activity only (CUPTI; no CPU-op recording, which would slow the
+    host many times over): device time per tick and what the tick
+    launches.  Busy share = device time per tick / window A's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.zoo import Gpt
+
+    ticks = telemetry.get_registry().counter("generation_server_ticks_total")
+    net = Gpt(seed=0).init_graph(device="cuda")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 32000, 256).astype(np.int32)
+               for _ in range(8)]
+    with GenerationServer(net, n_slots=8, max_len=1024, block_size=16,
+                          tick_batch=8, compute_dtype="bfloat16",
+                          device="cuda") as srv:
+        srv.submit(prompts[0], 8)                          # warm-up
+        hs = [srv.submit_async(p, 504) for p in prompts]
+        deadline = time.monotonic() + 300
+        while min(h.emitted for h in hs) < 8:              # all admitted
+            if time.monotonic() > deadline:
+                raise TimeoutError("profile: requests never decoded")
+            time.sleep(0.001)
+        k0, t0 = ticks.value, time.perf_counter()
+        time.sleep(1.0)
+        wall_a, ticks_a = time.perf_counter() - t0, ticks.value - k0
+        k0 = ticks.value
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            time.sleep(1.0)
+            wall_b = time.perf_counter() - t0
+        ticks_b = ticks.value - k0
+        if min(h.emitted for h in hs) >= 504:
+            raise AssertionError("profile: requests ended inside the "
+                                 "windows")
+        for h in hs:
+            h.result(300)
+    kernels, busy_us, n_kernels = {}, 0.0, 0
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        busy_us += us
+        n_kernels += 1
+        kernels[evt.name[:80]] = kernels.get(evt.name[:80], 0.0) + us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    ms_tick_a = wall_a * 1e3 / ticks_a
+    dev_ms_tick = busy_us / 1e3 / ticks_b
+    emit({"phase": "profile", "unprofiled_wall_ms_per_tick": ms_tick_a,
+          "unprofiled_ticks": ticks_a,
+          "profiled_wall_ms_per_tick": wall_b * 1e3 / ticks_b,
+          "profiled_ticks": ticks_b,
+          "device_ms_per_tick": dev_ms_tick,
+          "device_busy_share": dev_ms_tick / ms_tick_a,
+          "device_events_per_tick": n_kernels / ticks_b,
+          "top_device_us_per_tick": [{"name": k, "us": v / ticks_b}
+                                     for k, v in top],
+          "card": card_line()})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this "
+              "smoke runs only on a CUDA card", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        from deeplearning4j_torch.kernels import _build
+        from deeplearning4j_torch.kernels import paged_attention as pa
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t = time.perf_counter()
+        libs = _build.build_all(verbose=True)
+        emit({"phase": "build", "libraries": sorted(libs),
+              "seconds": time.perf_counter() - t,
+              "torch": torch.__version__, "cuda": torch.version.cuda})
+        errs, launches, mid, timing = {}, None, None, None
+        if "kernel" in phases:
+            errs = phase_kernel(torch, pa)
+        if "pangrams" in phases:
+            phase_pangrams(torch, np, root)
+        if "full" in phases:
+            launches, mid = phase_full(torch, np, pa)
+        if "timings" in phases:
+            timing = phase_timings(
+                torch, pa, mid or [100, 227, 354, 481, 608, 735, 862, 989])
+        if "profile" in phases:
+            phase_profile(torch, np)
+        if launches is not None and timing is not None:
+            emit({"kernels": [{
+                "name": "paged_decode_attention", "route": "cuda",
+                "source": "deeplearning4j_torch/kernels/csrc/paged_decode.cu",
+                "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:110",
+                "launches": launches,
+                "max_abs_err": errs.get("path/bfloat16", timing["max_abs_err"]),
+                "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+                "bound_ms": timing["bound_ms"],
+                "bound_by": timing["bound_by"],
+                "library_ms": timing["library_ms"]}]})
+        card = card_line()
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

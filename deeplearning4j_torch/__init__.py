@@ -1,0 +1,19 @@
+"""deeplearning4j_torch — the PyTorch/CUDA port of ``deeplearning4j_tpu``.
+
+Same module paths, parameter names, layouts, configuration JSON and
+checkpoint zip as the JAX package, which stays the reference the port is
+held against.  The port imports ``torch`` and ``numpy`` only — never
+``jax`` and nothing of ``deeplearning4j_tpu``.
+
+Entry points (``MultiLayerNetwork.init``, ``restore_model``,
+``TransformerGenerator``, ``GenerationServer``) take ``device=`` and
+default to ``"cuda"``; on a machine without CUDA that default raises
+instead of quietly running on the CPU.  Pass ``device="cpu"`` to run the
+plain PyTorch versions of the kernels.
+
+First slice: serving the causal decoder (``zoo.Gpt`` ->
+``MultiLayerNetwork`` -> ``models.generation.TransformerGenerator`` ->
+``parallel.generation_server.GenerationServer``) with the paged decode
+attention as a hand-written CUDA kernel (``kernels/csrc/paged_decode.cu``).
+"""
+__version__ = "0.1.0"

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions (port of
+``deeplearning4j_tpu.kernels``).
+
+Each kernel's CUDA source lives under ``csrc/`` and builds at first use
+(``_build``); importing this package builds nothing.  Ported so far:
+the paged decode attention (``paged_attention``).
+"""
+from deeplearning4j_torch.kernels.paged_attention import (
+    paged_decode_attention, paged_decode_attention_reference, paged_gather)
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_reference",
+           "paged_gather"]

@@ -1,0 +1,168 @@
+"""Fluent network-configuration builder (port of
+``deeplearning4j_tpu/nn/conf/builder.py``, trimmed to what builds, reads
+and writes a sequential stack's ``configuration.json``).
+
+The build step resolves global-default inheritance (``activation`` and
+friends) and propagates InputType shapes, auto-filling ``n_in``, exactly
+as the reference does — so the same builder calls produce the same JSON
+in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, List, Optional
+
+from deeplearning4j_torch.nn.conf.base import (BaseLayerConf, GlobalConf,
+                                               layer_from_dict)
+from deeplearning4j_torch.nn.conf.inputs import (InputType, Preprocessor,
+                                                 adapt)
+
+
+class NeuralNetConfiguration:
+    """Entry point: ``NeuralNetConfiguration.builder()`` (DL4J idiom)."""
+
+    @staticmethod
+    def builder() -> "Builder":
+        return Builder()
+
+
+class Builder:
+    def __init__(self):
+        self._g = GlobalConf()
+
+    def seed(self, s: int) -> "Builder":
+        self._g.seed = int(s)
+        return self
+
+    def activation(self, a: str) -> "Builder":
+        self._g.activation = a
+        return self
+
+    def updater(self, u) -> "Builder":
+        """The updater's plain dict (``{"type": "Adam", ...}``) — stored
+        for the JSON; the port's updaters come with the training slice."""
+        self._g.updater = u.to_dict() if hasattr(u, "to_dict") else dict(u)
+        return self
+
+    def compute_dtype(self, d: str) -> "Builder":
+        """Matmul compute dtype ('bfloat16'); params stay in ``dtype``."""
+        self._g.compute_dtype = str(d)
+        return self
+
+    def list(self) -> "ListBuilder":
+        return ListBuilder(self)
+
+
+class ListBuilder:
+    """Sequential-stack builder (DL4J ``NeuralNetConfiguration.ListBuilder``)."""
+
+    def __init__(self, parent: Builder):
+        self._parent = parent
+        self._layers: List[BaseLayerConf] = []
+        self._input_type: Optional[InputType] = None
+
+    def layer(self, conf: BaseLayerConf) -> "ListBuilder":
+        self._layers.append(conf)
+        return self
+
+    def set_input_type(self, it: InputType) -> "ListBuilder":
+        self._input_type = it
+        return self
+
+    def build(self) -> "MultiLayerConfiguration":
+        if not self._layers:
+            raise ValueError("No layers configured")
+        g = self._parent._g
+        for ly in self._layers:
+            ly.resolve_defaults(g)
+        preprocessors: List[Optional[Preprocessor]] = [None] * len(
+            self._layers)
+        it = self._input_type
+        if it is None:
+            n_in = getattr(self._layers[0], "n_in", None)
+            if n_in is None:
+                raise ValueError("Either set_input_type(...) or n_in on "
+                                 "the first layer is required")
+            it = InputType.feed_forward(n_in)
+        input_type = it
+        for i, ly in enumerate(self._layers):
+            pre = None
+            if "any" in ly.WANTED_KINDS or it.kind in ly.WANTED_KINDS:
+                adapted = it
+            else:
+                err = None
+                for kind in ly.WANTED_KINDS:
+                    try:
+                        pre, adapted = adapt(it, kind)
+                        break
+                    except ValueError as e:
+                        err = e
+                else:
+                    raise ValueError(f"Layer {i} ({type(ly).__name__}): {err}")
+            preprocessors[i] = pre
+            out_shape = ly.infer_shapes(adapted.shape)
+            out_kind = getattr(ly, "OUTPUT_KIND", None) or adapted.kind
+            it = InputType(out_kind, tuple(out_shape))
+        return MultiLayerConfiguration(
+            global_conf=g, layers=self._layers, preprocessors=preprocessors,
+            input_type=input_type)
+
+
+@dataclasses.dataclass
+class MultiLayerConfiguration:
+    """The serializable model IR — the JSON stored inside every
+    checkpoint zip, key for key the reference's."""
+
+    global_conf: GlobalConf
+    layers: List[BaseLayerConf]
+    preprocessors: List[Optional[Preprocessor]]
+    input_type: Optional[InputType] = None
+    backprop_type: str = "standard"
+    tbptt_fwd_length: Optional[int] = None
+    tbptt_bwd_length: Optional[int] = None
+    grad_normalization: Optional[str] = None
+    grad_norm_threshold: float = 1.0
+    frozen_layers: List[int] = dataclasses.field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "format": "deeplearning4j_tpu/MultiLayerConfiguration/v1",
+            "global_conf": dataclasses.asdict(self.global_conf),
+            "layers": [ly.to_dict() for ly in self.layers],
+            "preprocessors": [p.to_dict() if p else None
+                              for p in self.preprocessors],
+            "input_type": (self.input_type.to_dict()
+                           if self.input_type else None),
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_bwd_length": self.tbptt_bwd_length,
+            "grad_normalization": self.grad_normalization,
+            "grad_norm_threshold": self.grad_norm_threshold,
+            "frozen_layers": list(self.frozen_layers),
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "MultiLayerConfiguration":
+        g = GlobalConf(**d["global_conf"])
+        layers = [layer_from_dict(ld) for ld in d["layers"]]
+        pres = [Preprocessor.from_dict(p) if p else None
+                for p in d["preprocessors"]]
+        it = (InputType.from_dict(d["input_type"])
+              if d.get("input_type") else None)
+        return MultiLayerConfiguration(
+            global_conf=g, layers=layers, preprocessors=pres, input_type=it,
+            backprop_type=d.get("backprop_type", "standard"),
+            tbptt_fwd_length=d.get("tbptt_fwd_length"),
+            tbptt_bwd_length=d.get("tbptt_bwd_length"),
+            grad_normalization=d.get("grad_normalization"),
+            grad_norm_threshold=d.get("grad_norm_threshold", 1.0),
+            frozen_layers=list(d.get("frozen_layers", [])),
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(json.loads(s))

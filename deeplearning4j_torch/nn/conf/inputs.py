@@ -1,0 +1,60 @@
+"""Input types and shape preprocessors (port of
+``deeplearning4j_tpu/nn/conf/inputs.py``, trimmed to what the decoder
+stack's configuration reads and writes: the feed-forward input type, the
+one preprocessor the builder inserts, and their JSON round trip)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class InputType:
+    """kind: 'ff' (features,), 'rnn' (time, features).  Shapes are
+    batch-free; time may be None."""
+
+    kind: str
+    shape: Tuple[Optional[int], ...]
+
+    @staticmethod
+    def feed_forward(size: int) -> "InputType":
+        return InputType("ff", (int(size),))
+
+    def to_dict(self):
+        return {"kind": self.kind, "shape": list(self.shape)}
+
+    @staticmethod
+    def from_dict(d):
+        return InputType(d["kind"], tuple(d["shape"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class Preprocessor:
+    """name identifies the reshape; spec carries static dims it needs."""
+
+    name: str
+    spec: Tuple[int, ...] = ()
+
+    def __call__(self, x):
+        if self.name == "rnn_to_ff":          # [b,t,f] -> [b*t, f]
+            return x.reshape(-1, x.shape[-1])
+        raise ValueError(f"Preprocessor {self.name!r} is not ported yet")
+
+    def to_dict(self):
+        return {"name": self.name, "spec": list(self.spec)}
+
+    @staticmethod
+    def from_dict(d):
+        return Preprocessor(d["name"], tuple(d.get("spec", ())))
+
+
+def adapt(input_type: InputType, wanted_kind: str):
+    """(preprocessor | None, new InputType) adapting ``input_type`` to the
+    kind a layer wants — DL4J's automatic InputPreProcessor insertion."""
+    kind = input_type.kind
+    if wanted_kind in ("any", kind):
+        return None, input_type
+    if kind == "rnn" and wanted_kind == "ff":
+        t, f = input_type.shape
+        return Preprocessor("rnn_to_ff"), InputType("ff", (f,))
+    raise ValueError(f"No preprocessor from {kind!r} to {wanted_kind!r}")

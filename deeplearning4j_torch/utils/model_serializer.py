@@ -1,0 +1,112 @@
+"""Model checkpointing (port of ``deeplearning4j_tpu/utils/model_serializer.py``).
+
+The same zip as the reference: ``configuration.json`` (the model IR),
+``coefficients.npz`` (the parameter tree, ``layer_i/name`` keys),
+``state.npz`` and ``training.json``.  It is read and written with numpy
+alone, so either package restores the other's checkpoints.  Updater
+state is neither read nor written yet (it comes with the training slice).
+"""
+from __future__ import annotations
+
+import io
+import json
+import zipfile
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from deeplearning4j_torch.runtime.backend import resolve_device
+
+_CONFIG = "configuration.json"
+_PARAMS = "coefficients.npz"
+_STATE = "state.npz"
+_TRAINING = "training.json"
+
+
+def _flatten_tree(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        if not tree and prefix:
+            # keep empty subtrees (paramless layers) so the restored
+            # structure matches the reference's exactly
+            out[prefix + "@empty"] = np.zeros(0, np.float32)
+        for k in sorted(tree.keys()):
+            out.update(_flatten_tree(tree[k], f"{prefix}{k}/"))
+    elif tree is not None:
+        if isinstance(tree, torch.Tensor):
+            if tree.dtype == torch.bfloat16:
+                raise ValueError("bfloat16 parameters have no numpy dtype; "
+                                 "store parameters in float32")
+            tree = tree.detach().cpu().numpy()
+        key = prefix[:-1] if prefix.endswith("/") else prefix
+        out[key] = np.asarray(tree)
+    return out
+
+
+def _unflatten_tree(flat: Dict[str, np.ndarray], device):
+    root: Dict[str, Any] = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        if parts[-1] == "@empty":
+            continue  # marker: parent dict exists but is empty
+        node[parts[-1]] = torch.from_numpy(np.array(val)).to(device)
+    return root
+
+
+def _npz_bytes(tree) -> bytes:
+    buf = io.BytesIO()
+    flat = _flatten_tree(tree)
+    np.savez(buf, **flat) if flat else np.savez(buf, __empty__=np.zeros(0))
+    return buf.getvalue()
+
+
+def _tree_from_npz(data: bytes, device):
+    with np.load(io.BytesIO(data), allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files if k != "__empty__"}
+    return _unflatten_tree(flat, device)
+
+
+def write_model(model, path) -> None:
+    """DL4J ``ModelSerializer.writeModel(model, file)`` without the
+    updater state."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr(_CONFIG, json.dumps(model.conf.to_dict(), indent=2))
+        zf.writestr(_PARAMS, _npz_bytes(model.params_tree or {}))
+        zf.writestr(_STATE, _npz_bytes(model.state_tree or {}))
+        zf.writestr(_TRAINING, json.dumps({
+            "iteration_count": model.iteration_count,
+            "epoch_count": model.epoch_count,
+        }))
+
+
+def restore_model(path, device="cuda"):
+    """Restore a ``MultiLayerNetwork`` checkpoint zip onto ``device``
+    (default ``"cuda"``).  Graph checkpoints are not ported yet."""
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf.builder import MultiLayerConfiguration
+
+    dev = resolve_device(device)
+    with zipfile.ZipFile(path, "r") as zf:
+        conf_d = json.loads(zf.read(_CONFIG).decode())
+        if "MultiLayerConfiguration" not in conf_d.get("format", "") \
+                or "vertices" in conf_d:
+            raise NotImplementedError(
+                "only MultiLayerNetwork checkpoints are ported so far "
+                "(ComputationGraph comes with the conv slice)")
+        model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_d))
+        model.params_tree = _tree_from_npz(zf.read(_PARAMS), dev)
+        model.state_tree = _tree_from_npz(zf.read(_STATE), dev)
+        for i in range(len(model.layers)):
+            model.state_tree.setdefault(f"layer_{i}", {})
+            model.params_tree.setdefault(f"layer_{i}", {})
+        if _TRAINING in zf.namelist():
+            t = json.loads(zf.read(_TRAINING).decode())
+            model.iteration_count = t.get("iteration_count", 0)
+            model.epoch_count = t.get("epoch_count", 0)
+    model.device = dev
+    return model

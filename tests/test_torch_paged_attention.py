@@ -1,0 +1,139 @@
+"""Paged decode attention in the PyTorch port against the JAX package.
+
+Same inputs (made from a seed with numpy) through the JAX reference
+``paged_decode_attention_reference``, the JAX Pallas kernel in interpret
+mode, and the port's plain version.  In f32 the port's plain version
+repeats the JAX reference's ops, so the two agree to 1e-6 (float
+rounding of the same sums on two backends); the Pallas kernel streams
+the softmax block by block, a different summation order — also within
+1e-6 at these sizes.  The CUDA kernel itself is held to the plain
+version on the card (``gpu`` marker here, and ``chip_smoke.py``)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from deeplearning4j_torch import telemetry  # noqa: E402
+from deeplearning4j_torch.kernels import paged_attention as pa  # noqa: E402
+
+
+def _paged_fixture(seed=0, B=3, h=4, dh=8, bs=4, mb=4, nb=9):
+    """The JAX test suite's ``_paged_fixture`` shapes, as numpy."""
+    rng = np.random.default_rng(seed)
+    kpool = rng.normal(size=(nb, h, bs, dh)).astype(np.float32)
+    vpool = rng.normal(size=(nb, h, bs, dh)).astype(np.float32)
+    tbl = rng.integers(1, nb, (B, mb)).astype(np.int32)
+    pos = np.asarray([3, 7, 13], np.int32)
+    q = rng.normal(size=(B, h, dh)).astype(np.float32)
+    return q, kpool, vpool, tbl, pos, 1.0 / dh ** 0.5
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_matches_jax_reference_and_pallas_interpret(seed):
+    from deeplearning4j_tpu.kernels.paged_attention import (
+        _paged_decode_pallas, paged_decode_attention_reference)
+    q, kp, vp, tbl, pos, scale = _paged_fixture(seed)
+    ref = np.asarray(paged_decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+        jnp.asarray(pos), scale))
+    pallas = np.asarray(_paged_decode_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+        jnp.asarray(pos), scale))
+    out = pa.paged_decode_attention_reference(*_torch(q, kp, vp, tbl, pos),
+                                              scale).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out, pallas, rtol=0, atol=1e-6)
+
+
+def test_gather_matches_jax():
+    from deeplearning4j_tpu.kernels import paged_gather as jax_gather
+    q, kp, vp, tbl, pos, scale = _paged_fixture()
+    ref = np.asarray(jax_gather(jnp.asarray(kp), jnp.asarray(tbl)))
+    out = pa.paged_gather(*_torch(kp, tbl)).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_plain_is_bitwise_stripe_math():
+    """The plain version IS the stripe decode step's math on the table's
+    gathered view — the self-consistency the server's parity rests on."""
+    q, kp, vp, tbl, pos, scale = _paged_fixture()
+    q, kp, vp, tbl, pos = _torch(q, kp, vp, tbl, pos)
+    ref = pa.paged_decode_attention_reference(q, kp, vp, tbl, pos, scale)
+    kl, vl = pa.paged_gather(kp, tbl), pa.paged_gather(vp, tbl)
+    L = kl.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, None, :], kl).float()
+    s = s * scale
+    valid = (torch.arange(L)[None, :] <= pos.long()[:, None])[:, None,
+                                                               None, :]
+    s = torch.where(valid, s, torch.tensor(-1e9))
+    p = torch.softmax(s, -1).to(vl.dtype)
+    stripe = torch.einsum("bhqk,bhkd->bhqd", p, vl)[:, :, 0]
+    assert torch.equal(ref, stripe)
+
+
+def test_wrapper_routes_cpu_to_plain_and_counts():
+    q, kp, vp, tbl, pos, scale = _paged_fixture()
+    q, kp, vp, tbl, pos = _torch(q, kp, vp, tbl, pos)
+    route = telemetry.get_registry().counter(
+        "paged_route_total", labelnames=("path",)).labels(path="reference")
+    r0, l0 = route.value, pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(q, kp, vp, tbl, pos)   # default scale
+    assert torch.equal(out, pa.paged_decode_attention_reference(
+        q, kp, vp, tbl, pos, scale))
+    assert route.value == r0 + 1
+    assert pa.paged_decode_attention.launches == l0   # no kernel on CPU
+
+
+@pytest.mark.parametrize("bad", ["dtype", "table_dtype", "shape",
+                                 "contiguous", "pos_shape"])
+def test_wrapper_rejects_bad_operands(bad):
+    q, kp, vp, tbl, pos, _ = _paged_fixture()
+    q, kp, vp, tbl, pos = _torch(q, kp, vp, tbl, pos)
+    if bad == "dtype":
+        q = q.double()
+    elif bad == "table_dtype":
+        tbl = tbl.long()
+    elif bad == "shape":
+        kp = kp[:, :2]
+    elif bad == "contiguous":
+        q = q.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        pos = pos[:2]
+    with pytest.raises(ValueError, match="paged_decode_attention"):
+        pa.paged_decode_attention(q, kp, vp, tbl, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_cuda_kernel_matches_plain(dtype, tol):
+    """On the card: the CUDA kernel against the plain version at the
+    serving path's shapes (f32: summation order only; bf16: the plain
+    version's bf16 rounding points)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    B, h, dh, bs, mb = 8, 6, 128, 16, 64
+    nb = 1 + B * mb
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, h, dh), generator=g, device="cuda").to(dt)
+    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
+        B, mb) + 1).to(torch.int32)
+    pos = torch.tensor([0, 15, 16, 17, 511, 1023, 700, 250],
+                       dtype=torch.int32, device="cuda")
+    l0 = pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(q, kp, vp, tbl, pos)
+    ref = pa.paged_decode_attention_reference(q, kp, vp, tbl, pos,
+                                              1.0 / dh ** 0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == l0 + 1
+    assert float((out.float() - ref.float()).abs().max()) <= tol
