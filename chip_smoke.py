@@ -13,13 +13,16 @@ and exits nonzero without that line; without CUDA it exits 2 at once.
 Phases:
   1. build   — compile every CUDA source under deeplearning4j_torch/kernels/
                csrc (one nvcc per source, all at once) and load them.
-  2. kernel  — the paged decode kernel (K1) against its plain PyTorch
-               version on the card: the serving path's shapes (8 slots, 6
-               heads of 128, block 16, 64-entry tables) at mixed positions,
-               the pangrams checkpoint's shapes, block size 8; f32 and
-               bf16.  Tables point at shuffled blocks; block 0 and every
-               row past a slot's position are NaN in the kernel's pool, so
-               a finite, matching result proves it never reads past pos.
+  2. kernel  — the paged decode kernel (K1) and the paged verify kernel
+               (K2) against their plain PyTorch versions on the card: the
+               serving path's shapes (8 slots, 6 heads of 128, block 16,
+               64-entry tables; K2 at W = 2 and 5 with one slot within W
+               of the table's end) at mixed positions, the pangrams
+               checkpoint's shapes, block size 8 (K1); f32 and bf16.
+               Tables point at shuffled blocks; block 0 and every row past
+               a slot's last valid position are NaN in the kernel's pool,
+               so a finite, matching result on the valid rows proves the
+               kernel never lets an unread row leak in.
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -28,8 +31,19 @@ Phases:
                offline generate(); (b) bf16, 16 mixed greedy/sampled
                requests, 4 sharing a 256-token system prompt — the main
                path, with K1's launch count reset before and read after.
-  5. timings — K1, its plain version and one PyTorch SDPA call at the
-               path shapes (CUDA events, medians), beside the memory bound.
+  5. spec    — speculative decode through GenerationServer: (a) the
+               pangrams checkpoint with a half-depth self-draft, k = 4,
+               against offline generate() (near-tie rule) with a prefix
+               hit, beside the plain server on the same requests, device
+               kernels per committed token from a CUDA-only profile of
+               each; (b) the default-width zoo.Gpt() in bf16 with phase
+               4(b)'s 16 mixed requests, speculative={"k": 4, "rounds": 2,
+               "draft_layers": 2, "adaptive": True} — the speculative main
+               path: K1 and K2 counts reset before and read after, K2
+               launched n_layers times per verify pass.
+  6. timings — K1 and K2, their plain versions and one PyTorch SDPA call
+               each at the path shapes (CUDA events, medians), beside the
+               memory bound.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -47,7 +61,7 @@ import sys
 import time
 import traceback
 
-PHASES = ("build", "kernel", "pangrams", "full", "timings")
+PHASES = ("build", "kernel", "pangrams", "full", "spec", "timings")
 EXTRA_PHASES = ("profile",)       # run only when asked for
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
@@ -61,6 +75,7 @@ NEAR_TIE_F32 = 1e-4
 # keeps scores and the accumulator in f32) — a few bf16 ulps of outputs
 # of magnitude <= ~3
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
 
@@ -114,6 +129,48 @@ def kernel_case(torch, pa, B, h, dh, bs, mb, positions, dtype, seed):
     return float((out.float() - ref.float()).abs().max())
 
 
+def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed):
+    """K2 vs the plain version on shuffled tables.  Each slot has a budget
+    of 1..W valid rows (a slot near the table's end keeps all W: its
+    deeper rows see the whole table); block 0, unneeded table entries and
+    every row past a slot's last valid position are NaN in the kernel's
+    pool.  Returns the max abs error over the valid rows."""
+    dev, L = "cuda", mb * bs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    budget = [W if p + W > L else 1 + (b * 7 + seed) % W
+              for b, p in enumerate(positions)]
+    last = [min(p + c - 1, L - 1) for p, c in zip(positions, budget)]
+    need = [x // bs + 1 for x in last]
+    nb = 1 + sum(need) + 5
+    kp = torch.randn((nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, W, h, dh), generator=g, device=dev).to(dtype)
+    perm = (torch.randperm(nb - 1, generator=g, device=dev) + 1).tolist()
+    table = torch.zeros((B, mb), dtype=torch.int32)
+    k_bad, v_bad = kp.clone(), vp.clone()
+    k_bad[0] = float("nan")
+    v_bad[0] = float("nan")
+    for b, n in enumerate(need):
+        ids, perm = perm[:n], perm[n:]
+        table[b, :n] = torch.tensor(ids, dtype=torch.int32)
+        off = last[b] % bs
+        k_bad[ids[-1], :, off + 1:] = float("nan")
+        v_bad[ids[-1], :, off + 1:] = float("nan")
+    table = table.to(dev)
+    pos0 = torch.tensor(positions, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(dh)
+    out = pa.paged_verify_attention(q, k_bad, v_bad, table, pos0, scale)
+    ref = pa.paged_verify_attention_reference(q, kp, vp, table, pos0, scale)
+    torch.cuda.synchronize()
+    valid = (torch.arange(W)[None, :]
+             < torch.tensor(budget)[:, None]).to(dev)
+    got, want = out[valid].float(), ref[valid].float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K2 read poisoned rows (B={B} W={W} h={h} "
+                             f"dh={dh} bs={bs} {dtype})")
+    return float((got - want).abs().max())
+
+
 def phase_kernel(torch, pa):
     path_pos = [0, 15, 16, 17, 511, 1023, 700, 250]
     cases = [
@@ -131,6 +188,23 @@ def phase_kernel(torch, pa):
             errs[f"{name}/{dname}"] = err
             if not err <= TOL[dname]:
                 raise AssertionError(f"K1 {name}/{dname}: max abs err "
+                                     f"{err} > {TOL[dname]}")
+    # K2 at the path shapes (one slot within W of the table's end) and
+    # the pangrams shapes
+    vcases = [
+        (f"verify_path_w{W}", dict(B=8, h=6, dh=128, bs=16, mb=64, W=W,
+                                   positions=[0, 15, 16, 17, 511,
+                                              1024 - W + 1, 700, 250]))
+        for W in (2, 5)] + [
+        ("verify_pangrams_w5", dict(B=4, h=4, dh=16, bs=8, mb=8, W=5,
+                                    positions=[0, 7, 30, 61]))]
+    for name, kw in vcases:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            err = verify_case(torch, pa, dtype=dtype, seed=len(errs), **kw)
+            errs[f"{name}/{dname}"] = err
+            if not err <= TOL[dname]:
+                raise AssertionError(f"K2 {name}/{dname}: max abs err "
                                      f"{err} > {TOL[dname]}")
     emit({"phase": "kernel", "max_abs_err": errs, "tolerance": TOL})
     return errs
@@ -169,6 +243,31 @@ def serve(srv, reqs, timeout=900):
     return outs, [h.ttft for h in hs], time.perf_counter() - t0
 
 
+def pangrams_requests(np):
+    """Phase 3's request set: one prompt behind a 17-token prefix first,
+    then a second behind the same prefix and four others."""
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 28, 17).astype(np.int32)
+    first = np.concatenate([shared, [3, 5]]).astype(np.int32)
+    others = [np.concatenate([shared, [9]]).astype(np.int32)] + [
+        rng.integers(0, 28, int(t)).astype(np.int32)
+        for t in rng.integers(4, 30, 4)]
+    return first, others
+
+
+def serve_after_first(srv, first, others, n_new):
+    """Serve ``first`` until it decodes (its prefix is then cached), then
+    the rest; returns every output in order."""
+    h_first = srv.submit_async(first, n_new)
+    deadline = time.monotonic() + 120
+    while h_first.emitted == 0 and not h_first.done():
+        if time.monotonic() > deadline:
+            raise TimeoutError("first request never decoded")
+        time.sleep(0.001)
+    hs = [srv.submit_async(p, n_new) for p in others]
+    return [h_first.result(300)] + [h.result(300) for h in hs]
+
+
 def pct(xs, q):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(math.ceil(q * len(xs))) - 1)]
@@ -186,24 +285,12 @@ def phase_pangrams(torch, np, root):
         device="cuda")
     gen = TransformerGenerator(net, device="cuda")
     hits = telemetry.get_registry().counter("prefix_cache_hits_total")
-    rng = np.random.default_rng(3)
-    shared = rng.integers(0, 28, 17).astype(np.int32)
-    first = np.concatenate([shared, [3, 5]]).astype(np.int32)
-    others = [np.concatenate([shared, [9]]).astype(np.int32)] + [
-        rng.integers(0, 28, int(t)).astype(np.int32)
-        for t in rng.integers(4, 30, 4)]
+    first, others = pangrams_requests(np)
     n_new = 24
     h0 = hits.value
     with GenerationServer(net, n_slots=4, block_size=8, tick_batch=8,
                           device="cuda") as srv:
-        h_first = srv.submit_async(first, n_new)
-        deadline = time.monotonic() + 120
-        while h_first.emitted == 0 and not h_first.done():
-            if time.monotonic() > deadline:
-                raise TimeoutError("first pangrams request never decoded")
-            time.sleep(0.001)
-        hs = [srv.submit_async(p, n_new) for p in others]
-        outs = [h_first.result(300)] + [h.result(300) for h in hs]
+        outs = serve_after_first(srv, first, others, n_new)
     prompts = [first] + others
     refs = [gen.generate(p[None], n_new)[0] for p in prompts]
     ties = check_streams(torch, gen, list(zip(outs, refs)), NEAR_TIE_F32)
@@ -214,6 +301,34 @@ def phase_pangrams(torch, np, root):
 
 
 # -- phase 4 -----------------------------------------------------------
+def mixed_requests(np, vocab):
+    """Phase 4(b)'s request set: 16 requests, prompts 64-768 tokens, 4 of
+    them behind one 256-token system prompt, 64-128 new tokens, every
+    other one sampled (temperature 0.8, top-k 40)."""
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, vocab, 256).astype(np.int32)
+    reqs = []
+    for i in range(16):
+        if i < 4:
+            tail = rng.integers(0, vocab, int(rng.integers(16, 200)))
+            prompt = np.concatenate([system, tail]).astype(np.int32)
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(64, 769))) \
+                .astype(np.int32)
+        samp = ({"temperature": 0.8, "top_k": 40, "seed": i}
+                if i % 2 else None)
+        reqs.append((prompt, int(rng.integers(64, 129)), samp))
+    return system, reqs
+
+
+def check_finished(reqs, outs, vocab):
+    for (p, n, _), out in zip(reqs, outs):
+        if out.shape != (len(p) + n,):
+            raise AssertionError(f"request did not finish: {out.shape}")
+        if not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError("token outside the vocabulary")
+
+
 def phase_full(torch, np, pa):
     from deeplearning4j_torch import telemetry
     from deeplearning4j_torch.models.generation import TransformerGenerator
@@ -251,19 +366,7 @@ def phase_full(torch, np, pa):
           "launches": dl, "near_ties": ties, "seconds": wall})
 
     # (b) bf16 mixed greedy/sampled, shared system prompt — the main path
-    rng = np.random.default_rng(2)
-    system = rng.integers(0, vocab, 256).astype(np.int32)
-    reqs = []
-    for i in range(16):
-        if i < 4:
-            tail = rng.integers(0, vocab, int(rng.integers(16, 200)))
-            prompt = np.concatenate([system, tail]).astype(np.int32)
-        else:
-            prompt = rng.integers(0, vocab, int(rng.integers(64, 769))) \
-                .astype(np.int32)
-        samp = ({"temperature": 0.8, "top_k": 40, "seed": i}
-                if i % 2 else None)
-        reqs.append((prompt, int(rng.integers(64, 129)), samp))
+    system, reqs = mixed_requests(np, vocab)
     with GenerationServer(net, compute_dtype="bfloat16", **kw) as srv:
         # warm-up off the window; it also seeds the system prompt's
         # blocks into the prefix cache
@@ -274,11 +377,7 @@ def phase_full(torch, np, pa):
         outs, ttfts, wall = serve(srv, reqs)
         launches = pa.paged_decode_attention.launches
         dt, dh = ticks.value - k0, hits.value - h0
-    for (p, n, _), out in zip(reqs, outs):
-        if out.shape != (len(p) + n,):
-            raise AssertionError(f"request did not finish: {out.shape}")
-        if not ((out >= 0) & (out < vocab)).all():
-            raise AssertionError("token outside the vocabulary")
+    check_finished(reqs, outs, vocab)
     if dh < 1:
         raise AssertionError("bf16: no prefix-cache hit")
     if launches < n_layers * dt:
@@ -298,6 +397,117 @@ def phase_full(torch, np, pa):
 
 
 # -- phase 5 -----------------------------------------------------------
+def device_events(torch, fn):
+    """``fn()`` under a CUDA-only ``torch.profiler`` trace; returns (its
+    result, the number of device events — kernels and copies — it
+    caused).  Every device event is one launch from the host."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return out, sum(1 for e in prof.events()
+                    if getattr(e, "device_type", None) == cuda)
+
+
+def phase_spec(torch, np, pa, root):
+    """(a) pangrams, plain and speculative servers on one request set;
+    (b) the full-width speculative main path."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.utils import restore_model
+    from deeplearning4j_torch.zoo import Gpt
+
+    reg = telemetry.get_registry()
+    ticks = reg.counter("generation_server_ticks_total")
+    hits = reg.counter("prefix_cache_hits_total")
+    k1, k2 = pa.paged_decode_attention, pa.paged_verify_attention
+
+    # (a) pangrams: streams vs offline, prefix hit, launches per token
+    net = restore_model(os.path.join(
+        root, "deeplearning4j_tpu/zoo/weights/Gpt_pangrams-char.zip"),
+        device="cuda")
+    gen = TransformerGenerator(net, device="cuda")
+    n_layers = len(net.layers) - 2
+    spec = {"k": 4, "draft_layers": max(1, n_layers // 2)}
+    first, others = pangrams_requests(np)
+    prompts, n_new = [first] + others, 24
+    refs = [gen.generate(p[None], n_new)[0] for p in prompts]
+    rows = {}
+    for name, extra in (("plain", {}), ("spec", {"speculative": spec})):
+        with GenerationServer(net, n_slots=4, block_size=8, tick_batch=8,
+                              device="cuda", **extra) as srv:
+            srv.submit(np.asarray([1, 2, 3], np.int32), 8)   # warm-up
+            torch.cuda.synchronize()
+            h0 = hits.value
+            k1.launches = k2.launches = 0
+            outs, events = device_events(torch, lambda: serve_after_first(
+                srv, first, others, n_new))
+            st = srv.stats()
+            row = {"device_events": events, "k1_launches": k1.launches,
+                   "k2_launches": k2.launches,
+                   "prefix_hits": hits.value - h0}
+        if row["prefix_hits"] < 1:
+            raise AssertionError(f"pangrams/{name}: the prefix never hit")
+        row["near_ties"] = check_streams(torch, gen, list(zip(outs, refs)),
+                                         NEAR_TIE_F32)
+        committed = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+        row.update(committed=committed,
+                   events_per_token=events / committed,
+                   k1_per_token=row["k1_launches"] / committed,
+                   k2_per_token=row["k2_launches"] / committed,
+                   acceptance_rate=st["spec_acceptance_rate"])
+        rows[name] = row
+    if rows["spec"]["k2_launches"] < 1:
+        raise AssertionError("pangrams/spec: K2 never launched")
+    emit({"phase": "spec/pangrams", "speculative": spec, **rows})
+
+    # (b) full width, bf16, the 16 mixed requests — the speculative path
+    net = Gpt(seed=0).init_graph(device="cuda")
+    n_layers = len(net.layers) - 2
+    vocab = 32000
+    system, reqs = mixed_requests(np, vocab)
+    with GenerationServer(net, compute_dtype="bfloat16", n_slots=8,
+                          max_len=1024, block_size=16, tick_batch=8,
+                          speculative=SPEC_FULL, device="cuda") as srv:
+        srv.submit(np.concatenate([system, [7, 7, 7]]).astype(np.int32), 8)
+        torch.cuda.synchronize()
+        st0 = srv.stats()
+        p0, h0 = ticks.value, hits.value
+        k1.launches = k2.launches = 0
+        outs, ttfts, wall = serve(srv, reqs)
+        l1, l2 = k1.launches, k2.launches
+        passes, dh = ticks.value - p0, hits.value - h0
+        st = srv.stats()
+    check_finished(reqs, outs, vocab)
+    if not (l2 > 0 and l2 == n_layers * passes):
+        raise AssertionError(f"spec: {l2} K2 launches != {n_layers} layers "
+                             f"x {passes} verify passes (or none)")
+    if l1 < 1:
+        raise AssertionError("spec: K1 never launched on the draft steps")
+    if dh < 1:
+        raise AssertionError("spec: no prefix-cache hit")
+    new_tokens = sum(n for _, n, _ in reqs)
+    proposed = st["spec_proposed"] - st0["spec_proposed"]
+    accepted = st["spec_accepted"] - st0["spec_accepted"]
+    emit({"phase": "spec/full", "speculative": SPEC_FULL,
+          "requests": len(reqs), "new_tokens": new_tokens, "seconds": wall,
+          "new_tokens_per_s": new_tokens / wall,
+          "ttft_p50_s": pct(ttfts, 0.50), "ttft_p99_s": pct(ttfts, 0.99),
+          "verify_passes": passes, "verify_passes_per_s": passes / wall,
+          "proposed": proposed, "accepted": accepted,
+          "acceptance_rate": accepted / proposed if proposed else 0.0,
+          # each active slot-round commits its anchor plus its accepted
+          # proposals
+          "committed_per_slot_round": new_tokens / (new_tokens - accepted),
+          "k1_launches": l1, "k2_launches": l2,
+          "k1_per_token": l1 / new_tokens, "k2_per_token": l2 / new_tokens,
+          "prefix_hits": dh, "weights": "random (seeded)"})
+    return l2
+
+
+# -- phase 6 -----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
@@ -386,6 +596,63 @@ def phase_timings(torch, pa, positions):
     return out
 
 
+def phase_timings_verify(torch, pa, positions, W=5):
+    """K2 at the path shapes with W = 5 (k = 4): bf16, 8 slots, 6 heads
+    of 128, block 16, 64-entry tables, chunks starting at ``positions``;
+    12 layers' pools in rotation as for K1.  The yardstick is one SDPA
+    call over K/V gathered beforehand with a [B, 1, W, L] causal mask."""
+    import torch.nn.functional as F
+    dev, dtype = "cuda", torch.bfloat16
+    B, h, dh, bs, mb, NL = 8, 6, 128, 16, 64, 12
+    L = mb * bs
+    g = torch.Generator(device=dev).manual_seed(6)
+    nb = 1 + B * mb
+    kp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, W, h, dh), generator=g, device=dev).to(dtype)
+    table = (torch.randperm(nb - 1, generator=g, device=dev)[:B * mb]
+             .reshape(B, mb) + 1).to(torch.int32)
+    pos0 = torch.tensor(positions, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(dh)
+    kern = lambda i: pa.paged_verify_attention(q, kp[i % NL], vp[i % NL],
+                                               table, pos0, scale)
+    plain = lambda i: pa.paged_verify_attention_reference(
+        q, kp[i % NL], vp[i % NL], table, pos0, scale)
+    kl = [pa.paged_gather(kp[i], table) for i in range(NL)]
+    vl = [pa.paged_gather(vp[i], table) for i in range(NL)]
+    rows = pos0.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    mask = (torch.arange(L, device=dev)[None, None, :]
+            <= rows[:, :, None])[:, None]                 # [B, 1, W, L]
+    qh = q.transpose(1, 2).contiguous()                   # [B, h, W, dh]
+    lib = lambda i: F.scaled_dot_product_attention(
+        qh, kl[i % NL], vl[i % NL], attn_mask=mask, scale=scale)
+    err = float((kern(0).float() - plain(0).float()).abs().max())
+    ms = {name: time_ms(torch, fn) for name, fn in
+          (("kernel", kern), ("plain", plain), ("library", lib),
+           ("kernel_again", kern))}
+    ctx = [min(p + W, L) for p in positions]     # K/V rows the call reads
+    keys = sum(min(p + w + 1, L) for p in positions for w in range(W))
+    esz = 2
+    n_bytes = (sum(ctx) * h * dh * 2 * esz        # K and V rows read
+               + 2 * B * W * h * dh * esz         # q read, out written
+               + sum((c - 1) // bs + 1 for c in ctx) * 4 + B * 4)
+    n_flops = 4 * keys * h * dh
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_BF16_FLOPS * 1e3
+    out = {"phase": "timings/verify",
+           "shapes": {"B": B, "W": W, "h": h, "dh": dh, "bs": bs,
+                      "max_blocks": mb, "dtype": "bfloat16",
+                      "pos0": positions},
+           "kernel_ms": ms["kernel"], "kernel_ms_again": ms["kernel_again"],
+           "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": n_bytes, "flops": n_flops, "max_abs_err": err,
+           "card": card_line()}
+    emit(out)
+    return out
+
+
 # -- extra phase: profile ---------------------------------------------
 def phase_profile(torch, np):
     """A steady decode window of the full-width bf16 server (8 greedy
@@ -452,6 +719,18 @@ def phase_profile(torch, np):
           "card": card_line()})
 
 
+def kernel_row(name, source, tpu_line, launches, err, timing):
+    """One entry of the closing ``kernels`` line."""
+    return {"name": name, "route": "cuda",
+            "source": f"deeplearning4j_torch/kernels/csrc/{source}",
+            "replaces": f"deeplearning4j_tpu/kernels/paged_attention.py:"
+                        f"{tpu_line}",
+            "launches": launches, "max_abs_err": err,
+            "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -490,28 +769,32 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t,
               "torch": torch.__version__, "cuda": torch.version.cuda})
         errs, launches, mid, timing = {}, None, None, None
+        v_launches, v_timing = None, None
         if "kernel" in phases:
             errs = phase_kernel(torch, pa)
         if "pangrams" in phases:
             phase_pangrams(torch, np, root)
         if "full" in phases:
             launches, mid = phase_full(torch, np, pa)
+        if "spec" in phases:
+            v_launches = phase_spec(torch, np, pa, root)
         if "timings" in phases:
-            timing = phase_timings(
-                torch, pa, mid or [100, 227, 354, 481, 608, 735, 862, 989])
+            mid = mid or [100, 227, 354, 481, 608, 735, 862, 989]
+            timing = phase_timings(torch, pa, mid)
+            v_timing = phase_timings_verify(torch, pa, mid)
         if "profile" in phases:
             phase_profile(torch, np)
-        if launches is not None and timing is not None:
-            emit({"kernels": [{
-                "name": "paged_decode_attention", "route": "cuda",
-                "source": "deeplearning4j_torch/kernels/csrc/paged_decode.cu",
-                "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:110",
-                "launches": launches,
-                "max_abs_err": errs.get("path/bfloat16", timing["max_abs_err"]),
-                "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-                "bound_ms": timing["bound_ms"],
-                "bound_by": timing["bound_by"],
-                "library_ms": timing["library_ms"]}]})
+        if None not in (launches, timing, v_launches, v_timing):
+            emit({"kernels": [
+                kernel_row("paged_decode_attention", "paged_decode.cu",
+                           110, launches,
+                           errs.get("path/bfloat16", timing["max_abs_err"]),
+                           timing),
+                kernel_row("paged_verify_attention", "paged_verify.cu",
+                           228, v_launches,
+                           errs.get("verify_path_w5/bfloat16",
+                                    v_timing["max_abs_err"]),
+                           v_timing)]})
         card = card_line()
     except Exception:
         traceback.print_exc()

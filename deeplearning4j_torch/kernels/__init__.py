@@ -3,10 +3,12 @@
 
 Each kernel's CUDA source lives under ``csrc/`` and builds at first use
 (``_build``); importing this package builds nothing.  Ported so far:
-the paged decode attention (``paged_attention``).
+the paged decode and verify attention (``paged_attention``).
 """
 from deeplearning4j_torch.kernels.paged_attention import (
-    paged_decode_attention, paged_decode_attention_reference, paged_gather)
+    paged_decode_attention, paged_decode_attention_reference, paged_gather,
+    paged_verify_attention, paged_verify_attention_reference)
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "paged_gather"]
+           "paged_gather", "paged_verify_attention",
+           "paged_verify_attention_reference"]

@@ -23,7 +23,8 @@ _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 #: library name -> source file under csrc/
-SOURCES = {"paged_decode": "paged_decode.cu"}
+SOURCES = {"paged_decode": "paged_decode.cu",
+           "paged_verify": "paged_verify.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

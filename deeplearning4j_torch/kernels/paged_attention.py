@@ -1,5 +1,6 @@
-"""Paged decode attention — K/V read through a block table (port of
-``deeplearning4j_tpu/kernels/paged_attention.py``, the decode half).
+"""Paged attention — K/V read through a block table (port of
+``deeplearning4j_tpu/kernels/paged_attention.py``: the decode and the
+speculative-verify halves).
 
 K/V live in a global pool of fixed-size blocks ``[n_blocks, h,
 block_size, dh]`` and every decode slot carries a ``[max_blocks]`` int32
@@ -8,7 +9,8 @@ the pool's scratch sink for masked-inactive writes: never referenced by
 a live table entry, so its contents are garbage by design and must never
 be read unmasked.
 
-Two implementations behind one wrapper, ``paged_decode_attention``:
+Two implementations behind each of two wrappers.  The decode read,
+``paged_decode_attention`` (one query per slot):
 
 * ``paged_decode_attention_reference`` — plain PyTorch, the reference's
   math step for step: gather the table's blocks into the slot's
@@ -20,11 +22,23 @@ Two implementations behind one wrapper, ``paged_decode_attention``:
   ``_decode_kernel``): one thread block per (head, slot) walking the
   slot's table entries, online softmax in f32, no gathered copy.
 
-The wrapper routes by the tensors' device: CPU tensors take the plain
+The speculative verification read, ``paged_verify_attention`` (W query
+rows per slot, row j at position ``pos0 + j``):
+
+* ``paged_verify_attention_reference`` — plain PyTorch, UNROLLED per
+  query row: each row runs the decode reference's exact shapes ([B, h,
+  1, L]) against the once-gathered table view, as the JAX reference
+  does;
+* the CUDA kernel ``csrc/paged_verify.cu`` (replaces the Pallas
+  ``_verify_kernel``): one thread block per (head, slot), each staged
+  K/V tile serving all W rows, per-row online softmax in f32.
+
+Each wrapper routes by the tensors' device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise — there is no fallback.
-``paged_route_total{path="kernel"|"reference"}`` counts the routes, and
-``paged_decode_attention.launches`` counts kernel launches (chip runs
-read it to prove the serving path went through the kernel).
+``paged_route_total{path="kernel"|"reference"}`` counts the routes of
+both, and ``<wrapper>.launches`` counts each wrapper's kernel launches
+(chip runs read them to prove the serving path went through the
+kernels).
 """
 from __future__ import annotations
 
@@ -37,13 +51,15 @@ from deeplearning4j_torch import telemetry
 
 _ROUTE_TOTAL = telemetry.counter(
     "paged_route_total",
-    "paged_decode_attention route decisions, by path (kernel = the CUDA "
-    "kernel, reference = the plain PyTorch version on CPU tensors)",
+    "paged_decode_attention / paged_verify_attention route decisions, by "
+    "path (kernel = the CUDA kernel, reference = the plain PyTorch "
+    "version on CPU tensors)",
     labelnames=("path",))
 _ROUTE_KERNEL = _ROUTE_TOTAL.labels(path="kernel")
 _ROUTE_REFERENCE = _ROUTE_TOTAL.labels(path="reference")
 
 _MAX_DH = 128
+_MAX_W = 16        # the verify kernel's compile-time bound on W
 
 
 def paged_gather(pool, block_table):
@@ -75,66 +91,75 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_table, pos,
     return att[:, :, 0, :]
 
 
-def _check(q, k_pool, v_pool, block_table, pos):
+def _check(name, q_dims, q, k_pool, v_pool, block_table, pos):
+    """Operand checks shared by both wrappers: ``q`` laid out as
+    ``q_dims`` ("[B, h, dh]" for decode, "[B, W, h, dh]" for verify),
+    pools [n_blocks, h, bs, dh], table [B, max_blocks] and positions [B]
+    int32, one device, one float dtype, contiguous."""
     tensors = (q, k_pool, v_pool, block_table, pos)
     dev = q.device
     if any(t.device != dev for t in tensors):
-        raise ValueError("paged_decode_attention: all operands must be on "
-                         f"one device, got {[str(t.device) for t in tensors]}")
-    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{name}: all operands must be on one device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if q.dim() != len(q_dims.split(",")) or k_pool.dim() != 4 \
+            or v_pool.shape != k_pool.shape:
         raise ValueError(
-            "paged_decode_attention: q [B, h, dh], pools [n_blocks, h, bs, "
-            f"dh], got q {tuple(q.shape)}, k {tuple(k_pool.shape)}, "
+            f"{name}: q {q_dims}, pools [n_blocks, h, bs, dh], got q "
+            f"{tuple(q.shape)}, k {tuple(k_pool.shape)}, "
             f"v {tuple(v_pool.shape)}")
-    B, h, dh = q.shape
+    B, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
     if k_pool.shape[1] != h or k_pool.shape[3] != dh:
-        raise ValueError(f"paged_decode_attention: pool heads/dh "
-                         f"{tuple(k_pool.shape)} do not match q {tuple(q.shape)}")
+        raise ValueError(f"{name}: pool heads/dh {tuple(k_pool.shape)} do "
+                         f"not match q {tuple(q.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or tuple(pos.shape) != (B,):
         raise ValueError(
-            "paged_decode_attention: block_table [B, max_blocks] and pos "
-            f"[B] for B={B}, got {tuple(block_table.shape)} and "
+            f"{name}: block_table [B, max_blocks] and positions [B] for "
+            f"B={B}, got {tuple(block_table.shape)} and "
             f"{tuple(pos.shape)}")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise ValueError("paged_decode_attention: block_table and pos must "
-                         "be int32")
+        raise ValueError(f"{name}: block_table and positions must be "
+                         "int32")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError("paged_decode_attention: q and pools must share "
-                         "one dtype, float32 or bfloat16; got "
+        raise ValueError(f"{name}: q and pools must share one dtype, "
+                         "float32 or bfloat16; got "
                          f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("paged_decode_attention: operands must be "
-                         "contiguous")
+        raise ValueError(f"{name}: operands must be contiguous")
 
 
-_KERNEL_FN = None
+_KERNEL_FNS = {}
 
 
-def _kernel_fn():
-    """The C entry of the built library, argument types declared (every
-    pointer and the stream as c_void_p, or ctypes would cut them to 32
-    bits)."""
-    global _KERNEL_FN
-    if _KERNEL_FN is None:
+def _kernel_fn(lib: str, symbol: str, n_ints: int):
+    """The C entry ``symbol`` of built library ``lib``, argument types
+    declared: six pointers, ``n_ints`` ints, the scale, the bf16 flag and
+    the stream (every pointer and the stream as c_void_p, or ctypes would
+    cut them to 32 bits)."""
+    fn = _KERNEL_FNS.get(symbol)
+    if fn is None:
         from deeplearning4j_torch.kernels import _build
-        fn = _build.load("paged_decode").dl4j_paged_decode_attention
+        fn = getattr(_build.load(lib), symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        _KERNEL_FN = fn
-    return _KERNEL_FN
+        _KERNEL_FNS[symbol] = fn
+    return fn
+
+
+def _check_dh(what: str, dh: int):
+    if dh > _MAX_DH or dh % 8:
+        raise ValueError(f"{what}: dh={dh} must be a multiple of 8 and "
+                         f"<= {_MAX_DH}")
 
 
 def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
-    """Launch the CUDA kernel on the current stream; raise on a refused
+    """Launch the decode kernel on the current stream; raise on a refused
     launch."""
     B, h, dh = q.shape
-    if dh > _MAX_DH or dh % 8:
-        raise ValueError(f"paged decode kernel: dh={dh} must be a multiple "
-                         f"of 8 and <= {_MAX_DH}")
-    fn = _kernel_fn()
+    _check_dh("paged decode kernel", dh)
+    fn = _kernel_fn("paged_decode", "dl4j_paged_decode_attention", 5)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -159,7 +184,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     the kernel (float32 or bfloat16, dh a multiple of 8 up to 128)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    _check(q, k_pool, v_pool, block_table, pos)
+    _check("paged_decode_attention", "[B, h, dh]", q, k_pool, v_pool,
+           block_table, pos)
     if q.device.type == "cpu":
         _ROUTE_REFERENCE.inc()
         return paged_decode_attention_reference(q, k_pool, v_pool,
@@ -176,3 +202,84 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
 
 #: CUDA kernel launches since the last reset (set it to 0 to start a count)
 paged_decode_attention.launches = 0
+
+
+def paged_verify_attention_reference(q, k_pool, v_pool, block_table,
+                                     pos0, scale: float):
+    """W-query verification attention through the block table, stripe
+    math, UNROLLED per query row (mirrors the reference's
+    ``paged_verify_attention_reference``): query row j of slot b sits at
+    position ``pos0[b] + j`` and attends over positions <= its own.  Each
+    row runs the decode reference's exact shapes ([B, h, 1, L]) against
+    the once-gathered table view."""
+    kl = paged_gather(k_pool, block_table)
+    vl = paged_gather(v_pool, block_table)
+    L = kl.shape[2]
+    W = q.shape[1]
+    cols = torch.arange(L, device=q.device)[None, :]
+    rows = []
+    for j in range(W):
+        qq = q[:, j].contiguous()[:, :, None, :]      # [B, h, 1, dh]
+        s = torch.einsum("bhqd,bhkd->bhqk", qq, kl).float()
+        s = s * scale
+        valid = (cols <= (pos0.long() + j)[:, None])[:, None, None, :]
+        s = torch.where(valid, s, -1e9)
+        p = torch.softmax(s, dim=-1).to(vl.dtype)
+        rows.append(torch.einsum("bhqk,bhkd->bhqd", p, vl)[:, :, 0, :])
+    return torch.stack(rows, dim=1)                    # [B, W, h, dh]
+
+
+def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
+    """Launch the verify kernel on the current stream; raise on a refused
+    launch.  ``q`` is read, and the output written, in the [B, W, h, dh]
+    layout as it stands."""
+    B, W, h, dh = q.shape
+    _check_dh("paged verify kernel", dh)
+    if not 1 <= W <= _MAX_W:
+        raise ValueError(f"paged verify kernel: W={W} query rows per slot, "
+                         f"the kernel takes 1..{_MAX_W}")
+    fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 6)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
+            B, W, h, k_pool.shape[2], dh, block_table.shape[1],
+            float(scale), int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged verify kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
+                           scale: Optional[float] = None):
+    """softmax(q . K_table^T) V_table for a CHUNK of W query tokens per
+    slot — the speculative verification read.  Query row j of slot b is
+    the chunk's j-th token, at position ``pos0[b] + j``, attending over
+    every position <= its own (the caller has written the whole chunk's
+    K/V into the pool first).
+
+    ``q`` [B, W, h, dh]; pools / table as :func:`paged_decode_attention`;
+    ``pos0`` [B] int32.  Returns [B, W, h, dh].  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (float32 or bfloat16,
+    dh a multiple of 8 up to 128, W <= 16)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    _check("paged_verify_attention", "[B, W, h, dh]", q, k_pool, v_pool,
+           block_table, pos0)
+    if q.device.type == "cpu":
+        _ROUTE_REFERENCE.inc()
+        return paged_verify_attention_reference(q, k_pool, v_pool,
+                                                block_table, pos0,
+                                                float(scale))
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_verify_attention: unsupported device "
+                         f"{q.device}")
+    out = _launch_verify(q, k_pool, v_pool, block_table, pos0, float(scale))
+    paged_verify_attention.launches += 1
+    _ROUTE_KERNEL.inc()
+    return out
+
+
+#: CUDA kernel launches since the last reset (set it to 0 to start a count)
+paged_verify_attention.launches = 0

@@ -16,7 +16,10 @@ Two cache layouts share the block math:
   [n_layers, n_blocks, h, block_size, dh] addressed through per-slot
   block tables (``_block_decode_step_paged``), attention through
   ``kernels.paged_decode_attention`` (the CUDA kernel on the card, its
-  plain version on the CPU).
+  plain version on the CPU).  The speculative verification pass
+  (``_verify_rows_paged``) runs W tokens per slot through the same
+  block body on flat [B*W, d] rows, attention through
+  ``kernels.paged_verify_attention``.
 
 Numerics mirror the reference op for op (f32 scores, -1e9 masks, f32
 softmax cast to V's dtype, f32 layer norms, f32 head), which is what the
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_torch.kernels.paged_attention import (
-    paged_decode_attention)
+    paged_decode_attention, paged_verify_attention)
 from deeplearning4j_torch.nn.activations import get_activation
 from deeplearning4j_torch.nn.conf.layers_core import OutputLayer
 from deeplearning4j_torch.nn.conf.layers_transformer import (
@@ -136,6 +139,29 @@ def _block_decode_step_paged(ly: TransformerEncoderBlock, params, kpool,
             vpool)
 
 
+def _block_verify_step_paged(ly: TransformerEncoderBlock, params, kpool,
+                             vpool, x, table, wblk, woff, pos0):
+    """W-token verification step for speculative decode: one block's
+    forward over a chunk of W tokens per slot.  ``x`` is FLAT [B*W, d] —
+    the matmuls and layer norms run on 2-D rows as in the decode step —
+    K/V are written through the block table at (``wblk``, ``woff``)
+    [B, W] (masked rows at the scratch block 0) and attention reads back
+    through ``paged_verify_attention`` with query row j at position
+    ``pos0 + j``.  Returns (y [B*W, d], kpool, vpool)."""
+    BW, d = x.shape
+    B, W = wblk.shape
+    h, dh = ly.n_heads, d // ly.n_heads
+    q, k, v = _qkv(ly, params, x)
+    q = q.reshape(B, W, h, dh).contiguous()
+    wb, wo = wblk.long(), woff.long()
+    kpool[wb, :, wo, :] = k.reshape(B, W, h, dh)
+    vpool[wb, :, wo, :] = v.reshape(B, W, h, dh)
+    att = paged_verify_attention(q, kpool, vpool, table, pos0,
+                                 scale=1.0 / (dh ** 0.5))
+    return (_ffn_and_norms(ly, params, x, att.reshape(BW, d)), kpool,
+            vpool)
+
+
 def _embed_prompt(ly: EmbeddingSequenceLayer, params, ids):
     """[b, t0] int prompt -> [b, t0, d] (positions 0..t0-1)."""
     y = params["W"][ids.long()]
@@ -220,6 +246,18 @@ def _filter_logits_rows(logits, top_k, top_p):
     return torch.where(logits < thresh, -_INF, logits)
 
 
+def _filtered_logprobs_rows(logits, temp, top_k, top_p):
+    """Log-probabilities of each row's ACTUAL sampling distribution:
+    temperature-scale (rows with temp <= 0 are greedy — scaled by 1 so
+    the row stays finite; callers mask them out), filter with
+    ``_filter_logits_rows``, then log-softmax (-inf stays on filtered-out
+    tokens).  The speculative accept / residual math needs this density
+    on both sides of the rejection test."""
+    safe = torch.where(temp > 0.0, temp, torch.ones_like(temp))
+    lg = _filter_logits_rows(logits / safe[:, None], top_k, top_p)
+    return torch.log_softmax(lg, dim=-1)
+
+
 def _filter_logits(logits, top_k, top_p):
     """Nucleus/top-k filtering on [b, V] logits (already
     temperature-scaled) with one k / p for every row."""
@@ -250,19 +288,33 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
+def _key_rows(seed, stream, pos):
+    """[b] int64 (seed, stream, position) -> [b] 32-bit hash keys."""
+    h = _mix32((seed & _M32) ^ ((seed >> 32) & _M32) ^ 0x243F6A88)
+    h = _mix32(h ^ (stream & _M32))
+    return _mix32(h ^ (pos & _M32))
+
+
+def _unit(x):
+    """32-bit hashes -> uniforms in (0, 1) (24 bits)."""
+    return ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
 def _gumbel_rows(seed, stream, pos, V: int):
     """[b] int64 ``seed``/``stream``/``pos`` -> [b, V] Gumbel(0, 1) noise,
     a pure function of (seed, stream, position, token id): argmax(logits
     + noise) draws one categorical sample per row (Gumbel-max), and the
     draw for a position never depends on batching or scheduling."""
-    h = _mix32((seed & _M32) ^ ((seed >> 32) & _M32) ^ 0x243F6A88)
-    h = _mix32(h ^ (stream & _M32))
-    h = _mix32(h ^ (pos & _M32))
     tok = _mix32(torch.arange(V, device=seed.device, dtype=torch.int64)
                  + 0x3C6EF372)
-    x = _mix32(h[:, None] ^ tok[None, :])
-    u = ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))     # (0, 1)
-    return -torch.log(-torch.log(u))
+    x = _mix32(_key_rows(seed, stream, pos)[:, None] ^ tok[None, :])
+    return -torch.log(-torch.log(_unit(x)))
+
+
+def _uniform_rows(seed, stream, pos):
+    """[b] int64 ``seed``/``stream``/``pos`` -> [b] uniforms in (0, 1), a
+    pure function of (seed, stream, position) like ``_gumbel_rows``."""
+    return _unit(_mix32(_key_rows(seed, stream, pos) ^ 0x1B873593))
 
 
 class TransformerGenerator:
@@ -355,6 +407,30 @@ class TransformerGenerator:
             x, _, _ = _block_decode_step_paged(ly, p, kc[i], vc[i], x, pos,
                                                table, wblk, woff)
         return self._head(head_p, x), kc, vc
+
+    def _verify_rows_paged(self, emb_p, blk_ps, head_p, kc, vc, toks,
+                           pos0, epos, table, wblk, woff):
+        """Speculative verification forward: ONE pass over a chunk of W
+        tokens per slot — ``toks`` [B, W] (the anchor + the draft's
+        proposals, masked rows 0), ``pos0`` [B] the chunk's base position,
+        ``epos`` [B, W] the embed positions (masked rows clamped to 0 so
+        the positional lookup stays in range), ``wblk``/``woff`` [B, W]
+        the per-token write targets through ``table`` (masked rows at the
+        scratch block 0).  Returns (logits [B, W, V], kc, vc): G_j, the
+        target's logits after consuming tokens 0..j, at every chunk
+        position."""
+        B, W = toks.shape
+        y = emb_p["W"][toks.reshape(B * W).long()]
+        if self.emb.add_positional:
+            y = y + emb_p["P"][epos.reshape(B * W).long()]
+        if self.emb.layer_norm:
+            y = _layer_norm(y, emb_p["g"], emb_p["b"], self.emb.eps)
+        x = y.to(self.compute_dtype)
+        ly = self.blocks[0]
+        for i, p in enumerate(blk_ps):
+            x, _, _ = _block_verify_step_paged(ly, p, kc[i], vc[i], x,
+                                               table, wblk, woff, pos0)
+        return self._head(head_p, x).reshape(B, W, -1), kc, vc
 
     def _prefill_rows(self, emb_p, blk_ps, head_p, prompt, t0=None):
         """Batched prompt pass over the layers.  Returns (logits [b, V],

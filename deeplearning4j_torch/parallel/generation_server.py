@@ -1,5 +1,5 @@
 """GenerationServer: continuous-batching decode serving (port of
-``deeplearning4j_tpu/parallel/generation_server.py`` at tp = 1, without
+``deeplearning4j_tpu/parallel/generation_server.py`` at tp = 1, with
 speculative decode).
 
 Many concurrent ``submit()`` callers are multiplexed onto ONE decode
@@ -42,13 +42,34 @@ Design:
   callers; cancelled or deadline-expired ones are killed on the device
   (their budget zeroed) so they stop burning ticks.
 
+Speculative decode (``speculative={"k": .., "rounds": .., "draft_layers"
+| "draft_net": .., "adaptive": .., "k_max": ..}``, ``parallel.
+speculative``): a dispatch runs R rounds of draft → verify → accept
+(``_spec_rounds``) instead of K plain ticks.  The draft's KV lives in
+ordinary pool blocks under a second per-slot table (``dtable``), so a
+speculative admission claims about twice the blocks, draft prompt blocks
+join the prefix cache in their own hash domain, and a retiring slot
+releases both tables.  The verify pass reads attention through
+``kernels.paged_verify_attention`` (its CUDA kernel on the card).
+Greedy slots commit exactly the target's argmax tokens; sampled slots
+run rejection sampling with the residual held for the next anchor
+(``rawlg``).  Each slot's draft depth is fixed at ``k`` or, adaptive,
+picked per (tenant, prompt-prefix) by the ``AcceptanceController``.
+
 Sampling is PER REQUEST (temperature / top-k / top-p as [B] tensors,
 greedy and sampled requests share one batch).  Each slot's draw is a
-pure function of (request seed, position, token id)
+pure function of (request seed, stream, position, token id)
 (``models.generation._gumbel_rows``), so sampled output is reproducible
-per seed and invariant to ``tick_batch``.
+per seed and invariant to ``tick_batch`` and to speculative ``rounds``.
+The streams: the token at a position is drawn with ``STREAM_SAMPLE``
+(the plain tick and a round's anchor alike), a draft proposal for a
+position with ``STREAM_DRAFT``, and the acceptance uniform of that
+proposal with ``STREAM_ACCEPT`` (``_uniform_rows``).  A rejected
+position's replacement is the next round's anchor at that position,
+drawn from the held residual with ``STREAM_SAMPLE`` — noise no earlier
+decision consumed, since a position's anchor is drawn only once.
 
-Later slices: ``speculative=``, ``devices=``/``tp=``, the host KV tier
+Later slices: ``devices=``/``tp=``, the host KV tier
 (``host_tier_blocks``, ``export_prefix``/``import_blocks``) and the
 watchdog with block-granular salvage (``tick_timeout_s``) raise
 ``NotImplementedError``.  A failed dispatch fails the requests in flight
@@ -71,7 +92,10 @@ import torch
 from deeplearning4j_torch import telemetry
 from deeplearning4j_torch.models.generation import (TransformerGenerator,
                                                     _filter_logits_rows,
-                                                    _gumbel_rows)
+                                                    _filtered_logprobs_rows,
+                                                    _gumbel_rows,
+                                                    _uniform_rows)
+from deeplearning4j_torch.parallel import speculative as _speculative
 from deeplearning4j_torch.parallel.inference import _bucket
 from deeplearning4j_torch.resilience.errors import (CancelledError,
                                                     DeadlineExceededError,
@@ -87,7 +111,8 @@ _RETIRED = telemetry.counter(
     "requests retired back to their caller (budget or EOS)")
 _TICKS = telemetry.counter(
     "generation_server_ticks_total",
-    "device decode ticks executed (a K-tick scan counts K)")
+    "device decode ticks executed (a K-tick scan counts K; a speculative "
+    "dispatch counts its verify passes, one per round)")
 _HOST_SYNCS = telemetry.counter(
     "generation_server_host_syncs_total",
     "device->host polls by the scheduler (one per decode scan)")
@@ -98,6 +123,34 @@ _PREFIX_HITS = telemetry.counter(
 _PREFIX_MISSES = telemetry.counter(
     "prefix_cache_misses_total",
     "admissions with no cached prefix block (full-prompt prefill)")
+# speculative decode: proposed counts every draft token that could
+# commit, accepted the ones the target agreed with — their ratio is the
+# health number of a speculative deployment
+_SPEC_PROPOSED = telemetry.counter(
+    "generation_server_spec_proposed_total",
+    "draft tokens proposed for target verification (K per active "
+    "slot per speculative round)")
+_SPEC_ACCEPTED = telemetry.counter(
+    "generation_server_spec_accepted_total",
+    "draft proposals the batched target verification accepted")
+_SPEC_ACCEPT_RATE = telemetry.gauge(
+    "generation_server_spec_acceptance_rate",
+    "cumulative accepted/proposed draft-token ratio of the most "
+    "recently dispatching speculative server")
+_SPEC_ADAPTIVE_K = telemetry.gauge(
+    "generation_server_spec_adaptive_k",
+    "draft depth K of the most recent speculative dispatch (max over "
+    "live slots of the controller's pick or the fixed k, clamped by "
+    "set_draft_k_cap)")
+_TENANT_SPEC_ACCEPT = telemetry.gauge(
+    "generation_server_tenant_spec_acceptance_rate",
+    "cumulative per-tenant accepted/proposed draft-token ratio",
+    labelnames=("tenant",))
+
+# counter-hash streams of a slot's random draws (see the module docstring)
+STREAM_SAMPLE = 0
+STREAM_DRAFT = 0x5D
+STREAM_ACCEPT = 0xAC
 
 
 def _later(feature: str, slice_name: str) -> NotImplementedError:
@@ -121,9 +174,11 @@ def _pow2_floor(n: int) -> int:
 # first, then fresh); ``matched`` — how many leading entries are cached
 # prefix hits (gathered as the key prefix); ``hashes`` — the prompt's
 # full-block chain hashes (registered after the prefill commits);
-# ``n_fresh`` — blocks claimed off the free list.
+# ``dphys`` / ``dmatched`` — the draft table's blocks and cached prefix
+# hits (speculative servers only).
 _AdmitPlan = namedtuple("_AdmitPlan", ("phys", "matched", "hashes",
-                                       "n_fresh"))
+                                       "dphys", "dmatched"),
+                        defaults=((), 0))
 
 
 def _kill_slots(state, mask):
@@ -140,11 +195,13 @@ class _Pending:
 
     __slots__ = ("prompt", "n_new", "eos_id", "seed", "temperature",
                  "top_k", "top_p", "t_submit", "deadline", "cancelled",
-                 "t0", "emitted", "ttft", "_result", "_error", "_event")
+                 "t0", "emitted", "ttft", "tenant", "pkey", "_result",
+                 "_error", "_event")
 
     def __init__(self, prompt, n_new, eos_id, seed,
                  temperature: float = 0.0, top_k: int = 1,
-                 top_p: float = 1.0, deadline: Optional[float] = None):
+                 top_p: float = 1.0, deadline: Optional[float] = None,
+                 tenant: str = "default", pkey=None):
         self.prompt = prompt
         self.n_new = n_new
         self.eos_id = eos_id
@@ -158,6 +215,8 @@ class _Pending:
         self.t0 = len(prompt)
         self.emitted = 0
         self.ttft = None
+        self.tenant = tenant
+        self.pkey = pkey                 # acceptance-controller key part
         self._result = None
         self._error = None
         self._event = threading.Event()
@@ -205,9 +264,12 @@ class GenerationServer:
     stops decode early the tick the token is emitted.  ``tick_batch``
     fuses up to that many decode ticks per host sync.  ``block_size``,
     ``kv_blocks`` (default ``n_slots * ceil(max_len / block_size)``) and
-    ``prefix_cache`` shape the paged pool.  ``request_deadline_s`` is the
-    default per-request deadline; ``submit_retries`` /
-    ``retry_backoff_s`` retry ``RetryableServerError`` in ``submit``."""
+    ``prefix_cache`` shape the paged pool (a speculative server's
+    default ``kv_blocks`` doubles: each slot also holds a draft table).
+    ``speculative`` turns on speculative decode (module docstring).
+    ``request_deadline_s`` is the default per-request deadline;
+    ``submit_retries`` / ``retry_backoff_s`` retry
+    ``RetryableServerError`` in ``submit``."""
 
     def __init__(self, net, n_slots: int = 8,
                  max_len: Optional[int] = None,
@@ -229,9 +291,6 @@ class GenerationServer:
                  submit_retries: int = 0,
                  retry_backoff_s: float = 0.05,
                  device="cuda"):
-        if speculative is not None:
-            raise _later("speculative decode (speculative=)",
-                         "speculative slice (K2, the verify kernel)")
         if devices is not None or tp not in (None, 1):
             raise _later("mesh-sharded serving (devices= / tp=)",
                          "multi-GPU serving slice")
@@ -257,13 +316,25 @@ class GenerationServer:
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
         self.max_blocks = -(-self.max_len // self.block_size)
+        self._spec = (_speculative.SpecConfig.build(gen, speculative)
+                      if speculative is not None else None)
+        if self._spec is not None:
+            demb = self._spec.draft.gen.emb
+            if demb.add_positional and self.max_len > demb.max_len:
+                raise ValueError(
+                    f"max_len {self.max_len} exceeds the DRAFT model's "
+                    f"positional table ({demb.max_len} rows)")
+        # a speculative slot pins TWO tables' worth of blocks (target +
+        # draft), so the default pool and the one-request floor double
+        blocks_per_max = self.max_blocks * (2 if self._spec else 1)
         self.kv_blocks = (int(kv_blocks) if kv_blocks is not None
-                          else self.n_slots * self.max_blocks)
-        if self.kv_blocks < self.max_blocks:
+                          else self.n_slots * blocks_per_max)
+        if self.kv_blocks < blocks_per_max:
             raise ValueError(
                 f"kv_blocks={self.kv_blocks} cannot hold one max-length "
-                f"request ({self.max_blocks} blocks of {self.block_size} "
-                "tokens)")
+                f"request ({blocks_per_max} blocks of {self.block_size} "
+                "tokens" + (", draft table included)" if self._spec
+                            else ")"))
         self.prefix_cache = bool(prefix_cache)
         if (top_k is not None or top_p is not None) and temperature <= 0:
             raise ValueError("top_k/top_p need temperature > 0 "
@@ -302,6 +373,20 @@ class GenerationServer:
         self._admission_closed = False   # drain(): submits raise
         self._n_prefix_hits = 0
         self._n_prefix_misses = 0
+        # speculative state: the set_spec_enabled switch, this instance's
+        # tallies (overall and per tenant), the set_draft_k_cap cap, and
+        # the acceptance controller (it observes every speculative
+        # server; it picks depths only when the config says adaptive)
+        self._spec_off = False
+        self._n_spec_proposed = 0
+        self._n_spec_accepted = 0
+        self._tenant_spec = {}           # tenant -> [proposed, accepted]
+        self._draft_k_cap = None
+        self._spec_ctl = None
+        if self._spec is not None:
+            self._spec_ctl = _speculative.AcceptanceController(
+                self._spec.k_max,
+                draft_cost=self._spec.draft.n_layers / len(gen.blocks))
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -334,9 +419,16 @@ class GenerationServer:
             "temp": torch.zeros((B,), dtype=torch.float32, device=dev),
             "tk": torch.full((B,), self._vocab, **i32),
             "tp": torch.ones((B,), dtype=torch.float32, device=dev),
+            # True while the slot's held "logits" are a rejection
+            # residual (log-weights, already shaped): the next draw
+            # samples it as it is, without temperature or filters
+            "rawlg": torch.zeros((B,), dtype=torch.bool, device=dev),
             # logical block j of slot s lives in pool block table[s, j];
             # 0 = unallocated (scratch)
             "table": torch.zeros((B, self.max_blocks), **i32),
+            # the DRAFT's block table (speculative servers): its KV
+            # fills the first draft.n_layers pool layers of these blocks
+            "dtable": torch.zeros((B, self.max_blocks), **i32),
         }
         with self._lock:
             self._kc, self._vc, self._state = kc, vc, state
@@ -348,6 +440,11 @@ class GenerationServer:
             self._block_hash = {}        # pool block id -> chain hash
             self._evictable = OrderedDict()   # cached ref-0 blocks, LRU
             self._slot_blocks = {}       # slot -> [pool block ids]
+            # the DRAFT's prefix cache: same chain hashes, its own map —
+            # a block holds either target KV or draft KV, never both;
+            # _draft_cached marks the _block_hash entries of this domain
+            self._dprefix_map = {}       # chain hash -> (blk, tok)
+            self._draft_cached = set()
 
     # -- public API ----------------------------------------------------
     def refresh_params(self):
@@ -355,6 +452,10 @@ class GenerationServer:
         floating leaves cast ONCE to the compute dtype.  Call again after
         the underlying net's weights change."""
         self._params = self._gen._serving_params()
+        if self._spec is not None:
+            # a self-draft aliases the target's tensors; an external
+            # draft snapshots its own net
+            self._draft_params = self._spec.draft.params(self._params)
 
     def healthy(self) -> bool:
         """True while the scheduler thread is alive and not shut down."""
@@ -364,8 +465,8 @@ class GenerationServer:
     def stats(self) -> dict:
         """ONE lock-consistent snapshot of the serving state: slots,
         queue depth, block headroom (``free_blocks`` = free list +
-        evictable cache entries) and THIS instance's prefix hit/miss
-        split."""
+        evictable cache entries), THIS instance's prefix hit/miss split
+        and its speculative tallies (``spec_*``)."""
         with self._lock:
             return {
                 "healthy": (not self._shutdown
@@ -384,6 +485,18 @@ class GenerationServer:
                 "cached_blocks": len(self._block_hash),
                 "prefix_hits": self._n_prefix_hits,
                 "prefix_misses": self._n_prefix_misses,
+                # speculative view: spec_k > 0 means an admission here
+                # pins ~2x blocks (target + draft tables)
+                "spec_k": (self._spec.k if self._spec else 0),
+                "spec_adaptive": bool(self._spec.adaptive
+                                      if self._spec else False),
+                "spec_k_max": (self._spec.k_max if self._spec else 0),
+                "spec_k_cap": self._draft_k_cap,
+                "spec_proposed": self._n_spec_proposed,
+                "spec_accepted": self._n_spec_accepted,
+                "spec_acceptance_rate": (
+                    self._n_spec_accepted / self._n_spec_proposed
+                    if self._n_spec_proposed else 0.0),
             }
 
     def export_prefix(self, prompt_ids, max_wait_s: float = 1.0):
@@ -400,6 +513,32 @@ class GenerationServer:
         completion.  One-way."""
         with self._lock:
             self._admission_closed = True
+
+    def set_spec_enabled(self, enabled: bool) -> None:
+        """Suspend (False) or resume (True) speculative rounds on a live
+        server: suspended, dispatches run plain ticks (a held residual is
+        still drawn as it is).  The draft state stays resident; resuming
+        costs only the acceptance dip of stale draft KV.  A no-op without
+        ``speculative=``."""
+        with self._lock:
+            self._spec_off = not bool(enabled)
+
+    def set_draft_k_cap(self, cap: Optional[int]) -> None:
+        """Cap the draft depth on a live server from the next dispatch on
+        (both the adaptive controller's pick and a fixed k); ``None``
+        lifts the cap.  A no-op without ``speculative=``."""
+        with self._lock:
+            self._draft_k_cap = (None if cap is None
+                                 else max(1, int(cap)))
+
+    def attach_history(self, store) -> None:
+        """Attach a metric-history store — any object with ``.rate(series,
+        t0, t1)`` — so a cold acceptance controller seeds its estimate
+        from the ``generation_server_spec_{proposed,accepted}_total``
+        history instead of starting at ``k_max``.  A no-op without
+        ``speculative=``."""
+        if self._spec_ctl is not None:
+            self._spec_ctl.attach_store(store)
 
     def _resolve_sampling(self, sampling, seed):
         """Merge a per-request ``sampling`` dict over the server-wide
@@ -459,7 +598,11 @@ class GenerationServer:
         """Evict the LRU refcount-0 cache block back to the free list."""
         blk, _ = self._evictable.popitem(last=False)
         hsh = self._block_hash.pop(blk)
-        self._prefix_map.pop(hsh)
+        if blk in self._draft_cached:
+            self._draft_cached.discard(blk)
+            self._dprefix_map.pop(hsh)
+        else:
+            self._prefix_map.pop(hsh)
         self._blocks_free.append(blk)
 
     def _plan_admission_locked(self, req: _Pending):
@@ -477,16 +620,29 @@ class GenerationServer:
             if entry is None or entry[1] != tok:
                 break                # miss — or a hash collision, which
             matched_ids.append(entry[0])   # must NOT map in
-        need = total - len(matched_ids)
+        # speculative: the DRAFT's table needs as many blocks, from the
+        # same free list.  Its full prompt blocks are prefix-shareable in
+        # their own hash domain; the draft walk runs only when the target
+        # side hit (both domains register together, so they track)
+        use_draft = self._spec is not None
+        dmatched_ids = []
+        if use_draft and matched_ids:
+            for hsh, tok in hashes:
+                entry = self._dprefix_map.get(hsh)
+                if entry is None or entry[1] != tok:
+                    break
+                dmatched_ids.append(entry[0])
+        dneed = (total - len(dmatched_ids)) if use_draft else 0
+        need = total - len(matched_ids) + dneed
         # matched hits sitting in the evictable LRU are about to be
         # CLAIMED, not evicted — they don't count as reclaimable
-        ev_matched = sum(1 for blk in matched_ids
+        ev_matched = sum(1 for blk in matched_ids + dmatched_ids
                          if self._block_ref[blk] == 0
                          and blk in self._evictable)
         if need > (len(self._blocks_free) + len(self._evictable)
                    - ev_matched):
             return None
-        for blk in matched_ids:          # claim the hits FIRST
+        for blk in matched_ids + dmatched_ids:   # claim the hits FIRST
             if self._block_ref[blk] == 0:
                 self._evictable.pop(blk, None)
             self._block_ref[blk] += 1
@@ -495,8 +651,10 @@ class GenerationServer:
         fresh = [self._blocks_free.pop() for _ in range(need)]
         for blk in fresh:
             self._block_ref[blk] = 1
+        dphys = (dmatched_ids + fresh[need - dneed:]) if use_draft else []
+        fresh = fresh[:need - dneed]
         return _AdmitPlan(matched_ids + fresh, len(matched_ids), hashes,
-                          len(fresh))
+                          dphys, len(dmatched_ids))
 
     def _register_prefix_locked(self, plan: _AdmitPlan):
         """After the prefill COMMITS, publish the request's new full
@@ -510,6 +668,20 @@ class GenerationServer:
             blk = plan.phys[j]
             self._prefix_map[hsh] = (blk, tok)
             self._block_hash[blk] = hsh
+
+    def _register_draft_prefix_locked(self, plan: _AdmitPlan):
+        """Publish the DRAFT's new full prompt blocks under the same chain
+        hashes, in the draft-domain map.  Draft decode writes land at pos
+        >= t0 too, so these blocks are write-free after prefill."""
+        for j in range(plan.dmatched,
+                       min(len(plan.hashes), len(plan.dphys))):
+            hsh, tok = plan.hashes[j]
+            if hsh in self._dprefix_map:
+                continue                 # coincident entry stands
+            blk = plan.dphys[j]
+            self._dprefix_map[hsh] = (blk, tok)
+            self._block_hash[blk] = hsh
+            self._draft_cached.add(blk)
 
     def _release_slot_blocks_locked(self, slot: int) -> None:
         """Decref a retiring slot's blocks; refcount-0 blocks return to
@@ -527,12 +699,14 @@ class GenerationServer:
     def submit_async(self, prompt_ids, n_new: int,
                      eos_id: Optional[int] = None, seed: int = 0,
                      deadline_s: Optional[float] = None,
-                     sampling: Optional[dict] = None) -> _Pending:
+                     sampling: Optional[dict] = None,
+                     tenant: str = "default") -> _Pending:
         """Enqueue one sequence; returns a handle whose ``result()``
         blocks.  ``prompt_ids`` is a 1-D int array; the request decodes
         until ``n_new`` tokens are emitted or ``eos_id`` is sampled.
         ``deadline_s`` bounds the request's total residence, queue wait
-        included (``DeadlineExceededError`` past it)."""
+        included (``DeadlineExceededError`` past it).  ``tenant`` keys the
+        speculative acceptance statistics."""
         with self._lock:
             if self._shutdown:
                 raise RuntimeError("GenerationServer has been shut down")
@@ -556,10 +730,15 @@ class GenerationServer:
         deadline = (time.monotonic() + deadline_s
                     if deadline_s is not None else None)
         temp, tk_eff, tp_eff, seed = self._resolve_sampling(sampling, seed)
+        # acceptance-controller key part: the first chain hash, so the
+        # statistics pool per (tenant, prompt family), not per request
+        bs = self.block_size
+        pkey = (hash((0, prompt[:bs].tobytes()))
+                if len(prompt) - 1 >= bs else None)
         req = _Pending(prompt, n_new,
                        -1 if eos_id is None else int(eos_id), seed,
                        temperature=temp, top_k=tk_eff, top_p=tp_eff,
-                       deadline=deadline)
+                       deadline=deadline, tenant=str(tenant), pkey=pkey)
         while True:
             try:
                 self._queue.put(req, timeout=0.1)
@@ -583,7 +762,8 @@ class GenerationServer:
                timeout: Optional[float] = None,
                deadline_s: Optional[float] = None,
                sampling: Optional[dict] = None,
-               retries: Optional[int] = None) -> np.ndarray:
+               retries: Optional[int] = None,
+               tenant: str = "default") -> np.ndarray:
         """Blocking ``submit_async().result()``.  ``retries`` (default:
         the server's ``submit_retries``) re-submits after a
         ``RetryableServerError`` with full-jitter exponential backoff."""
@@ -592,7 +772,7 @@ class GenerationServer:
             try:
                 return self.submit_async(
                     prompt_ids, n_new, eos_id, seed, deadline_s=deadline_s,
-                    sampling=sampling).result(timeout)
+                    sampling=sampling, tenant=tenant).result(timeout)
             except RetryableServerError:
                 if attempt == retries:
                     raise
@@ -634,11 +814,13 @@ class GenerationServer:
 
     # -- device work ---------------------------------------------------
     def _sampler(self, sampled: bool):
-        """Token chooser for the tick: the all-greedy variant is a plain
-        argmax; the sampled variant applies each slot's temperature /
-        top-k / top-p and draws by Gumbel-max with the slot's
-        (seed, position) noise — greedy rows take the argmax out of the
-        same batch."""
+        """Token chooser for the tick (and a speculative round's anchor):
+        the all-greedy variant is a plain argmax; the sampled variant
+        applies each slot's temperature / top-k / top-p and draws by
+        Gumbel-max with the slot's (seed, ``STREAM_SAMPLE``, position)
+        noise — greedy rows take the argmax out of the same batch, and a
+        row holding a rejection residual (``rawlg``) draws from it as it
+        is (re-shaping it would break the rejection-sampling law)."""
 
         def pick_greedy(state):
             return torch.argmax(state["logits"], dim=-1)
@@ -648,11 +830,14 @@ class GenerationServer:
             safe = torch.where(temp > 0, temp, torch.ones_like(temp))
             lg = _filter_logits_rows(state["logits"] / safe[:, None],
                                      state["tk"], state["tp"])
+            raw = state["rawlg"]
+            lg = torch.where(raw[:, None], state["logits"], lg)
             noise = _gumbel_rows(state["seed"],
-                                 torch.zeros_like(state["seed"]),
+                                 torch.full_like(state["seed"],
+                                                 STREAM_SAMPLE),
                                  state["pos"].long(), self._vocab)
             cand = torch.argmax(lg + noise, dim=-1)
-            return torch.where(temp > 0, cand,
+            return torch.where((temp > 0) | raw, cand,
                                torch.argmax(state["logits"], dim=-1))
 
         return pick_sampled if sampled else pick_greedy
@@ -694,10 +879,144 @@ class GenerationServer:
                 pos=torch.where(active, state["pos"] + 1, state["pos"]),
                 remaining=remaining,
                 logits=torch.where(active[:, None], new_logits,
-                                   state["logits"]))
+                                   state["logits"]),
+                # a held residual is consumed by its slot's first draw
+                rawlg=state["rawlg"] & ~active)
             emitted = emitted + active.to(emitted.dtype)
             toks.append(tok)
         return state, torch.stack(toks, dim=1), emitted
+
+    def _spec_rounds(self, R: int, K: int, sampled: bool, kc, vc, state,
+                     kcap):
+        """R speculative rounds back to back on the device, nothing read
+        back (the speculative analogue of ``_decode_scan``).  ``K`` is the
+        dispatch's draft depth (the pool max), ``kcap`` [B] int32 each
+        slot's own depth — proposals past it never commit.  A round:
+
+        * anchor: ``_sampler``'s pick from the held logits (argmax, a
+          filtered draw, or a draw from a held residual);
+        * draft: W = K+1 single-token steps of the draft through its
+          table (pool layers [:d]); step j consumes chunk token v_j at
+          pos+j and proposes v_{j+1} — argmax for greedy rows, a draw
+          from the draft's filtered distribution (``STREAM_DRAFT`` at the
+          proposal's position) for sampled ones.  The last proposal is
+          discarded; its K/V write keeps the draft context whole;
+        * verify: one W-token target pass (``_verify_rows_paged``);
+          chunk rows past a slot's budget write the scratch block 0 with
+          embed position 0;
+        * accept: ``accept_greedy``, or ``accept_mixed`` when sampled
+          rows ride along (uniforms from ``STREAM_ACCEPT`` at each
+          proposal's position); a genuine rejection holds the residual
+          as the slot's logits with ``rawlg`` set.  ``pos`` advances
+          over the committed tokens only; rejected rows are overwritten
+          by the next round.
+
+        Returns ``(state, tokens [B, R*W], emitted [B], proposed [B],
+        accepted [B])`` — committed tokens staged at each slot's cursor,
+        per-slot commit counts, and per-slot proposal tallies (proposals
+        that could commit: past a committed EOS nothing counts)."""
+        gen, dgen = self._gen, self._spec.draft.gen
+        emb_p, blk_ps, head_p = self._params
+        demb_p, dblk_ps, dhead_p = self._draft_params
+        d = self._spec.draft.n_layers
+        kcd, vcd = kc[:d], vc[:d]           # the draft's pool layers
+        pick = self._sampler(sampled)
+        W, bs, B, dev = K + 1, self.block_size, self.n_slots, self.device
+        jidx = torch.arange(W, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)
+        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+        staged = torch.zeros((B, R * W + 1), dtype=torch.int32, device=dev)
+        emitted, prop, acc = zeros, zeros, zeros
+        for _ in range(R):
+            active = state["remaining"] > 0
+            pos, rem = state["pos"], state["remaining"]
+            tbl, dtbl = state["table"], state["dtable"]
+            temp, tk, tp = state["temp"], state["tk"], state["tp"]
+            seed = state["seed"]
+            greedy_row = temp <= 0.0
+            tok = torch.where(active, pick(state), 0)
+            consumed, dlps = [], []
+            for j in range(W):
+                ok = active & (j < rem)
+                p = torch.where(ok, pos + j, 0)
+                bidx = dtbl.gather(1, (p // bs).long()[:, None])[:, 0]
+                lg, _, _ = dgen._step_paged(
+                    demb_p, dblk_ps, dhead_p, kcd, vcd, tok, p, dtbl,
+                    torch.where(ok, bidx, 0), torch.where(ok, p % bs, 0))
+                consumed.append(tok)
+                if j == K:               # the discarded last proposal
+                    break
+                nxt = torch.argmax(lg, dim=-1)
+                if sampled:
+                    dlp = _filtered_logprobs_rows(lg, temp, tk, tp)
+                    noise = _gumbel_rows(
+                        seed, torch.full_like(seed, STREAM_DRAFT),
+                        (pos + j + 1).long(), self._vocab)
+                    nxt = torch.where(greedy_row, nxt,
+                                      torch.argmax(dlp + noise, dim=-1))
+                    dlps.append(dlp)
+                tok = torch.where(ok, nxt, 0)
+            v = torch.stack(consumed, dim=1)                  # [B, W]
+
+            okv = active[:, None] & (jidx < rem[:, None])
+            p = pos[:, None] + jidx
+            bidx = tbl.gather(1, torch.where(okv, p // bs, 0).long())
+            G, _, _ = gen._verify_rows_paged(
+                emb_p, blk_ps, head_p, kc, vc, torch.where(okv, v, 0),
+                torch.where(active, pos, 0), torch.where(okv, p, 0), tbl,
+                torch.where(okv, bidx, 0), torch.where(okv, p % bs, 0))
+            g = torch.argmax(G, dim=-1)
+            if sampled:
+                # the target's filtered law at each proposal's position
+                # (G_j judges v_{j+1}) and the draft's, [B, K, V]
+                Pf = torch.stack([_filtered_logprobs_rows(G[:, j], temp,
+                                                          tk, tp)
+                                  for j in range(K)], dim=1)
+                Qf = torch.stack(dlps, dim=1)
+                ptok = v[:, 1:, None].long()
+                u = torch.stack([_uniform_rows(
+                    seed, torch.full_like(seed, STREAM_ACCEPT),
+                    (pos + j + 1).long()) for j in range(K)], dim=1)
+                c, rem_after, n_eval, rej = _speculative.accept_mixed(
+                    greedy_row, v, g, Pf.gather(2, ptok)[..., 0],
+                    Qf.gather(2, ptok)[..., 0], u, active, rem,
+                    state["eos"], kcap=kcap)
+            else:
+                c, rem_after = _speculative.accept_greedy(
+                    v, g, active, rem, state["eos"], kcap=kcap)
+                n_eval = torch.where(
+                    active, _speculative.n_evaluable(rem, K, kcap), 0)
+                rej = torch.zeros_like(active)
+            new_logits = G[rows, torch.clamp(c - 1, min=0).long()]
+            rawlg = state["rawlg"]
+            if sampled:
+                ridx = torch.clamp(c - 1, 0, K - 1).long()
+                # -inf zeros clamped to a finite floor: exp(-1e30) is
+                # exactly 0 in f32, so the draw is the same
+                res = torch.clamp(_speculative.residual_logits(
+                    Pf[rows, ridx], Qf[rows, ridx]), min=-1e30)
+                new_logits = torch.where(rej[:, None], res, new_logits)
+                rawlg = torch.where(active, rej, rawlg)
+            state = dict(
+                state,
+                pos=torch.where(active, pos + c, pos),
+                remaining=torch.where(active, rem_after, rem),
+                logits=torch.where(active[:, None], new_logits,
+                                   state["logits"]),
+                rawlg=rawlg)
+            # stage the commits at each slot's cursor; uncommitted
+            # columns dump into the extra last column
+            keep = active[:, None] & (jidx < c[:, None])
+            cols = torch.where(keep, emitted[:, None] + jidx, R * W)
+            staged[rows[:, None], cols.long()] = v.to(torch.int32)
+            emitted = emitted + c
+            # after a committed EOS the rest of the chunk was flushed,
+            # not rejected: only the proposals before it count
+            prop_i = torch.where((rem_after == 0) & (c < rem),
+                                 torch.clamp(c - 1, min=0), n_eval)
+            prop = prop + torch.where(active, prop_i, 0)
+            acc = acc + torch.clamp(c - 1, min=0)
+        return state, staged[:, :R * W], emitted, prop, acc
 
     def _scatter_rows(self, pool, rows, phys):
         """Scatter prefill K/V rows into pool blocks IN PLACE: ``rows``
@@ -710,7 +1029,7 @@ class GenerationServer:
                            .permute(0, 2, 1, 3, 4)
         pool[:nl, phys] = blocks
 
-    def _arm_slot(self, state, logits, slot, req, table_row):
+    def _arm_slot(self, state, logits, slot, req, plan):
         """Slot device-state update shared by both admission paths (on
         copies of the [B] tensors — a concurrent reader of the committed
         state never sees a half-armed slot)."""
@@ -723,83 +1042,98 @@ class GenerationServer:
         st["temp"][slot] = req.temperature
         st["tk"][slot] = req.top_k
         st["tp"][slot] = req.top_p
-        st["table"][slot] = torch.as_tensor(table_row, device=self.device)
+        st["rawlg"][slot] = False
+        for key, ids in (("table", plan.phys), ("dtable", plan.dphys)):
+            row = np.zeros((self.max_blocks,), np.int32)
+            row[:len(ids)] = ids
+            st[key][slot] = torch.as_tensor(row, device=self.device)
         return st
 
-    def _admit_miss_fn(self, kc, vc, state, req, slot, plan):
-        """Prefix-MISS admission: batched causal prefill of the prompt
+    def _scatter_ids(self, ids, n: int):
+        """The first ``n`` of a table's block ids as a scatter target, the
+        scratch block 0 past its allocation (pad rows land there)."""
+        out = np.zeros((n,), np.int64)
+        head = ids[:n]
+        out[:len(head)] = head
+        return torch.as_tensor(out, device=self.device)
+
+    def _prefill_full(self, gen, params, kc, vc, req, ids):
+        """Prefix-MISS prefill: batched causal prefill of the whole prompt
         padded to its power-of-two bucket (a block-size multiple), K/V
-        rows scattered into the slot's fresh blocks, the slot armed."""
+        rows scattered into the table's blocks ``ids`` (the first
+        ``len(params[1])`` pool layers).  Returns the logits at t0 - 1."""
         bs = self.block_size
         tb = -(-_bucket(req.t0, self.max_len) // bs) * bs
         padded = np.zeros((1, tb), np.int64)
         padded[0, :req.t0] = req.prompt
-        n_sc = tb // bs
-        scatter = np.zeros((n_sc,), np.int64)
-        head = plan.phys[:n_sc]
-        scatter[:len(head)] = head
-        emb_p, blk_ps, head_p = self._params
-        logits, ks, vs = self._gen._prefill_rows(
-            emb_p, blk_ps, head_p,
-            torch.as_tensor(padded, device=self.device), req.t0)
-        phys = torch.as_tensor(scatter, device=self.device)
+        logits, ks, vs = gen._prefill_rows(
+            *params, torch.as_tensor(padded, device=self.device), req.t0)
+        phys = self._scatter_ids(ids, tb // bs)
         self._scatter_rows(kc, ks, phys)
         self._scatter_rows(vc, vs, phys)
-        return self._arm_slot(state, logits, slot, req, self._table_row(plan))
+        return logits
 
-    def _admit_hit_fn(self, kc, vc, state, req, slot, plan):
-        """Prefix-HIT admission: gather the ``matched`` cached blocks as
-        the key prefix — EXACT length, never padded inside the key axis —
-        chunk-prefill ONLY the suffix (padded to its bucket), scatter the
-        suffix K/V into the slot's fresh blocks, arm the slot."""
+    def _prefill_suffix(self, gen, params, kc, vc, req, ids, matched: int):
+        """Prefix-HIT prefill: gather the ``matched`` cached blocks as the
+        key prefix — EXACT length, never padded inside the key axis —
+        chunk-prefill ONLY the suffix (padded to its bucket) and scatter
+        its K/V into the table's next blocks.  Returns the logits at
+        t0 - 1."""
         bs = self.block_size
-        matched = plan.matched
         p0 = matched * bs
         suffix = req.prompt[p0:]
         sb = -(-_bucket(len(suffix), self.max_len) // bs) * bs
         padded = np.zeros((1, sb), np.int64)
         padded[0, :len(suffix)] = suffix
-        n_sc = sb // bs
-        scatter = np.zeros((n_sc,), np.int64)
-        fresh = plan.phys[matched:matched + n_sc]
-        scatter[:len(fresh)] = fresh
-        nl, _, h, _, dh = kc.shape
-        prefix = torch.as_tensor(np.asarray(plan.phys[:matched], np.int64),
+        nl = len(params[1])
+        _, _, h, _, dh = kc.shape
+        prefix = torch.as_tensor(np.asarray(ids[:matched], np.int64),
                                  device=self.device)
 
         def gather(pool):
-            return pool[:, prefix].permute(0, 2, 1, 3, 4) \
-                .reshape(nl, 1, h, matched * bs, dh)
+            return pool[:nl, prefix].permute(0, 2, 1, 3, 4) \
+                .reshape(nl, 1, h, p0, dh)
 
-        emb_p, blk_ps, head_p = self._params
-        logits, ks, vs = self._gen._prefill_rows_chunked(
-            emb_p, blk_ps, head_p,
-            torch.as_tensor(padded, device=self.device), gather(kc),
-            gather(vc), p0, req.t0 - p0 - 1)
-        phys = torch.as_tensor(scatter, device=self.device)
+        logits, ks, vs = gen._prefill_rows_chunked(
+            *params, torch.as_tensor(padded, device=self.device),
+            gather(kc), gather(vc), p0, req.t0 - p0 - 1)
+        phys = self._scatter_ids(ids[matched:], sb // bs)
         self._scatter_rows(kc, ks, phys)
         self._scatter_rows(vc, vs, phys)
-        return self._arm_slot(state, logits, slot, req, self._table_row(plan))
+        return logits
 
-    def _table_row(self, plan: _AdmitPlan) -> np.ndarray:
-        row = np.zeros((self.max_blocks,), np.int32)
-        row[:len(plan.phys)] = plan.phys
-        return row
+    def _admit_fn(self, kc, vc, state, req, slot, plan):
+        """One admission's device work: the target's prefill (suffix-only
+        on a prefix hit), the draft's on a speculative server (suffix-only
+        on a draft-domain hit; its logits are unused — rounds re-feed
+        from the anchor), then the slot armed."""
+        if plan.matched:
+            logits = self._prefill_suffix(self._gen, self._params, kc, vc,
+                                          req, plan.phys, plan.matched)
+        else:
+            logits = self._prefill_full(self._gen, self._params, kc, vc,
+                                        req, plan.phys)
+        if self._spec is not None:
+            dgen, dparams = self._spec.draft.gen, self._draft_params
+            if plan.dmatched:
+                self._prefill_suffix(dgen, dparams, kc, vc, req,
+                                     plan.dphys, plan.dmatched)
+            else:
+                self._prefill_full(dgen, dparams, kc, vc, req, plan.dphys)
+        return self._arm_slot(state, logits, slot, req, plan)
 
     # -- scheduler -----------------------------------------------------
     def _admit(self, req: _Pending, slot: int, plan: _AdmitPlan) -> None:
         """Prefill dispatch + commit (pool, slot state, prefix cache)."""
         with self._lock:
             kc, vc, state = self._kc, self._vc, self._state
-        if plan.matched:
-            state = self._admit_hit_fn(kc, vc, state, req, slot, plan)
-        else:
-            state = self._admit_miss_fn(kc, vc, state, req, slot, plan)
+        state = self._admit_fn(kc, vc, state, req, slot, plan)
         with self._lock:
             self._state = state
             self._ids[slot, :req.t0] = req.prompt
             if self.prefix_cache:
                 self._register_prefix_locked(plan)
+                self._register_draft_prefix_locked(plan)
             if plan.matched:
                 self._n_prefix_hits += 1
             else:
@@ -919,8 +1253,56 @@ class GenerationServer:
                               "failing the admitted requests")
                 self._rebuild_after_failure(err)
 
+    def _draft_depths(self, live_items, cap) -> np.ndarray:
+        """Per-slot draft depth [B] for the next speculative dispatch: the
+        acceptance controller's pick per (tenant, prompt prefix) when
+        adaptive, else the fixed k, both clamped by ``cap``; 0 for free
+        slots."""
+        kcap = np.zeros((self.n_slots,), np.int32)
+        for slot, r in live_items:
+            if self._spec.adaptive:
+                kcap[slot] = self._spec_ctl.k_for((r.tenant, r.pkey),
+                                                  cap=cap)
+            else:
+                kcap[slot] = (self._spec.k if cap is None
+                              else max(1, min(self._spec.k, cap)))
+        return kcap
+
+    def _spec_account(self, live_items, K, prop_h, acc_h) -> None:
+        """Host side of a speculative dispatch: the proposed / accepted
+        counters and gauges, this instance's and each tenant's tallies,
+        and the acceptance controller's observations."""
+        n_prop, n_acc = int(prop_h.sum()), int(acc_h.sum())
+        _SPEC_ADAPTIVE_K.set(K)
+        if n_prop:
+            _SPEC_PROPOSED.inc(n_prop)
+        if n_acc:
+            _SPEC_ACCEPTED.inc(n_acc)
+        tenant_rows, obs = [], []
+        with self._lock:
+            self._n_spec_proposed += n_prop
+            self._n_spec_accepted += n_acc
+            if self._n_spec_proposed:
+                _SPEC_ACCEPT_RATE.set(self._n_spec_accepted
+                                      / self._n_spec_proposed)
+            for slot, r in live_items:
+                p_i, a_i = int(prop_h[slot]), int(acc_h[slot])
+                if p_i <= 0:
+                    continue
+                ent = self._tenant_spec.setdefault(r.tenant, [0, 0])
+                ent[0] += p_i
+                ent[1] += a_i
+                tenant_rows.append((r.tenant, ent[0], ent[1]))
+                obs.append(((r.tenant, r.pkey), p_i, a_i))
+        # gauges and controller outside the server lock (each has its own)
+        for tenant, p_tot, a_tot in tenant_rows:
+            _TENANT_SPEC_ACCEPT.labels(tenant=tenant).set(a_tot / p_tot)
+        for key, p_i, a_i in obs:
+            self._spec_ctl.observe(key, p_i, a_i)
+
     def _pass(self):
-        """One scheduler pass: reap, admit, one decode scan, retire."""
+        """One scheduler pass: reap, admit, one dispatch (a decode scan, or
+        speculative rounds), retire."""
         now = time.monotonic()
         with self._lock:
             reaped = self._reap_pending_locked(now)
@@ -936,35 +1318,58 @@ class GenerationServer:
                 self._pending.pop(0)
                 slot = self._free.pop()
                 self._active[slot] = req
-                self._slot_blocks[slot] = list(plan.phys)
+                # both tables' blocks: retire releases them together
+                self._slot_blocks[slot] = list(plan.phys) + list(plan.dphys)
                 admits.append((req, slot, plan))
             n_pending = len(self._pending)
         self._retire_reaped(reaped)
         for req, slot, plan in admits:
             self._admit(req, slot, plan)
         with self._lock:
-            live = list(self._active.values())
-        if not live:
+            live_items = list(self._active.items())
+            use_spec = self._spec is not None and not self._spec_off
+            draft_cap = self._draft_k_cap
+        if not live_items:
             return
-        k_drain = max(r.n_new - r.emitted for r in live)
-        sampled = any(r.temperature > 0.0 for r in live)
-        # adaptive scan length: single ticks while ANY request waits for
-        # admission (a join never waits behind a long scan), else the
-        # largest power of two <= the longest live budget
+        k_drain = max(r.n_new - r.emitted for _, r in live_items)
+        sampled = any(r.temperature > 0.0 for _, r in live_items)
+        # adaptive scan length: single ticks (rounds) while ANY request
+        # waits for admission (a join never waits behind a long scan),
+        # else the largest power of two <= the longest live budget (each
+        # tick or round commits >= 1 token per live slot)
         queue_busy = n_pending > 0 or not self._queue.empty()
-        k = 1 if queue_busy else min(self.tick_batch, _pow2_floor(k_drain))
         with self._lock:
             kc, vc, state_in = self._kc, self._vc, self._state
-        state, toks, emitted = self._decode_scan(k, sampled, kc, vc,
-                                                 state_in)
-        # THE host sync: one device->host copy per scan — staged tokens,
-        # per-slot live-tick counts and budgets left
+        if use_spec:
+            kcap_h = self._draft_depths(live_items, draft_cap)
+            K = int(max(1, kcap_h.max()))
+            k = 1 if queue_busy else min(self._spec.rounds,
+                                         _pow2_floor(k_drain))
+            state, toks, emitted, prop, acc = self._spec_rounds(
+                k, K, sampled, kc, vc, state_in,
+                torch.as_tensor(kcap_h, device=self.device))
+            tallies = [prop[:, None], acc[:, None]]
+        else:
+            k = 1 if queue_busy else min(self.tick_batch,
+                                         _pow2_floor(k_drain))
+            state, toks, emitted = self._decode_scan(k, sampled, kc, vc,
+                                                     state_in)
+            tallies = []
+        # THE host sync: one device->host copy per dispatch — staged
+        # tokens, per-slot commit counts, budgets left (and the
+        # speculative tallies)
+        n_tok = toks.shape[1]
         packed = torch.cat([toks.to(torch.int32), emitted[:, None],
-                            state["remaining"][:, None]], dim=1).cpu() \
-            .numpy()
-        toks_h, emit_h, rem_h = packed[:, :k], packed[:, k], packed[:, k + 1]
+                            state["remaining"][:, None], *tallies],
+                           dim=1).cpu().numpy()
+        toks_h, emit_h, rem_h = (packed[:, :n_tok], packed[:, n_tok],
+                                 packed[:, n_tok + 1])
         _HOST_SYNCS.inc()
+        # a speculative round's verify pass is its target "tick"
         _TICKS.inc(k)
+        if use_spec:
+            self._spec_account(live_items, K, packed[:, n_tok + 2],
+                               packed[:, n_tok + 3])
         now_p = time.perf_counter()
         now_m = time.monotonic()
         finished = []

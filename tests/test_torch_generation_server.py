@@ -350,7 +350,7 @@ def test_validation(net):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"speculative": {"k": 2}}, {"devices": ["cpu"]}, {"tp": 2},
+    {"devices": ["cpu"]}, {"tp": 2},
     {"host_tier_blocks": 4}, {"tick_timeout_s": 30.0}])
 def test_left_out_features_raise(net, kwargs):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -1,13 +1,15 @@
-"""Paged decode attention in the PyTorch port against the JAX package.
+"""Paged decode and verify attention in the PyTorch port against the JAX
+package.
 
 Same inputs (made from a seed with numpy) through the JAX reference
-``paged_decode_attention_reference``, the JAX Pallas kernel in interpret
-mode, and the port's plain version.  In f32 the port's plain version
-repeats the JAX reference's ops, so the two agree to 1e-6 (float
-rounding of the same sums on two backends); the Pallas kernel streams
-the softmax block by block, a different summation order — also within
-1e-6 at these sizes.  The CUDA kernel itself is held to the plain
-version on the card (``gpu`` marker here, and ``chip_smoke.py``)."""
+(``paged_decode_attention_reference`` / ``paged_verify_attention_
+reference``), the JAX Pallas kernel in interpret mode, and the port's
+plain version.  In f32 the port's plain version repeats the JAX
+reference's ops, so the two agree to 1e-6 (float rounding of the same
+sums on two backends); the Pallas kernel streams the softmax block by
+block, a different summation order — also within 1e-6 at these sizes.
+The CUDA kernels themselves are held to the plain versions on the card
+(``gpu`` marker here, and ``chip_smoke.py``)."""
 import numpy as np
 import pytest
 
@@ -109,6 +111,84 @@ def test_wrapper_rejects_bad_operands(bad):
         pa.paged_decode_attention(q, kp, vp, tbl, pos)
 
 
+def _verify_fixture(seed, W, bs, B=3, h=4, dh=8, mb=4):
+    """Verify-chunk shapes: slot 0 at the start, slot 1 mid-table, slot 2
+    with its chunk running past the table's end (rows near max_len)."""
+    rng = np.random.default_rng(seed)
+    nb = 1 + B * mb
+    kpool = rng.normal(size=(nb, h, bs, dh)).astype(np.float32)
+    vpool = rng.normal(size=(nb, h, bs, dh)).astype(np.float32)
+    tbl = np.stack([rng.permutation(np.arange(1, nb))[:mb]
+                    for _ in range(B)]).astype(np.int32)
+    pos0 = np.asarray([0, mb * bs // 2 - 1, mb * bs - 2], np.int32)
+    q = rng.normal(size=(B, W, h, dh)).astype(np.float32)
+    return q, kpool, vpool, tbl, pos0, 1.0 / dh ** 0.5
+
+
+@pytest.mark.parametrize("W", [1, 3, 5])
+@pytest.mark.parametrize("bs", [4, 8])
+def test_verify_plain_matches_jax_reference_and_pallas_interpret(W, bs):
+    from deeplearning4j_tpu.kernels.paged_attention import (
+        _paged_verify_pallas, paged_verify_attention_reference)
+    q, kp, vp, tbl, pos0, scale = _verify_fixture(10 * W + bs, W, bs)
+    args = [jnp.asarray(a) for a in (q, kp, vp, tbl, pos0)]
+    ref = np.asarray(paged_verify_attention_reference(*args, scale))
+    pallas = np.asarray(_paged_verify_pallas(*args, scale))
+    out = pa.paged_verify_attention_reference(
+        *_torch(q, kp, vp, tbl, pos0), scale).numpy()
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out, pallas, rtol=0, atol=1e-6)
+
+
+def test_verify_plain_rows_are_decode_reads():
+    """Row j of the plain verify read IS the plain decode read at
+    position pos0 + j (bitwise): the per-row unroll of the reference."""
+    q, kp, vp, tbl, pos0, scale = _verify_fixture(4, 3, 4)
+    q, kp, vp, tbl, pos0 = _torch(q, kp, vp, tbl, pos0)
+    out = pa.paged_verify_attention_reference(q, kp, vp, tbl, pos0, scale)
+    for j in range(q.shape[1]):
+        dec = pa.paged_decode_attention_reference(
+            q[:, j].contiguous(), kp, vp, tbl, pos0 + j, scale)
+        assert torch.equal(out[:, j], dec)
+
+
+def test_verify_wrapper_routes_cpu_to_plain_and_counts():
+    q, kp, vp, tbl, pos0, scale = _verify_fixture(5, 5, 8)
+    q, kp, vp, tbl, pos0 = _torch(q, kp, vp, tbl, pos0)
+    route = telemetry.get_registry().counter(
+        "paged_route_total", labelnames=("path",)).labels(path="reference")
+    r0, l0 = route.value, pa.paged_verify_attention.launches
+    out = pa.paged_verify_attention(q, kp, vp, tbl, pos0)  # default scale
+    assert torch.equal(out, pa.paged_verify_attention_reference(
+        q, kp, vp, tbl, pos0, scale))
+    assert route.value == r0 + 1
+    assert pa.paged_verify_attention.launches == l0   # no kernel on CPU
+
+
+@pytest.mark.parametrize("bad", ["dtype", "table_dtype", "shape", "rank",
+                                 "contiguous", "pos_shape", "device"])
+def test_verify_wrapper_rejects_bad_operands(bad):
+    q, kp, vp, tbl, pos0, _ = _verify_fixture(6, 3, 4)
+    q, kp, vp, tbl, pos0 = _torch(q, kp, vp, tbl, pos0)
+    if bad == "dtype":
+        kp, vp = kp.double(), vp.double()
+    elif bad == "table_dtype":
+        tbl = tbl.long()
+    elif bad == "shape":
+        kp = kp[:, :2].contiguous()
+    elif bad == "rank":
+        q = q[:, 0].contiguous()               # a decode-shaped q
+    elif bad == "contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "pos_shape":
+        pos0 = pos0[:2]
+    else:
+        pos0 = pos0.to("meta")
+    with pytest.raises(ValueError, match="paged_verify_attention"):
+        pa.paged_verify_attention(q, kp, vp, tbl, pos0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
@@ -136,4 +216,34 @@ def test_cuda_kernel_matches_plain(dtype, tol):
                                               1.0 / dh ** 0.5)
     torch.cuda.synchronize()
     assert pa.paged_decode_attention.launches == l0 + 1
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_cuda_verify_kernel_matches_plain(dtype, tol):
+    """On the card: the verify kernel against the plain version at the
+    serving path's shapes (8 slots, W = 5, 6 heads of 128, block 16,
+    64-entry tables, one slot within W of the table's end)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dt = getattr(torch, dtype)
+    B, W, h, dh, bs, mb = 8, 5, 6, 128, 16, 64
+    nb = 1 + B * mb
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, W, h, dh), generator=g, device="cuda").to(dt)
+    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
+        B, mb) + 1).to(torch.int32)
+    pos0 = torch.tensor([0, 15, 16, 17, 511, 1022, 700, 250],
+                        dtype=torch.int32, device="cuda")
+    l0 = pa.paged_verify_attention.launches
+    out = pa.paged_verify_attention(q, kp, vp, tbl, pos0)
+    ref = pa.paged_verify_attention_reference(q, kp, vp, tbl, pos0,
+                                              1.0 / dh ** 0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_verify_attention.launches == l0 + 1
     assert float((out.float() - ref.float()).abs().max()) <= tol
