@@ -22,7 +22,12 @@ Phases:
                Tables point at shuffled blocks; block 0 and every row past
                a slot's last valid position are NaN in the kernel's pool,
                so a finite, matching result on the valid rows proves the
-               kernel never lets an unread row leak in.
+               kernel never lets an unread row leak in.  Then the flash
+               kernels K3/K4 (forward) and K5/K6 (backward) against their
+               plain versions, f32 and bf16, on bthd views of a [b, t, 3d]
+               projection whose rows past t are NaN: the training shapes
+               (t 2048 on K3, t 512 on K4), a ragged t with a key bias,
+               causal + bias at dh 64, plain at dh 64.
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -41,9 +46,22 @@ Phases:
                "draft_layers": 2, "adaptive": True} — the speculative main
                path: K1 and K2 counts reset before and read after, K2
                launched n_layers times per verify pass.
-  6. timings — K1 and K2, their plain versions and one PyTorch SDPA call
+  6. train   — training through MultiLayerNetwork.fit: (a) default-width
+               zoo.Gpt() in f32 at b 2, t 1024, one loss and gradient with
+               use_flash on and off on the same params (rtol 1e-3); (b) the
+               training main path: default-width Gpt() in bf16 (f32 master
+               weights, Adam(3e-4)), b 8, t 2048, five fit steps on one
+               seeded batch after a warm-up step — the loss finite and
+               falling, K3, K5 and K6 each launched 12 x 5 times with the
+               counts reset before and read after, no long-t fallback;
+               tokens/s, peak memory, a CUDA-only profile of one step, and
+               the same steps on plain attention (loss curves within 1e-3
+               of each other, no flash launch); (c) the same at t 512,
+               where the forward is K4.
+  7. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA events, medians), beside the
-               memory bound.
+               memory bound; K3-K6 at the training shapes beside their
+               plain versions, SDPA forward and backward, and the bound.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -61,7 +79,8 @@ import sys
 import time
 import traceback
 
-PHASES = ("build", "kernel", "pangrams", "full", "spec", "timings")
+PHASES = ("build", "kernel", "pangrams", "full", "spec", "train",
+          "timings")
 EXTRA_PHASES = ("profile",)       # run only when asked for
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
@@ -73,7 +92,8 @@ NEAR_TIE_F32 = 1e-4
 # magnitude <= ~3; bf16 differs by rounding points (the plain version
 # rounds scores and P to bf16 and multiplies P.V in bf16, the kernel
 # keeps scores and the accumulator in f32) — a few bf16 ulps of outputs
-# of magnitude <= ~3
+# of magnitude <= ~3.  The flash kernels' errors are taken relative to
+# max(1, max |plain|): their gradients reach magnitudes ~10.
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -206,7 +226,93 @@ def phase_kernel(torch, pa):
             if not err <= TOL[dname]:
                 raise AssertionError(f"K2 {name}/{dname}: max abs err "
                                      f"{err} > {TOL[dname]}")
-    emit({"phase": "kernel", "max_abs_err": errs, "tolerance": TOL})
+    errs.update(phase_flash_kernel(torch))
+    emit({"phase": "kernel", "max_abs_err": errs, "tolerance": TOL,
+          "flash_error": "max |kernel - plain| / max(1, max |plain|)"})
+    return errs
+
+
+def flash_case(torch, fa, b, t, h, dh, dtype, causal, with_bias, single,
+               seed):
+    """K3 (or K4 with ``single``), K5 and K6 against their plain versions
+    on bthd views of a [b, t + 8, 3 h dh] projection whose rows past t
+    are NaN (as are dO's), so a finite, matching result proves no kernel
+    reads a row at or past t.  Returns {output: relative error} with the
+    error taken relative to max(1, max |plain|) — gradients reach
+    magnitudes ~10 at t = 2048, where bf16 holds ~3 significant digits."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tp = t + 8
+    qkv = torch.randn((b, tp, 3 * h * dh), generator=g, device=dev).to(dtype)
+    qkv[:, t:] = float("nan")
+    dob = torch.randn((b, tp, h, dh), generator=g, device=dev).to(dtype)
+    dob[:, t:] = float("nan")
+    q, k, v = (z.reshape(b, tp, h, dh)[:, :t]
+               for z in qkv.split(h * dh, dim=-1))
+    do = dob[:, :t]
+    bias = (torch.randn((b * h, t), generator=g, device=dev)
+            if with_bias else None)
+    scale = dh ** -0.5
+    kw = dict(causal=causal, scale=scale)
+    fwd = fa.flash_fwd_single if single else fa.flash_fwd
+    o, lse = fwd(q, k, v, bias, **kw)
+    bh = fa._to_bh
+    delta = fa.row_delta(do, o)
+    dk, dv, db = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
+                                   need_dbias=with_bias, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+    ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, single=single,
+                                    **kw)
+    rq, rk, rv, rb = fa.flash_bwd_reference(bh(q), bh(k), bh(v), bias,
+                                            bh(do), lse, delta, **kw)
+    torch.cuda.synchronize()
+    got = {"o": bh(o), "lse": lse, "dq": bh(dq), "dk": bh(dk), "dv": bh(dv)}
+    want = {"o": ro, "lse": rl, "dq": rq, "dk": rk, "dv": rv}
+    if with_bias:
+        got["dbias"], want["dbias"] = db, rb
+    errs = {}
+    for name in got:
+        x, r = got[name].float(), want[name].float()
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"flash {name}: non-finite values (a row "
+                                 f"past t={t} leaked, or overflow)")
+        errs[name] = float((x - r).abs().max()) / max(
+            1.0, float(r.abs().max()))
+    return errs
+
+
+# (name, b, t, h, dh, causal, bias, K4): the training path's shapes (t 2048
+# on K3, t 512 on K4), ragged t with a key bias, and dh 64
+FLASH_CASES = [
+    ("path", 8, 2048, 6, 128, True, False, False),
+    ("path_k4", 8, 512, 6, 128, True, False, True),
+    ("ragged_bias", 2, 1000, 3, 128, False, True, False),
+    ("ragged_causal_bias_dh64_k4", 2, 777, 4, 64, True, True, True),
+    ("plain_dh64", 2, 256, 2, 64, False, False, False),
+]
+
+
+def phase_flash_kernel(torch):
+    """K3-K6 against their plain versions (f32 and bf16) at
+    ``FLASH_CASES``; returns {case/dtype/kernel: error}."""
+    fa = flash_module()
+    kernel_of = {"o": "K3", "lse": "K3", "dq": "K6", "dk": "K5", "dv": "K5",
+                 "dbias": "K5"}
+    errs = {}
+    for i, (name, b, t, h, dh, causal, bias, single) in enumerate(
+            FLASH_CASES):
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            case = flash_case(torch, fa, b, t, h, dh, dtype, causal, bias,
+                              single, seed=100 + i)
+            for out, err in case.items():
+                kern = "K4" if single and kernel_of[out] == "K3" \
+                    else kernel_of[out]
+                key = f"flash_{name}/{dname}/{kern}/{out}"
+                errs[key] = err
+                if not err <= TOL[dname]:
+                    raise AssertionError(f"{key}: error {err} > "
+                                         f"{TOL[dname]}")
     return errs
 
 
@@ -508,6 +614,171 @@ def phase_spec(torch, np, pa, root):
 
 
 # -- phase 6 -----------------------------------------------------------
+FLASH_WRAPPERS = ("flash_fwd", "flash_fwd_single", "flash_bwd_dkdv",
+                  "flash_bwd_dq")
+TRAIN_STEPS = 5
+
+
+def flash_module():
+    import importlib
+    return importlib.import_module(
+        "deeplearning4j_torch.kernels.flash_attention")
+
+
+def train_batch(np, b, t, vocab, seed):
+    """Seeded token ids and their next-token labels (the last wraps)."""
+    x = np.random.default_rng(seed).integers(0, vocab, (b, t)) \
+        .astype(np.int32)
+    return x, np.roll(x, -1, axis=1)
+
+
+def train_window(torch, np, fa, net, b, t, seed, steps=TRAIN_STEPS):
+    """One warm-up ``fit`` step, then ``steps`` more on the same batch with
+    every flash launch count set to 0 just before and read just after
+    (the main path).  Returns (losses, wall seconds, counts, peak bytes,
+    the long-t fallback count of the window)."""
+    from deeplearning4j_torch.data import DataSet
+    ds = DataSet(*train_batch(np, b, t, 32000, seed))
+    net.fit(ds)
+    torch.cuda.synchronize()
+    fallback0 = fa._ROUTE_XLA_LONG_T.value
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [net.fit(ds) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+    return (losses, wall, counts, torch.cuda.max_memory_allocated(),
+            fa._ROUTE_XLA_LONG_T.value - fallback0)
+
+
+def step_profile(torch, np, net, b, t, seed):
+    """One bf16 ``fit`` step under a CUDA-only ``torch.profiler`` trace:
+    device time by kernel (top 12) and the device-busy total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_torch.data import DataSet
+    ds = DataSet(*train_batch(np, b, t, 32000, seed))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, busy_us, n = {}, 0.0, 0
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        busy_us += us
+        n += 1
+        kernels[evt.name[:80]] = kernels.get(evt.name[:80], 0.0) + us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"profiled_wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+            "device_events": n,
+            "top_device_ms": [{"name": k, "ms": v / 1e3} for k, v in top]}
+
+
+def phase_train(torch, np):
+    """(a) full-width Gpt() in f32, b 2, t 1024: one loss and gradient
+    with use_flash=True against use_flash=False on the same params;
+    (b) the main path: full-width Gpt() in bf16 (f32 master weights,
+    Adam(3e-4)), b 8, t 2048, ``TRAIN_STEPS`` fit steps on one seeded
+    batch — loss finite and falling, K3/K5/K6 launched 12 x steps, no
+    long-t fallback — one profiled step, and the same steps from the same
+    init with use_flash=False (loss curves within 1e-3, no flash launch);
+    (c) the same at t 512, where the forward is K4.  Returns the launch
+    counts of (b) and (c)."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    from deeplearning4j_torch.zoo import Gpt
+    fa = flash_module()
+
+    # (a) f32 parity of the two attention paths inside the whole model
+    t0 = time.perf_counter()
+    nets = [Gpt(seed=0, seq_len=1024, compute_dtype=None,
+                use_flash=f).init_graph(device="cuda") for f in (True, False)]
+    nets[1].params_tree = nets[0].params_tree
+    batch = DataSet(*train_batch(np, 2, 1024, 32000, 1))
+    res = []
+    for net in nets:
+        net._build_solver()
+        loss, _, grads = net._solver._loss_and_grads(
+            net.params_tree, net.state_tree, net._batch_dict(batch), None)
+        res.append((float(loss), dict(iter_leaves(grads))))
+    torch.cuda.synchronize()
+    loss_err = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    grad_err = max(float((g - res[1][1][p]).abs().max())
+                   / max(float(res[1][1][p].abs().max()), 1e-30)
+                   for p, g in res[0][1].items())
+    if not (loss_err <= 1e-3 and grad_err <= 1e-3):
+        raise AssertionError(f"train/f32: flash vs plain loss error "
+                             f"{loss_err}, gradient error {grad_err} > 1e-3")
+    emit({"phase": "train/f32", "b": 2, "t": 1024, "loss_flash": res[0][0],
+          "loss_plain": res[1][0], "loss_rel_err": loss_err,
+          "grad_rel_err": grad_err,
+          "grad_error": "max over leaves of max |flash - plain| / "
+                        "max |plain|", "seconds": time.perf_counter() - t0})
+    del nets, res, grads
+    torch.cuda.empty_cache()
+
+    # (b) the main path: bf16, b 8, t 2048
+    counts = {}
+    for t, name in ((2048, "train/bf16"), (512, "train/bf16_t512")):
+        b = 8
+        net = Gpt(seed=0, seq_len=t).init_graph(device="cuda")
+        n_layers = len(net.layers) - 2
+        losses, wall, cnt, peak, fallbacks = train_window(
+            torch, np, fa, net, b, t, seed=2)
+        fwd = "flash_fwd" if t == 2048 else "flash_fwd_single"
+        want = {name_: (n_layers * TRAIN_STEPS
+                        if name_ in (fwd, "flash_bwd_dkdv", "flash_bwd_dq")
+                        else 0) for name_ in FLASH_WRAPPERS}
+        if cnt != want:
+            raise AssertionError(f"{name}: launches {cnt} != {want}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses {losses} not finite and "
+                                 "falling")
+        if fallbacks:
+            raise AssertionError(f"{name}: {fallbacks} long-t fallbacks")
+        row = {"phase": name, "b": b, "t": t, "steps": TRAIN_STEPS,
+               "losses": losses, "seconds": wall,
+               "step_ms": wall * 1e3 / TRAIN_STEPS,
+               "tokens_per_s": TRAIN_STEPS * b * t / wall,
+               "peak_allocated_bytes": peak, "launches": cnt,
+               "flash_fallback_above_threshold": fallbacks,
+               "weights": "random (seeded)", "card": card_line()}
+        if t == 2048:
+            row["profile"] = step_profile(torch, np, net, b, t, seed=2)
+        counts[t] = cnt
+        del net
+        torch.cuda.empty_cache()
+        if t == 2048:
+            # the same seeded init and batch on plain attention: the two
+            # loss curves agree to bf16 rounding, and no flash kernel runs
+            net = Gpt(seed=0, seq_len=t, use_flash=False).init_graph(
+                device="cuda")
+            p_losses, p_wall, p_cnt, p_peak, _ = train_window(
+                torch, np, fa, net, b, t, seed=2)
+            curve_err = max(abs(a - c) / abs(c)
+                            for a, c in zip(losses, p_losses))
+            if curve_err > 1e-3 or any(p_cnt.values()):
+                raise AssertionError(f"{name}: plain-attention losses "
+                                     f"{p_losses} vs flash {losses} (max "
+                                     f"rel {curve_err}), launches {p_cnt}")
+            row["plain_attention"] = {
+                "losses": p_losses, "loss_curve_max_rel_diff": curve_err,
+                "step_ms": p_wall * 1e3 / TRAIN_STEPS,
+                "peak_allocated_bytes": p_peak}
+            del net
+            torch.cuda.empty_cache()
+        emit(row)
+    return counts
+
+
+# -- phase 7 -----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
@@ -537,6 +808,148 @@ def time_ms(torch, fn, n_inner=24, reps=9):
         b.synchronize()
         times.append(a.elapsed_time(b) / n_inner)
     return sorted(times)[len(times) // 2]
+
+
+def time_events_ms(torch, fn, n=8, reps=5):
+    """Median device milliseconds per call of ``fn()`` from CUDA events
+    around a plain loop — for library calls that are not captured in a
+    graph; each call here runs long enough (milliseconds) that the host's
+    launch time hides behind the card's."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[len(times) // 2]
+
+
+def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True):
+    """(bound ms, 'bytes' | 'operations', flops, bytes): the larger of
+    the flops over the bf16 tensor-core peak and the bytes over HBM
+    bandwidth.  Flops: 2 dh per (query, key) pair per product over the
+    pairs the causal mask leaves; bytes: ``n_tensors`` [b, t, h, dh] bf16
+    operands and ``n_stats`` [b*h, t] f32 stats, each read or written
+    once."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 2 * dh * n_products * pairs * b * h
+    n_bytes = n_tensors * b * t * h * dh * 2 + n_stats * b * h * t * 4
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, n_bytes)
+
+
+def phase_timings_flash(torch):
+    """K3, K5 and K6 at the training path's shapes (bf16, b 8, t 2048,
+    6 heads of 128, causal, bthd views of a [b, t, 3d] projection) and K4
+    at t 512, against their plain versions; yardsticks: one
+    ``F.scaled_dot_product_attention(is_causal=True)`` call (forward) and
+    its backward through autograd (dq, dk and dv together, forward time
+    taken off).  The port never calls SDPA.  Kernels and plain versions
+    are timed by CUDA-graph replay over 4 input sets (~300 MB, beyond the
+    50 MB L2)."""
+    import torch.nn.functional as F
+    fa = flash_module()
+    dev, dt, NB = "cuda", torch.bfloat16, 4
+    h, dh, b = 6, 128, 8
+    scale = dh ** -0.5
+    g = torch.Generator(device=dev).manual_seed(9)
+    bh = fa._to_bh
+    rows = {}
+    for t in (2048, 512):
+        sets = []
+        for _ in range(NB):
+            qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                              device=dev).to(dt)
+            q, k, v = (z.reshape(b, t, h, dh)
+                       for z in qkv.split(h * dh, dim=-1))
+            do = torch.randn((b, t, h, dh), generator=g, device=dev).to(dt)
+            sets.append((qkv, q, k, v, do))
+        single = t == 512
+        fwd = fa.flash_fwd_single if single else fa.flash_fwd
+        outs = [fwd(q, k, v, None, causal=True, scale=scale)
+                for _, q, k, v, _ in sets]
+        deltas = [fa.row_delta(s[4], o) for s, (o, _) in zip(sets, outs)]
+        plain_in = [tuple(bh(x) for x in s[1:]) for s in sets]
+        sdpa_in = [tuple(x.transpose(1, 2).contiguous() for x in s[1:])
+                   for s in sets]
+        kern = {
+            "fwd": lambda i: fwd(*sets[i % NB][1:4], None, causal=True,
+                                 scale=scale),
+            "dkdv": lambda i: fa.flash_bwd_dkdv(
+                *sets[i % NB][1:4], None, sets[i % NB][4],
+                outs[i % NB][1], deltas[i % NB], causal=True, scale=scale),
+            "dq": lambda i: fa.flash_bwd_dq(
+                *sets[i % NB][1:4], None, sets[i % NB][4], outs[i % NB][1],
+                deltas[i % NB], causal=True, scale=scale)}
+        plain = {
+            "fwd": lambda i: fa.flash_fwd_reference(
+                *plain_in[i % NB][:3], None, causal=True, scale=scale,
+                single=single),
+            "bwd": lambda i: fa.flash_bwd_reference(
+                *plain_in[i % NB][:3], None, plain_in[i % NB][3],
+                outs[i % NB][1], deltas[i % NB], causal=True, scale=scale)}
+        # errors of this run at these shapes (absolute, bf16)
+        ro, _ = plain["fwd"](0)
+        rq, rk, rv, _ = plain["bwd"](0)
+        dk, dv, _ = kern["dkdv"](0)
+        errs = {"fwd": float((bh(outs[0][0]).float() - ro.float())
+                             .abs().max()),
+                "dkdv": max(float((bh(dk).float() - rk.float()).abs().max()),
+                            float((bh(dv).float() - rv.float()).abs().max())),
+                "dq": float((bh(kern["dq"](0)).float() - rq.float())
+                            .abs().max())}
+        del ro, rq, rk, rv, dk, dv
+        ms = {f"kernel_{n}": time_ms(torch, fn) for n, fn in kern.items()}
+        ms.update({f"plain_{n}": time_ms(torch, fn, n_inner=8, reps=5)
+                   for n, fn in plain.items()})
+        ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
+        lib_fwd = time_events_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                *sdpa_in[0][:3], is_causal=True, scale=scale))
+        qg, kg, vg = (x.detach().requires_grad_(True)
+                      for x in sdpa_in[0][:3])
+        lib_fb = time_events_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                           scale=scale),
+            (qg, kg, vg), sdpa_in[0][3]))
+        names = ({"fwd": "flash_fwd_single"} if single else
+                 {"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
+                  "dq": "flash_bwd_dq"})
+        # (products, [b, t, h, dh] operands, f32 stats): fwd q k v -> O,
+        # LSE; dkdv q k v dO -> dK dV, reading LSE and delta; dq likewise
+        # -> dQ
+        spec = {"fwd": (2, 4, 1), "dkdv": (4, 6, 2), "dq": (3, 5, 2)}
+        for part, name in names.items():
+            bound, by, flops, n_bytes = flash_bound(
+                spec[part][0], b, t, h, dh, *spec[part][1:])
+            rows[name] = {
+                "kernel_ms": ms[f"kernel_{part}"],
+                "plain_ms": ms["plain_fwd" if part == "fwd" else
+                               "plain_bwd"],
+                "library_ms": lib_fwd if part == "fwd" else lib_fb - lib_fwd,
+                "bound_ms": bound, "bound_by": by, "flops": flops,
+                "bytes": n_bytes, "max_abs_err": errs[part],
+                "shapes": {"b": b, "t": t, "h": h, "dh": dh,
+                           "dtype": "bfloat16", "causal": True}}
+        rows[names["fwd"]]["kernel_ms_again"] = ms["kernel_fwd_again"]
+        del sets, outs, deltas, plain_in, sdpa_in, qg, kg, vg
+        torch.cuda.empty_cache()
+    emit({"phase": "timings/flash", "kernels": rows,
+          "plain_bwd_note": "flash_bwd_reference computes dq, dk, dv and "
+                            "dbias at once; its time stands for K5 and K6",
+          "library_bwd_note": "SDPA backward through autograd (dq, dk, dv "
+                              "together), forward time subtracted",
+          "card": card_line()})
+    return rows
 
 
 def phase_timings(torch, pa, positions):
@@ -719,12 +1132,11 @@ def phase_profile(torch, np):
           "card": card_line()})
 
 
-def kernel_row(name, source, tpu_line, launches, err, timing):
+def kernel_row(name, source, replaces, launches, err, timing):
     """One entry of the closing ``kernels`` line."""
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_torch/kernels/csrc/{source}",
-            "replaces": f"deeplearning4j_tpu/kernels/paged_attention.py:"
-                        f"{tpu_line}",
+            "replaces": f"deeplearning4j_tpu/kernels/{replaces}",
             "launches": launches, "max_abs_err": err,
             "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -769,7 +1181,7 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t,
               "torch": torch.__version__, "cuda": torch.version.cuda})
         errs, launches, mid, timing = {}, None, None, None
-        v_launches, v_timing = None, None
+        v_launches, v_timing, t_counts, f_timing = None, None, None, None
         if "kernel" in phases:
             errs = phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -778,23 +1190,41 @@ def main(argv=None) -> int:
             launches, mid = phase_full(torch, np, pa)
         if "spec" in phases:
             v_launches = phase_spec(torch, np, pa, root)
+        if "train" in phases:
+            t_counts = phase_train(torch, np)
         if "timings" in phases:
             mid = mid or [100, 227, 354, 481, 608, 735, 862, 989]
             timing = phase_timings(torch, pa, mid)
             v_timing = phase_timings_verify(torch, pa, mid)
+            f_timing = phase_timings_flash(torch)
         if "profile" in phases:
             phase_profile(torch, np)
-        if None not in (launches, timing, v_launches, v_timing):
-            emit({"kernels": [
+        if None not in (launches, timing, v_launches, v_timing, t_counts,
+                        f_timing):
+            rows = [
                 kernel_row("paged_decode_attention", "paged_decode.cu",
-                           110, launches,
+                           "paged_attention.py:110", launches,
                            errs.get("path/bfloat16", timing["max_abs_err"]),
                            timing),
                 kernel_row("paged_verify_attention", "paged_verify.cu",
-                           228, v_launches,
+                           "paged_attention.py:228", v_launches,
                            errs.get("verify_path_w5/bfloat16",
                                     v_timing["max_abs_err"]),
-                           v_timing)]})
+                           v_timing)]
+            # (wrapper, source, TPU kernel, main path it runs on)
+            for name, src, tpu, t in (
+                    ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",
+                     2048),
+                    ("flash_fwd_single", "flash_fwd.cu",
+                     "flash_attention.py:164", 512),
+                    ("flash_bwd_dkdv", "flash_bwd.cu",
+                     "flash_attention.py:304", 2048),
+                    ("flash_bwd_dq", "flash_bwd.cu",
+                     "flash_attention.py:363", 2048)):
+                ft = f_timing[name]
+                rows.append(kernel_row(name, src, tpu, t_counts[t][name],
+                                       ft["max_abs_err"], ft))
+            emit({"kernels": rows})
         card = card_line()
     except Exception:
         traceback.print_exc()

@@ -11,9 +11,12 @@ default to ``"cuda"``; on a machine without CUDA that default raises
 instead of quietly running on the CPU.  Pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels.
 
-First slice: serving the causal decoder (``zoo.Gpt`` ->
+Slices so far: serving the causal decoder (``zoo.Gpt`` ->
 ``MultiLayerNetwork`` -> ``models.generation.TransformerGenerator`` ->
-``parallel.generation_server.GenerationServer``) with the paged decode
-attention as a hand-written CUDA kernel (``kernels/csrc/paged_decode.cu``).
+``parallel.generation_server.GenerationServer``, speculative decode
+included) on the paged decode and verify kernels, and training the same
+stack (``MultiLayerNetwork.fit``) on the flash-attention kernels,
+forward and backward — every kernel hand-written CUDA under
+``kernels/csrc/``.
 """
 __version__ = "0.1.0"

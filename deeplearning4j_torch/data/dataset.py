@@ -1,0 +1,68 @@
+"""DataSet container (port of ``deeplearning4j_tpu/data/dataset.py``,
+``DataSet``): features, labels and their masks as host numpy arrays,
+with the split/shuffle/batch utilities; conversion to device tensors
+happens at the step boundary (``MultiLayerNetwork._batch_dict``).
+``MultiDataSet`` and ``tbptt_segments`` come with later slices."""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class DataSet:
+    features: np.ndarray
+    labels: np.ndarray
+    features_mask: Optional[np.ndarray] = None
+    labels_mask: Optional[np.ndarray] = None
+
+    def num_examples(self) -> int:
+        return int(self.features.shape[0])
+
+    def batch_by(self, batch_size: int) -> List["DataSet"]:
+        out = []
+        n = self.num_examples()
+        for i in range(0, n, batch_size):
+            sl = slice(i, min(i + batch_size, n))
+            out.append(DataSet(
+                self.features[sl], self.labels[sl],
+                None if self.features_mask is None else self.features_mask[sl],
+                None if self.labels_mask is None else self.labels_mask[sl],
+            ))
+        return out
+
+    def shuffle(self, seed: Optional[int] = None) -> "DataSet":
+        rng = np.random.default_rng(seed)
+        idx = rng.permutation(self.num_examples())
+        return DataSet(
+            self.features[idx], self.labels[idx],
+            None if self.features_mask is None else self.features_mask[idx],
+            None if self.labels_mask is None else self.labels_mask[idx],
+        )
+
+    def split_test_and_train(self, n_train: int):
+        """DL4J ``splitTestAndTrain``: (train, test) SplitTestAndTrain."""
+        train = DataSet(
+            self.features[:n_train], self.labels[:n_train],
+            None if self.features_mask is None else self.features_mask[:n_train],
+            None if self.labels_mask is None else self.labels_mask[:n_train])
+        test = DataSet(
+            self.features[n_train:], self.labels[n_train:],
+            None if self.features_mask is None else self.features_mask[n_train:],
+            None if self.labels_mask is None else self.labels_mask[n_train:])
+        return train, test
+
+    @staticmethod
+    def merge(datasets: Sequence["DataSet"]) -> "DataSet":
+        def cat(parts):
+            if any(p is None for p in parts):
+                return None
+            return np.concatenate(parts, axis=0)
+        return DataSet(
+            cat([d.features for d in datasets]),
+            cat([d.labels for d in datasets]),
+            cat([d.features_mask for d in datasets]),
+            cat([d.labels_mask for d in datasets]),
+        )

@@ -24,7 +24,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 #: library name -> source file under csrc/
 SOURCES = {"paged_decode": "paged_decode.cu",
-           "paged_verify": "paged_verify.cu"}
+           "paged_verify": "paged_verify.cu",
+           "flash_fwd": "flash_fwd.cu",
+           "flash_bwd": "flash_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -44,9 +46,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    """Where library ``name`` lives once built (content-addressed)."""
-    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where library ``name`` lives once built (content-addressed: the
+    source, every shared header under csrc/, and the flags)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

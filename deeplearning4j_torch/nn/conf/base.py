@@ -5,8 +5,8 @@ A layer is ONE dataclass carrying its hyperparameters (JSON round trip
 through ``to_dict``/``layer_from_dict``, field for field the reference's,
 so both packages read and write the same ``configuration.json``),
 ``infer_shapes`` (InputType propagation), ``init(gen, dtype, device)``
-(the parameter dict) and ``apply(params, x, ...)`` (the inference
-forward on tensors).  Training-side hooks come with the training slice.
+(the parameter dict) and ``apply(params, x, *, compute_dtype, mask,
+training, rng)`` (the forward on tensors; autograd gives the backward).
 """
 from __future__ import annotations
 
@@ -93,8 +93,14 @@ class BaseLayerConf:
              device=None) -> Dict[str, torch.Tensor]:
         return {}
 
-    def apply(self, params, x, *, compute_dtype=None, mask=None):
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
         raise NotImplementedError
+
+    def regularized_param_names(self):
+        """Weight-carrying params l1/l2 and weight decay apply to (not
+        biases) — the reference's ``("W",)`` for layers with params."""
+        return ("W",) if self.param_shapes() else ()
 
     def resolve_defaults(self, global_conf: "GlobalConf"):
         """Fill None fields from global conf (builder-time)."""
@@ -120,8 +126,8 @@ class BaseLayerConf:
 @dataclasses.dataclass
 class GlobalConf:
     """Global defaults layers inherit (DL4J builder's top-level settings).
-    ``updater`` is carried as the reference's plain dict; the updaters
-    themselves come with the training slice."""
+    ``updater`` is carried as the reference's plain dict
+    (``optimize.updaters.updater_from_dict`` builds it)."""
 
     seed: int = 0
     activation: str = "identity"

@@ -30,6 +30,8 @@ class NeuralNetConfiguration:
 class Builder:
     def __init__(self):
         self._g = GlobalConf()
+        self.grad_normalization: Optional[str] = None
+        self.grad_norm_threshold: float = 1.0
 
     def seed(self, s: int) -> "Builder":
         self._g.seed = int(s)
@@ -39,15 +41,54 @@ class Builder:
         self._g.activation = a
         return self
 
+    def weight_init(self, w: str,
+                    distribution: Optional[dict] = None) -> "Builder":
+        self._g.weight_init = str(w).lower()
+        self._g.weight_distribution = distribution
+        return self
+
     def updater(self, u) -> "Builder":
-        """The updater's plain dict (``{"type": "Adam", ...}``) — stored
-        for the JSON; the port's updaters come with the training slice."""
+        """An updater (``optimize.updaters``) or its plain dict
+        (``{"type": "Adam", ...}``), stored as the dict."""
         self._g.updater = u.to_dict() if hasattr(u, "to_dict") else dict(u)
+        return self
+
+    def l1(self, v: float) -> "Builder":
+        self._g.l1 = float(v)
+        return self
+
+    def l2(self, v: float) -> "Builder":
+        self._g.l2 = float(v)
+        return self
+
+    def weight_decay(self, v: float) -> "Builder":
+        self._g.weight_decay = float(v)
+        return self
+
+    def dropout(self, rate: float) -> "Builder":
+        self._g.dropout = float(rate)
+        return self
+
+    def dtype(self, d: str) -> "Builder":
+        self._g.dtype = str(d)
         return self
 
     def compute_dtype(self, d: str) -> "Builder":
         """Matmul compute dtype ('bfloat16'); params stay in ``dtype``."""
         self._g.compute_dtype = str(d)
+        return self
+
+    def minimize(self, m: bool = True) -> "Builder":
+        self._g.minimize = bool(m)
+        return self
+
+    def gradient_normalization(self, kind: str,
+                               threshold: float = 1.0) -> "Builder":
+        """DL4J ``GradientNormalization``: 'clip_l2_per_layer',
+        'clip_element_wise_absolute_value', 'renormalize_l2_per_layer',
+        'clip_l2_per_param_type', or 'clip_global_norm'."""
+        self.grad_normalization = str(kind).lower()
+        self.grad_norm_threshold = float(threshold)
         return self
 
     def list(self) -> "ListBuilder":
@@ -106,7 +147,9 @@ class ListBuilder:
             it = InputType(out_kind, tuple(out_shape))
         return MultiLayerConfiguration(
             global_conf=g, layers=self._layers, preprocessors=preprocessors,
-            input_type=input_type)
+            input_type=input_type,
+            grad_normalization=self._parent.grad_normalization,
+            grad_norm_threshold=self._parent.grad_norm_threshold)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,13 @@
-"""Feed-forward layer configs the decoder stack uses (port of
-``deeplearning4j_tpu/nn/conf/layers_core.py``): ``DenseLayer``, the
-output-layer base and ``OutputLayer`` (inference half; the loss plumbing
-comes with the training slice)."""
+"""Feed-forward layer configs (port of
+``deeplearning4j_tpu/nn/conf/layers_core.py``): ``DenseLayer`` with
+dropout, the output-layer base with the loss plumbing
+(``per_example_score``) and ``OutputLayer``.
+
+``apply(params, x, *, compute_dtype, mask, training, rng)`` is the
+forward on tensors; ``rng`` is an integer key from
+``runtime.rng.RngKeyManager`` (dropout draws from a ``torch.Generator``
+seeded with it).  Autograd supplies the backward.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +17,24 @@ import torch
 
 from deeplearning4j_torch.nn.activations import get_activation
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, register_layer
+from deeplearning4j_torch.nn.losses import FUSED_ACTIVATIONS, get_loss
 from deeplearning4j_torch.nn.weights_init import init_weights
+from deeplearning4j_torch.runtime.rng import generator
+
+
+def apply_dropout(x, rate: float, training: bool, rng):
+    """Inverted dropout; ``rate`` is the DROP probability (DL4J's
+    ``dropOut(p)`` takes the retain probability; the configs store the
+    drop rate, as the reference's do).  The mask is drawn from a
+    ``torch.Generator`` seeded with the integer key ``rng``: reproducible
+    per key, not the reference's threefry bits."""
+    if not training or not rate or rng is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator(rng, x.device),
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 @register_layer
@@ -56,21 +79,56 @@ class DenseLayer(BaseLayerConf):
             z = z + params["b"].to(z.dtype)
         return z
 
-    def apply(self, params, x, *, compute_dtype=None, mask=None):
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
         z = self.pre_output(params, x, compute_dtype)
-        return get_activation(self.activation or "identity")(z)
+        y = get_activation(self.activation or "identity")(z)
+        return apply_dropout(y, self.dropout, training, rng)
 
 
 @dataclasses.dataclass
 class BaseOutputLayerConf(BaseLayerConf):
-    """Shared head plumbing for output layers."""
+    """Shared loss plumbing for output layers
+    (``org.deeplearning4j.nn.layers.BaseOutputLayer``)."""
 
     loss: str = "mcxent"
 
     @staticmethod
     def promote_head(z):
-        """Heads run at >= f32 (bf16 softmax is numerically unsafe)."""
+        """Heads run at >= f32 (bf16 softmax is numerically unsafe); f64
+        stays f64."""
         return z if z.dtype == torch.float64 else z.float()
+
+    def per_example_score(self, labels, z, mask=None):
+        """Per-example loss from PRE-activation ``z``, fusing softmax or
+        sigmoid into the loss where the pairing allows (LossMCXENT's fused
+        path).  Sequence outputs [b, t, c] are scored per timestep by
+        folding time into the batch, so a label mask [b, t] (or [b, t, 1])
+        weights timesteps; masks [b] / [b, 1] weight whole examples."""
+        act = (self.activation or "identity").lower()
+        loss_name = str(self.loss).lower()
+        loss_fn = get_loss(loss_name)
+        z = self.promote_head(z)
+        seq = z.ndim == 3
+        if seq:
+            b, t = z.shape[0], z.shape[1]
+            z2 = z.reshape(b * t, z.shape[-1])
+            lab2 = (labels.reshape(b * t, labels.shape[-1])
+                    if labels.ndim == 3 else labels.reshape(b * t))
+        else:
+            z2, lab2 = z, labels
+        if FUSED_ACTIVATIONS.get(loss_name) == act:
+            scores = loss_fn(lab2, None, logits=z2)
+        else:
+            scores = loss_fn(lab2, get_activation(act)(z2))
+        if seq:
+            scores = scores.reshape(b, t)
+            if mask is not None:
+                scores = scores * (mask[..., 0] if mask.ndim == 3 else mask)
+            scores = scores.sum(dim=1)
+        elif mask is not None:
+            scores = scores * mask.reshape(scores.shape[0])
+        return scores
 
 
 @register_layer
@@ -78,6 +136,7 @@ class BaseOutputLayerConf(BaseLayerConf):
 class OutputLayer(BaseOutputLayerConf, DenseLayer):
     """Dense + loss head (``org.deeplearning4j.nn.conf.layers.OutputLayer``)."""
 
-    def apply(self, params, x, *, compute_dtype=None, mask=None):
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
         z = self.promote_head(self.pre_output(params, x, compute_dtype))
         return get_activation(self.activation or "identity")(z)

@@ -14,7 +14,9 @@ from deeplearning4j_torch.nn.conf.layers_core import OutputLayer
 @dataclasses.dataclass
 class RnnOutputLayer(OutputLayer):
     """Per-timestep output layer over [b, t, f]: the dense projection
-    broadcasts over time ([b, t, in] @ [in, out])."""
+    broadcasts over time ([b, t, in] @ [in, out]); the base scorer folds
+    [b, t, V] pre-activations into per-timestep scores, with sparse [b, t]
+    labels for ``sparse_mcxent`` and [b, t] label masks."""
 
     WANTED_KINDS = ("rnn",)
     OUTPUT_KIND = "rnn"

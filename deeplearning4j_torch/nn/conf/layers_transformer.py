@@ -8,10 +8,12 @@ post-LN encoder layer over [b, t, d]::
     h = LN(x + Wo·Attention(Wq x, Wk x, Wv x))
     y = LN(h + W2·act(W1 h))
 
-Attention here is plain PyTorch (``plain_attention``, the reference's
-``xla_attention`` math); the flash-attention kernels come with the
-training slice.  Parameter names and ``x @ W`` layouts are the
-reference's: ``Wqkv`` is [d, 3d], fused q|k|v.
+With ``use_flash`` attention goes through ``kernels.attention`` on the
+[b, t, h, dh] views of the fused qkv projection (``layout="bthd"``, read
+in place by the flash kernels K3-K6 at t >= 512, plain einsum below);
+without it, through the plain ``xla_attention``.  A [b, t] features mask
+becomes the additive key-position bias.  Parameter names and ``x @ W``
+layouts are the reference's: ``Wqkv`` is [d, 3d], fused q|k|v.
 
 Parity trap: the block's activation is ``self.activation or "gelu"``,
 and the builder resolves ``activation`` from the global conf, whose
@@ -25,11 +27,14 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_torch.kernels.flash_attention import (attention,
+                                                         mask_to_bias,
+                                                         xla_attention)
 from deeplearning4j_torch.nn.activations import get_activation
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, register_layer
+from deeplearning4j_torch.nn.conf.layers_core import apply_dropout
 from deeplearning4j_torch.nn.weights_init import init_weights
-
-_NEG = -1e30   # the reference's finite "-inf" for masked scores
+from deeplearning4j_torch.runtime.rng import split
 
 
 def _layer_norm(x, gamma, beta, eps=1e-12):
@@ -41,24 +46,6 @@ def _layer_norm(x, gamma, beta, eps=1e-12):
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * gamma.to(ct) + beta.to(ct)).to(x.dtype)
-
-
-def plain_attention(q, k, v, causal: bool = False, scale=None):
-    """Einsum attention over [b, h, t, d] (the reference's
-    ``xla_attention`` without the bias): f32 scores, masked with a
-    finite -1e30, f32 softmax cast to V's dtype, then P·V."""
-    tq, d = q.shape[2], q.shape[3]
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(ct) * scale
-    if causal:
-        tk = k.shape[2]
-        rows = torch.arange(tq, device=q.device)[:, None]
-        cols = torch.arange(tk, device=q.device)[None, :]
-        s = torch.where((cols <= rows)[None, None], s, _NEG)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
 @register_layer
@@ -106,7 +93,8 @@ class EmbeddingSequenceLayer(BaseLayerConf):
                                       device=w.device)
         return params
 
-    def apply(self, params, x, *, compute_dtype=None, mask=None):
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
         idx = x.long()
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
@@ -119,7 +107,7 @@ class EmbeddingSequenceLayer(BaseLayerConf):
             y = y + params["P"][:t].to(y.dtype)[None]
         if self.layer_norm:
             y = _layer_norm(y, params["g"], params["b"], self.eps)
-        return y
+        return apply_dropout(y, self.dropout, training, rng)
 
 
 @register_layer
@@ -172,27 +160,38 @@ class TransformerEncoderBlock(BaseLayerConf):
                 params[name] = torch.zeros(shape, dtype=dtype, device=device)
         return params
 
-    def apply(self, params, x, *, compute_dtype=None, mask=None):
-        if mask is not None:
-            raise NotImplementedError(
-                "sequence masks arrive with the training slice's flash "
-                "attention (key-position bias)")
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         cast = lambda w: w.to(x.dtype)
+        r1 = r2 = None
+        if rng is not None:
+            r1, r2 = split(rng, 2)
         b, t, d = x.shape
         h, dh = self.n_heads, d // self.n_heads
         qkv = x @ cast(params["Wqkv"]) + cast(params["bqkv"])
         q, k, v = torch.split(qkv, d, dim=-1)
-        split = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)
-        att = plain_attention(split(q), split(k), split(v),
-                              causal=self.causal)
-        att = att.transpose(1, 2).reshape(b, t, d)
+        bias = mask_to_bias(mask)
+        if self.use_flash:
+            # [b, t, h, dh] views of the projection, read in place by the
+            # kernels (no [b, h, t, dh] transpose pair)
+            split_heads = lambda z: z.reshape(b, t, h, dh)
+            att = attention(split_heads(q), split_heads(k), split_heads(v),
+                            bias=bias, causal=self.causal, layout="bthd")
+        else:
+            split_heads = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)
+            att = xla_attention(split_heads(q), split_heads(k),
+                                split_heads(v), bias=bias,
+                                causal=self.causal).transpose(1, 2)
+        att = att.reshape(b, t, d)
         att = att @ cast(params["Wo"]) + cast(params["bo"])
+        att = apply_dropout(att, self.dropout, training, r1)
         hdn = _layer_norm(x + att, params["ln1_g"], params["ln1_b"],
                           self.eps)
         act = get_activation(self.activation or "gelu")
         ffn = act(hdn @ cast(params["W1"]) + cast(params["b1"]))
         ffn = ffn @ cast(params["W2"]) + cast(params["b2"])
+        ffn = apply_dropout(ffn, self.dropout, training, r2)
         return _layer_norm(hdn + ffn, params["ln2_g"], params["ln2_b"],
                            self.eps)

@@ -6,8 +6,11 @@ process-default registry so every subsystem lands on the same scrape
 surface.  Metric names are the reference's; the serving slice emits
 ``paged_route_total{path=}``,
 ``generation_server_{admitted,retired,ticks,host_syncs}_total`` and
-``prefix_cache_{hits,misses}_total``.  Spans, profiling, the TSDB, the
-fleet plane and the flight recorder come with later slices.
+``prefix_cache_{hits,misses}_total``; the training slice
+``train_{iterations,epochs,examples}_total``,
+``train_{data_wait,step_dispatch}_seconds``, ``flash_route_total{path=}``
+and ``flash_fallback_above_threshold_total``.  Spans, profiling, the
+TSDB, the fleet plane and the flight recorder come with later slices.
 """
 from __future__ import annotations
 

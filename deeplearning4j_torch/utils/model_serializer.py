@@ -2,9 +2,10 @@
 
 The same zip as the reference: ``configuration.json`` (the model IR),
 ``coefficients.npz`` (the parameter tree, ``layer_i/name`` keys),
-``state.npz`` and ``training.json``.  It is read and written with numpy
-alone, so either package restores the other's checkpoints.  Updater
-state is neither read nor written yet (it comes with the training slice).
+``state.npz``, ``updaterState.npz`` (the optimizer state, ``m/layer_i/W``
+keys for Adam) and ``training.json`` (iteration and epoch counters).  It
+is read and written with numpy alone, so either package resumes the
+other's training checkpoint.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from deeplearning4j_torch.runtime.backend import resolve_device
 _CONFIG = "configuration.json"
 _PARAMS = "coefficients.npz"
 _STATE = "state.npz"
+_UPDATER = "updaterState.npz"
 _TRAINING = "training.json"
 
 
@@ -70,22 +72,24 @@ def _tree_from_npz(data: bytes, device):
     return _unflatten_tree(flat, device)
 
 
-def write_model(model, path) -> None:
-    """DL4J ``ModelSerializer.writeModel(model, file)`` without the
-    updater state."""
+def write_model(model, path, save_updater: bool = True) -> None:
+    """DL4J ``ModelSerializer.writeModel(model, file, saveUpdater)``."""
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(_CONFIG, json.dumps(model.conf.to_dict(), indent=2))
         zf.writestr(_PARAMS, _npz_bytes(model.params_tree or {}))
         zf.writestr(_STATE, _npz_bytes(model.state_tree or {}))
+        if save_updater and model.opt_state is not None:
+            zf.writestr(_UPDATER, _npz_bytes(model.opt_state))
         zf.writestr(_TRAINING, json.dumps({
             "iteration_count": model.iteration_count,
             "epoch_count": model.epoch_count,
         }))
 
 
-def restore_model(path, device="cuda"):
+def restore_model(path, device="cuda", load_updater: bool = True):
     """Restore a ``MultiLayerNetwork`` checkpoint zip onto ``device``
-    (default ``"cuda"``).  Graph checkpoints are not ported yet."""
+    (default ``"cuda"``), with its updater state when present and
+    ``load_updater``.  Graph checkpoints are not ported yet."""
     from deeplearning4j_torch.models.multi_layer_network import (
         MultiLayerNetwork)
     from deeplearning4j_torch.nn.conf.builder import MultiLayerConfiguration
@@ -104,6 +108,8 @@ def restore_model(path, device="cuda"):
         for i in range(len(model.layers)):
             model.state_tree.setdefault(f"layer_{i}", {})
             model.params_tree.setdefault(f"layer_{i}", {})
+        if load_updater and _UPDATER in zf.namelist():
+            model.opt_state = _tree_from_npz(zf.read(_UPDATER), dev)
         if _TRAINING in zf.namelist():
             t = json.loads(zf.read(_TRAINING).decode())
             model.iteration_count = t.get("iteration_count", 0)

@@ -57,6 +57,12 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.parallel.generation_server\n"
         "import deeplearning4j_torch.zoo, deeplearning4j_torch.utils\n"
         "import deeplearning4j_torch.kernels, deeplearning4j_torch.nn.conf\n"
+        "import deeplearning4j_torch.kernels.flash_attention\n"
+        "import deeplearning4j_torch.models.multi_layer_network\n"
+        "import deeplearning4j_torch.optimize.solver\n"
+        "import deeplearning4j_torch.optimize.fit_loop\n"
+        "import deeplearning4j_torch.data, deeplearning4j_torch.nn.losses\n"
+        "import deeplearning4j_torch.runtime.rng\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
