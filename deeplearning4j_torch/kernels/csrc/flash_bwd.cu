@@ -16,16 +16,22 @@
 //
 // Bound: operations.  Causal at b 8, t 2048, h 6, dh 128: K5 runs four
 // products (Q K^T, dO V^T, P^T dO, dS^T Q) ~103 GFLOP, K6 three (Q K^T,
-// dO V^T, dS K) ~77 GFLOP, each over ~25-38 MB of operands.
+// dO V^T, dS K) ~77 GFLOP, over ~150 and ~125 MB of operands.
 //
-// Design (right and simple first): one 8-warp thread block per (key tile,
-// batch*head) for K5 and per (query tile, batch*head) for K6; the block
-// loops over the other axis's tiles (the Pallas grid's "arbitrary" axis),
-// skipping tiles wholly on the masked side of the causal diagonal.  K5
-// owns its key tile, so it sums dS over every query tile itself and
-// needs no atomics.  Products as in flash_fwd.cu: tensor-core fragments
-// in bf16, f32 FMAs in f32, f32 accumulators in shared memory.  Rows and
-// keys at or past t are zero-filled in shared memory and never written.
+// Design: one thread block per (key tile, batch*head) for K5 and per
+// (query tile, batch*head) for K6; the block loops over the other axis's
+// tiles (the Pallas grid's "arbitrary" axis), skipping tiles wholly on the
+// masked side of the causal diagonal.  K5 owns its key tile, so it sums dS
+// over every query tile itself and needs no atomics.  Rows and keys at or
+// past t are zero-filled in shared memory and never written.
+// * bf16 (v2): 4 warps, 64-row tiles, mma.sync fragments in registers
+//   (flash_common.cuh).  K6: a warp owns 16 query rows (S and dP, then
+//   dS * scale becomes the A fragment of dS K).  K5: a warp owns 16 keys
+//   and computes the transposed tiles K Q^T and V dO^T directly, so P^T
+//   and dS^T are already A fragments of P^T dO and dS^T Q; its dK/dV
+//   accumulators and dBias partial sums stay in registers across query
+//   tiles.  v1 staged everything through shared memory (wmma).
+// * f32: 8 warps, 32-row tiles, f32 tiles in shared memory, plain FMAs.
 #include "flash_common.cuh"
 
 using namespace flash;
@@ -50,64 +56,35 @@ struct BwdArgs {
   int causal;
 };
 
-template <typename T, int DH>
-struct BwdLayout {
-  static constexpr int BR = Cfg<T>::kTile;        // query rows per tile
-  static constexpr int BC = Cfg<T>::kTile;        // key rows per tile
-  static constexpr int LDT = DH + Cfg<T>::kPad;   // q, k, v, dO tiles
-  static constexpr int LDS = BC + 4;              // f32 [BR, BC] tiles
-  static constexpr int LDP = BC + Cfg<T>::kPad;   // P and dS in T
-  static constexpr int LDO = DH + 4;              // f32 accumulators
-  static constexpr size_t kA = 0;                                      // q (K5) / k (K6)
-  static constexpr size_t kB = align128(kA + sizeof(T) * BR * LDT);    // dO (K5) / v (K6)
-  static constexpr size_t kC = align128(kB + sizeof(T) * BR * LDT);    // k (K5) / q (K6)
-  static constexpr size_t kD = align128(kC + sizeof(T) * BR * LDT);    // v (K5) / dO (K6)
-  static constexpr size_t kS = align128(kD + sizeof(T) * BR * LDT);    // scores, then dS (f32)
-  static constexpr size_t kDP = align128(kS + sizeof(float) * BR * LDS);
-  static constexpr size_t kPT = align128(kDP + sizeof(float) * BR * LDS);
-  static constexpr size_t kDST = align128(kPT + sizeof(T) * BR * LDP);
-  static constexpr size_t kAcc0 = align128(kDST + sizeof(T) * BR * LDP);
-  static constexpr size_t kAcc1 = align128(kAcc0 + sizeof(float) * BR * LDO);
-  static constexpr size_t kStatDq = align128(kAcc0 + sizeof(float) * BR * LDO);
-  static constexpr size_t kStatDkdv = align128(kAcc1 + sizeof(float) * BR * LDO);
-  static constexpr size_t kBytesDq = kStatDq + sizeof(float) * 2 * BR;
-  static constexpr size_t kBytesDkdv = kStatDkdv + sizeof(float) * (2 * BR + BC);
-};
-
-// P and dS of one (query tile, key tile) pair from the raw scores in s_s
-// and dO V^T in dp_s.  Writes P (in T) to p_t if non-null, dS (f32) back
-// into s_s if keep_ds, and dS * scale (in T) to ds_t.
-template <typename T, int BR, int BC, int LDS, int LDP>
-__device__ __forceinline__ void grad_tile(const BwdArgs& a, float* s_s,
-                                          const float* dp_s, T* p_t, T* ds_t,
-                                          bool keep_ds, const float* lse_s,
-                                          const float* dl_s, const float* bias,
-                                          int q0, int k0) {
-  const int t = a.t;
-  for (int i = threadIdx.x; i < BR * BC; i += kThreads) {
-    const int r = i / BC;
-    const int c = i - r * BC;
-    const int row = q0 + r, col = k0 + c;
-    float p = 0.f;
-    if (row < t && col < t) {
-      float s = s_s[r * LDS + c] * a.scale;
-      if (bias) s += bias[col];
-      if (a.causal && col > row) s = kNeg;
-      p = expf(s - lse_s[r]);
-    }
-    const float ds = p * (dp_s[r * LDS + c] - dl_s[r]);
-    if (p_t) p_t[r * LDP + c] = from_float<T>(p);
-    if (keep_ds) s_s[r * LDS + c] = ds;
-    ds_t[r * LDP + c] = from_float<T>(ds * a.scale);
-  }
+// P of (query row, key col) from the raw dot product and the row's LSE;
+// 0 where either lies at or past t, or the key is causally masked
+__device__ __forceinline__ float recompute_p(const BwdArgs& a, const float* bias,
+                                             float dot, int row, int col,
+                                             float lse) {
+  if (row >= a.t || col >= a.t) return 0.f;
+  float s = dot * a.scale;
+  if (bias) s += bias[col];
+  if (a.causal && col > row) s = kNeg;
+  return expf(s - lse);
 }
+
+// ---------------------------------------------------------------------------
+// bf16: register-resident fragments
+// ---------------------------------------------------------------------------
+template <int DH>
+struct BfBwdLayout {
+  static constexpr int LD = DH + kBfPad;
+  static constexpr int kTile = kBfTile * LD;   // elements per bf16 tile
+  static constexpr size_t kBytes =
+      4 * sizeof(__nv_bfloat16) * kTile + 2 * sizeof(float) * kBfTile;
+};
 
 // the query tile's LSE and delta rows; rows at or past t get LSE = 1e30
 // (so p == 0) and delta 0
-template <int BR>
+template <int R, int NT>
 __device__ __forceinline__ void load_stats(const BwdArgs& a, int bh, int q0,
                                            float* lse_s, float* dl_s) {
-  for (int r = threadIdx.x; r < BR; r += kThreads) {
+  for (int r = threadIdx.x; r < R; r += NT) {
     const int row = q0 + r;
     const bool in = row < a.t;
     lse_s[r] = in ? a.lse[(long long)bh * a.t + row] : kPos;
@@ -115,22 +92,233 @@ __device__ __forceinline__ void load_stats(const BwdArgs& a, int bh, int q0,
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(BwdArgs a) {
-  using L = BwdLayout<T, DH>;
-  constexpr int BR = L::BR, BC = L::BC;
+template <int NJ>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[NJ][4],
+                                       int kc) {
+  f[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
+  f[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
+  f[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
+  f[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+}
+
+template <int ND>
+__device__ __forceinline__ void store_frag_rows(__nv_bfloat16* base, long long st,
+                                                const float (&acc)[ND][4],
+                                                const int (&row)[2], int t,
+                                                int qd) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= t) continue;
+    __nv_bfloat16* p = base + (long long)row[r] * st + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBfThreads) flash_bwd_dkdv_bf16_kernel(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = BfBwdLayout<DH>;
+  constexpr int LD = L::LD, BR = kBfTile, BC = kBfTile;
+  constexpr int NJ = BR / 8;   // query column blocks of a transposed tile
+  constexpr int ND = DH / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + L::kA);
-  T* do_s = reinterpret_cast<T*>(smem + L::kB);
-  T* k_s = reinterpret_cast<T*>(smem + L::kC);
-  T* v_s = reinterpret_cast<T*>(smem + L::kD);
-  float* s_s = reinterpret_cast<float*>(smem + L::kS);
-  float* dp_s = reinterpret_cast<float*>(smem + L::kDP);
-  T* p_t = reinterpret_cast<T*>(smem + L::kPT);
-  T* ds_t = reinterpret_cast<T*>(smem + L::kDST);
-  float* dk_s = reinterpret_cast<float*>(smem + L::kAcc0);
-  float* dv_s = reinterpret_cast<float*>(smem + L::kAcc1);
-  float* lse_s = reinterpret_cast<float*>(smem + L::kStatDkdv);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + L::kTile;
+  bf16* q_s = v_s + L::kTile;
+  bf16* do_s = q_s + L::kTile;
+  float* lse_s = reinterpret_cast<float*>(do_s + L::kTile);
+  float* dl_s = lse_s + BR;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int bh = blockIdx.y;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int t = a.t;
+  const int k0 = blockIdx.x * BC;   // low key tiles carry the most causal work
+  const bf16* qp = static_cast<const bf16*>(a.q) + bi * a.sq.b + hi * a.sq.h;
+  const bf16* dop = static_cast<const bf16*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  const int kr0 = warp * 16;                // this warp's keys in the tile
+  const int key[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
+
+  load_rows<bf16, BC, DH, LD, kBfThreads>(
+      k_s, static_cast<const bf16*>(a.k) + bi * a.sk.b + hi * a.sk.h, a.sk.t, k0, t);
+  load_rows<bf16, BC, DH, LD, kBfThreads>(
+      v_s, static_cast<const bf16*>(a.v) + bi * a.sv.b + hi * a.sv.h, a.sv.t, k0, t);
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  float db[2] = {0.f, 0.f};
+  // causal: query tiles wholly above this key tile see none of its keys
+  for (int q0 = a.causal ? k0 : 0; q0 < t; q0 += BR) {
+    __syncthreads();
+    load_rows<bf16, BR, DH, LD, kBfThreads>(q_s, qp, a.sq.t, q0, t);
+    load_rows<bf16, BR, DH, LD, kBfThreads>(do_s, dop, a.sdo.t, q0, t);
+    load_stats<BR, kBfThreads>(a, bh, q0, lse_s, dl_s);
+    __syncthreads();
+    // transposed tiles, keys x queries: S^T = K Q^T, dP^T = V dO^T
+    float st[NJ][4], dpt[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      uint32_t af[4];
+      load_a<LD>(af, k_s, kr0, kk, g, qd);
+      mma_abt<NJ, LD>(st, af, q_s, 0, kk, g, qd);
+      load_a<LD>(af, v_s, kr0, kk, g, qd);
+      mma_abt<NJ, LD>(dpt, af, do_s, 0, kk, g, qd);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = 8 * j + 2 * qd + (e & 1);
+        const float p = recompute_p(a, bias, st[j][e], q0 + c, key[r], lse_s[c]);
+        const float ds = p * (dpt[j][e] - dl_s[c]);
+        db[r] += ds;
+        st[j][e] = p;
+        dpt[j][e] = ds * a.scale;
+      }
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) {
+      uint32_t f[4];
+      pack_a<NJ>(f, st, kc);
+      mma_ab<ND, LD>(dv, f, do_s, 16 * kc, lane);   // dV += P^T dO
+      pack_a<NJ>(f, dpt, kc);
+      mma_ab<ND, LD>(dk, f, q_s, 16 * kc, lane);    // dK += (dS scale)^T Q
+    }
+  }
+  store_frag_rows<ND>(static_cast<bf16*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h,
+                          a.sdk.t, dk, key, t, qd);
+  store_frag_rows<ND>(static_cast<bf16*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h,
+                          a.sdv.t, dv, key, t, qd);
+  if (a.dbias) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float sum = quad_sum(db[r]);
+      if (qd == 0 && key[r] < t) a.dbias[(long long)bh * t + key[r]] = sum;
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBfThreads) flash_bwd_dq_bf16_kernel(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = BfBwdLayout<DH>;
+  constexpr int LD = L::LD, BR = kBfTile, BC = kBfTile;
+  constexpr int NJ = BC / 8;   // key column blocks per key tile
+  constexpr int ND = DH / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + L::kTile;
+  bf16* k_s = do_s + L::kTile;
+  bf16* v_s = k_s + L::kTile;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int bh = blockIdx.y;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int t = a.t;
+  const int n_q = (t + BR - 1) / BR;
+  const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;   // heaviest causal tile first
+  const bf16* kp = static_cast<const bf16*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const bf16* vp = static_cast<const bf16*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  const int r0 = warp * 16;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  float lse[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < t;
+    lse[r] = in ? a.lse[(long long)bh * t + row[r]] : kPos;
+    dl[r] = in ? a.delta[(long long)bh * t + row[r]] : 0.f;
+  }
+
+  load_rows<bf16, BR, DH, LD, kBfThreads>(
+      q_s, static_cast<const bf16*>(a.q) + bi * a.sq.b + hi * a.sq.h, a.sq.t, q0, t);
+  load_rows<bf16, BR, DH, LD, kBfThreads>(
+      do_s, static_cast<const bf16*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h, a.sdo.t,
+      q0, t);
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  const int k_end = a.causal ? min(t, q0 + BR) : t;
+  for (int k0 = 0; k0 < k_end; k0 += BC) {
+    __syncthreads();
+    load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
+    load_rows<bf16, BC, DH, LD, kBfThreads>(v_s, vp, a.sv.t, k0, t);
+    __syncthreads();
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      uint32_t af[4];
+      load_a<LD>(af, q_s, r0, kk, g, qd);
+      mma_abt<NJ, LD>(s, af, k_s, 0, kk, g, qd);
+      load_a<LD>(af, do_s, r0, kk, g, qd);
+      mma_abt<NJ, LD>(dp, af, v_s, 0, kk, g, qd);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = recompute_p(a, bias, s[j][e], row[r],
+                                    k0 + 8 * j + 2 * qd + (e & 1), lse[r]);
+        s[j][e] = p * (dp[j][e] - dl[r]) * a.scale;
+      }
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) {
+      uint32_t f[4];
+      pack_a<NJ>(f, s, kc);
+      mma_ab<ND, LD>(dq, f, k_s, 16 * kc, lane);    // dQ += (dS scale) K
+    }
+  }
+  store_frag_rows<ND>(static_cast<bf16*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h,
+                          a.sdq.t, dq, row, t, qd);
+}
+
+// ---------------------------------------------------------------------------
+// f32: tiles in shared memory, plain FMAs
+// ---------------------------------------------------------------------------
+template <int DH>
+struct F32BwdLayout {
+  static constexpr int BR = kF32Tile, BC = kF32Tile;
+  static constexpr int LDT = DH + 4;   // q, k, v, dO tiles and accumulators
+  static constexpr int LDS = BC + 4;   // [BR, BC] tiles
+  static constexpr int kTileT = BR * LDT, kTileS = BR * LDS;
+  // q, dO, k, v; S (then dS), dP, P, dS * scale; acc0 (dK or dQ), acc1
+  // (dV); LSE, delta, dBias
+  static constexpr size_t kBytes =
+      sizeof(float) * (6 * kTileT + 4 * kTileS + 3 * BR);
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
+                                                                    bool dq_pass) {
+  using L = F32BwdLayout<DH>;
+  constexpr int BR = L::BR, BC = L::BC, LDT = L::LDT, LDS = L::LDS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + L::kTileT;
+  float* k_s = do_s + L::kTileT;
+  float* v_s = k_s + L::kTileT;
+  float* acc0 = v_s + L::kTileT;
+  float* acc1 = acc0 + L::kTileT;
+  float* s_s = acc1 + L::kTileT;      // scores, then dS
+  float* dp_s = s_s + L::kTileS;
+  float* p_s = dp_s + L::kTileS;
+  float* ds_s = p_s + L::kTileS;      // dS * scale
+  float* lse_s = ds_s + L::kTileS;
   float* dl_s = lse_s + BR;
   float* db_s = dl_s + BR;
 
@@ -138,131 +326,123 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(BwdArgs a) {
   const int bh = blockIdx.y;
   const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
-  const int k0 = blockIdx.x * BC;   // low key tiles carry the most causal work
-  const T* qp = static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h;
-  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
-  const T* dop = static_cast<const T*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
+  const float* qp = static_cast<const float*>(a.q) + bi * a.sq.b + hi * a.sq.h;
+  const float* kp = static_cast<const float*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const float* vp = static_cast<const float*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const float* dop = static_cast<const float*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
-  const bool want_db = a.dbias != nullptr;
-
-  load_rows<T, BC, DH, L::LDT>(k_s, kp, a.sk.t, k0, t);
-  load_rows<T, BC, DH, L::LDT>(v_s, vp, a.sv.t, k0, t);
-  for (int i = tid; i < BC * L::LDO; i += kThreads) {
-    dk_s[i] = 0.f;
-    dv_s[i] = 0.f;
+  const bool want_db = !dq_pass && a.dbias != nullptr;
+  const int n_tiles = (t + BR - 1) / BR;
+  // K6 owns a query tile (heaviest causal first), K5 a key tile
+  const int own0 = dq_pass ? (n_tiles - 1 - (int)blockIdx.x) * BR
+                           : (int)blockIdx.x * BC;
+  for (int i = tid; i < 2 * L::kTileT; i += kF32Threads) acc0[i] = 0.f;
+  for (int i = tid; i < BC; i += kF32Threads) db_s[i] = 0.f;
+  if (dq_pass) {
+    load_rows<float, BR, DH, LDT, kF32Threads>(q_s, qp, a.sq.t, own0, t);
+    load_rows<float, BR, DH, LDT, kF32Threads>(do_s, dop, a.sdo.t, own0, t);
+    load_stats<BR, kF32Threads>(a, bh, own0, lse_s, dl_s);
+  } else {
+    load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, own0, t);
+    load_rows<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, own0, t);
   }
-  for (int i = tid; i < BC; i += kThreads) db_s[i] = 0.f;
-  // causal: query tiles wholly above this key tile see none of its keys
-  const int q_begin = a.causal ? (k0 / BR) * BR : 0;
-  for (int q0 = q_begin; q0 < t; q0 += BR) {
+  // the other axis's tiles this one meets (causal: those on the diagonal's
+  // unmasked side)
+  const int o_begin = (!dq_pass && a.causal) ? own0 : 0;
+  const int o_end = (dq_pass && a.causal) ? min(t, own0 + BR) : t;
+  for (int o0 = o_begin; o0 < o_end; o0 += BR) {
+    const int q0 = dq_pass ? own0 : o0, k0 = dq_pass ? o0 : own0;
     __syncthreads();
-    load_rows<T, BR, DH, L::LDT>(q_s, qp, a.sq.t, q0, t);
-    load_rows<T, BR, DH, L::LDT>(do_s, dop, a.sdo.t, q0, t);
-    load_stats<BR>(a, bh, q0, lse_s, dl_s);
+    if (dq_pass) {
+      load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
+    } else {
+      load_rows<float, BR, DH, LDT, kF32Threads>(q_s, qp, a.sq.t, q0, t);
+      load_rows<float, BR, DH, LDT, kF32Threads>(do_s, dop, a.sdo.t, q0, t);
+      load_stats<BR, kF32Threads>(a, bh, q0, lse_s, dl_s);
+    }
     __syncthreads();
-    mm<T, BR, BC, DH, false, true, false>(s_s, L::LDS, q_s, L::LDT, k_s, L::LDT);
-    mm<T, BR, BC, DH, false, true, false>(dp_s, L::LDS, do_s, L::LDT, v_s, L::LDT);
+    mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
+    mm<BR, BC, DH, false, true, false>(dp_s, LDS, do_s, LDT, v_s, LDT);
     __syncthreads();
-    grad_tile<T, BR, BC, L::LDS, L::LDP>(a, s_s, dp_s, p_t, ds_t, want_db,
-                                         lse_s, dl_s, bias, q0, k0);
+    for (int i = tid; i < BR * BC; i += kF32Threads) {
+      const int r = i / BC, c = i - r * BC;
+      const float p = recompute_p(a, bias, s_s[r * LDS + c], q0 + r, k0 + c,
+                                  lse_s[r]);
+      const float ds = p * (dp_s[r * LDS + c] - dl_s[r]);
+      p_s[r * LDS + c] = p;
+      s_s[r * LDS + c] = ds;
+      ds_s[r * LDS + c] = ds * a.scale;
+    }
     __syncthreads();
-    mm<T, BC, DH, BR, true, false, true>(dv_s, L::LDO, p_t, L::LDP, do_s, L::LDT);
-    mm<T, BC, DH, BR, true, false, true>(dk_s, L::LDO, ds_t, L::LDP, q_s, L::LDT);
-    if (want_db) {
-      for (int c = tid; c < BC; c += kThreads) {
-        float acc = 0.f;
-        for (int r = 0; r < BR; ++r) acc += s_s[r * L::LDS + c];
-        db_s[c] += acc;
+    if (dq_pass) {
+      mm<BR, DH, BC, false, false, true>(acc0, LDT, ds_s, LDS, k_s, LDT);
+    } else {
+      mm<BC, DH, BR, true, false, true>(acc1, LDT, p_s, LDS, do_s, LDT);
+      mm<BC, DH, BR, true, false, true>(acc0, LDT, ds_s, LDS, q_s, LDT);
+      if (want_db) {
+        for (int c = tid; c < BC; c += kF32Threads) {
+          float acc = 0.f;
+          for (int r = 0; r < BR; ++r) acc += s_s[r * LDS + c];
+          db_s[c] += acc;
+        }
       }
     }
   }
   __syncthreads();
-  store_rows<T, BC, DH, L::LDO>(static_cast<T*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h,
-                                a.sdk.t, dk_s, k0, t);
-  store_rows<T, BC, DH, L::LDO>(static_cast<T*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h,
-                                a.sdv.t, dv_s, k0, t);
+  if (dq_pass) {
+    store_rows<BR, DH, LDT>(static_cast<float*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h,
+                            a.sdq.t, acc0, own0, t);
+    return;
+  }
+  store_rows<BC, DH, LDT>(static_cast<float*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h,
+                          a.sdk.t, acc0, own0, t);
+  store_rows<BC, DH, LDT>(static_cast<float*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h,
+                          a.sdv.t, acc1, own0, t);
   if (want_db) {
-    for (int c = tid; c < BC; c += kThreads)
-      if (k0 + c < t) a.dbias[(long long)bh * t + k0 + c] = db_s[c];
+    for (int c = tid; c < BC; c += kF32Threads)
+      if (own0 + c < t) a.dbias[(long long)bh * t + own0 + c] = db_s[c];
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
-  using L = BwdLayout<T, DH>;
-  constexpr int BR = L::BR, BC = L::BC;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem + L::kA);
-  T* v_s = reinterpret_cast<T*>(smem + L::kB);
-  T* q_s = reinterpret_cast<T*>(smem + L::kC);
-  T* do_s = reinterpret_cast<T*>(smem + L::kD);
-  float* s_s = reinterpret_cast<float*>(smem + L::kS);
-  float* dp_s = reinterpret_cast<float*>(smem + L::kDP);
-  T* ds_t = reinterpret_cast<T*>(smem + L::kDST);
-  float* dq_s = reinterpret_cast<float*>(smem + L::kAcc0);
-  float* lse_s = reinterpret_cast<float*>(smem + L::kStatDq);
-  float* dl_s = lse_s + BR;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
-  const int t = a.t;
-  const int n_q = (t + BR - 1) / BR;
-  const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;   // heaviest causal tile first
-  const T* qp = static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h;
-  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
-  const T* dop = static_cast<const T*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
-  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
-
-  load_rows<T, BR, DH, L::LDT>(q_s, qp, a.sq.t, q0, t);
-  load_rows<T, BR, DH, L::LDT>(do_s, dop, a.sdo.t, q0, t);
-  load_stats<BR>(a, bh, q0, lse_s, dl_s);
-  for (int i = tid; i < BR * L::LDO; i += kThreads) dq_s[i] = 0.f;
-  const int k_end = a.causal ? min(t, q0 + BR) : t;
-  for (int k0 = 0; k0 < k_end; k0 += BC) {
-    __syncthreads();
-    load_rows<T, BC, DH, L::LDT>(k_s, kp, a.sk.t, k0, t);
-    load_rows<T, BC, DH, L::LDT>(v_s, vp, a.sv.t, k0, t);
-    __syncthreads();
-    mm<T, BR, BC, DH, false, true, false>(s_s, L::LDS, q_s, L::LDT, k_s, L::LDT);
-    mm<T, BR, BC, DH, false, true, false>(dp_s, L::LDS, do_s, L::LDT, v_s, L::LDT);
-    __syncthreads();
-    grad_tile<T, BR, BC, L::LDS, L::LDP>(a, s_s, dp_s, static_cast<T*>(nullptr), ds_t,
-                                         false, lse_s, dl_s, bias, q0, k0);
-    __syncthreads();
-    mm<T, BR, DH, BC, false, false, true>(dq_s, L::LDO, ds_t, L::LDP, k_s, L::LDT);
-  }
-  __syncthreads();
-  store_rows<T, BR, DH, L::LDO>(static_cast<T*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h,
-                                a.sdq.t, dq_s, q0, t);
-}
-
-template <typename T, int DH, bool kDq>
-int launch(const BwdArgs& a, int b, cudaStream_t s) {
-  using L = BwdLayout<T, DH>;
-  auto kern = kDq ? flash_bwd_dq_kernel<T, DH> : flash_bwd_dkdv_kernel<T, DH>;
-  const size_t bytes = kDq ? L::kBytesDq : L::kBytesDkdv;
+template <typename Kernel, typename... Extra>
+int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
+           int threads, cudaStream_t s, const BwdArgs& a, Extra... extra) {
   // once per instantiation, on the first (uncaptured) launch
-  static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((a.t + L::BR - 1) / L::BR, b * a.h);
-  kern<<<grid, kThreads, bytes, s>>>(a);
+  kern<<<grid, threads, bytes, s>>>(a, extra...);
   return (int)cudaGetLastError();
 }
 
-template <bool kDq>
-int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, cudaStream_t s) {
-  if (is_bf16)
-    return dh == 64 ? launch<__nv_bfloat16, 64, kDq>(a, b, s)
-                    : launch<__nv_bfloat16, 128, kDq>(a, b, s);
-  return dh == 64 ? launch<float, 64, kDq>(a, b, s) : launch<float, 128, kDq>(a, b, s);
+template <int DH>
+int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
+              cudaStream_t s) {
+  if (!is_bf16) {
+    static bool configured = false;
+    const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);
+    return launch(flash_bwd_f32_kernel<DH>, F32BwdLayout<DH>::kBytes,
+                  configured, grid, kF32Threads, s, a, dq_pass);
+  }
+  const dim3 grid((a.t + kBfTile - 1) / kBfTile, b * a.h);
+  if (dq_pass) {
+    static bool configured = false;
+    return launch(flash_bwd_dq_bf16_kernel<DH>, BfBwdLayout<DH>::kBytes,
+                  configured, grid, kBfThreads, s, a);
+  }
+  static bool configured = false;
+  return launch(flash_bwd_dkdv_bf16_kernel<DH>, BfBwdLayout<DH>::kBytes,
+                configured, grid, kBfThreads, s, a);
+}
+
+int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, bool dq_pass,
+               cudaStream_t s) {
+  return dh == 64 ? launch_dh<64>(a, b, is_bf16, dq_pass, s)
+                  : launch_dh<128>(a, b, is_bf16, dq_pass, s);
 }
 
 int fill(BwdArgs& a, const void* q, const void* k, const void* v,
@@ -294,9 +474,8 @@ int fill(BwdArgs& a, const void* q, const void* k, const void* v,
 // Plain-C entries for ctypes.  `strides` holds the (batch, time, head)
 // element strides of q, k, v, dO, dQ, dK and dV, in that order (21
 // values; each entry ignores the strides of outputs it does not write).
-// Each launches on
-// `stream`, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() (0 on success).
+// Each launches on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() (0 on success).
 
 // K5: dK, dV and (when dbias is non-null) dBias.
 extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
@@ -313,7 +492,7 @@ extern "C" int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   a.dbias = static_cast<float*>(dbias);
-  return launch_any<false>(a, b, dh, is_bf16, static_cast<cudaStream_t>(stream));
+  return launch_any(a, b, dh, is_bf16, false, static_cast<cudaStream_t>(stream));
 }
 
 // K6: dQ.
@@ -328,5 +507,5 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                       dh, scale, causal);
   if (rc) return rc;
   a.dq = dq;
-  return launch_any<true>(a, b, dh, is_bf16, static_cast<cudaStream_t>(stream));
+  return launch_any(a, b, dh, is_bf16, true, static_cast<cudaStream_t>(stream));
 }

@@ -4,40 +4,28 @@
 // Operands are [b, t, h, dh] views given as pointer + (batch, time, head)
 // element strides with dh contiguous, so a kernel reads the q/k/v column
 // blocks of a [b, t, 3d] projection in place.  Tiles of rows are staged in
-// shared memory (rows at or past t are zero-filled, never read); every
-// tile product writes or accumulates an f32 tile in shared memory:
-// bf16 through 16x16x16 tensor-core fragments (wmma), f32 through plain
-// FMAs, so the f32 path keeps full f32 products.
+// shared memory; rows at or past t are zero-filled, never read.
+//
+// Two arithmetic routes, chosen by the input dtype:
+// * bf16 (the training path): register-resident tensor-core fragments —
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate) in the PTX ISA's
+//   documented fragment layouts.  A warp owns 16 rows; the f32
+//   accumulator of one product turns into the A fragment of the next
+//   (P, dS) without shared memory; B fragments that need a transpose
+//   come from ldmatrix.trans.
+// * f32 (tests, parity checks): f32 tiles in shared memory and plain
+//   FMAs (`mm`), so an f32 run has f32 products throughout.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-
-#include <type_traits>
+#include <stdint.h>
 
 namespace flash {
 
 constexpr float kNeg = -1e30f;  // the reference's finite "-inf" for masked scores
 constexpr float kPos = 1e30f;   // LSE of a row with no unmasked key (p == 0 in bwd)
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
-
-// Tile rows (queries and keys alike) and the row padding of the element
-// tiles (16 bytes, so tensor-core fragment loads avoid bank conflicts).
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int kTile = 64;
-  static constexpr int kPad = 8;
-};
-template <>
-struct Cfg<float> {
-  static constexpr int kTile = 32;
-  static constexpr int kPad = 4;
-};
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
@@ -69,20 +57,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// max / sum over the 4 lanes of a quad (the lanes holding one fragment row)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // (batch, time, head) element strides of one [b, t, h, dh] operand
 struct Strides {
   long long b, t, h;
 };
 
 // Stage rows [r0, r0 + R) of one (batch, head) slice into `dst` (row
-// pitch LD elements) with 16-byte loads; rows at or past t are zero.
-// `src` points at row 0 of the slice, `st` is the time stride.
-template <typename T, int R, int DH, int LD>
+// pitch LD elements) with 16-byte loads by NT threads; rows at or past t
+// are zero.  `src` points at row 0 of the slice, `st` is the time stride.
+template <typename T, int R, int DH, int LD, int NT>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
                                           int r0, int t) {
   constexpr int kVec = 16 / (int)sizeof(T);
   constexpr int kVpr = DH / kVec;
-  for (int c = threadIdx.x; c < R * kVpr; c += kThreads) {
+  for (int c = threadIdx.x; c < R * kVpr; c += NT) {
     const int r = c / kVpr;
     const int w = c - r * kVpr;
     const int row = r0 + r;
@@ -92,61 +91,128 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
   }
 }
 
-// Write rows [r0, r0 + R) (those below t) of an f32 tile, cast to T.
-template <typename T, int R, int DH, int LD>
-__device__ __forceinline__ void store_rows(T* dst, long long st,
+// ---------------------------------------------------------------------------
+// f32 route
+// ---------------------------------------------------------------------------
+constexpr int kF32Threads = 256;   // 8 warps
+constexpr int kF32Warps = kF32Threads / 32;
+constexpr int kF32Tile = 32;       // rows per tile (queries and keys)
+
+// Write rows [r0, r0 + R) (those below t) of an f32 tile.
+template <int R, int DH, int LD>
+__device__ __forceinline__ void store_rows(float* dst, long long st,
                                            const float* src, int r0, int t) {
-  for (int i = threadIdx.x; i < R * DH; i += kThreads) {
+  for (int i = threadIdx.x; i < R * DH; i += kF32Threads) {
     const int r = i / DH;
     const int d = i - r * DH;
-    if (r0 + r < t) dst[(long long)(r0 + r) * st + d] = from_float<T>(src[r * LD + d]);
+    if (r0 + r < t) dst[(long long)(r0 + r) * st + d] = src[r * LD + d];
   }
 }
 
-// C[M x N] (=, or += with ACC) sum_k A(m, k) B(k, n) over shared-memory
-// tiles.  A(m, k) is A[m * lda + k], or A[k * lda + m] with TA; B(k, n) is
-// B[k * ldb + n], or B[n * ldb + k] with TB.  C is f32, row-major, pitch
-// ldc.  Every warp of the block takes part; the caller synchronises.
-template <typename T, int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
-                                   const T* B, int ldb) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    using LayoutA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-    using LayoutB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-    constexpr int TN = N / 16;
-    const int warp = threadIdx.x >> 5;
-    for (int tile = warp; tile < (M / 16) * TN; tile += kWarps) {
-      const int m0 = (tile / TN) * 16;
-      const int n0 = (tile % TN) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC)
-        wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> b;
-        wmma::load_matrix_sync(a, TA ? A + k0 * lda + m0 : A + m0 * lda + k0, lda);
-        wmma::load_matrix_sync(b, TB ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < M * N; i += kThreads) {
-      const int m = i / N;
-      const int n = i - m * N;
-      float acc = ACC ? C[m * ldc + n] : 0.f;
+// C[M x N] (=, or += with ACC) sum_k A(m, k) B(k, n) over f32 tiles in
+// shared memory with plain FMAs.  A(m, k) is A[m * lda + k], or
+// A[k * lda + m] with TA; B(k, n) is B[k * ldb + n], or B[n * ldb + k]
+// with TB.  C is row-major, pitch ldc.  The caller synchronises.
+template <int M, int N, int K, bool TA, bool TB, bool ACC>
+__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
+                                   const float* B, int ldb) {
+  for (int i = threadIdx.x; i < M * N; i += kF32Threads) {
+    const int m = i / N;
+    const int n = i - m * N;
+    float acc = ACC ? C[m * ldc + n] : 0.f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float av = to_float(TA ? A[k * lda + m] : A[m * lda + k]);
-        const float bv = to_float(TB ? B[n * ldb + k] : B[k * ldb + n]);
-        acc = fmaf(av, bv, acc);
-      }
-      C[m * ldc + n] = acc;
-    }
+    for (int k = 0; k < K; ++k)
+      acc = fmaf(TA ? A[k * lda + m] : A[m * lda + k],
+                 TB ? B[n * ldb + k] : B[k * ldb + n], acc);
+    C[m * ldc + n] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 route: mma.sync m16n8k16 fragments
+// ---------------------------------------------------------------------------
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), lane = 4 g + q:
+//   A (16 x 16, row-major): a0 (row g, k 2q..2q+1), a1 (row g+8, same k),
+//                           a2 (row g, k 2q+8..),   a3 (row g+8, k 2q+8..)
+//   B (16 x 8, "col"):      b0 (k 2q..2q+1, col g), b1 (k 2q+8.., col g)
+//   C/D (16 x 8, f32):      c0, c1 (row g, cols 2q, 2q+1),
+//                           c2, c3 (row g+8, cols 2q, 2q+1)
+// The lower-indexed element of a packed pair sits in the low 16 bits.
+constexpr int kBfThreads = 128;    // 4 warps, 16 rows each
+constexpr int kBfTile = 64;        // rows per tile (queries and keys)
+constexpr int kBfPad = 8;          // row padding of bf16 tiles (16 bytes)
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices, transposed: lane l gives the shared-memory
+// address of row (l & 7) of matrix (l >> 3); register i receives matrix
+// i's elements (rows 2q, 2q+1; column g).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of rows [r0, r0 + 16), k [k0, k0 + 16) of a row-major
+// bf16 tile with pitch LD.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
+                                       int r0, int k0, int g, int q) {
+  a[0] = ld_u32(s + (r0 + g) * LD + k0 + 2 * q);
+  a[1] = ld_u32(s + (r0 + g + 8) * LD + k0 + 2 * q);
+  a[2] = ld_u32(s + (r0 + g) * LD + k0 + 2 * q + 8);
+  a[3] = ld_u32(s + (r0 + g + 8) * LD + k0 + 2 * q + 8);
+}
+
+// acc[j] (j < NJ, 8 columns each) += A(16 x 16 k-step) . M^T, where B(k, n)
+// = M[n0 + 8 j + n][k0 + k] for a row-major bf16 tile M with pitch LD —
+// a product against the transpose of a row-major tile (Q K^T, dO V^T,
+// K Q^T, V dO^T).
+template <int NJ, int LD>
+__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)[4],
+                                        const __nv_bfloat16* m, int n0, int k0,
+                                        int g, int q) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const __nv_bfloat16* row = m + (n0 + 8 * j + g) * LD + k0 + 2 * q;
+    mma_16816(acc[j], a, ld_u32(row), ld_u32(row + 8));
+  }
+}
+
+// acc[j] (j < NJ, 8 columns each) += A(16 x 16 k-step) . M, where B(k, n)
+// = M[k0 + k][8 j + n] for a row-major bf16 tile M with pitch LD — a
+// product against a row-major tile as it stands (P V, dS K, P^T dO,
+// dS^T Q); the B fragments come from ldmatrix.trans, two column blocks
+// per instruction.
+template <int NJ, int LD>
+__device__ __forceinline__ void mma_ab(float (&acc)[NJ][4], const uint32_t (&a)[4],
+                                       const __nv_bfloat16* m, int k0, int lane) {
+  const int mat = lane >> 3;
+  const __nv_bfloat16* row = m + (k0 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
+#pragma unroll
+  for (int j = 0; j < NJ; j += 2) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, row + 8 * j);
+    mma_16816(acc[j], a, b[0], b[1]);
+    mma_16816(acc[j + 1], a, b[2], b[3]);
   }
 }
 
