@@ -92,9 +92,18 @@ NEAR_TIE_F32 = 1e-4
 # magnitude <= ~3; bf16 differs by rounding points (the plain version
 # rounds scores and P to bf16 and multiplies P.V in bf16, the kernel
 # keeps scores and the accumulator in f32) — a few bf16 ulps of outputs
-# of magnitude <= ~3.  The flash kernels' errors are taken relative to
-# max(1, max |plain|): their gradients reach magnitudes ~10.
+# of magnitude <= ~3.
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the flash kernels' outputs span orders of magnitude (early causal rows
+# near 4, most rows near 0.05 at t 2048; gradients up to ~10), so each
+# element is held to its own size: max |kernel - plain| / (|plain| +
+# RMS(plain)) — an allclose with rtol = the bound and atol = the bound x
+# the output's RMS.  In bf16 the outputs' own rounding differs by up to
+# one ulp (2^-7 relative), and K3 rounds P at each tile's running max
+# where the plain version rounds it at the row's final max: on an H100
+# the largest reading is 1.2e-2 (K3's O at t 2048), the others <= 7.4e-3,
+# f32 <= 4e-6.  A K5 that skips its last query tile reads 1.27.
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
@@ -228,7 +237,8 @@ def phase_kernel(torch, pa):
                                      f"{err} > {TOL[dname]}")
     errs.update(phase_flash_kernel(torch))
     emit({"phase": "kernel", "max_abs_err": errs, "tolerance": TOL,
-          "flash_error": "max |kernel - plain| / max(1, max |plain|)"})
+          "flash_tolerance": FLASH_TOL,
+          "flash_error": "max |kernel - plain| / (|plain| + RMS(plain))"})
     return errs
 
 
@@ -237,9 +247,8 @@ def flash_case(torch, fa, b, t, h, dh, dtype, causal, with_bias, single,
     """K3 (or K4 with ``single``), K5 and K6 against their plain versions
     on bthd views of a [b, t + 8, 3 h dh] projection whose rows past t
     are NaN (as are dO's), so a finite, matching result proves no kernel
-    reads a row at or past t.  Returns {output: relative error} with the
-    error taken relative to max(1, max |plain|) — gradients reach
-    magnitudes ~10 at t = 2048, where bf16 holds ~3 significant digits."""
+    reads a row at or past t.  Returns {output: (error, detail)}, the
+    error as :func:`flash_err` takes it."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     tp = t + 8
@@ -276,9 +285,19 @@ def flash_case(torch, fa, b, t, h, dh, dtype, causal, with_bias, single,
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"flash {name}: non-finite values (a row "
                                  f"past t={t} leaked, or overflow)")
-        errs[name] = float((x - r).abs().max()) / max(
-            1.0, float(r.abs().max()))
+        errs[name] = flash_err(torch, x, r)
     return errs
+
+
+def flash_err(torch, x, r):
+    """(max |x - r| / (|r| + RMS(r)), detail): the error of each element
+    relative to its own size, or to the output's RMS where it is near 0;
+    the detail gives the max abs error, max |r| and RMS(r)."""
+    rms = float(r.square().mean().sqrt())
+    diff = (x - r).abs()
+    err = float((diff / (r.abs() + rms).clamp_min(1e-30)).max())
+    return err, {"max_abs_err": float(diff.max()),
+                 "max_abs_plain": float(r.abs().max()), "rms_plain": rms}
 
 
 # (name, b, t, h, dh, causal, bias, K4): the training path's shapes (t 2048
@@ -305,14 +324,14 @@ def phase_flash_kernel(torch):
                              ("bfloat16", torch.bfloat16)):
             case = flash_case(torch, fa, b, t, h, dh, dtype, causal, bias,
                               single, seed=100 + i)
-            for out, err in case.items():
+            for out, (err, detail) in case.items():
                 kern = "K4" if single and kernel_of[out] == "K3" \
                     else kernel_of[out]
                 key = f"flash_{name}/{dname}/{kern}/{out}"
                 errs[key] = err
-                if not err <= TOL[dname]:
+                if not err <= FLASH_TOL[dname]:
                     raise AssertionError(f"{key}: error {err} > "
-                                         f"{TOL[dname]}")
+                                         f"{FLASH_TOL[dname]} ({detail})")
     return errs
 
 
@@ -936,6 +955,10 @@ def phase_timings_flash(torch):
                 "plain_ms": ms["plain_fwd" if part == "fwd" else
                                "plain_bwd"],
                 "library_ms": lib_fwd if part == "fwd" else lib_fb - lib_fwd,
+                # K5 and K6 are held against one plain call and one SDPA
+                # backward that each compute every gradient at once
+                "plain_scope": "kernel" if part == "fwd" else "bwd_all",
+                "library_scope": "kernel" if part == "fwd" else "bwd_all",
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes, "max_abs_err": errs[part],
                 "shapes": {"b": b, "t": t, "h": h, "dh": dh,
@@ -1133,14 +1156,19 @@ def phase_profile(torch, np):
 
 
 def kernel_row(name, source, replaces, launches, err, timing):
-    """One entry of the closing ``kernels`` line."""
+    """One entry of the closing ``kernels`` line.  ``plain_scope`` and
+    ``library_scope`` say what the plain and library times cover: this
+    kernel's function ("kernel") or the whole attention backward, every
+    gradient at once ("bwd_all", the rows of K5 and K6)."""
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_torch/kernels/csrc/{source}",
             "replaces": f"deeplearning4j_tpu/kernels/{replaces}",
             "launches": launches, "max_abs_err": err,
             "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"]}
+            "library_ms": timing["library_ms"],
+            "plain_scope": timing.get("plain_scope", "kernel"),
+            "library_scope": timing.get("library_scope", "kernel")}
 
 
 def main(argv=None) -> int:

@@ -215,9 +215,11 @@ def _check_device(name, x):
 # ---------------------------------------------------------------------------
 # Kernel wrappers (each counts its own launches)
 # ---------------------------------------------------------------------------
-def _fwd(name, q, k, v, bias, causal, scale, single):
+def _fwd(wrapper, q, k, v, bias, causal, scale, single):
     """Shared body of ``flash_fwd`` / ``flash_fwd_single`` on [b, t, h,
-    dh] views; returns (O [b, t, h, dh] contiguous, LSE [b*h, t])."""
+    dh] views; returns (O [b, t, h, dh] contiguous, LSE [b*h, t]) and
+    counts a launch on ``wrapper``."""
+    name = wrapper.__name__
     b, t, h, dh = q.shape
     if not _check_device(name, q):
         o, lse = flash_fwd_reference(_to_bh(q), _to_bh(k), _to_bh(v), bias,
@@ -234,6 +236,7 @@ def _fwd(name, q, k, v, bias, causal, scale, single):
             b, h, t, dh, float(scale), int(causal), int(single),
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(rc, name)
+    wrapper.launches += 1
     return o, lse
 
 
@@ -241,20 +244,14 @@ def flash_fwd(q, k, v, bias=None, *, causal: bool = False, scale: float):
     """K3, the streaming forward, on [b, t, h, dh] views (any strides with
     dh contiguous) and an optional [b*h, t] f32 key bias.  Returns (O
     [b, t, h, dh], LSE [b*h, t] f32).  CPU: the plain version."""
-    out = _fwd("flash_fwd", q, k, v, bias, causal, scale, False)
-    if q.device.type == "cuda":
-        flash_fwd.launches += 1
-    return out
+    return _fwd(flash_fwd, q, k, v, bias, causal, scale, False)
 
 
 def flash_fwd_single(q, k, v, bias=None, *, causal: bool = False,
                      scale: float):
     """K4, the forward when one key block covers the row (t <= blk_k):
     as :func:`flash_fwd`, with P normalised before it is rounded."""
-    out = _fwd("flash_fwd_single", q, k, v, bias, causal, scale, True)
-    if q.device.type == "cuda":
-        flash_fwd_single.launches += 1
-    return out
+    return _fwd(flash_fwd_single, q, k, v, bias, causal, scale, True)
 
 
 def _bwd_plain(q, k, v, bias, do, lse, delta, causal, scale):

@@ -236,8 +236,11 @@ def _cuda_or_skip():
                                               (True, True)])
 def test_cuda_kernels_match_plain(dtype, tol, causal, with_bias):
     """K3/K4 forward and K5/K6 backward against the plain versions on
-    strided bthd views of a [b, t, 3d] projection at a ragged t (error
-    relative to max(1, max |plain|))."""
+    strided bthd views of a [b, t, 3d] projection at a ragged t.  Each
+    element is held to its own size: max |kernel - plain| / (|plain| +
+    RMS(plain)) <= tol, an allclose with rtol = tol and atol = tol x the
+    output's RMS: the measure of ``chip_smoke.py``'s kernel phase, which
+    allows bf16 3e-2 for K3 at t 2048."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -248,8 +251,11 @@ def test_cuda_kernels_match_plain(dtype, tol, causal, with_bias):
             if with_bias else None)
     do = torch.randn((b, t, h, dh), generator=g, device="cuda").to(dt)
     scale = dh ** -0.5
-    err = lambda x, r: float((x.float() - r.float()).abs().max()) / max(
-        1.0, float(r.float().abs().max()))
+    def err(x, r):
+        x, r = x.float(), r.float()
+        rms = r.square().mean().sqrt()
+        return float(((x - r).abs() / (r.abs() + rms).clamp_min(1e-30))
+                     .max())
     bh = lambda x: fa._to_bh(x)
     for single, wrapper in ((False, fa.flash_fwd),
                             (True, fa.flash_fwd_single)):
