@@ -17,8 +17,11 @@ Phases:
                (K2) against their plain PyTorch versions on the card: the
                serving path's shapes (8 slots, 6 heads of 128, block 16,
                64-entry tables; K2 at W = 2 and 5 with one slot within W
-               of the table's end) at mixed positions, the pangrams
-               checkpoint's shapes, block size 8 (K1); f32 and bf16.
+               of the table's end) at mixed positions, K1 at positions on
+               its split edges and with slots that fill only the first
+               split beside slots that fill all, the pangrams
+               checkpoint's shapes, block size 8 (K1); f32 and bf16, each
+               element held to its own size (``flash_err``).
                Tables point at shuffled blocks; block 0 and every row past
                a slot's last valid position are NaN in the kernel's pool,
                so a finite, matching result on the valid rows proves the
@@ -27,7 +30,7 @@ Phases:
                plain versions, f32 and bf16, on bthd views of a [b, t, 3d]
                projection whose rows past t are NaN: the training shapes
                (t 2048 on K3, t 512 on K4), a ragged t with a key bias,
-               causal + bias at dh 64, plain at dh 64.
+               causal + bias at dh 64 (K3 and K4), plain at dh 64.
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -59,9 +62,11 @@ Phases:
                of each other, no flash launch); (c) the same at t 512,
                where the forward is K4.
   7. timings — K1 and K2, their plain versions and one PyTorch SDPA call
-               each at the path shapes (CUDA events, medians), beside the
-               memory bound; K3-K6 at the training shapes beside their
-               plain versions, SDPA forward and backward, and the bound.
+               each at the path shapes (CUDA-graph replay, medians), beside
+               the memory bound; K3-K6 at the training shapes beside their
+               plain versions, SDPA forward (graph replay) and backward
+               (events, median of 9 with the spread), all on the same
+               rotating input sets, and the bound.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -87,13 +92,18 @@ EXTRA_PHASES = ("profile",)       # run only when asked for
 # must lie within this much of each other (f32 logits; the two paths
 # sum in different orders, so only a genuine near tie may flip argmax)
 NEAR_TIE_F32 = 1e-4
-# kernel vs plain: f32 differs only by summation order (online softmax
-# over 64-row tiles vs one softmax over the row) — ~1e-6 on outputs of
-# magnitude <= ~3; bf16 differs by rounding points (the plain version
-# rounds scores and P to bf16 and multiplies P.V in bf16, the kernel
-# keeps scores and the accumulator in f32) — a few bf16 ulps of outputs
-# of magnitude <= ~3.
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# K1 and K2 vs plain, each element held to its own size as the flash
+# kernels are (``flash_err``): f32 differs only by summation order (online
+# softmax over tiles and splits vs one softmax over the row); bf16 by
+# rounding points (the plain version rounds scores and P to bf16 and
+# multiplies P.V in bf16, the kernels keep scores and the accumulator in
+# f32 and round P at a running max).  Random-V outputs at a 1000-row
+# context are ~0.03-0.1 in size, so an absolute bound of 2e-2 (the
+# measure before) would pass a split that drops a chunk.  On an H100 the
+# largest readings are K1 4.3e-7 (f32) and 9.2e-3 (bf16), K2 7.3e-7 and
+# 1.8e-2 (W = 5); the bounds are ~3x those.
+PAGED_TOL = {"K1": {"float32": 1.5e-6, "bfloat16": 3e-2},
+             "K2": {"float32": 2.5e-6, "bfloat16": 5e-2}}
 # the flash kernels' outputs span orders of magnitude (early causal rows
 # near 4, most rows near 0.05 at t 2048; gradients up to ~10), so each
 # element is held to its own size: max |kernel - plain| / (|plain| +
@@ -126,7 +136,7 @@ def card_line() -> str:
 # -- phase 2 -----------------------------------------------------------
 def kernel_case(torch, pa, B, h, dh, bs, mb, positions, dtype, seed):
     """K1 vs the plain version on shuffled tables with NaN poison past
-    every slot's position.  Returns the max abs error."""
+    every slot's position.  Returns :func:`flash_err` of the output."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     need = [p // bs + 1 for p in positions]
@@ -155,7 +165,7 @@ def kernel_case(torch, pa, B, h, dh, bs, mb, positions, dtype, seed):
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"kernel read poisoned rows (B={B} h={h} "
                              f"dh={dh} bs={bs} {dtype})")
-    return float((out.float() - ref.float()).abs().max())
+    return flash_err(torch, out.float(), ref.float())
 
 
 def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed):
@@ -163,7 +173,7 @@ def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed):
     of 1..W valid rows (a slot near the table's end keeps all W: its
     deeper rows see the whole table); block 0, unneeded table entries and
     every row past a slot's last valid position are NaN in the kernel's
-    pool.  Returns the max abs error over the valid rows."""
+    pool.  Returns :func:`flash_err` over the valid rows."""
     dev, L = "cuda", mb * bs
     g = torch.Generator(device=dev).manual_seed(seed)
     budget = [W if p + W > L else 1 + (b * 7 + seed) % W
@@ -197,27 +207,40 @@ def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed):
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"K2 read poisoned rows (B={B} W={W} h={h} "
                              f"dh={dh} bs={bs} {dtype})")
-    return float((got - want).abs().max())
+    return flash_err(torch, got, want)
 
 
 def phase_kernel(torch, pa):
     path_pos = [0, 15, 16, 17, 511, 1023, 700, 250]
+    # K1 splits the context into chunks of C rows (C = 64 at these shapes):
+    # positions on split edges and the table's last row; then slots whose
+    # context fits the first split beside slots that fill every split
+    C = pa.decode_split_rows(8, 6, 64 * 16, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     cases = [
         ("path", dict(B=8, h=6, dh=128, bs=16, mb=64, positions=path_pos)),
+        ("split_edges", dict(B=8, h=6, dh=128, bs=16, mb=64,
+                             positions=[C - 1, C, C + 1, 1023, 0,
+                                        2 * C - 1, 2 * C, 2 * C + 1])),
+        ("first_split_only", dict(B=8, h=6, dh=128, bs=16, mb=64,
+                                  positions=[0, 1023, C - 1, 1023, 5, 1023,
+                                             C // 2, 1022])),
         ("pangrams", dict(B=4, h=4, dh=16, bs=8, mb=8,
                           positions=[0, 7, 8, 63])),
         ("bs8", dict(B=8, h=6, dh=128, bs=8, mb=128,
                      positions=[0, 7, 8, 9, 511, 1023, 300, 64])),
     ]
-    errs = {}
+    errs, details = {}, {}
     for name, kw in cases:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            err = kernel_case(torch, pa, dtype=dtype, seed=len(errs), **kw)
+            err, detail = kernel_case(torch, pa, dtype=dtype,
+                                      seed=len(errs), **kw)
             errs[f"{name}/{dname}"] = err
-            if not err <= TOL[dname]:
-                raise AssertionError(f"K1 {name}/{dname}: max abs err "
-                                     f"{err} > {TOL[dname]}")
+            details[f"{name}/{dname}"] = detail
+            if not err <= PAGED_TOL["K1"][dname]:
+                raise AssertionError(f"K1 {name}/{dname}: error {err} > "
+                                     f"{PAGED_TOL['K1'][dname]} ({detail})")
     # K2 at the path shapes (one slot within W of the table's end) and
     # the pangrams shapes
     vcases = [
@@ -230,15 +253,18 @@ def phase_kernel(torch, pa):
     for name, kw in vcases:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            err = verify_case(torch, pa, dtype=dtype, seed=len(errs), **kw)
+            err, detail = verify_case(torch, pa, dtype=dtype,
+                                      seed=len(errs), **kw)
             errs[f"{name}/{dname}"] = err
-            if not err <= TOL[dname]:
-                raise AssertionError(f"K2 {name}/{dname}: max abs err "
-                                     f"{err} > {TOL[dname]}")
+            details[f"{name}/{dname}"] = detail
+            if not err <= PAGED_TOL["K2"][dname]:
+                raise AssertionError(f"K2 {name}/{dname}: error {err} > "
+                                     f"{PAGED_TOL['K2'][dname]} ({detail})")
     errs.update(phase_flash_kernel(torch))
-    emit({"phase": "kernel", "max_abs_err": errs, "tolerance": TOL,
-          "flash_tolerance": FLASH_TOL,
-          "flash_error": "max |kernel - plain| / (|plain| + RMS(plain))"})
+    emit({"phase": "kernel", "error": errs, "paged_tolerance": PAGED_TOL,
+          "flash_tolerance": FLASH_TOL, "k1_split_rows": C,
+          "paged_detail": details,
+          "measure": "max |kernel - plain| / (|plain| + RMS(plain))"})
     return errs
 
 
@@ -301,12 +327,13 @@ def flash_err(torch, x, r):
 
 
 # (name, b, t, h, dh, causal, bias, K4): the training path's shapes (t 2048
-# on K3, t 512 on K4), ragged t with a key bias, and dh 64
+# on K3, t 512 on K4), ragged t with a key bias (K3 and K4), and dh 64
 FLASH_CASES = [
     ("path", 8, 2048, 6, 128, True, False, False),
     ("path_k4", 8, 512, 6, 128, True, False, True),
     ("ragged_bias", 2, 1000, 3, 128, False, True, False),
     ("ragged_causal_bias_dh64_k4", 2, 777, 4, 64, True, True, True),
+    ("ragged_causal_bias_dh64", 2, 777, 4, 64, True, True, False),
     ("plain_dh64", 2, 256, 2, 64, False, False, False),
 ]
 
@@ -829,25 +856,28 @@ def time_ms(torch, fn, n_inner=24, reps=9):
     return sorted(times)[len(times) // 2]
 
 
-def time_events_ms(torch, fn, n=8, reps=5):
-    """Median device milliseconds per call of ``fn()`` from CUDA events
-    around a plain loop — for library calls that are not captured in a
-    graph; each call here runs long enough (milliseconds) that the host's
-    launch time hides behind the card's."""
-    for _ in range(2):
-        fn()
+def time_events_ms(torch, fn, n=8, reps=9):
+    """(median, sorted per-repetition times) of device milliseconds per
+    call of ``fn(i)`` from CUDA events around a plain loop — for library
+    calls that are not captured in a graph (SDPA's backward through
+    autograd); each call runs long enough (~0.5 ms) that the host's launch
+    time hides behind the card's.  ``i`` counts the calls, so ``fn`` can
+    rotate input sets as :func:`time_ms`'s callers do."""
+    for i in range(2):
+        fn(i)
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for r in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(n):
-            fn()
+        for i in range(n):
+            fn(r * n + i)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
-    return sorted(times)[len(times) // 2]
+    times.sort()
+    return times[len(times) // 2], times
 
 
 def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True):
@@ -871,10 +901,12 @@ def phase_timings_flash(torch):
     6 heads of 128, causal, bthd views of a [b, t, 3d] projection) and K4
     at t 512, against their plain versions; yardsticks: one
     ``F.scaled_dot_product_attention(is_causal=True)`` call (forward) and
-    its backward through autograd (dq, dk and dv together, forward time
-    taken off).  The port never calls SDPA.  Kernels and plain versions
-    are timed by CUDA-graph replay over 4 input sets (~300 MB, beyond the
-    50 MB L2)."""
+    its backward through autograd alone (dq, dk and dv together, on a
+    forward recorded beforehand).  The port never calls SDPA.  Kernels,
+    plain versions and SDPA's forward are timed by CUDA-graph replay over
+    4 input sets in rotation (~300 MB, beyond the 50 MB L2); SDPA's
+    backward, which is not captured, by CUDA events over the same
+    rotation: the median of 9 repetitions, with their spread."""
     import torch.nn.functional as F
     fa = flash_module()
     dev, dt, NB = "cuda", torch.bfloat16, 4
@@ -931,15 +963,17 @@ def phase_timings_flash(torch):
         ms.update({f"plain_{n}": time_ms(torch, fn, n_inner=8, reps=5)
                    for n, fn in plain.items()})
         ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
-        lib_fwd = time_events_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                *sdpa_in[0][:3], is_causal=True, scale=scale))
-        qg, kg, vg = (x.detach().requires_grad_(True)
-                      for x in sdpa_in[0][:3])
-        lib_fb = time_events_ms(torch, lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                           scale=scale),
-            (qg, kg, vg), sdpa_in[0][3]))
+        lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            *sdpa_in[i % NB][:3], is_causal=True, scale=scale))
+        grad_in = [tuple(x.detach().requires_grad_(True) for x in z[:3])
+                   for z in sdpa_in]
+        lib_out = [F.scaled_dot_product_attention(*z, is_causal=True,
+                                                  scale=scale)
+                   for z in grad_in]
+        lib_bwd, lib_bwd_reps = time_events_ms(
+            torch, lambda i: torch.autograd.grad(
+                lib_out[i % NB], grad_in[i % NB], sdpa_in[i % NB][3],
+                retain_graph=True))
         names = ({"fwd": "flash_fwd_single"} if single else
                  {"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
                   "dq": "flash_bwd_dq"})
@@ -954,7 +988,7 @@ def phase_timings_flash(torch):
                 "kernel_ms": ms[f"kernel_{part}"],
                 "plain_ms": ms["plain_fwd" if part == "fwd" else
                                "plain_bwd"],
-                "library_ms": lib_fwd if part == "fwd" else lib_fb - lib_fwd,
+                "library_ms": lib_fwd if part == "fwd" else lib_bwd,
                 # K5 and K6 are held against one plain call and one SDPA
                 # backward that each compute every gradient at once
                 "plain_scope": "kernel" if part == "fwd" else "bwd_all",
@@ -964,13 +998,18 @@ def phase_timings_flash(torch):
                 "shapes": {"b": b, "t": t, "h": h, "dh": dh,
                            "dtype": "bfloat16", "causal": True}}
         rows[names["fwd"]]["kernel_ms_again"] = ms["kernel_fwd_again"]
-        del sets, outs, deltas, plain_in, sdpa_in, qg, kg, vg
+        if not single:
+            for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+                rows[name]["library_reps_ms"] = lib_bwd_reps
+        del sets, outs, deltas, plain_in, sdpa_in, grad_in, lib_out
         torch.cuda.empty_cache()
     emit({"phase": "timings/flash", "kernels": rows,
           "plain_bwd_note": "flash_bwd_reference computes dq, dk, dv and "
                             "dbias at once; its time stands for K5 and K6",
-          "library_bwd_note": "SDPA backward through autograd (dq, dk, dv "
-                              "together), forward time subtracted",
+          "library_bwd_note": "SDPA backward alone through autograd (dq, "
+                              "dk, dv together) on forwards recorded "
+                              "beforehand; median of 9 repetitions, all 9 "
+                              "in library_reps_ms",
           "card": card_line()})
     return rows
 
@@ -1118,6 +1157,7 @@ def phase_profile(torch, np):
             if time.monotonic() > deadline:
                 raise TimeoutError("profile: requests never decoded")
             time.sleep(0.001)
+        emitted0 = [h.emitted for h in hs]
         k0, t0 = ticks.value, time.perf_counter()
         time.sleep(1.0)
         wall_a, ticks_a = time.perf_counter() - t0, ticks.value - k0
@@ -1127,6 +1167,7 @@ def phase_profile(torch, np):
             time.sleep(1.0)
             wall_b = time.perf_counter() - t0
         ticks_b = ticks.value - k0
+        emitted1 = [h.emitted for h in hs]
         if min(h.emitted for h in hs) >= 504:
             raise AssertionError("profile: requests ended inside the "
                                  "windows")
@@ -1152,6 +1193,8 @@ def phase_profile(torch, np):
           "device_events_per_tick": n_kernels / ticks_b,
           "top_device_us_per_tick": [{"name": k, "us": v / ticks_b}
                                      for k, v in top],
+          # the slots' contexts (prompt + tokens so far) over both windows
+          "contexts": [256 + min(emitted0), 256 + max(emitted1)],
           "card": card_line()})
 
 
@@ -1208,10 +1251,10 @@ def main(argv=None) -> int:
         emit({"phase": "build", "libraries": sorted(libs),
               "seconds": time.perf_counter() - t,
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        errs, launches, mid, timing = {}, None, None, None
+        launches, mid, timing = None, None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         if "kernel" in phases:
-            errs = phase_kernel(torch, pa)
+            phase_kernel(torch, pa)
         if "pangrams" in phases:
             phase_pangrams(torch, np, root)
         if "full" in phases:
@@ -1232,13 +1275,10 @@ def main(argv=None) -> int:
             rows = [
                 kernel_row("paged_decode_attention", "paged_decode.cu",
                            "paged_attention.py:110", launches,
-                           errs.get("path/bfloat16", timing["max_abs_err"]),
-                           timing),
+                           timing["max_abs_err"], timing),
                 kernel_row("paged_verify_attention", "paged_verify.cu",
                            "paged_attention.py:228", v_launches,
-                           errs.get("verify_path_w5/bfloat16",
-                                    v_timing["max_abs_err"]),
-                           v_timing)]
+                           v_timing["max_abs_err"], v_timing)]
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",

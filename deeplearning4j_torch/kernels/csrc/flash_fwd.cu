@@ -27,16 +27,29 @@
 //   tiles twice: once for each row's max and denominator, once for P.V
 //   with P normalised THEN rounded — K4's rounding point (p / l before the
 //   cast).
-// * bf16 (v2): 4 warps, 64-row tiles, one warp per 16 query rows; scores,
-//   P and the output accumulator live in mma.sync fragments in registers
-//   (flash_common.cuh), so shared memory holds only the q/k/v tiles.  v1
-//   staged every fragment and accumulator through shared memory (wmma);
-//   PERF.md has both versions' times.
+// * bf16 K3 (v3): 8 warps (two warpgroups) on 128 query rows, 16 rows a
+//   warp; Q is copied in once and held as mma.sync A fragments in
+//   registers for the whole block.  The K and V tiles (64 keys) stream
+//   through a two-stage shared-memory ring filled by cp.async: tile j + 1
+//   is in flight while tile j computes, one barrier per tile (the
+//   consumers prefetch; no producer warp).  Q K^T takes its B fragments
+//   by ldmatrix.x4 (two column blocks per instruction), P V by
+//   ldmatrix.x4.trans.  The softmax runs in base 2: the scale times
+//   log2 e is folded into one FFMA per score, exponentials are
+//   ex2.approx, and interior tiles (wholly below the diagonal, every key
+//   below t, no bias) take a branch-free path; only diagonal, ragged and
+//   biased tiles mask, with the bias slice read once per tile.  The
+//   128-row tile halves the K/V traffic per query row against v2.
+// * bf16 K4 (v2): 4 warps, 64-row tiles, one warp per 16 query rows;
+//   scores, P and the output accumulator live in mma.sync fragments in
+//   registers (flash_common.cuh), so shared memory holds only the q/k/v
+//   tiles, loaded with plain 16-byte loads between barriers.  v1 staged
+//   every fragment and accumulator through shared memory (wmma);
+//   PERF.md has every version's times.
 // * f32: 8 warps, 32-row tiles, f32 tiles in shared memory and plain FMAs.
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
-// later work: no cp.async/TMA pipeline (one tile in flight per block),
-// mma.sync rather than wgmma.
+// later work: mma.sync rather than wgmma, no warp specialisation.
 #include "flash_common.cuh"
 
 using namespace flash;
@@ -78,8 +91,8 @@ struct BfFwdLayout {
   static constexpr size_t kBytes = 3 * kTileBytes;   // q, k, v
 };
 
-template <int DH, bool kSingle>
-__global__ void __launch_bounds__(kBfThreads) flash_fwd_bf16_kernel(FwdArgs a) {
+template <int DH>
+__global__ void __launch_bounds__(kBfThreads) flash_fwd_bf16_single_kernel(FwdArgs a) {
   using bf16 = __nv_bfloat16;
   using L = BfFwdLayout<DH>;
   constexpr int LD = L::LD, BR = kBfTile, BC = kBfTile;
@@ -146,91 +159,315 @@ __global__ void __launch_bounds__(kBfThreads) flash_fwd_bf16_kernel(FwdArgs a) {
     }
   };
 
-  if constexpr (kSingle) {
-    // K4 pass 1: each row's max and denominator over all of its keys
-    for (int k0 = 0; k0 < k_end; k0 += BC) {
-      __syncthreads();
-      load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
-      __syncthreads();
-      float s[NJ][4], mx[2];
-      scores(s, k0, mx);
+  // K4 pass 1: each row's max and denominator over all of its keys
+  for (int k0 = 0; k0 < k_end; k0 += BC) {
+    __syncthreads();
+    load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
+    __syncthreads();
+    float s[NJ][4], mx[2];
+    scores(s, k0, mx);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], mx[r]);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e)
-            sum += s[j][e] > 0.5f * kNeg ? expf(s[j][e] - m_new) : 0.f;
-        l[r] = l[r] * expf(m[r] - m_new) + quad_sum(sum);
-        m[r] = m_new;
-      }
-    }
-    // K4 pass 2: P = exp(s - m) / l, rounded, then P.V
-    const float l_safe[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
-    for (int k0 = 0; k0 < k_end; k0 += BC) {
-      __syncthreads();
-      load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
-      load_rows<bf16, BC, DH, LD, kBfThreads>(v_s, vp, a.sv.t, k0, t);
-      __syncthreads();
-      float s[NJ][4], mx[2];
-      scores(s, k0, mx);
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], mx[r]);
+      float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          s[j][e] = s[j][e] > 0.5f * kNeg ? expf(s[j][e] - m[r]) / l_safe[r] : 0.f;
-        }
-      pv(s);
-    }
-  } else {
-    // K3: one streaming pass with the online softmax
-    for (int k0 = 0; k0 < k_end; k0 += BC) {
-      __syncthreads();
-      load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
-      load_rows<bf16, BC, DH, LD, kBfThreads>(v_s, vp, a.sv.t, k0, t);
-      __syncthreads();
-      float s[NJ][4], mx[2];
-      scores(s, k0, mx);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], mx[r]);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            const float p = s[j][e] > 0.5f * kNeg ? expf(s[j][e] - m_new) : 0.f;
-            s[j][e] = p;
-            sum += p;
-          }
-        const float corr = expf(m[r] - m_new);   // 0 on a row's first tile
-        l[r] = l[r] * corr + quad_sum(sum);
-        m[r] = m_new;
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          o[j][2 * r] *= corr;
-          o[j][2 * r + 1] *= corr;
-        }
-      }
-      pv(s);
+        for (int e = 2 * r; e < 2 * r + 2; ++e)
+          sum += s[j][e] > 0.5f * kNeg ? expf(s[j][e] - m_new) : 0.f;
+      l[r] = l[r] * expf(m[r] - m_new) + quad_sum(sum);
+      m[r] = m_new;
     }
   }
+  // K4 pass 2: P = exp(s - m) / l, rounded, then P.V
+  const float l_safe[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+  for (int k0 = 0; k0 < k_end; k0 += BC) {
+    __syncthreads();
+    load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
+    load_rows<bf16, BC, DH, LD, kBfThreads>(v_s, vp, a.sv.t, k0, t);
+    __syncthreads();
+    float s[NJ][4], mx[2];
+    scores(s, k0, mx);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        s[j][e] = s[j][e] > 0.5f * kNeg ? expf(s[j][e] - m[r]) / l_safe[r] : 0.f;
+      }
+    pv(s);
+  }
+
   bf16* op = static_cast<bf16*>(a.o) + bi * a.so.b + hi * a.so.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= t) continue;
-    const float inv = kSingle ? 1.f : 1.f / (l[r] == 0.f ? 1.f : l[r]);
     bf16* orow = op + (long long)row[r] * a.so.t + 2 * qd;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          kSingle ? pack_bf16(o[j][2 * r], o[j][2 * r + 1])
-                  : pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+          pack_bf16(o[j][2 * r], o[j][2 * r + 1]);
     if (qd == 0)
       a.lse[(long long)bh * t + row[r]] = l[r] == 0.f ? kPos : m[r] + logf(l[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 K3 v3: 128-row query tiles, a cp.async K/V ring, Q in registers
+// ---------------------------------------------------------------------------
+constexpr int kV3Threads = 256;   // 8 warps (two warpgroups), 16 query rows each
+constexpr int kV3Rows = 128;      // query rows per block
+constexpr int kV3Keys = 64;       // keys per tile
+constexpr int kV3Stages = 2;      // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int DH>
+struct V3Layout {
+  static constexpr int LD = DH + kBfPad;
+  static constexpr size_t kQ = sizeof(__nv_bfloat16) * kV3Rows * LD;
+  static constexpr size_t kStage = sizeof(__nv_bfloat16) * kV3Keys * LD;
+  static constexpr size_t kBytes = kQ + 2 * kV3Stages * kStage;   // q, k ring, v ring
+};
+
+// 16-byte global -> shared copy; with `full` false the 16 bytes are
+// zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Issue the copies of rows [r0, r0 + R) of one (batch, head) slice into
+// `dst` (pitch LD); rows at or past t are zero-filled, never read.
+template <int R, int DH, int LD>
+__device__ __forceinline__ void async_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long st, int r0, int t) {
+  constexpr int kVpr = DH / 8;
+  static_assert(R * kVpr % kV3Threads == 0, "whole vectors per thread");
+#pragma unroll
+  for (int i = 0; i < R * kVpr / kV3Threads; ++i) {
+    const int c = threadIdx.x + i * kV3Threads;
+    const int r = c / kVpr;
+    const int w = c - r * kVpr;
+    const int row = r0 + r;
+    const bool live = row < t;
+    cp_async16(dst + r * LD + w * 8, src + (long long)(live ? row : 0) * st + w * 8, live);
+  }
+}
+
+// Four 8x8 bf16 matrices as they stand: lane l gives the address of row
+// (l & 7) of matrix (l >> 3); register i receives matrix i's elements
+// (row g, columns 2q, 2q+1).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kV3Threads, 1) flash_fwd_bf16_v3_kernel(FwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = V3Layout<DH>;
+  constexpr int LD = L::LD, BR = kV3Rows, BC = kV3Keys;
+  constexpr int NJ = BC / 8;   // score column blocks per key tile
+  constexpr int ND = DH / 8;   // output column blocks
+  constexpr int NK = DH / 16;  // k-steps of Q K^T
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + BR * LD;                 // kV3Stages tiles
+  bf16* v_s = k_s + kV3Stages * BC * LD;     // kV3Stages tiles
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int bh = blockIdx.y;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int t = a.t;
+  const int n_q = (t + BR - 1) / BR;
+  const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;   // heaviest causal tile first
+  const bf16* kp = static_cast<const bf16*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const bf16* vp = static_cast<const bf16*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  const int r0 = warp * 16;                 // this warp's rows in the tile
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int k_end = a.causal ? min(t, q0 + BR) : t;
+  const int n_k = (k_end + BC - 1) / BC;
+
+  // Q and the first K/V tile in flight together
+  async_rows<BR, DH, LD>(q_s, static_cast<const bf16*>(a.q) + bi * a.sq.b + hi * a.sq.h,
+                         a.sq.t, q0, t);
+  async_rows<BC, DH, LD>(k_s, kp, a.sk.t, 0, t);
+  async_rows<BC, DH, LD>(v_s, vp, a.sv.t, 0, t);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // scores in base 2: y = dot * c (+ bias * log2 e); a negative scale
+  // flips Q's sign bits (exact) so that c >= 0 and max(dot) * c is the
+  // row max of y
+  float c = a.scale * kLog2e;
+  const uint32_t flip = c < 0.f ? 0x80008000u : 0u;
+  c = fabsf(c);
+  uint32_t qf[NK][4];   // this warp's Q A fragments, for the whole block
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    load_a<LD>(qf[kk], q_s, r0, 16 * kk, g, qd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qf[kk][i] ^= flip;
+  }
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m2[2] = {-INFINITY, -INFINITY};   // running row max of y
+  float l[2] = {0.f, 0.f};                // this thread's part of the denominator
+  const float thr = 0.5f * kNeg * kLog2e; // the reference's p = 0 test, base 2
+
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * BC;
+    const int st = j % kV3Stages;
+    // the next tile's copies fly while this one computes; its stage was
+    // last read in tile j - 1, which every warp finished at the barrier
+    if (j + 1 < n_k) {
+      const int nx = (j + 1) % kV3Stages;
+      async_rows<BC, DH, LD>(k_s + nx * BC * LD, kp, a.sk.t, k0 + BC, t);
+      async_rows<BC, DH, LD>(v_s + nx * BC * LD, vp, a.sv.t, k0 + BC, t);
+    }
+    cp_async_commit();
+    const bf16* ks = k_s + st * BC * LD;
+    const bf16* vs = v_s + st * BC * LD;
+
+    // S = Q K^T: B fragments of two column blocks per ldmatrix.x4
+    float s[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
+    const int mat = lane >> 3;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < NJ; jj += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + (8 * (jj + (mat >> 1)) + (lane & 7)) * LD + 16 * kk + (mat & 1) * 8);
+        mma_16816(s[jj], qf[kk], b[0], b[1]);
+        mma_16816(s[jj + 1], qf[kk], b[2], b[3]);
+      }
+
+    // interior tile: every key below t and at or below every row, no bias
+    const bool interior = !bias && k0 + BC <= t && (!a.causal || k0 + BC - 1 <= q0);
+    if (interior) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[jj][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m2[r], quad_max(mx[r]) * c);
+        const float corr = ex2(m2[r] - m_new);   // 0 on a row's first tile
+        m2[r] = m_new;
+        l[r] *= corr;
+#pragma unroll
+        for (int jd = 0; jd < ND; ++jd) {
+          o[jd][2 * r] *= corr;
+          o[jd][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = ex2(fmaf(s[jj][e], c, -m2[r]));
+          s[jj][e] = p;
+          l[r] += p;
+        }
+    } else {
+      // diagonal, ragged or biased tile: masked_score's semantics — a
+      // causally masked key or one at or past t adds nothing; a biased
+      // score below the reference's 0.5 * -1e30 gives p = 0
+      float bv[NJ][2];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * jj + 2 * qd + e;
+          bv[jj][e] = bias && col < t ? bias[col] * kLog2e : 0.f;   // once per tile
+        }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * jj + 2 * qd + (e & 1);
+          float y = fmaf(s[jj][e], c, bv[jj][e & 1]);
+          if (col >= t || (a.causal && col > row[e >> 1])) y = -INFINITY;
+          s[jj][e] = y;
+          mx[e >> 1] = fmaxf(mx[e >> 1], y);
+        }
+      float m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m2[r], quad_max(mx[r]));
+        m_use[r] = m_new == -INFINITY ? 0.f : m_new;   // no key yet
+        const float corr = ex2(m2[r] - m_use[r]);
+        m2[r] = m_new;
+        l[r] *= corr;
+#pragma unroll
+        for (int jd = 0; jd < ND; ++jd) {
+          o[jd][2 * r] *= corr;
+          o[jd][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = s[jj][e] > thr ? ex2(s[jj][e] - m_use[r]) : 0.f;
+          s[jj][e] = p;
+          l[r] += p;
+        }
+    }
+
+    // out += P V, P rounded to bf16 before the division by l (K3's
+    // rounding point, as the TPU kernel)
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) {
+      const uint32_t pf[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      mma_ab<ND, LD>(o, pf, vs, 16 * kc, lane);
+    }
+    cp_async_wait_all();   // the next tile has landed (this thread's part) ...
+    __syncthreads();       // ... everyone's, and this tile's stage is free
+  }
+
+  bf16* op = static_cast<bf16*>(a.o) + bi * a.so.b + hi * a.so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (row[r] >= t) continue;
+    const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+    bf16* orow = op + (long long)row[r] * a.so.t + 2 * qd;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
+          pack_bf16(o[jd][2 * r] * inv, o[jd][2 * r + 1] * inv);
+    if (qd == 0)
+      a.lse[(long long)bh * t + row[r]] = lr == 0.f ? kPos : (m2[r] + log2f(lr)) * kLn2;
   }
 }
 
@@ -388,9 +625,15 @@ template <int DH, bool kSingle>
 int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
   if (is_bf16) {
     static bool configured = false;
-    const dim3 grid((a.t + kBfTile - 1) / kBfTile, b * a.h);
-    return launch(flash_fwd_bf16_kernel<DH, kSingle>, BfFwdLayout<DH>::kBytes,
-                  configured, grid, kBfThreads, a, s);
+    if constexpr (kSingle) {   // K4: v2
+      const dim3 grid((a.t + kBfTile - 1) / kBfTile, b * a.h);
+      return launch(flash_fwd_bf16_single_kernel<DH>, BfFwdLayout<DH>::kBytes,
+                    configured, grid, kBfThreads, a, s);
+    } else {                   // K3: v3
+      const dim3 grid((a.t + kV3Rows - 1) / kV3Rows, b * a.h);
+      return launch(flash_fwd_bf16_v3_kernel<DH>, V3Layout<DH>::kBytes,
+                    configured, grid, kV3Threads, a, s);
+    }
   }
   static bool configured = false;
   const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);

@@ -19,8 +19,11 @@ Two implementations behind each of two wrappers.  The decode read,
   then the P.V einsum.  Those bf16 rounding points are what parity with
   the JAX package and with the port's stripe decode rests on.
 * the CUDA kernel ``csrc/paged_decode.cu`` (replaces the Pallas
-  ``_decode_kernel``): one thread block per (head, slot) walking the
-  slot's table entries, online softmax in f32, no gathered copy.
+  ``_decode_kernel``): split-K over the context in one launch — grid
+  (head, slot, split), each split an online f32 softmax over its chunk
+  of the slot's table entries, the last split of a (slot, head) merging
+  the partials — with no gathered copy and no host read of ``pos``.
+  :func:`decode_split_rows` picks the chunk from the table's capacity.
 
 The speculative verification read, ``paged_verify_attention`` (W query
 rows per slot, row j at position ``pos0 + j``):
@@ -132,17 +135,18 @@ def _check(name, q_dims, q, k_pool, v_pool, block_table, pos):
 _KERNEL_FNS = {}
 
 
-def _kernel_fn(lib: str, symbol: str, n_ints: int):
+def _kernel_fn(lib: str, symbol: str, n_ptrs: int, n_ints: int):
     """The C entry ``symbol`` of built library ``lib``, argument types
-    declared: six pointers, ``n_ints`` ints, the scale, the bf16 flag and
-    the stream (every pointer and the stream as c_void_p, or ctypes would
-    cut them to 32 bits)."""
+    declared: ``n_ptrs`` pointers, ``n_ints`` ints, the scale, the bf16
+    flag and the stream (every pointer and the stream as c_void_p, or
+    ctypes would cut them to 32 bits)."""
     fn = _KERNEL_FNS.get(symbol)
     if fn is None:
         from deeplearning4j_torch.kernels import _build
         fn = getattr(_build.load(lib), symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                       + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         _KERNEL_FNS[symbol] = fn
     return fn
@@ -154,18 +158,69 @@ def _check_dh(what: str, dh: int):
                          f"<= {_MAX_DH}")
 
 
+_SPLIT_QUANTUM = 32     # the decode kernel's chunk is a multiple of this
+H100_SMS = 132
+
+
+def decode_split_rows(B: int, h: int, capacity: int,
+                      n_sm: int = H100_SMS) -> int:
+    """Context rows per split of the decode kernel (a multiple of 32):
+    the largest chunk for which the live (slot, head, split) blocks at a
+    mid context of ``7/16`` of the table's ``capacity`` rows (~450 at
+    1024, the serving path's mid contexts) number at least two per SM.
+    A function of the shapes alone, never of the positions, so a call
+    reads nothing back from the card."""
+    q = _SPLIT_QUANTUM
+    mid = max(1, capacity * 7 // 16)
+    need = -(-2 * n_sm // (B * h))             # live splits per (slot, head)
+    chunk = max(q, mid // need // q * q)
+    return min(chunk, -(-capacity // q) * q)
+
+
+_COUNTERS = {}
+
+
+def _split_counters(device, n: int):
+    """[>= n] int32 ticket counters for the decode kernel's merge, zeroed
+    once and cached per device (the kernel leaves them zero), so a call
+    launches no memset and stays safe to capture in a CUDA graph."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(max(n, 1024),
+                                              dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    n = _SMS.get(device)
+    if n is None:
+        n = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
     """Launch the decode kernel on the current stream; raise on a refused
-    launch."""
+    launch.  Its f32 partials go to scratch allocated here."""
     B, h, dh = q.shape
     _check_dh("paged decode kernel", dh)
-    fn = _kernel_fn("paged_decode", "dl4j_paged_decode_attention", 5)
+    bs, mb = k_pool.shape[2], block_table.shape[1]
+    chunk = decode_split_rows(B, h, mb * bs, _sm_count(q.device))
+    n_split = -(-(mb * bs) // chunk)
+    fn = _kernel_fn("paged_decode", "dl4j_paged_decode_attention", 8, 6)
     out = torch.empty_like(q)
+    part = torch.empty(B * h * n_split * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+    counters = _split_counters(q.device, B * h)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, h, k_pool.shape[2], dh, block_table.shape[1], float(scale),
-            int(q.dtype == torch.bfloat16), stream)
+            part.data_ptr(), counters.data_ptr(), B, h, bs, dh, mb, chunk,
+            float(scale), int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA "
                            f"error {rc}")
@@ -238,7 +293,7 @@ def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
     if not 1 <= W <= _MAX_W:
         raise ValueError(f"paged verify kernel: W={W} query rows per slot, "
                          f"the kernel takes 1..{_MAX_W}")
-    fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 6)
+    fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 6, 6)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -282,3 +282,39 @@ def test_cuda_kernels_match_plain(dtype, tol, causal, with_bias):
         assert err(bh(got), want) <= tol
     if with_bias:
         assert err(db, rb) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
+                                              (True, True)])
+def test_cuda_k3_ragged_t(dh, causal, with_bias):
+    """K3 alone in bf16 at a t that fills neither its 128-row query tiles
+    nor its 64-key tiles, with and without a key bias, at both head dims:
+    the interior, diagonal, ragged and biased tiles all run.  Held to the
+    plain version with the measure of :func:`test_cuda_kernels_match_plain`
+    (O at 2e-2, LSE at 1e-5)."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(dh + 2 * causal + with_bias)
+    b, t, h = 2, 333, 3
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+    bias = (torch.randn((b * h, t), generator=g, device="cuda")
+            if with_bias else None)
+    scale = dh ** -0.5
+    n0 = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, bias, causal=causal, scale=scale)
+    bh = fa._to_bh
+    ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, causal=causal,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == n0 + 1
+
+    def err(x, r):
+        x, r = x.float(), r.float()
+        rms = r.square().mean().sqrt()
+        return float(((x - r).abs() / (r.abs() + rms).clamp_min(1e-30))
+                     .max())
+    assert err(bh(o), ro) <= 2e-2
+    assert err(lse, rl) <= 1e-5

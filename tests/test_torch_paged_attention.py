@@ -14,11 +14,15 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
 
 from deeplearning4j_torch import telemetry  # noqa: E402
 from deeplearning4j_torch.kernels import paged_attention as pa  # noqa: E402
+
+
+def _jnp():
+    """jax.numpy, imported per test, so the ``gpu`` cases also run on a
+    machine with a card and no JAX."""
+    return pytest.importorskip("jax").numpy
 
 
 def _paged_fixture(seed=0, B=3, h=4, dh=8, bs=4, mb=4, nb=9):
@@ -38,6 +42,7 @@ def _torch(*arrays):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_plain_matches_jax_reference_and_pallas_interpret(seed):
+    jnp = _jnp()
     from deeplearning4j_tpu.kernels.paged_attention import (
         _paged_decode_pallas, paged_decode_attention_reference)
     q, kp, vp, tbl, pos, scale = _paged_fixture(seed)
@@ -54,6 +59,7 @@ def test_plain_matches_jax_reference_and_pallas_interpret(seed):
 
 
 def test_gather_matches_jax():
+    jnp = _jnp()
     from deeplearning4j_tpu.kernels import paged_gather as jax_gather
     q, kp, vp, tbl, pos, scale = _paged_fixture()
     ref = np.asarray(jax_gather(jnp.asarray(kp), jnp.asarray(tbl)))
@@ -128,6 +134,7 @@ def _verify_fixture(seed, W, bs, B=3, h=4, dh=8, mb=4):
 @pytest.mark.parametrize("W", [1, 3, 5])
 @pytest.mark.parametrize("bs", [4, 8])
 def test_verify_plain_matches_jax_reference_and_pallas_interpret(W, bs):
+    jnp = _jnp()
     from deeplearning4j_tpu.kernels.paged_attention import (
         _paged_verify_pallas, paged_verify_attention_reference)
     q, kp, vp, tbl, pos0, scale = _verify_fixture(10 * W + bs, W, bs)
@@ -217,6 +224,80 @@ def test_cuda_kernel_matches_plain(dtype, tol):
     torch.cuda.synchronize()
     assert pa.paged_decode_attention.launches == l0 + 1
     assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,h,capacity", [(8, 6, 1024), (8, 6, 512),
+                                           (1, 1, 4096), (64, 12, 2048),
+                                           (4, 4, 64), (2, 3, 40)])
+def test_decode_split_rows_cover_the_table(B, h, capacity):
+    """The decode kernel's chunk: a multiple of 32 rows; the splits cover
+    the table's capacity with none wholly past it; at every context the
+    live splits (those starting below it) each cover >= 1 row and
+    together exactly the context."""
+    C = pa.decode_split_rows(B, h, capacity)
+    S = -(-capacity // C)
+    assert C >= 32 and C % 32 == 0
+    assert (S - 1) * C < capacity <= S * C
+    for n_ctx in sorted({1, C - 1, C, C + 1, capacity - 1, capacity}):
+        if not 1 <= n_ctx <= capacity:
+            continue
+        rows = [range(s * C, min(n_ctx, (s + 1) * C)) for s in range(S)
+                if s * C < n_ctx]
+        assert all(len(r) >= 1 for r in rows)
+        assert [j for r in rows for j in r] == list(range(n_ctx))
+
+
+def test_decode_split_rows_fill_the_card_at_the_serving_shapes():
+    """At the serving path's shapes (8 slots, 6 heads, 64-entry tables of
+    16 rows) the live (slot, head, split) blocks number >= 2 per SM of
+    an H100 at ~450-row contexts and at ``chip_smoke.py``'s timing
+    contexts, with no read of the positions."""
+    B, h, cap, sms = 8, 6, 1024, 132
+    C = pa.decode_split_rows(B, h, cap, sms)
+    for ctx in ([450] * B, [101, 228, 355, 482, 609, 736, 863, 990]):
+        live = h * sum(-(-n // C) for n in ctx)
+        assert live >= 2 * sms, (C, ctx, live)
+
+
+def _scaled_err(x, r):
+    """max |x - r| / (|r| + RMS(r)): each element held to its own size."""
+    x, r = x.float(), r.float()
+    rms = r.square().mean().sqrt()
+    return float(((x - r).abs() / (r.abs() + rms).clamp_min(1e-30)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+def test_cuda_kernel_split_edges(dtype, tol):
+    """On the card: the split decode kernel at positions on its split
+    edges (C - 1, C, C + 1, the table's last row) and with slots that fill
+    only the first split beside slots that fill every split; each element
+    held to its own size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dt = getattr(torch, dtype)
+    B, h, dh, bs, mb = 8, 6, 128, 16, 64
+    nb = 1 + B * mb
+    C = pa.decode_split_rows(B, h, mb * bs, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, h, dh), generator=g, device="cuda").to(dt)
+    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
+        B, mb) + 1).to(torch.int32)
+    for positions in ([C - 1, C, C + 1, mb * bs - 1, 0, 2 * C - 1, 2 * C,
+                       2 * C + 1],
+                      [0, mb * bs - 1, C - 1, mb * bs - 1, 5, mb * bs - 1,
+                       C // 2, mb * bs - 2]):
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        out = pa.paged_decode_attention(q, kp, vp, tbl, pos)
+        ref = pa.paged_decode_attention_reference(q, kp, vp, tbl, pos,
+                                                  1.0 / dh ** 0.5)
+        torch.cuda.synchronize()
+        assert _scaled_err(out, ref) <= tol, positions
 
 
 @pytest.mark.gpu
