@@ -27,19 +27,26 @@
 //   tiles twice: once for each row's max and denominator, once for P.V
 //   with P normalised THEN rounded — K4's rounding point (p / l before the
 //   cast).
-// * bf16 K3 (v3): 8 warps (two warpgroups) on 128 query rows, 16 rows a
-//   warp; Q is copied in once and held as mma.sync A fragments in
-//   registers for the whole block.  The K and V tiles (64 keys) stream
-//   through a two-stage shared-memory ring filled by cp.async: tile j + 1
-//   is in flight while tile j computes, one barrier per tile (the
-//   consumers prefetch; no producer warp).  Q K^T takes its B fragments
-//   by ldmatrix.x4 (two column blocks per instruction), P V by
-//   ldmatrix.x4.trans.  The softmax runs in base 2: the scale times
-//   log2 e is folded into one FFMA per score, exponentials are
-//   ex2.approx, and interior tiles (wholly below the diagonal, every key
-//   below t, no bias) take a branch-free path; only diagonal, ragged and
-//   biased tiles mask, with the bias slice read once per tile.  The
-//   128-row tile halves the K/V traffic per query row against v2.
+// * bf16 K3 (v3): wgmma on TMA tiles.  A block is two warpgroups on 128
+//   query rows (64 each: wgmma's M); both fit in registers at dh 128
+//   (246 a thread, no spill), so no producer warpgroup and no setmaxnreg:
+//   thread 0 issues the TMA copies, prefetching key tile j + 1 before
+//   tile j is computed (one barrier per tile).  Q (once) and a two-stage
+//   ring of K and V tiles (128 keys) arrive by TMA from 4-D tensor maps
+//   over the bthd views ((dh, h, t, b) with the projection's strides;
+//   rows past t read as zeros), completion on mbarriers, 128-byte
+//   swizzled panels of 64 head columns.  S = Q K^T is wgmma m64n128k16
+//   with both operands in shared memory; the softmax runs in registers in
+//   base 2 (the scale times log2 e folded into one FFMA per score,
+//   ex2.approx), with a branch-free path for interior tiles (wholly below
+//   the diagonal, every key below t, no bias) and masking only on
+//   diagonal, ragged and biased tiles (the bias slice read once per
+//   tile); P, rounded to bf16 before the division by l, is the register
+//   A operand of O += P V (wgmma m64n{dh}k16, V MN-major through the
+//   descriptor's transpose bit).  A first v3, 8 warps of pipelined
+//   mma.sync (cp.async ring, Q fragments in registers, ldmatrix), ran
+//   at 0.288 ms at the training shapes where this one runs at 0.150
+//   (PERF.md).
 // * bf16 K4 (v2): 4 warps, 64-row tiles, one warp per 16 query rows;
 //   scores, P and the output accumulator live in mma.sync fragments in
 //   registers (flash_common.cuh), so shared memory holds only the q/k/v
@@ -49,7 +56,10 @@
 // * f32: 8 warps, 32-row tiles, f32 tiles in shared memory and plain FMAs.
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
-// later work: mma.sync rather than wgmma, no warp specialisation.
+// later work: K3's softmax does not overlap its own products (no
+// ping-pong of the two warpgroups, one S buffer); K4 is still v2.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder comes through cudart
+
 #include "flash_common.cuh"
 
 using namespace flash;
@@ -82,7 +92,7 @@ __device__ __forceinline__ float masked_score(const FwdArgs& a, const float* bia
 }
 
 // ---------------------------------------------------------------------------
-// bf16: register-resident fragments
+// bf16 K4 (v2): register-resident mma.sync fragments
 // ---------------------------------------------------------------------------
 template <int DH>
 struct BfFwdLayout {
@@ -213,64 +223,10 @@ __global__ void __launch_bounds__(kBfThreads) flash_fwd_bf16_single_kernel(FwdAr
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K3 v3: 128-row query tiles, a cp.async K/V ring, Q in registers
+// bf16 K3 v3: wgmma on TMA-filled, 128-byte-swizzled tiles
 // ---------------------------------------------------------------------------
-constexpr int kV3Threads = 256;   // 8 warps (two warpgroups), 16 query rows each
-constexpr int kV3Rows = 128;      // query rows per block
-constexpr int kV3Keys = 64;       // keys per tile
-constexpr int kV3Stages = 2;      // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <int DH>
-struct V3Layout {
-  static constexpr int LD = DH + kBfPad;
-  static constexpr size_t kQ = sizeof(__nv_bfloat16) * kV3Rows * LD;
-  static constexpr size_t kStage = sizeof(__nv_bfloat16) * kV3Keys * LD;
-  static constexpr size_t kBytes = kQ + 2 * kV3Stages * kStage;   // q, k ring, v ring
-};
-
-// 16-byte global -> shared copy; with `full` false the 16 bytes are
-// zero-filled and nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Issue the copies of rows [r0, r0 + R) of one (batch, head) slice into
-// `dst` (pitch LD); rows at or past t are zero-filled, never read.
-template <int R, int DH, int LD>
-__device__ __forceinline__ void async_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long st, int r0, int t) {
-  constexpr int kVpr = DH / 8;
-  static_assert(R * kVpr % kV3Threads == 0, "whole vectors per thread");
-#pragma unroll
-  for (int i = 0; i < R * kVpr / kV3Threads; ++i) {
-    const int c = threadIdx.x + i * kV3Threads;
-    const int r = c / kVpr;
-    const int w = c - r * kVpr;
-    const int row = r0 + r;
-    const bool live = row < t;
-    cp_async16(dst + r * LD + w * 8, src + (long long)(live ? row : 0) * st + w * 8, live);
-  }
-}
-
-// Four 8x8 bf16 matrices as they stand: lane l gives the address of row
-// (l & 7) of matrix (l >> 3); register i receives matrix i's elements
-// (row g, columns 2q, 2q+1).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 __device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
   float y;
@@ -278,94 +234,278 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = 0
   return y;
 }
 
+// Two consumer warpgroups take 64 query rows each (128 a block); the key
+// tile is 128 keys.  Shared memory holds tiles as panels of 64 head
+// columns (128 bytes a row), 128 rows a panel, in the 128-byte swizzle
+// that TMA writes and wgmma reads: Q once, and a two-stage ring of K and
+// V tiles, each stage with its own mbarriers.
+constexpr int kWgThreads = 256;   // two warpgroups
+constexpr int kWgRows = 128;      // query rows per block (64 a warpgroup)
+constexpr int kWgKeys = 128;      // keys per tile
+constexpr int kWgStages = 2;
+constexpr int kPanel = 64;        // head columns per swizzled panel
+
 template <int DH>
-__global__ void __launch_bounds__(kV3Threads, 1) flash_fwd_bf16_v3_kernel(FwdArgs a) {
+struct WgLayout {
+  static constexpr int NP = DH / kPanel;
+  static constexpr uint32_t kPanelBytes = 128 * kWgRows;   // 128 rows of 128 B
+  static constexpr uint32_t kTileBytes = NP * kPanelBytes;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kTileBytes;
+  static constexpr uint32_t kV = kK + kWgStages * kTileBytes;
+  static constexpr uint32_t kBar = kV + kWgStages * kTileBytes;   // 5 mbarriers
+  static constexpr size_t kBytes = kBar + 64 + 1024;   // + slack to align to 1024
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one box (64 head columns x 128 rows of one (batch, head)) into `dst`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
+                                         int d0, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(d0), "r"(head), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand at shared
+// address `addr` (1024-byte-aligned atoms): `lbo`/`sbo` in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from touching wgmma's registers across the async window
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate; d[j][e] is the PTX
+// accumulator register 4 j + e (rows 16 w + g (e < 2) and + 8, columns
+// 8 j + 2 q + (e & 1) for warp w of the warpgroup, lane 4 g + q) — the
+// mma.sync m16n8 C layout, per warp.  ss: A and B from shared memory,
+// both K-major; rs: A from registers (the mma.sync m16n8k16 A layout),
+// B from shared memory MN-major (transposed).
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[16][4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
   using bf16 = __nv_bfloat16;
-  using L = V3Layout<DH>;
-  constexpr int LD = L::LD, BR = kV3Rows, BC = kV3Keys;
+  using L = WgLayout<DH>;
+  constexpr int BR = kWgRows, BC = kWgKeys;
   constexpr int NJ = BC / 8;   // score column blocks per key tile
   constexpr int ND = DH / 8;   // output column blocks
   constexpr int NK = DH / 16;  // k-steps of Q K^T
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + BR * LD;                 // kV3Stages tiles
-  bf16* v_s = k_s + kV3Stages * BC * LD;     // kV3Stages tiles
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  const uint32_t q_s = sb + L::kQ, k_s = sb + L::kK, v_s = sb + L::kV;
+  const uint32_t bar_q = sb + L::kBar;
+  auto bar_k = [&](int st) { return bar_q + 8 + 8 * st; };
+  auto bar_v = [&](int st) { return bar_q + 8 + 8 * kWgStages + 8 * st; };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
   const int g = lane >> 2, qd = lane & 3;
   const int bh = blockIdx.y;
   const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
   const int n_q = (t + BR - 1) / BR;
   const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;   // heaviest causal tile first
-  const bf16* kp = static_cast<const bf16*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const bf16* vp = static_cast<const bf16*>(a.v) + bi * a.sv.b + hi * a.sv.h;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
-  const int r0 = warp * 16;                 // this warp's rows in the tile
-  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int row[2] = {q0 + 64 * wg + 16 * wi + g, q0 + 64 * wg + 16 * wi + g + 8};
   const int k_end = a.causal ? min(t, q0 + BR) : t;
   const int n_k = (k_end + BC - 1) / BC;
 
-  // Q and the first K/V tile in flight together
-  async_rows<BR, DH, LD>(q_s, static_cast<const bf16*>(a.q) + bi * a.sq.b + hi * a.sq.h,
-                         a.sq.t, q0, t);
-  async_rows<BC, DH, LD>(k_s, kp, a.sk.t, 0, t);
-  async_rows<BC, DH, LD>(v_s, vp, a.sv.t, 0, t);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // scores in base 2: y = dot * c (+ bias * log2 e); a negative scale
-  // flips Q's sign bits (exact) so that c >= 0 and max(dot) * c is the
-  // row max of y
-  float c = a.scale * kLog2e;
-  const uint32_t flip = c < 0.f ? 0x80008000u : 0u;
-  c = fabsf(c);
-  uint32_t qf[NK][4];   // this warp's Q A fragments, for the whole block
+  // the consumers prefetch: thread 0 issues tile j + 1 before tile j is
+  // computed (no producer warp)
+  auto issue_kv = [&](int j) {
+    const int st = j % kWgStages;
+    mbar_expect(bar_k(st), L::kTileBytes);
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    load_a<LD>(qf[kk], q_s, r0, 16 * kk, g, qd);
+    for (int p = 0; p < L::NP; ++p)
+      tma_load(k_s + st * L::kTileBytes + p * L::kPanelBytes, tk, bar_k(st), kPanel * p, hi,
+               j * BC, bi);
+    mbar_expect(bar_v(st), L::kTileBytes);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qf[kk][i] ^= flip;
+    for (int p = 0; p < L::NP; ++p)
+      tma_load(v_s + st * L::kTileBytes + p * L::kPanelBytes, tv, bar_v(st), kPanel * p, hi,
+               j * BC, bi);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * kWgStages; ++i) mbar_init(bar_q + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_q, L::kTileBytes);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p)
+      tma_load(q_s + p * L::kPanelBytes, tq, bar_q, kPanel * p, hi, q0, bi);
+    issue_kv(0);
+  }
+
+  const float c = a.scale * kLog2e;
+  const float thr = 0.5f * kNeg * kLog2e;   // the reference's p = 0 test, base 2
   float o[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m2[2] = {-INFINITY, -INFINITY};   // running row max of y
   float l[2] = {0.f, 0.f};                // this thread's part of the denominator
-  const float thr = 0.5f * kNeg * kLog2e; // the reference's p = 0 test, base 2
+  mbar_wait(bar_q, 0);
 
   for (int j = 0; j < n_k; ++j) {
     const int k0 = j * BC;
-    const int st = j % kV3Stages;
-    // the next tile's copies fly while this one computes; its stage was
-    // last read in tile j - 1, which every warp finished at the barrier
-    if (j + 1 < n_k) {
-      const int nx = (j + 1) % kV3Stages;
-      async_rows<BC, DH, LD>(k_s + nx * BC * LD, kp, a.sk.t, k0 + BC, t);
-      async_rows<BC, DH, LD>(v_s + nx * BC * LD, vp, a.sv.t, k0 + BC, t);
-    }
-    cp_async_commit();
-    const bf16* ks = k_s + st * BC * LD;
-    const bf16* vs = v_s + st * BC * LD;
+    const int st = j % kWgStages;
+    const int parity = (j / kWgStages) & 1;
+    if (j > 0) __syncthreads();   // tile j - 1 read by every warpgroup: its stage is free
+    if (tid == 0 && j + 1 < n_k) issue_kv(j + 1);
+    mbar_wait(bar_k(st), parity);
 
-    // S = Q K^T: B fragments of two column blocks per ldmatrix.x4
+    // S = Q K^T, both K-major: a k-step advances 32 bytes inside the
+    // swizzled row, a panel every four k-steps
     float s[NJ][4];
+    wg_fence();
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-    const int mat = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk)
-#pragma unroll
-      for (int jj = 0; jj < NJ; jj += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, ks + (8 * (jj + (mat >> 1)) + (lane & 7)) * LD + 16 * kk + (mat & 1) * 8);
-        mma_16816(s[jj], qf[kk], b[0], b[1]);
-        mma_16816(s[jj + 1], qf[kk], b[2], b[3]);
-      }
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t koff = (kk / 4) * L::kPanelBytes + (kk % 4) * 32;
+      Wgmma<BC>::ss(s, sw128_desc(q_s + koff + wg * 64 * 128, 16, 1024),
+                    sw128_desc(k_s + st * L::kTileBytes + koff, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    keep(s);
 
-    // interior tile: every key below t and at or below every row, no bias
-    const bool interior = !bias && k0 + BC <= t && (!a.causal || k0 + BC - 1 <= q0);
+    const bool interior =
+        !bias && c > 0.f && k0 + BC <= t && (!a.causal || k0 + BC - 1 <= q0);
     if (interior) {
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -394,28 +534,23 @@ __global__ void __launch_bounds__(kV3Threads, 1) flash_fwd_bf16_v3_kernel(FwdArg
           l[r] += p;
         }
     } else {
-      // diagonal, ragged or biased tile: masked_score's semantics — a
-      // causally masked key or one at or past t adds nothing; a biased
-      // score below the reference's 0.5 * -1e30 gives p = 0
-      float bv[NJ][2];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * jj + 2 * qd + e;
-          bv[jj][e] = bias && col < t ? bias[col] * kLog2e : 0.f;   // once per tile
-        }
+      // diagonal, ragged or biased tile (or a scale <= 0): masked_score's
+      // semantics, the bias slice read once per tile
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj)
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int col0 = k0 + 8 * jj + 2 * qd;
+        const float b0 = bias && col0 < t ? bias[col0] * kLog2e : 0.f;
+        const float b1 = bias && col0 + 1 < t ? bias[col0 + 1] * kLog2e : 0.f;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * jj + 2 * qd + (e & 1);
-          float y = fmaf(s[jj][e], c, bv[jj][e & 1]);
+          const int col = col0 + (e & 1);
+          float y = fmaf(s[jj][e], c, (e & 1) ? b1 : b0);
           if (col >= t || (a.causal && col > row[e >> 1])) y = -INFINITY;
           s[jj][e] = y;
           mx[e >> 1] = fmaxf(mx[e >> 1], y);
         }
+      }
       float m_use[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -441,18 +576,29 @@ __global__ void __launch_bounds__(kV3Threads, 1) flash_fwd_bf16_v3_kernel(FwdArg
         }
     }
 
-    // out += P V, P rounded to bf16 before the division by l (K3's
-    // rounding point, as the TPU kernel)
+    // out += P V: P rounded to bf16 before the division by l (K3's
+    // rounding point) as wgmma's register A operand; V MN-major — a
+    // k-step is 16 key rows (2048 bytes), the next 64 head columns a
+    // panel further (LBO)
+    uint32_t pf[NJ / 2][4];
 #pragma unroll
     for (int kc = 0; kc < NJ / 2; ++kc) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      mma_ab<ND, LD>(o, pf, vs, 16 * kc, lane);
+      pf[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pf[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pf[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pf[kc][3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
     }
-    cp_async_wait_all();   // the next tile has landed (this thread's part) ...
-    __syncthreads();       // ... everyone's, and this tile's stage is free
+    mbar_wait(bar_v(st), parity);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc)
+      Wgmma<DH>::rs(o, pf[kc],
+                    sw128_desc(v_s + st * L::kTileBytes + kc * 16 * 128, L::kPanelBytes, 1024),
+                    1);
+    wg_commit();
+    wg_wait0();
+    keep(o);
+    keep(pf);
   }
 
   bf16* op = static_cast<bf16*>(a.o) + bi * a.so.b + hi * a.so.h;
@@ -621,6 +767,66 @@ int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
   return (int)cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The TMA map of one bf16 [b, t, h, dh] view, as the 4-D tensor (dh, h,
+// t, b) with the view's strides: boxes of 64 head columns x 128 rows of
+// one (batch, head), 128-byte swizzled; rows past t read as zeros.  The
+// driver's encoder is reached through cudart, so the library links
+// nothing but cudart.
+int make_map(CUtensorMap* map, const void* base, const Strides& st, int b, int h, int t,
+             int dh) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), 12000,
+        cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                            reinterpret_cast<void**>(&encode),
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || !encode) {
+      encode = nullptr;
+      return (int)cudaErrorSymbolNotFound;
+    }
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.t * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)kWgRows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DH>
+int launch_wgmma(const FwdArgs& a, int b, bool& configured, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, DH);
+  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH);
+  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH);
+  if (rc) return rc;
+  if (!configured) {   // once, on the first (uncaptured) launch
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_wgmma_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)WgLayout<DH>::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid((a.t + kWgRows - 1) / kWgRows, b * a.h);
+  flash_fwd_bf16_wgmma_kernel<DH><<<grid, kWgThreads, WgLayout<DH>::kBytes, s>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
 template <int DH, bool kSingle>
 int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
   if (is_bf16) {
@@ -630,9 +836,7 @@ int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
       return launch(flash_fwd_bf16_single_kernel<DH>, BfFwdLayout<DH>::kBytes,
                     configured, grid, kBfThreads, a, s);
     } else {                   // K3: v3
-      const dim3 grid((a.t + kV3Rows - 1) / kV3Rows, b * a.h);
-      return launch(flash_fwd_bf16_v3_kernel<DH>, V3Layout<DH>::kBytes,
-                    configured, grid, kV3Threads, a, s);
+      return launch_wgmma<DH>(a, b, configured, s);
     }
   }
   static bool configured = false;
