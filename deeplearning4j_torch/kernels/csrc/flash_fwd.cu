@@ -43,21 +43,19 @@
 //   diagonal, ragged and biased tiles (the bias slice read once per
 //   tile); P, rounded to bf16 before the division by l, is the register
 //   A operand of O += P V (wgmma m64n{dh}k16, V MN-major through the
-//   descriptor's transpose bit).  A first v3, 8 warps of pipelined
-//   mma.sync (cp.async ring, Q fragments in registers, ldmatrix), ran
-//   at 0.288 ms at the training shapes where this one runs at 0.150
-//   (PERF.md).
+//   descriptor's transpose bit).  The grid launches every head's
+//   heaviest causal query tile first, then the next heaviest, so the
+//   lightest blocks fill the last wave.
 // * bf16 K4 (v2): 4 warps, 64-row tiles, one warp per 16 query rows;
 //   scores, P and the output accumulator live in mma.sync fragments in
 //   registers (flash_common.cuh), so shared memory holds only the q/k/v
-//   tiles, loaded with plain 16-byte loads between barriers.  v1 staged
-//   every fragment and accumulator through shared memory (wmma);
-//   PERF.md has every version's times.
+//   tiles, loaded with plain 16-byte loads between barriers.
 // * f32: 8 warps, 32-row tiles, f32 tiles in shared memory and plain FMAs.
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
-// later work: K3's softmax does not overlap its own products (no
-// ping-pong of the two warpgroups, one S buffer); K4 is still v2.
+// later work: K3 is ~3x the tensor-core time of its products per key tile
+// (PERF.md: neither overlapping the softmax with P V nor a ping-pong of
+// the warpgroups moved it); K4 is still v2.
 #include <cuda.h>   // CUtensorMap and its enums; the encoder comes through cudart
 
 #include "flash_common.cuh"
@@ -327,22 +325,6 @@ template <int N>
 struct Wgmma;
 template <>
 struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[8][4], uint64_t da, uint64_t db,
-                                            int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
   static __device__ __forceinline__ void rs(float (&d)[8][4], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -435,11 +417,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wi = warp & 3;
   const int g = lane >> 2, qd = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
   const int n_q = (t + BR - 1) / BR;
-  const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;   // heaviest causal tile first
+  // blocks start in launch order: every head's heaviest causal tile first
+  const int q0 = (n_q - 1 - (int)blockIdx.y) * BR;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
   const int row[2] = {q0 + 64 * wg + 16 * wi + g, q0 + 64 * wg + 16 * wi + g + 8};
   const int k_end = a.causal ? min(t, q0 + BR) : t;
@@ -822,7 +805,7 @@ int launch_wgmma(const FwdArgs& a, int b, bool& configured, cudaStream_t s) {
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((a.t + kWgRows - 1) / kWgRows, b * a.h);
+  const dim3 grid(b * a.h, (a.t + kWgRows - 1) / kWgRows);
   flash_fwd_bf16_wgmma_kernel<DH><<<grid, kWgThreads, WgLayout<DH>::kBytes, s>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,7 @@
 //   the table's capacity, never from `pos` (no host read).  A block reads
 //   pos[b] itself; a split at or past pos[b] + 1 exits at once.  At the
 //   serving shapes (8 slots, 6 heads, 1024-row tables, C = 64) the ~450-
-//   row mid contexts give ~300 live blocks, where v3's (h, B) grid gave
-//   48 on 132 SMs;
+//   row mid contexts give ~300 live blocks on the H100's 132 SMs;
 // * inside a split, the K/V tiles (kRows rows each) stream through a
 //   ring of kStages shared-memory stages filled by cp.async: the copies
 //   of tile i + kStages - 1 are issued before tile i is computed, one
@@ -44,8 +43,6 @@
 //   context fits one split writes O directly.
 // Templated on float and bf16; dh <= 128 and a multiple of 8 (rows are
 // read as whole 16-byte vectors, scores and P.V as element pairs).
-// v3 (one block per (head, slot) walking the whole context with one
-// tile in flight) and v4 are timed in turns in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
