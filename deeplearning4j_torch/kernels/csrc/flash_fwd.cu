@@ -43,8 +43,11 @@
 //   diagonal, ragged and biased tiles (the bias slice read once per
 //   tile); P, rounded to bf16 before the division by l, is the register
 //   A operand of O += P V (wgmma m64n{dh}k16, V MN-major through the
-//   descriptor's transpose bit).  The grid launches every head's
-//   heaviest causal query tile first, then the next heaviest, so the
+//   descriptor's transpose bit).  Blocks start in groups of 8 (batch,
+//   head) slices, so the K/V that running blocks read stays in L2 (the
+//   kernel is bound by moving K/V tiles: without its products and
+//   exponentials it still takes ~75% of its time, PERF.md), and within a
+//   group every slice's heaviest causal query tile goes first, so the
 //   lightest blocks fill the last wave.
 // * bf16 K4 (v2): 4 warps, 64-row tiles, one warp per 16 query rows;
 //   scores, P and the output accumulator live in mma.sync fragments in
@@ -53,9 +56,9 @@
 // * f32: 8 warps, 32-row tiles, f32 tiles in shared memory and plain FMAs.
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
-// later work: K3 is ~3x the tensor-core time of its products per key tile
-// (PERF.md: neither overlapping the softmax with P V nor a ping-pong of
-// the warpgroups moved it); K4 is still v2.
+// later work: each 128-row query block reads every K/V tile below its
+// diagonal from L2 on its own (sharing them across a cluster by TMA
+// multicast is the next step); K4 is still v2.
 #include <cuda.h>   // CUtensorMap and its enums; the encoder comes through cudart
 
 #include "flash_common.cuh"
@@ -242,6 +245,7 @@ constexpr int kWgRows = 128;      // query rows per block (64 a warpgroup)
 constexpr int kWgKeys = 128;      // keys per tile
 constexpr int kWgStages = 2;
 constexpr int kPanel = 64;        // head columns per swizzled panel
+constexpr int kHeadGroup = 8;     // (batch, head) slices in flight together
 
 template <int DH>
 struct WgLayout {
@@ -417,12 +421,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wi = warp & 3;
   const int g = lane >> 2, qd = lane & 3;
-  const int bh = blockIdx.x;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
   const int n_q = (t + BR - 1) / BR;
-  // blocks start in launch order: every head's heaviest causal tile first
-  const int q0 = (n_q - 1 - (int)blockIdx.y) * BR;
+  // blocks start in launch order: the (batch, head) slices go in groups of
+  // kHeadGroup, so the K/V the running blocks read stays within L2, and
+  // within a group every slice's heaviest causal tile goes first
+  const int n_bh = gridDim.x;
+  const int lin = blockIdx.x + n_bh * blockIdx.y;
+  const int grp = lin / (kHeadGroup * n_q);
+  const int in_grp = min(kHeadGroup, n_bh - grp * kHeadGroup);
+  const int r_in = lin - grp * kHeadGroup * n_q;
+  const int bh = grp * kHeadGroup + r_in % in_grp;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int q0 = (n_q - 1 - r_in / in_grp) * BR;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
   const int row[2] = {q0 + 64 * wg + 16 * wi + g, q0 + 64 * wg + 16 * wi + g + 8};
   const int k_end = a.causal ? min(t, q0 + BR) : t;
