@@ -71,7 +71,9 @@ Phases:
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
 of the full-width server with ``torch.profiler``: device busy share,
-kernel launches per tick and the top kernels by device time.
+kernel launches per tick and the top kernels by device time.  The extra
+phase ``k3`` times K3 alone at the training shapes, three medians, for
+quick comparisons of kernel versions in turns.
 """
 from __future__ import annotations
 
@@ -86,7 +88,7 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "train",
           "timings")
-EXTRA_PHASES = ("profile",)       # run only when asked for
+EXTRA_PHASES = ("profile", "k3")  # run only when asked for
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -1128,6 +1130,26 @@ def phase_timings_verify(torch, pa, positions, W=5):
     return out
 
 
+# -- extra phase: k3 --------------------------------------------------
+def phase_k3(torch):
+    """K3 alone at the training path's shapes (bf16, b 8, t 2048, 6 heads
+    of 128, causal, bthd views of a [b, t, 3d] projection), timed as
+    ``timings`` times it (graph replay over 4 input sets), three times."""
+    fa = flash_module()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b, t, h, dh = 8, 2048, 6, 128
+    sets = []
+    for _ in range(4):
+        qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        sets.append([z.reshape(b, t, h, dh)
+                     for z in qkv.split(h * dh, dim=-1)])
+    fn = lambda i: fa.flash_fwd(*sets[i % 4], None, causal=True,
+                                scale=dh ** -0.5)
+    emit({"phase": "k3", "kernel_ms": [time_ms(torch, fn) for _ in range(3)],
+          "card": card_line()})
+
+
 # -- extra phase: profile ---------------------------------------------
 def phase_profile(torch, np):
     """A steady decode window of the full-width bf16 server (8 greedy
@@ -1270,6 +1292,8 @@ def main(argv=None) -> int:
             f_timing = phase_timings_flash(torch)
         if "profile" in phases:
             phase_profile(torch, np)
+        if "k3" in phases:
+            phase_k3(torch)
         if None not in (launches, timing, v_launches, v_timing, t_counts,
                         f_timing):
             rows = [

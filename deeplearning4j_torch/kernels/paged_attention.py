@@ -180,15 +180,17 @@ def decode_split_rows(B: int, h: int, capacity: int,
 _COUNTERS = {}
 
 
-def _split_counters(device, n: int):
+def _split_counters(device, stream: int, n: int):
     """[>= n] int32 ticket counters for the decode kernel's merge, zeroed
-    once and cached per device (the kernel leaves them zero), so a call
-    launches no memset and stays safe to capture in a CUDA graph."""
-    buf = _COUNTERS.get(device)
+    once and cached per device and stream (the kernel leaves them zero;
+    launches on one stream run in order, so they never share a counter
+    at once), so a call launches no memset and stays safe to capture in
+    a CUDA graph."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
-        buf = _COUNTERS[device] = torch.zeros(max(n, 1024),
-                                              dtype=torch.int32,
-                                              device=device)
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
     return buf
 
 
@@ -215,8 +217,8 @@ def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
     out = torch.empty_like(q)
     part = torch.empty(B * h * n_split * (dh + 2), dtype=torch.float32,
                        device=q.device)
-    counters = _split_counters(q.device, B * h)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _split_counters(q.device, stream, B * h)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), counters.data_ptr(), B, h, bs, dh, mb, chunk,
