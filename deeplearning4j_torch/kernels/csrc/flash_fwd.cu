@@ -768,9 +768,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
 
 // The TMA map of one bf16 [b, t, h, dh] view, as the 4-D tensor (dh, h,
 // t, b) with the view's strides: boxes of 64 head columns x 128 rows of
-// one (batch, head), 128-byte swizzled; rows past t read as zeros.  The
-// driver's encoder is reached through cudart, so the library links
-// nothing but cudart.
+// one (batch, head), 128-byte swizzled; rows past t read as zeros.
+// cuTensorMapEncodeTiled is looked up through cudart's entry-point query,
+// so the library links nothing but cudart.
 int make_map(CUtensorMap* map, const void* base, const Strides& st, int b, int h, int t,
              int dh) {
   static EncodeTiled encode = nullptr;
