@@ -30,7 +30,9 @@ Phases:
                plain versions, f32 and bf16, on bthd views of a [b, t, 3d]
                projection whose rows past t are NaN: the training shapes
                (t 2048 on K3, t 512 on K4), a ragged t with a key bias,
-               causal + bias at dh 64 (K3 and K4), plain at dh 64.
+               causal + bias at dh 64 (K3 and K4), plain at dh 64,
+               BERT-base's attention (b 4, t 512, 12 heads of 64, a
+               padding bias, on K4) and t 896 on K4 (seven key tiles).
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -60,20 +62,23 @@ Phases:
                tokens/s, peak memory, a CUDA-only profile of one step, and
                the same steps on plain attention (loss curves within 1e-3
                of each other, no flash launch); (c) the same at t 512,
-               where the forward is K4.
+               where the forward is K4 (with its own step profile).
   7. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
-               plain versions, SDPA forward (graph replay) and backward
-               (events, median of 9 with the spread), all on the same
-               rotating input sets, and the bound.
+               plain versions, SDPA's forward and its backward alone
+               (graph replay, the backward with the spread of its 9
+               replays), all on the same rotating input sets, and the
+               bound.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
 of the full-width server with ``torch.profiler``: device busy share,
 kernel launches per tick and the top kernels by device time.  The extra
-phase ``k3`` times K3 alone at the training shapes, three medians, for
-quick comparisons of kernel versions in turns.
+phases ``k3``, ``k4`` and ``k5`` time one flash kernel alone at the
+training shapes (K4 also at BERT-base's, 12 heads of 64 with a padding
+bias), three medians each, for quick comparisons of kernel versions in
+turns.
 """
 from __future__ import annotations
 
@@ -88,7 +93,7 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "train",
           "timings")
-EXTRA_PHASES = ("profile", "k3")  # run only when asked for
+EXTRA_PHASES = ("profile", "k3", "k4", "k5")  # run only when asked for
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -270,7 +275,19 @@ def phase_kernel(torch, pa):
     return errs
 
 
-def flash_case(torch, fa, b, t, h, dh, dtype, causal, with_bias, single,
+def key_bias(torch, kind, b, h, t, g):
+    """A [b*h, t] f32 key bias on the card: None, "random" (normal) or
+    "pad" (-1e9 on the last 20% of keys, as a padding mask folds)."""
+    if kind is None:
+        return None
+    if kind == "pad":
+        bias = torch.zeros((b * h, t), device="cuda")
+        bias[:, int(t * 0.8):] = -1e9
+        return bias
+    return torch.randn((b * h, t), generator=g, device="cuda")
+
+
+def flash_case(torch, fa, b, t, h, dh, dtype, causal, bias_kind, single,
                seed):
     """K3 (or K4 with ``single``), K5 and K6 against their plain versions
     on bthd views of a [b, t + 8, 3 h dh] projection whose rows past t
@@ -287,8 +304,8 @@ def flash_case(torch, fa, b, t, h, dh, dtype, causal, with_bias, single,
     q, k, v = (z.reshape(b, tp, h, dh)[:, :t]
                for z in qkv.split(h * dh, dim=-1))
     do = dob[:, :t]
-    bias = (torch.randn((b * h, t), generator=g, device=dev)
-            if with_bias else None)
+    bias = key_bias(torch, bias_kind, b, h, t, g)
+    with_bias = bias is not None
     scale = dh ** -0.5
     kw = dict(causal=causal, scale=scale)
     fwd = fa.flash_fwd_single if single else fa.flash_fwd
@@ -329,14 +346,20 @@ def flash_err(torch, x, r):
 
 
 # (name, b, t, h, dh, causal, bias, K4): the training path's shapes (t 2048
-# on K3, t 512 on K4), ragged t with a key bias (K3 and K4), and dh 64
+# on K3, t 512 on K4), ragged t with a key bias (K3 and K4), dh 64,
+# BERT-base's attention at max_len 512 (12 heads of 64, not causal, a
+# padding bias: -1e9 on the last 20% of keys) and the longest t that
+# ``_auto_blocks`` sends to K4 (7 key tiles: the ring wraps on an odd
+# count).  Bias: None, "random" (normal) or "pad".
 FLASH_CASES = [
-    ("path", 8, 2048, 6, 128, True, False, False),
-    ("path_k4", 8, 512, 6, 128, True, False, True),
-    ("ragged_bias", 2, 1000, 3, 128, False, True, False),
-    ("ragged_causal_bias_dh64_k4", 2, 777, 4, 64, True, True, True),
-    ("ragged_causal_bias_dh64", 2, 777, 4, 64, True, True, False),
-    ("plain_dh64", 2, 256, 2, 64, False, False, False),
+    ("path", 8, 2048, 6, 128, True, None, False),
+    ("path_k4", 8, 512, 6, 128, True, None, True),
+    ("ragged_bias", 2, 1000, 3, 128, False, "random", False),
+    ("ragged_causal_bias_dh64_k4", 2, 777, 4, 64, True, "random", True),
+    ("ragged_causal_bias_dh64", 2, 777, 4, 64, True, "random", False),
+    ("plain_dh64", 2, 256, 2, 64, False, None, False),
+    ("bert_k4", 4, 512, 12, 64, False, "pad", True),
+    ("k4_t896", 2, 896, 6, 128, True, None, True),
 ]
 
 
@@ -798,8 +821,7 @@ def phase_train(torch, np):
                "peak_allocated_bytes": peak, "launches": cnt,
                "flash_fallback_above_threshold": fallbacks,
                "weights": "random (seeded)", "card": card_line()}
-        if t == 2048:
-            row["profile"] = step_profile(torch, np, net, b, t, seed=2)
+        row["profile"] = step_profile(torch, np, net, b, t, seed=2)
         counts[t] = cnt
         del net
         torch.cuda.empty_cache()
@@ -827,13 +849,15 @@ def phase_train(torch, np):
 
 
 # -- phase 7 -----------------------------------------------------------
-def time_ms(torch, fn, n_inner=24, reps=9):
+def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
     events, so the time is the card's, not the Python launch rate (a
     plain loop of launches would measure the host: each wrapper call
-    costs more host time than the kernel runs)."""
-    side = torch.cuda.Stream()
+    costs more host time than the kernel runs).  ``stream``: the side
+    stream to warm up and capture on (default a new one); ``spread``:
+    return (median, the sorted per-replay times)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):           # warm up off the capture
         for i in range(n_inner):
@@ -841,7 +865,7 @@ def time_ms(torch, fn, n_inner=24, reps=9):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(n_inner):
             fn(i)
     graph.replay()
@@ -855,31 +879,30 @@ def time_ms(torch, fn, n_inner=24, reps=9):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n_inner)
-    return sorted(times)[len(times) // 2]
-
-
-def time_events_ms(torch, fn, n=8, reps=9):
-    """(median, sorted per-repetition times) of device milliseconds per
-    call of ``fn(i)`` from CUDA events around a plain loop — for library
-    calls that are not captured in a graph (SDPA's backward through
-    autograd); each call runs long enough (~0.5 ms) that the host's launch
-    time hides behind the card's.  ``i`` counts the calls, so ``fn`` can
-    rotate input sets as :func:`time_ms`'s callers do."""
-    for i in range(2):
-        fn(i)
-    torch.cuda.synchronize()
-    times = []
-    for r in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for i in range(n):
-            fn(r * n + i)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
     times.sort()
-    return times[len(times) // 2], times
+    median = times[len(times) // 2]
+    return (median, times) if spread else median
+
+
+def sdpa_bwd_ms(torch, F, sets, scale, n_sets):
+    """SDPA's backward alone (dq, dk and dv together), timed as the
+    kernels are, by CUDA-graph replay over the rotating input sets
+    ``sets`` ((q, k, v, dO) in [b, h, t, dh]): the forwards are recorded
+    beforehand on the capture stream, since autograd runs each backward
+    op on its forward's stream, and ``torch.autograd.grad`` is captured.
+    Returns (median, sorted per-replay times)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grad_in = [tuple(x.detach().requires_grad_(True) for x in z[:3])
+                   for z in sets]
+        outs = [F.scaled_dot_product_attention(*z, is_causal=True,
+                                               scale=scale)
+                for z in grad_in]
+    torch.cuda.current_stream().wait_stream(side)
+    return time_ms(torch, lambda i: torch.autograd.grad(
+        outs[i % n_sets], grad_in[i % n_sets], sets[i % n_sets][3],
+        retain_graph=True), stream=side, spread=True)
 
 
 def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True):
@@ -905,10 +928,9 @@ def phase_timings_flash(torch):
     ``F.scaled_dot_product_attention(is_causal=True)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
     forward recorded beforehand).  The port never calls SDPA.  Kernels,
-    plain versions and SDPA's forward are timed by CUDA-graph replay over
-    4 input sets in rotation (~300 MB, beyond the 50 MB L2); SDPA's
-    backward, which is not captured, by CUDA events over the same
-    rotation: the median of 9 repetitions, with their spread."""
+    plain versions and both SDPA yardsticks are timed by CUDA-graph replay
+    over 4 input sets in rotation (~300 MB, beyond the 50 MB L2); SDPA's
+    backward with the spread of its 9 replays."""
     import torch.nn.functional as F
     fa = flash_module()
     dev, dt, NB = "cuda", torch.bfloat16, 4
@@ -967,15 +989,7 @@ def phase_timings_flash(torch):
         ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
         lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
             *sdpa_in[i % NB][:3], is_causal=True, scale=scale))
-        grad_in = [tuple(x.detach().requires_grad_(True) for x in z[:3])
-                   for z in sdpa_in]
-        lib_out = [F.scaled_dot_product_attention(*z, is_causal=True,
-                                                  scale=scale)
-                   for z in grad_in]
-        lib_bwd, lib_bwd_reps = time_events_ms(
-            torch, lambda i: torch.autograd.grad(
-                lib_out[i % NB], grad_in[i % NB], sdpa_in[i % NB][3],
-                retain_graph=True))
+        lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale, NB)
         names = ({"fwd": "flash_fwd_single"} if single else
                  {"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
                   "dq": "flash_bwd_dq"})
@@ -1003,14 +1017,15 @@ def phase_timings_flash(torch):
         if not single:
             for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
                 rows[name]["library_reps_ms"] = lib_bwd_reps
-        del sets, outs, deltas, plain_in, sdpa_in, grad_in, lib_out
+        del sets, outs, deltas, plain_in, sdpa_in
         torch.cuda.empty_cache()
     emit({"phase": "timings/flash", "kernels": rows,
           "plain_bwd_note": "flash_bwd_reference computes dq, dk, dv and "
                             "dbias at once; its time stands for K5 and K6",
           "library_bwd_note": "SDPA backward alone through autograd (dq, "
                               "dk, dv together) on forwards recorded "
-                              "beforehand; median of 9 repetitions, all 9 "
+                              "beforehand, by CUDA-graph replay over the "
+                              "rotating sets; median of 9 replays, all 9 "
                               "in library_reps_ms",
           "card": card_line()})
     return rows
@@ -1130,24 +1145,64 @@ def phase_timings_verify(torch, pa, positions, W=5):
     return out
 
 
-# -- extra phase: k3 --------------------------------------------------
-def phase_k3(torch):
-    """K3 alone at the training path's shapes (bf16, b 8, t 2048, 6 heads
-    of 128, causal, bthd views of a [b, t, 3d] projection), timed as
-    ``timings`` times it (graph replay over 4 input sets), three times."""
+# -- extra phases: k3, k4, k5 ------------------------------------------
+# (kernel, shape name, b, t, h, dh, causal, bias kind): the training
+# path's shapes, and K4 at BERT-base's attention too
+SOLO_SHAPES = {
+    "k3": [("flash_fwd", "path", 8, 2048, 6, 128, True, None)],
+    "k4": [("flash_fwd_single", "path_k4", 8, 512, 6, 128, True, None),
+           ("flash_fwd_single", "bert_k4", 4, 512, 12, 64, False, "pad")],
+    "k5": [("flash_bwd_dkdv", "path", 8, 2048, 6, 128, True, None)],
+}
+
+
+def phase_solo(torch, which):
+    """One kernel alone (``which`` in SOLO_SHAPES), bf16 on bthd views of
+    a [b, t, 3d] projection, timed as ``timings`` times it (graph replay
+    over 4 input sets), three times — for quick comparisons of kernel
+    versions in turns.  A forward also gets one SDPA call on the same
+    inputs (its padding bias as a boolean key mask)."""
+    import torch.nn.functional as F
     fa = flash_module()
     g = torch.Generator(device="cuda").manual_seed(9)
-    b, t, h, dh = 8, 2048, 6, 128
-    sets = []
-    for _ in range(4):
-        qkv = torch.randn((b, t, 3 * h * dh), generator=g,
-                          device="cuda").to(torch.bfloat16)
-        sets.append([z.reshape(b, t, h, dh)
-                     for z in qkv.split(h * dh, dim=-1)])
-    fn = lambda i: fa.flash_fwd(*sets[i % 4], None, causal=True,
-                                scale=dh ** -0.5)
-    emit({"phase": "k3", "kernel_ms": [time_ms(torch, fn) for _ in range(3)],
-          "card": card_line()})
+    rows = []
+    for name, shape, b, t, h, dh, causal, bias_kind in SOLO_SHAPES[which]:
+        sets = []
+        for _ in range(4):
+            qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                              device="cuda").to(torch.bfloat16)
+            q, k, v = (z.reshape(b, t, h, dh)
+                       for z in qkv.split(h * dh, dim=-1))
+            do = torch.randn((b, t, h, dh), generator=g,
+                             device="cuda").to(torch.bfloat16)
+            sets.append((q, k, v, do))
+        bias = key_bias(torch, bias_kind, b, h, t, g)
+        kw = dict(causal=causal, scale=dh ** -0.5)
+        fwd = fa.flash_fwd if name == "flash_fwd" else fa.flash_fwd_single
+        outs = [fwd(q, k, v, bias, **kw) for q, k, v, _ in sets]
+        if name == "flash_bwd_dkdv":
+            deltas = [fa.row_delta(z[3], o) for z, (o, _) in zip(sets, outs)]
+            fn = lambda i: fa.flash_bwd_dkdv(
+                *sets[i % 4][:3], bias, sets[i % 4][3], outs[i % 4][1],
+                deltas[i % 4], need_dbias=bias is not None, **kw)
+        else:
+            fn = lambda i: fwd(*sets[i % 4][:3], bias, **kw)
+        row = {"kernel": name, "shape": shape, "b": b, "t": t, "h": h,
+               "dh": dh, "causal": causal, "bias": bias_kind,
+               "kernel_ms": [time_ms(torch, fn) for _ in range(3)]}
+        if name != "flash_bwd_dkdv":
+            mask = (None if bias is None else
+                    (bias.view(b, h, 1, t) > -1e8))
+            sdpa = [tuple(x.transpose(1, 2).contiguous() for x in z[:3])
+                    for z in sets]
+            row["sdpa_fwd_ms"] = time_ms(
+                torch, lambda i: F.scaled_dot_product_attention(
+                    *sdpa[i % 4], attn_mask=mask, is_causal=causal,
+                    scale=kw["scale"]))
+        rows.append(row)
+        del sets, outs
+        torch.cuda.empty_cache()
+    emit({"phase": which, "rows": rows, "card": card_line()})
 
 
 # -- extra phase: profile ---------------------------------------------
@@ -1292,8 +1347,9 @@ def main(argv=None) -> int:
             f_timing = phase_timings_flash(torch)
         if "profile" in phases:
             phase_profile(torch, np)
-        if "k3" in phases:
-            phase_k3(torch)
+        for which in SOLO_SHAPES:
+            if which in phases:
+                phase_solo(torch, which)
         if None not in (launches, timing, v_launches, v_timing, t_counts,
                         f_timing):
             rows = [

@@ -23,16 +23,32 @@
 // tiles (the Pallas grid's "arbitrary" axis), skipping tiles wholly on the
 // masked side of the causal diagonal.  K5 owns its key tile, so it sums dS
 // over every query tile itself and needs no atomics.  Rows and keys at or
-// past t are zero-filled in shared memory and never written.
-// * bf16 (v2): 4 warps, 64-row tiles, mma.sync fragments in registers
-//   (flash_common.cuh).  K6: a warp owns 16 query rows (S and dP, then
-//   dS * scale becomes the A fragment of dS K).  K5: a warp owns 16 keys
-//   and computes the transposed tiles K Q^T and V dO^T directly, so P^T
-//   and dS^T are already A fragments of P^T dO and dS^T Q; its dK/dV
-//   accumulators and dBias partial sums stay in registers across query
-//   tiles.  v1 staged everything through shared memory (wmma).
+// past t are never written.
+// * bf16 K5 (v3): wgmma on TMA tiles (flash_hopper.cuh).  A block owns
+//   128 keys, two warpgroups of 64 (wgmma's M); its K and V arrive once by
+//   TMA and stay in shared memory, and the Q and dO tiles of 64 query rows
+//   stream through a two-stage ring from 4-D tensor maps over the bthd
+//   views (rows past t read as zeros), with their LSE and delta rows by
+//   cp.async; thread 0 prefetches tile j + 1 before tile j is computed (no
+//   producer warp, no setmaxnreg).  The transposed tiles S^T = K Q^T and
+//   dP^T = V dO^T are wgmma m64n64k16 with keys as M, both operands in
+//   shared memory; P^T and dS^T stay in the accumulator registers and
+//   become the register A operands of dV += P^T dO and dK += (dS scale)^T
+//   Q (wgmma m64n{dh}k16, dO and Q MN-major through the descriptor's
+//   transpose bit: one swizzled tile serves both descriptors).  P is
+//   recomputed in base 2 (ex2.approx) from each query column's LSE, with a
+//   branch-free path for interior tiles (no bias, wholly below the
+//   diagonal) and masking on diagonal and biased tiles, the key bias read
+//   once per block; rounding points as v2: P to bf16 for P^T dO, dS *
+//   scale to bf16 for dS^T Q, dBias the f32 sum of dS.  Low key tiles go
+//   first (the most causal work), in groups of 8 (batch, head) slices so
+//   the Q/dO tiles the running blocks share stay in L2.  Each block
+//   writes its dK and dV once, at the end.
+// * bf16 K6 (v2): 4 warps, 64-row tiles, mma.sync fragments in registers
+//   (flash_common.cuh): a warp owns 16 query rows (S and dP, then dS *
+//   scale becomes the A fragment of dS K).
 // * f32: 8 warps, 32-row tiles, f32 tiles in shared memory, plain FMAs.
-#include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 using namespace flash;
 
@@ -69,7 +85,7 @@ __device__ __forceinline__ float recompute_p(const BwdArgs& a, const float* bias
 }
 
 // ---------------------------------------------------------------------------
-// bf16: register-resident fragments
+// bf16 K6: register-resident mma.sync fragments
 // ---------------------------------------------------------------------------
 template <int DH>
 struct BfBwdLayout {
@@ -92,15 +108,6 @@ __device__ __forceinline__ void load_stats(const BwdArgs& a, int bh, int q0,
   }
 }
 
-template <int NJ>
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[NJ][4],
-                                       int kc) {
-  f[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-  f[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-  f[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-  f[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
-}
-
 template <int ND>
 __device__ __forceinline__ void store_frag_rows(__nv_bfloat16* base, long long st,
                                                 const float (&acc)[ND][4],
@@ -116,88 +123,217 @@ __device__ __forceinline__ void store_frag_rows(__nv_bfloat16* base, long long s
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K5 v3: wgmma on TMA-filled, 128-byte-swizzled tiles
+// ---------------------------------------------------------------------------
+// A block owns 128 keys, 64 for each of two consumer warpgroups (wgmma's
+// M); its K and V arrive once by TMA and stay in shared memory, while the
+// Q and dO tiles of 64 query rows stream through a two-stage ring, with
+// the tile's LSE and delta rows (cp.async) beside them.
+constexpr int kBwThreads = 256;   // two warpgroups
+constexpr int kBwKeys = 128;      // keys per block (64 a warpgroup)
+constexpr int kBwRows = 64;       // query rows per streamed tile
+constexpr int kBwStages = 2;
+
 template <int DH>
-__global__ void __launch_bounds__(kBfThreads) flash_bwd_dkdv_bf16_kernel(BwdArgs a) {
+struct DkdvLayout {
+  static constexpr int NP = DH / kPanel;
+  static constexpr uint32_t kKPanel = 128 * kBwKeys;   // 128 rows of 128 B
+  static constexpr uint32_t kKTile = NP * kKPanel;
+  static constexpr uint32_t kQPanel = 128 * kBwRows;   // 64 rows of 128 B
+  static constexpr uint32_t kQTile = NP * kQPanel;
+  static constexpr uint32_t kStatBytes = 2 * kBwRows * sizeof(float);   // LSE, delta
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kKTile;
+  static constexpr uint32_t kQ = 2 * kKTile;                     // ring of Q tiles
+  static constexpr uint32_t kDo = kQ + kBwStages * kQTile;        // ring of dO tiles
+  static constexpr uint32_t kStat = kDo + kBwStages * kQTile;     // ring of stats
+  static constexpr uint32_t kBar = kStat + kBwStages * kStatBytes;   // K/V + one a stage
+  static constexpr size_t kBytes = kBar + 8 * (1 + kBwStages) + 1024;   // + alignment slack
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
   using bf16 = __nv_bfloat16;
-  using L = BfBwdLayout<DH>;
-  constexpr int LD = L::LD, BR = kBfTile, BC = kBfTile;
-  constexpr int NJ = BR / 8;   // query column blocks of a transposed tile
+  using L = DkdvLayout<DH>;
+  constexpr int NJ = kBwRows / 8;   // query column blocks of a transposed tile
   constexpr int ND = DH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + L::kTile;
-  bf16* q_s = v_s + L::kTile;
-  bf16* do_s = q_s + L::kTile;
-  float* lse_s = reinterpret_cast<float*>(do_s + L::kTile);
-  float* dl_s = lse_s + BR;
+  constexpr int NK = DH / 16;       // k-steps of K Q^T and V dO^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  unsigned char* smem = smem_raw + (sb - raw);
+  const uint32_t k_s = sb + L::kK, v_s = sb + L::kV;
+  auto q_s = [&](int st) { return sb + L::kQ + st * L::kQTile; };
+  auto do_s = [&](int st) { return sb + L::kDo + st * L::kQTile; };
+  const uint32_t bar_kv = sb + L::kBar;
+  auto bar_q = [&](int st) { return bar_kv + 8 + 8 * st; };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
   const int g = lane >> 2, qd = lane & 3;
-  const int bh = blockIdx.y;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
-  const int k0 = blockIdx.x * BC;   // low key tiles carry the most causal work
-  const bf16* qp = static_cast<const bf16*>(a.q) + bi * a.sq.b + hi * a.sq.h;
-  const bf16* dop = static_cast<const bf16*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
-  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
-  const int kr0 = warp * 16;                // this warp's keys in the tile
-  const int key[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
+  // low key tiles first: they carry the most causal work
+  const int2 blk = grouped_block((t + kBwKeys - 1) / kBwKeys);
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int k0 = blk.y * kBwKeys;
+  const int kw0 = k0 + 64 * wg;   // this warpgroup's keys
+  const int key[2] = {kw0 + 16 * wi + g, kw0 + 16 * wi + g + 8};
+  // causal: query tiles wholly above this key tile see none of its keys
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = (t - q_begin + kBwRows - 1) / kBwRows;
 
-  load_rows<bf16, BC, DH, LD, kBfThreads>(
-      k_s, static_cast<const bf16*>(a.k) + bi * a.sk.b + hi * a.sk.h, a.sk.t, k0, t);
-  load_rows<bf16, BC, DH, LD, kBfThreads>(
-      v_s, static_cast<const bf16*>(a.v) + bi * a.sv.b + hi * a.sv.h, a.sv.t, k0, t);
+  // the consumers prefetch kAhead tiles ahead: thread 0 issues the TMA
+  // copies of query tile j + kAhead before tile j is computed; the first
+  // 128 threads copy its LSE and delta rows (zeros past t: there Q and dO
+  // are zeros as well, so dS = 0), one cp.async group a tile, empty past
+  // the last
+  constexpr int kAhead = kBwStages - 1;
+  auto issue = [&](int j) {
+    const int st = j % kBwStages;
+    mbar_expect(bar_q(st), 2 * L::kQTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(q_s(st) + p * L::kQPanel, tq, bar_q(st), kPanel * p, hi,
+               q_begin + j * kBwRows, bi);
+      tma_load(do_s(st) + p * L::kQPanel, tdo, bar_q(st), kPanel * p, hi,
+               q_begin + j * kBwRows, bi);
+    }
+  };
+  auto copy_stats = [&](int j) {
+    if (j < n_tiles && tid < 2 * kBwRows) {
+      const int i = tid % kBwRows;
+      const int row = q_begin + j * kBwRows + i;
+      const float* src = (tid < kBwRows ? a.lse : a.delta) + (long long)bh * t + min(row, t - 1);
+      cp_async4(sb + L::kStat + (j % kBwStages) * L::kStatBytes + 4 * tid, src,
+                row < t ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kBwStages; ++i) mbar_init(bar_kv + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_kv, 2 * L::kKTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(k_s + p * L::kKPanel, tk, bar_kv, kPanel * p, hi, k0, bi);
+      tma_load(v_s + p * L::kKPanel, tv, bar_kv, kPanel * p, hi, k0, bi);
+    }
+    for (int j = 0; j < kAhead && j < n_tiles; ++j) issue(j);
+  }
+  for (int j = 0; j < kAhead; ++j) copy_stats(j);
+
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  float bk[2];   // the bias of this thread's two keys, constant over the block
+#pragma unroll
+  for (int r = 0; r < 2; ++r) bk[r] = bias && key[r] < t ? bias[key[r]] : 0.f;
+  const float c = a.scale * kLog2e;
   float dk[ND][4], dv[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   float db[2] = {0.f, 0.f};
-  // causal: query tiles wholly above this key tile see none of its keys
-  for (int q0 = a.causal ? k0 : 0; q0 < t; q0 += BR) {
-    __syncthreads();
-    load_rows<bf16, BR, DH, LD, kBfThreads>(q_s, qp, a.sq.t, q0, t);
-    load_rows<bf16, BR, DH, LD, kBfThreads>(do_s, dop, a.sdo.t, q0, t);
-    load_stats<BR, kBfThreads>(a, bh, q0, lse_s, dl_s);
-    __syncthreads();
-    // transposed tiles, keys x queries: S^T = K Q^T, dP^T = V dO^T
-    float st[NJ][4], dpt[NJ][4];
+  mbar_wait(bar_kv, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kBwStages;
+    const int q0 = q_begin + j * kBwRows;
+    cp_async_wait<kAhead - 1>();
+    __syncthreads();   // tile j's stats visible; tile j - 1 read by everyone: its stage is free
+    if (tid == 0 && j + kAhead < n_tiles) issue(j + kAhead);
+    copy_stats(j + kAhead);
+    // causal: this warpgroup's keys all come after the tile's queries
+    if (a.causal && q0 + kBwRows - 1 < kw0) continue;
+    mbar_wait(bar_q(st), (j / kBwStages) & 1);
+
+    // transposed tiles, keys x queries: S^T = K Q^T, dP^T = V dO^T, all
+    // K-major — a k-step advances 32 bytes inside the swizzled row, a
+    // panel every four k-steps
+    float sT[NJ][4], dpT[NJ][4];
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH; kk += 16) {
-      uint32_t af[4];
-      load_a<LD>(af, k_s, kr0, kk, g, qd);
-      mma_abt<NJ, LD>(st, af, q_s, 0, kk, g, qd);
-      load_a<LD>(af, v_s, kr0, kk, g, qd);
-      mma_abt<NJ, LD>(dpt, af, do_s, 0, kk, g, qd);
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t ka = (kk / 4) * L::kKPanel + (kk % 4) * 32 + wg * 64 * 128;
+      const uint32_t kb = (kk / 4) * L::kQPanel + (kk % 4) * 32;
+      Wgmma<64>::ss(sT, sw128_desc(k_s + ka, 16, 1024), sw128_desc(q_s(st) + kb, 16, 1024),
+                    kk > 0);
+      Wgmma<64>::ss(dpT, sw128_desc(v_s + ka, 16, 1024), sw128_desc(do_s(st) + kb, 16, 1024),
+                    kk > 0);
     }
+    wg_commit();
+    wg_wait0();
+    keep(sT);
+    keep(dpT);
+
+    // P^T from each query column's LSE in base 2, dS^T = P^T (dP^T -
+    // delta); interior tiles (no bias, wholly below the diagonal) are
+    // branch-free, the rest mask as the plain version does
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::kStat + st * L::kStatBytes);
+    const float* dl_s = lse_s + kBwRows;
+    const bool interior = !bias && (!a.causal || q0 >= kw0 + 64);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int cq = 8 * jj + 2 * qd;
+      const float2 lse = *reinterpret_cast<const float2*>(lse_s + cq);
+      const float2 dl = *reinterpret_cast<const float2*>(dl_s + cq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = 8 * j + 2 * qd + (e & 1);
-        const float p = recompute_p(a, bias, st[j][e], q0 + c, key[r], lse_s[c]);
-        const float ds = p * (dpt[j][e] - dl_s[c]);
+        const int r = e >> 1;
+        const float lse_e = (e & 1) ? lse.y : lse.x;
+        float p;
+        if (interior) {
+          p = ex2(fmaf(sT[jj][e], c, -lse_e * kLog2e));
+        } else {
+          const int qrow = q0 + cq + (e & 1);
+          p = qrow >= t || (a.causal && key[r] > qrow)
+                  ? 0.f
+                  : ex2((fmaf(sT[jj][e], a.scale, bk[r]) - lse_e) * kLog2e);
+        }
+        const float ds = p * (dpT[jj][e] - ((e & 1) ? dl.y : dl.x));
         db[r] += ds;
-        st[j][e] = p;
-        dpt[j][e] = ds * a.scale;
+        sT[jj][e] = p;
+        dpT[jj][e] = ds * a.scale;
       }
+    }
+
+    // dV += P^T dO and dK += (dS scale)^T Q: P and dS * scale rounded to
+    // bf16 as wgmma's register A operands; dO and Q MN-major through the
+    // transpose bit — a k-step is 16 query rows (2048 bytes), the next 64
+    // head columns a panel further (LBO)
+    uint32_t pf[NJ / 2][4], sf[NJ / 2][4];
 #pragma unroll
     for (int kc = 0; kc < NJ / 2; ++kc) {
-      uint32_t f[4];
-      pack_a<NJ>(f, st, kc);
-      mma_ab<ND, LD>(dv, f, do_s, 16 * kc, lane);   // dV += P^T dO
-      pack_a<NJ>(f, dpt, kc);
-      mma_ab<ND, LD>(dk, f, q_s, 16 * kc, lane);    // dK += (dS scale)^T Q
+      pack_a<NJ>(pf[kc], sT, kc);
+      pack_a<NJ>(sf[kc], dpT, kc);
     }
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc)
+      Wgmma<DH>::rs(dv, pf[kc], sw128_desc(do_s(st) + kc * 16 * 128, L::kQPanel, 1024), 1);
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc)
+      Wgmma<DH>::rs(dk, sf[kc], sw128_desc(q_s(st) + kc * 16 * 128, L::kQPanel, 1024), 1);
+    wg_commit();
+    wg_wait0();
+    keep(dv);
+    keep(dk);
+    keep(pf);
+    keep(sf);
   }
-  store_frag_rows<ND>(static_cast<bf16*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h,
-                          a.sdk.t, dk, key, t, qd);
-  store_frag_rows<ND>(static_cast<bf16*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h,
-                          a.sdv.t, dv, key, t, qd);
+
+  store_frag_rows<ND>(static_cast<bf16*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h, a.sdk.t, dk, key,
+                      t, qd);
+  store_frag_rows<ND>(static_cast<bf16*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h, a.sdv.t, dv, key,
+                      t, qd);
   if (a.dbias) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -405,9 +541,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
   }
 }
 
-template <typename Kernel, typename... Extra>
+template <typename Kernel, typename... Args>
 int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
-           int threads, cudaStream_t s, const BwdArgs& a, Extra... extra) {
+           int threads, cudaStream_t s, const Args&... args) {
   // once per instantiation, on the first (uncaptured) launch
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -415,7 +551,7 @@ int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  kern<<<grid, threads, bytes, s>>>(a, extra...);
+  kern<<<grid, threads, bytes, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -428,15 +564,22 @@ int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
     return launch(flash_bwd_f32_kernel<DH>, F32BwdLayout<DH>::kBytes,
                   configured, grid, kF32Threads, s, a, dq_pass);
   }
-  const dim3 grid((a.t + kBfTile - 1) / kBfTile, b * a.h);
   if (dq_pass) {
     static bool configured = false;
+    const dim3 grid((a.t + kBfTile - 1) / kBfTile, b * a.h);
     return launch(flash_bwd_dq_bf16_kernel<DH>, BfBwdLayout<DH>::kBytes,
                   configured, grid, kBfThreads, s, a);
   }
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, DH, kBwRows);
+  if (!rc) rc = make_map(&tdo, a.dout, a.sdo, b, a.h, a.t, DH, kBwRows);
+  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH, kBwKeys);
+  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH, kBwKeys);
+  if (rc) return rc;
   static bool configured = false;
-  return launch(flash_bwd_dkdv_bf16_kernel<DH>, BfBwdLayout<DH>::kBytes,
-                configured, grid, kBfThreads, s, a);
+  const dim3 grid(b * a.h, (a.t + kBwKeys - 1) / kBwKeys);
+  return launch(flash_bwd_dkdv_bf16_kernel<DH>, DkdvLayout<DH>::kBytes,
+                configured, grid, kBwThreads, s, tq, tk, tv, tdo, a);
 }
 
 int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, bool dq_pass,

@@ -7,9 +7,10 @@
 // shared memory; rows at or past t are zero-filled, never read.
 //
 // Two arithmetic routes, chosen by the input dtype:
-// * bf16 (the training path): register-resident tensor-core fragments —
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate) in the PTX ISA's
-//   documented fragment layouts.  A warp owns 16 rows; the f32
+// * bf16 (the training path): tensor cores.  K3, K4 and K5 run wgmma on
+//   TMA tiles (flash_hopper.cuh); K6 keeps register-resident mma.sync
+//   m16n8k16 fragments (bf16 in, f32 accumulate, the helpers below) in
+//   the PTX ISA's documented layouts.  A warp owns 16 rows; the f32
 //   accumulator of one product turns into the A fragment of the next
 //   (P, dS) without shared memory; B fragments that need a transpose
 //   come from ldmatrix.trans.

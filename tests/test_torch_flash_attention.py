@@ -229,6 +229,13 @@ def _cuda_or_skip():
                     "tests/test_torch_*.py on the card)")
 
 
+def _elem_err(x, r):
+    """max |x - r| / (|r| + RMS(r)): each element held to its own size."""
+    x, r = x.float(), r.float()
+    rms = r.square().mean().sqrt()
+    return float(((x - r).abs() / (r.abs() + rms).clamp_min(1e-30)).max())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
@@ -251,11 +258,7 @@ def test_cuda_kernels_match_plain(dtype, tol, causal, with_bias):
             if with_bias else None)
     do = torch.randn((b, t, h, dh), generator=g, device="cuda").to(dt)
     scale = dh ** -0.5
-    def err(x, r):
-        x, r = x.float(), r.float()
-        rms = r.square().mean().sqrt()
-        return float(((x - r).abs() / (r.abs() + rms).clamp_min(1e-30))
-                     .max())
+    err = _elem_err
     bh = lambda x: fa._to_bh(x)
     for single, wrapper in ((False, fa.flash_fwd),
                             (True, fa.flash_fwd_single)):
@@ -284,37 +287,79 @@ def test_cuda_kernels_match_plain(dtype, tol, causal, with_bias):
         assert err(db, rb) <= tol
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
-@pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
-                                              (True, True)])
-def test_cuda_k3_ragged_t(dh, causal, with_bias):
-    """K3 alone in bf16 at a t that fills neither its 128-row query tiles
-    nor its 64-key tiles, with and without a key bias, at both head dims:
-    the interior, diagonal, ragged and biased tiles all run.  Held to the
-    plain version with the measure of :func:`test_cuda_kernels_match_plain`
-    (O at 2e-2, LSE at 1e-5)."""
-    _cuda_or_skip()
-    g = torch.Generator(device="cuda").manual_seed(dh + 2 * causal + with_bias)
+def _ragged_bf16(seed, dh, with_bias):
+    """bf16 q, k, v, dO on bthd views of a [b, 333, 3d] projection (b 2, 3
+    heads) and an optional [b*h, t] key bias, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     b, t, h = 2, 333, 3
     qkv = torch.randn((b, t, 3 * h * dh), generator=g,
                       device="cuda").to(torch.bfloat16)
     q, k, v = (z.reshape(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
     bias = (torch.randn((b * h, t), generator=g, device="cuda")
             if with_bias else None)
+    do = torch.randn((b, t, h, dh), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    return q, k, v, do, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("single", [False, True],
+                         ids=["flash_fwd", "flash_fwd_single"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
+                                              (True, True)])
+def test_cuda_k3_ragged_t(dh, causal, with_bias, single):
+    """K3 (or K4) alone in bf16 at a t that fills neither its 128-row
+    query tiles nor its 128-key tiles, with and without a key bias, at
+    both head dims: the interior, diagonal, ragged and biased tiles all
+    run.  Held to the plain version with the measure of
+    :func:`test_cuda_kernels_match_plain` (O at 2e-2, LSE at 1e-5)."""
+    _cuda_or_skip()
+    q, k, v, _, bias = _ragged_bf16(dh + 2 * causal + with_bias, dh,
+                                    with_bias)
     scale = dh ** -0.5
-    n0 = fa.flash_fwd.launches
-    o, lse = fa.flash_fwd(q, k, v, bias, causal=causal, scale=scale)
+    wrapper = fa.flash_fwd_single if single else fa.flash_fwd
+    n0 = wrapper.launches
+    o, lse = wrapper(q, k, v, bias, causal=causal, scale=scale)
     bh = fa._to_bh
     ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, causal=causal,
-                                    scale=scale)
+                                    scale=scale, single=single)
     torch.cuda.synchronize()
-    assert fa.flash_fwd.launches == n0 + 1
+    assert wrapper.launches == n0 + 1
+    assert _elem_err(bh(o), ro) <= 2e-2
+    assert _elem_err(lse, rl) <= 1e-5
 
-    def err(x, r):
-        x, r = x.float(), r.float()
-        rms = r.square().mean().sqrt()
-        return float(((x - r).abs() / (r.abs() + rms).clamp_min(1e-30))
-                     .max())
-    assert err(bh(o), ro) <= 2e-2
-    assert err(lse, rl) <= 1e-5
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
+                                              (True, True)])
+def test_cuda_k5_ragged_t(dh, causal, with_bias):
+    """K5 alone in bf16 at the ragged t of :func:`test_cuda_k3_ragged_t`
+    (its 128-key blocks and 64-row query tiles both ragged), on the plain
+    forward's O and LSE: dK, dV and dBias held to the plain backward at
+    2e-2 with the same measure."""
+    _cuda_or_skip()
+    q, k, v, do, bias = _ragged_bf16(7 + dh + 2 * causal + with_bias, dh,
+                                     with_bias)
+    scale = dh ** -0.5
+    bh = fa._to_bh
+    b, _, h, _ = q.shape
+    o, lse = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, causal=causal,
+                                    scale=scale, single=True)
+    delta = fa.row_delta(do, fa._from_bh(o, b, h))
+    n0 = fa.flash_bwd_dkdv.launches
+    dk, dv, db = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
+                                   causal=causal, scale=scale,
+                                   need_dbias=with_bias)
+    _, rk, rv, rb = fa.flash_bwd_reference(bh(q), bh(k), bh(v), bias, bh(do),
+                                           lse, delta, causal=causal,
+                                           scale=scale)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dkdv.launches == n0 + 1
+    assert _elem_err(bh(dk), rk) <= 2e-2
+    assert _elem_err(bh(dv), rv) <= 2e-2
+    if with_bias:
+        assert _elem_err(db, rb) <= 2e-2
+    else:
+        assert db is None
