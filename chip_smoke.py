@@ -16,8 +16,9 @@ Phases:
   2. kernel  — the paged decode kernel (K1) and the paged verify kernel
                (K2) against their plain PyTorch versions on the card: the
                serving path's shapes (8 slots, 6 heads of 128, block 16,
-               64-entry tables; K2 at W = 2 and 5 with one slot within W
-               of the table's end) at mixed positions, K1 at positions on
+               64-entry tables; K2 at W = 2, 5 and 17 — two row groups —
+               with one slot within W of the table's end) at mixed
+               positions, K1 at positions on
                its split edges and with slots that fill only the first
                split beside slots that fill all, the pangrams
                checkpoint's shapes, block size 8 (K1); f32 and bf16, each
@@ -32,7 +33,8 @@ Phases:
                (t 2048 on K3, t 512 on K4), a ragged t with a key bias,
                causal + bias at dh 64 (K3 and K4), plain at dh 64,
                BERT-base's attention (b 4, t 512, 12 heads of 64, a
-               padding bias, on K4) and t 896 on K4 (seven key tiles).
+               padding bias, on K4), t 896 on K4 (seven key tiles) and
+               dh 32 (zero-padded to 64 by the wrappers) on K3-K6.
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -75,10 +77,11 @@ Phases:
 phase ``profile`` (not run by default) traces a steady bf16 decode window
 of the full-width server with ``torch.profiler``: device busy share,
 kernel launches per tick and the top kernels by device time.  The extra
-phases ``k3``, ``k4`` and ``k5`` time one flash kernel alone at the
-training shapes (K4 also at BERT-base's, 12 heads of 64 with a padding
-bias), three medians each, for quick comparisons of kernel versions in
-turns.
+phases ``k3``, ``k4``, ``k5`` and ``k6`` time one flash kernel alone at
+the training shapes (K4 also at BERT-base's, 12 heads of 64 with a
+padding bias; K6 beside SDPA's backward), and ``k2`` the verify kernel
+at phase 4(b)'s mid contexts with W = 5 beside one SDPA call, three
+medians each, for quick comparisons of kernel versions in turns.
 """
 from __future__ import annotations
 
@@ -93,7 +96,7 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "train",
           "timings")
-EXTRA_PHASES = ("profile", "k3", "k4", "k5")  # run only when asked for
+EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -107,8 +110,10 @@ NEAR_TIE_F32 = 1e-4
 # f32 and round P at a running max).  Random-V outputs at a 1000-row
 # context are ~0.03-0.1 in size, so an absolute bound of 2e-2 (the
 # measure before) would pass a split that drops a chunk.  On an H100 the
-# largest readings are K1 4.3e-7 (f32) and 9.2e-3 (bf16), K2 7.3e-7 and
-# 1.8e-2 (W = 5); the bounds are ~3x those.
+# largest readings are K1 4.3e-7 (f32) and 9.2e-3 (bf16), K2 v2 7.3e-7 and
+# 1.8e-2 (W = 5); the bounds are ~3x those.  K2 v3 reads 1.2e-6 / 1.8e-2
+# at W = 5 and 1.9e-6 / 2.3e-2 at W = 17 (two row groups, larger
+# contexts).
 PAGED_TOL = {"K1": {"float32": 1.5e-6, "bfloat16": 3e-2},
              "K2": {"float32": 2.5e-6, "bfloat16": 5e-2}}
 # the flash kernels' outputs span orders of magnitude (early causal rows
@@ -254,7 +259,7 @@ def phase_kernel(torch, pa):
         (f"verify_path_w{W}", dict(B=8, h=6, dh=128, bs=16, mb=64, W=W,
                                    positions=[0, 15, 16, 17, 511,
                                               1024 - W + 1, 700, 250]))
-        for W in (2, 5)] + [
+        for W in (2, 5, 17)] + [
         ("verify_pangrams_w5", dict(B=4, h=4, dh=16, bs=8, mb=8, W=5,
                                     positions=[0, 7, 30, 61]))]
     for name, kw in vcases:
@@ -348,9 +353,10 @@ def flash_err(torch, x, r):
 # (name, b, t, h, dh, causal, bias, K4): the training path's shapes (t 2048
 # on K3, t 512 on K4), ragged t with a key bias (K3 and K4), dh 64,
 # BERT-base's attention at max_len 512 (12 heads of 64, not causal, a
-# padding bias: -1e9 on the last 20% of keys) and the longest t that
+# padding bias: -1e9 on the last 20% of keys), the longest t that
 # ``_auto_blocks`` sends to K4 (7 key tiles: the ring wraps on an odd
-# count).  Bias: None, "random" (normal) or "pad".
+# count) and dh 32, which the wrappers zero-pad to the kernels' 64.  Bias:
+# None, "random" (normal) or "pad".
 FLASH_CASES = [
     ("path", 8, 2048, 6, 128, True, None, False),
     ("path_k4", 8, 512, 6, 128, True, None, True),
@@ -360,6 +366,8 @@ FLASH_CASES = [
     ("plain_dh64", 2, 256, 2, 64, False, None, False),
     ("bert_k4", 4, 512, 12, 64, False, "pad", True),
     ("k4_t896", 2, 896, 6, 128, True, None, True),
+    ("ragged_causal_bias_dh32", 2, 777, 4, 32, True, "random", False),
+    ("ragged_bias_dh32_k4", 2, 333, 4, 32, False, "random", True),
 ]
 
 
@@ -498,6 +506,13 @@ def mixed_requests(np, vocab):
     return system, reqs
 
 
+def path_mid(np):
+    """The timing phases' positions: the contexts phase 4(b)'s first 8
+    requests decode at, halfway through their budgets."""
+    _, reqs = mixed_requests(np, 32000)
+    return [len(p) + n // 2 for p, n, _ in reqs[:8]]
+
+
 def check_finished(reqs, outs, vocab):
     for (p, n, _), out in zip(reqs, outs):
         if out.shape != (len(p) + n,):
@@ -567,10 +582,7 @@ def phase_full(torch, np, pa):
           "ttft_p50_s": pct(ttfts, 0.50), "ttft_p99_s": pct(ttfts, 0.99),
           "ticks": dt, "ticks_per_s": dt / wall, "launches": launches,
           "prefix_hits": dh})
-    # the timing phase's positions: contexts this run's first 8 requests
-    # decode at, halfway through their budgets
-    mid = [len(p) + n // 2 for p, n, _ in reqs[:8]]
-    return launches, mid
+    return launches
 
 
 # -- phase 5 -----------------------------------------------------------
@@ -1145,7 +1157,7 @@ def phase_timings_verify(torch, pa, positions, W=5):
     return out
 
 
-# -- extra phases: k3, k4, k5 ------------------------------------------
+# -- extra phases: k2, k3, k4, k5, k6 ----------------------------------
 # (kernel, shape name, b, t, h, dh, causal, bias kind): the training
 # path's shapes, and K4 at BERT-base's attention too
 SOLO_SHAPES = {
@@ -1153,7 +1165,9 @@ SOLO_SHAPES = {
     "k4": [("flash_fwd_single", "path_k4", 8, 512, 6, 128, True, None),
            ("flash_fwd_single", "bert_k4", 4, 512, 12, 64, False, "pad")],
     "k5": [("flash_bwd_dkdv", "path", 8, 2048, 6, 128, True, None)],
+    "k6": [("flash_bwd_dq", "path", 8, 2048, 6, 128, True, None)],
 }
+BWD_WRAPPERS = ("flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def phase_solo(torch, which):
@@ -1161,7 +1175,8 @@ def phase_solo(torch, which):
     a [b, t, 3d] projection, timed as ``timings`` times it (graph replay
     over 4 input sets), three times — for quick comparisons of kernel
     versions in turns.  A forward also gets one SDPA call on the same
-    inputs (its padding bias as a boolean key mask)."""
+    inputs (its padding bias as a boolean key mask), K6 SDPA's backward
+    alone (every gradient at once, no bias)."""
     import torch.nn.functional as F
     fa = flash_module()
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -1178,31 +1193,75 @@ def phase_solo(torch, which):
             sets.append((q, k, v, do))
         bias = key_bias(torch, bias_kind, b, h, t, g)
         kw = dict(causal=causal, scale=dh ** -0.5)
-        fwd = fa.flash_fwd if name == "flash_fwd" else fa.flash_fwd_single
+        fwd = (fa.flash_fwd_single if name == "flash_fwd_single"
+               else fa.flash_fwd)
         outs = [fwd(q, k, v, bias, **kw) for q, k, v, _ in sets]
+        sdpa = [tuple(x.transpose(1, 2).contiguous() for x in z)
+                for z in sets]
         if name == "flash_bwd_dkdv":
             deltas = [fa.row_delta(z[3], o) for z, (o, _) in zip(sets, outs)]
             fn = lambda i: fa.flash_bwd_dkdv(
                 *sets[i % 4][:3], bias, sets[i % 4][3], outs[i % 4][1],
                 deltas[i % 4], need_dbias=bias is not None, **kw)
+        elif name == "flash_bwd_dq":
+            deltas = [fa.row_delta(z[3], o) for z, (o, _) in zip(sets, outs)]
+            fn = lambda i: fa.flash_bwd_dq(
+                *sets[i % 4][:3], bias, sets[i % 4][3], outs[i % 4][1],
+                deltas[i % 4], **kw)
         else:
             fn = lambda i: fwd(*sets[i % 4][:3], bias, **kw)
         row = {"kernel": name, "shape": shape, "b": b, "t": t, "h": h,
                "dh": dh, "causal": causal, "bias": bias_kind,
                "kernel_ms": [time_ms(torch, fn) for _ in range(3)]}
-        if name != "flash_bwd_dkdv":
+        if name == "flash_bwd_dq":
+            row["sdpa_bwd_ms"] = sdpa_bwd_ms(torch, F, sdpa, kw["scale"],
+                                             4)[0]
+        elif name not in BWD_WRAPPERS:
             mask = (None if bias is None else
                     (bias.view(b, h, 1, t) > -1e8))
-            sdpa = [tuple(x.transpose(1, 2).contiguous() for x in z[:3])
-                    for z in sets]
             row["sdpa_fwd_ms"] = time_ms(
                 torch, lambda i: F.scaled_dot_product_attention(
-                    *sdpa[i % 4], attn_mask=mask, is_causal=causal,
+                    *sdpa[i % 4][:3], attn_mask=mask, is_causal=causal,
                     scale=kw["scale"]))
         rows.append(row)
-        del sets, outs
+        del sets, outs, sdpa
         torch.cuda.empty_cache()
     emit({"phase": which, "rows": rows, "card": card_line()})
+
+
+def phase_solo_verify(torch, pa, positions, W=5):
+    """K2 alone at phase 7's verify shapes (bf16, 8 slots, W = 5, 6 heads
+    of 128, block 16, 64-entry tables, chunks at ``positions``; 12 layers'
+    pools in rotation): three graph-replay medians, and one SDPA call over
+    K/V gathered beforehand, for comparisons of kernel versions in turns."""
+    import torch.nn.functional as F
+    dev, dtype = "cuda", torch.bfloat16
+    B, h, dh, bs, mb, NL = 8, 6, 128, 16, 64, 12
+    L = mb * bs
+    g = torch.Generator(device=dev).manual_seed(6)
+    nb = 1 + B * mb
+    kp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    vp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, W, h, dh), generator=g, device=dev).to(dtype)
+    table = (torch.randperm(nb - 1, generator=g, device=dev)[:B * mb]
+             .reshape(B, mb) + 1).to(torch.int32)
+    pos0 = torch.tensor(positions, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(dh)
+    kern = lambda i: pa.paged_verify_attention(q, kp[i % NL], vp[i % NL],
+                                               table, pos0, scale)
+    kl = [pa.paged_gather(kp[i], table) for i in range(NL)]
+    vl = [pa.paged_gather(vp[i], table) for i in range(NL)]
+    rows = pos0.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    mask = (torch.arange(L, device=dev)[None, None, :]
+            <= rows[:, :, None])[:, None]                 # [B, 1, W, L]
+    qh = q.transpose(1, 2).contiguous()
+    lib = lambda i: F.scaled_dot_product_attention(
+        qh, kl[i % NL], vl[i % NL], attn_mask=mask, scale=scale)
+    emit({"phase": "k2", "shapes": {"B": B, "W": W, "h": h, "dh": dh,
+                                    "bs": bs, "max_blocks": mb,
+                                    "pos0": positions},
+          "kernel_ms": [time_ms(torch, kern) for _ in range(3)],
+          "sdpa_ms": time_ms(torch, lib), "card": card_line()})
 
 
 # -- extra phase: profile ---------------------------------------------
@@ -1328,20 +1387,20 @@ def main(argv=None) -> int:
         emit({"phase": "build", "libraries": sorted(libs),
               "seconds": time.perf_counter() - t,
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        launches, mid, timing = None, None, None
+        launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
             phase_pangrams(torch, np, root)
         if "full" in phases:
-            launches, mid = phase_full(torch, np, pa)
+            launches = phase_full(torch, np, pa)
         if "spec" in phases:
             v_launches = phase_spec(torch, np, pa, root)
         if "train" in phases:
             t_counts = phase_train(torch, np)
         if "timings" in phases:
-            mid = mid or [100, 227, 354, 481, 608, 735, 862, 989]
+            mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)
             v_timing = phase_timings_verify(torch, pa, mid)
             f_timing = phase_timings_flash(torch)
@@ -1350,6 +1409,8 @@ def main(argv=None) -> int:
         for which in SOLO_SHAPES:
             if which in phases:
                 phase_solo(torch, which)
+        if "k2" in phases:
+            phase_solo_verify(torch, pa, path_mid(np))
         if None not in (launches, timing, v_launches, v_timing, t_counts,
                         f_timing):
             rows = [

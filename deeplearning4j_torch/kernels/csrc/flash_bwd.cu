@@ -44,9 +44,23 @@
 //   first (the most causal work), in groups of 8 (batch, head) slices so
 //   the Q/dO tiles the running blocks share stay in L2.  Each block
 //   writes its dK and dV once, at the end.
-// * bf16 K6 (v2): 4 warps, 64-row tiles, mma.sync fragments in registers
-//   (flash_common.cuh): a warp owns 16 query rows (S and dP, then dS *
-//   scale becomes the A fragment of dS K).
+// * bf16 K6 (v3): K5 v3's machinery with queries as wgmma's M.  A block
+//   owns 128 query rows, two warpgroups of 64; its Q and dO arrive once by
+//   TMA and stay in shared memory, each row's LSE and delta are read once
+//   into registers, and the K and V tiles of 64 keys stream through a
+//   two-stage TMA ring (thread 0 prefetches tile j + 1 before tile j is
+//   computed).  S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both
+//   operands in shared memory; dS * scale, rounded to bf16 as in v2, stays
+//   in the accumulator registers and becomes the register A operand of
+//   dQ += dS K (wgmma m64n{dh}k16, K MN-major through the transpose bit:
+//   the tile S read K-major serves both).  64-key tiles keep the S, dP
+//   and dQ accumulators at 32 + 32 + 64 f32 registers a thread at dh 128
+//   (128-key tiles would take 64 + 64 + 64 beside the A fragments).  P is
+//   recomputed in base 2 from each row's LSE, branch-free on interior
+//   tiles and masked on diagonal, ragged and biased ones; the heaviest
+//   causal query tile goes first, in groups of 8 (batch, head) slices so
+//   the K/V tiles the running blocks share stay in L2.  dQ is written
+//   once, at the end, with no atomics.
 // * f32: 8 warps, 32-row tiles, f32 tiles in shared memory, plain FMAs.
 #include "flash_hopper.cuh"
 
@@ -83,17 +97,6 @@ __device__ __forceinline__ float recompute_p(const BwdArgs& a, const float* bias
   if (a.causal && col > row) s = kNeg;
   return expf(s - lse);
 }
-
-// ---------------------------------------------------------------------------
-// bf16 K6: register-resident mma.sync fragments
-// ---------------------------------------------------------------------------
-template <int DH>
-struct BfBwdLayout {
-  static constexpr int LD = DH + kBfPad;
-  static constexpr int kTile = kBfTile * LD;   // elements per bf16 tile
-  static constexpr size_t kBytes =
-      4 * sizeof(__nv_bfloat16) * kTile + 2 * sizeof(float) * kBfTile;
-};
 
 // the query tile's LSE and delta rows; rows at or past t get LSE = 1e30
 // (so p == 0) and delta 0
@@ -343,84 +346,187 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kBfThreads) flash_bwd_dq_bf16_kernel(BwdArgs a) {
-  using bf16 = __nv_bfloat16;
-  using L = BfBwdLayout<DH>;
-  constexpr int LD = L::LD, BR = kBfTile, BC = kBfTile;
-  constexpr int NJ = BC / 8;   // key column blocks per key tile
-  constexpr int ND = DH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + L::kTile;
-  bf16* k_s = do_s + L::kTile;
-  bf16* v_s = k_s + L::kTile;
+// ---------------------------------------------------------------------------
+// bf16 K6 v3: wgmma on TMA-filled, 128-byte-swizzled tiles
+// ---------------------------------------------------------------------------
+// A block owns 128 query rows, 64 for each of two consumer warpgroups
+// (wgmma's M); its Q and dO arrive once by TMA and stay in shared memory,
+// while the K and V tiles of 64 keys stream through a two-stage ring.
+constexpr int kDqRows = 128;   // query rows per block (64 a warpgroup)
+constexpr int kDqKeys = 64;    // keys per streamed tile
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+template <int DH>
+struct DqLayout {
+  static constexpr int NP = DH / kPanel;
+  static constexpr uint32_t kQPanel = 128 * kDqRows;   // 128 rows of 128 B
+  static constexpr uint32_t kQTile = NP * kQPanel;
+  static constexpr uint32_t kKPanel = 128 * kDqKeys;   // 64 rows of 128 B
+  static constexpr uint32_t kKTile = NP * kKPanel;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kQTile;
+  static constexpr uint32_t kK = 2 * kQTile;                  // ring of K tiles
+  static constexpr uint32_t kV = kK + kBwStages * kKTile;     // ring of V tiles
+  static constexpr uint32_t kBar = kV + kBwStages * kKTile;   // Q/dO + one a stage
+  static constexpr size_t kBytes = kBar + 8 * (1 + kBwStages) + 1024;   // + alignment slack
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = DqLayout<DH>;
+  constexpr int NJ = kDqKeys / 8;   // key column blocks of a score tile
+  constexpr int ND = DH / 8;
+  constexpr int NK = DH / 16;       // k-steps of Q K^T and dO V^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  const uint32_t q_s = sb + L::kQ, do_s = sb + L::kDo;
+  auto k_s = [&](int st) { return sb + L::kK + st * L::kKTile; };
+  auto v_s = [&](int st) { return sb + L::kV + st * L::kKTile; };
+  const uint32_t bar_q = sb + L::kBar;
+  auto bar_kv = [&](int st) { return bar_q + 8 + 8 * st; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
   const int g = lane >> 2, qd = lane & 3;
-  const int bh = blockIdx.y;
-  const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
-  const int n_q = (t + BR - 1) / BR;
-  const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;   // heaviest causal tile first
-  const bf16* kp = static_cast<const bf16*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const bf16* vp = static_cast<const bf16*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const int n_q = (t + kDqRows - 1) / kDqRows;
+  const int2 blk = grouped_block(n_q);   // heaviest causal tile first
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int q0 = (n_q - 1 - blk.y) * kDqRows;
+  const int qw0 = q0 + 64 * wg;   // this warpgroup's rows
+  const int row[2] = {qw0 + 16 * wi + g, qw0 + 16 * wi + g + 8};
+  const int k_end = a.causal ? min(t, q0 + kDqRows) : t;
+  const int n_k = (k_end + kDqKeys - 1) / kDqKeys;
+
+  // the consumers prefetch: thread 0 issues the TMA copies of key tile
+  // j + kAhead before tile j is computed (no producer warp)
+  constexpr int kAhead = kBwStages - 1;
+  auto issue = [&](int j) {
+    const int st = j % kBwStages;
+    mbar_expect(bar_kv(st), 2 * L::kKTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(k_s(st) + p * L::kKPanel, tk, bar_kv(st), kPanel * p, hi, j * kDqKeys, bi);
+      tma_load(v_s(st) + p * L::kKPanel, tv, bar_kv(st), kPanel * p, hi, j * kDqKeys, bi);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kBwStages; ++i) mbar_init(bar_q + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_q, 2 * L::kQTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(q_s + p * L::kQPanel, tq, bar_q, kPanel * p, hi, q0, bi);
+      tma_load(do_s + p * L::kQPanel, tdo, bar_q, kPanel * p, hi, q0, bi);
+    }
+    for (int j = 0; j < kAhead && j < n_k; ++j) issue(j);
+  }
+
+  // each row's LSE (and in base 2) and delta, read once; rows at or past
+  // t get LSE = 1e30 (p == 0) and delta 0
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
-  const int r0 = warp * 16;
-  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  float lse[2], dl[2];
+  float lse[2], lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool in = row[r] < t;
     lse[r] = in ? a.lse[(long long)bh * t + row[r]] : kPos;
+    lse2[r] = lse[r] * kLog2e;
     dl[r] = in ? a.delta[(long long)bh * t + row[r]] : 0.f;
   }
-
-  load_rows<bf16, BR, DH, LD, kBfThreads>(
-      q_s, static_cast<const bf16*>(a.q) + bi * a.sq.b + hi * a.sq.h, a.sq.t, q0, t);
-  load_rows<bf16, BR, DH, LD, kBfThreads>(
-      do_s, static_cast<const bf16*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h, a.sdo.t,
-      q0, t);
+  const float c = a.scale * kLog2e;
   float dq[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-  const int k_end = a.causal ? min(t, q0 + BR) : t;
-  for (int k0 = 0; k0 < k_end; k0 += BC) {
-    __syncthreads();
-    load_rows<bf16, BC, DH, LD, kBfThreads>(k_s, kp, a.sk.t, k0, t);
-    load_rows<bf16, BC, DH, LD, kBfThreads>(v_s, vp, a.sv.t, k0, t);
-    __syncthreads();
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_k; ++j) {
+    const int st = j % kBwStages;
+    const int k0 = j * kDqKeys;
+    __syncthreads();   // tile j - 1 read by every warpgroup: its stage is free
+    if (tid == 0 && j + kAhead < n_k) issue(j + kAhead);
+    // causal: this warpgroup's rows all come before the tile's keys
+    if (a.causal && k0 > qw0 + 63) continue;
+    mbar_wait(bar_kv(st), (j / kBwStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, all K-major: a k-step advances 32 bytes
+    // inside the swizzled row, a panel every four k-steps
     float s[NJ][4], dp[NJ][4];
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH; kk += 16) {
-      uint32_t af[4];
-      load_a<LD>(af, q_s, r0, kk, g, qd);
-      mma_abt<NJ, LD>(s, af, k_s, 0, kk, g, qd);
-      load_a<LD>(af, do_s, r0, kk, g, qd);
-      mma_abt<NJ, LD>(dp, af, v_s, 0, kk, g, qd);
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t qa = (kk / 4) * L::kQPanel + (kk % 4) * 32 + wg * 64 * 128;
+      const uint32_t kb = (kk / 4) * L::kKPanel + (kk % 4) * 32;
+      Wgmma<64>::ss(s, sw128_desc(q_s + qa, 16, 1024), sw128_desc(k_s(st) + kb, 16, 1024),
+                    kk > 0);
+      Wgmma<64>::ss(dp, sw128_desc(do_s + qa, 16, 1024), sw128_desc(v_s(st) + kb, 16, 1024),
+                    kk > 0);
     }
+    wg_commit();
+    wg_wait0();
+    keep(s);
+    keep(dp);
+
+    // P from each row's LSE in base 2, dS * scale = P (dP - delta) scale;
+    // interior tiles (no bias, every key below t and, causal, at or below
+    // the warpgroup's first row) are branch-free, the rest mask as the
+    // plain version does
+    const bool interior =
+        !bias && (a.causal ? k0 + kDqKeys - 1 <= qw0 : k0 + kDqKeys <= t);
+    if (interior) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+      for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = recompute_p(a, bias, s[j][e], row[r],
-                                    k0 + 8 * j + 2 * qd + (e & 1), lse[r]);
-        s[j][e] = p * (dp[j][e] - dl[r]) * a.scale;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = ex2(fmaf(s[jj][e], c, -lse2[r]));
+          s[jj][e] = p * (dp[jj][e] - dl[r]) * a.scale;
+        }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int col0 = k0 + 8 * jj + 2 * qd;
+        const float b0 = bias && col0 < t ? bias[col0] : 0.f;
+        const float b1 = bias && col0 + 1 < t ? bias[col0 + 1] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = col0 + (e & 1);
+          const float p =
+              col >= t || row[r] >= t || (a.causal && col > row[r])
+                  ? 0.f
+                  : ex2((fmaf(s[jj][e], a.scale, (e & 1) ? b1 : b0) - lse[r]) * kLog2e);
+          s[jj][e] = p * (dp[jj][e] - dl[r]) * a.scale;
+        }
       }
-#pragma unroll
-    for (int kc = 0; kc < NJ / 2; ++kc) {
-      uint32_t f[4];
-      pack_a<NJ>(f, s, kc);
-      mma_ab<ND, LD>(dq, f, k_s, 16 * kc, lane);    // dQ += (dS scale) K
     }
+
+    // dQ += (dS scale) K: dS * scale rounded to bf16 as wgmma's register A
+    // operand; K MN-major through the transpose bit — a k-step is 16 key
+    // rows (2048 bytes), the next 64 head columns a panel further (LBO)
+    uint32_t sf[NJ / 2][4];
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) pack_a<NJ>(sf[kc], s, kc);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc)
+      Wgmma<DH>::rs(dq, sf[kc], sw128_desc(k_s(st) + kc * 16 * 128, L::kKPanel, 1024), 1);
+    wg_commit();
+    wg_wait0();
+    keep(dq);
+    keep(sf);
   }
-  store_frag_rows<ND>(static_cast<bf16*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h,
-                          a.sdq.t, dq, row, t, qd);
+
+  store_frag_rows<ND>(static_cast<bf16*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h, a.sdq.t, dq, row,
+                      t, qd);
 }
 
 // ---------------------------------------------------------------------------
@@ -564,18 +670,21 @@ int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
     return launch(flash_bwd_f32_kernel<DH>, F32BwdLayout<DH>::kBytes,
                   configured, grid, kF32Threads, s, a, dq_pass);
   }
+  // K5 reads Q/dO in 64-row tiles beside 128-key blocks, K6 Q/dO in
+  // 128-row blocks beside 64-key tiles
+  const int q_rows = dq_pass ? kDqRows : kBwRows, k_rows = dq_pass ? kDqKeys : kBwKeys;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, DH, q_rows);
+  if (!rc) rc = make_map(&tdo, a.dout, a.sdo, b, a.h, a.t, DH, q_rows);
+  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH, k_rows);
+  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH, k_rows);
+  if (rc) return rc;
   if (dq_pass) {
     static bool configured = false;
-    const dim3 grid((a.t + kBfTile - 1) / kBfTile, b * a.h);
-    return launch(flash_bwd_dq_bf16_kernel<DH>, BfBwdLayout<DH>::kBytes,
-                  configured, grid, kBfThreads, s, a);
+    const dim3 grid(b * a.h, (a.t + kDqRows - 1) / kDqRows);
+    return launch(flash_bwd_dq_bf16_kernel<DH>, DqLayout<DH>::kBytes, configured, grid,
+                  kBwThreads, s, tq, tk, tv, tdo, a);
   }
-  CUtensorMap tq, tk, tv, tdo;
-  int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, DH, kBwRows);
-  if (!rc) rc = make_map(&tdo, a.dout, a.sdo, b, a.h, a.t, DH, kBwRows);
-  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH, kBwKeys);
-  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH, kBwKeys);
-  if (rc) return rc;
   static bool configured = false;
   const dim3 grid(b * a.h, (a.t + kBwKeys - 1) / kBwKeys);
   return launch(flash_bwd_dkdv_bf16_kernel<DH>, DkdvLayout<DH>::kBytes,

@@ -1,19 +1,19 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu: K3 and K4,
-// flash_bwd.cu: K5 and K6).
+// flash_bwd.cu: K5 and K6) and the paged verify kernel (paged_verify.cu:
+// K2).
 //
-// Operands are [b, t, h, dh] views given as pointer + (batch, time, head)
-// element strides with dh contiguous, so a kernel reads the q/k/v column
-// blocks of a [b, t, 3d] projection in place.  Tiles of rows are staged in
-// shared memory; rows at or past t are zero-filled, never read.
+// Flash operands are [b, t, h, dh] views given as pointer + (batch, time,
+// head) element strides with dh contiguous, so a kernel reads the q/k/v
+// column blocks of a [b, t, 3d] projection in place.  Rows at or past t
+// are zero-filled, never read.
 //
 // Two arithmetic routes, chosen by the input dtype:
-// * bf16 (the training path): tensor cores.  K3, K4 and K5 run wgmma on
-//   TMA tiles (flash_hopper.cuh); K6 keeps register-resident mma.sync
-//   m16n8k16 fragments (bf16 in, f32 accumulate, the helpers below) in
-//   the PTX ISA's documented layouts.  A warp owns 16 rows; the f32
-//   accumulator of one product turns into the A fragment of the next
-//   (P, dS) without shared memory; B fragments that need a transpose
-//   come from ldmatrix.trans.
+// * bf16: tensor cores.  K3-K6 run wgmma on TMA tiles (flash_hopper.cuh);
+//   K2 runs mma.sync m16n8k16 fragments (bf16 in, f32 accumulate, the
+//   helpers below) in the PTX ISA's documented layouts: a warp owns 16
+//   rows, the f32 accumulator of one product turns into the A fragment
+//   of the next (P) without shared memory, and B fragments that need a
+//   transpose come from ldmatrix.trans.
 // * f32 (tests, parity checks): f32 tiles in shared memory and plain
 //   FMAs (`mm`), so an f32 run has f32 products throughout.
 #pragma once
@@ -139,10 +139,6 @@ __device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
 //   C/D (16 x 8, f32):      c0, c1 (row g, cols 2q, 2q+1),
 //                           c2, c3 (row g+8, cols 2q, 2q+1)
 // The lower-indexed element of a packed pair sits in the low 16 bits.
-constexpr int kBfThreads = 128;    // 4 warps, 16 rows each
-constexpr int kBfTile = 64;        // rows per tile (queries and keys)
-constexpr int kBfPad = 8;          // row padding of bf16 tiles (16 bytes)
-
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -172,6 +168,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// the A fragment of k-step kc (16 columns) of a [16, 8 NJ] f32
+// accumulator in the C layout above (per warp; a wgmma accumulator holds
+// one per warp of its warpgroup), rounded to bf16
+template <int NJ>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[NJ][4], int kc) {
+  f[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
+  f[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
+  f[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
+  f[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+}
+
 // The A fragment of rows [r0, r0 + 16), k [k0, k0 + 16) of a row-major
 // bf16 tile with pitch LD.
 template <int LD>
@@ -185,8 +192,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s,
 
 // acc[j] (j < NJ, 8 columns each) += A(16 x 16 k-step) . M^T, where B(k, n)
 // = M[n0 + 8 j + n][k0 + k] for a row-major bf16 tile M with pitch LD —
-// a product against the transpose of a row-major tile (Q K^T, dO V^T,
-// K Q^T, V dO^T).
+// a product against the transpose of a row-major tile (Q K^T).
 template <int NJ, int LD>
 __device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)[4],
                                         const __nv_bfloat16* m, int n0, int k0,
@@ -200,16 +206,18 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)
 
 // acc[j] (j < NJ, 8 columns each) += A(16 x 16 k-step) . M, where B(k, n)
 // = M[k0 + k][8 j + n] for a row-major bf16 tile M with pitch LD — a
-// product against a row-major tile as it stands (P V, dS K, P^T dO,
-// dS^T Q); the B fragments come from ldmatrix.trans, two column blocks
-// per instruction.
+// product against a row-major tile as it stands (P V); the B fragments
+// come from ldmatrix.trans, two column blocks per instruction, for the
+// column blocks that start below `cols` (the rest of acc is untouched).
 template <int NJ, int LD>
 __device__ __forceinline__ void mma_ab(float (&acc)[NJ][4], const uint32_t (&a)[4],
-                                       const __nv_bfloat16* m, int k0, int lane) {
+                                       const __nv_bfloat16* m, int k0, int lane,
+                                       int cols = 8 * NJ) {
   const int mat = lane >> 3;
   const __nv_bfloat16* row = m + (k0 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
 #pragma unroll
   for (int j = 0; j < NJ; j += 2) {
+    if (8 * j >= cols) continue;
     uint32_t b[4];
     ldsm_x4_trans(b, row + 8 * j);
     mma_16816(acc[j], a, b[0], b[1]);

@@ -1,7 +1,7 @@
 // Hopper machinery shared by the bf16 flash kernels on wgmma (flash_fwd.cu:
-// K3 v3 and K4 v3, flash_bwd.cu: K5 v3): TMA tensor maps over the bthd
-// views, mbarriers, wgmma descriptors of 128-byte-swizzled tiles, the
-// wgmma instructions, base-2 exponentials and cp.async.
+// K3 v3 and K4 v3, flash_bwd.cu: K5 v3 and K6 v3): TMA tensor maps over
+// the bthd views, mbarriers, wgmma descriptors of 128-byte-swizzled
+// tiles, the wgmma instructions, base-2 exponentials and cp.async.
 //
 // Shared memory holds a tile as panels of 64 head columns (128 bytes a
 // row) in the 128-byte swizzle that TMA writes and wgmma reads; a panel
@@ -101,17 +101,6 @@ __device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
-}
-
-// the A fragment of k-step kc (16 columns) of a [64, N] f32 accumulator,
-// rounded to bf16 — the mma.sync m16n8k16 A layout wgmma takes from
-// registers
-template <int NJ>
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&x)[NJ][4], int kc) {
-  f[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
-  f[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
-  f[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-  f[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
 }
 
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulate; d[j][e] is the PTX

@@ -23,7 +23,13 @@ Beside them the plain PyTorch versions ``flash_fwd_reference`` (its
 compute the same functions in full-row form, in f32 with the kernels'
 rounding points.  Each wrapper routes by the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel or raise (float32
-or bfloat16, head dim 64 or 128) — there is no fallback and no switch.
+or bfloat16, head dim up to 128) — there is no fallback and no switch.
+The kernels are built for head dims 64 and 128; every wrapper zero-pads
+q, k, v and dO along the head dim to the next of those
+(:func:`pad_head_dim`) on both routes, and slices the padding off O, dQ,
+dK and dV.  That is exact: zero columns add nothing to Q K^T or to dO
+V^T, the scale is the caller's (``dh ** -0.5`` of the unpadded dh), and
+LSE, delta and dBias do not change.
 ``delta = rowsum(dO * O)`` is computed in torch between the forward and
 the backward kernels, as the reference computes it in XLA.
 
@@ -139,27 +145,47 @@ def _bth_strides(x):
     return [x.stride(0), x.stride(1), x.stride(2)]
 
 
+def kernel_head_dim(dh: int) -> int:
+    """The head dim the kernels take for ``dh``: the smallest built size
+    at or above it (``dh`` itself past the largest, which the CUDA route
+    refuses)."""
+    return next((size for size in _KERNEL_DH if size >= dh), dh)
+
+
+def pad_head_dim(xs, dh: int):
+    """Each [..., d] tensor of ``xs`` (None passes through) zero-padded
+    along its last dim to ``dh`` (returned as it is when already that
+    wide)."""
+    return tuple(x if x is None or x.shape[-1] == dh
+                 else torch.nn.functional.pad(x, (0, dh - x.shape[-1]))
+                 for x in xs)
+
+
 def _check_kernel_operands(name, tensors, stats):
-    """The kernels' operand contract: one CUDA device, one dtype (float32
-    or bfloat16), [b, t, h, dh] views with dh in (64, 128) contiguous,
-    16-byte aligned rows; the [b*h, t] f32 stats contiguous."""
+    """The kernels' operand contract, checked before the head dim is
+    padded: one CUDA device, one dtype (float32 or bfloat16), [b, t, h,
+    dh] views with dh <= 128; at a built dh (64, 128; no padding copy)
+    the head dim contiguous and rows 16-byte aligned; the [b*h, t] f32
+    stats contiguous."""
     q = tensors[0]
     dev, dt = q.device, q.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: float32 or bfloat16 operands, got {dt}")
     b, t, h, dh = q.shape
-    if dh not in _KERNEL_DH:
-        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels are "
-                         f"built for {_KERNEL_DH}")
+    if dh > _KERNEL_DH[-1]:
+        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take "
+                         f"head dims up to {_KERNEL_DH[-1]}")
     vec = 16 // q.element_size()
+    padded = kernel_head_dim(dh) != dh   # the kernels read fresh copies
     for x in tensors:
         if (x.device != dev or x.dtype != dt
                 or tuple(x.shape) != (b, t, h, dh)):
             raise ValueError(
                 f"{name}: operands must share device, dtype and shape "
                 f"{(b, t, h, dh)}; got {x.device} {x.dtype} {tuple(x.shape)}")
-        if x.stride(3) != 1 or any(s % vec for s in _bth_strides(x)) \
-                or x.data_ptr() % 16:
+        if not padded and (x.stride(3) != 1
+                           or any(s % vec for s in _bth_strides(x))
+                           or x.data_ptr() % 16):
             raise ValueError(f"{name}: each [b, t, h, dh] operand needs a "
                              "contiguous, 16-byte aligned head dim and "
                              f"strides divisible by {vec}; got strides "
@@ -206,38 +232,51 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
-def _check_device(name, x):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type == "cuda"
-
-
 # ---------------------------------------------------------------------------
 # Kernel wrappers (each counts its own launches)
 # ---------------------------------------------------------------------------
+def _route(name, tensors, stats):
+    """The shared head of every wrapper: (on CUDA?, the caller's dh, the
+    [b, t, h, dh] operands zero-padded to the kernels' head dim).  CUDA
+    operands are checked against the kernels' contract first."""
+    device = tensors[0].device.type
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    cuda = device == "cuda"
+    if cuda:
+        _check_kernel_operands(name, tensors, stats)
+    dh = tensors[0].shape[-1]
+    return cuda, dh, pad_head_dim(tensors, kernel_head_dim(dh))
+
+
+def _unpad(x, dh: int):
+    """``x`` without the head-dim padding (contiguous)."""
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
+
+
 def _fwd(wrapper, q, k, v, bias, causal, scale, single):
     """Shared body of ``flash_fwd`` / ``flash_fwd_single`` on [b, t, h,
-    dh] views; returns (O [b, t, h, dh] contiguous, LSE [b*h, t]) and
-    counts a launch on ``wrapper``."""
+    dh] views; returns (O [b, t, h, dh], LSE [b*h, t]) and counts a
+    launch on ``wrapper``."""
     name = wrapper.__name__
-    b, t, h, dh = q.shape
-    if not _check_device(name, q):
+    cuda, dh, (q, k, v) = _route(name, (q, k, v), (bias,))
+    b, t, h, dhp = q.shape
+    if not cuda:
         o, lse = flash_fwd_reference(_to_bh(q), _to_bh(k), _to_bh(v), bias,
                                      causal=causal, scale=scale,
                                      single=single)
-        return _from_bh(o, b, h), lse
-    _check_kernel_operands(name, (q, k, v), (bias,))
-    o = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+        return _unpad(_from_bh(o, b, h), dh), lse
+    o = torch.empty((b, t, h, dhp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     fn = _kernel_fn("flash_fwd", "dl4j_flash_fwd", 6, 3)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
             o.data_ptr(), lse.data_ptr(), _strides_arg((q, k, v, o)),
-            b, h, t, dh, float(scale), int(causal), int(single),
+            b, h, t, dhp, float(scale), int(causal), int(single),
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(rc, name)
     wrapper.launches += 1
-    return o, lse
+    return _unpad(o, dh), lse
 
 
 def flash_fwd(q, k, v, bias=None, *, causal: bool = False, scale: float):
@@ -270,15 +309,15 @@ def flash_bwd_dkdv(q, k, v, bias, do, lse, delta, *, causal: bool = False,
     dBias is computed when ``need_dbias`` (and a bias was given).
     CPU: the plain version."""
     want_db = need_dbias and bias is not None
-    if not _check_device("flash_bwd_dkdv", q):
+    cuda, dh, (q, k, v, do) = _route("flash_bwd_dkdv", (q, k, v, do),
+                                     (bias, lse, delta))
+    if not cuda:
         _, dk, dv, dbias = _bwd_plain(q, k, v, bias, do, lse, delta,
                                       causal, scale)
-        return dk, dv, (dbias if want_db else None)
-    _check_kernel_operands("flash_bwd_dkdv", (q, k, v, do),
-                           (bias, lse, delta))
-    b, t, h, dh = q.shape
-    dk = torch.empty((b, t, h, dh), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, t, h, dh), dtype=v.dtype, device=v.device)
+        return _unpad(dk, dh), _unpad(dv, dh), (dbias if want_db else None)
+    b, t, h, dhp = q.shape
+    dk = torch.empty((b, t, h, dhp), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, t, h, dhp), dtype=v.dtype, device=v.device)
     dbias = (torch.empty((b * h, t), dtype=torch.float32, device=q.device)
              if want_db else None)
     fn = _kernel_fn("flash_bwd", "dl4j_flash_bwd_dkdv", 10, 2)
@@ -286,32 +325,35 @@ def flash_bwd_dkdv(q, k, v, bias, do, lse, delta, *, causal: bool = False,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _ptr(bias), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _ptr(dbias),
-            _strides_arg((q, k, v, do, q, dk, dv)), b, h, t, dh,
+            _strides_arg((q, k, v, do, q, dk, dv)), b, h, t, dhp,
             float(scale), int(causal), int(q.dtype == torch.bfloat16),
             stream)
     _raise_on(rc, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
-    return dk, dv, dbias
+    return _unpad(dk, dh), _unpad(dv, dh), dbias
 
 
 def flash_bwd_dq(q, k, v, bias, do, lse, delta, *, causal: bool = False,
                  scale: float):
     """K6 on [b, t, h, dh] views: dQ [b, t, h, dh].  CPU: the plain
     version."""
-    if not _check_device("flash_bwd_dq", q):
-        return _bwd_plain(q, k, v, bias, do, lse, delta, causal, scale)[0]
-    _check_kernel_operands("flash_bwd_dq", (q, k, v, do), (bias, lse, delta))
-    b, t, h, dh = q.shape
-    dq = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    cuda, dh, (q, k, v, do) = _route("flash_bwd_dq", (q, k, v, do),
+                                     (bias, lse, delta))
+    if not cuda:
+        return _unpad(_bwd_plain(q, k, v, bias, do, lse, delta, causal,
+                                 scale)[0], dh)
+    b, t, h, dhp = q.shape
+    dq = torch.empty((b, t, h, dhp), dtype=q.dtype, device=q.device)
     fn = _kernel_fn("flash_bwd", "dl4j_flash_bwd_dq", 8, 2)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _ptr(bias), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _strides_arg((q, k, v, do, dq, q, q)), b, h, t, dh, float(scale),
-            int(causal), int(q.dtype == torch.bfloat16), stream)
+            _strides_arg((q, k, v, do, dq, q, q)), b, h, t, dhp,
+            float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            stream)
     _raise_on(rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, dh)
 
 
 #: CUDA kernel launches since the last reset (set to 0 to start a count)

@@ -33,8 +33,11 @@ rows per slot, row j at position ``pos0 + j``):
   1, L]) against the once-gathered table view, as the JAX reference
   does;
 * the CUDA kernel ``csrc/paged_verify.cu`` (replaces the Pallas
-  ``_verify_kernel``): one thread block per (head, slot), each staged
-  K/V tile serving all W rows, per-row online softmax in f32.
+  ``_verify_kernel``): K1's split-K carried over — grid (head x row
+  group, slot, split), each block the W <= 16 rows of one group as one
+  tensor-core fragment over its chunk of the table, the last split of a
+  (slot, head, group) merging the partials in the same launch.  Any W:
+  rows go in groups of 16 (:func:`verify_split_rows` picks the chunk).
 
 Each wrapper routes by the tensors' device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise — there is no fallback.
@@ -62,7 +65,9 @@ _ROUTE_KERNEL = _ROUTE_TOTAL.labels(path="kernel")
 _ROUTE_REFERENCE = _ROUTE_TOTAL.labels(path="reference")
 
 _MAX_DH = 128
-_MAX_W = 16        # the verify kernel's compile-time bound on W
+_VERIFY_GROUP = 16   # verify query rows a kernel block takes (one fragment)
+_VERIFY_TILE = 64    # the verify kernel's key tile; its chunk is a multiple
+_VERIFY_MAX_SPLIT = 512   # splits the verify kernel's merge takes
 
 
 def paged_gather(pool, block_table):
@@ -181,7 +186,7 @@ _COUNTERS = {}
 
 
 def _split_counters(device, stream: int, n: int):
-    """[>= n] int32 ticket counters for the decode kernel's merge, zeroed
+    """[>= n] int32 ticket counters for the split kernels' merge, zeroed
     once and cached per device and stream (the kernel leaves them zero;
     launches on one stream run in order, so they never share a counter
     at once), so a call launches no memset and stays safe to capture in
@@ -286,22 +291,39 @@ def paged_verify_attention_reference(q, k_pool, v_pool, block_table,
     return torch.stack(rows, dim=1)                    # [B, W, h, dh]
 
 
+def verify_split_rows(B: int, W: int, h: int, capacity: int,
+                      n_sm: int = H100_SMS) -> int:
+    """Context rows per split of the verify kernel: the decode kernel's
+    chunk (:func:`decode_split_rows`) for the (slot, row group, head)
+    blocks, rounded up to the kernel's 64-key tile, and large enough that
+    the table takes at most 512 splits (what the kernel's merge holds).
+    A function of the shapes alone, never of the positions."""
+    n_grp = -(-W // _VERIFY_GROUP)
+    chunk = max(decode_split_rows(B * n_grp, h, capacity, n_sm),
+                -(-capacity // _VERIFY_MAX_SPLIT))
+    return -(-chunk // _VERIFY_TILE) * _VERIFY_TILE
+
+
 def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
     """Launch the verify kernel on the current stream; raise on a refused
     launch.  ``q`` is read, and the output written, in the [B, W, h, dh]
-    layout as it stands."""
+    layout as it stands; the f32 partials go to scratch allocated here."""
     B, W, h, dh = q.shape
     _check_dh("paged verify kernel", dh)
-    if not 1 <= W <= _MAX_W:
-        raise ValueError(f"paged verify kernel: W={W} query rows per slot, "
-                         f"the kernel takes 1..{_MAX_W}")
-    fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 6, 6)
+    bs, mb = k_pool.shape[2], block_table.shape[1]
+    chunk = verify_split_rows(B, W, h, mb * bs, _sm_count(q.device))
+    n_split = -(-(mb * bs) // chunk)
+    n_grp = -(-W // _VERIFY_GROUP)
+    fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 8, 7)
     out = torch.empty_like(q)
+    part = torch.empty(B * h * n_grp * n_split * _VERIFY_GROUP * (dh + 4),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _split_counters(q.device, stream, B * h * n_grp)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
-            B, W, h, k_pool.shape[2], dh, block_table.shape[1],
-            float(scale), int(q.dtype == torch.bfloat16), stream)
+            part.data_ptr(), counters.data_ptr(), B, W, h, bs, dh, mb,
+            chunk, float(scale), int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"paged verify kernel launch failed: CUDA "
                            f"error {rc}")
@@ -319,7 +341,7 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
     ``q`` [B, W, h, dh]; pools / table as :func:`paged_decode_attention`;
     ``pos0`` [B] int32.  Returns [B, W, h, dh].  CPU tensors take the
     plain version; CUDA tensors launch the kernel (float32 or bfloat16,
-    dh a multiple of 8 up to 128, W <= 16)."""
+    dh a multiple of 8 up to 128, any W)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_verify_attention", "[B, W, h, dh]", q, k_pool, v_pool,

@@ -222,6 +222,76 @@ def test_flash_rejects_ragged_blocks_and_cpu_counts_no_launch():
         fa.flash_bwd_dq)]
 
 
+# (name, head dim): the wrappers' zero padding at head dims the kernels
+# are not built for, and the tiny Gpt's attention at t 512 (2 heads of
+# 16, causal, a padding bias), which takes the flash route (K4) in both
+# packages
+PAD_CASES = [("dh16", 16), ("dh32", 32), ("dh96", 96),
+             ("tiny_gpt_t512", 16)]
+
+
+@pytest.mark.parametrize("case", PAD_CASES, ids=[c[0] for c in PAD_CASES])
+def test_head_dim_padding_is_exact_and_kernel_sized(case, monkeypatch):
+    """Every wrapper hands its plain version (and on the card its kernel)
+    q, k, v and dO zero-padded to a head dim the kernels are built for
+    (64, 128), and slices the padding off.  At dh 16, 32 and 96 the
+    forward and backward through the wrappers equal the plain versions
+    on the unpadded operands with the explicit scale, to 1e-6 in f32; the
+    tiny Gpt's t 512 attention still holds to the JAX package (forward
+    1e-5, gradients 1e-4)."""
+    name, dh = case
+    seen = []   # the head dim each plain call (K3/K4, K5, K6) was handed
+    plain = {fn: getattr(fa, fn) for fn in ("flash_fwd_reference",
+                                             "flash_bwd_reference")}
+    for fn, real in plain.items():
+        monkeypatch.setattr(fa, fn, lambda *a, _real=real, **kw: (
+            seen.append(a[0].shape[-1]), _real(*a, **kw))[1])
+    if name == "tiny_gpt_t512":
+        jax, jnp, jk, jfa = _jax()
+        q, k, v, g, bias = _inputs(16, 2, 2, 512, dh, "pad", "bthd")
+        kw = dict(causal=True, layout="bthd")
+        jout, vjp = jax.vjp(lambda *a: jk.attention(*a[:3], bias=a[3], **kw),
+                            *(jnp.asarray(x) for x in (q, k, v, bias)))
+        jgrads = vjp(jnp.asarray(g))
+        targs = [torch.from_numpy(x).requires_grad_(True)
+                 for x in (q, k, v, bias)]
+        fa.reset_route_log()
+        out = fa.attention(*targs[:3], bias=targs[3], **kw)
+        out.backward(torch.from_numpy(g))
+        assert fa.route_log() == (("flash", 512, dh),)
+        assert seen == [64, 64, 64]
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                                   rtol=0, atol=FWD_TOL)
+        for n, ta, jg in zip("qkvb", targs, jgrads):
+            np.testing.assert_allclose(ta.grad.numpy(), np.asarray(jg),
+                                       rtol=0, atol=GRAD_TOL, err_msg=n)
+        return
+    rng = np.random.default_rng(dh)
+    b, t, h = 2, 40, 3
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, t, h, dh))
+                                    .astype(np.float32)) for _ in range(4))
+    bias = torch.from_numpy(rng.normal(size=(b * h, t)).astype(np.float32))
+    scale = dh ** -0.5
+    bh = fa._to_bh
+    for causal in (False, True):
+        kw = dict(causal=causal, scale=scale)
+        o, lse = fa.flash_fwd(q, k, v, bias, **kw)
+        delta = fa.row_delta(do, o)
+        dk, dv, db = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
+                                       need_dbias=True, **kw)
+        dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+        assert fa.kernel_head_dim(dh) in fa._KERNEL_DH
+        assert seen[-3:] == [fa.kernel_head_dim(dh)] * 3
+        ro, rl = plain["flash_fwd_reference"](bh(q), bh(k), bh(v), bias,
+                                              **kw)
+        rq, rk, rv, rb = plain["flash_bwd_reference"](
+            bh(q), bh(k), bh(v), bias, bh(do), lse, delta, **kw)
+        for got, want in ((bh(o), ro), (lse, rl), (bh(dq), rq),
+                          (bh(dk), rk), (bh(dv), rv), (db, rb)):
+            assert got.shape == want.shape
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
 # -- on the card -------------------------------------------------------
 def _cuda_or_skip():
     if not torch.cuda.is_available():
@@ -363,3 +433,75 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
         assert _elem_err(db, rb) <= 2e-2
     else:
         assert db is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("single", [False, True],
+                         ids=["flash_fwd", "flash_fwd_single"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("dh", [16, 32, 96])
+def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
+    """K3 (or K4), K5 and K6 on the card at head dims the kernels are not
+    built for (zero-padded to 64 or 128 by the wrappers), causal with a
+    key bias at a ragged t, against the plain versions on the unpadded
+    operands; each element held to its own size.  These raised before."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(dh)
+    b, t, h = 2, 333, 3
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device="cuda").to(dt)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+    bias = torch.randn((b * h, t), generator=g, device="cuda")
+    do = torch.randn((b, t, h, dh), generator=g, device="cuda").to(dt)
+    kw = dict(causal=True, scale=dh ** -0.5)
+    bh = fa._to_bh
+    wrapper = fa.flash_fwd_single if single else fa.flash_fwd
+    counts = [w.launches for w in (wrapper, fa.flash_bwd_dkdv,
+                                   fa.flash_bwd_dq)]
+    o, lse = wrapper(q, k, v, bias, **kw)
+    delta = fa.row_delta(do, o)
+    dk, dv, db = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
+                                   need_dbias=True, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+    ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, single=single,
+                                    **kw)
+    rq, rk, rv, rb = fa.flash_bwd_reference(bh(q), bh(k), bh(v), bias,
+                                            bh(do), lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (wrapper, fa.flash_bwd_dkdv,
+                                 fa.flash_bwd_dq)] == [n + 1 for n in counts]
+    assert o.shape == dq.shape == dk.shape == dv.shape == (b, t, h, dh)
+    assert _elem_err(lse, rl) <= 1e-5
+    for got, want in ((bh(o), ro), (bh(dq), rq), (bh(dk), rk), (bh(dv), rv),
+                      (db, rb)):
+        assert _elem_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
+                                              (True, True), (False, False)])
+def test_cuda_k6_ragged_t(dh, causal, with_bias):
+    """K6 alone in bf16 at the ragged t of :func:`test_cuda_k3_ragged_t`
+    (its 128-row query blocks and 64-key tiles both ragged), on the plain
+    forward's O and LSE: dQ held to the plain backward at 2e-2 with the
+    same measure."""
+    _cuda_or_skip()
+    q, k, v, do, bias = _ragged_bf16(13 + dh + 2 * causal + with_bias, dh,
+                                     with_bias)
+    scale = dh ** -0.5
+    bh = fa._to_bh
+    b, _, h, _ = q.shape
+    o, lse = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, causal=causal,
+                                    scale=scale, single=True)
+    delta = fa.row_delta(do, fa._from_bh(o, b, h))
+    n0 = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=causal,
+                         scale=scale)
+    rq, _, _, _ = fa.flash_bwd_reference(bh(q), bh(k), bh(v), bias, bh(do),
+                                         lse, delta, causal=causal,
+                                         scale=scale)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == n0 + 1
+    assert _elem_err(bh(dq), rq) <= 2e-2

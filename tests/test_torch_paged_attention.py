@@ -131,7 +131,7 @@ def _verify_fixture(seed, W, bs, B=3, h=4, dh=8, mb=4):
     return q, kpool, vpool, tbl, pos0, 1.0 / dh ** 0.5
 
 
-@pytest.mark.parametrize("W", [1, 3, 5])
+@pytest.mark.parametrize("W", [1, 3, 5, 17, 20])
 @pytest.mark.parametrize("bs", [4, 8])
 def test_verify_plain_matches_jax_reference_and_pallas_interpret(W, bs):
     jnp = _jnp()
@@ -300,13 +300,34 @@ def test_cuda_kernel_split_edges(dtype, tol):
         assert _scaled_err(out, ref) <= tol, positions
 
 
+@pytest.mark.parametrize("B,W,h,capacity", [
+    (8, 5, 6, 1024), (8, 17, 6, 1024), (1, 1, 1, 4096), (64, 5, 12, 2048),
+    (4, 20, 4, 64), (2, 2, 3, 40), (1, 1, 1, 1 << 20)])
+def test_verify_split_rows_cover_the_table(B, W, h, capacity):
+    """The verify kernel's chunk: a multiple of its 64-key tile, no
+    smaller than the decode kernel's, at most 512 splits; the splits
+    cover the table's
+    capacity with none wholly past it; at the serving shapes it is the
+    decode kernel's 64 rows, so a verify pass fills the card as a decode
+    tick does."""
+    C = pa.verify_split_rows(B, W, h, capacity)
+    S = -(-capacity // C)
+    n_grp = -(-W // 16)
+    assert C % 64 == 0 and S <= 512
+    assert C >= pa.decode_split_rows(B * n_grp, h, capacity)
+    assert (S - 1) * C < capacity <= S * C or C == 64 and capacity < 64
+    if (B, W, h, capacity) == (8, 5, 6, 1024):
+        assert C == pa.decode_split_rows(B, h, capacity) == 64
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
 def test_cuda_verify_kernel_matches_plain(dtype, tol):
     """On the card: the verify kernel against the plain version at the
     serving path's shapes (8 slots, W = 5, 6 heads of 128, block 16,
-    64-entry tables, one slot within W of the table's end)."""
+    64-entry tables, one slot within W of the table's end); each element
+    held to its own size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
                     "tests/test_torch_*.py on the card)")
@@ -327,4 +348,81 @@ def test_cuda_verify_kernel_matches_plain(dtype, tol):
                                               1.0 / dh ** 0.5)
     torch.cuda.synchronize()
     assert pa.paged_verify_attention.launches == l0 + 1
-    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert _scaled_err(out, ref) <= tol
+
+
+def _verify_on_card(seed, dtype, B, W, positions, h=6, dh=128, bs=16,
+                    mb=64):
+    """The verify kernel against the plain version on the card, over the
+    valid rows only: slot b has a budget of 1..W written rows (W for a
+    slot within W of the table's end), and the kernel's pools hold NaN in
+    the scratch block 0 and in every row past a slot's last written one —
+    rows a deeper (unwritten) query row may see, which must never reach a
+    shallower row as 0 * NaN.  Returns (valid kernel rows, valid plain
+    rows)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    L = mb * bs
+    nb = 1 + B * mb
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, W, h, dh), generator=g, device="cuda").to(dt)
+    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
+        B, mb) + 1).to(torch.int32)
+    budget = [W if p + W > L else 1 + (7 * b + seed) % W
+              for b, p in enumerate(positions)]
+    k_bad, v_bad = kp.clone(), vp.clone()
+    k_bad[0] = v_bad[0] = float("nan")
+    for b, (p, n) in enumerate(zip(positions, budget)):
+        for j in range(min(p + n, L), min(p + W + bs, L)):
+            blk = int(tbl[b, j // bs])
+            k_bad[blk, :, j % bs] = v_bad[blk, :, j % bs] = float("nan")
+    pos0 = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    l0 = pa.paged_verify_attention.launches
+    out = pa.paged_verify_attention(q, k_bad, v_bad, tbl, pos0)
+    ref = pa.paged_verify_attention_reference(q, kp, vp, tbl, pos0,
+                                              1.0 / dh ** 0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_verify_attention.launches == l0 + 1
+    valid = (torch.arange(W)[None, :] < torch.tensor(budget)[:, None]).to(
+        out.device)
+    return out[valid], ref[valid]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("W", [17, 20])
+def test_cuda_verify_kernel_wide_chunks(W, dtype, tol):
+    """On the card: W > 16 (two groups of rows) with one slot within W of
+    the table's end, where the kernel raised before; each element held to
+    its own size (bf16 at ``chip_smoke.py``'s K2 bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    out, ref = _verify_on_card(W, dtype, 8, W,
+                               [0, 15, 16, 17, 511, 1024 - W + 3, 700, 250])
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("W", [1, 2, 5, 16])
+def test_cuda_verify_kernel_split_edges(W, dtype, tol):
+    """On the card: the split verify kernel with chunks that start, and
+    contexts that end, on its split edges (C - 1, C, C + 1 and the
+    table's last row, for the chunk C it takes at these shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    B, h, L = 8, 6, 1024
+    C = pa.verify_split_rows(B, W, h, L, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    positions = [C - 1, C, C + 1, L - 1, C - W, C - W + 1, 2 * C - W,
+                 L - W]
+    out, ref = _verify_on_card(100 + W, dtype, B, W,
+                               [max(p, 0) for p in positions])
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= tol
