@@ -35,6 +35,9 @@ Phases:
                BERT-base's attention (b 4, t 512, 12 heads of 64, a
                padding bias, on K4), t 896 on K4 (seven key tiles) and
                dh 32 (zero-padded to 64 by the wrappers) on K3-K6.
+               Past the fast kernels' head dims: K1 and K2 at dh 12 (rows
+               not 16-byte aligned), 160 and 256 (the any-dh kernel), K3-K6
+               at dh 160 (padded to the 192 build) and 256.
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -53,7 +56,24 @@ Phases:
                "draft_layers": 2, "adaptive": True} — the speculative main
                path: K1 and K2 counts reset before and read after, K2
                launched n_layers times per verify pass.
-  6. train   — training through MultiLayerNetwork.fit: (a) default-width
+  6. fleet   — ServingFleet over the port's GenerationServer replicas,
+               default-width zoo.Gpt() in bf16, seeded weights (replicas
+               of n_slots 8, max_len 1024, block 16, tick_batch 8): (a) two
+               unified replicas on the card serve phase 4(b)'s 16 requests
+               across two tenants — greedy streams vs offline generate()
+               under the bf16 near-tie rule, the shared system prompt
+               routed by affinity, K1 counted from a reset (>= 12 x
+               ticks); (b) the same with one replica killed mid-flight;
+               (c) roles ("prefill", "decode"), prefill_threshold 256, both
+               replicas speculative (k 4, 2 rounds, 2 draft layers): block
+               handoff export_prefix -> import_blocks, K2 == 12 x verify
+               passes, the prefill replica claims no draft blocks; (d) a
+               host-tier spill -> fetch round trip compared byte for byte,
+               and a stuck tick recovered by the watchdog under a submit
+               with retries.  Tokens/s, TTFT p50/p99 and the
+               fleet_request_phase_seconds split are printed with the
+               card's name and power limit.
+  7. train   — training through MultiLayerNetwork.fit: (a) default-width
                zoo.Gpt() in f32 at b 2, t 1024, one loss and gradient with
                use_flash on and off on the same params (rtol 1e-3); (b) the
                training main path: default-width Gpt() in bf16 (f32 master
@@ -65,7 +85,7 @@ Phases:
                the same steps on plain attention (loss curves within 1e-3
                of each other, no flash launch); (c) the same at t 512,
                where the forward is K4 (with its own step profile).
-  7. timings — K1 and K2, their plain versions and one PyTorch SDPA call
+  8. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
                plain versions, SDPA's forward and its backward alone
@@ -81,7 +101,9 @@ phases ``k3``, ``k4``, ``k5`` and ``k6`` time one flash kernel alone at
 the training shapes (K4 also at BERT-base's, 12 heads of 64 with a
 padding bias; K6 beside SDPA's backward), and ``k2`` the verify kernel
 at phase 4(b)'s mid contexts with W = 5 beside one SDPA call, three
-medians each, for quick comparisons of kernel versions in turns.
+medians each, for quick comparisons of kernel versions in turns.  The
+extra phase ``wide`` times the head-dim-256 builds (K1, K2 at 3 heads of
+256; K3-K6 at b 8, 3 heads of 256) beside their plain versions and SDPA.
 """
 from __future__ import annotations
 
@@ -94,9 +116,10 @@ import sys
 import time
 import traceback
 
-PHASES = ("build", "kernel", "pangrams", "full", "spec", "train",
+PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "train",
           "timings")
-EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6")  # only when asked
+EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6",
+                "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -127,6 +150,8 @@ PAGED_TOL = {"K1": {"float32": 1.5e-6, "bfloat16": 3e-2},
 # f32 <= 4e-6.  A K5 that skips its last query tile reads 1.27.
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
+# (head dim, heads) of the K1/K2 cases the fast kernels do not take
+ANY_DH = ((12, 6), (160, 3), (256, 3))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
 
@@ -241,7 +266,12 @@ def phase_kernel(torch, pa):
                           positions=[0, 7, 8, 63])),
         ("bs8", dict(B=8, h=6, dh=128, bs=8, mb=128,
                      positions=[0, 7, 8, 9, 511, 1023, 300, 64])),
-    ]
+    ] + [
+        # head dims the fast kernel does not take (any-dh kernel): not a
+        # multiple of 8 (bf16 rows 24 bytes, not 16-byte aligned), and
+        # above 128 (a 256-wide register row)
+        (f"dh{dh}", dict(B=8, h=h, dh=dh, bs=16, mb=64, positions=path_pos))
+        for dh, h in ANY_DH]
     errs, details = {}, {}
     for name, kw in cases:
         for dname, dtype in (("float32", torch.float32),
@@ -261,7 +291,11 @@ def phase_kernel(torch, pa):
                                               1024 - W + 1, 700, 250]))
         for W in (2, 5, 17)] + [
         ("verify_pangrams_w5", dict(B=4, h=4, dh=16, bs=8, mb=8, W=5,
-                                    positions=[0, 7, 30, 61]))]
+                                    positions=[0, 7, 30, 61]))] + [
+        (f"verify_dh{dh}_w{W}", dict(B=8, h=h, dh=dh, bs=16, mb=64, W=W,
+                                     positions=[0, 15, 16, 17, 511,
+                                                1024 - W + 1, 700, 250]))
+        for (dh, h), W in zip(ANY_DH, (5, 17, 5))]
     for name, kw in vcases:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
@@ -368,6 +402,12 @@ FLASH_CASES = [
     ("k4_t896", 2, 896, 6, 128, True, None, True),
     ("ragged_causal_bias_dh32", 2, 777, 4, 32, True, "random", False),
     ("ragged_bias_dh32_k4", 2, 333, 4, 32, False, "random", True),
+    # past dh 128: dh 160 (zero-padded to the 192 build) and 256, on the
+    # plain-FMA tiles the bf16 route takes there
+    ("ragged_causal_bias_dh160", 2, 777, 3, 160, True, "random", False),
+    ("ragged_bias_dh160_k4", 2, 333, 3, 160, False, "random", True),
+    ("causal_dh256", 2, 1000, 3, 256, True, None, False),
+    ("causal_pad_dh256_k4", 2, 512, 3, 256, True, "pad", True),
 ]
 
 
@@ -377,7 +417,7 @@ def phase_flash_kernel(torch):
     fa = flash_module()
     kernel_of = {"o": "K3", "lse": "K3", "dq": "K6", "dk": "K5", "dv": "K5",
                  "dbias": "K5"}
-    errs = {}
+    errs, details = {}, {}
     for i, (name, b, t, h, dh, causal, bias, single) in enumerate(
             FLASH_CASES):
         for dname, dtype in (("float32", torch.float32),
@@ -389,9 +429,12 @@ def phase_flash_kernel(torch):
                     else kernel_of[out]
                 key = f"flash_{name}/{dname}/{kern}/{out}"
                 errs[key] = err
+                if dh > 128:
+                    details[key] = detail
                 if not err <= FLASH_TOL[dname]:
                     raise AssertionError(f"{key}: error {err} > "
                                          f"{FLASH_TOL[dname]} ({detail})")
+    emit({"phase": "kernel/flash_wide_detail", "detail": details})
     return errs
 
 
@@ -696,7 +739,300 @@ def phase_spec(torch, np, pa, root):
     return l2
 
 
-# -- phase 6 -----------------------------------------------------------
+# -- phase 6: fleet ----------------------------------------------------
+# bf16 near-tie rule of the fleet phase: a served greedy stream may leave
+# offline generate() (also bf16) only where the offline logits of the two
+# tokens lie within this of each other.  bf16 keeps 8 mantissa bits, so
+# logits of magnitude 2-4 are spaced 1/64 apart; the served path rounds
+# at other points than the offline stripe decode (batched paged kernel,
+# chunked prefill on a prefix hit, block handoff, speculative verify), so
+# a flip is a tie when the two logits are within 4 such steps.
+NEAR_TIE_BF16 = 0.0625
+FLEET_SPEC = {"k": 4, "rounds": 2, "draft_layers": 2}
+
+
+def fleet_counts(reg):
+    """The process-wide counters the fleet phase reads as deltas (every
+    replica on the card adds to the same ones, so a part counts its own
+    run, never a replica)."""
+    return {
+        "ticks": reg.counter("generation_server_ticks_total").value,
+        "affinity": sum(
+            c.value for v, c in reg.counter(
+                "fleet_replica_dispatch_total",
+                labelnames=("replica", "reason"))._items()
+            if v[1] == "affinity"),
+        "handoff_blocks": reg.counter("kv_handoff_blocks_total").value,
+        "handoff_bytes": reg.counter("kv_handoff_bytes_total").value,
+        "restarts": reg.counter("serve_watchdog_restarts_total").value,
+        "migrated": sum(
+            c.value for v, c in reg.counter(
+                "fleet_requests_total",
+                labelnames=("tenant", "outcome"))._items()
+            if v[1] == "migrated"),
+    }
+
+
+def phase_split(reg):
+    """{phase: (count, sum seconds)} of fleet_request_phase_seconds."""
+    fam = reg.histogram("fleet_request_phase_seconds",
+                        labelnames=("phase",))
+    out = {}
+    for v, c in fam._items():
+        _, _, total, count = c.state()
+        out[v[0]] = (count, total)
+    return out
+
+
+def fleet_serve(fleet, reqs, timeout=900, kill=None):
+    """Submit the (prompt, n_new, sampling) requests across two tenants;
+    with ``kill``, kill that replica once any request has emitted a
+    token.  Returns outputs, TTFTs, wall seconds and the handles."""
+    t0 = time.perf_counter()
+    hs = [fleet.submit_async(p, n, tenant=("a", "b")[i % 2], sampling=s)
+          for i, (p, n, s) in enumerate(reqs)]
+    if kill is not None:
+        deadline = time.monotonic() + timeout
+        while not any(h.emitted > 0 for h in hs):
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: no request started decoding")
+            time.sleep(0.001)
+        fleet.kill(kill)
+    outs = [h.result(timeout) for h in hs]
+    return outs, [h.ttft for h in hs], time.perf_counter() - t0, hs
+
+
+def greedy_pairs(reqs, outs, refs):
+    return [(o, refs[i]) for i, ((_, _, s), o) in enumerate(zip(reqs, outs))
+            if s is None]
+
+
+def fleet_tier_roundtrip(np, GenerationServer, net, kw, prompts, n_new):
+    """Two prompts through a pool that holds one working set: B's
+    admission spills A's leading cached blocks to the host tier, A's
+    second admission fetches them back.  Returns (A's exported blocks
+    before the spill, after the fetch, A's two outputs, stats)."""
+    pa_, pb_ = prompts
+    one_request = -(-kw["max_len"] // kw["block_size"])
+    with GenerationServer(net, **dict(kw, n_slots=2, kv_blocks=one_request,
+                                      host_tier_blocks=4 * one_request)
+                          ) as srv:
+        out_a1 = srv.submit(pa_, n_new)
+        before = srv.export_prefix(pa_)
+        srv.submit(pb_, n_new)
+        out_a2 = srv.submit(pa_, n_new)
+        after = srv.export_prefix(pa_)
+        st = srv.stats()
+    return before, after, (out_a1, out_a2), st
+
+
+def fleet_watchdog(GenerationServer, FaultInjector, net, kw, prompt,
+                   n_new):
+    """A stuck tick (a 6 s stall past a 1 s deadline) recovered by the
+    watchdog while a submit with retries is in flight.  Returns (its
+    output, stats)."""
+    with GenerationServer(net, **dict(kw, n_slots=2, tick_batch=1,
+                                      tick_timeout_s=1.0,
+                                      submit_retries=4,
+                                      retry_backoff_s=0.02)) as srv:
+        srv.submit(prompt, 4)                       # warm-up
+        with FaultInjector(["serve_tick_stall@0:6.0"]):
+            out = srv.submit(prompt, n_new, timeout=900)
+        st = srv.stats()
+    return out, st
+
+
+def phase_fleet(torch, np, pa):
+    """ServingFleet on the card: default-width zoo.Gpt() in bf16, seeded
+    weights, replicas of n_slots 8, max_len 1024, block 16, tick_batch 8.
+    (a) two unified replicas serve phase 4(b)'s 16 mixed requests across
+    two tenants (the shared system prompt routes by affinity; K1 counted
+    from a reset); (b) the same requests with one replica killed
+    mid-flight; (c) roles ("prefill", "decode") with prefill_threshold
+    256, both replicas speculative (k 4, 2 rounds, a 2-layer self-draft):
+    long prompts hand their blocks off, the decode replica verifies on K2
+    (counted from a reset), the prefill replica claims no draft blocks;
+    (d) a host-tier spill -> fetch round trip, byte for byte, and a stuck
+    tick recovered by the watchdog under a submit with retries.  Greedy
+    streams are held to offline generate() (bf16) by the near-tie rule."""
+    from deeplearning4j_torch.zoo import Gpt
+
+    net = Gpt(seed=0).init_graph(device="cuda")
+    vocab = 32000
+    kw = dict(compute_dtype="bfloat16", n_slots=8, max_len=1024,
+              block_size=16, tick_batch=8, device="cuda")
+    system, reqs = mixed_requests(np, vocab)
+    return fleet_parts(torch, np, pa, net, kw, system, reqs, vocab,
+                       card_line())
+
+
+def fleet_parts(torch, np, pa, net, kw, system, reqs, vocab, card):
+    """Parts (a)-(d) of :func:`phase_fleet` on a built net (replica
+    config ``kw``), phase 4(b)'s requests and the system prompt.  Prompts
+    of 16 blocks or more (256 tokens at block 16) stage through the
+    prefill replica in (c); (d)'s prompts fill 60% of a slot."""
+    prefill_threshold = 16 * kw["block_size"]
+    tier_prompt = kw["max_len"] * 3 // 5
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.resilience import FaultInjector
+    from deeplearning4j_torch.serving import ServingFleet
+
+    reg = telemetry.get_registry()
+    k1, k2 = pa.paged_decode_attention, pa.paged_verify_attention
+    n_layers = len(net.layers) - 2
+    gen = TransformerGenerator(net, compute_dtype=kw["compute_dtype"],
+                               device=kw["device"])
+    refs = {i: gen.generate(p[None], n)[0]
+            for i, (p, n, s) in enumerate(reqs) if s is None}
+    new_tokens = sum(n for _, n, _ in reqs)
+    warm = np.concatenate([system, [7, 7, 7]]).astype(np.int32)
+
+    # (a) two unified replicas
+    with ServingFleet(net, n_replicas=2, **kw) as fleet:
+        fleet.submit(warm, 8, timeout=900)        # seeds the system prompt
+        c0, ph0 = fleet_counts(reg), phase_split(reg)
+        k1.launches = 0
+        outs, ttfts, wall, hs = fleet_serve(fleet, reqs)
+        launches = k1.launches
+        c1, ph1 = fleet_counts(reg), phase_split(reg)
+        replicas = sorted({h.replica for h in hs})
+    check_finished(reqs, outs, vocab)
+    ties_a = check_streams(torch, gen, greedy_pairs(reqs, outs, refs),
+                           NEAR_TIE_BF16)
+    ticks = c1["ticks"] - c0["ticks"]
+    if c1["affinity"] - c0["affinity"] < 1:
+        raise AssertionError("fleet (a): no affinity dispatch")
+    if launches < n_layers * ticks:
+        raise AssertionError(f"fleet (a): {launches} K1 launches < "
+                             f"{n_layers} layers x {ticks} ticks")
+    split = {ph: {"count": ph1[ph][0] - ph0.get(ph, (0, 0))[0],
+                  "mean_s": ((ph1[ph][1] - ph0.get(ph, (0, 0))[1])
+                             / max(1, ph1[ph][0] - ph0.get(ph, (0, 0))[0]))}
+             for ph in ph1}
+    emit({"phase": "fleet/unified", "replicas": 2, "requests": len(reqs),
+          "new_tokens": new_tokens, "seconds": wall,
+          "new_tokens_per_s": new_tokens / wall,
+          "ttft_p50_s": pct(ttfts, 0.50), "ttft_p99_s": pct(ttfts, 0.99),
+          "request_phase_seconds": split, "ticks": ticks,
+          "k1_launches": launches,
+          "affinity_dispatches": c1["affinity"] - c0["affinity"],
+          "replicas_used": replicas, "near_ties": ties_a, "card": card})
+
+    # (b) kill one replica mid-flight
+    with ServingFleet(net, n_replicas=2, **kw) as fleet:
+        fleet.submit(warm, 8, timeout=900)
+        c0 = fleet_counts(reg)
+        outs, _, wall, hs = fleet_serve(fleet, reqs, kill=0)
+        c1 = fleet_counts(reg)
+        healthy = fleet.stats()["healthy_replicas"]
+    check_finished(reqs, outs, vocab)
+    ties_b = check_streams(torch, gen, greedy_pairs(reqs, outs, refs),
+                           NEAR_TIE_BF16)
+    if healthy != 1:
+        raise AssertionError(f"fleet (b): {healthy} healthy replicas")
+    emit({"phase": "fleet/kill", "seconds": wall,
+          "migrated": c1["migrated"] - c0["migrated"],
+          "migrations": sum(h.migrations for h in hs),
+          "near_ties": ties_b, "card": card})
+
+    # (c) disaggregated prefill/decode, speculative replicas
+    with ServingFleet(net, n_replicas=2, roles=("prefill", "decode"),
+                      prefill_threshold=prefill_threshold,
+                      speculative=FLEET_SPEC,
+                      **kw) as fleet:
+        fleet.submit(warm, 8, timeout=900)
+        c0 = fleet_counts(reg)
+        k1.launches = k2.launches = 0
+        outs, ttfts, wall, hs = fleet_serve(fleet, reqs)
+        l1, l2 = k1.launches, k2.launches
+        c1 = fleet_counts(reg)
+        pre, dec = fleet.replica(0), fleet.replica(1)
+        with pre._lock:
+            pre_draft = len(pre._draft_cached) + len(pre._dprefix_map)
+        st_pre, st_dec = pre.stats(), dec.stats()
+        staged = [h for h in hs if h.prefill_replica == 0]
+        # the handed-off blocks, as both replicas hold them now: the
+        # decode replica's must be the prefill replica's bytes (blocks
+        # either side evicted since are left out)
+        same = 0
+        for h in staged:
+            a, b = pre.export_prefix(h.prompt), dec.export_prefix(h.prompt)
+            for (ha, _, ka, va), (hb, _, kb, vb) in zip(a, b):
+                if ha != hb or not (np.array_equal(ka, kb)
+                                    and np.array_equal(va, vb)):
+                    raise AssertionError("fleet (c): a handed-off block's "
+                                         "bytes differ between replicas")
+                same += 1
+    check_finished(reqs, outs, vocab)
+    ties_c = check_streams(torch, gen, greedy_pairs(reqs, outs, refs),
+                           NEAR_TIE_BF16)
+    passes = c1["ticks"] - c0["ticks"]
+    handoff = c1["handoff_blocks"] - c0["handoff_blocks"]
+    if handoff < 1 or not staged or same < 1 \
+            or st_dec["tier_fetches"] < 1:
+        raise AssertionError(f"fleet (c): no block handoff ({handoff} "
+                             f"blocks, {len(staged)} staged requests, "
+                             f"{same} compared)")
+    if pre_draft or st_pre["spec_proposed"]:
+        raise AssertionError("fleet (c): the prefill replica claimed draft "
+                             "blocks or speculated")
+    if not (l2 > 0 and l2 == n_layers * passes):
+        raise AssertionError(f"fleet (c): {l2} K2 launches != {n_layers} "
+                             f"layers x {passes} verify passes (or none)")
+    emit({"phase": "fleet/disagg", "speculative": FLEET_SPEC,
+          "prefill_threshold": prefill_threshold, "seconds": wall,
+          "new_tokens_per_s": new_tokens / wall,
+          "ttft_p50_s": pct(ttfts, 0.50), "ttft_p99_s": pct(ttfts, 0.99),
+          "staged_requests": len(staged), "handoff_blocks": handoff,
+          "handoff_blocks_byte_equal": same,
+          "handoff_bytes": c1["handoff_bytes"] - c0["handoff_bytes"],
+          "decode_tier_fetches": st_dec["tier_fetches"],
+          "verify_passes": passes, "k1_launches": l1, "k2_launches": l2,
+          "acceptance_rate": st_dec["spec_acceptance_rate"],
+          "near_ties": ties_c, "card": card})
+
+    # (d) host tier round trip and the watchdog
+    rng = np.random.default_rng(7)
+    pair = [rng.integers(0, vocab, tier_prompt).astype(np.int32)
+            for _ in range(2)]
+    n_new = max(2, kw["max_len"] // 32)
+    before, after, (a1, a2), st = fleet_tier_roundtrip(
+        np, GenerationServer, net, kw, pair, n_new)
+    if not (st["tier_spills"] >= 1 and st["tier_fetches"] >= 1
+            and len(before) == len(after)
+            == (tier_prompt - 1) // kw["block_size"]):
+        raise AssertionError(f"fleet (d): no spill/fetch round trip "
+                             f"({st['tier_spills']}, {st['tier_fetches']}, "
+                             f"{len(before)}, {len(after)})")
+    for (h0, _, k0, v0), (h1, _, k1_, v1) in zip(before, after):
+        if h0 != h1 or not (np.array_equal(k0, k1_)
+                            and np.array_equal(v0, v1)):
+            raise AssertionError("fleet (d): a fetched block's bytes "
+                                 "differ from the spilled block's")
+    ref_a = gen.generate(pair[0][None], n_new)[0]
+    ties_t = check_streams(torch, gen, [(a1, ref_a), (a2, ref_a)],
+                           NEAR_TIE_BF16)
+    c0 = fleet_counts(reg)
+    short = pair[0][:tier_prompt // 6]
+    out, st_w = fleet_watchdog(GenerationServer, FaultInjector, net, kw,
+                               short, n_new)
+    restarts = fleet_counts(reg)["restarts"] - c0["restarts"]
+    ref_w = gen.generate(short[None], n_new)[0]
+    ties_d = check_streams(torch, gen, [(out, ref_w)], NEAR_TIE_BF16)
+    if restarts < 1 or not st_w["healthy"]:
+        raise AssertionError(f"fleet (d): the watchdog did not recover "
+                             f"({restarts} restarts)")
+    emit({"phase": "fleet/tier_watchdog",
+          "tier_spills": st["tier_spills"],
+          "tier_fetches": st["tier_fetches"],
+          "blocks_byte_equal": len(before), "watchdog_restarts": restarts,
+          "near_ties": ties_t + ties_d, "card": card})
+    return {"k1": launches, "k2": l2}
+
+
+# -- phase 7 -----------------------------------------------------------
 FLASH_WRAPPERS = ("flash_fwd", "flash_fwd_single", "flash_bwd_dkdv",
                   "flash_bwd_dq")
 TRAIN_STEPS = 5
@@ -860,7 +1196,7 @@ def phase_train(torch, np):
     return counts
 
 
-# -- phase 7 -----------------------------------------------------------
+# -- phase 8 -----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
@@ -933,10 +1269,10 @@ def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True):
             else "bytes", flops, n_bytes)
 
 
-def phase_timings_flash(torch):
+def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
     """K3, K5 and K6 at the training path's shapes (bf16, b 8, t 2048,
-    6 heads of 128, causal, bthd views of a [b, t, 3d] projection) and K4
-    at t 512, against their plain versions; yardsticks: one
+    ``h`` heads of ``dh`` (6 of 128), causal, bthd views of a [b, t, 3d]
+    projection) and K4 at t 512, against their plain versions; yardsticks: one
     ``F.scaled_dot_product_attention(is_causal=True)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
     forward recorded beforehand).  The port never calls SDPA.  Kernels,
@@ -945,8 +1281,7 @@ def phase_timings_flash(torch):
     backward with the spread of its 9 replays."""
     import torch.nn.functional as F
     fa = flash_module()
-    dev, dt, NB = "cuda", torch.bfloat16, 4
-    h, dh, b = 6, 128, 8
+    dev, dt, NB, b = "cuda", torch.bfloat16, 4, 8
     scale = dh ** -0.5
     g = torch.Generator(device=dev).manual_seed(9)
     bh = fa._to_bh
@@ -1031,7 +1366,7 @@ def phase_timings_flash(torch):
                 rows[name]["library_reps_ms"] = lib_bwd_reps
         del sets, outs, deltas, plain_in, sdpa_in
         torch.cuda.empty_cache()
-    emit({"phase": "timings/flash", "kernels": rows,
+    emit({"phase": phase, "kernels": rows,
           "plain_bwd_note": "flash_bwd_reference computes dq, dk, dv and "
                             "dbias at once; its time stands for K5 and K6",
           "library_bwd_note": "SDPA backward alone through autograd (dq, "
@@ -1043,14 +1378,14 @@ def phase_timings_flash(torch):
     return rows
 
 
-def phase_timings(torch, pa, positions):
-    """Median per-call times at the path shapes (bf16, 8 slots, 6 heads
-    of 128, block 16, 64-entry tables).  Calls cycle over 12 layers'
-    pools (~300 MB), as one decode tick does, so the 50 MB L2 cannot hold
-    the working set."""
+def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings"):
+    """Median per-call times at the path shapes (bf16, 8 slots, ``h``
+    heads of ``dh`` (6 of 128), block 16, 64-entry tables).  Calls cycle
+    over 12 layers' pools (~300 MB), as one decode tick does, so the
+    50 MB L2 cannot hold the working set."""
     import torch.nn.functional as F
     dev, dtype = "cuda", torch.bfloat16
-    B, h, dh, bs, mb, NL = 8, 6, 128, 16, 64, 12
+    B, bs, mb, NL = 8, 16, 64, 12
     g = torch.Generator(device=dev).manual_seed(5)
     nb = 1 + B * mb
     kp = torch.randn((NL, nb, h, bs, dh), generator=g, device=dev).to(dtype)
@@ -1086,7 +1421,7 @@ def phase_timings(torch, pa, positions):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_flops / H100_BF16_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
-    out = {"phase": "timings", "shapes": {"B": B, "h": h, "dh": dh,
+    out = {"phase": phase, "shapes": {"B": B, "h": h, "dh": dh,
                                           "bs": bs, "max_blocks": mb,
                                           "dtype": "bfloat16",
                                           "pos": positions},
@@ -1100,14 +1435,16 @@ def phase_timings(torch, pa, positions):
     return out
 
 
-def phase_timings_verify(torch, pa, positions, W=5):
-    """K2 at the path shapes with W = 5 (k = 4): bf16, 8 slots, 6 heads
-    of 128, block 16, 64-entry tables, chunks starting at ``positions``;
-    12 layers' pools in rotation as for K1.  The yardstick is one SDPA
-    call over K/V gathered beforehand with a [B, 1, W, L] causal mask."""
+def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
+                         phase="timings/verify"):
+    """K2 at the path shapes with W = 5 (k = 4): bf16, 8 slots, ``h``
+    heads of ``dh`` (6 of 128), block 16, 64-entry tables, chunks
+    starting at ``positions``; 12 layers' pools in rotation as for K1.
+    The yardstick is one SDPA call over K/V gathered beforehand with a
+    [B, 1, W, L] causal mask."""
     import torch.nn.functional as F
     dev, dtype = "cuda", torch.bfloat16
-    B, h, dh, bs, mb, NL = 8, 6, 128, 16, 64, 12
+    B, bs, mb, NL = 8, 16, 64, 12
     L = mb * bs
     g = torch.Generator(device=dev).manual_seed(6)
     nb = 1 + B * mb
@@ -1143,7 +1480,7 @@ def phase_timings_verify(torch, pa, positions, W=5):
     n_flops = 4 * keys * h * dh
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_flops / H100_BF16_FLOPS * 1e3
-    out = {"phase": "timings/verify",
+    out = {"phase": phase,
            "shapes": {"B": B, "W": W, "h": h, "dh": dh, "bs": bs,
                       "max_blocks": mb, "dtype": "bfloat16",
                       "pos0": positions},
@@ -1397,6 +1734,8 @@ def main(argv=None) -> int:
             launches = phase_full(torch, np, pa)
         if "spec" in phases:
             v_launches = phase_spec(torch, np, pa, root)
+        if "fleet" in phases:
+            phase_fleet(torch, np, pa)
         if "train" in phases:
             t_counts = phase_train(torch, np)
         if "timings" in phases:
@@ -1411,6 +1750,15 @@ def main(argv=None) -> int:
                 phase_solo(torch, which)
         if "k2" in phases:
             phase_solo_verify(torch, pa, path_mid(np))
+        if "wide" in phases:
+            # the dh-256 builds at the width of the path (3 heads of 256)
+            mid = path_mid(np)
+            phase_timings(torch, pa, mid, h=3, dh=256,
+                          phase="timings/dh256")
+            phase_timings_verify(torch, pa, mid, h=3, dh=256,
+                                 phase="timings/verify_dh256")
+            phase_timings_flash(torch, h=3, dh=256,
+                                phase="timings/flash_dh256")
         if None not in (launches, timing, v_launches, v_timing, t_counts,
                         f_timing):
             rows = [

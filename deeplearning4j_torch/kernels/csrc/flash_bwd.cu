@@ -61,7 +61,13 @@
 //   causal query tile goes first, in groups of 8 (batch, head) slices so
 //   the K/V tiles the running blocks share stay in L2.  dQ is written
 //   once, at the end, with no atomics.
-// * f32: 8 warps, 32-row tiles, f32 tiles in shared memory, plain FMAs.
+// * f32, and bf16 at head dims 192 and 256 (the wgmma route's dK/dV or dQ
+//   accumulators would not fit in registers there): 8 warps, 32-row
+//   tiles, f32 tiles in shared memory, plain FMAs on the inputs' exact
+//   values; in bf16, P and dS * scale are rounded where K5 and K6 round
+//   them and dQ, dK and dV are written as bf16.  At dh 256 the tiles take
+//   ~213 KB of shared memory.  A simple kernel that is right, bound by its
+//   FMAs, not the tensor cores.
 #include "flash_hopper.cuh"
 
 using namespace flash;
@@ -530,7 +536,7 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: tiles in shared memory, plain FMAs
+// plain route (f32; bf16 past dh 128): f32 tiles in shared memory, FMAs
 // ---------------------------------------------------------------------------
 template <int DH>
 struct F32BwdLayout {
@@ -544,9 +550,9 @@ struct F32BwdLayout {
       sizeof(float) * (6 * kTileT + 4 * kTileS + 3 * BR);
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
-                                                                    bool dq_pass) {
+template <typename T, int DH>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_plain_kernel(BwdArgs a,
+                                                                      bool dq_pass) {
   using L = F32BwdLayout<DH>;
   constexpr int BR = L::BR, BC = L::BC, LDT = L::LDT, LDS = L::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -568,10 +574,10 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
   const int bh = blockIdx.y;
   const int bi = bh / a.h, hi = bh - bi * a.h;
   const int t = a.t;
-  const float* qp = static_cast<const float*>(a.q) + bi * a.sq.b + hi * a.sq.h;
-  const float* kp = static_cast<const float*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const float* vp = static_cast<const float*>(a.v) + bi * a.sv.b + hi * a.sv.h;
-  const float* dop = static_cast<const float*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
+  const T* qp = static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h;
+  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const T* dop = static_cast<const T*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
   const bool want_db = !dq_pass && a.dbias != nullptr;
   const int n_tiles = (t + BR - 1) / BR;
@@ -581,12 +587,12 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
   for (int i = tid; i < 2 * L::kTileT; i += kF32Threads) acc0[i] = 0.f;
   for (int i = tid; i < BC; i += kF32Threads) db_s[i] = 0.f;
   if (dq_pass) {
-    load_rows<float, BR, DH, LDT, kF32Threads>(q_s, qp, a.sq.t, own0, t);
-    load_rows<float, BR, DH, LDT, kF32Threads>(do_s, dop, a.sdo.t, own0, t);
+    load_rows_f32<T, BR, DH, LDT, kF32Threads>(q_s, qp, a.sq.t, own0, t);
+    load_rows_f32<T, BR, DH, LDT, kF32Threads>(do_s, dop, a.sdo.t, own0, t);
     load_stats<BR, kF32Threads>(a, bh, own0, lse_s, dl_s);
   } else {
-    load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, own0, t);
-    load_rows<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, own0, t);
+    load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, own0, t);
+    load_rows_f32<T, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, own0, t);
   }
   // the other axis's tiles this one meets (causal: those on the diagonal's
   // unmasked side)
@@ -596,11 +602,11 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
     const int q0 = dq_pass ? own0 : o0, k0 = dq_pass ? o0 : own0;
     __syncthreads();
     if (dq_pass) {
-      load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
-      load_rows<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
     } else {
-      load_rows<float, BR, DH, LDT, kF32Threads>(q_s, qp, a.sq.t, q0, t);
-      load_rows<float, BR, DH, LDT, kF32Threads>(do_s, dop, a.sdo.t, q0, t);
+      load_rows_f32<T, BR, DH, LDT, kF32Threads>(q_s, qp, a.sq.t, q0, t);
+      load_rows_f32<T, BR, DH, LDT, kF32Threads>(do_s, dop, a.sdo.t, q0, t);
       load_stats<BR, kF32Threads>(a, bh, q0, lse_s, dl_s);
     }
     __syncthreads();
@@ -612,9 +618,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
       const float p = recompute_p(a, bias, s_s[r * LDS + c], q0 + r, k0 + c,
                                   lse_s[r]);
       const float ds = p * (dp_s[r * LDS + c] - dl_s[r]);
-      p_s[r * LDS + c] = p;
+      p_s[r * LDS + c] = round_as<T>(p);   // as K5 rounds P for P^T dO
       s_s[r * LDS + c] = ds;
-      ds_s[r * LDS + c] = ds * a.scale;
+      ds_s[r * LDS + c] = round_as<T>(ds * a.scale);
     }
     __syncthreads();
     if (dq_pass) {
@@ -633,14 +639,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_f32_kernel(BwdArgs a,
   }
   __syncthreads();
   if (dq_pass) {
-    store_rows<BR, DH, LDT>(static_cast<float*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h,
-                            a.sdq.t, acc0, own0, t);
+    store_rows<T, BR, DH, LDT>(static_cast<T*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h,
+                               a.sdq.t, acc0, own0, t);
     return;
   }
-  store_rows<BC, DH, LDT>(static_cast<float*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h,
-                          a.sdk.t, acc0, own0, t);
-  store_rows<BC, DH, LDT>(static_cast<float*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h,
-                          a.sdv.t, acc1, own0, t);
+  store_rows<T, BC, DH, LDT>(static_cast<T*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h,
+                             a.sdk.t, acc0, own0, t);
+  store_rows<T, BC, DH, LDT>(static_cast<T*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h,
+                             a.sdv.t, acc1, own0, t);
   if (want_db) {
     for (int c = tid; c < BC; c += kF32Threads)
       if (own0 + c < t) a.dbias[(long long)bh * t + own0 + c] = db_s[c];
@@ -661,15 +667,18 @@ int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DH>
+int launch_plain(const BwdArgs& a, int b, bool dq_pass, cudaStream_t s) {
+  static bool configured = false;
+  const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);
+  return launch(flash_bwd_plain_kernel<T, DH>, F32BwdLayout<DH>::kBytes,
+                configured, grid, kF32Threads, s, a, dq_pass);
+}
+
 template <int DH>
 int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
               cudaStream_t s) {
-  if (!is_bf16) {
-    static bool configured = false;
-    const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);
-    return launch(flash_bwd_f32_kernel<DH>, F32BwdLayout<DH>::kBytes,
-                  configured, grid, kF32Threads, s, a, dq_pass);
-  }
+  if (!is_bf16) return launch_plain<float, DH>(a, b, dq_pass, s);
   // K5 reads Q/dO in 64-row tiles beside 128-key blocks, K6 Q/dO in
   // 128-row blocks beside 64-key tiles
   const int q_rows = dq_pass ? kDqRows : kBwRows, k_rows = dq_pass ? kDqKeys : kBwKeys;
@@ -693,15 +702,24 @@ int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
 
 int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, bool dq_pass,
                cudaStream_t s) {
-  return dh == 64 ? launch_dh<64>(a, b, is_bf16, dq_pass, s)
-                  : launch_dh<128>(a, b, is_bf16, dq_pass, s);
+  switch (dh) {
+    case 64: return launch_dh<64>(a, b, is_bf16, dq_pass, s);
+    case 128: return launch_dh<128>(a, b, is_bf16, dq_pass, s);
+    case 192:
+      return is_bf16 ? launch_plain<__nv_bfloat16, 192>(a, b, dq_pass, s)
+                     : launch_plain<float, 192>(a, b, dq_pass, s);
+    default:
+      return is_bf16 ? launch_plain<__nv_bfloat16, 256>(a, b, dq_pass, s)
+                     : launch_plain<float, 256>(a, b, dq_pass, s);
+  }
 }
 
 int fill(BwdArgs& a, const void* q, const void* k, const void* v,
          const void* dout, const void* bias, const void* lse,
          const void* delta, const long long* strides, int b, int h, int t,
          int dh, float scale, int causal) {
-  if (b <= 0 || h <= 0 || t <= 0 || (dh != 64 && dh != 128) || b * h > 65535)
+  if (b <= 0 || h <= 0 || t <= 0 || (dh != 64 && dh != 128 && dh != 192 && dh != 256) ||
+      b * h > 65535)
     return (int)cudaErrorInvalidValue;
   a.q = q;
   a.k = k;

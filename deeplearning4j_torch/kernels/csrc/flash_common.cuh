@@ -14,8 +14,10 @@
 //   rows, the f32 accumulator of one product turns into the A fragment
 //   of the next (P) without shared memory, and B fragments that need a
 //   transpose come from ldmatrix.trans.
-// * f32 (tests, parity checks): f32 tiles in shared memory and plain
-//   FMAs (`mm`), so an f32 run has f32 products throughout.
+// * f32 (tests, parity checks), and bf16 at the head dims past 128 (192
+//   and 256, where the wgmma tiles would not fit in registers): f32 tiles
+//   in shared memory and plain FMAs (`mm`), so a run has f32 products of
+//   its inputs throughout and rounds only where the bf16 kernels round.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -93,20 +95,52 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
 }
 
 // ---------------------------------------------------------------------------
-// f32 route
+// plain route: f32 tiles in shared memory
 // ---------------------------------------------------------------------------
 constexpr int kF32Threads = 256;   // 8 warps
 constexpr int kF32Warps = kF32Threads / 32;
 constexpr int kF32Tile = 32;       // rows per tile (queries and keys)
 
-// Write rows [r0, r0 + R) (those below t) of an f32 tile.
-template <int R, int DH, int LD>
-__device__ __forceinline__ void store_rows(float* dst, long long st,
+// load_rows into an f32 tile from T rows (bf16 widened as it lands).
+template <typename T, int R, int DH, int LD, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, long long st,
+                                              int r0, int t) {
+  if constexpr (sizeof(T) == 4) {
+    load_rows<float, R, DH, LD, NT>(dst, reinterpret_cast<const float*>(src), st, r0, t);
+  } else {
+    constexpr int kVpr = DH / 8;   // 16-byte vectors of 8 bf16 a row
+    for (int c = threadIdx.x; c < R * kVpr; c += NT) {
+      const int r = c / kVpr;
+      const int w = c - r * kVpr;
+      const int row = r0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row < t) val = reinterpret_cast<const uint4*>(src + (long long)row * st)[w];
+      const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&val);
+      float* d = dst + r * LD + w * 8;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pr[e]);
+        d[2 * e] = f.x;
+        d[2 * e + 1] = f.y;
+      }
+    }
+  }
+}
+
+// x as the nearest T (identity for f32): where the bf16 kernels round.
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Write rows [r0, r0 + R) (those below t) of an f32 tile as T.
+template <typename T, int R, int DH, int LD>
+__device__ __forceinline__ void store_rows(T* dst, long long st,
                                            const float* src, int r0, int t) {
   for (int i = threadIdx.x; i < R * DH; i += kF32Threads) {
     const int r = i / DH;
     const int d = i - r * DH;
-    if (r0 + r < t) dst[(long long)(r0 + r) * st + d] = src[r * LD + d];
+    if (r0 + r < t) dst[(long long)(r0 + r) * st + d] = from_float<T>(src[r * LD + d]);
   }
 }
 

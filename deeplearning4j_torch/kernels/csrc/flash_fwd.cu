@@ -55,7 +55,12 @@
 //   query tile goes first, so the lightest blocks fill the last wave (at
 //   t 512, b 8, 6 heads: 192 blocks of 4..1 key tiles on 132 SMs, one
 //   block an SM).
-// * f32: 8 warps, 32-row tiles, f32 tiles in shared memory and plain FMAs.
+// * f32, and bf16 at head dims 192 and 256 (the wgmma route's O
+//   accumulator and its two S tiles would not fit in registers there): 8
+//   warps, 32-row tiles, f32 tiles in shared memory and plain FMAs on the
+//   inputs' exact values; in bf16, P is rounded where K3 and K4 round it
+//   and O is written as bf16.  A simple kernel that is right, bound by
+//   its FMAs (~67 TFLOP/s f32 peak), not the tensor cores.
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
 // later work: each 128-row query block reads every K/V tile below its
@@ -381,7 +386,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: tiles in shared memory, plain FMAs
+// plain route (f32; bf16 past dh 128): f32 tiles in shared memory, FMAs
 // ---------------------------------------------------------------------------
 template <int DH>
 struct F32FwdLayout {
@@ -397,8 +402,8 @@ struct F32FwdLayout {
   static constexpr size_t kBytes = kStat + sizeof(float) * 3 * BR;
 };
 
-template <int DH, bool kSingle>
-__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
+template <typename T, int DH, bool kSingle>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a) {
   using L = F32FwdLayout<DH>;
   constexpr int BR = L::BR, BC = L::BC, LDT = L::LDT, LDS = L::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -417,12 +422,12 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
   const int t = a.t;
   const int n_q = (t + BR - 1) / BR;
   const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;
-  const float* kp = static_cast<const float*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const float* vp = static_cast<const float*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
 
-  load_rows<float, BR, DH, LDT, kF32Threads>(
-      q_s, static_cast<const float*>(a.q) + bi * a.sq.b + hi * a.sq.h, a.sq.t, q0, t);
+  load_rows_f32<T, BR, DH, LDT, kF32Threads>(
+      q_s, static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h, a.sq.t, q0, t);
   for (int i = tid; i < BR * LDT; i += kF32Threads) o_s[i] = 0.f;
   for (int i = tid; i < BR; i += kF32Threads) {
     m_s[i] = kNeg;
@@ -438,7 +443,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
   if constexpr (kSingle) {
     for (int k0 = 0; k0 < k_end; k0 += BC) {   // pass 1: max, denominator
       __syncthreads();
-      load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
       __syncthreads();
       mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
       __syncthreads();
@@ -454,15 +459,15 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
     }
     for (int k0 = 0; k0 < k_end; k0 += BC) {   // pass 2: P / l, then P.V
       __syncthreads();
-      load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
-      load_rows<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
       __syncthreads();
       mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
       __syncthreads();
       for (int r = warp; r < BR; r += kF32Warps) {
         const float s = row_score(r, k0);
         const float l = l_s[r] == 0.f ? 1.f : l_s[r];
-        s_s[r * LDS + lane] = s > 0.5f * kNeg ? expf(s - m_s[r]) / l : 0.f;
+        s_s[r * LDS + lane] = s > 0.5f * kNeg ? round_as<T>(expf(s - m_s[r]) / l) : 0.f;
       }
       __syncthreads();
       mm<BR, DH, BC, false, false, true>(o_s, LDT, s_s, LDS, v_s, LDT);
@@ -470,8 +475,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
   } else {
     for (int k0 = 0; k0 < k_end; k0 += BC) {
       __syncthreads();
-      load_rows<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
-      load_rows<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<T, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
       __syncthreads();
       mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
       __syncthreads();
@@ -480,7 +485,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
         const float m_prev = m_s[r];
         const float m_new = fmaxf(m_prev, warp_max(s));
         const float p = s > 0.5f * kNeg ? expf(s - m_new) : 0.f;
-        s_s[r * LDS + lane] = p;
+        s_s[r * LDS + lane] = round_as<T>(p);   // P in the input dtype, as K3
         const float sum = warp_sum(p);
         if (lane == 0) {
           const float corr = expf(m_prev - m_new);
@@ -507,8 +512,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(FwdArgs a) {
     }
     __syncthreads();
   }
-  store_rows<BR, DH, LDT>(static_cast<float*>(a.o) + bi * a.so.b + hi * a.so.h,
-                          a.so.t, o_s, q0, t);
+  store_rows<T, BR, DH, LDT>(static_cast<T*>(a.o) + bi * a.so.b + hi * a.so.h,
+                             a.so.t, o_s, q0, t);
   for (int r = tid; r < BR; r += kF32Threads) {
     if (q0 + r >= t) continue;
     const float l = l_s[r];
@@ -551,19 +556,31 @@ int launch_wgmma(const FwdArgs& a, int b, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int DH, bool kSingle>
-int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
-  if (is_bf16) return launch_wgmma<DH, kSingle>(a, b, s);
+template <typename T, int DH, bool kSingle>
+int launch_plain(const FwdArgs& a, int b, cudaStream_t s) {
   static bool configured = false;
   const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);
-  return launch(flash_fwd_f32_kernel<DH, kSingle>, F32FwdLayout<DH>::kBytes,
+  return launch(flash_fwd_plain_kernel<T, DH, kSingle>, F32FwdLayout<DH>::kBytes,
                 configured, grid, kF32Threads, a, s);
+}
+
+template <int DH, bool kSingle>
+int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
+  if (!is_bf16) return launch_plain<float, DH, kSingle>(a, b, s);
+  if constexpr (DH <= 128)
+    return launch_wgmma<DH, kSingle>(a, b, s);
+  else
+    return launch_plain<__nv_bfloat16, DH, kSingle>(a, b, s);
 }
 
 template <bool kSingle>
 int launch_any(const FwdArgs& a, int b, int dh, int is_bf16, cudaStream_t s) {
-  return dh == 64 ? launch_dh<64, kSingle>(a, b, is_bf16, s)
-                  : launch_dh<128, kSingle>(a, b, is_bf16, s);
+  switch (dh) {
+    case 64: return launch_dh<64, kSingle>(a, b, is_bf16, s);
+    case 128: return launch_dh<128, kSingle>(a, b, is_bf16, s);
+    case 192: return launch_dh<192, kSingle>(a, b, is_bf16, s);
+    default: return launch_dh<256, kSingle>(a, b, is_bf16, s);
+  }
 }
 
 }  // namespace
@@ -577,7 +594,8 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const long long* strides, int b, int h, int t,
                               int dh, float scale, int causal, int single,
                               int is_bf16, void* stream) {
-  if (b <= 0 || h <= 0 || t <= 0 || (dh != 64 && dh != 128) || b * h > 65535)
+  if (b <= 0 || h <= 0 || t <= 0 || (dh != 64 && dh != 128 && dh != 192 && dh != 256) ||
+      b * h > 65535)
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.q = q;

@@ -42,11 +42,15 @@
 //   merge launch per layer would add to every tick.  A slot whose
 //   context fits one split writes O directly.
 // Templated on float and bf16; dh <= 128 and a multiple of 8 (rows are
-// read as whole 16-byte vectors, scores and P.V as element pairs).
+// read as whole 16-byte vectors, scores and P.V as element pairs).  Any
+// other head dim up to 256 takes paged_any_dh.cuh's kernel through
+// dl4j_paged_decode_attention_any.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "paged_any_dh.cuh"
 
 namespace {
 
@@ -348,4 +352,19 @@ extern "C" int dl4j_paged_decode_attention(
   if (a.n_split > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, B, s) : launch<float>(a, B, s);
+}
+
+// Any head dim up to 256 (one query row a slot): paged_any_dh.cuh's
+// kernel.  `part` is f32 scratch of B * h * n_split * (dh + 2) values,
+// `counter` B * h int32 zeros (left zero); n_split = ceil(max_blocks * bs
+// / chunk).  Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError() (0 on success).
+extern "C" int dl4j_paged_decode_attention_any(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* out, void* part, void* counter, int B, int h,
+    int bs, int dh, int max_blocks, int chunk, float scale, int is_bf16,
+    void* stream) {
+  return paged_any_dh::launch(q, k_pool, v_pool, table, pos, out, part,
+                              counter, B, 1, h, bs, dh, max_blocks, chunk,
+                              scale, is_bf16, stream);
 }

@@ -47,8 +47,11 @@
 //   divides by the total l, writes the rows below W, and resets the
 //   counter to 0 for the next launch.  A group whose context fits one
 //   split writes its rows directly.
-// Templated on float and bf16; dh <= 128 and a multiple of 8.
+// Templated on float and bf16; dh <= 128 and a multiple of 8.  Any other
+// head dim up to 256 takes paged_any_dh.cuh's kernel (each query row
+// on its own) through dl4j_paged_verify_attention_any.
 #include "flash_common.cuh"
+#include "paged_any_dh.cuh"
 
 using namespace flash;
 
@@ -520,4 +523,20 @@ extern "C" int dl4j_paged_verify_attention(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, B, s) : launch<float>(a, B, s);
+}
+
+// Any head dim up to 256: paged_any_dh.cuh's kernel, each of the W query
+// rows of a slot on its own.  `part` is f32 scratch of B * W * h *
+// n_split * (dh + 2) values, `counter` B * W * h int32 zeros (left zero);
+// n_split = ceil(max_blocks * bs / chunk).  Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError() (0
+// on success).
+extern "C" int dl4j_paged_verify_attention_any(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos0, void* out, void* part, void* counter, int B, int W, int h,
+    int bs, int dh, int max_blocks, int chunk, float scale, int is_bf16,
+    void* stream) {
+  return paged_any_dh::launch(q, k_pool, v_pool, table, pos0, out, part,
+                              counter, B, W, h, bs, dh, max_blocks, chunk,
+                              scale, is_bf16, stream);
 }

@@ -23,11 +23,12 @@ Beside them the plain PyTorch versions ``flash_fwd_reference`` (its
 compute the same functions in full-row form, in f32 with the kernels'
 rounding points.  Each wrapper routes by the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel or raise (float32
-or bfloat16, head dim up to 128) — there is no fallback and no switch.
-The kernels are built for head dims 64 and 128; every wrapper zero-pads
-q, k, v and dO along the head dim to the next of those
-(:func:`pad_head_dim`) on both routes, and slices the padding off O, dQ,
-dK and dV.  That is exact: zero columns add nothing to Q K^T or to dO
+or bfloat16, head dim up to 256) — there is no fallback and no switch.
+The kernels are built for head dims 64, 128, 192 and 256 (bf16 at 192
+and 256 on plain FMA tiles, where the tensor-core tiles would not fit in
+registers); every wrapper zero-pads q, k, v and dO along the head dim to
+the next of those (:func:`pad_head_dim`) on both routes, and slices the
+padding off O, dQ, dK and dV.  That is exact: zero columns add nothing to Q K^T or to dO
 V^T, the scale is the caller's (``dh ** -0.5`` of the unpadded dh), and
 LSE, delta and dBias do not change.
 ``delta = rowsum(dO * O)`` is computed in torch between the forward and
@@ -63,7 +64,7 @@ log = logging.getLogger("deeplearning4j_torch.kernels")
 
 _NEG = -1e30   # finite "-inf": masked scores (as the reference)
 _POS = 1e30    # LSE of a row with no unmasked key (=> p == 0 in bwd)
-_KERNEL_DH = (64, 128)   # head dims the CUDA kernels are built for
+_KERNEL_DH = (64, 128, 192, 256)   # head dims the CUDA kernels are built for
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +165,7 @@ def pad_head_dim(xs, dh: int):
 def _check_kernel_operands(name, tensors, stats):
     """The kernels' operand contract, checked before the head dim is
     padded: one CUDA device, one dtype (float32 or bfloat16), [b, t, h,
-    dh] views with dh <= 128; at a built dh (64, 128; no padding copy)
+    dh] views with dh <= 256; at a built dh (64 to 256; no padding copy)
     the head dim contiguous and rows 16-byte aligned; the [b*h, t] f32
     stats contiguous."""
     q = tensors[0]

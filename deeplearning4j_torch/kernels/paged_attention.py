@@ -24,6 +24,10 @@ Two implementations behind each of two wrappers.  The decode read,
   of the slot's table entries, the last split of a (slot, head) merging
   the partials — with no gathered copy and no host read of ``pos``.
   :func:`decode_split_rows` picks the chunk from the table's capacity.
+  Head dims above 128 or not a multiple of 8 (up to 256) take
+  ``csrc/paged_any_dh.cuh``'s kernel instead: rows read element by
+  element, q and the accumulator in a register width padded to 128 or
+  256, zero past dh.
 
 The speculative verification read, ``paged_verify_attention`` (W query
 rows per slot, row j at position ``pos0 + j``):
@@ -38,6 +42,8 @@ rows per slot, row j at position ``pos0 + j``):
   tensor-core fragment over its chunk of the table, the last split of a
   (slot, head, group) merging the partials in the same launch.  Any W:
   rows go in groups of 16 (:func:`verify_split_rows` picks the chunk).
+  The other head dims up to 256 take ``paged_any_dh.cuh``'s kernel, each
+  query row on its own.
 
 Each wrapper routes by the tensors' device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise — there is no fallback.
@@ -64,7 +70,8 @@ _ROUTE_TOTAL = telemetry.counter(
 _ROUTE_KERNEL = _ROUTE_TOTAL.labels(path="kernel")
 _ROUTE_REFERENCE = _ROUTE_TOTAL.labels(path="reference")
 
-_MAX_DH = 128
+_MAX_DH = 256        # head dims the kernels take
+_FAST_DH = 128       # the fast kernels: dh <= this and a multiple of 8
 _VERIFY_GROUP = 16   # verify query rows a kernel block takes (one fragment)
 _VERIFY_TILE = 64    # the verify kernel's key tile; its chunk is a multiple
 _VERIFY_MAX_SPLIT = 512   # splits the verify kernel's merge takes
@@ -158,9 +165,15 @@ def _kernel_fn(lib: str, symbol: str, n_ptrs: int, n_ints: int):
 
 
 def _check_dh(what: str, dh: int):
-    if dh > _MAX_DH or dh % 8:
-        raise ValueError(f"{what}: dh={dh} must be a multiple of 8 and "
-                         f"<= {_MAX_DH}")
+    if dh > _MAX_DH:
+        raise ValueError(f"{what}: dh={dh}; the kernels take head dims up "
+                         f"to {_MAX_DH}")
+
+
+def _fast_dh(dh: int) -> bool:
+    """Whether the fast kernels take ``dh`` (rows as whole 16-byte
+    vectors); every other head dim up to 256 takes the any-dh kernel."""
+    return dh <= _FAST_DH and dh % 8 == 0
 
 
 _SPLIT_QUANTUM = 32     # the decode kernel's chunk is a multiple of this
@@ -210,11 +223,42 @@ def _sm_count(device) -> int:
     return n
 
 
+def _launch_any_dh(lib: str, symbol: str, q, k_pool, v_pool, block_table,
+                   pos, W: int, scale: float):
+    """Launch ``paged_any_dh.cuh``'s kernel (entry ``symbol`` of ``lib``)
+    over ``q`` [B, h, dh] (decode) or [B, W, h, dh] (verify), each query
+    row on its own; raise on a refused launch."""
+    B, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    bs, mb = k_pool.shape[2], block_table.shape[1]
+    chunk = decode_split_rows(B * W, h, mb * bs, _sm_count(q.device))
+    n_split = -(-(mb * bs) // chunk)
+    ints = ((B, h, bs, dh, mb, chunk) if q.dim() == 3
+            else (B, W, h, bs, dh, mb, chunk))
+    fn = _kernel_fn(lib, symbol, 8, len(ints))
+    out = torch.empty_like(q)
+    part = torch.empty(B * W * h * n_split * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _split_counters(q.device, stream, B * W * h)
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), *ints, float(scale),
+            int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged any-dh kernel launch failed ({symbol}): "
+                           f"CUDA error {rc}")
+    return out
+
+
 def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
     """Launch the decode kernel on the current stream; raise on a refused
     launch.  Its f32 partials go to scratch allocated here."""
     B, h, dh = q.shape
     _check_dh("paged decode kernel", dh)
+    if not _fast_dh(dh):
+        return _launch_any_dh("paged_decode",
+                              "dl4j_paged_decode_attention_any", q, k_pool,
+                              v_pool, block_table, pos, 1, scale)
     bs, mb = k_pool.shape[2], block_table.shape[1]
     chunk = decode_split_rows(B, h, mb * bs, _sm_count(q.device))
     n_split = -(-(mb * bs) // chunk)
@@ -243,7 +287,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     scratch sink); ``block_table`` [B, max_blocks] int32; ``pos`` [B]
     int32 — attend over positions <= pos (the row written this tick
     included).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (float32 or bfloat16, dh a multiple of 8 up to 128)."""
+    the kernel (float32 or bfloat16, any dh up to 256)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_decode_attention", "[B, h, dh]", q, k_pool, v_pool,
@@ -310,6 +354,10 @@ def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
     layout as it stands; the f32 partials go to scratch allocated here."""
     B, W, h, dh = q.shape
     _check_dh("paged verify kernel", dh)
+    if not _fast_dh(dh):
+        return _launch_any_dh("paged_verify",
+                              "dl4j_paged_verify_attention_any", q, k_pool,
+                              v_pool, block_table, pos0, W, scale)
     bs, mb = k_pool.shape[2], block_table.shape[1]
     chunk = verify_split_rows(B, W, h, mb * bs, _sm_count(q.device))
     n_split = -(-(mb * bs) // chunk)
@@ -341,7 +389,7 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
     ``q`` [B, W, h, dh]; pools / table as :func:`paged_decode_attention`;
     ``pos0`` [B] int32.  Returns [B, W, h, dh].  CPU tensors take the
     plain version; CUDA tensors launch the kernel (float32 or bfloat16,
-    dh a multiple of 8 up to 128, any W)."""
+    any dh up to 256, any W)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_verify_attention", "[B, W, h, dh]", q, k_pool, v_pool,

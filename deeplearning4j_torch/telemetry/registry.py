@@ -166,6 +166,18 @@ class _Family:
                 child = self._children[values] = self._new_child()
             return child
 
+    def remove(self, *values, **kv) -> None:
+        """Drop the child for one label-value tuple: long-lived processes
+        that cycle labeled resources (e.g. serving instances) retire dead
+        series instead of leaking them into every scrape."""
+        if kv:
+            if values:
+                raise ValueError("pass labels positionally OR by name")
+            values = tuple(kv[n] for n in self.labelnames)
+        values = tuple(str(v) for v in values)
+        with self._lock:
+            self._children.pop(values, None)
+
     def _items(self) -> List[Tuple[Tuple[str, ...], _Child]]:
         with self._lock:
             return sorted(self._children.items())

@@ -96,6 +96,27 @@ def test_flash_matches_jax_fwd_and_grads(case):
                                    rtol=0, atol=GRAD_TOL, err_msg=name)
 
 
+# (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
+# tensor-core kernels' head dims: dh 160 (zero-padded to the 192 build)
+# and 256, streaming (K3) and one key block (K4)
+WIDE_CASES = [
+    ("dh160_causal_bias", 1, 2, 32, 160, 16, 16, True, "random", "bthd"),
+    ("dh160_single", 1, 2, 16, 160, 16, 16, False, "pad", "bhtd"),
+    ("dh256_causal", 1, 2, 32, 256, 16, 16, True, None, "bhtd"),
+    ("dh256_single_bias", 1, 2, 16, 256, 16, 16, True, "random", "bthd"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_wide_head_dims_match_jax_fwd_and_grads(case):
+    """The plain route at head dims 160 and 256 (where the CUDA route now
+    takes the 192 and 256 builds) against the JAX package's
+    ``flash_attention`` in interpret mode: forward within 1e-5,
+    gradients within 1e-4, as at the small head dims."""
+    test_flash_matches_jax_fwd_and_grads(case)
+    assert fa.kernel_head_dim(case[4]) == (192 if case[4] == 160 else 256)
+
+
 def test_bias_gradient_is_real_and_unscaled():
     """dBias is the sum over queries of dS — no division by 8 survives
     from the TPU's sublane broadcast (the reference's gradient is
@@ -440,12 +461,14 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
                          ids=["flash_fwd", "flash_fwd_single"])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("dh", [16, 32, 96])
+@pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256])
 def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
-    """K3 (or K4), K5 and K6 on the card at head dims the kernels are not
-    built for (zero-padded to 64 or 128 by the wrappers), causal with a
-    key bias at a ragged t, against the plain versions on the unpadded
-    operands; each element held to its own size.  These raised before."""
+    """K3 (or K4), K5 and K6 on the card at head dims the tensor-core
+    kernels are not built for — zero-padded to 64 or 128 (16, 32, 96) or
+    to the 192 build (160) by the wrappers, and the plain-FMA 192 and 256
+    builds themselves — causal with a key bias at a ragged t, against the
+    plain versions on the unpadded operands; each element held to its own
+    size.  These raised before."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(dh)

@@ -63,6 +63,16 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.optimize.fit_loop\n"
         "import deeplearning4j_torch.data, deeplearning4j_torch.nn.losses\n"
         "import deeplearning4j_torch.runtime.rng\n"
+        "import deeplearning4j_torch.serving, deeplearning4j_torch.serving.router\n"
+        "import deeplearning4j_torch.serving.placement\n"
+        "import deeplearning4j_torch.serving.tenancy\n"
+        "import deeplearning4j_torch.serving.errors\n"
+        "import deeplearning4j_torch.parallel.kv_tiering\n"
+        "import deeplearning4j_torch.resilience.faults\n"
+        "import deeplearning4j_torch.resilience.retry\n"
+        "import deeplearning4j_torch.telemetry.tracing\n"
+        "import deeplearning4j_torch.telemetry.flightrec\n"
+        "import deeplearning4j_torch.telemetry.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"

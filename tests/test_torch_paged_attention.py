@@ -426,3 +426,103 @@ def test_cuda_verify_kernel_split_edges(W, dtype, tol):
                                [max(p, 0) for p in positions])
     assert bool(torch.isfinite(out).all())
     assert _scaled_err(out, ref) <= tol
+
+
+# -- head dims past the fast kernels: dh 12 (rows not 16-byte aligned in
+# bf16), 160 and 256 (a 256-wide register row in the any-dh kernel)
+ANY_DH = [12, 160, 256]
+
+
+@pytest.mark.parametrize("dh", ANY_DH)
+def test_any_head_dim_plain_matches_jax_reference_and_pallas_interpret(dh):
+    """The decode read at head dims the fast CUDA kernel does not take:
+    the plain version against the JAX reference and its Pallas kernel in
+    interpret mode on the same numpy inputs (f32, 1e-6)."""
+    jnp = _jnp()
+    from deeplearning4j_tpu.kernels.paged_attention import (
+        _paged_decode_pallas, paged_decode_attention_reference)
+    q, kp, vp, tbl, pos, scale = _paged_fixture(dh, dh=dh)
+    args = [jnp.asarray(a) for a in (q, kp, vp, tbl, pos)]
+    ref = np.asarray(paged_decode_attention_reference(*args, scale))
+    pallas = np.asarray(_paged_decode_pallas(*args, scale))
+    out = pa.paged_decode_attention(*_torch(q, kp, vp, tbl, pos),
+                                    scale).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out, pallas, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dh", ANY_DH)
+@pytest.mark.parametrize("W", [3, 17])
+def test_any_head_dim_verify_plain_matches_jax_reference(dh, W):
+    """The verify read at the same head dims, against the JAX reference
+    and its Pallas kernel in interpret mode (f32, 1e-6)."""
+    jnp = _jnp()
+    from deeplearning4j_tpu.kernels.paged_attention import (
+        _paged_verify_pallas, paged_verify_attention_reference)
+    q, kp, vp, tbl, pos0, scale = _verify_fixture(dh + W, W, 4, dh=dh)
+    args = [jnp.asarray(a) for a in (q, kp, vp, tbl, pos0)]
+    ref = np.asarray(paged_verify_attention_reference(*args, scale))
+    pallas = np.asarray(_paged_verify_pallas(*args, scale))
+    out = pa.paged_verify_attention(*_torch(q, kp, vp, tbl, pos0),
+                                    scale).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out, pallas, rtol=0, atol=1e-6)
+
+
+def test_head_dim_routes_and_limit():
+    """Which kernel a head dim takes on the card (the fast one only at
+    multiples of 8 up to 128), and the one limit left: above 256."""
+    assert [pa._fast_dh(d) for d in (8, 64, 128, 12, 136, 160, 256)] == \
+        [True, True, True, False, False, False, False]
+    with pytest.raises(ValueError, match="up to 256"):
+        pa._check_dh("paged decode kernel", 264)
+    pa._check_dh("paged decode kernel", 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("dh", ANY_DH)
+def test_cuda_any_head_dim_decode_matches_plain(dh, dtype, tol):
+    """On the card: the decode wrapper at dh 12, 160 and 256 (the any-dh
+    kernel) against the plain version at the serving path's slots and
+    positions, each element held to its own size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    g = torch.Generator(device="cuda").manual_seed(dh)
+    dt = getattr(torch, dtype)
+    B, h, bs, mb = 8, 3, 16, 64
+    nb = 1 + B * mb
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, h, dh), generator=g, device="cuda").to(dt)
+    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
+        B, mb) + 1).to(torch.int32)
+    pos = torch.tensor([0, 15, 16, 17, 511, 1023, 700, 250],
+                       dtype=torch.int32, device="cuda")
+    l0 = pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(q, kp, vp, tbl, pos)
+    ref = pa.paged_decode_attention_reference(q, kp, vp, tbl, pos,
+                                              1.0 / dh ** 0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == l0 + 1
+    assert _scaled_err(out, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("dh", ANY_DH)
+def test_cuda_any_head_dim_verify_matches_plain(dh, dtype, tol):
+    """On the card: the verify wrapper at dh 12, 160 and 256 with W = 5,
+    NaN in block 0 and past every slot's written rows, valid rows held
+    to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+    out, ref = _verify_on_card(dh, dtype, 8, 5,
+                               [0, 15, 16, 17, 511, 1020, 700, 250],
+                               h=3, dh=dh)
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= tol
