@@ -33,7 +33,9 @@ Phases:
                (t 2048 on K3, t 512 on K4), a ragged t with a key bias,
                causal + bias at dh 64 (K3 and K4), plain at dh 64,
                BERT-base's attention (b 4, t 512, 12 heads of 64, a
-               padding bias, on K4), t 896 on K4 (seven key tiles) and
+               padding bias, on K4; and at its training shape, b 32 with
+               phase 8(b)'s padding, K5 without dBias), t 896 on K4
+               (seven key tiles) and
                dh 32 (zero-padded to 64 by the wrappers) on K3-K6.
                Past the fast kernels' head dims: K1 and K2 at dh 12 (rows
                not 16-byte aligned), 160 and 256 (the any-dh kernel), K3-K6
@@ -85,13 +87,30 @@ Phases:
                the same steps on plain attention (loss curves within 1e-3
                of each other, no flash launch); (c) the same at t 512,
                where the forward is K4 (with its own step profile).
-  8. timings — K1 and K2, their plain versions and one PyTorch SDPA call
+  8. bert    — BERT-base (zoo.Bert(): 12 x 768, 12 heads of 64, ff 3072,
+               vocab 30522, seeded random weights) trained through
+               MultiLayerNetwork.fit at t 512, a padding mask as the flash
+               kernels' key bias (K4 forward, K5 without dBias, K6): (a)
+               f32, b 2 (row 1 with 300 valid tokens), flash vs plain loss
+               and gradients (rtol 1e-3), K4 = K5 = K6 = 12; (b) the main
+               path: bf16 on f32 master weights, Adam(2e-5), b 32, each
+               row's valid length seeded in 64..512, a warm-up step then
+               five counted fit steps (K4 = K5 = K6 = 60, K3 = 0, loss
+               finite and falling), tokens/s (b*t and valid), MFU, peak
+               memory and a profiled step with the flash kernels' share of
+               device time; (c) the data path: tiny_sentiment ->
+               build_vocab -> WordPiece -> BertIterator at t 512, one
+               epoch of fit, then evaluate on the held-out batches, its
+               confusion matrix equal to output()'s argmax on the host.
+  9. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
                plain versions, SDPA's forward and its backward alone
                (graph replay, the backward with the spread of its 9
                replays), all on the same rotating input sets, and the
-               bound.
+               bound; K4, K5 and K6 again at BERT-base's training shape
+               (b 32, t 512, 12 x 64, phase 8(b)'s padding as the bias,
+               SDPA with it as a float attn_mask).
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -101,7 +120,9 @@ phases ``k3``, ``k4``, ``k5`` and ``k6`` time one flash kernel alone at
 the training shapes (K4 also at BERT-base's, 12 heads of 64 with a
 padding bias; K6 beside SDPA's backward), and ``k2`` the verify kernel
 at phase 4(b)'s mid contexts with W = 5 beside one SDPA call, three
-medians each, for quick comparisons of kernel versions in turns.  The
+medians each, for quick comparisons of kernel versions in turns; ``kbert``
+runs phase 9's BERT-shape timings alone, and ``bertops`` charges one BERT
+main-path step's device time to the PyTorch ops that launched it.  The
 extra phase ``wide`` times the head-dim-256 builds (K1, K2 at 3 heads of
 256; K3-K6 at b 8, 3 heads of 256) beside their plain versions and SDPA.
 """
@@ -117,9 +138,9 @@ import time
 import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "train",
-          "timings")
-EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6",
-                "wide")  # only when asked
+          "bert", "timings")
+EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
+                "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -315,10 +336,19 @@ def phase_kernel(torch, pa):
 
 
 def key_bias(torch, kind, b, h, t, g):
-    """A [b*h, t] f32 key bias on the card: None, "random" (normal) or
-    "pad" (-1e9 on the last 20% of keys, as a padding mask folds)."""
+    """A [b*h, t] f32 key bias on the card: None, "random" (normal),
+    "pad" (-1e9 on the last 20% of keys, as a padding mask folds) or
+    "bert" (-1e9 past each row's valid length, the lengths of the BERT
+    main path's batch: ``bert_lengths``)."""
     if kind is None:
         return None
+    if kind == "bert":
+        import numpy as np
+        lens = torch.as_tensor(bert_lengths(np, b, t, BERT_SEED),
+                               device="cuda")
+        keep = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+        bias = torch.where(keep, 0.0, -1e9)
+        return bias.repeat_interleave(h, dim=0).contiguous()   # b-major
     if kind == "pad":
         bias = torch.zeros((b * h, t), device="cuda")
         bias[:, int(t * 0.8):] = -1e9
@@ -344,7 +374,9 @@ def flash_case(torch, fa, b, t, h, dh, dtype, causal, bias_kind, single,
                for z in qkv.split(h * dh, dim=-1))
     do = dob[:, :t]
     bias = key_bias(torch, bias_kind, b, h, t, g)
-    with_bias = bias is not None
+    # a padding mask's bias needs no gradient: K5 runs without dBias, as
+    # on the BERT main path
+    with_bias = bias is not None and bias_kind != "bert"
     scale = dh ** -0.5
     kw = dict(causal=causal, scale=scale)
     fwd = fa.flash_fwd_single if single else fa.flash_fwd
@@ -353,6 +385,9 @@ def flash_case(torch, fa, b, t, h, dh, dtype, causal, bias_kind, single,
     delta = fa.row_delta(do, o)
     dk, dv, db = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
                                    need_dbias=with_bias, **kw)
+    if not with_bias and db is not None:
+        raise AssertionError("flash_bwd_dkdv returned a dBias it was not "
+                             "asked for")
     dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
     ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, single=single,
                                     **kw)
@@ -387,7 +422,8 @@ def flash_err(torch, x, r):
 # (name, b, t, h, dh, causal, bias, K4): the training path's shapes (t 2048
 # on K3, t 512 on K4), ragged t with a key bias (K3 and K4), dh 64,
 # BERT-base's attention at max_len 512 (12 heads of 64, not causal, a
-# padding bias: -1e9 on the last 20% of keys), the longest t that
+# padding bias: -1e9 on the last 20% of keys; and at the BERT main path's
+# b 32 with its rows' valid lengths, K5 without dBias), the longest t that
 # ``_auto_blocks`` sends to K4 (7 key tiles: the ring wraps on an odd
 # count) and dh 32, which the wrappers zero-pad to the kernels' 64.  Bias:
 # None, "random" (normal) or "pad".
@@ -399,6 +435,8 @@ FLASH_CASES = [
     ("ragged_causal_bias_dh64", 2, 777, 4, 64, True, "random", False),
     ("plain_dh64", 2, 256, 2, 64, False, None, False),
     ("bert_k4", 4, 512, 12, 64, False, "pad", True),
+    # BERT-base's training shape: the main path's b 32 and padding
+    ("bert_train", 32, 512, 12, 64, False, "bert", True),
     ("k4_t896", 2, 896, 6, 128, True, None, True),
     ("ragged_causal_bias_dh32", 2, 777, 4, 32, True, "random", False),
     ("ragged_bias_dh32_k4", 2, 333, 4, 32, False, "random", True),
@@ -1073,19 +1111,38 @@ def train_window(torch, np, fa, net, b, t, seed, steps=TRAIN_STEPS):
             fa._ROUTE_XLA_LONG_T.value - fallback0)
 
 
-def step_profile(torch, np, net, b, t, seed):
-    """One bf16 ``fit`` step under a CUDA-only ``torch.profiler`` trace:
-    device time by kernel (top 12) and the device-busy total."""
+def kernel_class(name):
+    """The class of a device kernel by its name: one of the port's flash
+    kernels (K3-K6), a matmul (cuBLAS/CUTLASS), a copy or cast, a
+    reduction, another elementwise kernel, or other."""
+    if "flash_fwd" in name:
+        return "K4" if ", true>" in name else "K3"
+    if "flash_bwd_dkdv" in name:
+        return "K5"
+    if "flash_bwd_dq" in name:
+        return "K6"
+    low = name.lower()
+    if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "matmul"
+    for cls, key in (("copy", "copy"), ("reduce", "reduce"),
+                     ("elementwise", "elementwise")):
+        if key in low:
+            return cls
+    return "other"
+
+
+def step_profile(torch, net, ds):
+    """One ``fit`` step on ``ds`` under a CUDA-only ``torch.profiler``
+    trace: device time by kernel (top 12), by class (``kernel_class``)
+    and the device-busy total."""
     from torch.profiler import ProfilerActivity, profile
 
-    from deeplearning4j_torch.data import DataSet
-    ds = DataSet(*train_batch(np, b, t, 32000, seed))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         net.fit(ds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, busy_us, n = {}, 0.0, 0
+    kernels, classes, busy_us, n = {}, {}, 0.0, 0
     for evt in prof.events():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -1093,9 +1150,16 @@ def step_profile(torch, np, net, b, t, seed):
         busy_us += us
         n += 1
         kernels[evt.name[:80]] = kernels.get(evt.name[:80], 0.0) + us
+        cls = kernel_class(evt.name)
+        classes[cls] = classes.get(cls, 0.0) + us
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"profiled_wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
             "device_events": n,
+            "device_busy_share": busy_us / 1e3 / (wall * 1e3),
+            "device_ms_by_class": {k: v / 1e3 for k, v in
+                                   sorted(classes.items())},
+            "device_share_by_class": {k: v / max(busy_us, 1e-9) for k, v
+                                      in sorted(classes.items())},
             "top_device_ms": [{"name": k, "ms": v / 1e3} for k, v in top]}
 
 
@@ -1169,7 +1233,8 @@ def phase_train(torch, np):
                "peak_allocated_bytes": peak, "launches": cnt,
                "flash_fallback_above_threshold": fallbacks,
                "weights": "random (seeded)", "card": card_line()}
-        row["profile"] = step_profile(torch, np, net, b, t, seed=2)
+        row["profile"] = step_profile(
+            torch, net, DataSet(*train_batch(np, b, t, 32000, 2)))
         counts[t] = cnt
         del net
         torch.cuda.empty_cache()
@@ -1197,6 +1262,231 @@ def phase_train(torch, np):
 
 
 # -- phase 8 -----------------------------------------------------------
+BERT_B, BERT_T, BERT_SEED = 32, 512, 3
+
+
+def bert_lengths(np, b, t, seed):
+    """Each row's valid length, uniform in 64..t from ``seed``: the
+    padding of the BERT main path's batch (and of its kernel cases)."""
+    return np.random.default_rng(seed).integers(64, t + 1, b)
+
+
+def bert_batch(np, b, t, vocab, seed):
+    """(DataSet, lengths): seeded ids, one-hot labels over 2 classes and
+    a [b, t] features mask, 1 on each row's first ``lengths`` tokens."""
+    from deeplearning4j_torch.data import DataSet
+    rng = np.random.default_rng(seed + 1)
+    lens = bert_lengths(np, b, t, seed)
+    x = rng.integers(0, vocab, (b, t)).astype(np.int32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, b)]
+    mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+    return DataSet(x, y, features_mask=mask), lens
+
+
+def bert_counts(fa):
+    return {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+
+
+def phase_bert(torch, np):
+    """BERT-base (zoo.Bert(): 12 x 768, 12 heads of 64, ff 3072, vocab
+    30522) trained through MultiLayerNetwork.fit at t 512, where every
+    block's attention takes the flash route with the features mask as
+    its key bias: the forward K4, the backward K5 then K6 (no dBias: a
+    mask's bias needs no gradient).  (a) f32, b 2, row 1 with 300 valid
+    tokens: one loss and gradient with use_flash on and off on the same
+    params (rtol 1e-3), K4 = K5 = K6 = 12 launches; (b) the main path:
+    bf16 compute on f32 master weights, Adam(2e-5), b 32, each row's
+    valid length drawn from the seed in 64..512 — a warm-up step, then
+    ``TRAIN_STEPS`` counted fit steps (K4 = K5 = K6 = 12 x steps, K3 =
+    0, no long-t fallback, the loss finite and falling), tokens/s, MFU,
+    peak memory and a profiled step; (c) the data path: tiny_sentiment
+    -> build_vocab -> WordPiece -> BertIterator at t 512 (batches of 34
+    over the 238 training sentences, 40 over the 80 held out), one epoch
+    of fit on Bert(vocab_size=len(vocab)) in bf16, then evaluate on the
+    held-out batches, whose confusion matrix must equal the argmax of
+    output() counted on the host.  Returns (b)'s launch counts."""
+    from deeplearning4j_torch.data import (BertIterator, DataSet,
+                                           ListDataSetIterator)
+    from deeplearning4j_torch.data import tiny_sentiment as ts
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    from deeplearning4j_torch.zoo import Bert
+    fa = flash_module()
+    per_step = {"flash_fwd": 0, "flash_fwd_single": 1, "flash_bwd_dkdv": 1,
+                "flash_bwd_dq": 1}
+
+    # (a) f32 parity of the two attention paths inside BERT-base
+    t0 = time.perf_counter()
+    nets = [Bert(seed=0, seq_len=BERT_T, compute_dtype=None,
+                 use_flash=f).init_graph(device="cuda") for f in (True, False)]
+    nets[1].params_tree = nets[0].params_tree
+    n_layers = len(nets[0].layers) - 3
+    batch, _ = bert_batch(np, 2, BERT_T, 30522, 1)
+    batch.features_mask[0] = 1.0
+    batch.features_mask[1] = (np.arange(BERT_T) < 300).astype(np.float32)
+    res, counts = [], []
+    fallback0 = fa._ROUTE_XLA_LONG_T.value
+    for net in nets:
+        net._build_solver()
+        for name in FLASH_WRAPPERS:
+            getattr(fa, name).launches = 0
+        loss, _, grads = net._solver._loss_and_grads(
+            net.params_tree, net.state_tree, net._batch_dict(batch), None)
+        torch.cuda.synchronize()
+        counts.append(bert_counts(fa))
+        res.append((float(loss), dict(iter_leaves(grads))))
+    want = {k: v * n_layers for k, v in per_step.items()}
+    if counts != [want, {k: 0 for k in want}]:
+        raise AssertionError(f"bert/f32: launches {counts}, want {want} "
+                             "(flash) and none (plain)")
+    if fa._ROUTE_XLA_LONG_T.value != fallback0:
+        raise AssertionError("bert/f32: long-t fallback")
+    loss_err = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    grad_err = max(float((g - res[1][1][p]).abs().max())
+                   / max(float(res[1][1][p].abs().max()), 1e-30)
+                   for p, g in res[0][1].items())
+    if not (loss_err <= 1e-3 and grad_err <= 1e-3):
+        raise AssertionError(f"bert/f32: flash vs plain loss error "
+                             f"{loss_err}, gradient error {grad_err} > 1e-3")
+    emit({"phase": "bert/f32", "b": 2, "t": BERT_T, "valid": [BERT_T, 300],
+          "loss_flash": res[0][0], "loss_plain": res[1][0],
+          "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+          "grad_error": "max over leaves of max |flash - plain| / "
+                        "max |plain|", "launches": counts[0],
+          "seconds": time.perf_counter() - t0})
+    del nets, res, grads
+    torch.cuda.empty_cache()
+
+    # (b) the main path: bf16, b 32, t 512, padded rows
+    b, t = BERT_B, BERT_T
+    model = Bert(seed=0, seq_len=t)
+    net = model.init_graph(device="cuda")
+    ds, lens = bert_batch(np, b, t, 30522, BERT_SEED)
+    net.fit(ds)                                         # warm-up
+    torch.cuda.synchronize()
+    fallback0 = fa._ROUTE_XLA_LONG_T.value
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [net.fit(ds) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnt = bert_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    fallbacks = fa._ROUTE_XLA_LONG_T.value - fallback0
+    want = {k: v * n_layers * TRAIN_STEPS for k, v in per_step.items()}
+    if cnt != want:
+        raise AssertionError(f"bert/bf16: launches {cnt} != {want}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"bert/bf16: losses {losses} not finite and "
+                             "falling")
+    if fallbacks:
+        raise AssertionError(f"bert/bf16: {fallbacks} long-t fallbacks")
+    tok_s = TRAIN_STEPS * b * t / wall
+    row = {"phase": "bert/bf16", "b": b, "t": t, "steps": TRAIN_STEPS,
+           "valid_tokens": int(lens.sum()), "valid_lengths": lens.tolist(),
+           "losses": losses, "seconds": wall,
+           "step_ms": wall * 1e3 / TRAIN_STEPS, "tokens_per_s": tok_s,
+           "valid_tokens_per_s": TRAIN_STEPS * int(lens.sum()) / wall,
+           "flops_per_token_train": model.flops_per_token_train(),
+           "mfu": model.flops_per_token_train() * tok_s / H100_BF16_FLOPS,
+           "mfu_basis": "flops_per_token_train() x b*t tokens/s over the "
+                        "989 TFLOP/s dense bf16 peak",
+           "peak_allocated_bytes": peak, "launches": cnt,
+           "flash_fallback_above_threshold": fallbacks,
+           "weights": "random (seeded)", "card": card_line()}
+    prof = step_profile(torch, net, ds)
+    share = {k: v for k, v in prof["device_share_by_class"].items()
+             if k in ("K4", "K5", "K6")}
+    prof["flash_share_of_device"] = share
+    row["profile"] = prof
+    emit(row)
+    del net, ds
+    torch.cuda.empty_cache()
+
+    # (c) the data path: corpus -> vocab -> WordPiece -> BertIterator
+    t0 = time.perf_counter()
+    tok = ts.make_tokenizer()
+    train, test = ts.train_test_split()
+    np.random.default_rng(7).shuffle(train)
+
+    def batches(rows, size):
+        out = []
+        for mds in BertIterator(tok, rows, size, t):
+            ids, mask, _ = mds.features
+            out.append(DataSet(ids, np.eye(2, dtype=np.float32)[
+                mds.labels[0]], features_mask=mask))
+        return out
+    train_ds, test_ds = batches(train, 34), batches(test, 40)
+    net = Bert(seed=0, seq_len=t, vocab_size=len(tok.vocab)).init_graph(
+        device="cuda")
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    loss = net.fit(ListDataSetIterator(train_ds), n_epochs=1)
+    ev = net.evaluate(ListDataSetIterator(test_ds))
+    torch.cuda.synchronize()
+    data_cnt = bert_counts(fa)
+    host = np.zeros((2, 2), np.int64)
+    for d in test_ds:
+        pred = net.output(d.features, features_mask=d.features_mask) \
+            .float().cpu().numpy().argmax(-1)
+        np.add.at(host, (d.labels.argmax(-1), pred), 1)
+    if not np.array_equal(ev.confusion, host) or host.sum() != len(test):
+        raise AssertionError(f"bert/data: evaluate's confusion "
+                             f"{ev.confusion.tolist()} != output()'s argmax "
+                             f"{host.tolist()}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"bert/data: loss {loss}")
+    if data_cnt["flash_fwd_single"] < n_layers * len(train_ds):
+        raise AssertionError(f"bert/data: launches {data_cnt}")
+    emit({"phase": "bert/data", "vocab": len(tok.vocab), "t": t,
+          "train_batches": [len(train_ds), 34],
+          "test_batches": [len(test_ds), 40], "last_loss": loss,
+          "held_out_accuracy": ev.accuracy(),
+          "accuracy_note": "one epoch from random weights: not gated",
+          "confusion": ev.confusion.tolist(), "launches": data_cnt,
+          "seconds": time.perf_counter() - t0})
+    del net
+    torch.cuda.empty_cache()
+    return cnt
+
+
+def phase_bert_ops(torch, np):
+    """Extra phase ``bertops``: one step of phase 8(b)'s main path (after
+    a warm-up step) under a profile of CPU ops AND device kernels, so
+    device time is charged to the PyTorch op that launched it: the top
+    ops by self device time, with their call counts.  The CPU recording
+    slows the host, so only the device times are meaningful."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_torch.zoo import Bert
+    net = Bert(seed=0, seq_len=BERT_T).init_graph(device="cuda")
+    ds, _ = bert_batch(np, BERT_B, BERT_T, 30522, BERT_SEED)
+    net.fit(ds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(ds)
+        torch.cuda.synchronize()
+    # the op rows (CPU side) own their kernels' device time; the kernel
+    # rows repeat it
+    cpu = torch.autograd.DeviceType.CPU
+    ops = [(a.key, a.count, a.self_device_time_total)
+           for a in prof.key_averages()
+           if a.device_type == cpu and a.self_device_time_total > 0]
+    ops.sort(key=lambda o: -o[2])
+    emit({"phase": "bertops", "b": BERT_B, "t": BERT_T,
+          "self_device_ms_total": sum(o[2] for o in ops) / 1e3,
+          "top_ops_by_self_device_ms": [
+              {"op": k, "calls": n, "self_device_ms": us / 1e3}
+              for k, n, us in ops[:20]],
+          "card": card_line()})
+    del net
+    torch.cuda.empty_cache()
+
+
+# -- phase 9 -----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
@@ -1232,20 +1522,21 @@ def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     return (median, times) if spread else median
 
 
-def sdpa_bwd_ms(torch, F, sets, scale, n_sets):
+def sdpa_bwd_ms(torch, F, sets, scale, n_sets, causal=True, mask=None):
     """SDPA's backward alone (dq, dk and dv together), timed as the
     kernels are, by CUDA-graph replay over the rotating input sets
-    ``sets`` ((q, k, v, dO) in [b, h, t, dh]): the forwards are recorded
-    beforehand on the capture stream, since autograd runs each backward
-    op on its forward's stream, and ``torch.autograd.grad`` is captured.
-    Returns (median, sorted per-replay times)."""
+    ``sets`` ((q, k, v, dO) in [b, h, t, dh]; ``mask`` an optional float
+    ``attn_mask``, no gradient): the forwards are recorded beforehand on
+    the capture stream, since autograd runs each backward op on its
+    forward's stream, and ``torch.autograd.grad`` is captured.  Returns
+    (median, sorted per-replay times)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         grad_in = [tuple(x.detach().requires_grad_(True) for x in z[:3])
                    for z in sets]
-        outs = [F.scaled_dot_product_attention(*z, is_causal=True,
-                                               scale=scale)
+        outs = [F.scaled_dot_product_attention(*z, attn_mask=mask,
+                                               is_causal=causal, scale=scale)
                 for z in grad_in]
     torch.cuda.current_stream().wait_stream(side)
     return time_ms(torch, lambda i: torch.autograd.grad(
@@ -1253,15 +1544,21 @@ def sdpa_bwd_ms(torch, F, sets, scale, n_sets):
         retain_graph=True), stream=side, spread=True)
 
 
-def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True):
+def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True,
+                key_lens=None):
     """(bound ms, 'bytes' | 'operations', flops, bytes): the larger of
     the flops over the bf16 tensor-core peak and the bytes over HBM
     bandwidth.  Flops: 2 dh per (query, key) pair per product over the
-    pairs the causal mask leaves; bytes: ``n_tensors`` [b, t, h, dh] bf16
-    operands and ``n_stats`` [b*h, t] f32 stats, each read or written
-    once."""
-    pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 2 * dh * n_products * pairs * b * h
+    pairs the causal mask leaves — or, with ``key_lens`` (each batch
+    row's valid keys under a padding bias), over every query and the
+    valid keys of its row, the pairs this data needs; bytes:
+    ``n_tensors`` [b, t, h, dh] bf16 operands and ``n_stats`` [b*h, t]
+    f32 stats, each read or written once."""
+    if key_lens is not None:
+        pairs_all = t * int(sum(key_lens))
+    else:
+        pairs_all = b * (t * (t + 1) // 2 if causal else t * t)
+    flops = 2 * dh * n_products * pairs_all * h
     n_bytes = n_tensors * b * t * h * dh * 2 + n_stats * b * h * t * 4
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
@@ -1375,6 +1672,105 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
                               "rotating sets; median of 9 replays, all 9 "
                               "in library_reps_ms",
           "card": card_line()})
+    return rows
+
+
+def phase_timings_bert(torch, np, phase="timings/bert"):
+    """K4, K5 and K6 at BERT-base's training shape — the BERT main path's
+    attention: bf16, b 32, t 512, 12 heads of 64, not causal, bthd views
+    of a [b, t, 3d] projection, the main path's padding as the key bias,
+    K5 without dBias — beside their plain versions and SDPA's forward and
+    its backward alone on the same inputs with the bias as a float
+    ``attn_mask`` ([b, 1, 1, t], bf16), timed as ``timings/flash``
+    times them (graph replay over 4 input sets in rotation).  The bound
+    counts the valid keys only (``flash_bound(key_lens=...)``)."""
+    import torch.nn.functional as F
+    fa = flash_module()
+    dev, dt, NB = "cuda", torch.bfloat16, 4
+    b, t, h, dh = BERT_B, BERT_T, 12, 64
+    scale = dh ** -0.5
+    g = torch.Generator(device=dev).manual_seed(10)
+    bh = fa._to_bh
+    lens = bert_lengths(np, b, t, BERT_SEED)
+    bias = key_bias(torch, "bert", b, h, t, g)
+    sets = []
+    for _ in range(NB):
+        qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                          device=dev).to(dt)
+        q, k, v = (z.reshape(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+        do = torch.randn((b, t, h, dh), generator=g, device=dev).to(dt)
+        sets.append((qkv, q, k, v, do))
+    kw = dict(causal=False, scale=scale)
+    outs = [fa.flash_fwd_single(q, k, v, bias, **kw)
+            for _, q, k, v, _ in sets]
+    deltas = [fa.row_delta(z[4], o) for z, (o, _) in zip(sets, outs)]
+    plain_in = [tuple(bh(x) for x in z[1:]) for z in sets]
+    sdpa_in = [tuple(x.transpose(1, 2).contiguous() for x in z[1:])
+               for z in sets]
+    mask = bias.view(b, h, t)[:, :1, None, :].to(dt)      # [b, 1, 1, t]
+    kern = {
+        "fwd": lambda i: fa.flash_fwd_single(*sets[i % NB][1:4], bias, **kw),
+        "dkdv": lambda i: fa.flash_bwd_dkdv(
+            *sets[i % NB][1:4], bias, sets[i % NB][4], outs[i % NB][1],
+            deltas[i % NB], need_dbias=False, **kw),
+        "dq": lambda i: fa.flash_bwd_dq(
+            *sets[i % NB][1:4], bias, sets[i % NB][4], outs[i % NB][1],
+            deltas[i % NB], **kw)}
+    plain = {
+        "fwd": lambda i: fa.flash_fwd_reference(
+            *plain_in[i % NB][:3], bias, single=True, **kw),
+        "bwd": lambda i: fa.flash_bwd_reference(
+            *plain_in[i % NB][:3], bias, plain_in[i % NB][3],
+            outs[i % NB][1], deltas[i % NB], **kw)}
+    ro, _ = plain["fwd"](0)
+    rq, rk, rv, _ = plain["bwd"](0)
+    dk, dv, _ = kern["dkdv"](0)
+    errs = {"fwd": float((bh(outs[0][0]).float() - ro.float()).abs().max()),
+            "dkdv": max(float((bh(dk).float() - rk.float()).abs().max()),
+                        float((bh(dv).float() - rv.float()).abs().max())),
+            "dq": float((bh(kern["dq"](0)).float() - rq.float())
+                        .abs().max())}
+    del ro, rq, rk, rv, dk, dv
+    ms = {f"kernel_{n}": time_ms(torch, fn) for n, fn in kern.items()}
+    ms.update({f"plain_{n}": time_ms(torch, fn, n_inner=8, reps=5)
+               for n, fn in plain.items()})
+    ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
+    lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        *sdpa_in[i % NB][:3], attn_mask=mask, scale=scale))
+    lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale, NB,
+                                        causal=False, mask=mask)
+    names = {"fwd": "flash_fwd_single", "dkdv": "flash_bwd_dkdv",
+             "dq": "flash_bwd_dq"}
+    # (products, [b, t, h, dh] operands, f32 stats): fwd q k v -> O, bias
+    # -> LSE; dkdv q k v dO -> dK dV, reading bias, LSE and delta; dq
+    # likewise -> dQ
+    spec = {"fwd": (2, 4, 2), "dkdv": (4, 6, 3), "dq": (3, 5, 3)}
+    rows = {}
+    for part, name in names.items():
+        bound, by, flops, n_bytes = flash_bound(
+            spec[part][0], b, t, h, dh, *spec[part][1:], key_lens=lens)
+        rows[name] = {
+            "kernel_ms": ms[f"kernel_{part}"],
+            "plain_ms": ms["plain_fwd" if part == "fwd" else "plain_bwd"],
+            "library_ms": lib_fwd if part == "fwd" else lib_bwd,
+            "plain_scope": "kernel" if part == "fwd" else "bwd_all",
+            "library_scope": "kernel" if part == "fwd" else "bwd_all",
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": n_bytes, "max_abs_err": errs[part],
+            "shapes": {"b": b, "t": t, "h": h, "dh": dh,
+                       "dtype": "bfloat16", "causal": False,
+                       "bias": "padding, valid keys 64..512 per row",
+                       "valid_keys": int(lens.sum())}}
+    rows["flash_fwd_single"]["kernel_ms_again"] = ms["kernel_fwd_again"]
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        rows[name]["library_reps_ms"] = lib_bwd_reps
+    emit({"phase": phase, "kernels": rows,
+          "library_note": "SDPA with the padding bias as a bf16 attn_mask "
+                          "[b, 1, 1, t]; its backward alone through "
+                          "autograd (dq, dk, dv together)",
+          "card": card_line()})
+    del sets, outs, deltas, plain_in, sdpa_in
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1726,6 +2122,7 @@ def main(argv=None) -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
+        b_counts, b_timing = None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -1738,13 +2135,20 @@ def main(argv=None) -> int:
             phase_fleet(torch, np, pa)
         if "train" in phases:
             t_counts = phase_train(torch, np)
+        if "bert" in phases:
+            b_counts = phase_bert(torch, np)
         if "timings" in phases:
             mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)
             v_timing = phase_timings_verify(torch, pa, mid)
             f_timing = phase_timings_flash(torch)
+            b_timing = phase_timings_bert(torch, np)
+        elif "kbert" in phases:
+            phase_timings_bert(torch, np)
         if "profile" in phases:
             phase_profile(torch, np)
+        if "bertops" in phases:
+            phase_bert_ops(torch, np)
         for which in SOLO_SHAPES:
             if which in phases:
                 phase_solo(torch, which)
@@ -1760,7 +2164,7 @@ def main(argv=None) -> int:
             phase_timings_flash(torch, h=3, dh=256,
                                 phase="timings/flash_dh256")
         if None not in (launches, timing, v_launches, v_timing, t_counts,
-                        f_timing):
+                        f_timing, b_counts, b_timing):
             rows = [
                 kernel_row("paged_decode_attention", "paged_decode.cu",
                            "paged_attention.py:110", launches,
@@ -1781,6 +2185,18 @@ def main(argv=None) -> int:
                 ft = f_timing[name]
                 rows.append(kernel_row(name, src, tpu, t_counts[t][name],
                                        ft["max_abs_err"], ft))
+                if name in b_timing:
+                    # the same kernel on the BERT main path (phase 8) at
+                    # its training shape (timings/bert)
+                    bt = b_timing[name]
+                    rows[-1]["bert"] = {
+                        "launches": b_counts[name], "ms": bt["kernel_ms"],
+                        "plain_ms": bt["plain_ms"],
+                        "bound_ms": bt["bound_ms"],
+                        "bound_by": bt["bound_by"],
+                        "library_ms": bt["library_ms"],
+                        "max_abs_err": bt["max_abs_err"],
+                        "shapes": bt["shapes"]}
             emit({"kernels": rows})
         card = card_line()
     except Exception:

@@ -1,8 +1,9 @@
 """DataSet container (port of ``deeplearning4j_tpu/data/dataset.py``,
 ``DataSet``): features, labels and their masks as host numpy arrays,
 with the split/shuffle/batch utilities; conversion to device tensors
-happens at the step boundary (``MultiLayerNetwork._batch_dict``).
-``MultiDataSet`` and ``tbptt_segments`` come with later slices."""
+happens at the step boundary (``MultiLayerNetwork._batch_dict``); and
+``MultiDataSet``, the multi-input container ``BertIterator`` yields.
+``tbptt_segments`` comes with the recurrent slice."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,3 +67,16 @@ class DataSet:
             cat([d.features_mask for d in datasets]),
             cat([d.labels_mask for d in datasets]),
         )
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multi-input/multi-output sample batch (``org.nd4j.linalg.dataset.MultiDataSet``)."""
+
+    features: List[np.ndarray]
+    labels: List[np.ndarray]
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])

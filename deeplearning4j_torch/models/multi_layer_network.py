@@ -1,6 +1,7 @@
 """MultiLayerNetwork: the sequential-stack model (port of
 ``deeplearning4j_tpu/models/multi_layer_network.py``: ``init``,
-``output``, ``score``, ``fit`` and the parameter views).
+``output``, ``feed_forward``, ``score``, ``fit``, ``evaluate*``, the
+parameter views, ``clone`` and ``save``/``load``).
 
 ``params_tree`` keeps the reference's shape — ``{"layer_i": {name:
 tensor}}`` with the same names and ``x @ W`` layouts — as plain
@@ -23,6 +24,8 @@ from deeplearning4j_torch.data.dataset import DataSet
 from deeplearning4j_torch.data.iterator import (AsyncDataSetIterator,
                                                 DataSetIterator,
                                                 ListDataSetIterator)
+from deeplearning4j_torch.eval import (Evaluation, RegressionEvaluation,
+                                       ROCMultiClass)
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf
 from deeplearning4j_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_torch.nn.conf.layers_core import BaseOutputLayerConf
@@ -239,12 +242,70 @@ class MultiLayerNetwork:
                                     training, rng, mask=features_mask)[0]
 
     @torch.no_grad()
+    def feed_forward(self, x, training: bool = False) -> List[torch.Tensor]:
+        """All per-layer activations, the input first (DL4J
+        ``feedForward``); no features mask, as in the reference."""
+        self._check_init()
+        x = torch.as_tensor(x, device=self.device)
+        acts = [x]
+        rng = self._rng.next_key() if training else None
+        keys = (split(rng, len(self.layers)) if rng is not None
+                else [None] * len(self.layers))
+        for i, ly in enumerate(self.layers):
+            pre = self.conf.preprocessors[i]
+            if pre is not None:
+                x = pre(x)
+            x = ly.apply(self.params_tree[f"layer_{i}"], x,
+                         compute_dtype=self._compute_dtype,
+                         training=training, rng=keys[i])
+            acts.append(x)
+        return acts
+
+    @torch.no_grad()
     def score(self, ds: DataSet) -> float:
         """Loss on a dataset without updating (DL4J ``score(DataSet)``)."""
         self._check_init()
         loss, _ = self._score_batch(self.params_tree, self.state_tree,
                                     self._batch_dict(ds), None, False)
         return float(loss)
+
+    def _host_output(self, x, features_mask=None) -> np.ndarray:
+        """``output`` as a host numpy array (what the evaluators take)."""
+        out = self.output(x, features_mask=features_mask)
+        if out.dtype == torch.bfloat16:
+            out = out.float()
+        return out.cpu().numpy()
+
+    def evaluate(self, iterator: DataSetIterator,
+                 top_n: int = 1) -> Evaluation:
+        """(DL4J ``evaluate(DataSetIterator)``); each batch's features
+        mask goes to ``output``."""
+        self._check_init()
+        ev = Evaluation(top_n=top_n)
+        for ds in iterator:
+            ev.eval(ds.labels, self._host_output(ds.features,
+                                                 ds.features_mask),
+                    ds.labels_mask)
+        iterator.reset()
+        return ev
+
+    def evaluate_regression(self, iterator) -> RegressionEvaluation:
+        self._check_init()
+        ev = RegressionEvaluation()
+        for ds in iterator:
+            ev.eval(ds.labels, self._host_output(ds.features),
+                    ds.labels_mask)
+        iterator.reset()
+        return ev
+
+    def evaluate_roc(self, iterator, exact: bool = True) -> ROCMultiClass:
+        self._check_init()
+        roc = ROCMultiClass(exact=exact)
+        for ds in iterator:
+            roc.eval(ds.labels, self._host_output(ds.features),
+                     ds.labels_mask)
+        iterator.reset()
+        return roc
 
     # ------------------------------------------------------------------
     # Parameter access (DL4J flattened-vector views)
@@ -289,6 +350,33 @@ class MultiLayerNetwork:
 
     def add_listeners(self, *listeners: TrainingListener):
         self.listeners.extend(listeners)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new network on the same device with a copy of the
+        configuration, parameters, state and counters (not the updater
+        state, as in the reference).  The tensors are copies: ``fit``
+        updates parameters in place."""
+        m = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+            self.conf.to_dict()))
+        if self.params_tree is not None:
+            m.params_tree = map_leaves(torch.clone, self.params_tree)
+            m.state_tree = map_leaves(torch.clone, self.state_tree)
+        m.device = self.device
+        m.iteration_count = self.iteration_count
+        m.epoch_count = self.epoch_count
+        return m
+
+    def save(self, path, save_updater: bool = True):
+        """The reference's checkpoint zip (``utils.model_serializer``)."""
+        from deeplearning4j_torch.utils.model_serializer import write_model
+        write_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path, load_updater: bool = True,
+             device="cuda") -> "MultiLayerNetwork":
+        """Restore a checkpoint zip (either package's) onto ``device``."""
+        from deeplearning4j_torch.utils.model_serializer import restore_model
+        return restore_model(path, device=device, load_updater=load_updater)
 
     def summary(self) -> str:
         """Layer table (DL4J ``summary()``)."""

@@ -1,15 +1,22 @@
 """Layer configurations and the network-configuration builder (port of
-``deeplearning4j_tpu.nn.conf``, the decoder stack's layers so far)."""
+``deeplearning4j_tpu.nn.conf``, the transformer stacks' layers so far)."""
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, GlobalConf
 from deeplearning4j_torch.nn.conf.builder import (MultiLayerConfiguration,
                                                   NeuralNetConfiguration)
 from deeplearning4j_torch.nn.conf.inputs import InputType
-from deeplearning4j_torch.nn.conf.layers_core import DenseLayer, OutputLayer
+from deeplearning4j_torch.nn.conf.layers_conv import GlobalPoolingLayer
+from deeplearning4j_torch.nn.conf.layers_core import (ActivationLayer,
+                                                      DenseLayer,
+                                                      DropoutLayer,
+                                                      EmbeddingLayer,
+                                                      LossLayer, OutputLayer)
 from deeplearning4j_torch.nn.conf.layers_recurrent import RnnOutputLayer
 from deeplearning4j_torch.nn.conf.layers_transformer import (
     EmbeddingSequenceLayer, TransformerEncoderBlock)
 
 __all__ = ["BaseLayerConf", "GlobalConf", "MultiLayerConfiguration",
-           "NeuralNetConfiguration", "InputType", "DenseLayer",
-           "OutputLayer", "RnnOutputLayer", "EmbeddingSequenceLayer",
+           "NeuralNetConfiguration", "InputType", "ActivationLayer",
+           "DenseLayer", "DropoutLayer", "EmbeddingLayer",
+           "GlobalPoolingLayer", "LossLayer", "OutputLayer",
+           "RnnOutputLayer", "EmbeddingSequenceLayer",
            "TransformerEncoderBlock"]

@@ -1,7 +1,8 @@
 """Feed-forward layer configs (port of
 ``deeplearning4j_tpu/nn/conf/layers_core.py``): ``DenseLayer`` with
-dropout, the output-layer base with the loss plumbing
-(``per_example_score``) and ``OutputLayer``.
+dropout, ``ActivationLayer``, ``DropoutLayer``, ``EmbeddingLayer``, the
+output-layer base with the loss plumbing (``per_example_score``),
+``OutputLayer`` and ``LossLayer``.
 
 ``apply(params, x, *, compute_dtype, mask, training, rng)`` is the
 forward on tensors; ``rng`` is an integer key from
@@ -86,6 +87,70 @@ class DenseLayer(BaseLayerConf):
         return apply_dropout(y, self.dropout, training, rng)
 
 
+@register_layer
+@dataclasses.dataclass
+class ActivationLayer(BaseLayerConf):
+    """Standalone activation (``org.deeplearning4j.nn.conf.layers.ActivationLayer``)."""
+
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
+        return get_activation(self.activation or "identity")(x)
+
+
+@register_layer
+@dataclasses.dataclass
+class DropoutLayer(BaseLayerConf):
+    """Standalone dropout (``DropoutLayer``); `rate` is the drop probability."""
+
+    rate: float = 0.5
+
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
+        return apply_dropout(x, self.rate, training, rng)
+
+
+@register_layer
+@dataclasses.dataclass
+class EmbeddingLayer(BaseLayerConf):
+    """Index -> vector lookup (``EmbeddingLayer``): input [batch] or
+    [batch, 1] of int ids, output [batch, n_out].  ``W`` is [n_in, n_out]
+    (the reference's layout), so a carried checkpoint needs no
+    transpose."""
+
+    n_in: Optional[int] = None  # vocabulary size
+    n_out: Optional[int] = None
+    has_bias: bool = False
+
+    def infer_shapes(self, input_shape):
+        return (self.n_out,)
+
+    def param_shapes(self):
+        shapes = {"W": (self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init(self, gen, dtype=torch.float32, device=None):
+        w = init_weights(gen, (self.n_in, self.n_out), self.n_in,
+                         self.n_out, self.weight_init, dtype,
+                         self.weight_distribution, device)
+        params = {"W": w}
+        if self.has_bias:
+            params["b"] = torch.full((self.n_out,), float(self.bias_init),
+                                     dtype=dtype, device=w.device)
+        return params
+
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
+        idx = x.long()
+        if idx.ndim >= 2 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        y = params["W"][idx]
+        if self.has_bias:
+            y = y + params["b"]
+        return get_activation(self.activation or "identity")(y)
+
+
 @dataclasses.dataclass
 class BaseOutputLayerConf(BaseLayerConf):
     """Shared loss plumbing for output layers
@@ -140,3 +205,17 @@ class OutputLayer(BaseOutputLayerConf, DenseLayer):
               training=False, rng=None):
         z = self.promote_head(self.pre_output(params, x, compute_dtype))
         return get_activation(self.activation or "identity")(z)
+
+
+@register_layer
+@dataclasses.dataclass
+class LossLayer(BaseOutputLayerConf):
+    """Loss without params (``org.deeplearning4j.nn.conf.layers.LossLayer``)."""
+
+    def apply(self, params, x, *, compute_dtype=None, mask=None,
+              training=False, rng=None):
+        x = self.promote_head(x)
+        return get_activation(self.activation or "identity")(x)
+
+    def pre_output(self, params, x, compute_dtype=None):
+        return x

@@ -136,11 +136,13 @@ class Solver:
 
     def _loss_and_grads(self, params, model_state, batch, rng):
         """Forward + loss, then one ``torch.autograd.grad`` over every
-        parameter leaf (leaves the loss does not reach get zeros)."""
+        parameter leaf (leaves the loss does not reach get zeros).  The
+        trees keep ``params``' skeleton, so a layer without parameters
+        (pooling, activation) keeps its empty dict."""
         paths = [p for p, _ in iter_leaves(params)]
         leaves = [leaf.detach().requires_grad_(True)
                   for _, leaf in iter_leaves(params)]
-        live = {}
+        live = map_leaves(lambda _: None, params)
         for path, leaf in zip(paths, leaves):
             set_path(live, path, leaf)
         with torch.enable_grad():
@@ -148,7 +150,7 @@ class Solver:
                                             True)
             obj = loss if self.minimize else -loss
             grads = torch.autograd.grad(obj, leaves, allow_unused=True)
-        tree = {}
+        tree = map_leaves(lambda _: None, params)
         for path, leaf, g in zip(paths, leaves, grads):
             set_path(tree, path, torch.zeros_like(leaf) if g is None else g)
         return loss.detach(), new_state, tree

@@ -5,8 +5,10 @@
 ``{"layer_i": {name: array}}`` — e.g. ``jax.tree_util.tree_map(
 np.asarray, jax_net.params_tree)``) and installs it as the port net's
 ``params_tree``.  Names and layouts are shared (``Wqkv`` [d, 3d], head
-``W`` [d, V]), so no leaf is transposed; every leaf is checked against
-the layer's ``param_shapes()``.
+``W`` [d, V], ``EmbeddingLayer``'s ``W`` [n_in, n_out] and ``b``), so no
+leaf is transposed; every leaf is checked against the layer's
+``param_shapes()``, and a layer without parameters (pooling, activation,
+dropout, loss) takes an empty dict.
 
 ``load_numpy_opt_state(net, opt_state_np)`` does the same for the JAX
 package's ``opt_state`` (e.g. Adam's ``{"m": params-like, "v":

@@ -73,6 +73,21 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.telemetry.tracing\n"
         "import deeplearning4j_torch.telemetry.flightrec\n"
         "import deeplearning4j_torch.telemetry.profiling\n"
+        "from deeplearning4j_torch.zoo import Bert\n"
+        "import deeplearning4j_torch.zoo.bert\n"
+        "import deeplearning4j_torch.nlp, deeplearning4j_torch.nlp.wordpiece\n"
+        "import deeplearning4j_torch.nlp.tokenizer\n"
+        "import deeplearning4j_torch.data.bert_iterator\n"
+        "import deeplearning4j_torch.data.tiny_sentiment\n"
+        "import deeplearning4j_torch.data.dataset\n"
+        "import deeplearning4j_torch.eval, deeplearning4j_torch.eval.roc\n"
+        "import deeplearning4j_torch.eval.classification\n"
+        "import deeplearning4j_torch.eval.regression\n"
+        "import deeplearning4j_torch.eval.calibration\n"
+        "import deeplearning4j_torch.nn.conf.layers_conv\n"
+        "import deeplearning4j_torch.nn.conf.layers_core\n"
+        "import deeplearning4j_torch.nn.conf.inputs\n"
+        "import deeplearning4j_torch.utils.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
