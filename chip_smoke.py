@@ -102,7 +102,40 @@ Phases:
                build_vocab -> WordPiece -> BertIterator at t 512, one
                epoch of fit, then evaluate on the held-out batches, its
                confusion matrix equal to output()'s argmax on the host.
-  9. timings — K1 and K2, their plain versions and one PyTorch SDPA call
+  9. resnet  — ResNet-50 (zoo.ResNet50(): 224 x 224 x 3, 1000 classes,
+               stages [3, 4, 6, 3], seeded random weights) trained
+               through ComputationGraph; convolutions, batch norm and
+               pooling are PyTorch's own ops (cuDNN) and no kernel of the
+               port is on this path.  (a) b 2, the same f32-
+               representable parameters on the card and the CPU, TF32
+               off for the part: in f64 the output, loss, four gradients
+               (stem conv, a strided 1x1 projection, a mid-stage gamma,
+               the head) and every batch-norm state within 1e-7 of each
+               element's size; in f32 the output, loss and states within
+               1e-3, and the gradients on the main path's channels-last
+               layout within 4x the CPU f32's own normwise distance from
+               the CPU's f64 (ResNet-50's f32 gradients are
+               ill-conditioned at random init, in the JAX package too);
+               every distinct convolution and pooling alone, card f32
+               channels-last against CPU f64, within 1e-4.  (b) The main
+               path: bf16 on f32 master weights, AdaDelta, b 256 over
+               four seeded input buffers (bench.py's bench_resnet50), a
+               warm-up on buffer 0 then five counted compiled_train_step
+               steps on buffers 0, 1, 2, 3, 0 and one fit step — losses
+               finite, buffer 0's loss lower after one update (AdaDelta
+               overshoots on fresh buffers, in the JAX package too),
+               batch-norm statistics moved; images/s, step ms, MFU (conv and dense
+               flops), peak memory, and two profiled steps: device ms,
+               events and cuDNN layout transposes, and device ms by
+               class (convolution, batch norm, pooling, elementwise,
+               head and loss, updater, copies, layout transposes).
+               (c) The checked-in LeNet_mnist.zip and SimpleCNN_cifar10-
+               synthetic.zip on the card over the synthetic test splits
+               (accuracy > 0.97 and > 0.9, evaluate's confusion equal to
+               output()'s argmax on the host), then one epoch of a fresh
+               LeNet on 2,048 synthetic training examples, its loss
+               finite and falling.
+ 10. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
                plain versions, SDPA's forward and its backward alone
@@ -112,7 +145,8 @@ Phases:
                (b 32, t 512, 12 x 64, phase 8(b)'s padding as the bias,
                SDPA with it as a float attn_mask).
 
-``--phases`` runs a subset (e.g. ``--phases build,kernel``).  The extra
+``--phases`` runs a subset (e.g. ``--phases build,kernel``, or
+``--phases build,resnet`` for the conv slice alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
 of the full-width server with ``torch.profiler``: device busy share,
 kernel launches per tick and the top kernels by device time.  The extra
@@ -121,7 +155,7 @@ the training shapes (K4 also at BERT-base's, 12 heads of 64 with a
 padding bias; K6 beside SDPA's backward), and ``k2`` the verify kernel
 at phase 4(b)'s mid contexts with W = 5 beside one SDPA call, three
 medians each, for quick comparisons of kernel versions in turns; ``kbert``
-runs phase 9's BERT-shape timings alone, and ``bertops`` charges one BERT
+runs phase 10's BERT-shape timings alone, and ``bertops`` charges one BERT
 main-path step's device time to the PyTorch ops that launched it.  The
 extra phase ``wide`` times the head-dim-256 builds (K1, K2 at 3 heads of
 256; K3-K6 at b 8, 3 heads of 256) beside their plain versions and SDPA.
@@ -138,7 +172,7 @@ import time
 import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "train",
-          "bert", "timings")
+          "bert", "resnet", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -1111,6 +1145,11 @@ def train_window(torch, np, fa, net, b, t, seed, steps=TRAIN_STEPS):
             fa._ROUTE_XLA_LONG_T.value - fallback0)
 
 
+# cuDNN's layout transposes, by kernel name: none should run when every
+# convolution's activations and kernels come channels-last
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
 def kernel_class(name):
     """The class of a device kernel by its name: one of the port's flash
     kernels (K3-K6), a matmul (cuBLAS/CUTLASS), a copy or cast, a
@@ -1131,18 +1170,19 @@ def kernel_class(name):
     return "other"
 
 
-def step_profile(torch, net, ds):
-    """One ``fit`` step on ``ds`` under a CUDA-only ``torch.profiler``
-    trace: device time by kernel (top 12), by class (``kernel_class``)
-    and the device-busy total."""
+def step_profile(torch, step):
+    """``step()`` (one training step that ends in a host read) under a
+    CUDA-only ``torch.profiler`` trace: device time by kernel (top 12),
+    by class (``kernel_class``), the device-busy total and cuDNN's
+    layout transposes (``TRANSPOSE_KERNELS``) by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net.fit(ds)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, classes, busy_us, n = {}, {}, 0.0, 0
+    kernels, classes, transposes, busy_us, n = {}, {}, {}, 0.0, 0
     for evt in prof.events():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
@@ -1152,6 +1192,8 @@ def step_profile(torch, net, ds):
         kernels[evt.name[:80]] = kernels.get(evt.name[:80], 0.0) + us
         cls = kernel_class(evt.name)
         classes[cls] = classes.get(cls, 0.0) + us
+        if any(t in evt.name for t in TRANSPOSE_KERNELS):
+            transposes[evt.name[:80]] = transposes.get(evt.name[:80], 0) + 1
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"profiled_wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
             "device_events": n,
@@ -1160,6 +1202,8 @@ def step_profile(torch, net, ds):
                                    sorted(classes.items())},
             "device_share_by_class": {k: v / max(busy_us, 1e-9) for k, v
                                       in sorted(classes.items())},
+            "layout_transposes_per_step": sum(transposes.values()),
+            "layout_transpose_kernels": transposes,
             "top_device_ms": [{"name": k, "ms": v / 1e3} for k, v in top]}
 
 
@@ -1233,8 +1277,8 @@ def phase_train(torch, np):
                "peak_allocated_bytes": peak, "launches": cnt,
                "flash_fallback_above_threshold": fallbacks,
                "weights": "random (seeded)", "card": card_line()}
-        row["profile"] = step_profile(
-            torch, net, DataSet(*train_batch(np, b, t, 32000, 2)))
+        ds = DataSet(*train_batch(np, b, t, 32000, 2))
+        row["profile"] = step_profile(torch, lambda: net.fit(ds))
         counts[t] = cnt
         del net
         torch.cuda.empty_cache()
@@ -1396,7 +1440,7 @@ def phase_bert(torch, np):
            "peak_allocated_bytes": peak, "launches": cnt,
            "flash_fallback_above_threshold": fallbacks,
            "weights": "random (seeded)", "card": card_line()}
-    prof = step_profile(torch, net, ds)
+    prof = step_profile(torch, lambda: net.fit(ds))
     share = {k: v for k, v in prof["device_share_by_class"].items()
              if k in ("K4", "K5", "K6")}
     prof["flash_share_of_device"] = share
@@ -1486,7 +1530,542 @@ def phase_bert_ops(torch, np):
     torch.cuda.empty_cache()
 
 
-# -- phase 9 -----------------------------------------------------------
+# -- phase 9: resnet ---------------------------------------------------
+# the main path's shape: bench.py's bench_resnet50 (b 256, 224 x 224 x 3,
+# 1000 classes, four input buffers), five counted steps after a warm-up
+RESNET_B, RESNET_HW, RESNET_STEPS, RESNET_BUFFERS = 256, 224, 5, 4
+# part (a), card vs CPU on the same f32-representable parameters.  f64:
+# the output, the loss, RESNET_GRADS and the batch-norm state, every
+# element within 1e-7 of flash_err's measure, |card - cpu| / (|cpu| +
+# RMS(cpu)).  f32 with TF32 off: the output, the loss and the batch-norm
+# state within 1e-3.  The f32 gradients are ill-conditioned at random
+# init in the JAX package itself (its f32 reads ~5e-2 normwise from its
+# own f64 below the head: tests/test_torch_zoo_cnn.py), so they are held
+# to the CPU's f64: the card's normwise error at most
+# RESNET_F32_GRAD_RATIO x the CPU f32's own (floor 1e-4).  cuDNN runs f64
+# convolutions in contiguous NCHW, so the main path's channels-last
+# layout is also held alone: every distinct convolution and pooling of
+# the network, at its input's shape on seeded normal data, card f32 (TF32
+# off) against CPU f64 within RESNET_LAYER_TOL of each tensor's largest
+# element (output, input and parameter gradients).
+RESNET_F32_TOL, RESNET_F64_TOL, RESNET_LAYER_TOL = 1e-3, 1e-7, 1e-4
+RESNET_F32_GRAD_RATIO = 4.0
+# the stem, a strided 1x1 projection, a batch-norm gamma mid-network, the
+# head
+RESNET_GRADS = (("conv1", "W"), ("s3b0_sc", "W"), ("s4b2_b_bn", "gamma"),
+                ("output", "W"))
+# the reference's accuracy gates on the synthetic test splits
+# (tests/test_pretrained_weights.py)
+LENET_GATE, SIMPLE_CNN_GATE = 0.97, 0.9
+# a profiled step's device time is charged to these classes: the layer
+# (or updater) whose forward, or whose backward node, launched a kernel;
+# copies and cuDNN's layout transposes by the op or kernel name
+SCOPED_LAYERS = {"ConvolutionLayer": "convolution",
+                 "BatchNormalization": "batch_norm",
+                 "SubsamplingLayer": "pooling",
+                 "GlobalPoolingLayer": "pooling",
+                 "ActivationLayer": "elementwise",
+                 "ZeroPaddingLayer": "elementwise",
+                 "OutputLayer": "head_and_loss"}
+COPY_OPS = ("aten::copy_", "aten::_to_copy", "aten::clone",
+            "aten::contiguous")
+def op_kernels(evt):
+    """[(kernel name, device us)] a profiled CPU op launched itself."""
+    return [(k.name, k.duration) for k in getattr(evt, "kernels", [])]
+
+
+def charge_device_time(torch, events):
+    """{class: device us} of a CPU + CUDA profile whose step ran under
+    the ``smoke/`` scopes of :func:`scoped_step`: each kernel goes to
+    the innermost scope above the op that launched it; a backward op
+    goes, through its autograd node's sequence number, to the scope of
+    the forward op that made the node; ops in the step outside the
+    forward and backward are the updater's."""
+    cpu = torch.autograd.DeviceType.CPU
+    fwd_by_seq = {}
+    for e in events:
+        if e.device_type == cpu and getattr(e, "sequence_nr", -1) >= 0 \
+                and not e.name.startswith("autograd::"):
+            fwd_by_seq.setdefault((e.sequence_nr, e.thread), e)
+
+    def scope(e, depth=0):
+        while e is not None:
+            if e.name.startswith("smoke/"):
+                return {"smoke/fwd_bwd": "head_and_loss",
+                        "smoke/step": "updater"}.get(e.name, e.name[6:])
+            if e.name.startswith("autograd::engine::evaluate_function") \
+                    and e.sequence_nr >= 0 and depth < 4:
+                fwd = fwd_by_seq.get((e.sequence_nr, e.fwd_thread))
+                return scope(fwd, depth + 1) if fwd is not None \
+                    else "backward_unattributed"
+            e = e.cpu_parent
+        return "other"
+
+    out = {}
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        ks = op_kernels(e)
+        if not ks:
+            continue
+        cls = "copies" if e.name in COPY_OPS else scope(e)
+        for name, us in ks:
+            c = ("layout_transposes"
+                 if any(t in name for t in TRANSPOSE_KERNELS) else cls)
+            out[c] = out.get(c, 0.0) + us
+    return out
+
+
+def scoped_step(torch, fn):
+    """``fn()`` with every layer's forward under a ``smoke/<class>``
+    record_function scope (``SCOPED_LAYERS``, ElementWiseVertex as
+    elementwise), the solver's forward + backward under
+    ``smoke/fwd_bwd`` and its step under ``smoke/step``; the methods
+    are restored after."""
+    from torch.profiler import record_function
+
+    from deeplearning4j_torch.nn.conf import graph_vertices, layers_conv
+    from deeplearning4j_torch.nn.conf import layers_core
+    from deeplearning4j_torch.optimize.solver import Solver
+    targets = [(getattr(layers_conv, n, None) or getattr(layers_core, n),
+                "apply", "smoke/" + c) for n, c in SCOPED_LAYERS.items()]
+    targets += [(layers_core.OutputLayer, "pre_output",
+                 "smoke/head_and_loss"),
+                (graph_vertices.ElementWiseVertex, "apply",
+                 "smoke/elementwise"),
+                (Solver, "_loss_and_grads", "smoke/fwd_bwd"),
+                (Solver, "step", "smoke/step")]
+    saved = [(cls, attr, cls.__dict__[attr]) for cls, attr, _ in targets
+             if attr in cls.__dict__]
+
+    def wrap(f, label):
+        def scoped(*a, **k):
+            with record_function(label):
+                return f(*a, **k)
+        return scoped
+    for cls, attr, label in targets:
+        setattr(cls, attr, wrap(getattr(cls, attr), label))
+    try:
+        return fn()
+    finally:
+        for cls, attr, _ in targets:
+            if attr in cls.__dict__:
+                delattr(cls, attr)
+        for cls, attr, f in saved:
+            setattr(cls, attr, f)
+
+
+def resnet_profiles(torch, step, st, x, y):
+    """Two profiled compiled steps: ``step_profile``'s CUDA-only one and
+    a CPU + CUDA one whose device time ``charge_device_time`` splits by
+    class in place of ``kernel_class``'s (the CPU recording slows the
+    host; only its device times are read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    box = [st]
+
+    def one():
+        box[0], loss = step(box[0], x, y)
+        return float(loss)
+    prof = step_profile(torch, one)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof2:
+        scoped_step(torch, one)
+    by_class = charge_device_time(torch, prof2.events())
+    charged = sum(by_class.values())
+    prof["device_ms_by_class"] = {k: v / 1e3 for k, v in
+                                  sorted(by_class.items())}
+    prof["device_share_by_class"] = {k: v / max(charged, 1e-9) for k, v in
+                                     sorted(by_class.items())}
+    prof["by_class_basis"] = ("a second step under a CPU + CUDA profile: "
+                              "each kernel charged to the layer (forward, "
+                              "or the backward node's forward op) or the "
+                              "updater that launched it")
+    return box[0], prof
+
+
+def bn_moved(torch, state):
+    """True iff every batch-norm's running mean and variance moved from
+    their initial zeros and ones."""
+    bns = [s for s in state.values() if "mean" in s]
+    return bool(bns) and all(
+        bool(s["mean"].abs().sum() > 0) and bool((s["var"] - 1).abs().sum()
+                                                  > 0) for s in bns)
+
+
+def cnn_eval(torch, np, net, batches, n_classes=10):
+    """(evaluate's accuracy, its confusion, the confusion of output()'s
+    argmax counted on the host) over ``batches``."""
+    from deeplearning4j_torch.data import ListDataSetIterator
+    ev = net.evaluate(ListDataSetIterator(batches))
+    host = np.zeros((n_classes, n_classes), np.int64)
+    for d in batches:
+        pred = net.output(d.features).float().cpu().numpy().argmax(-1)
+        np.add.at(host, (d.labels.argmax(-1), pred), 1)
+    return ev.accuracy(), ev.confusion, host
+
+
+def resnet_pass(torch, params, x, y, hw, dtype, device):
+    """Full-width ResNet-50 with the numpy ``params`` cast to ``dtype``
+    on ``device``: {"output": the inference output, "loss",
+    "grad/<vertex>/<leaf>": ``RESNET_GRADS``, "state/<vertex>/<k>":
+    every batch-norm's state} of one training forward and backward on
+    (x, y), each on the CPU."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.models.computation_graph import ComputationGraph
+    from deeplearning4j_torch.utils.convert import load_numpy_params
+    from deeplearning4j_torch.utils.trees import map_leaves
+    from deeplearning4j_torch.zoo import ResNet50
+    conf = ResNet50(input_shape=(hw, hw, 3), compute_dtype=dtype).conf()
+    conf.global_conf.dtype = dtype
+    net = load_numpy_params(ComputationGraph(conf), map_leaves(
+        lambda a: a.astype(dtype), params), device=device)
+    net._build_solver()
+    loss, state, grads = net._solver._loss_and_grads(
+        net.params_tree, net.state_tree, net._batch_dict(DataSet(x, y)),
+        None)
+    out = {"output": net.output(x).cpu(), "loss": loss.detach().cpu()
+           .reshape(1)}
+    out.update({f"grad/{v}/{k}": grads[v][k].detach().cpu()
+                for v, k in RESNET_GRADS})
+    out.update({f"state/{v}/{k}": t.cpu() for v, st in state.items()
+                if "mean" in st for k, t in st.items()})
+    return out
+
+
+class contiguous_convs:
+    """A context in which the port's convolutions and poolings take
+    contiguous NCHW activations and OIHW kernels on the card too (as on
+    the CPU), in place of the main path's channels-last ones."""
+
+    def __enter__(self):
+        from deeplearning4j_torch.nn.conf import layers_conv as lc
+        self.saved = lc._nchw, lc._oihw
+        lc._nchw = lambda x: x.permute(0, 3, 1, 2).contiguous()
+        lc._oihw = lambda w, dtype: (w.to(dtype).permute(3, 2, 0, 1)
+                                     .contiguous())
+
+    def __exit__(self, *exc):
+        from deeplearning4j_torch.nn.conf import layers_conv as lc
+        lc._nchw, lc._oihw = self.saved
+
+
+def resnet_layer_cases(torch, params, x, hw, device):
+    """{key: (layer, its params)} of every distinct convolution and
+    pooling (kind, configuration and input shape) in ResNet-50's f32
+    inference forward of ``x`` on ``device``, each with the input shape
+    it met as ``key[-1]``."""
+    import dataclasses
+
+    from deeplearning4j_torch.nn.conf import layers_conv as lc
+    from deeplearning4j_torch.models.computation_graph import ComputationGraph
+    from deeplearning4j_torch.utils.convert import load_numpy_params
+    from deeplearning4j_torch.utils.trees import map_leaves
+    from deeplearning4j_torch.zoo import ResNet50
+    conf = ResNet50(input_shape=(hw, hw, 3), compute_dtype="float32").conf()
+    net = load_numpy_params(ComputationGraph(conf), map_leaves(
+        lambda a: a.astype("float32"), params), device=device)
+    cases, saved = {}, {}
+    for cls in (lc.ConvolutionLayer, lc.SubsamplingLayer):
+        saved[cls] = cls.apply
+
+        def seen(ly, p, xin, *a, _f=cls.apply, **k):
+            fields = tuple((f.name, repr(getattr(ly, f.name)))
+                           for f in dataclasses.fields(ly) if f.name != "name")
+            cases.setdefault((type(ly).__name__, fields, tuple(xin.shape)),
+                             (ly, p))
+            return _f(ly, p, xin, *a, **k)
+        cls.apply = seen
+    try:
+        net.output(x)
+    finally:
+        for cls, f in saved.items():
+            cls.apply = f
+    return cases
+
+
+def resnet_layer_errors(torch, params, x, hw, device):
+    """{"<kind> <kernel>/<stride> <input shape>": error} of every case of
+    ``resnet_layer_cases``, alone on seeded normal data at its input's
+    shape: on ``device`` in f32, in the main path's layout, against the
+    CPU in f64 — the largest of max |card - cpu| / max |cpu| over the
+    output and the gradients of the input and every parameter under one
+    seeded output gradient."""
+    errs = {}
+    for i, ((kind, fields, shape), (ly, p)) in enumerate(
+            resnet_layer_cases(torch, params, x, hw, device).items()):
+        g = torch.Generator().manual_seed(i)
+        x0 = torch.randn(shape, generator=g, dtype=torch.float64)
+        dy = None
+        res = []
+        for dev, dt in ((device, torch.float32), ("cpu", torch.float64)):
+            xi = x0.to(dev, dt).requires_grad_()
+            pi = {k: v.detach().to(dev, dt).requires_grad_()
+                  for k, v in p.items()}
+            yi = ly.apply(pi, xi)
+            if dy is None:
+                dy = torch.randn(yi.shape, generator=g, dtype=torch.float64)
+            res.append([yi] + list(torch.autograd.grad(
+                yi, [xi] + list(pi.values()), dy.to(dev, dt))))
+        f = dict(fields)
+        name = (f"{kind} {f['kernel_size']}/{f['stride']} "
+                f"{'x'.join(map(str, shape))}")
+        errs[name] = max(float((a.double().cpu() - r).abs().max())
+                         / max(float(r.abs().max()), 1e-300)
+                         for a, r in zip(*(map(torch.Tensor.detach, t)
+                                           for t in res)))
+    return errs
+
+
+def resnet_card_vs_cpu(torch, np, hw, device):
+    """Part (a) of the resnet phase at ``hw`` x ``hw``, b 2: (its row,
+    {check: error} of the checks over their limits).  Seeded
+    f32-representable parameters run through ``resnet_pass`` on the card
+    and on the CPU in f64 and f32, and on the card in f32 once more under
+    ``contiguous_convs``; then ``resnet_layer_errors``.  TF32 is off for
+    its duration and restored after."""
+    from deeplearning4j_torch.models.computation_graph import ComputationGraph
+    from deeplearning4j_torch.utils.trees import map_leaves
+    from deeplearning4j_torch.zoo import ResNet50
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conf = ResNet50(input_shape=(hw, hw, 3),
+                        compute_dtype="float32").conf()
+        params = map_leaves(lambda t: t.numpy(), ComputationGraph(conf)
+                            .init(device="cpu").params_tree)
+        rng = np.random.default_rng(1)
+        x = rng.normal(size=(2, hw, hw, 3)).astype(np.float32)
+        y = np.eye(1000, dtype=np.float32)[[17, 503]]
+        runs = {(dev, dt): resnet_pass(torch, params, x, y, hw, dt, d)
+                for dev, d in (("card", device), ("cpu", "cpu"))
+                for dt in ("float64", "float32")}
+        with contiguous_convs():
+            runs["card_nchw", "float32"] = resnet_pass(
+                torch, params, x, y, hw, "float32", device)
+        layers = resnet_layer_errors(torch, params, x, hw, device)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    ref = runs["cpu", "float64"]
+
+    def errs(run, base, keys):
+        # flash_err per tensor, the batch-norm states folded into one max
+        out = {}
+        for k in keys:
+            name = "bn_state" if k.startswith("state/") else k
+            out[name] = max(out.get(name, 0.0),
+                            flash_err(torch, run[k], base[k])[0])
+        return out
+    f64 = errs(runs["card", "float64"], ref, ref)
+    f32 = errs(runs["card", "float32"], runs["cpu", "float32"],
+               [k for k in ref if not k.startswith("grad/")])
+    grads = {k: {who: float((runs[who, "float32"][k].double() - ref[k])
+                            .norm() / ref[k].norm())
+                 for who in ("card", "card_nchw", "cpu")}
+             for k in ref if k.startswith("grad/")}
+    bad = {f"float64/{k}": e for k, e in f64.items()
+           if not (math.isfinite(e) and e <= RESNET_F64_TOL)}
+    bad.update({f"float32/{k}": e for k, e in f32.items()
+                if not (math.isfinite(e) and e <= RESNET_F32_TOL)})
+    bad.update({f"float32/{k}": e for k, e in grads.items()
+                if not (math.isfinite(e["card"]) and e["card"] <=
+                        RESNET_F32_GRAD_RATIO * max(e["cpu"], 1e-4))})
+    bad.update({f"layer/{k}": e for k, e in layers.items()
+                if not (math.isfinite(e) and e <= RESNET_LAYER_TOL)})
+    row = {"phase": "resnet/card_vs_cpu", "b": 2, "hw": hw, "classes": 1000,
+           "float64": {"err": f64, "tol": RESNET_F64_TOL,
+                       "measure": "flash_err: max |card - cpu| / (|cpu| + "
+                                  "RMS(cpu)), card and CPU in f64"},
+           "float32": {"err": f32, "tol": RESNET_F32_TOL,
+                       "measure": "flash_err, card f32 vs CPU f32"},
+           "float32_grads": {
+               "err": grads, "ratio_limit": RESNET_F32_GRAD_RATIO,
+               "measure": "||g32 - g64_cpu|| / ||g64_cpu||: card "
+                          "(channels-last), card_nchw (contiguous NCHW) "
+                          "and cpu in f32; gate card <= ratio_limit x "
+                          "max(cpu, 1e-4)"},
+           "layers": {"err": layers, "tol": RESNET_LAYER_TOL,
+                      "measure": "card f32 (channels-last) vs CPU f64, "
+                                 "max |d| / max |cpu| over output, input "
+                                 "and parameter gradients"},
+           "tf32": "off for this part (cudnn.allow_tf32 and "
+                   "matmul.allow_tf32 False), restored after",
+           "seconds": time.perf_counter() - t0}
+    return row, bad
+
+
+def phase_resnet(torch, np, root, device="cuda"):
+    """ResNet-50 (zoo.ResNet50(): 224 x 224 x 3, 1000 classes, bottleneck
+    stages [3, 4, 6, 3], 25,583,592 parameters + 53,120 batch-norm
+    statistics, seeded random weights) trained through ComputationGraph
+    on the card.  (a) b 2, the same f32-representable parameters on the
+    card and on the CPU (``resnet_pass``): in f64 the output, the loss,
+    ``RESNET_GRADS`` and every batch-norm's state after one training
+    forward within ``RESNET_F64_TOL``; in f32 with TF32 off the output,
+    the loss and the state within ``RESNET_F32_TOL``, and the gradients,
+    on the main path's channels-last layout and on contiguous NCHW,
+    against the CPU's f64 (within ``RESNET_F32_GRAD_RATIO`` x the CPU
+    f32's own distance); and every distinct convolution and pooling alone
+    in f32 channels-last against the CPU in f64 (``RESNET_LAYER_TOL``);
+    (b) the main path: bf16 compute on f32 master weights, AdaDelta,
+    b 256 over four seeded input buffers, a warm-up then
+    ``RESNET_STEPS`` counted ``compiled_train_step`` steps on buffers 0,
+    1, 2, 3, 0, then one ``fit`` step on buffer 0 — losses finite, the
+    first counted step's loss (buffer 0 after one update) below the
+    warm-up's, batch-norm statistics moved; images/s, step ms, MFU, peak
+    memory and two profiled steps; (c) the data path: the checked-in
+    LeNet and SimpleCNN restored on the card and evaluated on the
+    synthetic test splits (> 0.97, > 0.9; confusion == host argmax of
+    output()), then one epoch of a fresh LeNet's fit on 2,048 synthetic
+    training examples with a finite, falling loss.  ``device`` is the
+    card; the CPU only in a rehearsal at a small size."""
+    from deeplearning4j_torch.data import (Cifar10DataSetIterator, DataSet,
+                                           ListDataSetIterator,
+                                           MnistDataSetIterator)
+    from deeplearning4j_torch.optimize.listeners import CollectScoresListener
+    from deeplearning4j_torch.utils.model_serializer import restore_model
+    from deeplearning4j_torch.zoo import LeNet, ResNet50
+    hw = RESNET_HW
+
+    # (a) the card against the CPU, f64 and f32 (TF32 off), whole
+    # network and layer by layer
+    row, bad = resnet_card_vs_cpu(torch, np, hw, device)
+    emit(row)
+    if bad:
+        raise AssertionError(f"resnet/card_vs_cpu: over the limits: {bad}")
+    torch.cuda.empty_cache()
+
+    # (b) the main path: bf16, b 256, compiled_train_step then fit
+    model = ResNet50(input_shape=(hw, hw, 3))
+    net = model.init_graph(device=device)
+    step = net.compiled_train_step()
+    b, cut = RESNET_B, None
+    while True:
+        gen = torch.Generator(device=device).manual_seed(0)
+        xs = [torch.randn((b, hw, hw, 3), generator=gen, device=device,
+                          dtype=torch.float32).to(torch.bfloat16)
+              for _ in range(RESNET_BUFFERS)]
+        y = np.eye(1000, dtype=np.float32)[
+            np.random.default_rng(0).integers(0, 1000, b)]
+        st = step.init()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            st, loss = step(st, xs[0], y)              # warm-up
+            warm = float(loss)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if b <= RESNET_B // 8:
+                raise
+        # out of memory: say so, halve the batch and start again
+        del xs, st
+        torch.cuda.empty_cache()
+        cut = {"from": RESNET_B, "to": b // 2,
+               "why": "out of device memory at b " + str(b)}
+        emit({"phase": "resnet/bf16", "batch_cut": cut})
+        b //= 2
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(RESNET_STEPS):
+        # buffers 0, 1, 2, 3, 0: the first counted step reads the warm-up's
+        # buffer after one update
+        st, loss = step(st, xs[i % RESNET_BUFFERS], y)
+        losses.append(float(loss))                     # a host read
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # AdaDelta at its defaults moves every weight by up to ~4.5e-3 at its
+    # first update: the loss on the updated buffer falls, and on fresh
+    # buffers it overshoots, in the JAX package as here
+    # (test_resnet50_adadelta_trajectory_matches_jax_in_f64), so the
+    # gate is the first update's fall on its own buffer
+    if not (all(math.isfinite(v) for v in [warm] + losses)
+            and losses[0] < warm):
+        raise AssertionError(f"resnet/bf16: losses {[warm] + losses} not "
+                             "finite, or one update did not lower the "
+                             "loss on its own buffer")
+    if not bn_moved(torch, st.model_state):
+        raise AssertionError("resnet/bf16: batch-norm statistics did not "
+                             "move")
+    fit_loss = net.fit(DataSet(xs[0], y))
+    torch.cuda.synchronize()
+    if not (math.isfinite(fit_loss) and bn_moved(torch, net.state_tree)):
+        raise AssertionError(f"resnet/bf16: fit loss {fit_loss} or its "
+                             "batch-norm statistics")
+    img_s = RESNET_STEPS * b / wall
+    flops = model.flops_per_image_train()
+    row = {"phase": "resnet/bf16", "b": b, "hw": hw, "classes": 1000,
+           "batch_cut": cut, "steps": RESNET_STEPS,
+           "input_buffers": RESNET_BUFFERS, "updater": "AdaDelta",
+           "warmup_loss": warm, "losses": losses, "fit_loss": fit_loss,
+           "gate": "finite, and the first counted step (the warm-up's "
+                   "buffer after one update) below the warm-up's loss",
+           "buffers": [0] + [i % RESNET_BUFFERS for i in
+                             range(RESNET_STEPS)],
+           "last_below_first": losses[-1] < losses[0],
+           "seconds": wall, "step_ms": wall * 1e3 / RESNET_STEPS,
+           "images_per_s": img_s, "flops_per_image_train": flops,
+           "mfu": flops * img_s / H100_BF16_FLOPS,
+           "mfu_basis": "conv + dense multiply-adds x 2 flops x 3 (a "
+                        "training step) per image, x images/s, over the "
+                        "989 TFLOP/s dense bf16 peak",
+           "peak_allocated_bytes": peak, "weights": "random (seeded)",
+           "card": card_line()}
+    st, row["profile"] = resnet_profiles(torch, step, st, xs[1], y)
+    emit(row)
+    del net, st, step, xs
+    torch.cuda.empty_cache()
+
+    # (c) the data path on the checked-in weights, then a LeNet epoch
+    t0 = time.perf_counter()
+    wdir = os.path.join(root, "deeplearning4j_tpu", "zoo", "weights")
+    out = {"phase": "resnet/data"}
+    for name, zipname, gate, it in (
+            ("lenet", "LeNet_mnist.zip", LENET_GATE,
+             MnistDataSetIterator(256, n_examples=2000, train=False)),
+            ("simple_cnn", "SimpleCNN_cifar10-synthetic.zip",
+             SIMPLE_CNN_GATE,
+             Cifar10DataSetIterator(256, train=False, n_examples=1000,
+                                    seed=11))):
+        if not it.is_synthetic:
+            raise AssertionError(f"resnet/data: {name} did not read the "
+                                 "synthetic set")
+        net = restore_model(os.path.join(wdir, zipname), device=device)
+        shape = tuple(net.conf.input_type.shape)
+        batches = [DataSet(d.features.reshape((-1,) + shape), d.labels)
+                   for d in it]
+        acc, conf, host = cnn_eval(torch, np, net, batches)
+        if not np.array_equal(conf, host):
+            raise AssertionError(f"resnet/data: {name} evaluate's "
+                                 f"confusion != output()'s argmax")
+        if not acc > gate:
+            raise AssertionError(f"resnet/data: {name} accuracy {acc} <= "
+                                 f"{gate}")
+        out[name] = {"accuracy": acc, "gate": gate,
+                     "examples": int(host.sum()),
+                     "confusion_equals_output_argmax": True}
+    net = LeNet().init_graph(device=device)
+    scores = CollectScoresListener()
+    net.set_listeners(scores)
+    it = MnistDataSetIterator(256, n_examples=2048, train=True)
+    net.fit(ListDataSetIterator([
+        DataSet(d.features.reshape(-1, 28, 28, 1), d.labels) for d in it]))
+    fit = [s for _, s in scores.scores]
+    if not (len(fit) == 8 and all(math.isfinite(v) for v in fit)
+            and fit[-1] < fit[0]):
+        raise AssertionError(f"resnet/data: LeNet epoch losses {fit}")
+    out["lenet_epoch"] = {"examples": 2048, "batches": len(fit),
+                          "losses": fit, "updater": "AdaDelta"}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    del net
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 10 ----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
@@ -2137,6 +2716,8 @@ def main(argv=None) -> int:
             t_counts = phase_train(torch, np)
         if "bert" in phases:
             b_counts = phase_bert(torch, np)
+        if "resnet" in phases:
+            phase_resnet(torch, np, root)
         if "timings" in phases:
             mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)

@@ -1,2 +1,2 @@
-"""Models (port of ``deeplearning4j_tpu.models``): the sequential stack and
-KV-cache generation over it."""
+"""Models (port of ``deeplearning4j_tpu.models``): the sequential stack,
+the computation graph, and KV-cache generation over the stack."""

@@ -1,10 +1,19 @@
 """Layer configurations and the network-configuration builder (port of
-``deeplearning4j_tpu.nn.conf``, the transformer stacks' layers so far)."""
+``deeplearning4j_tpu.nn.conf``: the transformer stacks' layers, the conv
+stack's layers and the graph vertices so far)."""
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, GlobalConf
 from deeplearning4j_torch.nn.conf.builder import (MultiLayerConfiguration,
                                                   NeuralNetConfiguration)
 from deeplearning4j_torch.nn.conf.inputs import InputType
-from deeplearning4j_torch.nn.conf.layers_conv import GlobalPoolingLayer
+from deeplearning4j_torch.nn.conf.graph_vertices import (
+    ElementWiseVertex, L2NormalizeVertex, MergeVertex, PreprocessorVertex,
+    ReshapeVertex, ScaleVertex, ShiftVertex, StackVertex, SubsetVertex,
+    UnstackVertex)
+from deeplearning4j_torch.nn.conf.layers_conv import (
+    BatchNormalization, CnnLossLayer, Convolution1DLayer, ConvolutionLayer,
+    Cropping2D, Deconvolution2D, DepthwiseConvolution2D, GlobalPoolingLayer,
+    LocalResponseNormalization, SeparableConvolution2D, SpaceToDepthLayer,
+    SubsamplingLayer, Upsampling2D, ZeroPaddingLayer)
 from deeplearning4j_torch.nn.conf.layers_core import (ActivationLayer,
                                                       DenseLayer,
                                                       DropoutLayer,
@@ -19,4 +28,12 @@ __all__ = ["BaseLayerConf", "GlobalConf", "MultiLayerConfiguration",
            "DenseLayer", "DropoutLayer", "EmbeddingLayer",
            "GlobalPoolingLayer", "LossLayer", "OutputLayer",
            "RnnOutputLayer", "EmbeddingSequenceLayer",
-           "TransformerEncoderBlock"]
+           "TransformerEncoderBlock", "BatchNormalization", "CnnLossLayer",
+           "Convolution1DLayer", "ConvolutionLayer", "Cropping2D",
+           "Deconvolution2D", "DepthwiseConvolution2D",
+           "LocalResponseNormalization", "SeparableConvolution2D",
+           "SpaceToDepthLayer", "SubsamplingLayer", "Upsampling2D",
+           "ZeroPaddingLayer", "ElementWiseVertex", "L2NormalizeVertex",
+           "MergeVertex", "PreprocessorVertex", "ReshapeVertex",
+           "ScaleVertex", "ShiftVertex", "StackVertex", "SubsetVertex",
+           "UnstackVertex"]

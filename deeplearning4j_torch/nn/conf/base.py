@@ -7,6 +7,13 @@ so both packages read and write the same ``configuration.json``),
 ``infer_shapes`` (InputType propagation), ``init(gen, dtype, device)``
 (the parameter dict) and ``apply(params, x, *, compute_dtype, mask,
 training, rng)`` (the forward on tensors; autograd gives the backward).
+
+A layer that owns state (``HAS_STATE``, so far ``BatchNormalization``'s
+running mean and variance) builds it with ``init_state(device)`` beside
+``init``, takes it as ``apply(params, state, x, ...)`` and returns
+``(y, new_state)`` — the reference's state protocol, which the networks
+thread through every forward and store after every training step.  A
+layer without state keeps the shorter signature.
 """
 from __future__ import annotations
 
@@ -59,6 +66,8 @@ class BaseLayerConf:
 
     # Input kinds this layer consumes, in preference order.
     WANTED_KINDS = ("any",)
+    # True: apply(params, state, x, ...) -> (y, new_state)
+    HAS_STATE = False
 
     name: Optional[str] = None
     activation: Optional[str] = None
@@ -91,6 +100,11 @@ class BaseLayerConf:
 
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+        """The layer's initial state (the reference's second ``init``
+        result); empty unless ``HAS_STATE``."""
         return {}
 
     def apply(self, params, x, *, compute_dtype=None, mask=None,
@@ -141,3 +155,11 @@ class GlobalConf:
     dtype: str = "float32"
     compute_dtype: Optional[str] = None
     minimize: bool = True
+
+
+def apply_layer(layer: BaseLayerConf, params, state, x, **kwargs):
+    """``(y, new_state)`` of any layer: a stateful layer gets its state
+    and returns the new one; a stateless layer's state passes through."""
+    if layer.HAS_STATE:
+        return layer.apply(params, state, x, **kwargs)
+    return layer.apply(params, x, **kwargs), state

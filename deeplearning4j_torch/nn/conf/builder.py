@@ -1,6 +1,7 @@
 """Fluent network-configuration builder (port of
-``deeplearning4j_tpu/nn/conf/builder.py``, trimmed to what builds, reads
-and writes a sequential stack's ``configuration.json``).
+``deeplearning4j_tpu/nn/conf/builder.py``: what builds, reads and writes
+a sequential stack's ``configuration.json``, and ``graph()``, which hands
+the global defaults to ``models.computation_graph.GraphBuilder``).
 
 The build step resolves global-default inheritance (``activation`` and
 friends) and propagates InputType shapes, auto-filling ``n_in``, exactly
@@ -93,6 +94,13 @@ class Builder:
 
     def list(self) -> "ListBuilder":
         return ListBuilder(self)
+
+    def graph(self):
+        """The DAG builder (DL4J ``graphBuilder()``), building a
+        ``ComputationGraphConfiguration``."""
+        from deeplearning4j_torch.models.computation_graph import (
+            GraphBuilder)
+        return GraphBuilder(self)
 
 
 class ListBuilder:

@@ -4,10 +4,12 @@ from deeplearning4j_torch.optimize.listeners import (CollectScoresListener,
                                                      PerformanceListener,
                                                      ScoreIterationListener,
                                                      TrainingListener)
-from deeplearning4j_torch.optimize.updaters import (Adam, AdamW, BaseUpdater,
-                                                    Nesterovs, NoOp, Sgd,
+from deeplearning4j_torch.optimize.updaters import (AdaDelta, Adam, AdamW,
+                                                    BaseUpdater, Nesterovs,
+                                                    NoOp, Sgd,
                                                     updater_from_dict)
 
 __all__ = ["TrainingListener", "ScoreIterationListener",
            "PerformanceListener", "CollectScoresListener", "BaseUpdater",
-           "NoOp", "Sgd", "Nesterovs", "Adam", "AdamW", "updater_from_dict"]
+           "NoOp", "Sgd", "Nesterovs", "Adam", "AdamW", "AdaDelta",
+           "updater_from_dict"]

@@ -10,7 +10,9 @@ trainable mask, ``normalize_gradients``, the updater, decoupled weight
 decay, then the update applied IN PLACE under ``torch.no_grad()`` (what
 donation buys the reference): parameters and optimizer-state tensors
 keep their identity and storage, and a non-finite step selects the old
-values with ``torch.where`` — bit-identical, never ``0 * NaN``.
+values with ``torch.where`` — bit-identical, never ``0 * NaN``.  The
+model state the forward returns (batch-norm running statistics) is kept
+the same way: the new tree on a finite step, the old one on a bad step.
 """
 from __future__ import annotations
 
@@ -183,6 +185,13 @@ class Solver:
             apply_updates_if(ok, params, updates, lr_scale)
             new_opt = self.updater.finalize(new_opt, params)
             select_step(ok, new_opt, opt_state)
+            # model state (batch-norm statistics) keeps its old value on
+            # a bad step too, where the two trees line up
+            if [p for p, _ in iter_leaves(new_model_state)] == \
+                    [p for p, _ in iter_leaves(model_state)]:
+                new_model_state = map_leaves(
+                    lambda new, old: torch.where(ok, new, old),
+                    new_model_state, model_state)
         if check_numerics_enabled():
             check_numerics(loss, params, int(step_idx))
         return params, opt_state, new_model_state, loss

@@ -1,6 +1,6 @@
 """Updaters (optimizers) over dicts of tensors (port of
 ``deeplearning4j_tpu/optimize/updaters.py``: ``NoOp``, ``Sgd``,
-``Nesterovs``, ``Adam``, ``AdamW``).
+``Nesterovs``, ``Adam``, ``AdamW``, ``AdaDelta``).
 
 The reference's math, not ``torch.optim``'s:
 
@@ -11,7 +11,10 @@ The reference's math, not ``torch.optim``'s:
   whenever eps matters.  ``alpha_t`` is computed in float32, as the
   reference's traced step computes it;
 * Nesterovs applies ``params += mu * v' - lr * g`` with
-  ``v' = mu * v - lr * g`` (DL4J's look-ahead step).
+  ``v' = mu * v - lr * g`` (DL4J's look-ahead step);
+* AdaDelta (the zoo CNNs' default) ignores the learning rate and keeps
+  two running averages, ``g2`` of g^2 and ``dx2`` of the updates^2, with
+  eps inside both square roots.
 
 ``update(grads, state, params, step) -> (updates, new_state)`` is
 functional (new tensors; ``new_params = params - updates``), so the
@@ -152,3 +155,24 @@ class AdamW(Adam):
         lr, wd = self.lr_at(step), self.weight_decay
         updates = map_leaves(lambda u, p: u + lr * wd * p, updates, params)
         return updates, st
+
+
+@register_updater
+@dataclasses.dataclass
+class AdaDelta(BaseUpdater):
+    learning_rate: Any = 1.0  # unused by the algorithm; kept for interface
+    rho: float = 0.95
+    epsilon: float = 1e-6
+
+    def init_state(self, params):
+        return {"g2": _zeros_like(params), "dx2": _zeros_like(params)}
+
+    def update(self, grads, state, params, step):
+        rho, eps = self.rho, self.epsilon
+        g2 = map_leaves(lambda a, g: rho * a + (1 - rho) * g * g,
+                        state["g2"], grads)
+        dx = map_leaves(lambda g, a, d: g * torch.sqrt(d + eps)
+                        / torch.sqrt(a + eps), grads, g2, state["dx2"])
+        dx2 = map_leaves(lambda d, x: rho * d + (1 - rho) * x * x,
+                         state["dx2"], dx)
+        return dx, {"g2": g2, "dx2": dx2}

@@ -1,20 +1,25 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and state from the JAX package into the port.
 
 ``load_numpy_params(net, params_tree_np)`` takes the JAX package's
-``net.params_tree`` converted leaf by leaf to numpy arrays (nested
-``{"layer_i": {name: array}}`` — e.g. ``jax.tree_util.tree_map(
-np.asarray, jax_net.params_tree)``) and installs it as the port net's
-``params_tree``.  Names and layouts are shared (``Wqkv`` [d, 3d], head
-``W`` [d, V], ``EmbeddingLayer``'s ``W`` [n_in, n_out] and ``b``), so no
-leaf is transposed; every leaf is checked against the layer's
-``param_shapes()``, and a layer without parameters (pooling, activation,
-dropout, loss) takes an empty dict.
+``net.params_tree`` converted leaf by leaf to numpy arrays (e.g.
+``jax.tree_util.tree_map(np.asarray, jax_net.params_tree)``) and installs
+it as the port net's ``params_tree``: nested ``{"layer_i": {name:
+array}}`` for a ``MultiLayerNetwork``, ``{vertex name: {name: array}}``
+for a ``ComputationGraph``.  Names and layouts are shared (``Wqkv`` [d,
+3d], head ``W`` [d, V], conv ``W`` HWIO), so no leaf is transposed; every
+leaf is checked against the layer's ``param_shapes()``, and a layer or
+vertex without parameters takes an empty dict.  The net's state starts
+as each layer's ``init_state``.
+
+``load_numpy_state(net, state_tree_np)`` installs the JAX package's
+``state_tree`` the same way (the batch-norm running mean and variance),
+checked against what ``init_state`` builds.
 
 ``load_numpy_opt_state(net, opt_state_np)`` does the same for the JAX
 package's ``opt_state`` (e.g. Adam's ``{"m": params-like, "v":
 params-like}``), checked against the structure the net's own updater
-builds — after both calls the two packages start a step from the same
-state.
+builds — after the three calls the two packages start a step from the
+same state.
 """
 from __future__ import annotations
 
@@ -25,34 +30,65 @@ from deeplearning4j_torch.runtime.backend import resolve_device
 from deeplearning4j_torch.utils.trees import iter_leaves, set_path
 
 
-def load_numpy_params(net, params_tree_np, device=None):
-    """Install a numpy params tree on ``net`` (on ``device``; default the
-    net's own device, else ``"cuda"``).  Returns ``net``."""
-    dev = resolve_device(device if device is not None
-                         else (net.device or "cuda"))
+def _named_layers(net):
+    """(tree key, layer or None) for every entry of the net's trees: the
+    ``layer_i`` keys of a ``MultiLayerNetwork``, the vertex names of a
+    ``ComputationGraph`` (None for a combining vertex)."""
+    if hasattr(net, "vertex_names"):
+        return [(name, net.conf.vertices[name].layer)
+                for name in net.vertex_names()]
+    return [(f"layer_{i}", ly) for i, ly in enumerate(net.layers)]
+
+
+def _checked_tree(what, named, given_tree, want_of, dev):
     tree = {}
-    for i, ly in enumerate(net.layers):
-        lname = f"layer_{i}"
-        given = params_tree_np.get(lname, {})
-        want = ly.param_shapes()
+    for key, ly in named:
+        given = given_tree.get(key, {})
+        want = want_of(ly) if ly is not None else {}
         if set(given) != set(want):
+            kind = type(ly).__name__ if ly is not None else "vertex"
             raise ValueError(
-                f"{lname} ({type(ly).__name__}): params {sorted(given)} "
-                f"do not match the configuration's {sorted(want)}")
+                f"{key} ({kind}): {what} {sorted(given)} do not match the "
+                f"configuration's {sorted(want)}")
         leaves = {}
         for name, shape in want.items():
             arr = np.asarray(given[name])
             if tuple(arr.shape) != tuple(shape):
-                raise ValueError(f"{lname}/{name}: shape {arr.shape}, "
+                raise ValueError(f"{key}/{name}: shape {arr.shape}, "
                                  f"configuration wants {tuple(shape)}")
             leaves[name] = torch.from_numpy(np.array(arr)).to(dev)
-        tree[lname] = leaves
-    extra = set(params_tree_np) - set(tree)
+        tree[key] = leaves
+    extra = set(given_tree) - set(tree)
     if extra:
-        raise ValueError(f"params for unknown layers {sorted(extra)}")
-    net.params_tree = tree
-    net.state_tree = {f"layer_{i}": {} for i in range(len(net.layers))}
+        raise ValueError(f"{what} for unknown layers {sorted(extra)}")
+    return tree
+
+
+def load_numpy_params(net, params_tree_np, device=None):
+    """Install a numpy params tree on ``net`` (on ``device``; default the
+    net's own device, else ``"cuda"``) and reset its state to each
+    layer's ``init_state``.  Returns ``net``."""
+    dev = resolve_device(device if device is not None
+                         else (net.device or "cuda"))
+    named = _named_layers(net)
+    net.params_tree = _checked_tree("params", named, params_tree_np,
+                                    lambda ly: ly.param_shapes(), dev)
+    net.state_tree = {key: (ly.init_state(dev) if ly is not None else {})
+                      for key, ly in named}
     net.device = dev
+    return net
+
+
+def load_numpy_state(net, state_tree_np):
+    """Install a numpy state tree (the JAX package's ``state_tree``: the
+    batch-norm ``mean``/``var``) on ``net``, on the device of its params,
+    which must be installed first.  Returns ``net``."""
+    if net.params_tree is None:
+        raise ValueError("load the params first (load_numpy_params)")
+    net.state_tree = _checked_tree(
+        "state", _named_layers(net), state_tree_np,
+        lambda ly: {k: tuple(v.shape)
+                    for k, v in ly.init_state("cpu").items()}, net.device)
     return net
 
 

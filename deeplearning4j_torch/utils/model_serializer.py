@@ -2,10 +2,13 @@
 
 The same zip as the reference: ``configuration.json`` (the model IR),
 ``coefficients.npz`` (the parameter tree, ``layer_i/name`` keys),
-``state.npz``, ``updaterState.npz`` (the optimizer state, ``m/layer_i/W``
-keys for Adam) and ``training.json`` (iteration and epoch counters).  It
-is read and written with numpy alone, so either package resumes the
-other's training checkpoint.
+``state.npz`` (the batch-norm running statistics), ``updaterState.npz``
+(the optimizer state, ``m/layer_i/W`` keys for Adam) and
+``training.json`` (iteration and epoch counters), for a
+``MultiLayerNetwork`` (trees keyed ``layer_i``) and a
+``ComputationGraph`` (trees keyed by vertex name).  It is read and
+written with numpy alone, so either package resumes the other's
+training checkpoint.
 """
 from __future__ import annotations
 
@@ -86,33 +89,64 @@ def write_model(model, path, save_updater: bool = True) -> None:
         }))
 
 
-def restore_model(path, device="cuda", load_updater: bool = True):
-    """Restore a ``MultiLayerNetwork`` checkpoint zip onto ``device``
-    (default ``"cuda"``), with its updater state when present and
-    ``load_updater``.  Graph checkpoints are not ported yet."""
+def _restore_trees(model, zf, dev, names, load_updater):
+    """Parameters, state, updater state and counters from an open zip
+    into ``model``; every name in ``names`` gets an entry (empty for a
+    vertex without parameters or state)."""
+    model.params_tree = _tree_from_npz(zf.read(_PARAMS), dev)
+    model.state_tree = _tree_from_npz(zf.read(_STATE), dev)
+    for name in names:
+        model.state_tree.setdefault(name, {})
+        model.params_tree.setdefault(name, {})
+    if load_updater and _UPDATER in zf.namelist():
+        model.opt_state = _tree_from_npz(zf.read(_UPDATER), dev)
+    if _TRAINING in zf.namelist():
+        t = json.loads(zf.read(_TRAINING).decode())
+        model.iteration_count = t.get("iteration_count", 0)
+        model.epoch_count = t.get("epoch_count", 0)
+    model.device = dev
+    return model
+
+
+def restore_multi_layer_network(path, device="cuda",
+                                load_updater: bool = True):
+    """DL4J ``ModelSerializer.restoreMultiLayerNetwork`` onto ``device``."""
     from deeplearning4j_torch.models.multi_layer_network import (
         MultiLayerNetwork)
     from deeplearning4j_torch.nn.conf.builder import MultiLayerConfiguration
 
     dev = resolve_device(device)
     with zipfile.ZipFile(path, "r") as zf:
-        conf_d = json.loads(zf.read(_CONFIG).decode())
-        if "MultiLayerConfiguration" not in conf_d.get("format", "") \
-                or "vertices" in conf_d:
-            raise NotImplementedError(
-                "only MultiLayerNetwork checkpoints are ported so far "
-                "(ComputationGraph comes with the conv slice)")
-        model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_d))
-        model.params_tree = _tree_from_npz(zf.read(_PARAMS), dev)
-        model.state_tree = _tree_from_npz(zf.read(_STATE), dev)
-        for i in range(len(model.layers)):
-            model.state_tree.setdefault(f"layer_{i}", {})
-            model.params_tree.setdefault(f"layer_{i}", {})
-        if load_updater and _UPDATER in zf.namelist():
-            model.opt_state = _tree_from_npz(zf.read(_UPDATER), dev)
-        if _TRAINING in zf.namelist():
-            t = json.loads(zf.read(_TRAINING).decode())
-            model.iteration_count = t.get("iteration_count", 0)
-            model.epoch_count = t.get("epoch_count", 0)
-    model.device = dev
-    return model
+        model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+            json.loads(zf.read(_CONFIG).decode())))
+        return _restore_trees(model, zf, dev,
+                              [f"layer_{i}" for i in range(len(model.layers))],
+                              load_updater)
+
+
+def restore_computation_graph(path, device="cuda",
+                              load_updater: bool = True):
+    """DL4J ``ModelSerializer.restoreComputationGraph`` onto ``device``."""
+    from deeplearning4j_torch.models.computation_graph import (
+        ComputationGraph, ComputationGraphConfiguration)
+
+    dev = resolve_device(device)
+    with zipfile.ZipFile(path, "r") as zf:
+        model = ComputationGraph(ComputationGraphConfiguration.from_dict(
+            json.loads(zf.read(_CONFIG).decode())))
+        return _restore_trees(model, zf, dev, model.vertex_names(),
+                              load_updater)
+
+
+def restore_model(path, device="cuda", load_updater: bool = True):
+    """Restore either model class onto ``device`` (default ``"cuda"``),
+    chosen by the configuration's "format" (a structural sniff for
+    writers without one), with its updater state when present and
+    ``load_updater``."""
+    with zipfile.ZipFile(path) as zf:
+        conf = json.loads(zf.read(_CONFIG))
+    fmt = conf.get("format", "")
+    if "ComputationGraphConfiguration" in fmt or (
+            "MultiLayerConfiguration" not in fmt and "vertices" in conf):
+        return restore_computation_graph(path, device, load_updater)
+    return restore_multi_layer_network(path, device, load_updater)

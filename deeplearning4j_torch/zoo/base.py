@@ -10,15 +10,21 @@ from typing import Tuple
 class ZooModel:
     n_classes: int = 1000
     seed: int = 123
-    input_shape: Tuple[int, int, int] = (224, 224, 3)
+    input_shape: Tuple[int, int, int] = (224, 224, 3)  # NHWC (DL4J: CHW)
 
     def conf(self):
-        """Build the model configuration."""
+        """Build the model configuration (graph or multi-layer)."""
         raise NotImplementedError
 
     def init_graph(self, device="cuda"):
         """Construct + initialize the model on ``device`` (DL4J
-        ``ZooModel.init()``)."""
+        ``ZooModel.init()``): a ``ComputationGraph`` for a graph
+        configuration, a ``MultiLayerNetwork`` for a list one."""
+        from deeplearning4j_torch.models.computation_graph import (
+            ComputationGraph, ComputationGraphConfiguration)
         from deeplearning4j_torch.models.multi_layer_network import (
             MultiLayerNetwork)
-        return MultiLayerNetwork(self.conf()).init(device=device)
+        c = self.conf()
+        if isinstance(c, ComputationGraphConfiguration):
+            return ComputationGraph(c).init(device=device)
+        return MultiLayerNetwork(c).init(device=device)

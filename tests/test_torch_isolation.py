@@ -88,6 +88,14 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.nn.conf.layers_core\n"
         "import deeplearning4j_torch.nn.conf.inputs\n"
         "import deeplearning4j_torch.utils.convert\n"
+        "import deeplearning4j_torch.models.computation_graph\n"
+        "import deeplearning4j_torch.nn.conf.graph_vertices\n"
+        "import deeplearning4j_torch.zoo.resnet\n"
+        "import deeplearning4j_torch.zoo.lenet\n"
+        "import deeplearning4j_torch.zoo.simple_cnn\n"
+        "import deeplearning4j_torch.data.mnist\n"
+        "import deeplearning4j_torch.data.builtin\n"
+        "import deeplearning4j_torch.data.normalization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
