@@ -75,6 +75,37 @@ Phases:
                with retries.  Tokens/s, TTFT p50/p99 and the
                fleet_request_phase_seconds split are printed with the
                card's name and power limit.
+  6b. slo    — the serving SLO control plane over ServingFleet, default-
+               width zoo.Gpt() in bf16 (seeded weights), phase 6's
+               replica config with every replica speculative (k 4, 2
+               rounds, 2 draft layers, adaptive), tenants chat
+               (interactive) and bulk (batch): (a) the process time-series
+               store recording every 0.25 s, an AlertEngine (a ttft SLO,
+               0.1 s at 99%, and chat's availability; burn windows (1.5 s,
+               4 s) at 14.4, pending 0.5 s, clear 1 s), a DegradeLadder
+               attached to the fleet and an Autoscaler (1..2 replicas,
+               cooldown 3 s, reactive signals disarmed), every loop
+               started; (b) phase 6(a)'s 16 requests as chat plus 16 bulk
+               requests at once: the alert goes pending then firing, the
+               ladder climbs to shed_batch and a bulk submit is rejected
+               with its retry-after, exactly one scale-up (the alert's
+               pre-warm) whose replica is built on the card and joins,
+               every chat request finishes, greedy chat streams equal
+               offline generate() at the budget each was shaped to, K1 and
+               K2 counted from a reset; (c) recovery with no load: the
+               alert resolves, the ladder walks back one rung per
+               hold-down, exactly one scale-down, a fresh request equals
+               offline; (d) the loops stopped, the ladder walked 0 -> 5 ->
+               0 with injected clocks, one request at each rung (sampled
+               from rung 2): n_new capped from rung 1, greedy from 2, W =
+               2 at 3, K2 frozen while K1 runs at 4 and 5, bulk shed at 5,
+               K2 again and the never-degraded stream back at 0; (e)
+               /metrics, /query and /alerts on a loopback port and one
+               flight-recorder bundle with history and SLO state; (f) the
+               median ms per pass of tsdb.record, AlertEngine.evaluate,
+               DegradeLadder.evaluate and Autoscaler.evaluate, and phase
+               6(a)'s requests on one replica without the plane and with
+               it at rung 0, in turns off, on, on, off.
   7. train   — training through MultiLayerNetwork.fit: (a) default-width
                zoo.Gpt() in f32 at b 2, t 1024, one loss and gradient with
                use_flash on and off on the same params (rtol 1e-3); (b) the
@@ -145,8 +176,9 @@ Phases:
                (b 32, t 512, 12 x 64, phase 8(b)'s padding as the bias,
                SDPA with it as a float attn_mask).
 
-``--phases`` runs a subset (e.g. ``--phases build,kernel``, or
-``--phases build,resnet`` for the conv slice alone).  The extra
+``--phases`` runs a subset (e.g. ``--phases build,kernel``,
+``--phases build,resnet`` for the conv slice alone, or ``--phases
+build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
 of the full-width server with ``torch.profiler``: device busy share,
 kernel launches per tick and the top kernels by device time.  The extra
@@ -168,11 +200,12 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
-PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "train",
-          "bert", "resnet", "timings")
+PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
+          "train", "bert", "resnet", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -1102,6 +1135,567 @@ def fleet_parts(torch, np, pa, net, kw, system, reqs, vocab, card):
           "blocks_byte_equal": len(before), "watchdog_restarts": restarts,
           "near_ties": ties_t + ties_d, "card": card})
     return {"k1": launches, "k2": l2}
+
+
+# -- phase 6b: the serving SLO control plane ----------------------------
+# The plane's clocks on the card: windows and hold times in seconds, every
+# loop at 0.25 s.  One ttft objective (the burst's first tokens against a
+# 0.1 s bar, 99% good) and one availability objective for ``chat``; a
+# (1.5 s, 4 s) burn-window pair at the SRE page threshold 14.4, pending
+# for 0.5 s before firing and clear for 1 s before resolving.  The
+# reactive autoscaling signals are disarmed (a queue-wait target of 1e9
+# s), so the phase's one scale-up is the alert's pre-warm.
+SLO_CARD = {"ttft_s": 0.1, "windows": ((1.5, 4.0, 14.4, "page"),),
+            "for_s": 0.5, "clear_for_s": 1.0, "interval_s": 0.25,
+            "hold_down_s": 1.0, "cooldown_s": 3.0,
+            "near_tie": NEAR_TIE_BF16, "deadline_s": 120.0}
+SLO_TENANTS = {"chat": "interactive", "bulk": "batch"}
+
+
+def slo_requests(np, vocab, max_len):
+    """Phase 6(a)'s 16 mixed requests as ``chat`` (prompts and budgets
+    scaled to ``max_len`` when it is below 1024) and 16 greedy ``bulk``
+    requests of a quarter of max_len with 64 new tokens (scaled alike)."""
+    _, chat = mixed_requests(np, vocab)
+    scale = min(1.0, max_len / 1024)
+    if scale < 1.0:
+        chat = [(p[:max(2, int(len(p) * scale) // 2)],
+                 max(2, int(n * scale) // 2), s) for p, n, s in chat]
+    rng = np.random.default_rng(5)
+    bulk = [(rng.integers(0, vocab, max(2, max_len // 4)).astype(np.int32),
+             max(2, int(64 * scale)), None) for _ in range(16)]
+    return chat, bulk
+
+
+def wait_until(pred, timeout_s, what, state):
+    """Poll ``pred`` until true; fail with ``state()`` past the deadline."""
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"slo: {what} not reached within "
+                                 f"{timeout_s:g} s; saw {state()}")
+        time.sleep(0.02)
+
+
+class SloPlane:
+    """The whole control plane over one fleet: the process store's
+    recorder, an AlertEngine (its windows in the process store), a
+    DegradeLadder attached to the fleet, and an Autoscaler driving the
+    engine — every loop started, ``close()`` stops them all."""
+
+    def __init__(self, fleet, cfg, max_replicas=2):
+        from deeplearning4j_torch import telemetry
+        from deeplearning4j_torch.serving import (AutoscalePolicy,
+                                                  Autoscaler, DegradeLadder)
+        from deeplearning4j_torch.telemetry.slo import AlertEngine, SLOSpec
+        iv = cfg["interval_s"]
+        self.tsdb = telemetry.get_tsdb()
+        common = dict(target=0.99, window_s=60.0, windows=cfg["windows"],
+                      for_s=cfg["for_s"], clear_for_s=cfg["clear_for_s"])
+        self.engine = AlertEngine(
+            [SLOSpec("chat-ttft", objective="ttft",
+                     threshold_s=cfg["ttft_s"], **common),
+             SLOSpec("chat-avail", objective="availability", tenant="chat",
+                     **common)], history=self.tsdb, interval_s=iv)
+        self.ladder = DegradeLadder(fleet, self.engine,
+                                    hold_down_s=cfg["hold_down_s"],
+                                    interval_s=iv)
+        self.scaler = Autoscaler(
+            fleet, AutoscalePolicy(min_replicas=1, max_replicas=max_replicas,
+                                   queue_wait_p99_target_s=1e9,
+                                   up_consecutive=2, down_consecutive=3,
+                                   cooldown_s=cfg["cooldown_s"]),
+            interval_s=iv, tenant_classes=SLO_TENANTS,
+            remove_timeout_s=60.0, alert_engine=self.engine)
+        self.fleet = fleet
+        self.tsdb.start_recorder(interval_s=iv)
+        self.engine.start()
+        fleet.attach_slo(self.engine)
+        fleet.attach_degrade(self.ladder)
+        self.ladder.start()
+        self.scaler.start()
+
+    def stop_loops(self):
+        """Stop every real-time loop (the fleet stays attached)."""
+        self.scaler.close()
+        self.ladder.close()
+        self.engine.close()
+        self.tsdb.close()
+
+    def close(self):
+        self.stop_loops()
+        self.fleet.attach_degrade(None)
+        self.fleet.attach_slo(None)
+
+    def alert(self, name="chat-ttft"):
+        return next(a for a in self.engine.alerts() if a["slo"] == name)
+
+
+class PlaneTimeline:
+    """A daemon sampling the plane every 10 ms from the burst's start:
+    ``seen[key]`` holds (seconds, value) at each change of the ladder's
+    rung, the ttft alert's state, the healthy replica count and the
+    number of first tokens observed (ladder steps are a hold-down apart,
+    so none is missed)."""
+
+    def __init__(self, plane):
+        from deeplearning4j_torch import telemetry
+        reg = telemetry.get_registry()
+        healthy = reg.gauge("fleet_replicas_healthy")
+        ttft = reg.histogram("generation_server_ttft_seconds")
+        self._probes = {"rung": plane.ladder.rung,
+                        "alert": lambda: plane.alert()["state"],
+                        "healthy": lambda: int(healthy.value),
+                        "first_tokens": lambda: ttft.count}
+        self.seen = {k: [] for k in self._probes}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="slo-plane-timeline")
+
+    def _sample(self):
+        t = round(time.perf_counter() - self._t0, 3)
+        for k, probe in self._probes.items():
+            v = probe()
+            if not self.seen[k] or self.seen[k][-1][1] != v:
+                self.seen[k].append((t, v))
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self._sample()
+
+    def start(self):
+        self._t0 = time.perf_counter()
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._sample()
+
+    def first(self, key, value):
+        """Seconds at which ``key`` first read ``value`` (None: never)."""
+        return next((t for t, v in self.seen[key] if v == value), None)
+
+
+def scale_actions(reg):
+    fam = reg.counter("fleet_autoscale_actions_total",
+                      labelnames=("direction",))
+    return {v[0]: c.value for v, c in fam._items()}
+
+
+def live_replicas(fleet):
+    return [i for i, r in enumerate(fleet.stats()["replicas"])
+            if not r["dead"] and not r["removed"]]
+
+
+def slo_burst(torch, np, fleet, plane, gen, k1, k2, chat, bulk, cfg):
+    """Parts (b) and (c): the burst against the attached plane, then
+    recovery with no load.  Returns the part's numbers."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.resilience import CancelledError
+    from deeplearning4j_torch.serving import AdmissionRejectedError
+
+    reg = telemetry.get_registry()
+    prewarms = reg.counter("fleet_autoscale_alert_prewarms_total")
+    acts0, pw0 = scale_actions(reg), prewarms.value
+    lad = plane.ladder
+    tl = PlaneTimeline(plane)
+
+    def state():
+        return {"alert": plane.alert()["state"], "rung": lad.rung(),
+                "live": live_replicas(fleet),
+                "actions": scale_actions(reg),
+                "healthy": fleet.stats()["healthy_replicas"],
+                "rungs": tl.seen["rung"][-12:]}
+
+    # the engine needs its long window's coverage before a burst can page
+    long_s = max(w[1] for w in cfg["windows"])
+    time.sleep(long_s + 2 * cfg["interval_s"])
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    tl.start()
+    hs = [(fleet.submit_async(p, n, tenant="chat", sampling=s), p, n, s)
+          for p, n, s in chat]
+    hb = [fleet.submit_async(p, n, tenant="bulk") for p, n, _ in bulk]
+    wait_until(lambda: lad.rung() == 5, cfg["deadline_s"],
+               "rung 5 (shed_batch)", state)
+    t_top = time.perf_counter() - t0
+    try:
+        fleet.submit_async(bulk[0][0], bulk[0][1], tenant="bulk")
+        raise AssertionError("slo (b): a bulk submit at shed_batch was "
+                             "admitted")
+    except AdmissionRejectedError as e:
+        if e.retry_after_s != lad.shed_retry_after_s:
+            raise AssertionError(f"slo (b): retry_after_s {e.retry_after_s}"
+                                 f" != the ladder's "
+                                 f"{lad.shed_retry_after_s}")
+    wait_until(lambda: plane.alert()["transitions"].get("firing", 0) >= 1,
+               cfg["deadline_s"], "the alert firing", state)
+    wait_until(lambda: scale_actions(reg).get("up", 0) - acts0.get("up", 0)
+               >= 1 and fleet.stats()["healthy_replicas"] >= 2,
+               cfg["deadline_s"], "one scale-up joined", state)
+    new_idx = max(live_replicas(fleet))
+    new = fleet.replica(new_idx)
+    new.attach_history(plane.tsdb)
+    outs = []
+    for h, p, n, s in hs:
+        outs.append(h.result(timeout=900))
+    wall = time.perf_counter() - t0
+    bulk_done = bulk_shed = 0
+    for h in hb:
+        try:
+            h.result(timeout=900)
+            bulk_done += 1
+        except CancelledError:
+            bulk_shed += 1
+    launches = {"k1": k1.launches, "k2": k2.launches}
+    if not (launches["k1"] > 0 and launches["k2"] > 0):
+        raise AssertionError(f"slo (b): a kernel of the path never launched "
+                             f"({launches})")
+    trans = plane.alert()["transitions"]
+    if not (trans.get("pending", 0) >= 1 and trans.get("firing", 0) >= 1):
+        raise AssertionError(f"slo (b): the alert never went pending then "
+                             f"firing ({trans})")
+    # greedy chat streams at the budget each was shaped to
+    pairs, shaped = [], 0
+    for (h, p, n, s), out in zip(hs, outs):
+        n_out = len(out) - len(p)
+        if not (1 <= n_out <= n and (out[:len(p)] == p).all()):
+            raise AssertionError(f"slo (b): a chat request returned "
+                                 f"{n_out} of {n} new tokens")
+        shaped += n_out < n
+        if s is None:
+            pairs.append((out, gen.generate(p[None], n_out)[0]))
+    ties = check_streams(torch, gen, pairs, cfg["near_tie"])
+    up = scale_actions(reg).get("up", 0) - acts0.get("up", 0)
+    if up != 1 or prewarms.value - pw0 != 1:
+        raise AssertionError(f"slo (b): {up} scale-ups, "
+                             f"{prewarms.value - pw0} alert pre-warms "
+                             "(want exactly one of each)")
+    if new.device.type != fleet.replica(0).device.type \
+            or not new._kc.device == fleet.replica(0)._kc.device:
+        raise AssertionError(f"slo (b): the added replica is on "
+                             f"{new._kc.device}")
+    burst = {"seconds": wall, "seconds_to_shed_batch": t_top,
+             "chat_requests": len(hs), "chat_new_tokens":
+             sum(len(o) - len(p) for (h, p, n, s), o in zip(hs, outs)),
+             "chat_shaped": shaped, "bulk_finished": bulk_done,
+             "bulk_shed": bulk_shed, "alert_transitions": trans,
+             "scale_up_replica": new_idx,
+             "added_replica_device": str(new._kc.device),
+             "launches": launches, "near_ties": ties}
+
+    # (c) recovery with no load
+    t1 = time.perf_counter()
+    wait_until(lambda: plane.alert()["state"] == "resolved",
+               cfg["deadline_s"], "the alert resolved", state)
+    t_resolved = time.perf_counter() - t1
+    wait_until(lambda: lad.rung() == 0, cfg["deadline_s"], "rung 0", state)
+    t_rung0 = time.perf_counter() - t1
+    wait_until(lambda: scale_actions(reg).get("down", 0)
+               - acts0.get("down", 0) >= 1 and len(live_replicas(fleet)) == 1,
+               cfg["deadline_s"], "one scale-down to 1 replica", state)
+    t_down = time.perf_counter() - t1
+    tl.stop()
+    rungs = tl.seen["rung"]
+    exits = {k: v for k, v in lad.state()["transitions"].items()
+             if k.startswith("exit:")}
+    # descent is one rung per hold-down: every downward step is one
+    # rung, a hold-down after the step before it
+    downs = [(t, a, b) for (_s, a), (t, b) in zip(rungs, rungs[1:])
+             if b < a]
+    gaps = [t1 - t0 for (t0, _a, _b), (t1, _c, _d) in zip(downs, downs[1:])]
+    if (max(r for _t, r in rungs) != 5 or rungs[-1][1] != 0
+            or any(a - b != 1 for _t, a, b in downs)
+            or any(g < 0.9 * cfg["hold_down_s"] for g in gaps)):
+        raise AssertionError(f"slo (c): the ladder did not walk back one "
+                             f"rung per hold-down: {rungs}")
+    down = scale_actions(reg).get("down", 0) - acts0.get("down", 0)
+    if down != 1:
+        raise AssertionError(f"slo (c): {down} scale-downs")
+    p, n, _ = next(r for r in chat if r[2] is None)
+    out = fleet.submit(p, n, tenant="chat", timeout=900)
+    ties_c = check_streams(torch, gen, [(out, gen.generate(p[None], n)[0])],
+                           cfg["near_tie"])
+    recovery = {"seconds_to_resolved": t_resolved,
+                "seconds_to_rung0": t_rung0,
+                "seconds_to_scale_down": t_down,
+                "timeline": {"pending": tl.first("alert", "pending"),
+                             "firing": tl.first("alert", "firing"),
+                             "shed_batch": tl.first("rung", 5),
+                             "healthy_2": tl.first("healthy", 2),
+                             "last_first_token": tl.seen["first_tokens"][-1][0],
+                             "resolved": tl.first("alert", "resolved"),
+                             "rung_0": rungs[-1][0],
+                             "healthy_1_again": next(
+                                 (t for t, v in tl.seen["healthy"]
+                                  if v == 1 and t > (tl.first("healthy", 2)
+                                                     or 1e9)), None)},
+                "rung_timeline": rungs,
+                "ladder_exits": exits, "near_ties": ties_c}
+    return burst, recovery
+
+
+def slo_walk(torch, np, fleet, plane, gen, k1, k2, prompt, n_new, bulk,
+             near_tie):
+    """Part (d): the ladder walked 0 -> 5 -> 0 by ``evaluate(now=,
+    burn=)`` with every real-time loop stopped; one request at each rung
+    (sampled from rung 2 on), K1 and K2 counted from a reset at each."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.serving import AdmissionRejectedError
+
+    reg = telemetry.get_registry()
+    scans = reg.counter("generation_server_scan_ticks_total",
+                        labelnames=("k",))
+    adaptive_k = reg.gauge("generation_server_spec_adaptive_k")
+    lad = plane.ladder
+    samp = {"temperature": 0.8, "top_k": 40, "seed": 3}
+    t = [time.monotonic()]
+    ref = gen.generate(prompt[None], n_new)[0]
+
+    def to_rung(r):
+        if r > lad.rung():
+            lad.evaluate(now=t[0], burn=lad.thresholds[r - 1])
+        while lad.rung() > r:
+            t[0] += lad.hold_down_s
+            lad.evaluate(now=t[0], burn=0.0)
+        if lad.rung() != r:
+            raise AssertionError(f"slo (d): ladder at {lad.rung()}, not {r}")
+
+    rows, first = [], None
+    for r in (0, 1, 2, 3, 4, 5, 4, 3, 2, 1, 0):
+        to_rung(r)
+        s0 = {v[0]: c.value for v, c in scans._items()}
+        k1.launches = k2.launches = 0
+        sampling = samp if r >= 2 else None
+        out = fleet.submit(prompt, n_new, tenant="chat", sampling=sampling,
+                           timeout=900)
+        l1, l2 = k1.launches, k2.launches
+        shapes = sorted(k for v, c in scans._items()
+                        for k in [v[0]] if c.value - s0.get(k, 0.0) > 0)
+        row = {"rung": r, "new_tokens": len(out) - len(prompt),
+               "k1": l1, "k2": l2, "scans": shapes,
+               "adaptive_k": adaptive_k.value}
+        want_n = (max(lad.min_n_new, int(n_new * lad.n_new_factor))
+                  if r >= 1 else n_new)
+        if row["new_tokens"] != want_n:
+            raise AssertionError(f"slo (d): rung {r} decoded "
+                                 f"{row['new_tokens']} tokens, not {want_n}")
+        row["near_ties"] = check_streams(torch, gen, [(out, ref[:len(out)])],
+                                         near_tie)
+        if l1 <= 0:
+            raise AssertionError(f"slo (d): no K1 launch at rung {r}")
+        if r == 3 and not (adaptive_k.value <= 1 and shapes
+                           and all(k.endswith("x2") for k in shapes)):
+            raise AssertionError(f"slo (d): shrink_draft_k ran {shapes} "
+                                 f"at adaptive k {adaptive_k.value}")
+        if r >= 4 and (l2 != 0 or any(k.startswith("spec")
+                                      for k in shapes)):
+            raise AssertionError(f"slo (d): K2 launched {l2} times at "
+                                 f"rung {r}")
+        if r < 4 and l2 <= 0:
+            raise AssertionError(f"slo (d): no K2 launch at rung {r}")
+        if r == 5:
+            try:
+                fleet.submit_async(bulk[0], bulk[1], tenant="bulk")
+                raise AssertionError("slo (d): bulk admitted at rung 5")
+            except AdmissionRejectedError:
+                row["bulk_rejected"] = True
+        if first is None:
+            first = out
+        elif len(rows) == 10:
+            row["near_ties"] += check_streams(torch, gen, [(out, first)],
+                                              near_tie)
+        rows.append(row)
+    return rows
+
+
+def slo_exposition(plane, tmpdir):
+    """Part (e): /metrics, /query and /alerts over the process registry
+    served with the plane's store and engine, on a loopback port; and one
+    flight-recorder bundle."""
+    import urllib.request
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.telemetry.exposition import MetricsServer
+
+    class Scrape:
+        """The process registry, served with the plane's store (/query)
+        and engine (/alerts)."""
+
+        def __init__(self, reg, tsdb, alerts):
+            self._reg, self.tsdb, self.alerts = reg, tsdb, alerts
+
+        def render_prometheus(self):
+            return self._reg.render_prometheus()
+
+        def get(self, name):
+            return self._reg.get(name)
+
+    reg = telemetry.get_registry()
+    plane.tsdb.record(reg)
+
+    def get(base, path):
+        with urllib.request.urlopen(base + path, timeout=10) as r:
+            return r.status, r.read().decode()
+
+    with MetricsServer(Scrape(reg, plane.tsdb, plane.engine),
+                       port=0) as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        code_m, body = get(base, "/metrics")
+        families = {f: f in body for f in (
+            "fleet_slo_burn_rate", "fleet_slo_alert_firing",
+            "fleet_slo_error_budget_remaining", "fleet_degrade_rung",
+            "fleet_autoscale_actions_total",
+            "fleet_autoscale_replicas_target")}
+        code_q, q = get(base, "/query?series=generation_server_ttft_seconds")
+        q = json.loads(q)
+        code_a, alerts = get(base, "/alerts")
+        state = json.loads(json.dumps(plane.engine.state()))
+    points = sum(len(r["points"]) for r in q["results"])
+    if not (code_m == code_q == code_a == 200 and all(families.values())
+            and q["matched"] >= 1 and points >= 1
+            and json.loads(alerts) == state):
+        raise AssertionError(f"slo (e): /metrics {code_m} {families}, "
+                             f"/query {code_q} {q['matched']} series "
+                             f"{points} points, /alerts {code_a} == "
+                             f"state: {json.loads(alerts) == state}")
+    rec = telemetry.get_flight_recorder()
+    rec.install_dump(tmpdir, alerts=plane.engine)
+    try:
+        from deeplearning4j_torch.telemetry.flightrec import load_bundle
+        doc = load_bundle(rec.request_dump("slo smoke"))
+    finally:
+        rec.uninstall_dump()
+    if doc.get("history") is None or not doc["history"]["series"] \
+            or doc.get("slo") is None:
+        raise AssertionError("slo (e): the bundle's history or slo is null")
+    return {"metrics_families": families, "query_series": q["matched"],
+            "query_points": points, "alerts_equal_state": True,
+            "bundle_history_series": len(doc["history"]["series"]),
+            "bundle_slo_alerts": len(doc["slo"]["alerts"])}
+
+
+def median_ms(fn, n=40):
+    xs = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        xs.append((time.perf_counter() - t) * 1e3)
+    return sorted(xs)[len(xs) // 2]
+
+
+def slo_costs(plane, fleet):
+    """Part (f), first half: median ms per cycle of each loop's pass at
+    the series count the fleet really has, loops stopped.  The ladder's
+    and the autoscaler's passes are timed on copies that cannot act (no
+    fleet to actuate; one replica at most, no shedding) reading the same
+    engine, store and fleet."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.serving import (AutoscalePolicy, Autoscaler,
+                                              DegradeLadder)
+    reg = telemetry.get_registry()
+    ladder = DegradeLadder(None, plane.engine)
+    scaler = Autoscaler(fleet, AutoscalePolicy(
+        min_replicas=1, max_replicas=1, queue_wait_p99_target_s=1e9,
+        shed_batch=False), tenant_classes=SLO_TENANTS,
+        alert_engine=plane.engine)
+    return {"series": plane.tsdb.record(reg),
+            "registry_series": reg.series_count(),
+            "tsdb_record_ms": median_ms(lambda: plane.tsdb.record(reg)),
+            "alert_evaluate_ms": median_ms(plane.engine.evaluate),
+            "ladder_evaluate_ms": median_ms(ladder.evaluate),
+            "autoscaler_evaluate_ms": median_ms(scaler.evaluate)}
+
+
+def slo_turns(torch, np, net, kw, reqs, cfg):
+    """Part (f), second half: phase 6(a)'s requests on one replica with
+    no plane and with the whole plane attached at rung 0 (a ttft bar of
+    1000 s, one replica at most: it never acts), in turns off, on, on,
+    off.  Returns new tokens/s per turn."""
+    from deeplearning4j_torch.serving import ServingFleet
+    new_tokens = sum(n for _, n, _ in reqs)
+    turns = []
+    quiet = dict(cfg, ttft_s=1000.0)
+    with ServingFleet(net, n_replicas=1, **kw) as fleet:
+        fleet.submit(reqs[0][0], 8, timeout=900)           # warm-up
+        for mode in ("off", "on", "on", "off"):
+            plane = SloPlane(fleet, quiet, max_replicas=1) \
+                if mode == "on" else None
+            try:
+                t = time.perf_counter()
+                hs = [fleet.submit_async(p, n, tenant="chat", sampling=s)
+                      for p, n, s in reqs]
+                for h in hs:
+                    h.result(timeout=900)
+                wall = time.perf_counter() - t
+                if plane is not None and (plane.ladder.state()["transitions"]
+                                          or plane.alert()["transitions"]):
+                    raise AssertionError("slo (f): the quiet plane acted")
+            finally:
+                if plane is not None:
+                    plane.close()
+            turns.append({"plane": mode, "seconds": wall,
+                          "new_tokens_per_s": new_tokens / wall})
+    return turns
+
+
+def phase_slo(torch, np, pa):
+    """The serving SLO control plane on the card, over default-width
+    zoo.Gpt() in bf16 (seeded weights), speculative replicas of phase 6's
+    config.  (a) the plane attached to a one-replica fleet; (b) a burst
+    of 16 chat + 16 bulk requests; (c) recovery with no load; (d) a
+    scripted rung walk 0 -> 5 -> 0; (e) exposition and a bundle; (f) the
+    plane's per-cycle costs and tokens/s with it off and on, in turns."""
+    from deeplearning4j_torch.zoo import Gpt
+
+    net = Gpt(seed=0).init_graph(device="cuda")
+    kw = dict(compute_dtype="bfloat16", n_slots=8, max_len=1024,
+              block_size=16, tick_batch=8, device="cuda")
+    return slo_parts(torch, np, net, kw, pa.paged_decode_attention,
+                     pa.paged_verify_attention, 32000, card_line(),
+                     SLO_CARD)
+
+
+def slo_parts(torch, np, net, kw, k1, k2, vocab, card, cfg):
+    """Parts (a)-(f) of :func:`phase_slo` on a built net (replica config
+    ``kw`` without ``speculative``; the plane's clocks ``cfg``); ``k1``
+    and ``k2`` are the kernel wrappers whose ``.launches`` are read."""
+    import tempfile
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.serving import ServingFleet, TenantQuota
+
+    t_phase = time.perf_counter()
+    chat, bulk = slo_requests(np, vocab, kw["max_len"])
+    gen = TransformerGenerator(net, compute_dtype=kw["compute_dtype"],
+                               device=kw["device"])
+    quotas = {t: TenantQuota(klass=c) for t, c in SLO_TENANTS.items()}
+    with ServingFleet(net, n_replicas=1, quotas=quotas,
+                      speculative=SPEC_FULL, **kw) as fleet:
+        fleet.submit(chat[0][0], 8, tenant="chat", timeout=900)  # warm-up
+        plane = SloPlane(fleet, cfg)
+        try:
+            fleet.replica(0).attach_history(plane.tsdb)
+            burst, recovery = slo_burst(torch, np, fleet, plane, gen, k1, k2,
+                                        chat, bulk, cfg)
+            emit({"phase": "slo/burst", **burst, "card": card})
+            emit({"phase": "slo/recovery", **recovery, "card": card})
+            plane.stop_loops()
+            walk_prompt, walk_n = chat[4][0], 32 if kw["max_len"] >= 256 \
+                else 8
+            walk = slo_walk(torch, np, fleet, plane, gen, k1, k2,
+                            walk_prompt, walk_n, bulk[0][:2],
+                            cfg["near_tie"])
+            emit({"phase": "slo/walk", "rungs": walk, "card": card})
+            with tempfile.TemporaryDirectory() as tmp:
+                expo = slo_exposition(plane, tmp)
+            emit({"phase": "slo/exposition", **expo})
+            costs = slo_costs(plane, fleet)
+        finally:
+            plane.close()
+    turns = slo_turns(torch, np, net, kw, chat, cfg)
+    emit({"phase": "slo/costs", **costs, "turns": turns,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return burst["launches"]
 
 
 # -- phase 7 -----------------------------------------------------------
@@ -2701,7 +3295,7 @@ def main(argv=None) -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
-        b_counts, b_timing = None, None
+        b_counts, b_timing, s_launches = None, None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -2712,6 +3306,8 @@ def main(argv=None) -> int:
             v_launches = phase_spec(torch, np, pa, root)
         if "fleet" in phases:
             phase_fleet(torch, np, pa)
+        if "slo" in phases:
+            s_launches = phase_slo(torch, np, pa)
         if "train" in phases:
             t_counts = phase_train(torch, np)
         if "bert" in phases:
@@ -2753,6 +3349,10 @@ def main(argv=None) -> int:
                 kernel_row("paged_verify_attention", "paged_verify.cu",
                            "paged_attention.py:228", v_launches,
                            v_timing["max_abs_err"], v_timing)]
+            if s_launches is not None:
+                # the same kernels on the SLO phase's burst (phase 6b)
+                rows[0]["slo"] = {"launches": s_launches["k1"]}
+                rows[1]["slo"] = {"launches": s_launches["k2"]}
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",

@@ -17,6 +17,8 @@ Slices so far: serving the causal decoder (``zoo.Gpt`` ->
 included) on the paged decode and verify kernels, and training the same
 stack (``MultiLayerNetwork.fit``) on the flash-attention kernels,
 forward and backward — every kernel hand-written CUDA under
-``kernels/csrc/``.
+``kernels/csrc/``; the fleet (``serving.ServingFleet``) and its SLO control
+plane (``telemetry.{tsdb,slo,exposition,fleet}``,
+``serving.{degrade,autoscale}``); BERT and ResNet-50 training.
 """
 __version__ = "0.1.0"

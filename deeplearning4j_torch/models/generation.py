@@ -37,11 +37,13 @@ packages by distribution only.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_torch import telemetry
 from deeplearning4j_torch.kernels.paged_attention import (
     paged_decode_attention, paged_verify_attention)
 from deeplearning4j_torch.nn.activations import get_activation
@@ -221,6 +223,20 @@ def _block_prefill_chunked(ly: TransformerEncoderBlock, params, x, pk, pv,
     mask = col_ok[None, :] & (col_g[None, :] <= rows_g[:, None])
     return _causal_block(ly, params, x, kk, vv, q, mask), k, v
 
+
+# Decode telemetry under the reference's names: tokens are THE serving
+# unit for a causal decoder; steps/s is the per-row tick rate.
+_GEN_REQS = telemetry.counter(
+    "generation_requests_total", "generate() calls")
+_GEN_TOKENS = telemetry.counter(
+    "generation_tokens_total", "new tokens emitted (rows x n_new)")
+_GEN_RATE = telemetry.gauge(
+    "generation_decode_steps_per_sec",
+    "decode ticks/sec over the last generate() (per-row token rate)")
+_GEN_TIME = telemetry.histogram(
+    "generation_seconds",
+    "wall time per generate() call incl. prefill, decode loop and the "
+    "host read of the ids")
 
 _INF = float("inf")
 
@@ -505,6 +521,25 @@ class TransformerGenerator:
         if top_k is not None and not 1 <= int(top_k) <= vocab:
             raise ValueError(f"top_k={top_k} out of range [1, {vocab}] "
                              "(vocab size)")
+        t_start = time.perf_counter()
+        with telemetry.span("generate", batch=b, prompt=t0, new=n_new):
+            out = self._generate_rows(emb_p, blk_ps, head_p, prompt_np,
+                                      n_new, L, temperature, seed, top_k,
+                                      top_p, vocab)
+        dt = time.perf_counter() - t_start
+        _GEN_REQS.inc()
+        _GEN_TOKENS.inc(b * n_new)
+        _GEN_TIME.observe(dt)
+        if dt > 0:
+            _GEN_RATE.set(n_new / dt)
+        return out
+
+    def _generate_rows(self, emb_p, blk_ps, head_p, prompt_np, n_new, L,
+                       temperature, seed, top_k, top_p, vocab) -> np.ndarray:
+        """The body of :meth:`generate`: prefill, the decode loop and the
+        host read of the ids."""
+        b, t0 = prompt_np.shape
+        total = t0 + n_new
         dev, cd = self.device, self.compute_dtype
         prompt = torch.as_tensor(prompt_np, device=dev)
         logits, ks, vs = self._prefill_rows(emb_p, blk_ps, head_p, prompt)

@@ -5,7 +5,8 @@ Epoch listeners, iteration listeners firing BEFORE the counter
 increments (so a checkpoint taken there records the step it was taken
 at), ``batch_in_epoch``, and the structural series
 ``train_{iterations,epochs,examples}_total``, ``train_data_wait_seconds``
-and ``train_step_dispatch_seconds`` under the reference's names.  Not
+and ``train_step_dispatch_seconds`` under the reference's names, and the
+``DL4J_TPU_SANITIZE=nan`` loss check (``analysis.sanitize``).  Not
 ported yet (ROADMAP): ``resume=True`` and ``CheckpointListener``, the
 fault-injection and preemption sites, truncated BPTT, and the
 ``train/step`` span — each raises or is absent, never faked.
@@ -16,6 +17,7 @@ import time
 from typing import Callable, Optional
 
 from deeplearning4j_torch import telemetry
+from deeplearning4j_torch.analysis import sanitize as _sanitize
 
 _ITERS = telemetry.counter(
     "train_iterations_total", "optimizer steps driven by run_fit")
@@ -74,6 +76,13 @@ def run_fit(model, iterator, n_epochs: int,
             _EXAMPLES.inc(model.last_batch_size)
             t_step = time.perf_counter()
             loss = step_fn(model._batch_dict(ds))
+            if _sanitize.active("nan"):
+                # DL4J_TPU_SANITIZE=nan — one device sync per step (the
+                # solver keeps the params on a bad step, but the loss
+                # still reports NaN)
+                _sanitize.check_finite(
+                    "train/loss", loss,
+                    detail=f"iteration {model.iteration_count}")
             last_loss = loss
             # batch_in_epoch counts COMPLETED batches, advanced before the
             # listeners fire

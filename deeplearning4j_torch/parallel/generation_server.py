@@ -121,6 +121,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_torch import telemetry
+from deeplearning4j_torch.analysis import sanitize as _sanitize
 from deeplearning4j_torch.models.generation import (TransformerGenerator,
                                                     _filter_logits_rows,
                                                     _filtered_logprobs_rows,
@@ -2261,6 +2262,17 @@ class GenerationServer:
                                      packed[:, n_tok + 1])
             _HOST_SYNCS.inc()
             self._mark_tick(my_epoch, None)
+            if _sanitize.active("nan"):
+                # the decode-tick finite check (DL4J_TPU_SANITIZE=nan):
+                # only ACTIVE slots' held logits must be finite — free
+                # slots park stale values
+                with self._lock:
+                    mask = np.zeros((self.n_slots,), bool)
+                    for s in self._active:
+                        mask[s] = True
+                _sanitize.check_finite_rows(
+                    "serve/tick logits", state["logits"], mask,
+                    detail="slot KV cache poisoned?")
         if use_spec:
             # a speculative round's verify pass is its target "tick"
             _TICKS.inc(R)

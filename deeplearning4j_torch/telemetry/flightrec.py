@@ -36,9 +36,10 @@ document a later process can render as a timeline.
 
 * **pre-crash metric history** — every bundle and black
   box carries ``history``: the last ``history_s`` seconds of the
-  time-series store armed with ``install_dump(tsdb=...)`` (None when
-  none is: the port has no process store yet), so the postmortem
-  shows each metric's TRAJECTORY into the crash, not one final value;
+  process time-series store (``telemetry.get_tsdb()`` unless an
+  explicit store is armed with ``install_dump(tsdb=...)``), downsampled
+  per series, so the postmortem shows each metric's TRAJECTORY into the
+  crash, not one final value;
 
 * **retention** — the shared dir must not grow without bound across
   chaos drills and real incidents: ``install_dump(max_bundles=...,
@@ -276,12 +277,12 @@ class FlightRecorder:
         except Exception:            # a torn engine must not cost the
             doc["slo"] = None        # bundle its events
         try:
-            # the port has no process time-series store yet: history
-            # comes only from a store the installer passed
             tsdb = cfg.get("tsdb")
-            doc["history"] = (tsdb.dump_recent(
+            if tsdb is None:
+                from deeplearning4j_torch import telemetry
+                tsdb = telemetry.get_tsdb()
+            doc["history"] = tsdb.dump_recent(
                 window_s=cfg.get("history_s", 300.0))
-                if tsdb is not None else None)
         except Exception:            # same discipline as slo: history
             doc["history"] = None    # must not cost the bundle
         return doc

@@ -2,8 +2,9 @@
 Histogram with Prometheus text exposition and plain-dict snapshots.
 
 Copied from ``deeplearning4j_tpu/telemetry/registry.py`` (stdlib only),
-without the cross-worker snapshot merge, which comes with the fleet
-plane.  Every child carries its own lock: ``inc``/``observe`` from the
+with the series parser and the snapshot merge the fleet plane
+(``telemetry.fleet``) and the time-series store read.  Every child
+carries its own lock: ``inc``/``observe`` from the
 scheduler thread and request threads never race (a bare ``float +=``
 spans several bytecodes under the GIL and CAN lose updates).
 """
@@ -33,6 +34,26 @@ def _fmt_labels(labelnames: Sequence[str], labelvalues: Sequence[str],
         return ""
     inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in pairs)
     return "{" + inner + "}"
+
+
+def parse_series(series: str) -> Tuple[str, Tuple[Tuple[str, str], ...]]:
+    """Invert the ``name{k="v",...}`` series strings ``snapshot()``
+    emits back into ``(name, ((k, v), ...))``.  Values may contain
+    commas/'='/escaped quotes (e.g. a mesh-shape label), so this
+    parses the quoted escape grammar ``_fmt_labels`` writes instead of
+    splitting on ','.  Shared by ``merge_snapshot`` and the fleet
+    aggregator (``telemetry.fleet``)."""
+    import re
+    if "{" not in series:
+        return series, ()
+    name, _, rest = series.partition("{")
+    unesc = lambda v: re.sub(
+        r"\\(.)", lambda m: {"n": "\n"}.get(m.group(1), m.group(1)), v)
+    pairs = [
+        (k, unesc(v)) for k, v in re.findall(
+            r'([A-Za-z_][A-Za-z0-9_]*)="((?:[^"\\]|\\.)*)"',
+            rest.rstrip("}"))]
+    return name, tuple(pairs)
 
 
 class _Child:
@@ -187,7 +208,8 @@ class _Family:
             raise ValueError(
                 f"{self.name} is labeled {self.labelnames}; call "
                 ".labels(...) first")
-        return self._children[()]
+        with self._lock:
+            return self._children[()]
 
 
 class Counter(_Family):
@@ -345,3 +367,48 @@ class MetricsRegistry:
                         "p99": child.percentile(0.99),
                     }
         return snap
+
+    def merge_snapshot(self, snap: Dict) -> None:
+        """Fold one worker's ``snapshot()`` into this registry —
+        aggregation across processes (each worker runs its own
+        registry; ship snapshots over a control plane and merge here).
+        Counters and histograms accumulate; gauges take the incoming
+        value."""
+        for series, v in snap.get("counters", {}).items():
+            name, pairs = parse_series(series)
+            fam = self.counter(name, labelnames=tuple(k for k, _ in pairs))
+            child = fam.labels(*[val for _, val in pairs]) if pairs \
+                else fam._default()
+            child.inc(v)
+        for series, v in snap.get("gauges", {}).items():
+            name, pairs = parse_series(series)
+            fam = self.gauge(name, labelnames=tuple(k for k, _ in pairs))
+            child = fam.labels(*[val for _, val in pairs]) if pairs \
+                else fam._default()
+            child.set(v)
+        for series, h in snap.get("histograms", {}).items():
+            name, pairs = parse_series(series)
+            uppers = tuple(float(u) for u in h["buckets"])
+            fam = self.histogram(name,
+                                 labelnames=tuple(k for k, _ in pairs),
+                                 buckets=uppers or DEFAULT_BUCKETS)
+            child = fam.labels(*[val for _, val in pairs]) if pairs \
+                else fam._default()
+            with child._lock:
+                for i, u in enumerate(child._uppers):
+                    child._counts[i] += h["buckets"].get(repr(u), 0)
+                child._counts[-1] += h.get("inf", 0)
+                child._sum += h["sum"]
+                child._count += h["count"]
+
+    def series_count(self) -> int:
+        """Distinct exposed sample series (histogram buckets/sum/count
+        each count, matching what a scraper stores)."""
+        n = 0
+        for fam in self.families():
+            for _lv, child in fam._items():
+                if fam.kind == "histogram":
+                    n += len(child.state()[0]) + 3  # buckets + Inf/sum/cnt
+                else:
+                    n += 1
+        return n

@@ -96,6 +96,18 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.data.mnist\n"
         "import deeplearning4j_torch.data.builtin\n"
         "import deeplearning4j_torch.data.normalization\n"
+        "import deeplearning4j_torch.telemetry.registry\n"
+        "import deeplearning4j_torch.telemetry.tsdb\n"
+        "import deeplearning4j_torch.telemetry.slo\n"
+        "import deeplearning4j_torch.telemetry.exposition\n"
+        "import deeplearning4j_torch.telemetry.fleet\n"
+        "import deeplearning4j_torch.telemetry.listener\n"
+        "import deeplearning4j_torch.serving.degrade\n"
+        "import deeplearning4j_torch.serving.autoscale\n"
+        "import deeplearning4j_torch.analysis\n"
+        "import deeplearning4j_torch.analysis.sanitize\n"
+        "import deeplearning4j_torch.models.generation\n"
+        "from deeplearning4j_torch.telemetry import get_tsdb\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"
