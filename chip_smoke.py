@@ -118,6 +118,21 @@ Phases:
                the same steps on plain attention (loss curves within 1e-3
                of each other, no flash launch); (c) the same at t 512,
                where the forward is K4 (with its own step profile).
+  7b. resume — resumable training: default-width zoo.Gpt() with dropout
+               0.1, bf16 on f32 masters, Adam(3e-4), b 8, t 2048, four
+               seeded batches over two epochs: (a) the uninterrupted run,
+               twice (are two runs equal bit for bit?); (b) the same with a
+               CheckpointListener (every 2 iterations, keep 2) preempted
+               after iteration 5 by the ``preempt`` fault site — the forced
+               save lands; (c) a fresh Gpt(seed=1) resumes with
+               fit(resume=True) and equals (a) bit for bit (or within
+               twice (a)'s run-to-run spread, if the two runs differ) —
+               the main path, K3, K5 and K6 each counted from 0, 12 per
+               resumed step; (d) BadStepPolicy(max_consecutive=2) through
+               two NaN steps: params unchanged across the first, the LR
+               scale at 0.5, the rollback to the checkpoint on the card;
+               (e) save ms (host copy, write), restore ms, bytes per step
+               and a saving step's wall against a plain one's.
   8. bert    — BERT-base (zoo.Bert(): 12 x 768, 12 heads of 64, ff 3072,
                vocab 30522, seeded random weights) trained through
                MultiLayerNetwork.fit at t 512, a padding mask as the flash
@@ -177,6 +192,7 @@ Phases:
                SDPA with it as a float attn_mask).
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
+``--phases build,resume`` for resumable training alone,
 ``--phases build,resnet`` for the conv slice alone, or ``--phases
 build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -205,7 +221,7 @@ import time
 import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
-          "train", "bert", "resnet", "timings")
+          "train", "resume", "bert", "resnet", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -1899,6 +1915,290 @@ def phase_train(torch, np):
     return counts
 
 
+# -- phase 7b: resume ----------------------------------------------------
+RESUME_B, RESUME_T = 8, 2048
+RESUME_BATCHES, RESUME_EPOCHS = 4, 2      # 8 steps
+RESUME_PREEMPT = 5                        # preempted after this iteration
+RESUME_NAN = (6, 7)                       # part (d)'s bad steps
+
+
+def resume_batches(np, b, t, vocab, masked=False):
+    """``RESUME_BATCHES`` seeded batches of token ids and next-token
+    labels; with ``masked`` a float labels mask of ones, the leaf the
+    ``nan_loss`` fault site poisons (ids and labels are integers)."""
+    from deeplearning4j_torch.data import DataSet
+    out = []
+    for i in range(RESUME_BATCHES):
+        x, y = train_batch(np, b, t, vocab, 20 + i)
+        out.append(DataSet(x, y, labels_mask=(
+            np.ones((b, t), np.float32) if masked else None)))
+    return out
+
+
+def tree_digest(torch, trees):
+    """A fingerprint of every leaf's bits (the int32 words of f32 leaves,
+    summed per leaf, weighted by position), computed on the device."""
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    total = 0
+    for i, (_, leaf) in enumerate(iter_leaves(trees)):
+        words = leaf.detach().contiguous().view(
+            {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                leaf.element_size()])
+        total += (i + 1) * int(words.to(torch.int64).sum())
+    return f"{total % (1 << 64):016x}"
+
+
+def tree_diff(torch, got, want):
+    """(True iff every leaf is equal bit for bit, the largest over leaves
+    of max |got - want| / max |want|)."""
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    want = dict(iter_leaves(want))
+    equal, worst = True, 0.0
+    for path, g in iter_leaves(got):
+        w = want[path]
+        if torch.equal(g, w):
+            continue
+        equal = False
+        worst = max(worst, float((g.float() - w.float()).abs().max())
+                    / max(float(w.float().abs().max()), 1e-30))
+    return equal, worst
+
+
+def resume_parts(torch, np, make_net, batches, masked, n_layers, sync, card,
+                 root):
+    """Parts (a)-(e) of :func:`phase_resume`: ``make_net(seed)`` builds
+    the model, ``batches`` / ``masked`` are ``resume_batches``' two sets,
+    ``sync`` waits for the device, ``root`` is the checkpoints' scratch
+    directory.  Returns the flash launches of (c), the resumed run."""
+    from deeplearning4j_torch import resilience, telemetry
+    from deeplearning4j_torch.data import ListDataSetIterator
+    from deeplearning4j_torch.optimize import CollectScoresListener
+    from deeplearning4j_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_torch.parallel import CheckpointListener
+    from deeplearning4j_torch.resilience import (BadStepPolicy,
+                                                 FaultInjector,
+                                                 TrainingPreempted)
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    fa = flash_module()
+    reg = telemetry.get_registry()
+    n_steps = RESUME_BATCHES * RESUME_EPOCHS
+
+    class StepClock(TrainingListener):
+        """The wall clock at each iteration's end, the device drained
+        (last among the listeners: a periodic save counts in its step)."""
+
+        def __init__(self):
+            self.at = {}
+
+        def iteration_done(self, model, iteration, epoch, loss):
+            sync()
+            self.at[iteration] = time.perf_counter()
+
+    def fit(net, listeners, data, scores=None, **kw):
+        scores = CollectScoresListener() if scores is None else scores
+        net.set_listeners(*listeners, scores)
+        net.fit(ListDataSetIterator(data), n_epochs=kw.pop(
+            "n_epochs", RESUME_EPOCHS), **kw)
+        return scores.scores
+
+    def state(net):
+        return {"params": net.params_tree, "opt_state": net.opt_state}
+
+    # (a) the uninterrupted window, twice: are two runs equal bit for bit?
+    t_phase = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        net = make_net(0)
+        runs.append((net, fit(net, [], batches)))
+    (net_a, scores_a), (net_a2, scores_a2) = runs
+    deterministic, spread = tree_diff(torch, state(net_a2), state(net_a))
+    loss_spread = max(abs(x[1] - y[1]) for x, y in zip(scores_a, scores_a2))
+    losses_a = [s for _, s in scores_a]
+    if not all(math.isfinite(x) for x in losses_a):
+        raise AssertionError(f"resume/a: losses {losses_a} not finite")
+    row_a = {"losses": losses_a, "digest": tree_digest(torch, state(net_a)),
+             "digest_second_run": tree_digest(torch, state(net_a2)),
+             "runs_equal_bitwise": deterministic,
+             "run_to_run_max_rel_diff": spread,
+             "run_to_run_loss_diff": loss_spread}
+    del net_a2, runs
+
+    # (b) checkpoint every 2 iterations, keep 2; preempted after 5
+    ck_dir = os.path.join(root, "ck")
+    net_b = make_net(0)
+    ck = CheckpointListener(ck_dir, save_every_n_iterations=2, keep_last=2)
+    clock, scores_b = StepClock(), CollectScoresListener()
+    p0 = reg.counter("train_preemptions_total").value
+    try:
+        with FaultInjector([f"preempt@{RESUME_PREEMPT}"]):
+            fit(net_b, [ck, clock], batches, scores_b)
+        raise AssertionError("resume/b: fit was not preempted")
+    except TrainingPreempted as e:
+        preempted_at = e.step
+    finally:
+        resilience.clear_preemption()
+    steps_b = ck.ckpt.all_steps()
+    forced = dict(ck.ckpt.last_save)
+    if preempted_at != RESUME_PREEMPT or steps_b != [4, RESUME_PREEMPT] \
+            or reg.counter("train_preemptions_total").value - p0 != 1:
+        raise AssertionError(f"resume/b: preempted at {preempted_at}, "
+                             f"steps {steps_b} (want 5 and [4, 5])")
+    if deterministic and scores_b.scores != scores_a[:RESUME_PREEMPT + 1]:
+        raise AssertionError(f"resume/b: losses {scores_b.scores} differ "
+                             f"from the uninterrupted {scores_a}")
+    walls = {i: clock.at[i] - clock.at[i - 1] for i in range(1, 6)}
+    step_bytes = sum(f.stat().st_size for f in os.scandir(
+        os.path.join(ck_dir, str(RESUME_PREEMPT))))
+    del net_b
+
+    # (c) a fresh model from another seed resumes — the main path: flash
+    # launches counted from 0
+    net_c = make_net(1)
+    ck_c = CheckpointListener(ck_dir, save_every_n_iterations=2,
+                              keep_last=2)
+    restore = {}
+    inner = ck_c.restore_into
+
+    def timed_restore(model):
+        t0 = time.perf_counter()
+        step = inner(model)
+        sync()
+        restore["s"] = time.perf_counter() - t0
+        return step
+
+    ck_c.restore_into = timed_restore
+    fallback0 = fa._ROUTE_XLA_LONG_T.value
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    scores_c = fit(net_c, [ck_c], batches, resume=True)
+    sync()
+    counts = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+    resumed = n_steps - RESUME_PREEMPT - 1
+    want = {name: (n_layers * resumed
+                   if name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+                   else 0) for name in FLASH_WRAPPERS}
+    if counts != want or fa._ROUTE_XLA_LONG_T.value != fallback0:
+        raise AssertionError(f"resume/c: launches {counts} != {want} or a "
+                             "long-t fallback")
+    equal_c, diff_c = tree_diff(torch, state(net_c), state(net_a))
+    loss_diff_c = abs(scores_c[-1][1] - losses_a[-1])
+    if net_c.iteration_count != n_steps or net_c.epoch_count != \
+            RESUME_EPOCHS or [i for i, _ in scores_c] != list(
+                range(RESUME_PREEMPT + 1, n_steps)):
+        raise AssertionError(f"resume/c: counters {net_c.iteration_count}, "
+                             f"{net_c.epoch_count}, scores {scores_c}")
+    if deterministic and not (equal_c and loss_diff_c == 0.0):
+        raise AssertionError(f"resume/c: the resumed run differs from the "
+                             f"uninterrupted one (max rel {diff_c}, loss "
+                             f"{loss_diff_c}) where two uninterrupted runs "
+                             "are equal bit for bit")
+    if not deterministic and (diff_c > 2 * spread
+                              or loss_diff_c > 2 * loss_spread):
+        raise AssertionError(f"resume/c: max rel {diff_c} / loss "
+                             f"{loss_diff_c} past twice the run-to-run "
+                             f"spread {spread} / {loss_spread}")
+    row_c = {"iteration_count": net_c.iteration_count,
+             "losses": [s for _, s in scores_c],
+             "digest": tree_digest(torch, state(net_c)),
+             "equal_bitwise": equal_c, "max_rel_diff": diff_c,
+             "last_loss_diff": loss_diff_c, "launches": counts,
+             "launches_per_step": {k: v / resumed for k, v in counts.items()}}
+    del net_c, net_a
+
+    # (d) two bad steps (NaN-poisoned labels mask): skip, back off, roll
+    # back to the checkpoint of iteration 4, then train on
+    class Snap(TrainingListener):
+        def __init__(self):
+            self.params, self.backoff = {}, {}
+
+        def iteration_done(self, model, iteration, epoch, loss):
+            if 4 <= iteration <= RESUME_NAN[1]:
+                self.params[iteration] = [
+                    t.clone() for _, t in iter_leaves(model.params_tree)]
+                self.backoff[iteration] = getattr(model, "_lr_backoff", 1.0)
+
+    net_d = make_net(0)
+    ck_d = CheckpointListener(os.path.join(root, "ck_d"),
+                              save_every_n_iterations=4, keep_last=2)
+    snap = Snap()
+    c0 = {c: reg.counter(c).value for c in (
+        "bad_steps_skipped_total", "bad_steps_rolled_back_total")}
+    with FaultInjector([f"nan_loss@{i}" for i in RESUME_NAN]):
+        scores_d = fit(net_d, [ck_d, BadStepPolicy(max_consecutive=2,
+                                                   checkpoint=ck_d), snap],
+                       masked, n_epochs=RESUME_EPOCHS + 1)
+    deltas = {c: reg.counter(c).value - v for c, v in c0.items()}
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    bad, after = RESUME_NAN
+    checks = {
+        "first_bad_step_params_unchanged": same(snap.params[bad],
+                                                snap.params[bad - 1]),
+        "backoff_after_first_bad_step": snap.backoff[bad],
+        "rolled_back_to_checkpoint_4": same(snap.params[after],
+                                            snap.params[4]),
+        "moved_between_checkpoint_and_bad_steps": not same(
+            snap.params[bad - 1], snap.params[4]),
+        "params_on": str(next(iter_leaves(net_d.params_tree))[1].device),
+        "losses": [s for _, s in scores_d], "counter_deltas": deltas}
+    if not (checks["first_bad_step_params_unchanged"]
+            and checks["backoff_after_first_bad_step"] == 0.5
+            and checks["rolled_back_to_checkpoint_4"]
+            and checks["moved_between_checkpoint_and_bad_steps"]
+            and deltas == {"bad_steps_skipped_total": 2,
+                           "bad_steps_rolled_back_total": 1}
+            and all(math.isfinite(s) == (i not in RESUME_NAN)
+                    for i, s in scores_d)):
+        raise AssertionError(f"resume/d: {checks}")
+    del net_d, snap
+
+    # (e) what a checkpoint costs
+    save_walls = [walls[i] for i in (2, 4)]
+    plain_walls = [walls[i] for i in (1, 3, 5)]
+    emit({"phase": "resume", "steps": n_steps,
+          "preempted_at": preempted_at, "checkpoint_steps": steps_b,
+          "a_uninterrupted": row_a, "c_resumed": row_c, "d_bad_steps": checks,
+          "forced_save_host_copy_ms": forced["host_copy_s"] * 1e3,
+          "forced_save_write_ms": forced["write_s"] * 1e3,
+          "restore_ms": restore["s"] * 1e3,
+          "bytes_per_step": step_bytes,
+          "step_ms_with_save": [w * 1e3 for w in save_walls],
+          "step_ms_without_save": [w * 1e3 for w in plain_walls],
+          "save_step_extra_ms": (sum(save_walls) / len(save_walls)
+                                 - sum(plain_walls) / len(plain_walls))
+          * 1e3,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return counts
+
+
+def phase_resume(torch, np):
+    """Resumable training on the card: default-width zoo.Gpt() with
+    dropout 0.1, bf16 on f32 masters, Adam(3e-4), b 8, t 2048, four
+    seeded batches over two epochs (8 steps).  (a) the uninterrupted run,
+    twice; (b) with a CheckpointListener (every 2 iterations, keep 2)
+    preempted after iteration 5 by the ``preempt`` fault site; (c) a fresh
+    Gpt(seed=1) resumes with fit(resume=True) — the main path, K3, K5 and
+    K6 counted from 0 — and must equal (a) bit for bit when (a)'s two
+    runs are, else within twice their spread; (d) the BadStepPolicy
+    through two NaN steps and a rollback; (e) the save, restore and step
+    costs.  Returns (c)'s launch counts."""
+    import shutil
+    import tempfile
+    from deeplearning4j_torch.zoo import Gpt
+    b, t = RESUME_B, RESUME_T
+    root = tempfile.mkdtemp(prefix="dl4j-resume-")
+    try:
+        return resume_parts(
+            torch, np,
+            lambda seed: Gpt(seed=seed, dropout=0.1).init_graph(
+                device="cuda"),
+            resume_batches(np, b, t, 32000),
+            resume_batches(np, b, t, 32000, masked=True), 12,
+            torch.cuda.synchronize, card_line(), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # -- phase 8 -----------------------------------------------------------
 BERT_B, BERT_T, BERT_SEED = 32, 512, 3
 
@@ -3295,7 +3595,7 @@ def main(argv=None) -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
-        b_counts, b_timing, s_launches = None, None, None
+        b_counts, b_timing, s_launches, r_counts = None, None, None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -3310,6 +3610,8 @@ def main(argv=None) -> int:
             s_launches = phase_slo(torch, np, pa)
         if "train" in phases:
             t_counts = phase_train(torch, np)
+        if "resume" in phases:
+            r_counts = phase_resume(torch, np)
         if "bert" in phases:
             b_counts = phase_bert(torch, np)
         if "resnet" in phases:
@@ -3366,6 +3668,9 @@ def main(argv=None) -> int:
                 ft = f_timing[name]
                 rows.append(kernel_row(name, src, tpu, t_counts[t][name],
                                        ft["max_abs_err"], ft))
+                if r_counts is not None and t == 2048:
+                    # the same kernel on the resumed run (phase 7b)
+                    rows[-1]["resume"] = {"launches": r_counts[name]}
                 if name in b_timing:
                     # the same kernel on the BERT main path (phase 8) at
                     # its training shape (timings/bert)

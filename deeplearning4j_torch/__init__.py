@@ -19,6 +19,9 @@ stack (``MultiLayerNetwork.fit``) on the flash-attention kernels,
 forward and backward — every kernel hand-written CUDA under
 ``kernels/csrc/``; the fleet (``serving.ServingFleet``) and its SLO control
 plane (``telemetry.{tsdb,slo,exposition,fleet}``,
-``serving.{degrade,autoscale}``); BERT and ResNet-50 training.
+``serving.{degrade,autoscale}``); BERT and ResNet-50 training; and
+resumable training (``parallel.CheckpointListener`` +
+``fit(resume=True)``, ``resilience.auto_resume_fit``, preemption and the
+bad-step policy), every updater, and ``utils.gradient_check``.
 """
 __version__ = "0.1.0"

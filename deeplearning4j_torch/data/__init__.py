@@ -6,6 +6,7 @@ from deeplearning4j_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_torch.data.iterator import (ArrayDataSetIterator,
                                                 AsyncDataSetIterator,
                                                 DataSetIterator,
+                                                ExistingDataSetIterator,
                                                 ListDataSetIterator)
 from deeplearning4j_torch.data.mnist import MnistDataSetIterator
 from deeplearning4j_torch.data.normalization import (
@@ -13,7 +14,8 @@ from deeplearning4j_torch.data.normalization import (
 
 __all__ = ["BertIterator", "DataSet", "MultiDataSet", "DataSetIterator",
            "ListDataSetIterator", "ArrayDataSetIterator",
-           "AsyncDataSetIterator", "MnistDataSetIterator",
+           "AsyncDataSetIterator", "ExistingDataSetIterator",
+           "MnistDataSetIterator",
            "Cifar10DataSetIterator", "IrisDataSetIterator",
            "NormalizerStandardize", "NormalizerMinMaxScaler",
            "ImagePreProcessingScaler"]

@@ -104,6 +104,23 @@ class ArrayDataSetIterator(DataSetIterator):
         return int(self.labels.shape[-1])
 
 
+class ExistingDataSetIterator(DataSetIterator):
+    """Wrap any python iterable of DataSets (``ExistingDataSetIterator``)."""
+
+    def __init__(self, iterable_factory):
+        """``iterable_factory``: a zero-arg callable returning a fresh
+        iterable (so ``reset()`` works), or a list."""
+        if isinstance(iterable_factory, (list, tuple)):
+            data = list(iterable_factory)
+            self._factory = lambda: iter(data)
+        else:
+            self._factory = iterable_factory
+
+    def __iter__(self):
+        for b in self._factory():
+            yield self._maybe_preprocess(b)
+
+
 class AsyncDataSetIterator(DataSetIterator):
     """Background-thread prefetch (``AsyncDataSetIterator``): a worker
     thread pulls from the wrapped iterator into a bounded queue, so host

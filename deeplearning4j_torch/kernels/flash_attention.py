@@ -70,12 +70,20 @@ _KERNEL_DH = (64, 128, 192, 256)   # head dims the CUDA kernels are built for
 # ---------------------------------------------------------------------------
 # Plain versions (full-row form, f32 math at the kernels' rounding points)
 # ---------------------------------------------------------------------------
+def _acc(x):
+    """``x`` in the plain versions' accumulation type: f32, or f64 for f64
+    operands (which no kernel takes: the f64 gradient check runs the
+    plain route at full precision)."""
+    return x.to(torch.float64 if x.dtype == torch.float64
+                else torch.float32)
+
+
 def _scores(q, k, bias, causal: bool, scale: float):
     """[bh, t, t] f32 scores: Q K^T (f32 products of the inputs) * scale
     + bias, causally masked with -1e30."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(_acc(q), _acc(k).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float()[:, None, :]
+        s = s + bias.to(s.dtype)[:, None, :]
     if causal:
         t = q.shape[1]
         keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
@@ -98,11 +106,11 @@ def flash_fwd_reference(q, k, v, bias=None, *, causal: bool = False,
     l = p.sum(dim=-1, keepdim=True)
     empty = l == 0.0
     l_safe = torch.where(empty, 1.0, l)
-    vf = v.float()
+    vf = _acc(v)
     if single:
-        o = torch.matmul((p / l_safe).to(v.dtype).float(), vf)
+        o = torch.matmul(_acc((p / l_safe).to(v.dtype)), vf)
     else:
-        o = torch.matmul(p.to(v.dtype).float(), vf) / l_safe
+        o = torch.matmul(_acc(p.to(v.dtype)), vf) / l_safe
     lse = torch.where(empty, _POS, m + torch.log(l_safe))[..., 0]
     return o.to(q.dtype), lse
 
@@ -115,15 +123,15 @@ def flash_bwd_reference(q, k, v, bias, do, lse, delta, *,
     with no division by 8).  P is rounded to the input dtype for dV, and
     dS * scale for dK and dQ, as K5 and K6 do."""
     s = _scores(q, k, bias, causal, scale)
-    p = torch.exp(s - lse.float()[..., None])
-    dof = do.float()
-    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
-    dp = torch.matmul(dof, v.float().transpose(-1, -2))
-    ds = p * (dp - delta.float()[..., None])
+    p = torch.exp(s - lse.to(s.dtype)[..., None])
+    dof = _acc(do)
+    dv = torch.matmul(_acc(p.to(v.dtype)).transpose(-1, -2), dof)
+    dp = torch.matmul(dof, _acc(v).transpose(-1, -2))
+    ds = p * (dp - delta.to(s.dtype)[..., None])
     dbias = ds.sum(dim=1)
-    dsr = (ds * scale).to(q.dtype).float()
-    dk = torch.matmul(dsr.transpose(-1, -2), q.float())
-    dq = torch.matmul(dsr, k.float())
+    dsr = _acc((ds * scale).to(q.dtype))
+    dk = torch.matmul(dsr.transpose(-1, -2), _acc(q))
+    dq = torch.matmul(dsr, _acc(k))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
@@ -365,10 +373,10 @@ flash_bwd_dq.launches = 0
 
 
 def row_delta(do, o):
-    """delta = rowsum(dO * O) in f32, [b, t, h, dh] -> [b*h, t] (b-major,
-    as the kernels index rows)."""
+    """delta = rowsum(dO * O) in f32 (f64 for f64 operands), [b, t, h,
+    dh] -> [b*h, t] (b-major, as the kernels index rows)."""
     b, t, h, _ = o.shape
-    d = (do.float() * o.float()).sum(-1)                 # [b, t, h]
+    d = (_acc(do) * _acc(o)).sum(-1)                     # [b, t, h]
     return d.permute(0, 2, 1).reshape(b * h, t).contiguous()
 
 

@@ -139,7 +139,10 @@ class BaseNetwork:
         """Train (DL4J ``fit(DataSetIterator, numEpochs)`` / ``fit(DataSet)``
         / ``fit(MultiDataSet)``).  An iterator is wrapped in async
         prefetch, as DL4J wraps it in ``AsyncDataSetIterator``; a single
-        batch is not (nothing to overlap).  Returns the last loss."""
+        batch is not (nothing to overlap).  ``resume=True`` continues
+        from the newest checkpoint of the attached
+        ``parallel.CheckpointListener``, ``n_epochs`` then being the
+        total (``optimize.fit_loop.run_fit``).  Returns the last loss."""
         self._check_init()
         self._build_solver()
         if isinstance(data, (DataSet, MultiDataSet)):

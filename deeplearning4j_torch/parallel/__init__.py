@@ -1,5 +1,8 @@
-"""Serving (port of ``deeplearning4j_tpu.parallel``; the generation server
-at tp = 1 so far)."""
+"""Serving and training-state checkpoints (port of
+``deeplearning4j_tpu.parallel``: the generation server at tp = 1, and the
+checkpointer ``fit(resume=True)`` restores from)."""
+from deeplearning4j_torch.parallel.checkpoint import (CheckpointListener,
+                                                      ShardedCheckpointer)
 from deeplearning4j_torch.parallel.generation_server import GenerationServer
 
-__all__ = ["GenerationServer"]
+__all__ = ["GenerationServer", "ShardedCheckpointer", "CheckpointListener"]

@@ -64,12 +64,16 @@ class RngKeyManager:
             self.seed = int(seed)
             self._counter = 0
 
-    def state(self) -> int:
-        """The counter — with the seed, all a resumed run needs to replay
-        the same key stream."""
+    def state(self) -> List[int]:
+        """``[seed, counter]`` — all a resumed run needs to replay the
+        same key stream (the reference's key data plays this role), so a
+        model built from another seed resumes the checkpointed stream."""
         with self._lock:
-            return self._counter
+            return [self.seed, self._counter]
 
-    def set_state(self, counter: int) -> None:
+    def set_state(self, state) -> None:
+        """Restore a ``state()``."""
+        seed, counter = (int(v) for v in state)
         with self._lock:
-            self._counter = int(counter)
+            self.seed = seed
+            self._counter = counter

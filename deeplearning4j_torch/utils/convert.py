@@ -16,7 +16,9 @@ as each layer's ``init_state``.
 checked against what ``init_state`` builds.
 
 ``load_numpy_opt_state(net, opt_state_np)`` does the same for the JAX
-package's ``opt_state`` (e.g. Adam's ``{"m": params-like, "v":
+package's ``opt_state`` of any updater (Adam's ``{"m": params-like, "v":
+params-like}``, AMSGrad's ``vhat``, AdaMax's ``u``, RmsProp's and
+AdaGrad's ``g2``, Ema's nested ``{"base": <base state>, "ema":
 params-like}``), checked against the structure the net's own updater
 builds — after the three calls the two packages start a step from the
 same state.

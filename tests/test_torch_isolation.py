@@ -108,6 +108,15 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.analysis.sanitize\n"
         "import deeplearning4j_torch.models.generation\n"
         "from deeplearning4j_torch.telemetry import get_tsdb\n"
+        "import deeplearning4j_torch.resilience\n"
+        "import deeplearning4j_torch.resilience.preemption\n"
+        "import deeplearning4j_torch.resilience.policy\n"
+        "import deeplearning4j_torch.parallel.checkpoint\n"
+        "import deeplearning4j_torch.optimize\n"
+        "import deeplearning4j_torch.optimize.updaters\n"
+        "import deeplearning4j_torch.optimize.listeners\n"
+        "import deeplearning4j_torch.utils.gradient_check\n"
+        "import deeplearning4j_torch.data.iterator\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"

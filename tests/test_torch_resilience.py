@@ -11,10 +11,24 @@ has no counterpart (nothing is donated in the port); in its place,
 ``test_superseded_scheduler_writes_only_the_old_pool`` shows the epoch
 fence on the device side: a dispatch abandoned by the watchdog keeps
 writing the OLD pool tensors, never the salvaged pool the new scheduler
-serves from.  The training-side preemption and bad-step cases come with
-their slice."""
+serves from.
+
+The training cases (``tests/test_resilience.py``'s preemption, resume,
+bad-step policy and checkpoint robustness) run each scenario in BOTH
+packages on the same numpy data, the port's MLP starting from the JAX
+one's parameters: the two agree on ``TrainingPreempted.step``,
+``all_steps()``, the counters, the batch position and the deltas of the
+training series, and the final params within 1e-5 (f32: the two sum in
+different orders).  Inside each package a resumed run equals the
+uninterrupted one bit for bit, with dropout too (the RNG position
+travels with the checkpoint; the two packages draw different masks, so
+the dropout case compares params only inside each).  The reference's
+orbax import guard has no counterpart: the port writes its own format."""
+import os
+import signal
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -339,3 +353,529 @@ def test_superseded_scheduler_writes_only_the_old_pool(net, offline):
         # ... which is no longer the server's
         assert srv._kc.data_ptr() != held["kc"].data_ptr()
         assert srv.healthy()
+
+
+# -- training: preemption, resume, the bad-step policy, checkpoints -------
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one intra-op thread for the test: its many small CPU ops
+    otherwise spin a thread pool per test worker, and under the suite's
+    parallel workers those pools starve each other (a 5 s case took over
+    100 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+COUNTERS = ("train_resumes_total", "train_preemptions_total",
+            "bad_steps_skipped_total", "bad_steps_rolled_back_total",
+            "checkpoint_saves_total", "checkpoint_failures_total")
+
+
+def _side(name):
+    """What a training scenario takes from one package.  ``model(seed)``
+    builds the same 8-16-4 MLP in both: the port's from the JAX
+    configuration and parameters of that seed."""
+    import jax
+
+    from deeplearning4j_tpu import MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu import NeuralNetConfiguration as JNNC
+    from deeplearning4j_tpu.nn.conf.layers_core import (DenseLayer as JDense,
+                                                        OutputLayer as JOut)
+
+    def jax_model(seed, updater, dropout):
+        conf = (JNNC.builder().seed(seed)
+                .updater(updater or {"type": "Adam", "learning_rate": 1e-2})
+                .list()
+                .layer(JDense(n_in=8, n_out=16, activation="relu",
+                              dropout=dropout))
+                .layer(JOut(n_out=4, activation="softmax", loss="mcxent"))
+                .build())
+        return JMLN(conf).init()
+
+    if name == "jax":
+        from deeplearning4j_tpu import resilience as R
+        from deeplearning4j_tpu import telemetry as T
+        from deeplearning4j_tpu.data.dataset import DataSet as D
+        from deeplearning4j_tpu.data.iterator import ListDataSetIterator as L
+        from deeplearning4j_tpu.optimize.listeners import TrainingListener
+        from deeplearning4j_tpu.parallel import (CheckpointListener,
+                                                 ShardedCheckpointer)
+        model = jax_model
+
+        def leaves(tree):
+            return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+    else:
+        from deeplearning4j_torch import resilience as R
+        from deeplearning4j_torch import telemetry as T
+        from deeplearning4j_torch.data import DataSet as D
+        from deeplearning4j_torch.data import ListDataSetIterator as L
+        from deeplearning4j_torch.models.multi_layer_network import (
+            MultiLayerNetwork)
+        from deeplearning4j_torch.nn.conf.builder import (
+            MultiLayerConfiguration)
+        from deeplearning4j_torch.optimize.listeners import TrainingListener
+        from deeplearning4j_torch.parallel import (CheckpointListener,
+                                                   ShardedCheckpointer)
+        from deeplearning4j_torch.utils import load_numpy_params
+        from deeplearning4j_torch.utils.trees import iter_leaves
+
+        def model(seed, updater, dropout):
+            jnet = jax_model(seed, updater, dropout)
+            net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+                jnet.conf.to_dict())).init(seed=seed, device="cpu")
+            return load_numpy_params(net, jax.tree_util.tree_map(
+                np.asarray, jnet.params_tree), device="cpu")
+
+        def leaves(tree):
+            # copies: the solver updates the live leaves in place
+            return [t.numpy().copy() for _, t in iter_leaves(tree)]
+    reg = T.get_registry()
+    return types.SimpleNamespace(
+        R=R, DataSet=D, TrainingListener=TrainingListener,
+        CheckpointListener=CheckpointListener,
+        ShardedCheckpointer=ShardedCheckpointer, leaves=leaves,
+        model=lambda seed=3, updater=None, dropout=None: model(
+            seed, updater, dropout),
+        it=lambda x, y, bs=16: L(D(x, y).batch_by(bs)),
+        counts=lambda: {c: reg.counter(c).value for c in COUNTERS})
+
+
+def _data(n=96, seed=42):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 8)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, n)]
+    return x, y
+
+
+def _same(S, a, b):
+    return all(np.array_equal(p, q) for p, q in
+               zip(S.leaves(a.params_tree), S.leaves(b.params_tree)))
+
+
+def _kill_and_resume(S, tmp, dropout=None):
+    """Checkpoint every 5 -> simulated preemption after iteration 8 ->
+    a fresh model resumes; equal to the uninterrupted run."""
+    x, y = _data()
+    ref = S.model(dropout=dropout)
+    ref_loss = ref.fit(S.it(x, y), n_epochs=3, async_prefetch=False)
+    m = S.model(dropout=dropout)
+    ck = S.CheckpointListener(tmp / "ck", save_every_n_iterations=5)
+    m.set_listeners(ck)
+    with pytest.raises(S.R.TrainingPreempted) as ei:
+        with S.R.FaultInjector(["preempt@8"]):
+            m.fit(S.it(x, y), n_epochs=3, async_prefetch=False)
+    killed = (m.iteration_count, m.epoch_count, m.batch_in_epoch)
+    S.R.clear_preemption()
+    m2 = S.model(seed=99, dropout=dropout)
+    m2._build_solver()
+    m2.set_listeners(S.CheckpointListener(tmp / "ck"))
+    loss2 = m2.fit(S.it(x, y), n_epochs=3, async_prefetch=False,
+                   resume=True)
+    assert float(loss2) == float(ref_loss)
+    assert _same(S, ref, m2)
+    return {"step": ei.value.step, "killed": killed,
+            "steps": ck.ckpt.all_steps(), "loss": float(loss2),
+            "counters": (m2.iteration_count, m2.epoch_count),
+            "params": S.leaves(m2.params_tree)}
+
+
+def _mid_step_state(S, tmp):
+    """The restored snapshot equals the state the preempted model held."""
+    x, y = _data(64)
+    m = S.model()
+    m.set_listeners(S.CheckpointListener(tmp / "ck2",
+                                         save_every_n_iterations=100))
+    with pytest.raises(S.R.TrainingPreempted):
+        with S.R.FaultInjector(["preempt@5"]):
+            m.fit(S.it(x, y), n_epochs=4, async_prefetch=False)
+    S.R.clear_preemption()
+    m2 = S.model(seed=42)
+    m2._build_solver()
+    step = S.CheckpointListener(tmp / "ck2").restore_into(m2)
+    assert _same(S, m, m2)
+    np.testing.assert_array_equal(np.asarray(m._rng.state()),
+                                  np.asarray(m2._rng.state()))
+    return {"step": step, "counters": (m2.iteration_count, m2.epoch_count,
+                                       m2.batch_in_epoch),
+            "params": S.leaves(m2.params_tree)}
+
+
+def _real_sigterm(S, tmp):
+    """A real SIGTERM mid-fit forces the final checkpoint and raises."""
+    x, y = _data(64)
+    m = S.model()
+    ck = S.CheckpointListener(tmp / "sig", save_every_n_iterations=100)
+
+    class Killer(S.TrainingListener):
+        def iteration_done(self, model, iteration, epoch, loss):
+            if iteration == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    m.set_listeners(ck, Killer())
+    with S.R.PreemptionGuard():
+        with pytest.raises(S.R.TrainingPreempted) as ei:
+            m.fit(S.it(x, y), n_epochs=5, async_prefetch=False)
+    return {"step": ei.value.step, "steps": ck.ckpt.all_steps(),
+            "counters": (m.iteration_count, m.epoch_count,
+                         m.batch_in_epoch),
+            "params": S.leaves(m.params_tree)}
+
+
+def _auto_resume(S, tmp):
+    """The supervisor re-enters a resumable fit across a step crash and a
+    preemption, and reaches the uninterrupted run's exact state."""
+    x, y = _data()
+    ref = S.model()
+    ref_loss = ref.fit(S.it(x, y), n_epochs=3, async_prefetch=False)
+    m = S.model()
+    ck = S.CheckpointListener(tmp / "sup", save_every_n_iterations=2)
+    m.set_listeners(ck)
+    with S.R.FaultInjector(["step_exception@7", "preempt@12"]):
+        loss = S.R.auto_resume_fit(
+            lambda: m.fit(S.it(x, y), n_epochs=3, async_prefetch=False,
+                          resume=True),
+            max_restarts=3, retry_on=(S.R.InjectedFault,))
+    assert float(loss) == float(ref_loss)
+    assert _same(S, ref, m)
+    return {"loss": float(loss), "steps": ck.ckpt.all_steps(),
+            "counters": (m.iteration_count, m.epoch_count),
+            "params": S.leaves(m.params_tree)}
+
+
+def _nan_skip_and_backoff(S, tmp):
+    x, y = _data(32)
+    m = S.model()
+    m.fit(S.DataSet(x, y))
+    before = S.leaves(m.params_tree)
+    m.set_listeners(S.R.BadStepPolicy(max_consecutive=5))
+    with S.R.FaultInjector([f"nan_loss@{m.iteration_count}"]):
+        loss = m.fit(S.DataSet(x, y))
+    assert np.isnan(loss)                     # reported, not hidden
+    for a, b in zip(before, S.leaves(m.params_tree)):
+        np.testing.assert_array_equal(a, b)   # update fully skipped
+    backoff = m._lr_backoff
+    m.set_listeners(S.R.BadStepPolicy(max_consecutive=5, recover_after=1))
+    m.fit(S.DataSet(x, y), n_epochs=2)
+    return {"backoff": (backoff, m._lr_backoff),
+            "counters": (m.iteration_count, m.epoch_count),
+            "params": S.leaves(m.params_tree)}
+
+
+def _nan_rollback(S, tmp):
+    x, y = _data()
+    m = S.model()
+    ck = S.CheckpointListener(tmp / "rb", save_every_n_iterations=2)
+    m.set_listeners(ck, S.R.BadStepPolicy(max_consecutive=2, checkpoint=ck))
+    with S.R.FaultInjector(["nan_loss@4", "nan_loss@5"]):
+        loss = m.fit(S.it(x, y), n_epochs=2, async_prefetch=False)
+    assert np.isfinite(loss)                  # training recovered
+    ck.ckpt.wait()
+    return {"loss": float(loss), "steps": ck.ckpt.all_steps(),
+            "backoff": m._lr_backoff,
+            "counters": (m.iteration_count, m.epoch_count),
+            "params": S.leaves(m.params_tree)}
+
+
+def _nan_without_checkpoint(S, tmp):
+    x, y = _data(64)
+    m = S.model()
+    m.set_listeners(S.R.BadStepPolicy(max_consecutive=2))
+    with S.R.FaultInjector(["nan_loss@0", "nan_loss@1"]):
+        with pytest.raises(FloatingPointError, match="consecutive"):
+            m.fit(S.it(x, y), n_epochs=2, async_prefetch=False)
+    return {"counters": (m.iteration_count, m.epoch_count),
+            "params": S.leaves(m.params_tree)}
+
+
+def _lr_scale(S, tmp):
+    """lr_scale=0.5 halves the applied SGD update."""
+    x, y = _data(16)
+    a, b = (S.model(updater={"type": "Sgd", "learning_rate": 0.1})
+            for _ in range(2))
+    for m in (a, b):
+        m._check_init()
+        m._build_solver()
+    batch = a._batch_dict(S.DataSet(x, y))
+    p0 = S.leaves(a.params_tree)
+    for m, scale in ((a, 1.0), (b, 0.5)):
+        (m.params_tree, m.opt_state, m.state_tree, _) = m._solver.step(
+            m.params_tree, m.opt_state, m.state_tree, 0, batch,
+            m._rng.next_key(), lr_scale=scale)
+    for q0, qa, qb in zip(p0, S.leaves(a.params_tree),
+                          S.leaves(b.params_tree)):
+        np.testing.assert_allclose(qb - q0, (qa - q0) * 0.5, rtol=0,
+                                   atol=1e-7)
+    return {"params": S.leaves(b.params_tree)}
+
+
+def _failed_write(S, tmp):
+    x, y = _data()
+    m = S.model()
+    ck = S.CheckpointListener(tmp / "cf", save_every_n_iterations=2)
+    m.set_listeners(ck)
+    with S.R.FaultInjector(["checkpoint_fail@4"]):
+        loss = m.fit(S.it(x, y), n_epochs=1, async_prefetch=False)
+    assert np.isfinite(loss)
+    ck.ckpt.wait()
+    return {"loss": float(loss), "steps": ck.ckpt.all_steps(),
+            "params": S.leaves(m.params_tree)}
+
+
+def _legacy_step(S, tmp):
+    """A step without the rng leaf and batch_in_epoch restores
+    epoch-aligned."""
+    x, y = _data(32)
+    m = S.model()
+    m.fit(S.DataSet(x, y))
+    ck = S.ShardedCheckpointer(tmp / "legacy", async_save=False)
+    ck.save(4, {"params": m.params_tree, "opt_state": m.opt_state,
+                "model_state": m.state_tree,
+                "counters": {"iteration": 5, "epoch": 1}})
+    ck.wait()
+    ck.close()
+    fresh = S.model(seed=11)
+    fresh._build_solver()
+    step = S.CheckpointListener(tmp / "legacy").restore_into(fresh)
+    assert _same(S, m, fresh)
+    return {"step": step, "counters": (fresh.iteration_count,
+                                       fresh.epoch_count,
+                                       fresh.batch_in_epoch),
+            "params": S.leaves(fresh.params_tree)}
+
+
+_SCENARIOS = {
+    "kill_and_resume": _kill_and_resume,
+    "kill_and_resume_dropout": lambda S, tmp: _kill_and_resume(
+        S, tmp, dropout=0.3),
+    "mid_step_state": _mid_step_state,
+    "real_sigterm": _real_sigterm,
+    "auto_resume_fit": _auto_resume,
+    "nan_skip_and_backoff": _nan_skip_and_backoff,
+    "nan_rollback": _nan_rollback,
+    "nan_without_checkpoint": _nan_without_checkpoint,
+    "lr_scale": _lr_scale,
+    "failed_write": _failed_write,
+    "legacy_step": _legacy_step,
+}
+
+
+@pytest.mark.parametrize("case", list(_SCENARIOS))
+def test_training_resilience_matches_jax(case, tmp_path, one_torch_thread):
+    """The scenario in both packages: the same step labels, counters,
+    batch positions and training-series deltas, and the final params
+    within 1e-5 (the dropout case only inside each package)."""
+    pytest.importorskip("jax")
+    got = {}
+    for name in ("jax", "port"):
+        S = _side(name)
+        S.R.clear_preemption()
+        c0 = S.counts()
+        try:
+            obs = _SCENARIOS[case](S, tmp_path / name)
+        finally:
+            S.R.clear_preemption()
+        obs["deltas"] = {k: v - c0[k] for k, v in S.counts().items()}
+        got[name] = obs
+    jp, pp = got["jax"].pop("params"), got["port"].pop("params")
+    if "loss" in got["jax"] and case != "kill_and_resume_dropout":
+        np.testing.assert_allclose(got["port"].pop("loss"),
+                                   got["jax"].pop("loss"), rtol=1e-5)
+    if case == "kill_and_resume_dropout":
+        got["jax"].pop("loss"), got["port"].pop("loss")
+    else:
+        for a, b in zip(pp, jp):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert got["port"] == got["jax"]
+
+
+# -- the port's checkpoint format ---------------------------------------
+def _port_mlp():
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (DenseLayer,
+                                              NeuralNetConfiguration,
+                                              OutputLayer)
+    conf = (NeuralNetConfiguration.builder().seed(3)
+            .updater({"type": "Adam", "learning_rate": 1e-2}).list()
+            .layer(DenseLayer(n_in=8, n_out=16, activation="relu"))
+            .layer(OutputLayer(n_out=4, activation="softmax",
+                               loss="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf).init(device="cpu")
+
+
+def test_checkpoint_copies_at_save_and_keeps_bf16_bits(tmp_path):
+    """``save`` returns with host copies taken (an in-place update after
+    it does not reach the file); a bfloat16 leaf round-trips bit for bit
+    as its raw 16-bit pattern; the sidecar records the world; a template
+    of another shape or dtype is refused; a half-written step from a
+    killed process is cleared and never listed."""
+    from deeplearning4j_torch.parallel import ShardedCheckpointer
+    w = torch.randn(5, 3)
+    h = torch.randn(7).to(torch.bfloat16)
+    state = {"w": w, "h": h, "empty": {}, "n": 3, "rng": [1, 2]}
+    ck = ShardedCheckpointer(tmp_path / "fmt", keep_last=2)
+    want = w.clone()
+    ck.save(0, state)
+    w.add_(1.0)                         # the live leaf moves on
+    ck.wait()
+    like = {"w": torch.zeros(5, 3), "h": torch.zeros(7, dtype=torch.bfloat16),
+            "empty": {}, "n": 0, "rng": [0, 0]}
+    step, got = ck.restore_latest(like)
+    assert step == 0 and got["n"] == 3 and got["rng"] == [1, 2]
+    assert torch.equal(got["w"], want)
+    assert got["h"].dtype == torch.bfloat16
+    assert torch.equal(got["h"].view(torch.int16), h.view(torch.int16))
+    assert ck.world_at(0) == {"world": 1, "processes": 1, "devices": 1}
+    assert ck.last_save["bytes"] > 0 and ck.last_save["host_copy_s"] >= 0
+    with pytest.raises(ValueError, match="dtype"):
+        ck.restore_latest({**like, "h": torch.zeros(7)})
+    with pytest.raises(ValueError, match="shape"):
+        ck.restore_latest({**like, "w": torch.zeros(3, 5)})
+    with pytest.raises(ValueError, match="template"):
+        ck.restore_latest({k: v for k, v in like.items() if k != "n"})
+    (tmp_path / "fmt" / "7.tmp").mkdir()
+    assert ShardedCheckpointer(tmp_path / "fmt").all_steps() == [0]
+    assert not (tmp_path / "fmt" / "7.tmp").exists()
+
+
+def test_async_write_failure_surfaces_at_wait(tmp_path, monkeypatch):
+    """A write that fails on the writer thread commits nothing, and the
+    next ``wait()`` raises it; the listener counts it as a failed save
+    and training goes on."""
+    from deeplearning4j_torch.parallel import ShardedCheckpointer
+    ck = ShardedCheckpointer(tmp_path / "af")
+    ck.save(1, {"w": torch.ones(2)})
+    ck.wait()
+
+    def disk_full(*a, **kw):
+        raise OSError("no space left on device")
+
+    monkeypatch.setattr(np, "savez", disk_full)
+    ck.save(2, {"w": torch.ones(2)})
+    with pytest.raises(OSError, match="no space"):
+        ck.wait()
+    ck.wait()                            # raised once
+    assert ck.all_steps() == [1]
+    assert sorted(p.name for p in (tmp_path / "af").iterdir()) == [
+        "1", "world_1.json", "world_2.json"]
+
+
+def test_preemption_stops_the_prefetch_thread(tmp_path):
+    """fit with async prefetch, preempted: the producer thread is gone
+    when TrainingPreempted reaches the caller."""
+    from deeplearning4j_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_torch.parallel import CheckpointListener
+    x, y = _data(256)
+    m = _port_mlp()
+    m.set_listeners(CheckpointListener(tmp_path / "pf"))
+    before = set(threading.enumerate())
+    try:
+        with pytest.raises(resilience.TrainingPreempted) as ei:
+            with FaultInjector(["preempt@2"]):
+                m.fit(ListDataSetIterator(DataSet(x, y).batch_by(8)),
+                      n_epochs=1)
+    finally:
+        resilience.clear_preemption()
+    assert ei.value.step == 2
+    assert set(threading.enumerate()) <= before
+
+
+def test_resume_phase_rehearsal_on_cpu(tmp_path, monkeypatch,
+                                       one_torch_thread):
+    """``chip_smoke.py``'s resume phase whole, on a tiny Gpt at t 1024
+    (the K3 route) on the CPU, with counting stand-ins for the flash
+    wrappers: preempted at 5 with steps [4, 5], the resumed run equal to
+    the uninterrupted one bit for bit, 2 launches of K3/K5/K6 per
+    resumed step, the bad-step rollback."""
+    import importlib
+
+    import chip_smoke
+    from deeplearning4j_torch.zoo import Gpt
+    fa = importlib.import_module(
+        "deeplearning4j_torch.kernels.flash_attention")
+
+    def counted(orig):
+        def wrapper(*a, **kw):
+            wrapper.launches += 1
+            return orig(*a, **kw)
+        wrapper.launches = 0
+        return wrapper
+
+    for name in chip_smoke.FLASH_WRAPPERS:
+        monkeypatch.setattr(fa, name, counted(getattr(fa, name)))
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    kw = dict(vocab_size=50, d_model=32, n_layers=2, n_heads=2, d_ff=64,
+              seq_len=1024, max_len=1024, dropout=0.1)
+    counts = chip_smoke.resume_parts(
+        torch, np, lambda seed: Gpt(seed=seed, **kw).init_graph(
+            device="cpu"),
+        chip_smoke.resume_batches(np, 1, 1024, 50),
+        chip_smoke.resume_batches(np, 1, 1024, 50, masked=True), 2,
+        lambda: None, "cpu", str(tmp_path))
+    assert counts == {"flash_fwd": 4, "flash_fwd_single": 0,
+                      "flash_bwd_dkdv": 4, "flash_bwd_dq": 4}
+    (row,) = lines
+    assert row["a_uninterrupted"]["runs_equal_bitwise"]
+    assert row["c_resumed"]["equal_bitwise"]
+    assert row["checkpoint_steps"] == [4, 5] and row["bytes_per_step"] > 0
+    assert row["d_bad_steps"]["rolled_back_to_checkpoint_4"]
+
+
+def test_graph_kill_and_resume_bit_identical(tmp_path, one_torch_thread):
+    """A ComputationGraph with a parameterless vertex (an empty subtree in
+    every tree) and batch-norm state resumes after a preemption equal to
+    the uninterrupted run, bit for bit."""
+    from deeplearning4j_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_torch.nn.conf import (BatchNormalization, DenseLayer,
+                                              ElementWiseVertex, InputType,
+                                              NeuralNetConfiguration,
+                                              OutputLayer)
+    from deeplearning4j_torch.parallel import CheckpointListener
+    from deeplearning4j_torch.utils.trees import iter_leaves
+
+    def graph(seed):
+        conf = (NeuralNetConfiguration.builder().seed(seed)
+                .updater({"type": "AMSGrad", "learning_rate": 1e-2})
+                .graph().add_inputs("in")
+                .set_input_types(InputType.feed_forward(8))
+                .add_layer("d1", DenseLayer(n_out=12, activation="tanh"),
+                           "in")
+                .add_layer("bn", BatchNormalization(), "d1")
+                .add_layer("d2", DenseLayer(n_out=12, activation="tanh"),
+                           "bn")
+                .add_vertex("res", ElementWiseVertex("add"), "d1", "d2")
+                .add_layer("out", OutputLayer(n_out=4, activation="softmax",
+                                              loss="mcxent"), "res")
+                .set_outputs("out").build())
+        return ComputationGraph(conf).init(device="cpu")
+
+    x, y = _data(64)
+    it = lambda: ListDataSetIterator(DataSet(x, y).batch_by(16))
+    ref = graph(3)
+    ref_loss = ref.fit(it(), n_epochs=2, async_prefetch=False)
+    m = graph(3)
+    m.set_listeners(CheckpointListener(tmp_path / "g",
+                                       save_every_n_iterations=3))
+    try:
+        with pytest.raises(resilience.TrainingPreempted) as ei:
+            with FaultInjector(["preempt@4"]):
+                m.fit(it(), n_epochs=2, async_prefetch=False)
+    finally:
+        resilience.clear_preemption()
+    assert ei.value.step == 4
+    m2 = graph(7)
+    m2.set_listeners(CheckpointListener(tmp_path / "g"))
+    assert m2.fit(it(), n_epochs=2, async_prefetch=False,
+                  resume=True) == ref_loss
+    for tree in ("params_tree", "state_tree", "opt_state"):
+        a = list(iter_leaves(getattr(ref, tree)))
+        b = list(iter_leaves(getattr(m2, tree)))
+        assert [p for p, _ in a] == [p for p, _ in b] and a
+        assert all(torch.equal(u, v) for (_, u), (_, v) in zip(a, b)), tree
+    assert m2.params_tree["res"] == {}
