@@ -133,6 +133,26 @@ Phases:
                scale at 0.5, the rollback to the checkpoint on the card;
                (e) save ms (host copy, write), restore ms, bytes per step
                and a saving step's wall against a plain one's.
+  7c. rnn    — the recurrent stack (no kernel of the port on its path):
+               (a) card f32 against CPU f64 (``RNN_TOL``), the default-
+               width zoo.TextGenerationLSTM() (2 x 256 GravesLSTM, vocab
+               77) with seeded weights on one [32, 50, 77] chunk: output,
+               loss and gradients, rnn_time_step step by step, a masked
+               batch (lengths 10..50) streamed with its carry held; a
+               Bidirectional(GravesLSTM) + SimpleRnn + LastTimeStep(GRU)
+               net through output and one fit step; (b) the checked-in
+               TextGenerationLSTM_pangrams.zip — sha256 against its
+               manifest, score and sampled string equal to the CPU's, a
+               pangram word in it; (c) the main path: TextGenerationLSTM()
+               trained through fit (tBPTT 50, Adam 1e-3, clip 1.0) on
+               CharacterIterator(seq_length 1000, batch 32) over five
+               pre-port docs (~86k characters), 2 epochs of 2 batches = 80
+               chunks, the loss falling, then 200 characters sampled; (d)
+               the same preempted after chunk 39 and resumed by a fresh
+               model, equal bit for bit; (e) ms per chunk, characters/s,
+               ms per sampled character, peak memory, a profiled chunk
+               (busy share, launches), the port's LSTM against
+               torch.nn.LSTM at [32, 50, 256].
   8. bert    — BERT-base (zoo.Bert(): 12 x 768, 12 heads of 64, ff 3072,
                vocab 30522, seeded random weights) trained through
                MultiLayerNetwork.fit at t 512, a padding mask as the flash
@@ -193,6 +213,7 @@ Phases:
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
+``--phases build,rnn`` for the recurrent stack alone,
 ``--phases build,resnet`` for the conv slice alone, or ``--phases
 build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -221,7 +242,7 @@ import time
 import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
-          "train", "resume", "bert", "resnet", "timings")
+          "train", "resume", "rnn", "bert", "resnet", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -2199,6 +2220,496 @@ def phase_resume(torch, np):
         torch.cuda.empty_cache()
 
 
+# -- phase 7c ----------------------------------------------------------
+# the char-RNN main path: dl4j-examples LSTMCharModellingExample's shape
+# (minibatch 32, example length 1000, tBPTT 50) at zoo.TextGenerationLSTM's
+# full width (2 x 256 GravesLSTM, vocab 77)
+RNN_CFG = {"hidden": 256, "n_layers": 2, "seq_length": 1000, "batch": 32,
+           "tbptt": 50, "vocab": 77}
+RNN_EPOCHS = 2
+# pre-port files this round never edits (~86k characters): the corpus,
+# for the example's Shakespeare (not in the repo, and no network)
+RNN_CORPUS = ("SURVEY.md", "VERDICT.md", "ROOFLINE.md", "SNIPPETS.md",
+              "PAPER.md")
+# card f32 against CPU f64, each element held to its own size
+# (``flash_err``; TF32 off): outputs and the carry after 50 recurrent
+# steps, and the loss, within RNN_TOL["fwd"]; one chunk's gradients
+# (summed over 32 x 50 positions) and the Adam moments after one fit
+# step within RNN_TOL["grad"]; the params after that step as max
+# |p_card - p_cpu| / lr within RNN_TOL["adam"]: the first Adam update is
+# lr x g / (|g| + 1e-8), whose slope in g peaks at |g| ~ 1e-8, where a
+# 1e-9 gradient error moves it by 2.5% of lr (a wrong gradient moves it
+# by up to 2).  The CPU's own f32 against its f64 reads 2.5e-7 (fwd),
+# 4.9e-6 (grad) and 1.1e-2 (adam) at this width.  The port's LSTM layer
+# against torch.nn.LSTM (f32 both, other summation orders, 50 steps)
+# within RNN_TOL["yardstick"]: the CPU reads 2.2e-6; a wrong gate order
+# reads O(1).
+RNN_TOL = {"fwd": 1e-5, "grad": 1e-4, "adam": 5e-2, "yardstick": 1e-4}
+PANGRAM_WORDS = ("the", "fox", "dog", "box", "quick", "jugs", "lazy")
+
+
+def rnn_corpus(root, n_chars=None):
+    """(the concatenated ``RNN_CORPUS`` text, its ``RNN_CFG["vocab"]``
+    most frequent characters, sorted); ``n_chars`` cuts the text."""
+    import collections
+    text = "".join(open(os.path.join(root, f), encoding="utf-8").read()
+                   for f in RNN_CORPUS)
+    top = collections.Counter(text).most_common(RNN_CFG["vocab"])
+    return text[:n_chars], sorted(c for c, _ in top)
+
+
+def rnn_numpy_params(np, net, seed):
+    """``net``'s seeded parameters as a numpy tree, with the GravesLSTM
+    peepholes and biases drawn non-zero (they start at zero) so that the
+    comparisons reach them."""
+    from deeplearning4j_torch.utils.trees import iter_leaves, set_path
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for path, leaf in iter_leaves(net.params_tree):
+        a = leaf.detach().cpu().numpy()
+        if path[-1] in ("P", "b"):
+            a = a + rng.normal(0.0, 0.1, a.shape).astype(np.float32)
+        set_path(tree, path, a)
+    return tree
+
+
+def rnn_pair(torch, np, conf_fn, params_np, device):
+    """(a net on ``device`` in f32, the same net on the CPU in f64), both
+    from ``conf_fn()`` with the f32-representable ``params_np``."""
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.utils import load_numpy_params
+    from deeplearning4j_torch.utils.trees import map_leaves
+    card = load_numpy_params(MultiLayerNetwork(conf_fn()), params_np,
+                             device=device)
+    conf = conf_fn()
+    conf.global_conf.dtype = conf.global_conf.compute_dtype = "float64"
+    cpu = load_numpy_params(MultiLayerNetwork(conf), map_leaves(
+        lambda a: a.astype(np.float64), params_np), device="cpu")
+    return card, cpu
+
+
+def rnn_err(torch, got, want):
+    """``flash_err`` of a card tensor against a CPU f64 one."""
+    return flash_err(torch, got.detach().double().cpu(), want)[0]
+
+
+def rnn_tree_err(torch, got, want):
+    """The largest ``rnn_err`` over the leaves of two trees."""
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    want = dict(iter_leaves(want))
+    return max(rnn_err(torch, g, want[p]) for p, g in iter_leaves(got))
+
+
+def rnn_card_vs_cpu(torch, np, device, cfg):
+    """Part (a): the TextGenerationLSTM of ``cfg`` with seeded weights,
+    f32 on ``device`` against f64 on the CPU, on one seeded [b, tbptt,
+    vocab] one-hot chunk: the output, one chunk's loss and gradients,
+    rnn_time_step fed the steps one at a time, a masked batch (lengths
+    t/5..t) streamed in two halves with the carry held through the
+    padding, and a Bidirectional(GravesLSTM) + SimpleRnn +
+    LastTimeStep(GRU) net through output and one fit step."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (Bidirectional, GravesLSTM,
+                                              GRU, InputType, LastTimeStep,
+                                              NeuralNetConfiguration,
+                                              OutputLayer, SimpleRnn)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    from deeplearning4j_torch.zoo import TextGenerationLSTM
+    b, t, v, h = cfg["batch"], cfg["tbptt"], cfg["vocab"], cfg["hidden"]
+    rng = np.random.default_rng(12)
+    eye = np.eye(v, dtype=np.float32)
+    ids = rng.integers(0, v, (b, t + 1))
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    x64, y64 = torch.from_numpy(x).double(), torch.from_numpy(y).double()
+    zoo = TextGenerationLSTM(vocab_size=v, hidden=h,
+                             n_layers=cfg["n_layers"], tbptt_length=t)
+    params = rnn_numpy_params(np, zoo.init_graph(device="cpu"), 5)
+    card, cpu = rnn_pair(torch, np, zoo.conf, params, device)
+    err = {"output": rnn_err(torch, card.output(x), cpu.output(x64))}
+    for net in (card, cpu):
+        net._build_solver()
+    loss, _, grads = card._solver._loss_and_grads(
+        card.params_tree, card.state_tree, card._batch_dict(DataSet(x, y)),
+        None)
+    loss64, _, grads64 = cpu._solver._loss_and_grads(
+        cpu.params_tree, cpu.state_tree,
+        {"features": x64, "labels": y64}, None)
+    err["loss"] = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    err["gradients"] = rnn_tree_err(torch, grads, grads64)
+    card.rnn_clear_previous_state()
+    stream = torch.stack([card.rnn_time_step(x[:, s]) for s in range(t)], 1)
+    err["rnn_time_step"] = rnn_err(torch, stream, cpu.output(x64))
+
+    lengths = rng.integers(max(1, t // 5), t + 1, b)     # 10..50 at t 50
+    mask = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    m64 = torch.from_numpy(mask).double()
+    card.rnn_clear_previous_state()
+    half = t // 2
+    stream = torch.cat([card.rnn_time_step(x[:, sl], mask[:, sl])
+                        for sl in (slice(0, half), slice(half, t))], 1)
+    full, state64 = cpu._forward_layers(cpu.params_tree, cpu.state_tree, x64,
+                                        False, None, mask=m64)
+    err["masked_stream"] = rnn_err(torch, stream, full)
+    err["held_carry"] = rnn_tree_err(torch, card._rnn_state_map, {
+        k: {n: c for n, c in s.items() if n.startswith("rnn_")}
+        for k, s in state64.items()})
+
+    def bidir():
+        return (NeuralNetConfiguration.builder().seed(9)
+                .updater(Adam(learning_rate=1e-3)).list()
+                .layer(Bidirectional(layer=GravesLSTM(n_out=h),
+                                     mode="concat"))
+                .layer(SimpleRnn(n_out=h))
+                .layer(LastTimeStep(layer=GRU(n_out=h)))
+                .layer(OutputLayer(n_out=v, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.recurrent(v)).build())
+
+    params = rnn_numpy_params(
+        np, MultiLayerNetwork(bidir()).init(device="cpu"), 6)
+    card, cpu = rnn_pair(torch, np, bidir, params, device)
+    label = eye[ids[:, -1]]
+    err["bidirectional_output"] = rnn_err(
+        torch, card.output(x, features_mask=mask),
+        cpu.output(x64, features_mask=m64))
+    fit = card.fit(DataSet(x, label, features_mask=mask))
+    fit64 = cpu.fit(DataSet(x64, torch.from_numpy(label).double(),
+                            features_mask=m64))
+    err["bidirectional_fit_loss"] = abs(fit - fit64) / abs(fit64)
+    err["bidirectional_fit_adam_moments"] = rnn_tree_err(
+        torch, card.opt_state, cpu.opt_state)
+    want = dict(iter_leaves(cpu.params_tree))
+    err["bidirectional_fit_params_over_lr"] = max(
+        float((p.double().cpu() - want[k]).abs().max()) / 1e-3
+        for k, p in iter_leaves(card.params_tree))
+    bounds = {"output": "fwd", "loss": "fwd", "gradients": "grad",
+              "rnn_time_step": "fwd", "masked_stream": "fwd",
+              "held_carry": "fwd", "bidirectional_output": "fwd",
+              "bidirectional_fit_loss": "fwd",
+              "bidirectional_fit_adam_moments": "grad",
+              "bidirectional_fit_params_over_lr": "adam"}
+    bad = {k: v for k, v in err.items() if not v <= RNN_TOL[bounds[k]]}
+    if bad:
+        raise AssertionError(f"rnn/a: card against CPU f64 past "
+                             f"{RNN_TOL}: {bad} (all: {err})")
+    return {"errors": err, "bounds": {k: RNN_TOL[v]
+                                      for k, v in bounds.items()},
+            "masked_lengths": [int(n) for n in lengths]}
+
+
+def rnn_pangrams(torch, np, root, device):
+    """Part (b): the checked-in TextGenerationLSTM_pangrams.zip (sha256
+    against its manifest) on ``device`` against the CPU: its score on a
+    pangram batch, and the sampled string, equal, with a pangram word."""
+    import hashlib
+    from deeplearning4j_torch.data import CharacterIterator, sample_characters
+    from deeplearning4j_torch.utils import restore_model
+    path = os.path.join(root, "deeplearning4j_tpu", "zoo", "weights",
+                        "TextGenerationLSTM_pangrams.zip")
+    with open(path + ".json") as f:
+        manifest = json.load(f)
+    with open(path, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    if sha != manifest["sha256"]:
+        raise AssertionError(f"rnn/b: sha256 {sha} != the manifest's")
+    vocab = manifest["vocab"]
+    it = CharacterIterator("".join(vocab), seq_length=10, batch=1,
+                           valid_chars=vocab)
+    ds = next(iter(CharacterIterator(
+        "the quick brown fox jumps over the lazy dog. " * 8, seq_length=40,
+        batch=4, valid_chars=vocab, seed=0)))
+    out = {}
+    for name, where in (("card", device), ("cpu", "cpu")):
+        net = restore_model(path, device=where)
+        t0 = time.perf_counter()
+        text = sample_characters(net, it, init="the ", n_chars=40,
+                                 temperature=0.3, seed=0)
+        out[name] = {"score": net.score(ds), "sample": text,
+                     "sample_s": time.perf_counter() - t0}
+    card, cpu = out["card"], out["cpu"]
+    score_diff = abs(card["score"] - cpu["score"]) / abs(cpu["score"])
+    if card["sample"] != cpu["sample"] or score_diff > RNN_TOL["fwd"] \
+            or len(card["sample"]) != 44 \
+            or not any(w in card["sample"] for w in PANGRAM_WORDS):
+        raise AssertionError(f"rnn/b: card {card} against CPU {cpu}")
+    return {"sha256": sha, "score": card["score"],
+            "score_rel_diff_vs_cpu": score_diff, "sample": card["sample"],
+            "sample_equal_to_cpu": True, "sample_s": card["sample_s"]}
+
+
+def rnn_train(torch, np, device, cfg, text, chars, sync, root):
+    """Parts (c) and (d): the TextGenerationLSTM of ``cfg`` trained
+    through fit on CharacterIterator(seq_length, batch, seed=1) over
+    ``text`` for ``RNN_EPOCHS`` epochs — the main path; then the same run
+    with a CheckpointListener every chunks-per-batch iterations, preempted
+    after the last chunk of the second epoch's first batch, resumed by a
+    fresh model over a fresh iterator (which must draw the second
+    epoch's order, not the first's): its params, Adam state and losses
+    equal to the first run's bit for bit.
+    Returns (the part rows, the first run's net, one chunk)."""
+    from deeplearning4j_torch import resilience
+    from deeplearning4j_torch.data import CharacterIterator, sample_characters
+    from deeplearning4j_torch.optimize import CollectScoresListener
+    from deeplearning4j_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_torch.parallel import CheckpointListener
+    from deeplearning4j_torch.resilience import (FaultInjector,
+                                                 TrainingPreempted)
+    from deeplearning4j_torch.zoo import TextGenerationLSTM
+    chunks = cfg["seq_length"] // cfg["tbptt"]
+    zoo = TextGenerationLSTM(vocab_size=len(chars), hidden=cfg["hidden"],
+                             n_layers=cfg["n_layers"],
+                             tbptt_length=cfg["tbptt"])
+
+    def data():
+        return CharacterIterator(text, seq_length=cfg["seq_length"],
+                                 batch=cfg["batch"], valid_chars=chars,
+                                 seed=1)
+
+    class Probe(TrainingListener):
+        """batch_in_epoch and the carry at every iteration; the clock,
+        the device drained, after each batch's last chunk."""
+
+        def __init__(self):
+            self.batch_in_epoch, self.carry, self.at = [], [], {}
+
+        def iteration_done(self, model, iteration, epoch, loss):
+            self.batch_in_epoch.append(model.batch_in_epoch)
+            self.carry.append("rnn_h" in model.state_tree["layer_0"])
+            if iteration % chunks == chunks - 1:
+                sync()
+                self.at[iteration] = time.perf_counter()
+
+    def counted_clears(net):
+        """Wrap the net's rnn_clear_previous_state to log the iteration
+        count at each call."""
+        calls, inner = [], net.rnn_clear_previous_state
+
+        def clear():
+            calls.append(net.iteration_count)
+            inner()
+        net.rnn_clear_previous_state = clear
+        return calls
+
+    # (c) the main path
+    it = data()
+    n_batches = ((len(it.data) - 1) // cfg["seq_length"]) // cfg["batch"]
+    n_iter = RNN_EPOCHS * n_batches * chunks
+    net = zoo.init_graph(device=device)
+    probe, scores = Probe(), CollectScoresListener()
+    net.set_listeners(probe, scores)
+    clears = counted_clears(net)
+    if device == "cuda":
+        # the peak above what is allocated now: earlier phases' tensors
+        # may still be alive
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    sync()
+    t0 = time.perf_counter()
+    net.fit(it, n_epochs=RNN_EPOCHS)
+    sync()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base if device == "cuda"
+            else None)
+    losses = [s for _, s in scores.scores]
+    k = min(10, len(losses) // 2)
+    want_bie = [(i % (n_batches * chunks)) // chunks
+                + (i % chunks == chunks - 1) for i in range(n_iter)]
+    checks = {"iteration_count": net.iteration_count,
+              "epoch_count": net.epoch_count,
+              "batch_in_epoch_right": probe.batch_in_epoch == want_bie,
+              "carry_in_state_every_chunk": all(probe.carry),
+              "cleared_at_iterations": list(clears),
+              "carry_after_fit": any(n.startswith("rnn_") for s in
+                                     net.state_tree.values() for n in s)}
+    if not (net.iteration_count == n_iter and len(losses) == n_iter
+            and net.epoch_count == RNN_EPOCHS
+            and checks["batch_in_epoch_right"]
+            and checks["carry_in_state_every_chunk"]
+            and clears == [chunks * (i + 1)
+                           for i in range(RNN_EPOCHS * n_batches)]
+            and not checks["carry_after_fit"]
+            and all(math.isfinite(v) for v in losses)
+            and sum(losses[-k:]) < sum(losses[:k])):
+        raise AssertionError(f"rnn/c: {checks}, losses {losses}")
+    first, last = chunks - 1, n_iter - 1
+    chunk_s = (probe.at[last] - probe.at[first]) / (last - first)
+    t0 = time.perf_counter()
+    sample = sample_characters(net, it, init="the ", n_chars=200,
+                               temperature=0.8, seed=0)
+    sample_s = time.perf_counter() - t0
+    if len(sample) != 204 or any(c not in it.char_to_idx for c in sample):
+        raise AssertionError(f"rnn/c: sample {sample!r}")
+    row_c = {"iterations": n_iter, "batches_per_epoch": n_batches,
+             "chunks_per_batch": chunks, "examples_per_batch": cfg["batch"],
+             "characters_in_corpus": len(it.data),
+             "losses_first": losses[:k], "losses_last": losses[-k:],
+             "checks": checks, "fit_wall_s": wall,
+             "chunk_ms": chunk_s * 1e3,
+             "characters_per_s": cfg["batch"] * cfg["tbptt"] / chunk_s,
+             "sample": sample,
+             "sample_ms_per_character_b1": sample_s / 200 * 1e3,
+             "peak_allocated_bytes_above_start": peak}
+
+    # (d) preempted in the second epoch, resumed by a fresh model
+    preempt = (n_batches + 1) * chunks - 1
+    ck_dir = os.path.join(root, "ck")
+    net_d = zoo.init_graph(device=device)
+    pre_scores = CollectScoresListener()
+    net_d.set_listeners(CheckpointListener(
+        ck_dir, save_every_n_iterations=chunks), pre_scores)
+    try:
+        with FaultInjector([f"preempt@{preempt}"]):
+            net_d.fit(data(), n_epochs=RNN_EPOCHS)
+        raise AssertionError("rnn/d: fit was not preempted")
+    except TrainingPreempted as e:
+        preempted_at = e.step
+    finally:
+        resilience.clear_preemption()
+    del net_d
+    net_r = TextGenerationLSTM(
+        vocab_size=len(chars), hidden=cfg["hidden"],
+        n_layers=cfg["n_layers"], tbptt_length=cfg["tbptt"],
+        seed=7).init_graph(device=device)
+    ck = CheckpointListener(ck_dir, save_every_n_iterations=chunks)
+    res_scores = CollectScoresListener()
+    net_r.set_listeners(ck, res_scores)
+    net_r.fit(data(), n_epochs=RNN_EPOCHS, resume=True)
+    state = lambda n: {"params": n.params_tree, "opt_state": n.opt_state}
+    equal, diff = tree_diff(torch, state(net_r), state(net))
+    row_d = {"preempted_at": preempted_at,
+             "checkpoint_steps": ck.ckpt.all_steps(),
+             "losses_before_preemption_equal":
+                 pre_scores.scores == scores.scores[:preempt + 1],
+             "resumed_losses_equal":
+                 res_scores.scores == scores.scores[preempt + 1:],
+             "params_and_adam_equal_bitwise": equal, "max_rel_diff": diff,
+             "iteration_count": net_r.iteration_count,
+             "digest": tree_digest(torch, state(net_r))}
+    if not (preempted_at == preempt and equal
+            and row_d["losses_before_preemption_equal"]
+            and row_d["resumed_losses_equal"]
+            and net_r.iteration_count == n_iter):
+        raise AssertionError(f"rnn/d: {row_d}")
+    del net_r
+    # the first chunk of the first batch, for (e)'s profiled step
+    chunk = net._batch_dict(net._tbptt_chunks(next(iter(data())),
+                                              cfg["tbptt"])[0])
+    return row_c, row_d, net, chunk
+
+
+def rnn_yardstick(torch, device, b, t, h, sync, reps=10):
+    """The port's LSTM layer (no peepholes) against ``torch.nn.LSTM`` at
+    [b, t, h] -> h, fwd + bwd: the weights carried over (weight_ih = W.T,
+    weight_hh = R.T, bias_ih = b, bias_hh = 0; both order the gates i, f,
+    g, o), the outputs compared, then each timed over ``reps`` calls
+    (host clock, the device drained: the port's loop is host-bound)."""
+    from deeplearning4j_torch.nn.conf import LSTM
+    ly = LSTM(n_in=h, n_out=h, weight_init="xavier")
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = {k: v.requires_grad_(True)
+              for k, v in ly.init(gen, device=device).items()}
+    lib = torch.nn.LSTM(h, h, batch_first=True).to(device)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(params["W"].T)
+        lib.weight_hh_l0.copy_(params["R"].T)
+        lib.bias_ih_l0.copy_(params["b"])
+        lib.bias_hh_l0.zero_()
+    x = torch.randn(b, t, h, generator=gen, device=device)
+    port = lambda: ly.apply(params, {}, x, compute_dtype=torch.float32)[0]
+    library = lambda: lib(x)[0]
+    with torch.no_grad():
+        err = flash_err(torch, port().double(), library().double())[0]
+    if not err <= RNN_TOL["yardstick"]:
+        raise AssertionError(f"rnn/e: port LSTM against torch.nn.LSTM "
+                             f"{err} > {RNN_TOL['yardstick']}")
+
+    def ms(fn):
+        for _ in range(2):
+            fn().sum().backward()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn().sum().backward()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    port_ms, lib_ms = ms(port), ms(library)
+    return {"shape": [b, t, h], "max_err_vs_torch_lstm": err,
+            "port_fwd_bwd_ms": port_ms, "torch_lstm_fwd_bwd_ms": lib_ms,
+            "port_over_torch_lstm": port_ms / lib_ms}
+
+
+def rnn_parts(torch, np, device, cfg, text, chars, sync, card, root):
+    """Parts (a)-(e) of :func:`phase_rnn` on ``device`` at ``cfg``'s
+    widths (``sync`` waits for the device, ``root`` is the checkout, and
+    the checkpoints go under a temporary directory).  The device-only
+    readings of (e) — a profiled chunk and the peak memory — are taken on
+    a card only."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    row = {"phase": "rnn", "config": dict(cfg, vocab=len(chars)),
+           "a_card_vs_cpu": rnn_card_vs_cpu(torch, np, device, cfg),
+           "b_pangrams": rnn_pangrams(torch, np, root, device)}
+    tmp = tempfile.mkdtemp(prefix="dl4j-rnn-")
+    try:
+        row["c_main_path"], row["d_resume"], net, chunk = rnn_train(
+            torch, np, device, cfg, text, chars, sync, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    timings = {"yardstick": rnn_yardstick(torch, device, cfg["batch"],
+                                          cfg["tbptt"], cfg["hidden"], sync)}
+    if device == "cuda":
+        step = lambda: float(net._solver.step(
+            net.params_tree, net.opt_state, net.state_tree,
+            net.iteration_count, chunk, None)[3])
+        step()
+        timings["profiled_chunk"] = step_profile(torch, step)
+    row["e_timings"] = timings
+    row["reduced"] = [
+        f"{RNN_EPOCHS} epochs of the corpus (the example trains for many)",
+        "corpus: " + ", ".join(RNN_CORPUS) + " (~86k characters) for the "
+        "example's Shakespeare, which is not in the repo"]
+    row.update(card=card, seconds=time.perf_counter() - t_phase)
+    emit(row)
+    return row
+
+
+def phase_rnn(torch, np, root):
+    """The recurrent stack on the card (phase 7c).  (a) Card f32 against
+    CPU f64 (``RNN_TOL``): the default-width TextGenerationLSTM() with
+    seeded weights on one [32, 50, 77] chunk — output, loss and
+    gradients, rnn_time_step step by step, a masked batch (lengths 10..50)
+    streamed with its carry held — and a Bidirectional(GravesLSTM) +
+    SimpleRnn + LastTimeStep(GRU) net through output and one fit step.
+    (b) The checked-in TextGenerationLSTM_pangrams.zip: sha256, score and
+    sample equal to the CPU's, a pangram word in it.  (c) The main path:
+    TextGenerationLSTM() (2 x 256 GravesLSTM, vocab 77, tBPTT 50, Adam
+    1e-3, clip 1.0) trained through fit on CharacterIterator(seq_length
+    1000, batch 32, seed 1) over ``RNN_CORPUS`` for 2 epochs of 2
+    batches (80 chunks), loss falling, the counters and the carry
+    clearing checked, then 200 sampled characters.  (d) The same run with
+    a CheckpointListener every 20 iterations (after a batch's first
+    chunk), preempted after iteration 59 (the last chunk of the second
+    epoch's first batch) and resumed by a fresh TextGenerationLSTM(seed=7)
+    over a fresh CharacterIterator: params, Adam state and losses equal
+    to (c)'s bit for bit.  (e) ms per chunk, characters/s, ms per
+    sampled character at b 1, peak memory, a profiled chunk (device busy
+    share, launches), and the port's LSTM against torch.nn.LSTM at
+    [32, 50, 256] (a yardstick only).  No kernel of the port is on this
+    path."""
+    text, chars = rnn_corpus(root)
+    try:
+        return rnn_parts(torch, np, "cuda", RNN_CFG, text, chars,
+                         torch.cuda.synchronize, card_line(), root)
+    finally:
+        torch.cuda.empty_cache()
+
+
 # -- phase 8 -----------------------------------------------------------
 BERT_B, BERT_T, BERT_SEED = 32, 512, 3
 
@@ -3612,6 +4123,8 @@ def main(argv=None) -> int:
             t_counts = phase_train(torch, np)
         if "resume" in phases:
             r_counts = phase_resume(torch, np)
+        if "rnn" in phases:
+            phase_rnn(torch, np, root)
         if "bert" in phases:
             b_counts = phase_bert(torch, np)
         if "resnet" in phases:

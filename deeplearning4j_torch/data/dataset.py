@@ -2,8 +2,8 @@
 ``DataSet``): features, labels and their masks as host numpy arrays,
 with the split/shuffle/batch utilities; conversion to device tensors
 happens at the step boundary (``MultiLayerNetwork._batch_dict``); and
-``MultiDataSet``, the multi-input container ``BertIterator`` yields.
-``tbptt_segments`` comes with the recurrent slice."""
+``MultiDataSet``, the multi-input container ``BertIterator`` yields;
+and ``tbptt_segments``, the truncated-BPTT splitter."""
 from __future__ import annotations
 
 import dataclasses
@@ -80,3 +80,46 @@ class MultiDataSet:
 
     def num_examples(self) -> int:
         return int(self.features[0].shape[0])
+
+
+def tbptt_segments(ds, length: int):
+    """Split a sequence batch along time into truncated-BPTT segments
+    (DL4J ``MultiLayerNetwork.doTruncatedBPTT`` /
+    ``ComputationGraph.doTruncatedBPTT``): [b, t, f] arrays are sliced on
+    the time axis and so are 2-D masks; per-example arrays pass through.
+    A batch with no time dimension comes back unchanged."""
+    def t_len(arrays):
+        for a in arrays:
+            if a is not None and np.ndim(a) == 3:
+                return a.shape[1]
+        return None
+
+    def tslice(a, sl, is_mask=False):
+        if a is None:
+            return None
+        if np.ndim(a) == 3 or (is_mask and np.ndim(a) == 2):
+            return a[:, sl]
+        return a
+
+    def slices(t):
+        return [slice(s, min(s + length, t)) for s in range(0, t, length)]
+
+    if isinstance(ds, MultiDataSet):
+        t = t_len(list(ds.features) + list(ds.labels))
+        if t is None:
+            return [ds]
+        return [MultiDataSet(
+            [tslice(a, sl) for a in ds.features],
+            [tslice(a, sl) for a in ds.labels],
+            None if ds.features_masks is None else
+            [tslice(a, sl, True) for a in ds.features_masks],
+            None if ds.labels_masks is None else
+            [tslice(a, sl, True) for a in ds.labels_masks])
+            for sl in slices(t)]
+    t = t_len([ds.features, ds.labels])
+    if t is None:
+        return [ds]
+    return [DataSet(tslice(ds.features, sl), tslice(ds.labels, sl),
+                    tslice(ds.features_mask, sl, True),
+                    tslice(ds.labels_mask, sl, True))
+            for sl in slices(t)]

@@ -97,6 +97,11 @@ class ArrayDataSetIterator(DataSetIterator):
     def reset(self):
         pass  # epoch counter advances shuffling; order resets naturally
 
+    def set_epoch(self, epoch: int):
+        """Make the next ``iter()`` yield epoch ``epoch``'s order (the
+        resume hook of ``run_fit``)."""
+        self._epoch = int(epoch)
+
     def batch_size(self):
         return self._bs
 

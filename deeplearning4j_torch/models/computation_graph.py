@@ -14,7 +14,9 @@ as plain dictionaries of tensors on ``self.device`` with the reference's
 leaf names and layouts, so checkpoints and JAX trees carry over leaf by
 leaf.  Training is the eager ``Solver.step`` (forward, loss, autograd,
 updater, in-place update) behind ``fit`` and ``compiled_train_step``;
-both store the new batch-norm state the forward returns.
+both store the new state the forward returns (batch-norm statistics; a
+recurrent vertex's carry, which flows across the tBPTT chunks of a batch
+— ``rnn_clear_previous_state`` comes from ``BaseNetwork``).
 """
 from __future__ import annotations
 
@@ -518,11 +520,6 @@ class ComputationGraph(BaseNetwork):
                                   st.step + 1), loss
 
         return _Step()
-
-    def rnn_clear_previous_state(self):
-        raise NotImplementedError(
-            "recurrent state comes with the recurrent slice of the port "
-            "(ROADMAP Queue 1, the recurrent stack)")
 
     # ------------------------------------------------------------------
     # Inference / scoring

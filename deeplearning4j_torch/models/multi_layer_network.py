@@ -1,8 +1,8 @@
 """MultiLayerNetwork: the sequential-stack model (port of
 ``deeplearning4j_tpu/models/multi_layer_network.py``: ``init``,
-``output``, ``feed_forward``, ``score`` and ``load``; ``fit``,
-``evaluate*``, the parameter views, ``clone`` and ``save`` come from
-``models.network.BaseNetwork``).
+``output``, ``feed_forward``, ``score``, ``rnn_time_step`` and
+``load``; ``fit`` with truncated BPTT, ``evaluate*``, the parameter
+views, ``clone`` and ``save`` come from ``models.network.BaseNetwork``).
 
 ``params_tree`` keeps the reference's shape — ``{"layer_i": {name:
 tensor}}`` with the same names and ``x @ W`` layouts — as plain
@@ -131,6 +131,34 @@ class MultiLayerNetwork(BaseNetwork):
         if ds.features_mask is not None:
             b["features_mask"] = self._tensor(ds.features_mask)
         return b
+
+    # ------------------------------------------------------------------
+    # Streaming (DL4J rnnTimeStep)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def rnn_time_step(self, x, features_mask=None):
+        """Streaming inference: run these timesteps on from the stored
+        recurrent carry and store the new one (DL4J ``rnnTimeStep``).
+        ``x`` is [b, t, f], or [b, f] for one step, which returns [b,
+        out].  Like DL4J's ``stateMap`` the carry lives in a map of its
+        own, not in ``state_tree``, so interleaved ``output`` and
+        ``score`` calls still start from zeros."""
+        self._check_init()
+        x = self._tensor(x)
+        single = x.dim() == 2
+        if single:
+            x = x[:, None, :]
+        if features_mask is not None:
+            features_mask = self._tensor(features_mask)
+        state_in = dict(self.state_tree)
+        for key, carry in (self._rnn_state_map or {}).items():
+            state_in[key] = {**state_in[key], **carry}
+        y, new_state = self._forward_layers(self.params_tree, state_in, x,
+                                            False, None, mask=features_mask)
+        self._rnn_state_map = {
+            key: {k: v for k, v in s.items() if k.startswith("rnn_")}
+            for key, s in new_state.items()}
+        return y[:, -1] if single else y
 
     # ------------------------------------------------------------------
     # Inference / scoring

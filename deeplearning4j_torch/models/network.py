@@ -5,9 +5,9 @@ A network keeps ``params_tree`` and ``state_tree`` as dictionaries keyed
 by a tree key per layer (``layer_i`` in a stack, the vertex name in a
 graph) and names its layers through ``_named_layers()``; the flattened
 parameter view follows ``_leaf_order()``.  On that this class builds the
-solver (weight decay, frozen layers), ``fit``, regularization, batch
-tensors, the evaluators, the parameter vector, listeners, ``clone`` and
-``save``.
+solver (weight decay, frozen layers), ``fit``, the recurrent-state
+handling of truncated BPTT, regularization, batch tensors, the
+evaluators, the parameter vector, listeners, ``clone`` and ``save``.
 """
 from __future__ import annotations
 
@@ -16,13 +16,15 @@ from typing import Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from deeplearning4j_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_torch.data.dataset import (DataSet, MultiDataSet,
+                                               tbptt_segments)
 from deeplearning4j_torch.data.iterator import (AsyncDataSetIterator,
                                                 DataSetIterator,
                                                 ListDataSetIterator)
 from deeplearning4j_torch.eval import (Evaluation, RegressionEvaluation,
                                        ROCMultiClass)
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf
+from deeplearning4j_torch.nn.conf.layers_recurrent import strip_rnn_carry
 from deeplearning4j_torch.optimize.fit_loop import run_fit
 from deeplearning4j_torch.optimize.listeners import TrainingListener
 from deeplearning4j_torch.optimize.solver import Solver
@@ -49,6 +51,8 @@ class BaseNetwork:
         cd = getattr(conf.global_conf, "compute_dtype", None)
         self._compute_dtype = canonical_dtype(cd) if cd else torch.float32
         self._solver: Optional[Solver] = None
+        # rnn_time_step's carry, apart from state_tree (DL4J's stateMap)
+        self._rnn_state_map = None
 
     # -- what each class supplies ---------------------------------------
     def _named_layers(self) -> Iterable[Tuple[str, BaseLayerConf]]:
@@ -156,6 +160,24 @@ class BaseNetwork:
                    else iterator)
         return run_fit(self, wrapped, n_epochs, reset_target=iterator,
                        resume=resume)
+
+    # -- recurrent state (DL4J tBPTT / rnnClearPreviousState) -----------
+    def _has_rnn(self) -> bool:
+        return any(getattr(ly, "IS_RNN", False)
+                   for _, ly in self._named_layers())
+
+    @staticmethod
+    def _tbptt_chunks(ds: Union[DataSet, MultiDataSet], length: int):
+        """A sequence batch split along time into tBPTT segments (DL4J
+        ``doTruncatedBPTT``)."""
+        return tbptt_segments(ds, length)
+
+    def rnn_clear_previous_state(self):
+        """Drop every stored recurrent carry (DL4J
+        ``rnnClearPreviousState``)."""
+        self._rnn_state_map = None
+        if self.state_tree is not None:
+            self.state_tree = strip_rnn_carry(self.state_tree)
 
     # -- evaluation --------------------------------------------------------
     def _host_output(self, x, features_mask=None) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Layer configurations and the network-configuration builder (port of
 ``deeplearning4j_tpu.nn.conf``: the transformer stacks' layers, the conv
-stack's layers and the graph vertices so far)."""
+stack's layers, the recurrent layers and the graph vertices so far)."""
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, GlobalConf
 from deeplearning4j_torch.nn.conf.builder import (MultiLayerConfiguration,
                                                   NeuralNetConfiguration)
@@ -19,7 +19,9 @@ from deeplearning4j_torch.nn.conf.layers_core import (ActivationLayer,
                                                       DropoutLayer,
                                                       EmbeddingLayer,
                                                       LossLayer, OutputLayer)
-from deeplearning4j_torch.nn.conf.layers_recurrent import RnnOutputLayer
+from deeplearning4j_torch.nn.conf.layers_recurrent import (
+    GRU, LSTM, Bidirectional, GravesLSTM, LastTimeStep, RnnOutputLayer,
+    SimpleRnn)
 from deeplearning4j_torch.nn.conf.layers_transformer import (
     EmbeddingSequenceLayer, TransformerEncoderBlock)
 
@@ -27,7 +29,8 @@ __all__ = ["BaseLayerConf", "GlobalConf", "MultiLayerConfiguration",
            "NeuralNetConfiguration", "InputType", "ActivationLayer",
            "DenseLayer", "DropoutLayer", "EmbeddingLayer",
            "GlobalPoolingLayer", "LossLayer", "OutputLayer",
-           "RnnOutputLayer", "EmbeddingSequenceLayer",
+           "RnnOutputLayer", "LSTM", "GravesLSTM", "GRU", "SimpleRnn",
+           "Bidirectional", "LastTimeStep", "EmbeddingSequenceLayer",
            "TransformerEncoderBlock", "BatchNormalization", "CnnLossLayer",
            "Convolution1DLayer", "ConvolutionLayer", "Cropping2D",
            "Deconvolution2D", "DepthwiseConvolution2D",

@@ -110,6 +110,9 @@ class ListBuilder:
         self._parent = parent
         self._layers: List[BaseLayerConf] = []
         self._input_type: Optional[InputType] = None
+        self._backprop_type: str = "standard"
+        self._tbptt_fwd: Optional[int] = None
+        self._tbptt_bwd: Optional[int] = None
 
     def layer(self, conf: BaseLayerConf) -> "ListBuilder":
         self._layers.append(conf)
@@ -117,6 +120,15 @@ class ListBuilder:
 
     def set_input_type(self, it: InputType) -> "ListBuilder":
         self._input_type = it
+        return self
+
+    def backprop_type(self, kind: str, tbptt_fwd: int = None,
+                      tbptt_bwd: int = None) -> "ListBuilder":
+        """'standard' | 'truncated_bptt' (DL4J ``BackpropType`` and the
+        tBPTT lengths)."""
+        self._backprop_type = str(kind).lower()
+        self._tbptt_fwd = tbptt_fwd
+        self._tbptt_bwd = tbptt_bwd or tbptt_fwd
         return self
 
     def build(self) -> "MultiLayerConfiguration":
@@ -155,7 +167,9 @@ class ListBuilder:
             it = InputType(out_kind, tuple(out_shape))
         return MultiLayerConfiguration(
             global_conf=g, layers=self._layers, preprocessors=preprocessors,
-            input_type=input_type,
+            input_type=input_type, backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_bwd_length=self._tbptt_bwd,
             grad_normalization=self._parent.grad_normalization,
             grad_norm_threshold=self._parent.grad_norm_threshold)
 

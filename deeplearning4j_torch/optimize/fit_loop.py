@@ -9,6 +9,14 @@ series ``train_{iterations,epochs,examples}_total``,
 reference's names, and the ``DL4J_TPU_SANITIZE=nan`` loss check
 (``analysis.sanitize``).
 
+Truncated BPTT (``backprop_type == "truncated_bptt"``) splits each batch
+along time into ``tbptt_fwd_length`` chunks, one optimizer step each;
+the recurrent carry flows across the chunks of a batch (the solver
+detaches it, so gradients stop at the chunk boundary) and is cleared
+after every batch.  ``batch_in_epoch`` advances with a batch's LAST
+chunk and preemption is polled there only, so a checkpoint always
+stores a batch position its step counter agrees with.
+
 Fault tolerance rides the same loop:
 
 * ``resume=True`` restores the newest checkpoint of the attached
@@ -17,11 +25,9 @@ Fault tolerance rides the same loop:
 * a SIGTERM/SIGINT (``resilience.PreemptionGuard``) is polled at batch
   boundaries: the loop forces one final checkpoint save + wait, then
   unwinds with ``TrainingPreempted``;
-* the fault injector's training sites live here (step exceptions,
-  NaN-poisoned batches, data stalls, simulated preemption), so injected
-  faults traverse the code real ones would.
-
-Truncated BPTT comes with the recurrent slice and raises.
+* the fault injector's training sites live here (step exceptions and
+  NaN-poisoned batches per chunk, data stalls per batch, simulated
+  preemption), so injected faults traverse the code real ones would.
 """
 from __future__ import annotations
 
@@ -47,8 +53,8 @@ _DATA_WAIT = telemetry.histogram(
     "host wall time blocked on the data iterator per batch")
 _STEP_TIME = telemetry.histogram(
     "train_step_dispatch_seconds",
-    "host wall time in step_fn per batch (eager launch + listener sync, "
-    "not device completion)")
+    "host wall time in step_fn per step, a batch or its tBPTT chunk "
+    "(eager launch + listener sync, not device completion)")
 
 
 def _checkpoint_listener(model):
@@ -97,14 +103,11 @@ def run_fit(model, iterator, n_epochs: int,
 
     ``resume=True`` restores the newest checkpoint of the attached
     ``CheckpointListener`` (params, optimizer state, counters, RNG
-    position) and fast-forwards the iterator past the batches the
+    position), puts an iterator that has ``set_epoch`` at the restored
+    epoch's order, and fast-forwards it past the batches the
     checkpointed epoch already consumed.  In resume mode ``n_epochs`` is
     the TOTAL epoch target, not an increment: a run preempted in epoch 3
     of 5 resumes for the remaining 2."""
-    if getattr(model.conf, "backprop_type", "standard") == "truncated_bptt":
-        raise NotImplementedError(
-            "truncated BPTT comes with the recurrent slice of the port")
-
     if step_fn is None:
         def step_fn(batch):
             (model.params_tree, model.opt_state, model.state_tree,
@@ -124,6 +127,13 @@ def run_fit(model, iterator, n_epochs: int,
         step = ck.restore_into(model)
         if step is not None:
             skip_batches = int(getattr(model, "batch_in_epoch", 0))
+            # an iterator whose order changes from epoch to epoch (a
+            # rolling RNG, a per-epoch shuffle) starts at the restored
+            # epoch's order, not at its first epoch's
+            set_epoch = getattr(reset_target if reset_target is not None
+                                else iterator, "set_epoch", None)
+            if set_epoch is not None:
+                set_epoch(model.epoch_count)
             _preemption.RESUMES.inc()
             log.info("resumed from checkpoint step %d (epoch %d, "
                      "%d batches into it)", step, model.epoch_count,
@@ -134,6 +144,9 @@ def run_fit(model, iterator, n_epochs: int,
     else:
         epochs_to_run = n_epochs
 
+    tbptt_len = (model.conf.tbptt_fwd_length
+                 if getattr(model.conf, "backprop_type", "standard")
+                 == "truncated_bptt" else 0)
     last_loss = None
     tracer = telemetry.get_tracer()
     for _ in range(epochs_to_run):
@@ -153,7 +166,7 @@ def run_fit(model, iterator, n_epochs: int,
             else:
                 model.batch_in_epoch = 0
             last_loss = _run_epoch(model, data_it, step_fn, tracer,
-                                   last_loss)
+                                   last_loss, tbptt_len)
         finally:
             # an unwinding fit (preemption, a step failure) stops the
             # async prefetch thread now, not when the traceback dies
@@ -171,8 +184,9 @@ def run_fit(model, iterator, n_epochs: int,
     return None if last_loss is None else float(last_loss)
 
 
-def _run_epoch(model, data_it, step_fn, tracer, last_loss):
-    """The batches of one epoch; returns the last loss (a tensor)."""
+def _run_epoch(model, data_it, step_fn, tracer, last_loss, tbptt_len):
+    """The batches of one epoch, each in ``tbptt_len`` chunks (the whole
+    batch when 0); returns the last loss (a tensor)."""
     while True:
         t_fetch = time.perf_counter()
         _faults.maybe_stall("data_stall", model.iteration_count)
@@ -183,37 +197,52 @@ def _run_epoch(model, data_it, step_fn, tracer, last_loss):
         _DATA_WAIT.observe(time.perf_counter() - t_fetch)
         model.last_batch_size = ds.num_examples()
         _EXAMPLES.inc(model.last_batch_size)
-        t_step = time.perf_counter()
-        batch = _faults.corrupt_batch(model.iteration_count,
-                                      model._batch_dict(ds))
-        _faults.maybe_fail("step_exception", model.iteration_count)
-        with tracer.span("train/step", iteration=model.iteration_count):
-            loss = step_fn(batch)
-        if _sanitize.active("nan"):
-            # DL4J_TPU_SANITIZE=nan — one device sync per step (the
-            # solver keeps the params on a bad step, but the loss still
-            # reports NaN)
-            _sanitize.check_finite(
-                "train/loss", loss,
-                detail=f"iteration {model.iteration_count}")
-        last_loss = loss
-        # batch_in_epoch counts COMPLETED batches, advanced before the
-        # listeners fire, so a checkpoint taken in iteration_done stores
-        # a batch position consistent with its step counter
+        chunks = model._tbptt_chunks(ds, tbptt_len) if tbptt_len else [ds]
+        for ci, chunk in enumerate(chunks):
+            last = ci == len(chunks) - 1
+            last_loss = _run_step(model, chunk, step_fn, tracer, last)
+            # act on preemption only at BATCH boundaries (with a
+            # coordinator installed the poll agrees across ranks, so
+            # every rank's forced save carries the same step label): a
+            # save mid-batch would store a step counter the
+            # batch-granular batch_in_epoch cannot express
+            if last and _preemption.poll_preemption():
+                _preemption.PREEMPTIONS.inc()
+                final = _preemption_save(_checkpoint_listener(model), model)
+                raise TrainingPreempted(final)
+        # the carry flows ACROSS the chunks of one batch (that is the
+        # point of truncated BPTT) but never across batches
+        if model._has_rnn():
+            model.rnn_clear_previous_state()
+
+
+def _run_step(model, chunk, step_fn, tracer, last_chunk):
+    """One optimizer step on one chunk (a whole batch without tBPTT),
+    its listeners and counters; returns the loss (a tensor)."""
+    t_step = time.perf_counter()
+    batch = _faults.corrupt_batch(model.iteration_count,
+                                  model._batch_dict(chunk))
+    _faults.maybe_fail("step_exception", model.iteration_count)
+    with tracer.span("train/step", iteration=model.iteration_count):
+        loss = step_fn(batch)
+    if _sanitize.active("nan"):
+        # DL4J_TPU_SANITIZE=nan — one device sync per step (the solver
+        # keeps the params on a bad step, but the loss still reports NaN)
+        _sanitize.check_finite("train/loss", loss,
+                               detail=f"iteration {model.iteration_count}")
+    # batch_in_epoch counts COMPLETED batches, advanced with a batch's
+    # last chunk before the listeners fire, so a checkpoint taken in
+    # iteration_done stores a batch position consistent with its step
+    # counter
+    if last_chunk:
         model.batch_in_epoch = getattr(model, "batch_in_epoch", 0) + 1
-        for lst in model.listeners:
-            lst.iteration_done(model, model.iteration_count,
-                               model.epoch_count, loss)
-        _STEP_TIME.observe(time.perf_counter() - t_step)
-        _ITERS.inc()
-        model.iteration_count += 1
-        # chaos site: simulated SIGTERM after iteration N
-        if _faults.fires("preempt", model.iteration_count - 1):
-            _preemption.request_preemption()
-        # act on preemption only at batch boundaries (with a coordinator
-        # installed the poll agrees across ranks, so every rank's forced
-        # save carries the same step label)
-        if _preemption.poll_preemption():
-            _preemption.PREEMPTIONS.inc()
-            final = _preemption_save(_checkpoint_listener(model), model)
-            raise TrainingPreempted(final)
+    for lst in model.listeners:
+        lst.iteration_done(model, model.iteration_count, model.epoch_count,
+                           loss)
+    _STEP_TIME.observe(time.perf_counter() - t_step)
+    _ITERS.inc()
+    model.iteration_count += 1
+    # chaos site: simulated SIGTERM after iteration N
+    if _faults.fires("preempt", model.iteration_count - 1):
+        _preemption.request_preemption()
+    return loss

@@ -12,7 +12,9 @@ donation buys the reference): parameters and optimizer-state tensors
 keep their identity and storage, and a non-finite step selects the old
 values with ``torch.where`` — bit-identical, never ``0 * NaN``.  The
 model state the forward returns (batch-norm running statistics) is kept
-the same way: the new tree on a finite step, the old one on a bad step.
+the same way: the new tree on a finite step, the old one on a bad step
+(where the two trees line up: a recurrent model's first tBPTT chunk grows
+the tree by its carry).
 """
 from __future__ import annotations
 
@@ -155,7 +157,11 @@ class Solver:
         tree = map_leaves(lambda _: None, params)
         for path, leaf, g in zip(paths, leaves, grads):
             set_path(tree, path, torch.zeros_like(leaf) if g is None else g)
-        return loss.detach(), new_state, tree
+        # the state leaves the graph here: a recurrent carry continues
+        # into the next tBPTT chunk as a value, so gradients stop at the
+        # chunk boundary (as in the reference's jitted step)
+        return (loss.detach(), map_leaves(torch.Tensor.detach, new_state),
+                tree)
 
     def step(self, params, opt_state, model_state, step_idx, batch, rng,
              lr_scale: float = 1.0):
@@ -185,8 +191,10 @@ class Solver:
             apply_updates_if(ok, params, updates, lr_scale)
             new_opt = self.updater.finalize(new_opt, params)
             select_step(ok, new_opt, opt_state)
-            # model state (batch-norm statistics) keeps its old value on
-            # a bad step too, where the two trees line up
+            # model state (batch-norm statistics, a recurrent carry)
+            # keeps its old value on a bad step too, where the two trees
+            # line up: a first chunk GROWS the tree by its carry, and that
+            # goes through (the next batch boundary clears it)
             if [p for p, _ in iter_leaves(new_model_state)] == \
                     [p for p, _ in iter_leaves(model_state)]:
                 new_model_state = map_leaves(

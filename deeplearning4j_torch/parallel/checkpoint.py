@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_torch import telemetry
+from deeplearning4j_torch.nn.conf.layers_recurrent import strip_rnn_carry
 from deeplearning4j_torch.optimize.listeners import TrainingListener
 from deeplearning4j_torch.resilience import faults as _faults
 
@@ -332,7 +333,17 @@ class ShardedCheckpointer:
 class CheckpointListener(TrainingListener):
     """Every-N-iterations / every-N-epochs checkpointing listener — the
     DL4J ``CheckpointListener`` surface on :class:`ShardedCheckpointer`,
-    and what ``fit(resume=True)`` restores from."""
+    and what ``fit(resume=True)`` restores from.
+
+    The model state is saved WITHOUT recurrent carries (``rnn_*``): a
+    carry is batch-sized, a fresh model has none, and ``run_fit`` clears
+    it at every batch boundary anyway.  Resume is batch-granular: a run
+    preempted at a batch boundary (where the preemption poll sits), in
+    any epoch, resumes equal to the uninterrupted run when its iterator
+    is rebuilt as before (``run_fit`` puts an iterator with
+    ``set_epoch`` at the restored epoch's order); a periodic save that
+    falls mid-batch (between two tBPTT chunks) resumes from that batch's
+    start, with the params of the chunks already taken."""
 
     def __init__(self, directory,
                  save_every_n_iterations: Optional[int] = None,
@@ -357,7 +368,7 @@ class CheckpointListener(TrainingListener):
               else model.iteration_count)
         state = {"params": model.params_tree,
                  "opt_state": model.opt_state,
-                 "model_state": model.state_tree,
+                 "model_state": strip_rnn_carry(model.state_tree),
                  "counters": {"iteration": it,
                               "epoch": model.epoch_count,
                               # completed batches of the current epoch:

@@ -6,9 +6,10 @@
 it as the port net's ``params_tree``: nested ``{"layer_i": {name:
 array}}`` for a ``MultiLayerNetwork``, ``{vertex name: {name: array}}``
 for a ``ComputationGraph``.  Names and layouts are shared (``Wqkv`` [d,
-3d], head ``W`` [d, V], conv ``W`` HWIO), so no leaf is transposed; every
-leaf is checked against the layer's ``param_shapes()``, and a layer or
-vertex without parameters takes an empty dict.  The net's state starts
+3d], head ``W`` [d, V], conv ``W`` HWIO, recurrent ``W`` [n_in, 4h] and
+``R`` [h, 4h]), so no leaf is transposed; every leaf is checked against
+the layer's ``param_shapes()`` (nested for ``Bidirectional``'s ``fwd`` /
+``bwd``), and a layer or vertex without parameters takes an empty dict.  The net's state starts
 as each layer's ``init_state``.
 
 ``load_numpy_state(net, state_tree_np)`` installs the JAX package's
@@ -42,24 +43,35 @@ def _named_layers(net):
     return [(f"layer_{i}", ly) for i, ly in enumerate(net.layers)]
 
 
+def _checked_leaves(what, key, kind, given, want, dev):
+    """``given`` (a layer's numpy leaves) as tensors on ``dev``, checked
+    against ``want`` ({name: shape}, nested for a wrapper such as
+    ``Bidirectional``'s ``{"fwd": {...}, "bwd": {...}}``)."""
+    if set(given) != set(want):
+        raise ValueError(
+            f"{key} ({kind}): {what} {sorted(given)} do not match the "
+            f"configuration's {sorted(want)}")
+    leaves = {}
+    for name, shape in want.items():
+        if isinstance(shape, dict):
+            leaves[name] = _checked_leaves(what, f"{key}/{name}", kind,
+                                           given[name], shape, dev)
+            continue
+        arr = np.asarray(given[name])
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{key}/{name}: shape {arr.shape}, "
+                             f"configuration wants {tuple(shape)}")
+        leaves[name] = torch.from_numpy(np.array(arr)).to(dev)
+    return leaves
+
+
 def _checked_tree(what, named, given_tree, want_of, dev):
     tree = {}
     for key, ly in named:
-        given = given_tree.get(key, {})
-        want = want_of(ly) if ly is not None else {}
-        if set(given) != set(want):
-            kind = type(ly).__name__ if ly is not None else "vertex"
-            raise ValueError(
-                f"{key} ({kind}): {what} {sorted(given)} do not match the "
-                f"configuration's {sorted(want)}")
-        leaves = {}
-        for name, shape in want.items():
-            arr = np.asarray(given[name])
-            if tuple(arr.shape) != tuple(shape):
-                raise ValueError(f"{key}/{name}: shape {arr.shape}, "
-                                 f"configuration wants {tuple(shape)}")
-            leaves[name] = torch.from_numpy(np.array(arr)).to(dev)
-        tree[key] = leaves
+        kind = type(ly).__name__ if ly is not None else "vertex"
+        tree[key] = _checked_leaves(
+            what, key, kind, given_tree.get(key, {}),
+            want_of(ly) if ly is not None else {}, dev)
     extra = set(given_tree) - set(tree)
     if extra:
         raise ValueError(f"{what} for unknown layers {sorted(extra)}")

@@ -499,13 +499,24 @@ def test_adadelta_matches_jax(rho, eps):
 
 
 def test_left_out_recurrent_features_raise():
-    pnet = P.cg.ComputationGraph(_simple_graph(P)).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        pnet.rnn_clear_previous_state()
-    pnet.conf.backprop_type = "truncated_bptt"
+    """The recurrent features this file's graphs once left out no longer
+    raise: ``rnn_clear_previous_state`` on a graph without recurrent
+    vertices leaves its state as it is, and truncated BPTT over a batch
+    with no time axis is one ordinary step — both as in the JAX package
+    (the recurrent graph cases are in test_torch_layers_recurrent.py)."""
+    jnet, pnet = _pair(_simple_graph)
+    state = pnet.state_tree
+    pnet.rnn_clear_previous_state()
+    jnet.rnn_clear_previous_state()
+    assert pnet.state_tree == state and not pnet._has_rnn()
+    for net in (jnet, pnet):
+        net.conf.backprop_type = "truncated_bptt"
+        net.conf.tbptt_fwd_length = 2
     x, y = _xy(n=4)
-    with pytest.raises(NotImplementedError, match="BPTT"):
-        pnet.fit(P.DataSet(x, y))
+    assert pnet.fit(P.DataSet(x, y)) == pytest.approx(
+        jnet.fit(J.DataSet(x, y)), rel=1e-5)
+    assert pnet.iteration_count == jnet.iteration_count == 1
+    _assert_trees_close(pnet.params_tree, jnet.params_tree)
 
 
 def _mini_resnet(ns):

@@ -1,5 +1,5 @@
 """The port's gradient-check harness (``tests/test_gradient_check.py``
-ported; the two LSTM cases come with the recurrent slice).
+ported, its two LSTM cases included).
 
 Each model is the JAX package's configuration and initial parameters
 carried into the port (``utils.convert``), checked on the same
@@ -73,9 +73,9 @@ def _mln(layers, input_type, seed=12, l1=None, l2=None):
     return MultiLayerNetwork(b.set_input_type(input_type).build()).init()
 
 
-def _cls_ds(rng, shape, n_cls):
+def _cls_ds(rng, shape, n_cls, seq=False):
     x = rng.normal(size=shape).astype(np.float64)
-    lab = rng.integers(0, n_cls, shape[0])
+    lab = rng.integers(0, n_cls, shape[:2] if seq else shape[0])
     return x, np.eye(n_cls)[lab].astype(np.float64)
 
 
@@ -131,6 +131,51 @@ def test_conv_bn_pool_gradients(rng):
                                 DataSet(*_cls_ds(rng, (4, 8, 8, 2), 2)),
                                 max_per_param=12)
     assert res.passed, res.failures[:5]
+
+
+def _recurrent():
+    pytest.importorskip("jax")
+    from deeplearning4j_tpu.nn.conf import inputs, layers_recurrent
+    return inputs.InputType, layers_recurrent
+
+
+def test_lstm_gradients(rng):
+    InputType, rec = _recurrent()
+    jnet = _mln([rec.LSTM(n_out=7),
+                 rec.RnnOutputLayer(n_out=3, activation="softmax",
+                                    loss="mcxent")],
+                InputType.recurrent(5))
+    res = check_model_gradients(_carry(jnet),
+                                DataSet(*_cls_ds(rng, (3, 6, 5), 3,
+                                                 seq=True)),
+                                max_per_param=12)
+    assert res.passed, res.failures[:5]
+    assert res.n_checked == 12 * 4 + 3      # the head bias has 3
+
+
+def test_graves_lstm_masked_gradients(rng):
+    """GravesLSTM (peepholes drawn non-zero, so their gradients are not
+    trivially those of zero weights) under a features and labels mask:
+    the carry is held through the padding, the loss sees valid steps
+    only."""
+    InputType, rec = _recurrent()
+    jnet = _mln([rec.GravesLSTM(n_out=6),
+                 rec.RnnOutputLayer(n_out=3, activation="softmax",
+                                    loss="mcxent")],
+                InputType.recurrent(4))
+    net = _carry(jnet)
+    with torch.no_grad():
+        net.params_tree["layer_0"]["P"].copy_(torch.from_numpy(
+            rng.normal(0, 0.5, (3, 6)).astype(np.float32)))
+    ds = DataSet(*_cls_ds(rng, (3, 5, 4), 3, seq=True))
+    mask = np.ones((3, 5))
+    mask[0, 3:] = 0
+    mask[2, 2:] = 0
+    ds.features_mask = mask
+    ds.labels_mask = mask.copy()
+    res = check_model_gradients(net, ds, max_per_param=12)
+    assert res.passed, res.failures[:5]
+    assert res.n_checked == 12 * 5 + 3
 
 
 def test_graph_residual_gradients(rng):

@@ -117,6 +117,13 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.optimize.listeners\n"
         "import deeplearning4j_torch.utils.gradient_check\n"
         "import deeplearning4j_torch.data.iterator\n"
+        "import deeplearning4j_torch.nn.conf.layers_recurrent\n"
+        "import deeplearning4j_torch.data.char_iterator\n"
+        "import deeplearning4j_torch.zoo.text_generation_lstm\n"
+        "from deeplearning4j_torch.zoo import TextGenerationLSTM\n"
+        "from deeplearning4j_torch.data import CharacterIterator\n"
+        "from deeplearning4j_torch.nn.conf import GravesLSTM, Bidirectional\n"
+        "import deeplearning4j_torch.models.network\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"

@@ -879,3 +879,136 @@ def test_graph_kill_and_resume_bit_identical(tmp_path, one_torch_thread):
         assert [p for p, _ in a] == [p for p, _ in b] and a
         assert all(torch.equal(u, v) for (_, u), (_, v) in zip(a, b)), tree
     assert m2.params_tree["res"] == {}
+
+
+PANGRAM_TEXT = "the quick brown fox jumps over the lazy dog. " * 40
+
+
+def _char_rnn(seed):
+    """A small TextGenerationLSTM (2 x 16 GravesLSTM, tBPTT 10) and a
+    fresh iterator maker: t 30 in batches of 4, so 3 chunks a batch and
+    14 batches (42 iterations) an epoch."""
+    from deeplearning4j_torch.data import CharacterIterator
+    from deeplearning4j_torch.zoo import TextGenerationLSTM
+    it = lambda: CharacterIterator(PANGRAM_TEXT, seq_length=30, batch=4,
+                                   seed=1)
+    return TextGenerationLSTM(vocab_size=it().vocab_size, hidden=16,
+                              tbptt_length=10, seed=seed).init_graph(
+                                  device="cpu"), it
+
+
+def _equal_trees(a, b):
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    la, lb = list(iter_leaves(a)), list(iter_leaves(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        torch.equal(u, v) for (_, u), (_, v) in zip(la, lb))
+
+
+@pytest.mark.parametrize("preempt,steps", [(5, [3, 5]),
+                                           (50, [45, 48, 50])])
+def test_tbptt_kill_and_resume_bit_identical(tmp_path, one_torch_thread,
+                                             preempt, steps):
+    """A char-RNN trained with truncated BPTT (3 chunks a batch) and
+    preempted at a batch boundary — after iteration 5, the second
+    batch's last chunk, or after iteration 50, the third batch of the
+    SECOND epoch, whose order the iterator's rolling RNG draws afresh —
+    resumes in a fresh model from another seed, over a fresh iterator,
+    equal to the uninterrupted run bit for bit: params, Adam state and
+    every loss.  The checkpoints hold no recurrent carry, so the fresh
+    model restores them (port-only: the JAX package's checkpoint keeps
+    the batch-sized carry, which a fresh model cannot restore)."""
+    from deeplearning4j_torch.optimize import CollectScoresListener
+    from deeplearning4j_torch.parallel import CheckpointListener
+    ref, it = _char_rnn(5)
+    ref_scores = CollectScoresListener()
+    ref.set_listeners(ref_scores)
+    ref.fit(it(), n_epochs=2)
+    assert ref.iteration_count == 84
+    m, _ = _char_rnn(5)
+    ck = CheckpointListener(tmp_path / "rnn", save_every_n_iterations=3)
+    m.set_listeners(ck, CollectScoresListener())
+    try:
+        with pytest.raises(resilience.TrainingPreempted) as ei:
+            with FaultInjector([f"preempt@{preempt}"]):
+                m.fit(it(), n_epochs=2)
+    finally:
+        resilience.clear_preemption()
+    assert ei.value.step == preempt and ck.ckpt.all_steps() == steps
+    assert m.listeners[1].scores == ref_scores.scores[:preempt + 1]
+    with np.load(tmp_path / "rnn" / str(preempt) / "state.npz") as z:
+        assert not [k for k in z.files if "rnn_" in k]
+    m2, _ = _char_rnn(11)
+    scores = CollectScoresListener()
+    m2.set_listeners(CheckpointListener(tmp_path / "rnn"), scores)
+    m2.fit(it(), n_epochs=2, resume=True)
+    assert scores.scores == ref_scores.scores[preempt + 1:]
+    assert (m2.iteration_count, m2.epoch_count) == (84, 2)
+    for tree in ("params_tree", "opt_state", "state_tree"):
+        assert _equal_trees(getattr(m2, tree), getattr(ref, tree)), tree
+
+
+def test_tbptt_mid_batch_checkpoint_resumes_from_the_batch_start(
+        tmp_path, one_torch_thread):
+    """A periodic save between two chunks of a batch (iteration 3, the
+    second batch's first chunk) resumes from that batch's start, with
+    the params of the four chunks taken — the batch-granular rule."""
+    from deeplearning4j_torch.optimize import CollectScoresListener
+    from deeplearning4j_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_torch.parallel import CheckpointListener
+    from deeplearning4j_torch.utils.trees import map_leaves
+
+    class Snap(TrainingListener):
+        def iteration_done(self, model, iteration, epoch, loss):
+            if iteration == 3:
+                self.params = map_leaves(torch.clone, model.params_tree)
+
+    m, it = _char_rnn(5)
+    snap = Snap()
+    m.set_listeners(CheckpointListener(tmp_path / "mid",
+                                       save_every_n_iterations=3), snap)
+    try:
+        with pytest.raises(resilience.TrainingPreempted):
+            with FaultInjector(["preempt@5"]):
+                m.fit(it(), n_epochs=1)
+    finally:
+        resilience.clear_preemption()
+    ck = CheckpointListener(tmp_path / "mid")
+    ck.ckpt.delete_step(5)
+    m2, _ = _char_rnn(11)
+    m2._build_solver()
+    assert ck.restore_into(m2) == 3
+    assert (m2.iteration_count, m2.batch_in_epoch) == (4, 1)
+    assert _equal_trees(m2.params_tree, snap.params)
+    scores = CollectScoresListener()
+    m2.set_listeners(ck, scores)
+    m2.fit(it(), n_epochs=1, resume=True)
+    # batch 1 replays from its first chunk: 13 batches x 3 chunks
+    assert [i for i, _ in scores.scores] == list(range(4, 43))
+    assert m2.iteration_count == 43 and m2.epoch_count == 1
+
+
+@pytest.mark.parametrize("make", ["char", "array"])
+def test_set_epoch_gives_that_epochs_order(make):
+    """``set_epoch(k)`` on a fresh iterator (what ``fit(resume=True)``
+    calls) yields what the k-th pass of an uninterrupted one yields,
+    for the rolling-RNG char iterator and a shuffling array iterator,
+    whichever passes the iterator made before."""
+    from deeplearning4j_torch.data import (ArrayDataSetIterator,
+                                           CharacterIterator)
+    if make == "char":
+        new = lambda: CharacterIterator(PANGRAM_TEXT, seq_length=30,
+                                        batch=4, seed=1)
+    else:
+        feats = np.arange(60, dtype=np.float32).reshape(20, 3)
+        new = lambda: ArrayDataSetIterator(
+            feats, np.eye(20, dtype=np.float32), 4, shuffle=True, seed=3)
+    run = new()
+    passes = [[ds.features.copy() for ds in run] for _ in range(3)]
+    assert not np.array_equal(passes[0][0], passes[2][0])
+    used = new()
+    list(used)
+    for k in (2, 0, 1):
+        used.set_epoch(k)
+        got = [ds.features for ds in used]
+        assert len(got) == len(passes[k])
+        assert all(np.array_equal(a, b) for a, b in zip(got, passes[k]))
