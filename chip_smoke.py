@@ -201,6 +201,29 @@ Phases:
                output()'s argmax on the host), then one epoch of a fresh
                LeNet on 2,048 synthetic training examples, its loss
                finite and falling.
+ 9b. infer   — batched inference and transfer learning, seeded weights
+               and images: (a) VGG16 (224 x 224 x 3, 1000 classes) at b 2,
+               the card's output, loss and gradients in f64 and f32
+               against the CPU's f64 (f32 gradients along the card's own
+               ReLU and pool decisions, the flipped ones counted), every
+               layer alone; (b) dl4j-examples'
+               EditLastLayerOthersFrozen: VGG16 frozen through fc2, the
+               head replaced by 5 classes, Nesterovs, 10 fit steps at b
+               16 — frozen params bit-identical, the head moved, the
+               batch's score lower, the source unchanged; (c)
+               ParallelInference over the fine-tuned model, 8 callers x
+               16 single images, each held to the direct
+               output() of its image, then a shed case; (d)
+               QuantizedInference of it (weights dequantized to bf16,
+               math in the model's f32) against f32 output(); (e)
+               every other zoo CNN at its default input through one
+               forward, one fit step of YOLO2, UNet and FaceNetNN4Small2,
+               the LeNet zip through load_pretrained; (f) the flash route
+               of SelfAttentionLayer at BERT-base's attention width (12 x
+               64) in a sequence classifier, bf16 on f32 masters, b 32:
+               t 512 with seeded padding (K4, K5, K6) and t 1024 unmasked
+               (K3, K5, K6), counted from 0 and held to the plain
+               versions on the steps' own operands.
  10. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
@@ -214,6 +237,8 @@ Phases:
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
 ``--phases build,rnn`` for the recurrent stack alone,
+``--phases build,infer`` for batched inference and transfer learning
+alone,
 ``--phases build,resnet`` for the conv slice alone, or ``--phases
 build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -242,7 +267,7 @@ import time
 import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
-          "train", "resume", "rnn", "bert", "resnet", "timings")
+          "train", "resume", "rnn", "bert", "resnet", "infer", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -3155,30 +3180,106 @@ class contiguous_convs:
         lc._nchw, lc._oihw = self.saved
 
 
-def resnet_layer_cases(torch, params, x, hw, device):
-    """{key: (layer, its params)} of every distinct convolution and
-    pooling (kind, configuration and input shape) in ResNet-50's f32
-    inference forward of ``x`` on ``device``, each with the input shape
-    it met as ``key[-1]``."""
+class pinned_decisions:
+    """A context in which the port's ReLUs and max poolings record each
+    call's decision in call order (the ReLU's z > 0, the pool's argmax
+    per window), or, given ``replay`` (another instance after its run),
+    take that run's decisions in place of their own.  Replayed, a
+    network computes the same piecewise-linear branch as the recorded
+    run, so the two differ by their arithmetic alone.  Max pooling
+    without padding only."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.record = []
+
+    def _decide(self, kind, make):
+        if self.replay is None:
+            d = make()
+        else:
+            k, d = self.replay.record[len(self.record)]
+            if k != kind:
+                raise AssertionError(f"pinned_decisions: {kind} where the "
+                                     f"recorded run had {k}")
+        self.record.append((kind, d))
+        return d
+
+    def flips(self, other):
+        """{kind: [decisions that differ from ``other``'s, decisions]}."""
+        out = {}
+        for (kind, a), (_, b) in zip(self.record, other.record):
+            n = out.setdefault(kind, [0, 0])
+            n[0] += int((a.cpu() != b.cpu()).sum())
+            n[1] += a.numel()
+        return out
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from deeplearning4j_torch.nn.conf import layers_conv as lc
+        from deeplearning4j_torch.nn.conf import layers_core
+        self.saved = lc.get_activation, lc.pool2d
+        act, pool = self.saved
+
+        def get_activation(name):
+            f = act(name)
+            if name != "relu":
+                return f
+
+            def relu(z):
+                m = self._decide("relu", lambda: (z > 0).detach())
+                return f(z) if self.replay is None else z * m.to(
+                    z.device, z.dtype)
+            return relu
+
+        def pool2d(x, pooling_type, window, strides, pad, dilation=(1,) * 4,
+                   pnorm=2):
+            if str(pooling_type).lower() != "max":
+                return pool(x, pooling_type, window, strides, pad, dilation,
+                            pnorm)
+            kernel, stride, dil = ((int(v[1]), int(v[2]))
+                                   for v in (window, strides, dilation))
+            xn = lc._nchw(x)
+            idx = self._decide("max_pool", lambda: F.max_pool2d(
+                xn.detach(), kernel, stride, 0, dil, return_indices=True)[1])
+            if self.replay is None:
+                y = pool(x, pooling_type, window, strides, pad, dilation,
+                         pnorm)
+                if tuple(y.shape[1:3]) != tuple(idx.shape[2:]):
+                    raise AssertionError("pinned_decisions: a padded max "
+                                         "pooling")
+                return y
+            idx = idx.to(x.device)
+            return xn.flatten(2).gather(2, idx.flatten(2)).view(
+                idx.shape).permute(0, 2, 3, 1)
+        lc.get_activation = layers_core.get_activation = get_activation
+        lc.pool2d = pool2d
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_torch.nn.conf import layers_conv as lc
+        from deeplearning4j_torch.nn.conf import layers_core
+        lc.get_activation = layers_core.get_activation = self.saved[0]
+        lc.pool2d = self.saved[1]
+
+
+def layer_cases(net, x, classes):
+    """{key: (layer, its params)} of every distinct layer whose type is
+    one of ``classes`` (kind, configuration and input shape) in ``net``'s
+    inference forward of ``x``, each with the input shape it met as
+    ``key[-1]``."""
     import dataclasses
-
-    from deeplearning4j_torch.nn.conf import layers_conv as lc
-    from deeplearning4j_torch.models.computation_graph import ComputationGraph
-    from deeplearning4j_torch.utils.convert import load_numpy_params
-    from deeplearning4j_torch.utils.trees import map_leaves
-    from deeplearning4j_torch.zoo import ResNet50
-    conf = ResNet50(input_shape=(hw, hw, 3), compute_dtype="float32").conf()
-    net = load_numpy_params(ComputationGraph(conf), map_leaves(
-        lambda a: a.astype("float32"), params), device=device)
     cases, saved = {}, {}
-    for cls in (lc.ConvolutionLayer, lc.SubsamplingLayer):
-        saved[cls] = cls.apply
+    for cls in classes:
+        saved[cls] = cls.__dict__["apply"]
 
-        def seen(ly, p, xin, *a, _f=cls.apply, **k):
-            fields = tuple((f.name, repr(getattr(ly, f.name)))
-                           for f in dataclasses.fields(ly) if f.name != "name")
-            cases.setdefault((type(ly).__name__, fields, tuple(xin.shape)),
-                             (ly, p))
+        def seen(ly, p, xin, *a, _f=saved[cls], **k):
+            if type(ly) in classes:
+                fields = tuple((f.name, repr(getattr(ly, f.name)))
+                               for f in dataclasses.fields(ly)
+                               if f.name != "name")
+                cases.setdefault(
+                    (type(ly).__name__, fields, tuple(xin.shape)), (ly, p))
             return _f(ly, p, xin, *a, **k)
         cls.apply = seen
     try:
@@ -3189,16 +3290,34 @@ def resnet_layer_cases(torch, params, x, hw, device):
     return cases
 
 
-def resnet_layer_errors(torch, params, x, hw, device):
+def resnet_layer_cases(torch, params, x, hw, device):
+    """``layer_cases`` of every convolution and pooling in ResNet-50's
+    f32 inference forward of ``x`` on ``device``."""
+    from deeplearning4j_torch.nn.conf import layers_conv as lc
+    from deeplearning4j_torch.models.computation_graph import ComputationGraph
+    from deeplearning4j_torch.utils.convert import load_numpy_params
+    from deeplearning4j_torch.utils.trees import map_leaves
+    from deeplearning4j_torch.zoo import ResNet50
+    conf = ResNet50(input_shape=(hw, hw, 3), compute_dtype="float32").conf()
+    net = load_numpy_params(ComputationGraph(conf), map_leaves(
+        lambda a: a.astype("float32"), params), device=device)
+    return layer_cases(net, x, (lc.ConvolutionLayer, lc.SubsamplingLayer))
+
+
+def layer_errors(torch, cases, device, linear=False):
     """{"<kind> <kernel>/<stride> <input shape>": error} of every case of
-    ``resnet_layer_cases``, alone on seeded normal data at its input's
-    shape: on ``device`` in f32, in the main path's layout, against the
-    CPU in f64 — the largest of max |card - cpu| / max |cpu| over the
-    output and the gradients of the input and every parameter under one
-    seeded output gradient."""
+    ``cases`` (``layer_cases``), alone on seeded normal data at its
+    input's shape: on ``device`` in f32, in the main path's layout,
+    against the CPU in f64 — the largest of max |card - cpu| / max |cpu|
+    over the output and the gradients of the input and every parameter
+    under one seeded output gradient.  ``linear``: each layer with its
+    activation replaced by the identity, so the check reads the
+    arithmetic alone (no ReLU decision at a near-zero input)."""
+    import dataclasses
     errs = {}
-    for i, ((kind, fields, shape), (ly, p)) in enumerate(
-            resnet_layer_cases(torch, params, x, hw, device).items()):
+    for i, ((kind, fields, shape), (ly, p)) in enumerate(cases.items()):
+        if linear and getattr(ly, "activation", None):
+            ly = dataclasses.replace(ly, activation="identity")
         g = torch.Generator().manual_seed(i)
         x0 = torch.randn(shape, generator=g, dtype=torch.float64)
         dy = None
@@ -3213,7 +3332,7 @@ def resnet_layer_errors(torch, params, x, hw, device):
             res.append([yi] + list(torch.autograd.grad(
                 yi, [xi] + list(pi.values()), dy.to(dev, dt))))
         f = dict(fields)
-        name = (f"{kind} {f['kernel_size']}/{f['stride']} "
+        name = (f"{kind} {f.get('kernel_size', '-')}/{f.get('stride', '-')} "
                 f"{'x'.join(map(str, shape))}")
         errs[name] = max(float((a.double().cpu() - r).abs().max())
                          / max(float(r.abs().max()), 1e-300)
@@ -3227,7 +3346,7 @@ def resnet_card_vs_cpu(torch, np, hw, device):
     {check: error} of the checks over their limits).  Seeded
     f32-representable parameters run through ``resnet_pass`` on the card
     and on the CPU in f64 and f32, and on the card in f32 once more under
-    ``contiguous_convs``; then ``resnet_layer_errors``.  TF32 is off for
+    ``contiguous_convs``; then ``layer_errors``.  TF32 is off for
     its duration and restored after."""
     from deeplearning4j_torch.models.computation_graph import ComputationGraph
     from deeplearning4j_torch.utils.trees import map_leaves
@@ -3251,7 +3370,8 @@ def resnet_card_vs_cpu(torch, np, hw, device):
         with contiguous_convs():
             runs["card_nchw", "float32"] = resnet_pass(
                 torch, params, x, y, hw, "float32", device)
-        layers = resnet_layer_errors(torch, params, x, hw, device)
+        layers = layer_errors(torch, resnet_layer_cases(
+            torch, params, x, hw, device), device)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
@@ -3468,6 +3588,727 @@ def phase_resnet(torch, np, root, device="cuda"):
     del net
     torch.cuda.empty_cache()
     return row
+
+
+# -- phase 9b (infer) --------------------------------------------------
+# The infer phase's sizes (the CPU rehearsal passes smaller ones): VGG16
+# at its published 224 x 224 x 3 / 1000 classes; the fine-tune of
+# dl4j-examples' EditLastLayerOthersFrozen (b 16, 10 steps, 5 classes);
+# ParallelInference with 8 callers x 16 single images; QuantizedInference
+# on 64 images; every other zoo CNN at its default input ({} kwargs); and
+# a sequence classifier at BERT-base's attention width (12 x 64) on the
+# flash route, b 32 at t 512 (masked, K4) and t 1024 (unmasked, K3).
+INFER_CFG = {"vgg_b": 2, "tl_b": 16, "tl_steps": 10, "tl_classes": 5,
+             "pi_threads": 8, "pi_requests": 16, "pi_batch_limit": 32,
+             "pi_queue_limit": 64, "q_images": 64, "zoo_b": 2,
+             "zoo_kwargs": {}, "attn_b": 32, "attn_t": 512,
+             "attn_t_long": 1024, "attn_heads": 12, "attn_head": 64,
+             "attn_steps": 5, "attn_long_steps": 2}
+# (a) the card against the CPU in f64 on the same f32-representable
+# params: output, loss and every gradient within INFER_F64_TOL (each
+# element to its own size for output and loss, normwise for gradients).
+# The card in f32 (TF32 off): the output against the CPU's f64 (each
+# element to its own size, flash_err); the loss (flash_err) and every
+# gradient normwise (||g - g64|| / ||g64||) against the CPU's f64 run
+# along the card's own ReLU and max-pool decisions (pinned_decisions).
+# Rounding flips a handful of the ~30 M decisions (on an H100: 5 ReLUs
+# and 6 pool argmaxes; the CPU's f32 3 and 2), and each flip moves the
+# gradients of the layers below it by up to 8.4e-3 normwise on the card
+# and 3.3e-3 on the CPU, so the free f32 gradients are read, not gated;
+# along the card's decisions they read <= 6.0e-6.  The share of flipped
+# decisions is gated (INFER_TOL["flips"]; reads 3.6e-7), and every
+# convolution, pooling and dense layer alone, its activation off, within
+# INFER_TOL["layer"] of the tensor's largest element (reads <= 3.9e-5).
+INFER_F64_TOL = 1e-7
+INFER_TOL = {"output": 1e-4, "loss": 1e-5, "grad": 1e-4, "layer": 1e-4,
+             "flips": 1e-5,
+             # (c) a served row against the direct b-1 output() of its
+             # image: batched and b-1 cuDNN algorithms sum in other
+             # orders (f32 softmax outputs)
+             "served": 1e-4,
+             # (c), (d): a top-1 disagreement is allowed only where the
+             # reference's top-2 probabilities lie within this much
+             "near_tie": 1e-4, "near_tie_int8": 0.05}
+ZOO_INFER = ("AlexNet", "VGG19", "Darknet19", "TinyYOLO", "YOLO2",
+             "SqueezeNet", "UNet", "Xception", "InceptionResNetV1",
+             "FaceNetNN4Small2", "NASNet")
+
+
+def zoo_out_shape(name, model, b):
+    """The output shape the reference's configuration gives ``name``
+    at ``model``'s input (the detection heads' grid is the input / 8;
+    UNet is per pixel)."""
+    h, w, _ = model.input_shape
+    if name in ("TinyYOLO", "YOLO2"):
+        return (b, h // 8, w // 8, 5 + model.n_classes)
+    if name == "UNet":
+        return (b, h, w, model.n_classes)
+    return (b, model.n_classes)
+
+
+def infer_vgg_pass(torch, vgg, params, x, y, dtype, device,
+                   decisions=None):
+    """VGG ``vgg`` with the numpy ``params`` cast to ``dtype`` on
+    ``device``: (inference output, loss, {leaf: gradient}) of one
+    training forward and backward (no dropout: no key), all on the
+    CPU.  ``decisions``: a ``pinned_decisions`` the training pass runs
+    under."""
+    import contextlib
+
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.utils.convert import load_numpy_params
+    from deeplearning4j_torch.utils.trees import iter_leaves, map_leaves
+    conf = vgg.conf()
+    conf.global_conf.dtype = conf.global_conf.compute_dtype = dtype
+    net = load_numpy_params(MultiLayerNetwork(conf), map_leaves(
+        lambda a: a.astype(dtype), params), device=device)
+    net._build_solver()
+    with decisions or contextlib.nullcontext():
+        loss, _, grads = net._solver._loss_and_grads(
+            net.params_tree, net.state_tree,
+            net._batch_dict(DataSet(x, y)), None)
+    return (net.output(x).cpu(), loss.detach().cpu().reshape(1),
+            {"/".join(p): g.detach().cpu() for p, g in iter_leaves(grads)})
+
+
+def infer_vgg_layer_cases(torch, vgg, params, x, device):
+    """``layer_cases`` of every convolution, pooling and dense layer in
+    the VGG's f32 inference forward of ``x`` on ``device``."""
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import layers_conv as lc
+    from deeplearning4j_torch.nn.conf import layers_core
+    from deeplearning4j_torch.utils.convert import load_numpy_params
+    net = load_numpy_params(MultiLayerNetwork(vgg.conf()), params,
+                            device=device)
+    return layer_cases(net, x, (lc.ConvolutionLayer, lc.SubsamplingLayer,
+                                layers_core.DenseLayer))
+
+
+def infer_vgg_card_vs_cpu(torch, np, vgg, cfg, device):
+    """Part (a): the same seeded f32-representable VGG params on
+    ``device`` in f64 and in f32 (TF32 off), against the CPU in f64.
+    The card's f32 gradients are held to the CPU's f64 along the card's
+    own ReLU and max-pool decisions (``pinned_decisions``); the free f64
+    gradients, the CPU's f32 and the card's in contiguous NCHW are read
+    beside them, with the decisions each f32 run flips; every
+    convolution, pooling and dense layer alone with its activation off
+    (``layer_errors``)."""
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.utils.trees import map_leaves
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = map_leaves(lambda t: t.numpy(), MultiLayerNetwork(
+            vgg.conf()).init(device="cpu").params_tree)
+        r = np.random.default_rng(21)
+        b = cfg["vgg_b"]
+        x = r.random((b,) + tuple(vgg.input_shape)).astype(np.float32)
+        y = np.eye(vgg.n_classes, dtype=np.float32)[
+            r.integers(0, vgg.n_classes, b)]
+        dec = {k: pinned_decisions() for k in ("card", "card_nchw", "cpu",
+                                               "ref")}
+        run = lambda dt, d, k=None: infer_vgg_pass(
+            torch, vgg, params, x, y, dt, d, dec.get(k))
+        card = run("float32", device, "card")
+        with contiguous_convs():
+            card_nchw = run("float32", device, "card_nchw")
+        card64 = run("float64", device)
+        cpu32 = run("float32", "cpu", "cpu")
+        ref = run("float64", "cpu", "ref")
+        dec["pinned"] = pinned_decisions(replay=dec["card"])
+        pinned = run("float64", "cpu", "pinned")
+        layers = layer_errors(torch, infer_vgg_layer_cases(
+            torch, vgg, params, x, device), device, linear=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    norm = lambda g, w: float((g.double() - w).norm()
+                              / w.norm().clamp_min(1e-300))
+    by_leaf = lambda a, base: {k: norm(g, base[2][k])
+                               for k, g in a[2].items()}
+    e64 = {"output": flash_err(torch, card64[0].double(), ref[0])[0],
+           "loss": flash_err(torch, card64[1].double(), ref[1])[0],
+           "grad": max(by_leaf(card64, ref).values())}
+    e32 = {"output": flash_err(torch, card[0].double(), ref[0])[0],
+           "loss": flash_err(torch, card[1].double(), pinned[1])[0],
+           "grad": max(by_leaf(card, pinned).values())}
+    free = {who: by_leaf(a, ref) for who, a in (
+        ("card", card), ("card_nchw", card_nchw), ("cpu", cpu32))}
+    free["card_pinned"] = by_leaf(card, pinned)
+    flips = {who: dec[who].flips(dec["ref"])
+             for who in ("card", "card_nchw", "cpu")}
+    share = {who: sum(n for n, _ in f.values())
+             / max(sum(t for _, t in f.values()), 1)
+             for who, f in flips.items()}
+    bad = {f"float32/{k}": e for k, e in e32.items()
+           if not (math.isfinite(e) and e <= INFER_TOL[k])}
+    bad.update({f"float64/{k}": e for k, e in e64.items()
+                if not (math.isfinite(e) and e <= INFER_F64_TOL)})
+    bad.update({f"layer/{k}": e for k, e in layers.items()
+                if not (math.isfinite(e) and e <= INFER_TOL["layer"])})
+    bad.update({f"flips/{k}": e for k, e in share.items()
+                if not e <= INFER_TOL["flips"]})
+    if bad:
+        raise AssertionError(f"infer/a: card vs CPU f64 {bad} over "
+                             f"{INFER_TOL} (f32) / {INFER_F64_TOL} (f64); "
+                             f"f32 gradients by leaf {free}; flipped "
+                             f"decisions {flips}")
+    return {"b": b, "input": list(vgg.input_shape),
+            "classes": vgg.n_classes, "float64": e64,
+            "float64_tol": INFER_F64_TOL, "float32": e32,
+            "float32_tol": {k: INFER_TOL[k] for k in e32},
+            "float32_grad_by_leaf": free, "flipped_decisions": flips,
+            "flipped_share": share, "flips_tol": INFER_TOL["flips"],
+            "layers": layers, "layer_tol": INFER_TOL["layer"],
+            "output_shape": list(card[0].shape),
+            "measure": "output: flash_err (card f32 vs CPU f64); loss: "
+                       "flash_err, grad: max over leaves of ||g - g64|| / "
+                       "||g64||, both against the CPU's f64 along the "
+                       "card's ReLU and max-pool decisions; "
+                       "float32_grad_by_leaf: card (channels-last), "
+                       "card_nchw and cpu f32 against the free f64, and "
+                       "card against the pinned f64; flipped_decisions: "
+                       "[ReLU masks or pool argmaxes that differ from the "
+                       "free f64's, all decisions]; layers: max |d| / "
+                       "max |cpu| of each layer alone, activation off",
+            "tf32": "off for this part, restored after",
+            "seconds": time.perf_counter() - t0}
+
+
+def infer_batch(np, vgg, b, n_classes, seed):
+    r = np.random.default_rng(seed)
+    x = r.random((b,) + tuple(vgg.input_shape)).astype(np.float32)
+    return x, np.eye(n_classes, dtype=np.float32)[
+        r.integers(0, n_classes, b)]
+
+
+def infer_transfer(torch, np, vgg, cfg, device, sync):
+    """Part (b): EditLastLayerOthersFrozen's fine-tune of the VGG: the
+    layers through fc2 frozen, the head replaced by ``tl_classes``
+    outputs, Nesterovs; ``tl_steps`` fit steps on one seeded batch.
+    Returns (row, the fine-tuned model)."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.models.transfer_learning import (
+        TransferLearning, frozen_layer_indices)
+    from deeplearning4j_torch.optimize.updaters import Nesterovs
+    from deeplearning4j_torch.utils.trees import map_leaves
+    src = vgg.init_graph(device=device)
+    n = len(src.layers)
+    fc2, head = n - 2, n - 1
+    src_copy = map_leaves(torch.clone, src.params_tree)
+    ft = (TransferLearning.Builder(src)
+          .fine_tune_configuration(updater=Nesterovs(learning_rate=1e-3,
+                                                     momentum=0.9),
+                                   seed=11)
+          .set_feature_extractor(fc2)
+          .n_out_replace(head, cfg["tl_classes"])
+          .build())
+    if frozen_layer_indices(ft) != list(range(fc2 + 1)):
+        raise AssertionError(f"infer/b: frozen {frozen_layer_indices(ft)}")
+    frozen = {k: v for k, v in ft.params_tree.items()
+              if int(k.split("_")[1]) <= fc2}
+    frozen_copy = map_leaves(torch.clone, frozen)
+    head_before = ft.params_tree[f"layer_{head}"]["W"].clone()
+    ds = DataSet(*infer_batch(np, vgg, cfg["tl_b"], cfg["tl_classes"], 12))
+    # fit's losses carry the frozen fc layers' dropout: the gate reads
+    # the batch's score without it, before and after
+    score0 = ft.score(ds)
+    ft.fit(ds)                                           # warm-up
+    sync()
+    t0 = time.perf_counter()
+    losses = [float(ft.fit(ds)) for _ in range(cfg["tl_steps"] - 1)]
+    sync()
+    wall = time.perf_counter() - t0
+    if not tree_diff(torch, frozen, frozen_copy)[0]:
+        raise AssertionError("infer/b: a frozen parameter moved")
+    if not tree_diff(torch, src.params_tree, src_copy)[0]:
+        raise AssertionError("infer/b: the source model changed")
+    del src, src_copy, frozen_copy
+    moved = float((ft.params_tree[f"layer_{head}"]["W"] - head_before)
+                  .abs().max())
+    if not moved > 0:
+        raise AssertionError("infer/b: the head did not move")
+    score1 = ft.score(ds)
+    if not (all(math.isfinite(v) for v in losses) and score1 < score0):
+        raise AssertionError(f"infer/b: losses {losses} not finite, or "
+                             f"the score {score0} -> {score1} not falling")
+    steps = cfg["tl_steps"] - 1
+    return {"b": cfg["tl_b"], "classes": cfg["tl_classes"],
+            "frozen_through": fc2, "frozen_bit_identical": True,
+            "source_unchanged": True, "head_max_move": moved,
+            "updater": "Nesterovs(1e-3, 0.9)", "losses": losses,
+            "score_before_after": [score0, score1],
+            "step_ms": wall * 1e3 / steps,
+            "images_per_s": steps * cfg["tl_b"] / wall,
+            "timed": f"{steps} fit steps after a warm-up step"}, ft
+
+
+def infer_series(reg):
+    """The ParallelInference series this part reads: counter values,
+    and (count, sum) of the two ratio histograms."""
+    out = {n: reg.get(n).value for n in (
+        "inference_requests_total", "inference_batches_total",
+        "inference_shed_total", "inference_errors_total")}
+    for n in ("inference_batch_occupancy", "inference_padding_waste",
+              "inference_latency_seconds"):
+        h = reg.get(n)
+        out[n] = (h.count, h.sum)
+    return out
+
+
+def infer_parallel(torch, np, model, cfg):
+    """Part (c): ``ParallelInference`` over the fine-tuned model, its
+    callers' threads each sending single images; every result held to
+    the model's direct b-1 ``output()``; then a shed case."""
+    import threading
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.parallel import ParallelInference
+    reg = telemetry.get_registry()
+    n_thr, n_req = cfg["pi_threads"], cfg["pi_requests"]
+    r = np.random.default_rng(13)
+    imgs = r.random((n_thr * n_req,) + tuple(model.conf.input_type.shape)
+                    ).astype(np.float32)
+    direct = np.stack([model.output(imgs[i:i + 1]).float().cpu().numpy()[0]
+                       for i in range(len(imgs))])
+    results, lat = [None] * len(imgs), [0.0] * len(imgs)
+    errors = []
+    s0 = infer_series(reg)
+    with ParallelInference(model, batch_limit=cfg["pi_batch_limit"],
+                           queue_limit=cfg["pi_queue_limit"]) as pi:
+        pi.output(imgs[:1])                               # warm-up
+        s0 = infer_series(reg)
+
+        def caller(k):
+            try:
+                for j in range(n_req):
+                    i = k * n_req + j
+                    t = time.perf_counter()
+                    # a [1, h, w, c] batch: ParallelInference reads a
+                    # request of more than one dim as rows, as upstream
+                    results[i] = pi.output(imgs[i:i + 1])[0]
+                    lat[i] = time.perf_counter() - t
+            except Exception as e:  # reported after the join
+                errors.append(e)
+        threads = [threading.Thread(target=caller, args=(k,))
+                   for k in range(n_thr)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"infer/c: a caller failed: {errors[0]!r}")
+    s1 = infer_series(reg)
+    got = np.stack(results)
+    diff = float(np.abs(got - direct).max())
+    top2 = np.sort(direct, -1)[:, -2:]
+    flips = int(((got.argmax(-1) != direct.argmax(-1))
+                 & (top2[:, 1] - top2[:, 0] > INFER_TOL["near_tie"])).sum())
+    if not (np.isfinite(got).all() and diff <= INFER_TOL["served"]
+            and flips == 0):
+        raise AssertionError(f"infer/c: served vs direct max |d| {diff}, "
+                             f"{flips} argmax flips off a near tie")
+    d = lambda k: s1[k] - s0[k]
+    hist = lambda k: ((s1[k][1] - s0[k][1]) / max(s1[k][0] - s0[k][0], 1))
+    row = {"threads": n_thr, "requests_per_thread": n_req,
+           "batch_limit": cfg["pi_batch_limit"],
+           "queue_limit": cfg["pi_queue_limit"],
+           "max_abs_vs_direct": diff, "tol": INFER_TOL["served"],
+           "argmax_flips_off_near_tie": flips,
+           "images_per_s": len(imgs) / wall, "wall_s": wall,
+           "latency_ms": {"p50": pct(lat, 0.5) * 1e3,
+                          "p99": pct(lat, 0.99) * 1e3},
+           "requests": d("inference_requests_total"),
+           "batches": d("inference_batches_total"),
+           "mean_occupancy": hist("inference_batch_occupancy"),
+           "mean_padding_waste": hist("inference_padding_waste"),
+           "series_latency_ms_mean": hist("inference_latency_seconds") * 1e3}
+    # the shed case: a one-slot queue behind a held worker
+    gate = threading.Event()
+    fwd = model._forward_infer
+
+    def held(p, s, x):
+        gate.wait(30)
+        return fwd(p, s, x)
+    model._forward_infer = held
+    shed0 = reg.get("inference_shed_total").value
+    try:
+        with ParallelInference(model, batch_limit=1, queue_limit=1,
+                               shed_on_full=True) as pi:
+            first = threading.Thread(target=pi.output, args=(imgs[:1],))
+            first.start()
+            deadline = time.time() + 10
+            while pi._queue.qsize() and time.time() < deadline:
+                time.sleep(0.005)
+            second = threading.Thread(target=pi.output,
+                                      args=(imgs[1:2],))
+            second.start()
+            while not pi._queue.qsize() and time.time() < deadline:
+                time.sleep(0.005)
+            try:
+                pi.output(imgs[2:3])
+            except RuntimeError as e:
+                shed_msg = str(e)
+            else:
+                raise AssertionError("infer/c: a full queue did not shed")
+            gate.set()
+            first.join(30)
+            second.join(30)
+    finally:
+        model._forward_infer = fwd
+        gate.set()
+    if reg.get("inference_shed_total").value != shed0 + 1:
+        raise AssertionError("infer/c: inference_shed_total did not count "
+                             "the shed request")
+    row["shed"] = {"raised": shed_msg[:80], "counted": 1}
+    return row
+
+
+def infer_quantized(torch, np, model, cfg, sync):
+    """Part (d): ``QuantizedInference`` of the fine-tuned model (int8
+    weights dequantized to bf16, math in the model's f32 compute dtype):
+    compression, the largest weight error, top-1 against the f32 model
+    on seeded images (disagreements only at near ties), images/s of
+    both, timed in turns."""
+    from deeplearning4j_torch.runtime import QuantizedInference
+    qi = QuantizedInference(model, compute_dtype="bfloat16")
+    r = np.random.default_rng(14)
+    x = r.random((cfg["q_images"],) + tuple(model.conf.input_type.shape)
+                 ).astype(np.float32)
+    xt = torch.as_tensor(x, device=model.device)
+    f32 = model.output(xt).float().cpu().numpy()
+    q = qi.output(xt).float().cpu().numpy()
+    agree = float((f32.argmax(-1) == q.argmax(-1)).mean())
+    top2 = np.sort(f32, -1)[:, -2:]
+    flips = int(((f32.argmax(-1) != q.argmax(-1))
+                 & (top2[:, 1] - top2[:, 0] > INFER_TOL["near_tie_int8"]))
+                .sum())
+    if not (np.isfinite(q).all() and flips == 0):
+        raise AssertionError(f"infer/d: {flips} top-1 flips off a near tie")
+    turns = {"f32": [], "int8": []}
+    for who in ("f32", "int8", "int8", "f32"):
+        fn = model.output if who == "f32" else qi.output
+        fn(xt)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(xt)
+        sync()
+        turns[who].append(3 * len(x) / (time.perf_counter() - t0))
+    return {"compression_ratio": qi.compression_ratio(),
+            "max_abs_weight_error": qi.max_abs_weight_error(),
+            "images": len(x), "top1_agreement": agree,
+            "top1_flips_off_near_tie": flips,
+            "near_tie": INFER_TOL["near_tie_int8"],
+            "max_abs_prob_diff": float(np.abs(q - f32).max()),
+            "images_per_s": turns,
+            "turns": "f32, int8, int8, f32; 3 calls each after one"}
+
+
+def infer_zoo(torch, np, cfg, device):
+    """Part (e): every other zoo CNN built on the device at its input
+    (``zoo_kwargs``) through one forward; one fit step of YOLO2 (seeded
+    boxes), UNet and FaceNetNN4Small2 (the center term non-zero); the
+    checked-in LeNet through ``load_pretrained``, sha256 checked."""
+    from deeplearning4j_torch import zoo
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.zoo.pretrained import (load_pretrained,
+                                                     package_weights_dir,
+                                                     sha256_of)
+    b = cfg["zoo_b"]
+    r = np.random.default_rng(15)
+    out, fits = {}, {}
+    for name in ZOO_INFER:
+        t0 = time.perf_counter()
+        model = getattr(zoo, name)(**cfg["zoo_kwargs"].get(name, {}))
+        net = model.init_graph(device=device)
+        x = r.normal(size=(b,) + tuple(model.input_shape)).astype(
+            np.float32)
+        y = net.output(x)
+        y = (y[0] if isinstance(y, list) else y).float().cpu().numpy()
+        want = zoo_out_shape(name, model, b)
+        if y.shape != want or not np.isfinite(y).all():
+            raise AssertionError(f"infer/e: {name} output {y.shape} (want "
+                                 f"{want}) or not finite")
+        out[name] = {"input": list(model.input_shape),
+                     "output": list(y.shape), "params": net.num_params(),
+                     "seconds": time.perf_counter() - t0}
+        if name in ("YOLO2", "UNet", "FaceNetNN4Small2"):
+            if name == "YOLO2":
+                lab = np.zeros(want, np.float32)
+                for i in range(b):
+                    gi, gj = r.integers(0, want[1]), r.integers(0, want[2])
+                    lab[i, gi, gj, :5] = [1.0, *r.random(2),
+                                          *(r.random(2) + 0.5)]
+                    lab[i, gi, gj, 5 + r.integers(0, model.n_classes)] = 1.0
+            elif name == "UNet":
+                lab = np.stack([x[..., 0] <= 0, x[..., 0] > 0], -1).astype(
+                    np.float32)
+            else:
+                lab = np.eye(model.n_classes, dtype=np.float32)[
+                    r.integers(0, model.n_classes, b)]
+            loss = float(net.fit(DataSet(x, lab)))
+            fit = {"loss": loss}
+            if name == "FaceNetNN4Small2":
+                head = net.conf.vertices["output"].layer
+                emb = net.feed_forward(x)["l2"]
+                center = float(head.center_score(
+                    net.params_tree["output"], emb.float(),
+                    torch.as_tensor(lab, device=emb.device)).mean())
+                fit["center_term"] = center
+                fit["centers_moved"] = float(
+                    net.params_tree["output"]["centers"].abs().max())
+                if not (center > 0 and fit["centers_moved"] > 0):
+                    raise AssertionError(f"infer/e: FaceNet center term "
+                                         f"{fit}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"infer/e: {name} fit loss {loss}")
+            fits[name] = fit
+        del net
+    wdir = package_weights_dir()
+    with open(os.path.join(wdir, "LeNet_mnist.zip.json")) as f:
+        manifest = json.load(f)
+    sha = sha256_of(os.path.join(wdir, "LeNet_mnist.zip"))
+    if sha != manifest["sha256"]:
+        raise AssertionError("infer/e: LeNet_mnist.zip sha256 != manifest")
+    lenet = load_pretrained("LeNet", "mnist", device=device)
+    x = r.random((4, 28, 28, 1)).astype(np.float32)
+    cpu = load_pretrained("LeNet", "mnist", device="cpu")
+    d = float((lenet.output(x).float().cpu() - cpu.output(x)).abs().max())
+    if not d <= 1e-4:
+        raise AssertionError(f"infer/e: LeNet on the device vs CPU {d}")
+    return {"forward": out, "fit": fits,
+            "lenet_pretrained": {"sha256": sha, "vs_cpu_max_abs": d}}
+
+
+def infer_attn_net(cfg, device):
+    """The sequence classifier of part (f): SelfAttentionLayer(heads x
+    head, flash) -> masked average pooling -> 2-way softmax, bf16 on f32
+    masters, Adam."""
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (GlobalPoolingLayer, InputType,
+                                              NeuralNetConfiguration,
+                                              OutputLayer,
+                                              SelfAttentionLayer)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    d = cfg["attn_heads"] * cfg["attn_head"]
+    conf = (NeuralNetConfiguration.builder().seed(16)
+            .updater(Adam(learning_rate=1e-4)).compute_dtype("bfloat16")
+            .list()
+            .layer(SelfAttentionLayer(n_heads=cfg["attn_heads"],
+                                      head_size=cfg["attn_head"], n_out=d,
+                                      use_flash=True))
+            .layer(GlobalPoolingLayer(pooling_type="avg"))
+            .layer(OutputLayer(n_out=2, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.recurrent(d))
+            .build())
+    return MultiLayerNetwork(conf).init(device=device)
+
+
+def infer_capture(fa):
+    """Wrap the four flash wrappers so each records a copy of its first
+    call's operands; returns (records, restore)."""
+    saved = {n: getattr(fa, n) for n in FLASH_WRAPPERS}
+    rec = {}
+
+    def wrap(name, orig):
+        def w(*a, **kw):
+            if name not in rec:
+                rec[name] = ([x.detach().clone() if hasattr(x, "detach")
+                              else x for x in a], dict(kw))
+            return orig(*a, **kw)
+        # the backward wrappers count through their module name, which
+        # this shim holds while installed
+        w.launches = 0
+        return w
+    for n, f in saved.items():
+        setattr(fa, n, wrap(n, f))
+
+    def restore():
+        for n, f in saved.items():
+            setattr(fa, n, f)
+    return rec, restore
+
+
+def infer_kernel_errors(torch, fa, rec):
+    """Each captured launch replayed through its wrapper (before the
+    counts are reset for the counted steps) against the plain version on
+    the same operands, each output held to ``FLASH_TOL`` by
+    ``flash_err``."""
+    bh = fa._to_bh
+    errs = {}
+    for name, (a, kw) in rec.items():
+        if name in ("flash_fwd", "flash_fwd_single"):
+            q, k, v, bias = (a + [None])[:4]
+            o, lse = getattr(fa, name)(q, k, v, bias, **kw)
+            ro, rl = fa.flash_fwd_reference(
+                bh(q), bh(k), bh(v), bias, single=name.endswith("single"),
+                **kw)
+            pairs = {"o": (bh(o), ro), "lse": (lse, rl)}
+        else:
+            q, k, v, bias, do, lse, delta = a[:7]
+            rq, rk, rv, _ = fa.flash_bwd_reference(
+                bh(q), bh(k), bh(v), bias, bh(do), lse, delta,
+                **{x: kw[x] for x in ("causal", "scale")})
+            if name == "flash_bwd_dkdv":
+                dk, dv, _ = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
+                                              **kw)
+                pairs = {"dk": (bh(dk), rk), "dv": (bh(dv), rv)}
+            else:
+                dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+                pairs = {"dq": (bh(dq), rq)}
+        for key, (x, r) in pairs.items():
+            x, r = x.float(), r.float()
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"infer/f: {name} {key} non-finite")
+            errs[f"{name}/{key}"] = flash_err(torch, x, r)[0]
+    return errs
+
+
+def infer_attention(torch, np, cfg, device, sync):
+    """Part (f): the sequence classifier trained on the flash route —
+    ``attn_steps`` counted fit steps at t ``attn_t`` with each row's
+    valid length seeded in 64..t (K4 forward, K5 without dBias, K6),
+    then ``attn_long_steps`` unmasked steps at ``attn_t_long`` (K3, K5,
+    K6); each window after a warm-up step whose launches' operands are
+    replayed through the kernels against their plain versions before the
+    counts are reset."""
+    from deeplearning4j_torch.data import DataSet
+    fa = flash_module()
+    net = infer_attn_net(cfg, device)
+    b, d = cfg["attn_b"], cfg["attn_heads"] * cfg["attn_head"]
+    r = np.random.default_rng(17)
+    out, counts, errs = {}, {}, {}
+    y = np.eye(2, dtype=np.float32)[r.integers(0, 2, b)]
+    for label, t, steps, masked in (
+            ("masked", cfg["attn_t"], cfg["attn_steps"], True),
+            ("long", cfg["attn_t_long"], cfg["attn_long_steps"], False)):
+        x = r.normal(size=(b, t, d)).astype(np.float32)
+        lens = bert_lengths(np, b, t, 3) if masked else np.full(b, t)
+        mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+        ds = DataSet(x, y, features_mask=mask if masked else None)
+        fwd = "flash_fwd_single" if t // 512 == 1 else "flash_fwd"
+        want = {name: (steps if name in (fwd, "flash_bwd_dkdv",
+                                         "flash_bwd_dq") else 0)
+                for name in FLASH_WRAPPERS}
+        rec, restore = infer_capture(fa)
+        try:
+            net.fit(ds)                                   # warm-up
+        finally:
+            restore()
+        if set(rec) != {n for n, c in want.items() if c}:
+            raise AssertionError(f"infer/f/{label}: captured {sorted(rec)}")
+        e = infer_kernel_errors(torch, fa, rec)
+        bad = {k: v for k, v in e.items()
+               if not (math.isfinite(v) and v <= FLASH_TOL["bfloat16"])}
+        if bad:
+            raise AssertionError(f"infer/f/{label}: kernel vs plain {bad}")
+        sync()
+        route0 = fa._ROUTE_FLASH.value
+        fallback0 = fa._ROUTE_XLA_LONG_T.value
+        for name in FLASH_WRAPPERS:
+            getattr(fa, name).launches = 0
+        t0 = time.perf_counter()
+        losses = [float(net.fit(ds)) for _ in range(steps)]
+        sync()
+        wall = time.perf_counter() - t0
+        cnt = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+        if cnt != want:
+            raise AssertionError(f"infer/f/{label}: launches {cnt} != "
+                                 f"{want}")
+        if fa._ROUTE_FLASH.value - route0 != steps:
+            raise AssertionError(f"infer/f/{label}: flash_route_total "
+                                 "did not move once a step")
+        if fa._ROUTE_XLA_LONG_T.value != fallback0:
+            raise AssertionError(f"infer/f/{label}: long-t fallback")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"infer/f/{label}: losses {losses}")
+        if masked and not losses[-1] < losses[0]:
+            raise AssertionError(f"infer/f/{label}: losses {losses} not "
+                                 "falling")
+        counts[label] = cnt
+        errs.update({f"{label}/{k}": v for k, v in e.items()})
+        out[label] = {"b": b, "t": t, "steps": steps, "losses": losses,
+                      "valid_tokens": int(lens.sum()), "launches": cnt,
+                      "step_ms": wall * 1e3 / steps,
+                      "tokens_per_s": steps * b * t / wall,
+                      "kernel_vs_plain": e}
+    out["tol"] = FLASH_TOL["bfloat16"]
+    out["measure"] = ("the warm-up step's operands of each wrapper, "
+                      "replayed: flash_err of kernel vs plain")
+    return out, counts, errs
+
+
+def infer_parts(torch, np, device, cfg, vgg, sync, card):
+    """Parts (a)-(f) of :func:`phase_infer` on ``device`` at ``cfg``'s
+    sizes, ``vgg`` the VGG16 model config (smaller in the rehearsal).
+    Emits one row and returns part (f)'s launch counts by window."""
+    t_phase = time.perf_counter()
+    row = {"phase": "infer", "card": card}
+    row["a_vgg_card_vs_cpu"] = infer_vgg_card_vs_cpu(torch, np, vgg, cfg,
+                                                     device)
+    row["b_transfer"], ft = infer_transfer(torch, np, vgg, cfg, device,
+                                           sync)
+    row["c_parallel_inference"] = infer_parallel(torch, np, ft, cfg)
+    row["d_quantized"] = infer_quantized(torch, np, ft, cfg, sync)
+    del ft
+    row["e_zoo"] = infer_zoo(torch, np, cfg, device)
+    row["f_attention"], counts, _ = infer_attention(torch, np, cfg, device,
+                                                    sync)
+    row["reduced"] = [
+        "seeded random weights for VGG16 and every zoo model (no "
+        "pretrained VGG16/YOLO2 weights are in the repo)",
+        "seeded random images for dl4j-examples' flower photos and "
+        "ImageNet, which are not in the repo"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+def phase_infer(torch, np):
+    """Batched inference and transfer learning on the card (phase 9b). (a)
+    VGG16 (224 x 224 x 3, 1000 classes, seeded f32-representable
+    weights) at b 2: the card's output, loss and every gradient in f64
+    and in f32 against the CPU's f64 (``INFER_F64_TOL``, ``INFER_TOL``;
+    the f32 gradients along the card's own ReLU and pool decisions), the
+    share of flipped decisions, every layer alone; (b) dl4j-examples'
+    EditLastLayerOthersFrozen:
+    TransferLearning.Builder freezes VGG16 through fc2, replaces the
+    head with 5 classes, fine-tunes with Nesterovs for 10 steps at b 16
+    on one seeded batch — frozen params bit-identical, the head moved,
+    the batch's score (no dropout) lower after, the source model
+    unchanged; (c) ParallelInference (batch_limit 32, queue_limit 64)
+    over the fine-tuned model, 8 caller threads x 16 single images, each
+    result against the model's direct output() of its image, images/s,
+    latency p50/p99, batches, occupancy and padding waste from the
+    inference_* series, then a shed case; (d) QuantizedInference of it
+    (weights dequantized to bf16, f32 math): compression, the largest
+    weight error, top-1 agreement on 64 images, images/s against f32
+    output() in turns; (e) every other
+    zoo CNN at its default input through one forward, one fit step of
+    YOLO2, UNet and FaceNetNN4Small2, the LeNet zip through
+    load_pretrained; (f) a sequence classifier at BERT-base's attention
+    width (SelfAttentionLayer 12 x 64, use_flash, masked pooling, 2
+    classes; bf16 on f32 masters, Adam) at b 32: 5 steps at t 512 with
+    seeded padding (K4, K5, K6 once a step each) and 2 unmasked steps at
+    t 1024 (K3, K5, K6), every launch's operands replayed against the
+    plain versions. Returns (f)'s launch counts."""
+    from deeplearning4j_torch.zoo import VGG16
+    try:
+        return infer_parts(torch, np, "cuda", INFER_CFG, VGG16(),
+                           torch.cuda.synchronize, card_line())
+    finally:
+        torch.cuda.empty_cache()
 
 
 # -- phase 10 ----------------------------------------------------------
@@ -4107,6 +4948,7 @@ def main(argv=None) -> int:
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
+        i_counts = None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -4129,6 +4971,8 @@ def main(argv=None) -> int:
             b_counts = phase_bert(torch, np)
         if "resnet" in phases:
             phase_resnet(torch, np, root)
+        if "infer" in phases:
+            i_counts = phase_infer(torch, np)
         if "timings" in phases:
             mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)
@@ -4184,6 +5028,12 @@ def main(argv=None) -> int:
                 if r_counts is not None and t == 2048:
                     # the same kernel on the resumed run (phase 7b)
                     rows[-1]["resume"] = {"launches": r_counts[name]}
+                if i_counts is not None:
+                    # the same kernel on the infer phase's attention
+                    # classifier (phase 9b (f)), by window
+                    by = {w: c[name] for w, c in i_counts.items()}
+                    rows[-1]["infer"] = {"launches": sum(by.values()),
+                                         "by_window": by}
                 if name in b_timing:
                     # the same kernel on the BERT main path (phase 8) at
                     # its training shape (timings/bert)

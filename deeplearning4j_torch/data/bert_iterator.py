@@ -8,7 +8,8 @@ Feed order matches the imported frozen-BERT placeholders
 ``BertIterator -> import_frozen_pb(...).fit(...)`` is the full
 BASELINE-config-4 pipeline end to end.
 
-Port of ``deeplearning4j_tpu/data/bert_iterator.py``: the same code, numpy and
+Port of ``deeplearning4j_tpu/data/bert_iterator.py``: the same code (and
+``set_epoch``, which resumed MLM training needs), numpy and
 the standard library only (the port keeps its own copy).
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ class BertIterator:
         self.max_len = int(max_len)
         self.task = task
         self.mask_prob = float(mask_prob)
+        self.seed = seed
         self._rng = np.random.default_rng(seed)
         self._mask_id = tokenizer.vocab.get("[MASK]")
         if task == "unsupervised" and self._mask_id is None:
@@ -93,3 +95,14 @@ class BertIterator:
 
     def reset(self):
         pass
+
+    def set_epoch(self, epoch: int):
+        """Draw what the ``epoch``-th pass (from 0) of an uninterrupted
+        iterator draws: re-seed, then replay the masks of the passes
+        before it (``fit(resume=True)`` calls this on a fresh iterator;
+        the MLM masks come from one rolling RNG)."""
+        self._rng = np.random.default_rng(self.seed)
+        if self.task == "unsupervised":
+            for _ in range(int(epoch)):
+                for _ in self:
+                    pass

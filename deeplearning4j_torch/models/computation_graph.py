@@ -36,7 +36,7 @@ from deeplearning4j_torch.nn.conf.graph_vertices import (BaseGraphVertex,
 from deeplearning4j_torch.nn.conf.inputs import InputType, Preprocessor, adapt
 from deeplearning4j_torch.nn.conf.layers_core import BaseOutputLayerConf
 from deeplearning4j_torch.runtime.backend import resolve_device
-from deeplearning4j_torch.runtime.rng import split
+from deeplearning4j_torch.runtime.rng import fold_in, split
 from deeplearning4j_torch.utils.trees import iter_leaves, map_leaves
 
 
@@ -420,6 +420,16 @@ class ComputationGraph(BaseNetwork):
                 act_masks[name] = mask
         return acts, new_state, act_masks, head_inputs
 
+    def _forward_infer(self, params, state, inputs, masks=None):
+        """The inference forward on the given trees (no dropout, state
+        left as it is); returns {output vertex: activation}.  What
+        ``ParallelInference`` and ``QuantizedInference`` call."""
+        inputs = {k: self._tensor(v)
+                  for k, v in self._as_input_dict(inputs).items()}
+        acts, _, _, _ = self._forward_all(params, state, inputs, False, None,
+                                          masks=masks)
+        return {n: acts[n] for n in self.conf.network_outputs}
+
     def _score_batch(self, params, state, batch, rng, training):
         """Sum of per-output mean losses + regularization (DL4J
         ``ComputationGraph.score``: output-layer scores summed); returns
@@ -440,7 +450,7 @@ class ComputationGraph(BaseNetwork):
             params, state, inputs, training, rng, masks=fmasks,
             stop_before_output=True)
         loss = 0.0
-        for name in self.conf.network_outputs:
+        for head_i, name in enumerate(self.conf.network_outputs):
             out_layer = self.conf.vertices[name].layer
             if not isinstance(out_layer, BaseOutputLayerConf):
                 raise ValueError(
@@ -448,7 +458,13 @@ class ComputationGraph(BaseNetwork):
             z = out_layer.pre_output(params[name], head_inputs[name],
                                      self._compute_dtype)
             lmask = lmasks.get(name)
-            scores = out_layer.per_example_score(labels[name], z, lmask)
+            # each head's own key (a VAE's draws), apart from the
+            # per-vertex dropout keys ``rng`` parented
+            head_rng = (None if rng is None
+                        else fold_in(rng, 0x5eed + head_i))
+            scores = out_layer.per_example_score(
+                labels[name], z, lmask, head_input=head_inputs[name],
+                rng=head_rng, params=params[name])
             if lmask is not None:
                 loss = loss + scores.sum() / torch.clamp(lmask.sum(), min=1.0)
             else:

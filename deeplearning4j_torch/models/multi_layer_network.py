@@ -27,7 +27,7 @@ from deeplearning4j_torch.nn.conf.base import BaseLayerConf, apply_layer
 from deeplearning4j_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_torch.nn.conf.layers_core import BaseOutputLayerConf
 from deeplearning4j_torch.runtime.backend import resolve_device
-from deeplearning4j_torch.runtime.rng import split
+from deeplearning4j_torch.runtime.rng import fold_in, split
 from deeplearning4j_torch.utils.trees import iter_leaves
 
 log = logging.getLogger("deeplearning4j_torch")
@@ -87,6 +87,13 @@ class MultiLayerNetwork(BaseNetwork):
                 rng=keys[i], **kwargs)
         return x, new_state
 
+    def _forward_infer(self, params, state, x, mask=None):
+        """The inference forward on the given trees (no dropout, state
+        left as it is).  What ``ParallelInference`` and
+        ``QuantizedInference`` call."""
+        return self._forward_layers(params, state, self._tensor(x), False,
+                                    None, mask=mask)[0]
+
     def _named_layers(self):
         return [(f"layer_{i}", ly) for i, ly in enumerate(self.layers)]
 
@@ -109,9 +116,14 @@ class MultiLayerNetwork(BaseNetwork):
         pre = self.conf.preprocessors[-1]
         if pre is not None:
             h = pre(h)
-        z = out_layer.pre_output(params[f"layer_{len(self.layers) - 1}"], h,
-                                 self._compute_dtype)
-        scores = out_layer.per_example_score(labels, z, lmask)
+        head_params = params[f"layer_{len(self.layers) - 1}"]
+        z = out_layer.pre_output(head_params, h, self._compute_dtype)
+        # the head's own key (a VAE's draws): ``rng`` already parented
+        # the per-layer dropout keys
+        head_rng = None if rng is None else fold_in(rng, 0x5eed)
+        scores = out_layer.per_example_score(labels, z, lmask, head_input=h,
+                                             rng=head_rng,
+                                             params=head_params)
         if lmask is not None:
             loss = scores.sum() / torch.clamp(lmask.sum(), min=1.0)
         else:

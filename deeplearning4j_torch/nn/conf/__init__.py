@@ -1,6 +1,7 @@
 """Layer configurations and the network-configuration builder (port of
-``deeplearning4j_tpu.nn.conf``: the transformer stacks' layers, the conv
-stack's layers, the recurrent layers and the graph vertices so far)."""
+``deeplearning4j_tpu.nn.conf``: every layer family — core, conv,
+recurrent, transformer, the remaining DL4J layers of ``layers_misc``
+and the YOLO2 detection head — and the graph vertices)."""
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, GlobalConf
 from deeplearning4j_torch.nn.conf.builder import (MultiLayerConfiguration,
                                                   NeuralNetConfiguration)
@@ -19,6 +20,12 @@ from deeplearning4j_torch.nn.conf.layers_core import (ActivationLayer,
                                                       DropoutLayer,
                                                       EmbeddingLayer,
                                                       LossLayer, OutputLayer)
+from deeplearning4j_torch.nn.conf.layers_misc import (
+    CenterLossOutputLayer, Convolution3D, ElementWiseMultiplicationLayer,
+    LearnedSelfAttentionLayer, LocallyConnected1D, LocallyConnected2D,
+    PReLULayer, SelfAttentionLayer, Subsampling3DLayer,
+    VariationalAutoencoder)
+from deeplearning4j_torch.nn.conf.layers_objdetect import Yolo2OutputLayer
 from deeplearning4j_torch.nn.conf.layers_recurrent import (
     GRU, LSTM, Bidirectional, GravesLSTM, LastTimeStep, RnnOutputLayer,
     SimpleRnn)
@@ -39,4 +46,8 @@ __all__ = ["BaseLayerConf", "GlobalConf", "MultiLayerConfiguration",
            "ZeroPaddingLayer", "ElementWiseVertex", "L2NormalizeVertex",
            "MergeVertex", "PreprocessorVertex", "ReshapeVertex",
            "ScaleVertex", "ShiftVertex", "StackVertex", "SubsetVertex",
-           "UnstackVertex"]
+           "UnstackVertex", "CenterLossOutputLayer", "Convolution3D",
+           "ElementWiseMultiplicationLayer", "LearnedSelfAttentionLayer",
+           "LocallyConnected1D", "LocallyConnected2D", "PReLULayer",
+           "SelfAttentionLayer", "Subsampling3DLayer",
+           "VariationalAutoencoder", "Yolo2OutputLayer"]

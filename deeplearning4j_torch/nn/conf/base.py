@@ -98,6 +98,11 @@ class BaseLayerConf:
         checkpoint must provide (``utils.convert.load_numpy_params``)."""
         return {}
 
+    def has_params(self) -> bool:
+        """Whether ``init`` builds any parameter (transfer learning's
+        re-initialisation walks by it)."""
+        return bool(self.param_shapes())
+
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
         return {}

@@ -1,8 +1,7 @@
 """Input types and automatic shape preprocessors (port of
 ``deeplearning4j_tpu/nn/conf/inputs.py``): the feed-forward, recurrent,
-convolutional and flat-convolutional input types, the reshapes between
-them, and their JSON round trip.  The volumetric ``cnn3d`` kind comes
-with ``layers_misc``.
+convolutional, flat-convolutional and volumetric (``cnn3d``, NDHWC)
+input types, the reshapes between them, and their JSON round trip.
 
 Images are NHWC end to end, as in the reference: "convolutional(h, w,
 c)" is a [batch, h, w, c] tensor.  Recurrent data is [batch, time,
@@ -16,8 +15,8 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class InputType:
     """kind: 'ff' (features,), 'cnn' (h, w, c), 'cnn_flat' (h, w, c)
-    arriving flattened, 'rnn' (time, features).  Shapes are batch-free;
-    time may be None."""
+    arriving flattened, 'cnn3d' (d, h, w, c), 'rnn' (time, features).
+    Shapes are batch-free; time may be None."""
 
     kind: str
     shape: Tuple[Optional[int], ...]
@@ -38,6 +37,13 @@ class InputType:
         layer is a convolution."""
         return InputType("cnn_flat", (int(height), int(width),
                                       int(channels)))
+
+    @staticmethod
+    def convolutional3d(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        """NDHWC volumetric input (DL4J InputType.convolutional3D)."""
+        return InputType("cnn3d", (int(depth), int(height), int(width),
+                                   int(channels)))
 
     @staticmethod
     def recurrent(size: int, timesteps: Optional[int] = None) -> "InputType":
@@ -79,9 +85,11 @@ class Preprocessor:
         if self.name == "cnn_to_rnn":         # [b,h,w,c] -> [b, w, h*c]
             # width is time, as in the reference
             return x.permute(0, 2, 1, 3).reshape(x.shape[0], x.shape[2], -1)
+        if self.name == "cnn3d_to_ff":        # [b,d,h,w,c] -> [b, d*h*w*c]
+            return x.reshape(x.shape[0], -1)
         if self.name == "identity":
             return x
-        raise ValueError(f"Preprocessor {self.name!r} is not ported yet")
+        raise ValueError(f"Unknown preprocessor {self.name!r}")
 
     def to_dict(self):
         return {"name": self.name, "spec": list(self.spec)}
@@ -115,6 +123,9 @@ def adapt(input_type: InputType, wanted_kind: str):
     if kind == "cnn" and wanted_kind == "rnn":
         h, w, c = input_type.shape
         return Preprocessor("cnn_to_rnn"), InputType("rnn", (w, h * c))
+    if kind == "cnn3d" and wanted_kind == "ff":
+        return (Preprocessor("cnn3d_to_ff"),
+                InputType("ff", (input_type.flat_size(),)))
     if kind == "rnn" and wanted_kind == "ff":
         t, f = input_type.shape
         # Dense over every timestep: fold time into batch (DL4J

@@ -797,7 +797,8 @@ class CnnLossLayer(BaseOutputLayerConf):
     def pre_output(self, params, x, compute_dtype=None):
         return x
 
-    def per_example_score(self, labels, z, mask=None):
+    def per_example_score(self, labels, z, mask=None, head_input=None,
+                          rng=None, params=None):
         # fold [b,h,w,c] to the sequence shape [b,h*w,c] and reuse the
         # base per-timestep masked scoring
         b, c = z.shape[0], z.shape[-1]

@@ -164,12 +164,17 @@ class BaseOutputLayerConf(BaseLayerConf):
         stays f64."""
         return z if z.dtype == torch.float64 else z.float()
 
-    def per_example_score(self, labels, z, mask=None):
+    def per_example_score(self, labels, z, mask=None, head_input=None,
+                          rng=None, params=None):
         """Per-example loss from PRE-activation ``z``, fusing softmax or
         sigmoid into the loss where the pairing allows (LossMCXENT's fused
         path).  Sequence outputs [b, t, c] are scored per timestep by
         folding time into the batch, so a label mask [b, t] (or [b, t, 1])
-        weights timesteps; masks [b] / [b, 1] weight whole examples."""
+        weights timesteps; masks [b] / [b, 1] weight whole examples.
+        ``head_input`` (the layer's input), ``rng`` (the head's key) and
+        ``params`` (the layer's) are what the networks pass every head;
+        a head whose loss needs them reads them (the center loss, the
+        VAE), the others ignore them."""
         act = (self.activation or "identity").lower()
         loss_name = str(self.loss).lower()
         loss_fn = get_loss(loss_name)

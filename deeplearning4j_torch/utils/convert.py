@@ -7,7 +7,12 @@ it as the port net's ``params_tree``: nested ``{"layer_i": {name:
 array}}`` for a ``MultiLayerNetwork``, ``{vertex name: {name: array}}``
 for a ``ComputationGraph``.  Names and layouts are shared (``Wqkv`` [d,
 3d], head ``W`` [d, V], conv ``W`` HWIO, recurrent ``W`` [n_in, 4h] and
-``R`` [h, 4h]), so no leaf is transposed; every leaf is checked against
+``R`` [h, 4h], PReLU ``alpha`` (1 on shared axes), the locally connected
+layers' per-position ``W`` [oh, ow, c*kh*kw, n_out] / [ot, f*k, n_out],
+Conv3D ``W`` DHWIO, the VAE's ``enc{i}``/``mu``/``logvar``/``dec{i}``/
+``recon`` ``_W``/``_b``, the center loss's ``centers`` [n_out, n_in],
+the learned queries ``Q`` [n_queries, heads * head_size]), so no leaf is
+transposed; every leaf is checked against
 the layer's ``param_shapes()`` (nested for ``Bidirectional``'s ``fwd`` /
 ``bwd``), and a layer or vertex without parameters takes an empty dict.  The net's state starts
 as each layer's ``init_state``.

@@ -1,5 +1,8 @@
 """ZooModel base (port of ``deeplearning4j_tpu/zoo/base.py``): a model
-family's configuration plus its construction on a device."""
+family's configuration plus its construction on a device.  Upstream a
+ZooModel downloads pretrained weights by URL and checksum; here
+``init_pretrained`` restores a local checkpoint (the registry with
+checksums is ``zoo.pretrained``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,3 +31,8 @@ class ZooModel:
         if isinstance(c, ComputationGraphConfiguration):
             return ComputationGraph(c).init(device=device)
         return MultiLayerNetwork(c).init(device=device)
+
+    # DL4J initPretrained(PretrainedType) — local checkpoint stand-in
+    def init_pretrained(self, checkpoint_path: str, device="cuda"):
+        from deeplearning4j_torch.utils.model_serializer import restore_model
+        return restore_model(checkpoint_path, device=device)

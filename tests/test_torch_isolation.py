@@ -124,6 +124,24 @@ def test_import_leaves_jax_unloaded():
         "from deeplearning4j_torch.data import CharacterIterator\n"
         "from deeplearning4j_torch.nn.conf import GravesLSTM, Bidirectional\n"
         "import deeplearning4j_torch.models.network\n"
+        "import deeplearning4j_torch.nn.conf.layers_misc\n"
+        "import deeplearning4j_torch.nn.conf.layers_objdetect\n"
+        "import deeplearning4j_torch.zoo.alexnet\n"
+        "import deeplearning4j_torch.zoo.vgg\n"
+        "import deeplearning4j_torch.zoo.darknet\n"
+        "import deeplearning4j_torch.zoo.squeezenet\n"
+        "import deeplearning4j_torch.zoo.unet\n"
+        "import deeplearning4j_torch.zoo.xception\n"
+        "import deeplearning4j_torch.zoo.inception\n"
+        "import deeplearning4j_torch.zoo.facenet\n"
+        "import deeplearning4j_torch.zoo.nasnet\n"
+        "import deeplearning4j_torch.zoo.pretrained\n"
+        "import deeplearning4j_torch.models.transfer_learning\n"
+        "import deeplearning4j_torch.parallel.inference\n"
+        "import deeplearning4j_torch.runtime.quantization\n"
+        "from deeplearning4j_torch.parallel import ParallelInference\n"
+        "from deeplearning4j_torch.runtime import QuantizedInference\n"
+        "from deeplearning4j_torch.zoo import VGG16, YOLO2, load_pretrained\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
         "assert not bad, bad\n"

@@ -1012,3 +1012,143 @@ def test_set_epoch_gives_that_epochs_order(make):
         got = [ds.features for ds in used]
         assert len(got) == len(passes[k])
         assert all(np.array_equal(a, b) for a, b in zip(got, passes[k]))
+
+
+# -- BERT MLM masks across epochs (BertIterator.set_epoch) ---------------
+MLM_T = 16
+
+
+def _mlm_iterator(package, seed=4):
+    """``package``'s BertIterator over 24 tiny_sentiment sentences in
+    the MLM task (batches of 8, t 16): three batches an epoch, every
+    mask drawn from one rolling RNG."""
+    import importlib
+    ts = importlib.import_module(f"{package}.data.tiny_sentiment")
+    bi = importlib.import_module(f"{package}.data.bert_iterator")
+    tok = ts.make_tokenizer()
+    rows = [s for s, _ in ts.load_tiny_sentiment()[:24]]
+    return bi.BertIterator(tok, rows, 8, MLM_T, task="unsupervised",
+                           seed=seed), len(tok.vocab)
+
+
+def _masks(it):
+    return [(mds.features[0].copy(), mds.labels[1].copy()) for mds in it]
+
+
+def test_bert_iterator_masks_over_two_epochs_match_jax():
+    """The port's MLM iterator draws the reference's masked ids and
+    selections, epoch after epoch (the same numpy RNG stream); epoch 1's
+    differ from epoch 0's."""
+    pytest.importorskip("jax")
+    got, _ = _mlm_iterator("deeplearning4j_torch")
+    want, _ = _mlm_iterator("deeplearning4j_tpu")
+    epochs = []
+    for _ in range(2):
+        g, w = _masks(got), _masks(want)
+        assert len(g) == len(w) == 3
+        for (gi, gs), (wi, ws) in zip(g, w):
+            assert np.array_equal(gi, wi) and np.array_equal(gs, ws)
+        epochs.append(g)
+    assert not all(np.array_equal(a[1], b[1])
+                   for a, b in zip(*epochs))
+
+
+def test_bert_iterator_set_epoch_replays_the_rolling_rng():
+    """``set_epoch(k)`` on a fresh iterator yields the k-th pass of an
+    uninterrupted one, whichever passes it made before."""
+    run, _ = _mlm_iterator("deeplearning4j_torch")
+    passes = [_masks(run) for _ in range(3)]
+    used, _ = _mlm_iterator("deeplearning4j_torch")
+    _masks(used)
+    for k in (2, 0, 1):
+        used.set_epoch(k)
+        for (gi, gs), (wi, ws) in zip(_masks(used), passes[k]):
+            assert np.array_equal(gi, wi) and np.array_equal(gs, ws)
+
+
+class _MlmBatches:
+    """An MLM BertIterator as DataSets for a token classifier: features
+    the masked ids, labels the one-hot targets, the attention mask as
+    the features mask and the selection as the labels mask.  It offers
+    ``set_epoch`` exactly when the wrapped iterator does."""
+
+    def __init__(self, it, vocab):
+        self.it, self.vocab = it, vocab
+
+    def __iter__(self):
+        from deeplearning4j_torch.data import DataSet
+        eye = np.eye(self.vocab, dtype=np.float32)
+        for mds in self.it:
+            ids, mask, _ = mds.features
+            tgt, sel = mds.labels
+            yield DataSet(ids, eye[tgt], features_mask=mask.astype(
+                np.float32), labels_mask=sel.astype(np.float32))
+
+    def reset(self):
+        self.it.reset()
+
+    def __getattr__(self, name):
+        if name == "set_epoch":
+            return getattr(self.it, name)
+        raise AttributeError(name)
+
+
+def _tiny_mlm_bert(vocab, seed):
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (EmbeddingSequenceLayer,
+                                              InputType,
+                                              NeuralNetConfiguration,
+                                              RnnOutputLayer,
+                                              TransformerEncoderBlock)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    conf = (NeuralNetConfiguration.builder().seed(seed)
+            .updater(Adam(learning_rate=1e-2)).list()
+            .set_input_type(InputType.feed_forward(MLM_T))
+            .layer(EmbeddingSequenceLayer(n_in=vocab, n_out=16,
+                                          max_len=MLM_T))
+            .layer(TransformerEncoderBlock(n_heads=2, d_ff=32,
+                                           use_flash=False))
+            .layer(RnnOutputLayer(n_out=vocab, activation="softmax",
+                                  loss="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf).init(device="cpu")
+
+
+def test_bert_mlm_kill_and_resume_in_the_second_epoch(tmp_path,
+                                                     one_torch_thread):
+    """A tiny BERT trained on the MLM task (3 batches an epoch, 2
+    epochs), preempted after iteration 4 — the second epoch's second
+    batch — resumes in a fresh model from another seed over a fresh
+    iterator equal to the uninterrupted run bit for bit: every loss,
+    params and Adam state.  ``fit(resume=True)`` calls the iterator's
+    ``set_epoch(1)``, so the resumed batches mask with epoch 1's
+    draws."""
+    from deeplearning4j_torch.optimize import CollectScoresListener
+    from deeplearning4j_torch.parallel import CheckpointListener
+    it, vocab = _mlm_iterator("deeplearning4j_torch")
+    ref = _tiny_mlm_bert(vocab, 5)
+    ref_scores = CollectScoresListener()
+    ref.set_listeners(ref_scores)
+    ref.fit(_MlmBatches(it, vocab), n_epochs=2)
+    assert ref.iteration_count == 6
+    m = _tiny_mlm_bert(vocab, 5)
+    ck = CheckpointListener(tmp_path / "mlm", save_every_n_iterations=2)
+    m.set_listeners(ck)
+    try:
+        with pytest.raises(resilience.TrainingPreempted) as ei:
+            with FaultInjector(["preempt@4"]):
+                m.fit(_MlmBatches(_mlm_iterator("deeplearning4j_torch")[0],
+                                  vocab), n_epochs=2)
+    finally:
+        resilience.clear_preemption()
+    assert ei.value.step == 4
+    m2 = _tiny_mlm_bert(vocab, 11)
+    scores = CollectScoresListener()
+    m2.set_listeners(CheckpointListener(tmp_path / "mlm"), scores)
+    m2.fit(_MlmBatches(_mlm_iterator("deeplearning4j_torch")[0], vocab),
+           n_epochs=2, resume=True)
+    assert scores.scores == ref_scores.scores[5:]
+    assert (m2.iteration_count, m2.epoch_count) == (6, 2)
+    for tree in ("params_tree", "opt_state", "state_tree"):
+        assert _equal_trees(getattr(m2, tree), getattr(ref, tree)), tree
