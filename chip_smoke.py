@@ -224,6 +224,34 @@ Phases:
                t 512 with seeded padding (K4, K5, K6) and t 1024 unmasked
                (K3, K5, K6), counted from 0 and held to the plain
                versions on the steps' own operands.
+ 9c. samediff — graph import (BASELINE config 3): (a) the frozen BERT-base
+               graph (tests/fixtures/bert_base_graph_only.pb: 12 x 768,
+               12 heads of 64, ff 3072, vocab 30522, t 512; its weights
+               emptied and seeded from the sidecar with numpy) imported
+               through the port's wire codec and rewritten by
+               optimize_for_tpu — the JAX package's counts on the same
+               file, 12 fused attention sites — then its f32 forward at b
+               2 against the port on the CPU in f64 (last hidden state and
+               pooler, normwise <= 1e-4); (b) the main path: the SST-2
+               classifier head, bf16 on f32 masters, Adam(2e-5), b 40,
+               t 512 over the tiny-sentiment corpus through BertIterator,
+               a warm-up step whose flash operands are replayed against
+               the plain versions, then 10 counted steps on one batch (K4,
+               K5 without dBias and K6 12 times a step each, counted from
+               0): the loss finite and falling, step ms, padded and valid
+               tokens/s, the interpreter's host ms per step, peak memory,
+               a profiled step's busy share, the held-out accuracy over
+               the 80 sentences; (c) the committed fixtures against
+               TensorFlow's goldens (3e-5): bert_tiny unfused and fused,
+               gpt_toy (t 512, causal) fused with its mask dropped on K4's
+               causal route and a 3-step fine-tune on K4/K5/K6,
+               bert_tiny_sentiment imported and run, a zip saved on the
+               card loaded on the CPU; (d) an MLP, a CNN and an attention
+               block written with onnx_serde, read back, card against CPU
+               (1e-5), the attention block with no fused site; (e) a
+               seeded CSV through CSVRecordReader -> TransformProcess
+               (filter + one-hot) -> RecordReaderDataSetIterator ->
+               MultiLayerNetwork.fit on the card: rows/s, accuracy up.
  10. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
@@ -238,7 +266,7 @@ Phases:
 ``--phases build,resume`` for resumable training alone,
 ``--phases build,rnn`` for the recurrent stack alone,
 ``--phases build,infer`` for batched inference and transfer learning
-alone,
+alone, ``--phases build,samediff`` for graph import alone,
 ``--phases build,resnet`` for the conv slice alone, or ``--phases
 build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -267,7 +295,8 @@ import time
 import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
-          "train", "resume", "rnn", "bert", "resnet", "infer", "timings")
+          "train", "resume", "rnn", "bert", "resnet", "infer", "samediff",
+          "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -302,6 +331,11 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
 # (head dim, heads) of the K1/K2 cases the fast kernels do not take
 ANY_DH = ((12, 6), (160, 3), (256, 3))
+# optimize_for_tpu's counts on tests/fixtures/bert_base_graph_only.pb: the
+# JAX package's on the same file (held by tests/test_torch_rewrites.py)
+BERT_BASE_REWRITES = {"parallel_matmuls": 12, "layer_norm": 25, "gelu": 12,
+                      "attention": 12, "flatten_reshapes": 48}
+ROOT_DIR = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
 
@@ -4311,6 +4345,527 @@ def phase_infer(torch, np):
         torch.cuda.empty_cache()
 
 
+# -- phase 9c ----------------------------------------------------------
+# BASELINE config 3 at bench.py's bench_bert_imported shape: the frozen
+# BERT-base graph (weights emptied, seeded from its sidecar), b 40, t 512,
+# bf16 on f32 masters, Adam(2e-5), the tiny-sentiment corpus
+SAMEDIFF_CFG = {"graph": "tests/fixtures/bert_base_graph_only.pb",
+                "rewrites": BERT_BASE_REWRITES, "layers": 12, "seed": 0,
+                "b_f32": 2, "b": 40, "t": 512, "steps": 10, "lr": 2e-5,
+                "gpt_steps": 3, "csv_rows": 4096, "csv_batch": 128,
+                "csv_epochs": 4}
+# (a) the card's f32 forward against the CPU's f64, normwise; (c) the
+# committed fixtures against TensorFlow's goldens (the reference tests'
+# bound); (d) ONNX graphs card against CPU, each element
+SAMEDIFF_TOL = {"f32_normwise": 1e-4, "golden": 3e-5, "onnx": 1e-5,
+                "zip": 1e-5}
+SD_FIXTURES = "tests/fixtures"
+
+
+def sd_sidecar_values(np, sidecar, seed):
+    """{const name: value} of every Const the graph-only file emptied,
+    seeded with numpy: N(0, 0.02) in f32, ones or zeros (the sidecar's
+    ``init``)."""
+    r = np.random.default_rng(seed)
+    out = {}
+    for c in sidecar["consts"]:
+        shape = tuple(c["shape"])
+        if c["init"] == "normal":
+            out[c["name"]] = (r.standard_normal(shape, np.float32)
+                              * np.float32(0.02))
+        else:
+            out[c["name"]] = np.full(shape, 1.0 if c["init"] == "ones"
+                                     else 0.0, np.float32)
+    return out
+
+
+def sd_import(path, values, device, expect=None):
+    """The graph at ``path`` imported on ``device``, ``values`` installed
+    over its VARIABLEs, rewritten by ``optimize_for_tpu``.  Returns (the
+    graph, the rewrite counts, the fused attention sites, seconds)."""
+    from deeplearning4j_torch.autodiff.rewrites import optimize_for_tpu
+    from deeplearning4j_torch.autodiff.tf_import import import_frozen_pb
+    t0 = time.perf_counter()
+    sd = import_frozen_pb(path, device=device)
+    for k, v in (values or {}).items():
+        if sd.vars[k].var_type != "VARIABLE":
+            raise AssertionError(f"samediff: {k} is not a VARIABLE")
+        sd.values[k] = v
+    counts = optimize_for_tpu(sd)
+    sites = sum(n.op_name == "fused_attention" for n in sd.ops)
+    if expect is not None and counts != expect:
+        raise AssertionError(f"samediff: rewrites {counts} != {expect}")
+    return sd, counts, sites, time.perf_counter() - t0
+
+
+def normwise(torch, got, want):
+    """||got - want|| / ||want|| in f64 (``want`` is the reference)."""
+    g = torch.as_tensor(got).double().cpu()
+    w = torch.as_tensor(want).double().cpu()
+    return float((g - w).norm() / w.norm().clamp_min(1e-300))
+
+
+def sd_counts(fa):
+    return {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+
+
+def sd_zero(fa):
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+
+
+def sd_base_forward(torch, np, cfg, device, sync, values):
+    """Part (a): import + rewrite on the card (the counts the reference
+    gives on the same file, ``cfg["layers"]`` fused sites), then the f32
+    forward at b ``b_f32`` against the port on the CPU in f64: the
+    last hidden state and the pooler output, normwise.  Returns (the
+    card's graph, the row)."""
+    fa = flash_module()
+    path = os.path.join(ROOT_DIR, cfg["graph"])
+    sd, counts, sites, secs = sd_import(path, values, device,
+                                        cfg["rewrites"])
+    if sites != cfg["layers"]:
+        raise AssertionError(f"samediff/a: {sites} fused sites")
+    b, t = cfg["b_f32"], cfg["t"]
+    r = np.random.default_rng(cfg["seed"] + 1)
+    vocab = cfg["vocab"]
+    feeds = {"i": r.integers(0, vocab, (b, t)).astype(np.int32),
+             "m": np.ones((b, t), np.int32),
+             "t": np.zeros((b, t), np.int32)}
+    feeds["m"][1, t // 2:] = 0
+    outs = ["Identity", "Identity_1"]
+    sync()
+    sd_zero(fa)
+    t0 = time.perf_counter()
+    card = sd.output(feeds, outs)
+    sync()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = sd_counts(fa)
+    if launches["flash_fwd_single"] != cfg["layers"]:
+        raise AssertionError(f"samediff/a: f32 forward launches {launches}")
+    cpu, _, _, _ = sd_import(path, {k: v.astype(np.float64)
+                                    for k, v in values.items()}, "cpu")
+    want = cpu.output(feeds, outs)
+    errs = {o: normwise(torch, card[o], want[o]) for o in outs}
+    for o, e in errs.items():
+        if not (math.isfinite(e) and e <= SAMEDIFF_TOL["f32_normwise"]):
+            raise AssertionError(f"samediff/a: {o} card f32 vs CPU f64 "
+                                 f"{e}")
+    return sd, {"import_s": secs, "ops": len(sd.ops), "rewrites": counts,
+                "fused_sites": sites, "b": b, "t": t,
+                "f32_vs_cpu_f64_normwise": errs,
+                "bound": SAMEDIFF_TOL["f32_normwise"],
+                "f32_forward_ms_first_call": fwd_ms,
+                "launches": launches}
+
+
+def sd_finetune(torch, np, sd, cfg, sync, peak, profile):
+    """Part (b): ``attach_classifier_head`` and the bf16 fine-tune on the
+    tiny-sentiment corpus through BertIterator at b ``b``, t ``t``: a
+    warm-up step whose flash operands are replayed against the plain
+    versions, then ``steps`` counted steps on one batch (K4, K5 and K6
+    ``layers`` times a step each, K3 never), then the held-out accuracy.
+    Returns (the row, the window's launches)."""
+    from deeplearning4j_torch.autodiff import TrainingConfig
+    from deeplearning4j_torch.data.bert_iterator import BertIterator
+    from deeplearning4j_torch.data.tiny_sentiment import (make_tokenizer,
+                                                          train_test_split)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    from deeplearning4j_torch.utils.bert_fixture import (
+        attach_classifier_head)
+    fa = flash_module()
+    b, t, steps, L = cfg["b"], cfg["t"], cfg["steps"], cfg["layers"]
+    attach_classifier_head(sd)
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(learning_rate=cfg["lr"]),
+        data_set_feature_mapping=["i", "m", "t"],
+        data_set_label_mapping=["labels"], compute_dtype="bfloat16"))
+    tok = make_tokenizer()
+    train, test = train_test_split()
+    np.random.default_rng(7).shuffle(train)
+    batch = next(iter(BertIterator(tok, train[:b], b, t)))
+    valid = int(batch.features[1].sum())
+    rec, restore = infer_capture(fa)
+    try:
+        warm = sd.fit([batch])
+    finally:
+        restore()
+    want = {"flash_fwd": 0, "flash_fwd_single": steps * L,
+            "flash_bwd_dkdv": steps * L, "flash_bwd_dq": steps * L}
+    if set(rec) != {n for n, c in want.items() if c}:
+        raise AssertionError(f"samediff/b: captured {sorted(rec)}")
+    if rec["flash_bwd_dkdv"][1].get("need_dbias"):
+        raise AssertionError("samediff/b: K5 asked for dBias")
+    errs = infer_kernel_errors(torch, fa, rec)
+    bad = {k: v for k, v in errs.items()
+           if not (math.isfinite(v) and v <= FLASH_TOL["bfloat16"])}
+    if bad:
+        raise AssertionError(f"samediff/b: kernel vs plain {bad}")
+    sync()
+    fallback0 = fa._ROUTE_XLA_LONG_T.value
+    interp0, runs0 = sd.run_stats["interpret_s"], sd.run_stats["runs"]
+    peak(reset=True)
+    sd_zero(fa)
+    t0 = time.perf_counter()
+    losses = sd.fit([batch] * steps)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = sd_counts(fa)
+    if counts != want:
+        raise AssertionError(f"samediff/b: launches {counts} != {want}")
+    if fa._ROUTE_XLA_LONG_T.value != fallback0:
+        raise AssertionError("samediff/b: long-t fallback")
+    if not (all(math.isfinite(v) for v in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError(f"samediff/b: losses {losses}")
+    step_s = sorted(sd.run_stats["step_s"][-steps:])
+    step_ms = step_s[len(step_s) // 2] * 1e3
+    interp_ms = (sd.run_stats["interpret_s"] - interp0) * 1e3 / steps
+    # one training step alone (fit also copies every trained value back
+    # to the host when it returns, which is not the step's work)
+    names = ["i", "m", "t", "labels"]
+    feeds = {n: sd._feed(x) for n, x in zip(
+        names, list(batch.features) + list(batch.labels))}
+    step_fn, _ = sd._train_step_fn(names)
+    params = sd._device_params()
+    prof = profile(lambda: float(step_fn(params, sd._updater_state,
+                                         sd._step, feeds)[2]))
+    hits = total = 0
+    for tb in BertIterator(tok, test, b, t):
+        ids, mask, tt = tb.features
+        lg = sd.output({"i": ids, "m": mask, "t": tt}, ["logits"])["logits"]
+        hits += int((lg.argmax(-1).cpu().numpy() == tb.labels[0]).sum())
+        total += len(tb.labels[0])
+    row = {"b": b, "t": t, "steps": steps, "warm_up_loss": warm[0],
+           "losses": losses, "launches": counts,
+           "kernel_vs_plain": errs, "tol": FLASH_TOL["bfloat16"],
+           "step_ms_median": step_ms, "window_wall_s": wall,
+           "padded_tokens_per_s": b * t / (step_ms / 1e3),
+           "valid_tokens": valid, "valid_share": valid / (b * t),
+           "valid_tokens_per_s": valid / (step_ms / 1e3),
+           "interpreter_host_ms_per_step": interp_ms,
+           "interpreter_runs": sd.run_stats["runs"] - runs0,
+           "peak_bytes": peak(), "held_out_accuracy": hits / total,
+           "held_out_sentences": total,
+           "measure": ("step_ms: median of the counted steps' walls, each "
+                       "ended by its loss's host read; interpreter: host "
+                       "seconds inside SameDiff._run_graph (the forward "
+                       "walk) per step")}
+    if prof is not None:
+        row["profile"] = prof
+    return row, counts
+
+
+def sd_goldens(torch, np, cfg, device, sync):
+    """Part (c): the committed frozen fixtures on ``device`` against
+    TensorFlow's goldens — bert_tiny unfused and fused, gpt_toy (t 512,
+    causal) fused with the mask dropped on K4's causal route, then its
+    3-step fine-tune on K4/K5/K6 — bert_tiny_sentiment imports and runs,
+    and a zip saved from ``device`` loads on the CPU with equal outputs.
+    Returns (the row, the fine-tune's launches)."""
+    import tempfile
+    from deeplearning4j_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_torch.autodiff.rewrites import optimize_for_tpu
+    from deeplearning4j_torch.autodiff.tf_import import import_frozen_pb
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.optimize.updaters import Adam
+    fa = flash_module()
+    fix = os.path.join(ROOT_DIR, SD_FIXTURES)
+    tol = SAMEDIFF_TOL["golden"]
+    row = {"tol": tol}
+    g = np.load(os.path.join(fix, "golden.npz"))
+    feeds = {"i": g["ids"], "m": g["mask"], "t": g["tt"]}
+    for fused in (False, True):
+        sd = import_frozen_pb(os.path.join(fix, "bert_tiny_frozen.pb"),
+                              device=device)
+        if fused:
+            optimize_for_tpu(sd)
+        out = sd.output(feeds, ["Identity", "Identity_1"])
+        errs = {"last_hidden": float((out["Identity"].cpu() - torch.as_tensor(
+                    g["last_hidden"])).abs().max()),
+                "pooler": float((out["Identity_1"].cpu() - torch.as_tensor(
+                    g["pooler"])).abs().max())}
+        if not all(v <= tol for v in errs.values()):
+            raise AssertionError(f"samediff/c: bert_tiny fused={fused} "
+                                 f"{errs}")
+        row[f"bert_tiny_{'fused' if fused else 'unfused'}"] = errs
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "bert_tiny.sdz")
+        sd.save(path)
+        back = SameDiff.load(path, device="cpu").output(feeds, ["Identity"])
+        row["zip_to_cpu_max_abs"] = float((back["Identity"] - out[
+            "Identity"].cpu()).abs().max())
+        if row["zip_to_cpu_max_abs"] > SAMEDIFF_TOL["zip"]:
+            raise AssertionError(f"samediff/c: zip {row['zip_to_cpu_max_abs']}")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    gg = np.load(os.path.join(fix, "gpt_toy_golden.npz"))
+    gpt = import_frozen_pb(os.path.join(fix, "gpt_toy_frozen.pb"),
+                           device=device)
+    counts = optimize_for_tpu(gpt)
+    nodes = [n for n in gpt.ops if n.op_name == "fused_attention"]
+    if counts["attention"] != 2 or not all(
+            n.attrs["causal"] and len(n.inputs) == 3 for n in nodes):
+        raise AssertionError(f"samediff/c: gpt_toy fusion {counts}")
+    sync()
+    sd_zero(fa)
+    out = gpt.output({"i": gg["ids"]}, ["Identity"])["Identity"]
+    fwd = sd_counts(fa)
+    err = float((out.cpu() - torch.as_tensor(gg["last_hidden"])).abs().max())
+    if fwd["flash_fwd_single"] != 2 or err > tol:
+        raise AssertionError(f"samediff/c: gpt_toy {fwd} err {err}")
+    pooled = gpt.reduce_mean(gpt.vars["Identity"], axis=1)
+    w = gpt.var("cls_W", np.random.default_rng(0).normal(
+        scale=0.02, size=(64, 2)).astype(np.float32))
+    labels = gpt.placeholder("labels", (None,), "int32")
+    gpt.set_loss_variables(gpt.reduce_mean(gpt.op(
+        "sparse_softmax_cross_entropy_with_logits", labels,
+        gpt.matmul(pooled, w, name="logits")), name="loss"))
+    gpt.set_training_config(TrainingConfig(
+        updater=Adam(learning_rate=1e-3), data_set_feature_mapping=["i"],
+        data_set_label_mapping=["labels"]))
+    ids = np.random.default_rng(1).integers(0, 500, (2, 512)).astype(
+        np.int32)
+    sync()
+    sd_zero(fa)
+    losses = gpt.fit([DataSet(ids, np.asarray([0, 1], np.int32))],
+                     n_epochs=cfg["gpt_steps"])
+    sync()
+    ft = sd_counts(fa)
+    n = 2 * cfg["gpt_steps"]
+    if ft != {"flash_fwd": 0, "flash_fwd_single": n, "flash_bwd_dkdv": n,
+              "flash_bwd_dq": n}:
+        raise AssertionError(f"samediff/c: gpt_toy fine-tune {ft}")
+    if not (all(math.isfinite(v) for v in losses) and
+            losses[-1] < losses[0]):
+        raise AssertionError(f"samediff/c: gpt_toy losses {losses}")
+    row["gpt_toy"] = {"rewrites": counts, "max_abs_err": err,
+                      "forward_launches": fwd, "finetune_launches": ft,
+                      "finetune_losses": losses}
+    sent = import_frozen_pb(os.path.join(
+        fix, "bert_tiny_sentiment_frozen.pb"), device=device)
+    sc = optimize_for_tpu(sent)
+    o = sent.output(feeds, ["Identity_1"])["Identity_1"]
+    if tuple(o.shape) != (2, 64) or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"samediff/c: sentiment {tuple(o.shape)}")
+    row["bert_tiny_sentiment"] = {"rewrites": sc, "pooler_shape": list(
+        o.shape)}
+    return row, ft
+
+
+def sd_onnx_models(np):
+    """{name: (ONNX model dict, feeds, outputs)}: an MLP with Gemm, a small
+    CNN and the attention block of tests/test_onnx_import.py, seeded."""
+    from deeplearning4j_torch.autodiff import onnx_serde as O
+    r = np.random.default_rng(3)
+
+    def f32(*s):
+        return r.normal(size=s).astype(np.float32)
+    mlp = O.model(
+        [O.node("Gemm", ["x", "w0", "b0"], ["h0"], transB=1),
+         O.node("Relu", ["h0"], ["a0"]),
+         O.node("Gemm", ["a0", "w1", "b1"], ["out"], transB=1)],
+        [O.value_info("x", (None, 6))], [O.value_info("out", (None, 3))],
+        [O.tensor("w0", f32(16, 6)), O.tensor("b0", f32(16)),
+         O.tensor("w1", f32(3, 16)), O.tensor("b1", f32(3))])
+    cnn = O.model(
+        [O.node("Conv", ["x", "cw", "cb"], ["c"], strides=[1, 1],
+                pads=[1, 1, 1, 1], group=1, dilations=[1, 1]),
+         O.node("BatchNormalization", ["c", "g", "beta", "mu", "var"],
+                ["bn"], epsilon=1e-5),
+         O.node("Relu", ["bn"], ["rl"]),
+         O.node("MaxPool", ["rl"], ["p"], kernel_shape=[2, 2],
+                strides=[2, 2]),
+         O.node("GlobalAveragePool", ["p"], ["gap"]),
+         O.node("Flatten", ["gap"], ["fl"], axis=1),
+         O.node("Gemm", ["fl", "fw", "fb"], ["out"], transB=1)],
+        [O.value_info("x", (None, 3, 8, 8))],
+        [O.value_info("out", (None, 4))],
+        [O.tensor("cw", f32(8, 3, 3, 3)), O.tensor("cb", f32(8)),
+         O.tensor("g", f32(8)), O.tensor("beta", f32(8)),
+         O.tensor("mu", f32(8) * 0.1),
+         O.tensor("var", np.abs(f32(8)) + 0.5),
+         O.tensor("fw", f32(4, 8)), O.tensor("fb", f32(4))])
+    d = 8
+    att = O.model(
+        [O.node("MatMul", ["x", "wq"], ["q"]),
+         O.node("MatMul", ["x", "wk"], ["k"]),
+         O.node("MatMul", ["x", "wv"], ["v"]),
+         O.node("Transpose", ["k"], ["kT"], perm=[0, 2, 1]),
+         O.node("MatMul", ["q", "kT"], ["qk"]),
+         O.node("Mul", ["qk", "scale"], ["scaled"]),
+         O.node("Softmax", ["scaled"], ["probs"], axis=-1),
+         O.node("MatMul", ["probs", "v"], ["ctx"]),
+         O.node("LayerNormalization", ["ctx", "ln_g", "ln_b"], ["out"],
+                axis=-1, epsilon=1e-5)],
+        [O.value_info("x", (2, 6, d))], [O.value_info("out", (2, 6, d))],
+        [O.tensor("wq", f32(d, d)), O.tensor("wk", f32(d, d)),
+         O.tensor("wv", f32(d, d)), O.tensor("ln_g", f32(d)),
+         O.tensor("ln_b", f32(d)),
+         O.tensor("scale", np.float32(1.0 / np.sqrt(d)))])
+    return {"mlp": (mlp, {"x": f32(5, 6)}, ["out"]),
+            "cnn": (cnn, {"x": f32(2, 3, 8, 8)}, ["out"]),
+            "attention": (att, {"x": f32(2, 6, d)}, ["out"])}
+
+
+def sd_onnx(torch, np, device):
+    """Part (d): each model written to bytes, read back, imported on
+    ``device`` and on the CPU; outputs held to ``SAMEDIFF_TOL["onnx"]``;
+    the attention block rewrites to zero fused sites, as the reference's
+    does."""
+    from deeplearning4j_torch.autodiff import onnx_serde as O
+    from deeplearning4j_torch.autodiff.onnx_import import import_onnx_model
+    from deeplearning4j_torch.autodiff.rewrites import optimize_for_tpu
+    row = {"tol": SAMEDIFF_TOL["onnx"]}
+    for name, (model, feeds, outs) in sd_onnx_models(np).items():
+        raw = O.encode(model, O.MODEL)
+        back = O.decode(raw, O.MODEL)
+        res = {}
+        for dev in (device, "cpu"):
+            sd = import_onnx_model(back, device=dev)
+            res[dev] = sd.output(feeds, outs)[outs[0]].cpu()
+        err = float((res[device] - res["cpu"]).abs().max())
+        if not err <= SAMEDIFF_TOL["onnx"]:
+            raise AssertionError(f"samediff/d: {name} {err}")
+        row[name] = {"bytes": len(raw), "max_abs_card_vs_cpu": err}
+    sd = import_onnx_model(sd_onnx_models(np)["attention"][0], device=device)
+    counts = optimize_for_tpu(sd)
+    if counts["attention"] != 0 or counts["parallel_matmuls"] != 1:
+        raise AssertionError(f"samediff/d: attention block {counts}")
+    row["attention"]["rewrites"] = counts
+    return row
+
+
+def sd_datavec(torch, np, cfg, device, sync):
+    """Part (e): a seeded CSV (4 doubles, a 3-way categorical, the label,
+    some rows with a missing value) through CSVRecordReader ->
+    TransformProcess (filter_invalid, categorical_to_one_hot,
+    categorical_to_integer) -> RecordReaderDataSetIterator ->
+    AsyncDataSetIterator -> MultiLayerNetwork.fit on ``device``: rows/s of
+    the ETL alone and of the fit, accuracy before and after."""
+    import shutil
+    import tempfile
+    from deeplearning4j_torch.data.iterator import AsyncDataSetIterator
+    from deeplearning4j_torch.datavec import (CSVRecordReader,
+                                              RecordReaderDataSetIterator,
+                                              Schema, TransformProcess)
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (DenseLayer,
+                                              NeuralNetConfiguration,
+                                              OutputLayer)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    n = cfg["csv_rows"]
+    r = np.random.default_rng(cfg["seed"] + 5)
+    x = r.normal(size=(n, 4))
+    colors = np.asarray(["red", "green", "blue"])[r.integers(0, 3, n)]
+    y = (x @ np.asarray([1.0, -1.0, 0.5, 0.2])
+         + 0.8 * (colors == "red")) > 0.2
+    missing = r.random(n) < 0.02
+    lines = [("" if miss else f"{row[0]:.6f}") + ","
+             + ",".join(f"{v:.6f}" for v in row[1:])
+             + f",{c},{'pos' if lab else 'neg'}"
+             for row, c, lab, miss in zip(x, colors, y, missing)]
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "train.csv")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        schema = (Schema.builder().add_column_double("a", "b", "c", "d")
+                  .add_column_categorical("color", ["red", "green", "blue"])
+                  .add_column_categorical("label", ["neg", "pos"]).build())
+        tp = (TransformProcess.builder(schema).filter_invalid("a")
+              .categorical_to_one_hot("color")
+              .categorical_to_integer("label").build())
+        it = RecordReaderDataSetIterator(
+            CSVRecordReader(path), batch_size=cfg["csv_batch"],
+            label_index=-1, n_classes=2, transform_process=tp)
+        t0 = time.perf_counter()
+        kept = sum(ds.num_examples() for ds in it)
+        etl_s = time.perf_counter() - t0
+        if kept != n - int(missing.sum()):
+            raise AssertionError(f"samediff/e: {kept} rows kept")
+        conf = (NeuralNetConfiguration.builder().seed(3)
+                .updater(Adam(learning_rate=0.01)).list()
+                .layer(DenseLayer(n_in=7, n_out=32, activation="relu"))
+                .layer(OutputLayer(n_out=2, activation="softmax",
+                                   loss="mcxent")).build())
+        net = MultiLayerNetwork(conf).init(device=device)
+        before = net.evaluate(it).accuracy()
+        sync()
+        t0 = time.perf_counter()
+        net.fit(AsyncDataSetIterator(it), n_epochs=cfg["csv_epochs"])
+        sync()
+        fit_s = time.perf_counter() - t0
+        after = net.evaluate(it).accuracy()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (after > before and after > 0.9):
+        raise AssertionError(f"samediff/e: accuracy {before} -> {after}")
+    return {"rows": n, "rows_kept": kept, "etl_rows_per_s": kept / etl_s,
+            "fit_rows_per_s": kept * cfg["csv_epochs"] / fit_s,
+            "epochs": cfg["csv_epochs"], "accuracy_before": before,
+            "accuracy_after": after}
+
+
+def samediff_parts(torch, np, device, cfg, sync, card, peak, profile):
+    """Parts (a)-(e) of :func:`phase_samediff` on ``device`` at ``cfg``'s
+    sizes.  Emits one row; returns the launch counts of (b)'s window and
+    (c)'s fine-tune."""
+    t_phase = time.perf_counter()
+    side = json.load(open(os.path.join(
+        ROOT_DIR, cfg["graph"][:-3] + ".json")))
+    cfg = dict(cfg, vocab=side["config"]["vocab_size"])
+    values = sd_sidecar_values(np, side, cfg["seed"])
+    row = {"phase": "samediff", "card": card}
+    sd, row["a_import_forward"] = sd_base_forward(torch, np, cfg, device,
+                                                  sync, values)
+    row["b_finetune"], b_counts = sd_finetune(torch, np, sd, cfg, sync,
+                                              peak, profile)
+    del sd
+    row["c_goldens"], c_counts = sd_goldens(torch, np, cfg, device, sync)
+    row["d_onnx"] = sd_onnx(torch, np, device)
+    row["e_datavec"] = sd_datavec(torch, np, cfg, device, sync)
+    row["reduced"] = [
+        "graph-only BERT-base: its weights seeded from the sidecar "
+        "(N(0, 0.02), ones, zeros), no pretrained checkpoint",
+        f"{cfg['steps']} steps on one batch, not an SST-2 epoch: the "
+        "tiny-sentiment corpus stands in for SST-2, which is not in the "
+        "repo"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return {"bert": b_counts, "gpt_toy": c_counts}
+
+
+def phase_samediff(torch, np):
+    """Graph import on the card (phase 9c; BASELINE config 3): (a) the
+    graph-only BERT-base imported through tf_serde, seeded from its
+    sidecar, rewritten by optimize_for_tpu (the reference's counts, 12
+    fused sites), its f32 forward at b 2 against the port on the CPU in
+    f64; (b) the bf16 fine-tune (Adam 2e-5, b 40, t 512, tiny-sentiment
+    through BertIterator): K4, K5 (no dBias) and K6 12 times a step,
+    held to their plain versions on the warm-up's operands, step ms,
+    tokens/s, busy share, interpreter host ms, peak memory, held-out
+    accuracy; (c) the committed fixtures against TensorFlow's goldens,
+    gpt_toy on K4's causal route and its fine-tune on K4/K5/K6, a zip
+    saved on the card loaded on the CPU; (d) ONNX models card against
+    CPU, no fused sites on the attention block; (e) a CSV through
+    DataVec into MultiLayerNetwork.fit.  Returns the launch counts."""
+    def peak(reset=False):
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+            return None
+        return torch.cuda.max_memory_allocated()
+    try:
+        return samediff_parts(torch, np, "cuda", SAMEDIFF_CFG,
+                              torch.cuda.synchronize, card_line(), peak,
+                              lambda step: step_profile(torch, step))
+    finally:
+        torch.cuda.empty_cache()
+
+
 # -- phase 10 ----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
@@ -4948,7 +5503,7 @@ def main(argv=None) -> int:
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
-        i_counts = None
+        i_counts, sd_launches = None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -4973,6 +5528,8 @@ def main(argv=None) -> int:
             phase_resnet(torch, np, root)
         if "infer" in phases:
             i_counts = phase_infer(torch, np)
+        if "samediff" in phases:
+            sd_launches = phase_samediff(torch, np)
         if "timings" in phases:
             mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)
@@ -5034,6 +5591,12 @@ def main(argv=None) -> int:
                     by = {w: c[name] for w, c in i_counts.items()}
                     rows[-1]["infer"] = {"launches": sum(by.values()),
                                          "by_window": by}
+                if sd_launches is not None:
+                    # the same kernel on the imported graphs (phase 9c):
+                    # BERT-base's counted fine-tune and gpt_toy's
+                    by = {w: c[name] for w, c in sd_launches.items()}
+                    rows[-1]["samediff"] = {"launches": sum(by.values()),
+                                            "by_part": by}
                 if name in b_timing:
                     # the same kernel on the BERT main path (phase 8) at
                     # its training shape (timings/bert)

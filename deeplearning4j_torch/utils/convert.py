@@ -28,6 +28,12 @@ AdaGrad's ``g2``, Ema's nested ``{"base": <base state>, "ema":
 params-like}``), checked against the structure the net's own updater
 builds — after the three calls the two packages start a step from the
 same state.
+
+``samediff_from_dict(d, values=None, device=None)`` builds the port's
+``SameDiff`` from the JAX package's ``sd.to_portable_dict()`` (structure
+and values, control-flow subgraphs included) and, optionally, its
+``sd.values`` (e.g. after a fine-tune there), so an imported or trained
+graph carries across with its weights.
 """
 from __future__ import annotations
 
@@ -139,3 +145,23 @@ def load_numpy_opt_state(net, opt_state_np):
             device=ref.device, dtype=ref.dtype))
     net.opt_state = tree
     return net
+
+
+def samediff_from_dict(d: dict, values=None, device=None):
+    """The port's ``SameDiff`` from a portable dict (the JAX package's
+    ``to_portable_dict()``), its values replaced by ``values`` (name ->
+    array) where given; every given name must be a VARIABLE or
+    CONSTANT of the graph, at its shape."""
+    from deeplearning4j_torch.autodiff.samediff import SameDiff
+    sd = SameDiff.from_portable_dict(d, device=device)
+    for name, value in (values or {}).items():
+        value = np.asarray(value)
+        if name not in sd.values:
+            raise KeyError(f"samediff_from_dict: {name!r} is not a "
+                           "VARIABLE or CONSTANT of the graph")
+        if value.shape != np.shape(sd.values[name]):
+            raise ValueError(
+                f"samediff_from_dict: {name!r} has shape {value.shape}, "
+                f"the graph's is {np.shape(sd.values[name])}")
+        sd.values[name] = value
+    return sd

@@ -142,11 +142,61 @@ def test_import_leaves_jax_unloaded():
         "from deeplearning4j_torch.parallel import ParallelInference\n"
         "from deeplearning4j_torch.runtime import QuantizedInference\n"
         "from deeplearning4j_torch.zoo import VGG16, YOLO2, load_pretrained\n"
+        "import deeplearning4j_torch.datavec\n"
+        "import deeplearning4j_torch.datavec.schema\n"
+        "import deeplearning4j_torch.datavec.records\n"
+        "import deeplearning4j_torch.datavec.transform\n"
+        "import deeplearning4j_torch.datavec.iterator\n"
+        "import deeplearning4j_torch.datavec.image\n"
+        "import deeplearning4j_torch.autodiff\n"
+        "import deeplearning4j_torch.autodiff.ops\n"
+        "import deeplearning4j_torch.autodiff.samediff\n"
+        "import deeplearning4j_torch.autodiff.rewrites\n"
+        "import deeplearning4j_torch.autodiff.onnx_serde\n"
+        "import deeplearning4j_torch.autodiff.onnx_import\n"
+        "import deeplearning4j_torch.autodiff.tf_serde\n"
+        "import deeplearning4j_torch.autodiff.tf_import\n"
+        "import deeplearning4j_torch.utils.bert_fixture\n"
+        "from deeplearning4j_torch.utils import samediff_from_dict\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', 'cv2')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# TensorFlow only inside the functions that need it by nature
+TF_ALLOWED = {("deeplearning4j_torch/autodiff/tf_import.py",
+               "import_saved_model"),
+              ("deeplearning4j_torch/autodiff/tf_import.py",
+               "freeze_keras_model")}
+
+
+def test_graph_import_modules_import_no_tensorflow_at_import_time():
+    """``tf_serde``, ``tf_import``, ``onnx_*``, ``samediff``, ``ops`` and
+    ``rewrites`` need neither JAX nor TensorFlow: TensorFlow appears only
+    inside ``import_saved_model`` and ``freeze_keras_model`` (and
+    ``ensure_bert_base_fixture``'s generator runs in a subprocess)."""
+    offenders = []
+    for path in sorted((ROOT / "deeplearning4j_torch").rglob("*.py")) + [
+            ROOT / "chip_smoke.py"]:
+        rel = str(path.relative_to(ROOT))
+        tree = ast.parse(path.read_text(), rel)
+        for fn in ast.walk(tree):
+            body = fn.body if isinstance(fn, ast.Module) else None
+            if not isinstance(fn, (ast.FunctionDef, ast.Module)):
+                continue
+            for node in ast.walk(fn) if body is None else body:
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                if any(n.split(".")[0] == "tensorflow" for n in names):
+                    where = None if body is not None else fn.name
+                    if (rel, where) not in TF_ALLOWED:
+                        offenders.append(f"{rel}:{node.lineno} in {where}")
+    assert not offenders, offenders
