@@ -252,6 +252,21 @@ Phases:
                seeded CSV through CSVRecordReader -> TransformProcess
                (filter + one-hot) -> RecordReaderDataSetIterator ->
                MultiLayerNetwork.fit on the card: rows/s, accuracy up.
+ 9d. mesh    — multi-device on the card listed as every mesh device
+               (BASELINE config 5): (a) a tp = 2 GenerationServer of
+               full-width Gpt() against a tp = 1 one — f32 greedy and
+               phase 4(b)'s bf16 mix (greedy by the near-tie rule, sampled
+               draw for draw), a speculative run, K1 and K2 per shard on
+               3 of 6 heads, each at that shape held to its plain
+               version, tokens/s beside tp = 1's; (b) Gpt() at b 8, t 2048
+               under data = 2, model = 2 and pipeline = 2 (and data = 2 at
+               t 512), losses against the unsharded fit's, K3-K6 counted
+               a step, one launch of each held to its plain version; (c)
+               data-parallel ResNet-50, global b 256, sync-BN against one
+               device; (d) ring attention over 4 sequence shards, t 4096;
+               (e) one NCCL world: reductions, the gradient all-reduce,
+               the scaling harness, an elastic pipeline resume and a
+               coordinated preemption.
  10. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
@@ -267,6 +282,7 @@ Phases:
 ``--phases build,rnn`` for the recurrent stack alone,
 ``--phases build,infer`` for batched inference and transfer learning
 alone, ``--phases build,samediff`` for graph import alone,
+``--phases build,mesh`` for the multi-device slice alone,
 ``--phases build,resnet`` for the conv slice alone, or ``--phases
 build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -296,7 +312,7 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
           "train", "resume", "rnn", "bert", "resnet", "infer", "samediff",
-          "timings")
+          "mesh", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -4866,6 +4882,796 @@ def phase_samediff(torch, np):
         torch.cuda.empty_cache()
 
 
+# -- phase 9d (mesh) -----------------------------------------------------
+# The mesh slice on one card listed twice (or four times): a tp = 2
+# replica of full-width Gpt() (12 x 768, 6 heads of 128, vocab 32000);
+# Gpt() trained at b 8, t 2048 (and t 512) under data, model and pipeline
+# axes; BASELINE config 5's data-parallel ResNet-50 (global b 256, 224 x
+# 224, bf16, AdaDelta) with the two data shards' batches drawn apart so
+# per-shard batch statistics would differ from the global ones; ring
+# attention at b 2, 12 x 64, t 4096 over 4 sequence shards; and one
+# torch.distributed world over NCCL.  The CPU rehearsal passes smaller
+# sizes (tests/test_torch_parallel.py).
+MESH_CFG = {"gpt": {}, "vocab": 32000, "n_slots": 8, "max_len": 1024,
+            "block_size": 16, "tick_batch": 8, "tp": 2,
+            "f32_requests": 4, "f32_new": 32, "mixed_requests": 16,
+            "spec": {"k": 4, "rounds": 2, "draft_layers": 2},
+            "train_b": 8, "train_t": 2048, "short_t": 512, "dp_steps": 5,
+            "tp_steps": 2, "pp_steps": 2, "short_steps": 2, "n_micro": 4,
+            "resnet_b": 256, "resnet_hw": 224, "resnet_steps": 3,
+            "resnet_shift": 0.5, "ring": {"b": 2, "h": 12, "dh": 64,
+                                          "t": 4096, "seq": 4},
+            "world_gpt": {"vocab_size": 512, "max_len": 128, "d_model": 256,
+                          "n_layers": 4, "n_heads": 4, "d_ff": 1024,
+                          "seq_len": 128},
+            "world_b": 8, "world_batches": 4}
+# Tolerances, each set between the sound run's reading and that of a
+# control that breaks one thing at the phase's own sizes (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md §6).  Gpt() DP losses against the
+# unsharded fit: 2e-4 relative (sound 1.4e-5; a shard's gradient dropped
+# 5.6e-4, no copy to the replica 5.3e-4); the first step's summed
+# gradient against the unsharded one, normwise: 5e-2 (sound 2.3e-3,
+# dropped 0.70), and every replica bit-equal to the master (no copy:
+# unequal).  ResNet-50's first loss against one device's: 1e-3 (sound
+# 0.0, per-shard batch statistics 3.9e-3); its running means after one
+# step, normwise over every batch norm: 1e-3 (sound 1.0e-7, per-shard
+# 1.5e-2).  Ring attention in f32 (TF32 off) against one softmax:
+# outputs 1e-5 of each element's size (flash_err), gradients 1e-4.
+MESH_TOL = {"train_loss": 2e-4, "train_grad": 5e-2, "resnet_loss": 1e-3,
+            "resnet_bn": 1e-3, "ring_out": 1e-5, "ring_grad": 1e-4}
+
+
+def mesh_k_counts(pa, fa):
+    return {"paged_decode_attention": pa.paged_decode_attention.launches,
+            "paged_verify_attention": pa.paged_verify_attention.launches,
+            **{n: getattr(fa, n).launches for n in FLASH_WRAPPERS}}
+
+
+def mesh_zero(pa, fa):
+    pa.paged_decode_attention.launches = 0
+    pa.paged_verify_attention.launches = 0
+    for n in FLASH_WRAPPERS:
+        getattr(fa, n).launches = 0
+
+
+def mesh_shard_kernels(torch, pa, ctx, device, h, dh, bs, mb, W=5,
+                       seed=11):
+    """K1 and K2 at one tp shard's call shape (h heads of dh, 8 slots,
+    bf16, the shard ctx's chunk) against their plain versions."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, dtype = 8, torch.bfloat16
+    nb = 1 + B * mb
+    kp = torch.randn((nb, h, bs, dh), generator=g, device=device).to(dtype)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device=device).to(dtype)
+    table = (torch.randperm(nb - 1, generator=g, device=device)[:B * mb]
+             .reshape(B, mb) + 1).to(torch.int32)
+    pos = torch.randint(W, mb * bs - W, (B,), generator=g, device=device,
+                        dtype=torch.int32)
+    scale = dh ** -0.5
+    q = torch.randn((B, h, dh), generator=g, device=device).to(dtype)
+    rows = (B * ctx.data, h * ctx.tp)       # the replica's slots, heads
+    out = pa.paged_decode_attention(q, kp, vp, table, pos, scale,
+                                    split_rows=rows)
+    ref = pa.paged_decode_attention_reference(q, kp, vp, table, pos, scale)
+    k1 = flash_err(torch, out.float(), ref.float())[0]
+    qv = torch.randn((B, W, h, dh), generator=g, device=device).to(dtype)
+    out = pa.paged_verify_attention(qv, kp, vp, table, pos, scale,
+                                    split_rows=rows)
+    ref = pa.paged_verify_attention_reference(qv, kp, vp, table, pos, scale)
+    k2 = flash_err(torch, out.float(), ref.float())[0]
+    for name, err, tol in (("K1", k1, PAGED_TOL["K1"]["bfloat16"]),
+                           ("K2", k2, PAGED_TOL["K2"]["bfloat16"])):
+        if not err <= tol:
+            raise AssertionError(f"mesh/serve: {name} at a shard's shape "
+                                 f"(h {h}, dh {dh}) vs plain {err} > {tol}")
+    return {"K1": k1, "K2": k2, "h": h, "dh": dh, "slots": B,
+            "chunk": pa.decode_chunk(q, kp, table, rows),
+            "verify_chunk": pa.verify_chunk(qv, kp, table, rows)}
+
+
+def mesh_sampled_ties(torch, np, gen, reqs, outs, refs):
+    """Sampled streams against the tp = 1 server's, draw by draw: every
+    draw is argmax(filtered logits / T + Gumbel noise of (seed, position))
+    on both sides, so two streams may part only where the two drawn
+    tokens' perturbed scores lie within the near-tie rule's margin / T —
+    the same law up to rounding.  Returns the divergences."""
+    from deeplearning4j_torch.models.generation import (_filter_logits_rows,
+                                                        _gumbel_rows)
+    from deeplearning4j_torch.parallel.generation_server import (
+        STREAM_SAMPLE)
+    emb_p, blk_ps, head_p = gen._serving_params()
+    ties = []
+    for (p, n, s), a, b in zip(reqs, outs, refs):
+        if s is None or (a.shape == b.shape and (a == b).all()):
+            continue
+        i = int(next(j for j in range(min(len(a), len(b))) if a[j] != b[j]))
+        ctx = torch.as_tensor(a[None, :i].astype("int64"),
+                              device=gen.device)
+        lg = gen._prefill_rows(emb_p, blk_ps, head_p, ctx)[0].float()
+        V, dev = lg.shape[-1], lg.device
+        temp = float(s["temperature"])
+        f = _filter_logits_rows(
+            lg / temp, torch.tensor([s.get("top_k") or V], device=dev),
+            torch.tensor([s.get("top_p") or 1.0], device=dev))
+        one = lambda v: torch.tensor([v], dtype=torch.int64,  # noqa: E731
+                                     device=dev)
+        score = (f + _gumbel_rows(one(s["seed"]), one(STREAM_SAMPLE),
+                                  one(i), V))[0]
+        margin = float((score[int(a[i])] - score[int(b[i])]).abs())
+        if not margin <= NEAR_TIE_BF16 / temp:
+            raise AssertionError(f"mesh/serve: a sampled stream parts from "
+                                 f"tp = 1's at {i} with perturbed-score "
+                                 f"margin {margin} > {NEAR_TIE_BF16 / temp}")
+        ties.append({"index": i, "margin": margin})
+    return ties
+
+
+def mesh_serve(torch, np, pa, fa, net, cfg, devs, sync):
+    """Part (a): the tp = 2 replica (and, in f32, a data = 2 x tp = 2
+    one) against the tp = 1 one."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.parallel.mesh import TpShardCtx, serving_mesh
+    ticks = telemetry.get_registry().counter(
+        "generation_server_ticks_total")
+    tp, vocab = cfg["tp"], cfg["vocab"]
+    dev = devs[0]
+    n_layers = len(net.layers) - 2
+    h = net.layers[1].n_heads
+    kw = dict(n_slots=cfg["n_slots"], max_len=cfg["max_len"],
+              block_size=cfg["block_size"], tick_batch=cfg["tick_batch"])
+    row = {}
+    # (a1) f32 greedy, tp = 2 against tp = 1
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, vocab, int(t)).astype(np.int32),
+             cfg["f32_new"], None)
+            for t in rng.integers(64, 769, cfg["f32_requests"])]
+    with GenerationServer(net, compute_dtype=None, device=dev, **kw) as s1:
+        one, _, _ = serve(s1, reqs)
+    with GenerationServer(net, compute_dtype=None, devices=devs[:tp],
+                          tp=tp, **kw) as s2:
+        mesh_zero(pa, fa)
+        k0 = ticks.value
+        two, _, _ = serve(s2, reqs)
+        sync()
+        f32_k1, f32_ticks = pa.paged_decode_attention.launches, \
+            ticks.value - k0
+    gen = TransformerGenerator(net, device=dev)
+    row["f32"] = {"requests": len(reqs),
+                  "near_ties": check_streams(torch, gen,
+                                             list(zip(two, one)),
+                                             NEAR_TIE_F32),
+                  "k1_launches": f32_k1, "ticks": f32_ticks}
+    if f32_k1 < n_layers * tp * f32_ticks:
+        raise AssertionError(f"mesh/serve f32: {f32_k1} K1 launches < "
+                             f"{n_layers} layers x {tp} shards x "
+                             f"{f32_ticks} ticks")
+    # (a1') the same at data = 2 x tp: each data row decodes its half of
+    # the slots on its own tp shards and pool replica
+    with GenerationServer(net, compute_dtype=None, devices=devs[:2 * tp],
+                          tp=tp, **kw) as s4:
+        mesh_zero(pa, fa)
+        k0 = ticks.value
+        four, _, _ = serve(s4, reqs)
+        sync()
+        d2_k1, d2_ticks = pa.paged_decode_attention.launches, \
+            ticks.value - k0
+    row["f32_data2"] = {"requests": len(reqs), "data": 2, "tp": tp,
+                        "near_ties": check_streams(torch, gen,
+                                                   list(zip(four, one)),
+                                                   NEAR_TIE_F32),
+                        "k1_launches": d2_k1, "ticks": d2_ticks}
+    if d2_k1 < n_layers * 2 * tp * d2_ticks:
+        raise AssertionError(f"mesh/serve f32 data 2: {d2_k1} K1 launches "
+                             f"< {n_layers} layers x 2 rows x {tp} shards "
+                             f"x {d2_ticks} ticks")
+    # (a2) bf16, phase 4(b)'s mix: tp = 1 then tp = 2
+    system, reqs = mixed_requests(np, vocab)
+    reqs = reqs[:cfg["mixed_requests"]]
+    warm = np.concatenate([system, [7, 7, 7]]).astype(np.int32)
+    runs = {}
+    for name, extra in (("tp1", dict(device=dev)),
+                        ("tp2", dict(devices=devs[:tp], tp=tp))):
+        with GenerationServer(net, compute_dtype="bfloat16", **kw,
+                              **extra) as srv:
+            srv.submit(warm, 8)
+            sync()
+            mesh_zero(pa, fa)
+            k0 = ticks.value
+            outs, ttfts, wall = serve(srv, reqs)
+            sync()
+            runs[name] = {"outs": outs, "wall": wall, "ttfts": ttfts,
+                          "ticks": ticks.value - k0,
+                          "k1": pa.paged_decode_attention.launches}
+    check_finished(reqs, runs["tp2"]["outs"], vocab)
+    gen16 = TransformerGenerator(net, compute_dtype="bfloat16", device=dev)
+    greedy = [(b, a) for (p, n, s), a, b in
+              zip(reqs, runs["tp1"]["outs"], runs["tp2"]["outs"])
+              if s is None]
+    ties = check_streams(torch, gen16, greedy, NEAR_TIE_BF16)
+    sampled_ties = mesh_sampled_ties(torch, np, gen16, reqs,
+                                     runs["tp2"]["outs"],
+                                     runs["tp1"]["outs"])
+    t2 = runs["tp2"]
+    if t2["k1"] < n_layers * tp * t2["ticks"]:
+        raise AssertionError(f"mesh/serve bf16: {t2['k1']} K1 launches < "
+                             f"{n_layers} x {tp} x {t2['ticks']} ticks")
+    new_tokens = sum(n for _, n, _ in reqs)
+    row["bf16"] = {
+        "requests": len(reqs), "new_tokens": new_tokens,
+        "greedy_near_ties": ties,
+        "sampled_near_ties": sampled_ties,
+        "sampled_equal": sum(1 for (p, n, q), a, b in
+                             zip(reqs, runs["tp1"]["outs"],
+                                 runs["tp2"]["outs"])
+                             if q is not None and a.shape == b.shape
+                             and (a == b).all()),
+        "tp1": {"seconds": runs["tp1"]["wall"],
+                "new_tokens_per_s": new_tokens / runs["tp1"]["wall"],
+                "ticks": runs["tp1"]["ticks"], "k1_launches":
+                    runs["tp1"]["k1"]},
+        "tp2": {"seconds": t2["wall"],
+                "new_tokens_per_s": new_tokens / t2["wall"],
+                "ttft_p50_s": pct(t2["ttfts"], 0.5),
+                "ticks": t2["ticks"], "k1_launches": t2["k1"],
+                "k1_launches_per_shard": t2["k1"] / tp},
+        "note": "one card driven as two shards: no scaling figure"}
+    # (a3) speculative tp = 2 (greedy requests) against tp = 1 bf16
+    greedy_reqs = [r for r in reqs if r[2] is None]
+    with GenerationServer(net, compute_dtype="bfloat16", devices=devs[:tp],
+                          tp=tp, speculative=cfg["spec"], **kw) as srv:
+        srv.submit(warm, 8)
+        sync()
+        mesh_zero(pa, fa)
+        p0 = ticks.value
+        outs, _, wall = serve(srv, greedy_reqs)
+        sync()
+        passes = ticks.value - p0
+        k2 = pa.paged_verify_attention.launches
+        st = srv.stats()
+    refs = [a for (p, n, s), a in zip(reqs, runs["tp1"]["outs"])
+            if s is None]
+    sties = check_streams(torch, gen16, list(zip(outs, refs)),
+                          NEAR_TIE_BF16)
+    if not (k2 > 0 and k2 == n_layers * tp * passes):
+        raise AssertionError(f"mesh/serve spec: {k2} K2 launches != "
+                             f"{n_layers} x {tp} x {passes} verify passes")
+    row["spec"] = {"speculative": cfg["spec"], "requests": len(greedy_reqs),
+                   "verify_passes": passes, "k2_launches": k2,
+                   "k2_launches_per_shard": k2 / tp,
+                   "acceptance_rate": st["spec_acceptance_rate"],
+                   "near_ties": sties, "seconds": wall}
+    ctx = TpShardCtx(serving_mesh(devs[:tp], tp))
+    row["shard_kernels"] = mesh_shard_kernels(
+        torch, pa, ctx, dev, h // tp, net.layers[0].n_out // h,
+        cfg["block_size"], cfg["max_len"] // cfg["block_size"])
+    counts = {"f32": {"paged_decode_attention": f32_k1},
+              "f32_data2": {"paged_decode_attention": d2_k1},
+              "bf16": {"paged_decode_attention": t2["k1"]},
+              "spec": {"paged_verify_attention": k2}}
+    return row, counts
+
+
+def mesh_train(torch, np, fa, cfg, devs, sync, peak):
+    """Part (b): Gpt() under data, model and pipeline axes, each run's
+    losses against the unsharded fit's on the same batches, every flash
+    launch of a step counted and one of each held to its plain version."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.parallel import MeshConfig, ShardedTrainer
+    from deeplearning4j_torch.zoo import Gpt
+    b, out, counts = cfg["train_b"], {}, {}
+    dev = devs[0]
+
+    def batches(t, n):
+        return [train_batch(np, b, t, cfg["vocab"], 20 + i)
+                for i in range(n)]
+
+    def run(t, mesh, steps, tag, fault=None, probe=False):
+        """(losses, step ms, counts per step, kernel errors); ``fault``
+        (a control run) breaks the sharded step with :func:`mesh_fault`;
+        ``probe`` keeps the first step's gradients (``first_grads``) and
+        reads whether every data replica equals the master at the end."""
+        net = Gpt(**dict(cfg["gpt"], seed=0, seq_len=t)).init_graph(
+            device=dev)
+        data = batches(t, steps + 1)
+        tr = None
+        if mesh is None:
+            net._build_solver()
+            solver = net._solver
+            step = lambda x, y: net.fit(DataSet(x, y))  # noqa: E731
+        else:
+            tr = ShardedTrainer(net, mesh, devices=devs,
+                                n_micro=cfg["n_micro"])
+            solver = tr.solver
+            step = lambda x, y: float(tr.fit_batch(x, y))  # noqa: E731
+            if fault:
+                mesh_fault(fault, net, tr)
+        kept = mesh_grad_probe(solver) if probe else None
+        rec, restore = (None, lambda: None) if fault else infer_capture(fa)
+        try:
+            warm = step(*data[0])                # also captures operands
+        finally:
+            restore()
+        errs = infer_kernel_errors(torch, fa, rec) if rec else {}
+        sync()
+        peak(reset=True)
+        mesh_zero(pa_module(), fa)
+        t0 = time.perf_counter()
+        losses = [step(*xy) for xy in data[1:]]
+        sync()
+        wall = time.perf_counter() - t0
+        cnt = {n: getattr(fa, n).launches for n in FLASH_WRAPPERS}
+        res = {"warmup_loss": warm, "losses": losses,
+               "step_ms": wall * 1e3 / steps,
+               "tokens_per_s": steps * b * t / wall,
+               "peak_allocated_bytes": peak(),
+               "launches_per_step": {k: v / steps for k, v in cnt.items()},
+               "kernel_vs_plain": errs}
+        if probe:
+            res["first_grads"] = kept
+            if tr is not None:
+                res["replicas_equal_master"] = all(
+                    torch.equal(a, m) for r in range(1, tr.n_data)
+                    for a, m in zip(tr._flat(tr._store[r]),
+                                    tr._flat(tr._store[0])))
+        del net, tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return res, cnt
+
+    def loss_err(res, ref, steps):
+        return max(abs(a - c) / abs(c) for a, c in
+                   zip([res["warmup_loss"]] + res["losses"],
+                       [ref["warmup_loss"]] + ref["losses"][:steps]))
+
+    def grad_err(res, ref):
+        """The first step's summed data-parallel gradient against the
+        unsharded one, normwise over every leaf."""
+        num = sum(float((a - c).square().sum()) for a, c in
+                  zip(res.pop("first_grads"), ref["first_grads"]))
+        den = sum(float(c.square().sum()) for c in ref["first_grads"])
+        return math.sqrt(num / max(den, 1e-30))
+
+    def misses(res, ref):
+        """What the phase's checks of a data=2 run read, and which of
+        them a control trips."""
+        got = {"loss_max_rel_diff": loss_err(res, ref, cfg["dp_steps"]),
+               "first_grad_normwise_diff": grad_err(res, ref),
+               "replicas_equal_master": res["replicas_equal_master"]}
+        tripped = [k for k, lim in (
+            ("loss_max_rel_diff", MESH_TOL["train_loss"]),
+            ("first_grad_normwise_diff", MESH_TOL["train_grad"]))
+            if not got[k] <= lim]
+        if not got["replicas_equal_master"]:
+            tripped.append("replicas_equal_master")
+        return got, tripped
+
+    t, ts = cfg["train_t"], cfg["short_t"]
+    n_layers = Gpt(**cfg["gpt"]).n_layers
+    # the unsharded fit on the same init and batches, once per length
+    refs = {t: run(t, None, max(cfg["dp_steps"], cfg["tp_steps"],
+                                cfg["pp_steps"], cfg["short_steps"]),
+                   "single", probe=True)[0]}
+    if ts not in refs:
+        refs[ts] = run(ts, None, cfg["short_steps"], "single")[0]
+    for tag, tt, mesh, steps in (
+            ("dp", t, MeshConfig(data=2), cfg["dp_steps"]),
+            ("tp", t, MeshConfig(model=2), cfg["tp_steps"]),
+            ("pp", t, MeshConfig(pipeline=2), cfg["pp_steps"]),
+            ("dp_t512", ts, MeshConfig(data=2), cfg["short_steps"])):
+        ref = refs[tt]
+        res, cnt = run(tt, mesh, steps, tag, probe=tag == "dp")
+        err = loss_err(res, ref, steps)
+        if tag == "dp":
+            checks, tripped = misses(res, ref)
+            if tripped:
+                raise AssertionError(f"mesh/train dp: {tripped} of "
+                                     f"{checks}")
+            res.update(checks)
+        bad = [k for k, v in res["kernel_vs_plain"].items()
+               if not v <= FLASH_TOL["bfloat16"]]
+        if not (all(math.isfinite(x) for x in res["losses"])
+                and err <= MESH_TOL["train_loss"] and not bad):
+            raise AssertionError(f"mesh/train {tag}: losses {res['losses']}"
+                                 f" vs unsharded {ref['losses']} (max rel "
+                                 f"{err}), kernels over the bound {bad}")
+        fwd = "flash_fwd" if tt >= 1024 else "flash_fwd_single"
+        per = {"dp": 2 * n_layers, "tp": n_layers,
+               "pp": cfg["n_micro"] * n_layers,
+               "dp_t512": 2 * n_layers}[tag]
+        want = {n: (per * steps if n in (fwd, "flash_bwd_dkdv",
+                                         "flash_bwd_dq") else 0)
+                for n in FLASH_WRAPPERS}
+        if cnt != want:
+            raise AssertionError(f"mesh/train {tag}: launches {cnt} != "
+                                 f"{want}")
+        out[tag] = dict(res, t=tt, mesh=mesh.__dict__, steps=steps,
+                        loss_max_rel_diff=err)
+        if tag == "pp":
+            from deeplearning4j_torch.parallel.pipeline import _PIPE_BUBBLE
+            out[tag]["pipeline_bubble_fraction"] = _PIPE_BUBBLE.value
+        counts[tag] = cnt
+    # controls: the data=2 run with one fault each must miss the
+    # unsharded losses by more than the limit the sound run keeps
+    out["controls"] = {}
+    for fault in ("grad", "stale"):
+        res, _ = run(t, MeshConfig(data=2), cfg["dp_steps"], "dp", fault,
+                     probe=True)
+        checks, tripped = misses(res, refs[t])
+        if not tripped:
+            raise AssertionError(f"mesh/train control {fault}: every "
+                                 f"check passed {checks}")
+        out["controls"][f"dp_{fault}"] = dict(checks, tripped=tripped,
+                                              losses=res["losses"])
+    refs[t].pop("first_grads")
+    out["unsharded"] = {str(k): v for k, v in refs.items()}
+    return out, counts
+
+
+def mesh_grad_probe(solver):
+    """Keep the gradients of ``solver``'s first step: f32 copies, in
+    ``iter_leaves`` order (the list returned fills on that step)."""
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    kept, real = [], solver.apply_grads
+
+    def apply(params, opt, state, new_state, grads, *a, **kw):
+        if not kept:
+            kept.extend(g.detach().float().clone()
+                        for _, g in iter_leaves(grads))
+        return real(params, opt, state, new_state, grads, *a, **kw)
+    solver.apply_grads = apply
+    return kept
+
+
+def mesh_fault(kind, net, tr):
+    """Break a data-parallel step for a control run.  ``grad``: shard 1's
+    loss is detached, so its gradient never reaches the sum (the loss it
+    reports is unchanged); ``stale``: the updated master parameters are
+    not copied into the other replica, which goes on from the init."""
+    from deeplearning4j_torch.runtime import spmd
+    if kind == "grad":
+        score = net._score_batch
+
+        def detached(*a, **kw):
+            loss, state = score(*a, **kw)
+            info = spmd.current()
+            return (loss.detach() if info is not None and info.rank == 1
+                    else loss), state
+        net._score_batch = detached
+    elif kind == "stale":
+        tr._broadcast = lambda: None
+    else:
+        raise ValueError(f"unknown fault {kind!r}")
+
+
+def mesh_local_bn():
+    """A control's context: batch norm inside a data shard takes the
+    shard's OWN statistics (no sum over the shards, the shard's count),
+    as a trainer without sync-BN would.  Returns the undo."""
+    from deeplearning4j_torch.nn.conf import layers_conv
+    real = layers_conv.spmd
+
+    class Local:
+        all_reduce_sum = staticmethod(list)
+        shard_rows = staticmethod(lambda n: (0, n))
+    layers_conv.spmd = Local
+
+    def undo():
+        layers_conv.spmd = real
+    return undo
+
+
+def pa_module():
+    import importlib
+    return importlib.import_module(
+        "deeplearning4j_torch.kernels.paged_attention")
+
+
+def mesh_resnet(torch, np, cfg, devs, sync, peak):
+    """Part (c), BASELINE config 5: ResNet50 under MeshConfig(data=2) at
+    global b ``resnet_b``, the two shards' halves drawn apart by
+    ``resnet_shift``; the first loss and the running statistics after one
+    step against one device's on the same batch (sync-BN), then
+    ``resnet_steps`` finite steps; images/s and peak memory."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.parallel import MeshConfig, ShardedTrainer
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    from deeplearning4j_torch.zoo import ResNet50
+    b, hw, dev = cfg["resnet_b"], cfg["resnet_hw"], devs[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    xs = []
+    for _ in range(cfg["resnet_steps"]):
+        x = torch.randn((b, hw, hw, 3), generator=g, device=dev)
+        x[: b // 2] += cfg["resnet_shift"]
+        xs.append(x.to(torch.bfloat16))
+    y = np.eye(1000, dtype=np.float32)[
+        np.random.default_rng(0).integers(0, 1000, b)]
+
+    def bn_means(net):
+        return {p: leaf.float().clone() for p, leaf in
+                iter_leaves(net.state_tree) if p[-1] == "mean"}
+
+    single = ResNet50(input_shape=(hw, hw, 3)).init_graph(device=dev)
+    loss1 = float(single.fit(DataSet(xs[0], y)))
+    means1 = bn_means(single)
+    del single
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    net = ResNet50(input_shape=(hw, hw, 3)).init_graph(device=dev)
+    tr = ShardedTrainer(net, MeshConfig(data=2), devices=devs)
+    peak(reset=True)
+    t0 = time.perf_counter()
+    losses = []
+    for i, x in enumerate(xs):
+        losses.append(float(tr.fit_batch(x, y)))
+        if i == 0:
+            means_dp = bn_means(net)
+            t0 = time.perf_counter()
+    sync()
+    wall = time.perf_counter() - t0
+
+    def bn_diff(means):
+        num = sum(float((means[p] - m).square().sum()) for p, m in
+                  means1.items())
+        den = sum(float(m.square().sum()) for m in means1.values())
+        return math.sqrt(num / max(den, 1e-30))
+    bn_err = bn_diff(means_dp)
+    loss_err = abs(losses[0] - loss1) / abs(loss1)
+    if not (all(math.isfinite(v) for v in losses)
+            and loss_err <= MESH_TOL["resnet_loss"]
+            and bn_err <= MESH_TOL["resnet_bn"]):
+        raise AssertionError(f"mesh/resnet: losses {losses}, first vs one "
+                             f"device {loss1} ({loss_err}), running means "
+                             f"normwise {bn_err}")
+    peak_bytes = peak()
+    # control: the same first step with each shard's own batch
+    # statistics must miss the running means by more than the limit
+    del tr, net
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    net = ResNet50(input_shape=(hw, hw, 3)).init_graph(device=dev)
+    tr = ShardedTrainer(net, MeshConfig(data=2), devices=devs)
+    undo = mesh_local_bn()
+    try:
+        local_loss = float(tr.fit_batch(xs[0], y))
+    finally:
+        undo()
+    local = {"first_loss_rel_diff": abs(local_loss - loss1) / abs(loss1),
+             "bn_running_mean_normwise_diff": bn_diff(bn_means(net))}
+    del tr, net
+    local["tripped"] = [k for k, lim in (
+        ("first_loss_rel_diff", MESH_TOL["resnet_loss"]),
+        ("bn_running_mean_normwise_diff", MESH_TOL["resnet_bn"]))
+        if not local[k] <= lim]
+    if not local["tripped"]:
+        raise AssertionError(f"mesh/resnet control: per-shard statistics "
+                             f"pass every sync-BN check {local}")
+    n = len(xs) - 1
+    return {"b": b, "hw": hw, "updater": "AdaDelta", "shards": 2,
+            "batch_shift": cfg["resnet_shift"], "losses": losses,
+            "one_device_first_loss": loss1, "first_loss_rel_diff": loss_err,
+            "bn_running_mean_normwise_diff": bn_err,
+            "step_ms": wall * 1e3 / max(n, 1),
+            "images_per_s": n * b / wall if n else None,
+            "peak_allocated_bytes": peak_bytes, "control_local_bn": local}
+
+
+def mesh_ring(torch, cfg, devs):
+    """Part (d): ring attention over ``seq`` sequence shards against one
+    softmax, output and gradients (f32)."""
+    from deeplearning4j_torch.parallel import MeshConfig, ring_self_attention
+    from deeplearning4j_torch.parallel.ring_attention import (
+        full_attention_reference)
+    r = cfg["ring"]
+    dev = devs[0]
+    mesh = MeshConfig(sequence=r["seq"]).build(devs)
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = [torch.randn((r["b"], r["h"], r["t"], r["dh"]), generator=g,
+                       device=dev).requires_grad_(True) for _ in range(3)]
+    do = torch.randn((r["b"], r["h"], r["t"], r["dh"]), generator=g,
+                     device=dev)
+    out = ring_self_attention(mesh, *qkv)
+    g_ring = torch.autograd.grad(out, qkv, do)
+    ref = full_attention_reference(*qkv)
+    g_ref = torch.autograd.grad(ref, qkv, do)
+    err = flash_err(torch, out.detach(), ref.detach())[0]
+    gerr = max(float((a - c).abs().max()) / float(c.abs().max())
+               for a, c in zip(g_ring, g_ref))
+    if not (err <= MESH_TOL["ring_out"] and gerr <= MESH_TOL["ring_grad"]):
+        raise AssertionError(f"mesh/ring: output {err}, gradients {gerr}")
+    return dict(r, out_err=err, grad_err=gerr, dtype="float32")
+
+
+def mesh_world(torch, np, cfg, devs, sync, tmp):
+    """Part (e): one torch.distributed world on the card — the control
+    reductions and the DP gradient all-reduce through the backend, the
+    scaling harness at one device, a pipeline checkpoint restored at
+    data=1 through the elastic path, and a FleetCoordinator run that is
+    preempted and resumed."""
+    import socket
+    from deeplearning4j_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_torch.parallel import (CheckpointListener,
+                                               MeshConfig, ShardedTrainer,
+                                               distributed, measure_scaling)
+    from deeplearning4j_torch.resilience import (FaultInjector,
+                                                 TrainingPreempted,
+                                                 clear_preemption,
+                                                 fleet_resume_fit)
+    from deeplearning4j_torch.zoo import Gpt
+    dev = devs[0]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0, backend=backend)
+    try:
+        row = {"backend": backend,
+               "process_count": distributed.process_count(),
+               "or": distributed.or_reduce_flag(True),
+               "min": distributed.min_reduce(7),
+               "sum": distributed.sum_reduce(1)}
+        wg = cfg["world_gpt"]
+        b = cfg["world_b"]
+
+        def gpt():
+            return Gpt(seed=4, compute_dtype=None, **wg).init_graph(
+                device=dev)
+
+        data = [train_batch(np, b, wg["seq_len"], wg["vocab_size"], 40 + i)
+                for i in range(cfg["world_batches"])]
+
+        def it():
+            return ListDataSetIterator([DataSet(x, y) for x, y in data])
+        rows = measure_scaling(
+            gpt, lambda n: train_batch(np, n, wg["seq_len"],
+                                       wg["vocab_size"], 7),
+            per_device_batch=b, device_counts=[1], n_steps=3, warmup=1,
+            out_path=os.path.join(tmp, "scaling.json"), devices=devs[:1])
+        with open(os.path.join(tmp, "scaling.json")) as f:
+            if json.load(f)["rows"] != rows:
+                raise AssertionError("mesh/world: scaling artefact")
+        row["scaling"] = rows
+        # pipeline=2 preempted mid-fit, resumed on a plain trainer
+        ref = gpt()
+        ref_loss = ShardedTrainer(ref, MeshConfig(pipeline=2), devices=devs,
+                                  n_micro=2).fit(it(), n_epochs=2)
+        m = gpt()
+        tr = ShardedTrainer(m, MeshConfig(pipeline=2), devices=devs,
+                            n_micro=2)
+        ck = CheckpointListener(os.path.join(tmp, "pipe"),
+                                save_every_n_iterations=2)
+        m.set_listeners(ck)
+        preempted = False
+        try:
+            with FaultInjector([f"preempt@{cfg['world_batches'] + 1}"]):
+                tr.fit(it(), n_epochs=2)
+        except TrainingPreempted:
+            preempted = True
+        clear_preemption()
+        if not preempted:
+            raise AssertionError("mesh/world: the pipeline fit was not "
+                                 "preempted")
+        ck.ckpt.close()
+        meta = ck.ckpt.world_at(ck.ckpt.all_steps()[-1])
+        m2 = gpt()
+        tr2 = ShardedTrainer(m2, MeshConfig(data=1), devices=devs[:1])
+        m2.set_listeners(CheckpointListener(os.path.join(tmp, "pipe")))
+        loss2 = tr2.fit(it(), n_epochs=2, resume=True)
+        rel = abs(loss2 - ref_loss) / abs(ref_loss)
+        if not (meta["opt_layout"] == "pipe" and rel <= 1e-3):
+            raise AssertionError(f"mesh/world: elastic resume loss {loss2} "
+                                 f"vs {ref_loss}, sidecar {meta}")
+        row["elastic"] = {"saved": meta, "resumed_loss": loss2,
+                          "uninterrupted_loss": ref_loss, "rel_diff": rel}
+        # a FleetCoordinator run preempted and resumed (data=2)
+        base = gpt()
+        base_loss = ShardedTrainer(base, MeshConfig(data=2),
+                                   devices=devs).fit(it(), n_epochs=2)
+        m3 = gpt()
+        tr3 = ShardedTrainer(m3, MeshConfig(data=2), devices=devs)
+        ck3 = CheckpointListener(os.path.join(tmp, "fleet"),
+                                 save_every_n_iterations=2)
+        m3.set_listeners(ck3)
+        with FaultInjector([f"preempt@{cfg['world_batches']}"]):
+            loss3 = fleet_resume_fit(
+                lambda: tr3.fit(it(), n_epochs=2, resume=True),
+                mesh=tr3.mesh, checkpoint=ck3)
+        ck3.ckpt.close()
+        rel3 = abs(loss3 - base_loss) / abs(base_loss)
+        if rel3 > 1e-5:
+            raise AssertionError(f"mesh/world: fleet resume loss {loss3} vs "
+                                 f"{base_loss}")
+        row["fleet"] = {"resumed_loss": loss3, "uninterrupted_loss":
+                        base_loss, "rel_diff": rel3}
+        sync()
+        return row
+    finally:
+        distributed.shutdown()
+
+
+def mesh_parts(torch, np, device, cfg, sync, card, peak, parts="abcde"):
+    """Parts (a)-(e) of :func:`phase_mesh` on ``device`` at ``cfg``'s
+    sizes.  Emits one row; returns the launch counts by part."""
+    import tempfile
+    from deeplearning4j_torch.zoo import Gpt
+    pa, fa = pa_module(), flash_module()
+    dev = torch.device(device)
+    devs = [dev] * 4
+    t_phase = time.perf_counter()
+    row = {"phase": "mesh", "card": card, "devices": [str(d) for d in devs]}
+    counts = {}
+    if "a" in parts:
+        t0 = time.perf_counter()
+        net = Gpt(seed=0, **cfg["gpt"]).init_graph(device=dev)
+        row["a_serve"], counts["serve"] = mesh_serve(
+            torch, np, pa, fa, net, cfg, devs, sync)
+        row["a_serve"]["seconds"] = time.perf_counter() - t0
+        del net
+    if "b" in parts:
+        t0 = time.perf_counter()
+        row["b_train"], counts["train"] = mesh_train(torch, np, fa, cfg,
+                                                     devs[:2], sync, peak)
+        row["b_train"]["seconds"] = time.perf_counter() - t0
+    if "c" in parts:
+        t0 = time.perf_counter()
+        row["c_resnet"] = mesh_resnet(torch, np, cfg, devs[:2], sync, peak)
+        row["c_resnet"]["seconds"] = time.perf_counter() - t0
+    if "d" in parts:
+        t0 = time.perf_counter()
+        row["d_ring"] = mesh_ring(torch, cfg, devs[:cfg["ring"]["seq"]])
+        row["d_ring"]["seconds"] = time.perf_counter() - t0
+    if "e" in parts:
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp()
+        try:
+            row["e_world"] = mesh_world(torch, np, cfg, devs[:2], sync, tmp)
+        finally:
+            import shutil
+            shutil.rmtree(tmp, ignore_errors=True)
+        row["e_world"]["seconds"] = time.perf_counter() - t0
+    row["reduced"] = [
+        "one H100 listed as every device of the mesh: real per-shard "
+        "tensors, gathers and sums, no second card, so no scaling figure",
+        "random seeded weights; no ImageNet (ResNet-50 on seeded images)"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+def phase_mesh(torch, np):
+    """Multi-device training and serving on the card (phase 9d): (a) a
+    tp = 2 GenerationServer of full-width Gpt() over [cuda:0] * 2 — f32
+    greedy streams (also at data = 2 x tp = 2 over [cuda:0] * 4) and
+    phase 4(b)'s bf16 mix against a tp = 1 server (near-tie rule;
+    sampled streams draw for draw, the same rule on the perturbed
+    scores), a speculative run (k 4), K1 and K2 launched per shard on 3
+    of the 6 heads, each at that shape held to its plain version,
+    tokens/s beside tp = 1's; (b) Gpt() at b 8, t 2048 under
+    MeshConfig(data=2) (5 steps), (model=2) and (pipeline=2, n_micro 4)
+    (2 each), and data=2 at t 512 (K4), losses against the unsharded
+    fit's, K3-K6 counted per step and one launch of each held to its
+    plain version, and two control runs (a shard's gradient dropped, no
+    copy to the replica) that the checks must catch; (c) BASELINE config
+    5: data-parallel ResNet-50 at global b 256, sync-BN checked against
+    one device, and a per-shard-statistics control the check must catch;
+    (d) ring attention over 4 sequence shards against one softmax; (e)
+    one NCCL world: reductions, the gradient all-reduce, the scaling
+    harness, an elastic pipeline resume and a coordinated preemption.
+    Returns the launch counts by part."""
+    def peak(reset=False):
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+            return None
+        return torch.cuda.max_memory_allocated()
+    try:
+        return mesh_parts(torch, np, "cuda", MESH_CFG,
+                          torch.cuda.synchronize, card_line(), peak)
+    finally:
+        torch.cuda.empty_cache()
+
+
 # -- phase 10 ----------------------------------------------------------
 def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
@@ -5503,7 +6309,7 @@ def main(argv=None) -> int:
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
-        i_counts, sd_launches = None, None
+        i_counts, sd_launches, m_counts = None, None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -5530,6 +6336,8 @@ def main(argv=None) -> int:
             i_counts = phase_infer(torch, np)
         if "samediff" in phases:
             sd_launches = phase_samediff(torch, np)
+        if "mesh" in phases:
+            m_counts = phase_mesh(torch, np)
         if "timings" in phases:
             mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)
@@ -5569,6 +6377,15 @@ def main(argv=None) -> int:
                 # the same kernels on the SLO phase's burst (phase 6b)
                 rows[0]["slo"] = {"launches": s_launches["k1"]}
                 rows[1]["slo"] = {"launches": s_launches["k2"]}
+            if m_counts is not None and "serve" in m_counts:
+                # the same kernels on the tp = 2 replica (phase 9d (a)),
+                # both shards' launches, by part
+                for i, name in ((0, "paged_decode_attention"),
+                                (1, "paged_verify_attention")):
+                    by = {p: c[name] for p, c in m_counts["serve"].items()
+                          if name in c}
+                    rows[i]["mesh"] = {"launches": sum(by.values()),
+                                       "by_part": by}
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",
@@ -5591,6 +6408,12 @@ def main(argv=None) -> int:
                     by = {w: c[name] for w, c in i_counts.items()}
                     rows[-1]["infer"] = {"launches": sum(by.values()),
                                          "by_window": by}
+                if m_counts is not None and "train" in m_counts:
+                    # the same kernel under the mesh trainer (phase 9d
+                    # (b)): data, model and pipeline axes
+                    by = {p: c[name] for p, c in m_counts["train"].items()}
+                    rows[-1]["mesh"] = {"launches": sum(by.values()),
+                                        "by_part": by}
                 if sd_launches is not None:
                     # the same kernel on the imported graphs (phase 9c):
                     # BERT-base's counted fine-tune and gpt_toy's

@@ -195,6 +195,28 @@ def decode_split_rows(B: int, h: int, capacity: int,
     return min(chunk, -(-capacity // q) * q)
 
 
+def decode_chunk(q, k_pool, block_table, split_rows=None,
+                 n_sm: int = H100_SMS, W: int = 1) -> int:
+    """The decode kernel's context rows per split for this call (``W``
+    query rows per slot on the any-dh kernel).  ``split_rows`` (slots,
+    heads): the shape to choose the chunk for, where this call is one
+    shard of a sharded tick — the replica's unsharded (B, h), so each
+    (slot, head) sums its splits in the order an unsharded call sums
+    them; None takes ``q``'s own."""
+    B, h = split_rows or (q.shape[0], q.shape[-2])
+    bs, mb = k_pool.shape[2], block_table.shape[1]
+    return decode_split_rows(B * W, h, mb * bs, n_sm)
+
+
+def verify_chunk(q, k_pool, block_table, split_rows=None,
+                 n_sm: int = H100_SMS) -> int:
+    """The verify kernel's context rows per split for this call;
+    ``split_rows`` as in :func:`decode_chunk`."""
+    B, h = split_rows or (q.shape[0], q.shape[-2])
+    bs, mb = k_pool.shape[2], block_table.shape[1]
+    return verify_split_rows(B, q.shape[1], h, mb * bs, n_sm)
+
+
 _COUNTERS = {}
 
 
@@ -224,13 +246,14 @@ def _sm_count(device) -> int:
 
 
 def _launch_any_dh(lib: str, symbol: str, q, k_pool, v_pool, block_table,
-                   pos, W: int, scale: float):
+                   pos, W: int, scale: float, split_rows=None):
     """Launch ``paged_any_dh.cuh``'s kernel (entry ``symbol`` of ``lib``)
     over ``q`` [B, h, dh] (decode) or [B, W, h, dh] (verify), each query
     row on its own; raise on a refused launch."""
     B, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
     bs, mb = k_pool.shape[2], block_table.shape[1]
-    chunk = decode_split_rows(B * W, h, mb * bs, _sm_count(q.device))
+    chunk = decode_chunk(q, k_pool, block_table, split_rows,
+                         _sm_count(q.device), W)
     n_split = -(-(mb * bs) // chunk)
     ints = ((B, h, bs, dh, mb, chunk) if q.dim() == 3
             else (B, W, h, bs, dh, mb, chunk))
@@ -250,7 +273,8 @@ def _launch_any_dh(lib: str, symbol: str, q, k_pool, v_pool, block_table,
     return out
 
 
-def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
+def _launch(q, k_pool, v_pool, block_table, pos, scale: float,
+            split_rows=None):
     """Launch the decode kernel on the current stream; raise on a refused
     launch.  Its f32 partials go to scratch allocated here."""
     B, h, dh = q.shape
@@ -258,9 +282,11 @@ def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
     if not _fast_dh(dh):
         return _launch_any_dh("paged_decode",
                               "dl4j_paged_decode_attention_any", q, k_pool,
-                              v_pool, block_table, pos, 1, scale)
+                              v_pool, block_table, pos, 1, scale,
+                              split_rows)
     bs, mb = k_pool.shape[2], block_table.shape[1]
-    chunk = decode_split_rows(B, h, mb * bs, _sm_count(q.device))
+    chunk = decode_chunk(q, k_pool, block_table, split_rows,
+                         _sm_count(q.device))
     n_split = -(-(mb * bs) // chunk)
     fn = _kernel_fn("paged_decode", "dl4j_paged_decode_attention", 8, 6)
     out = torch.empty_like(q)
@@ -279,7 +305,8 @@ def _launch(q, k_pool, v_pool, block_table, pos, scale: float):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           split_rows=None):
     """softmax(q . K_table^T) V_table for ONE query token per slot.
 
     ``q`` [B, h, dh] — the just-written token's query per slot;
@@ -287,7 +314,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     scratch sink); ``block_table`` [B, max_blocks] int32; ``pos`` [B]
     int32 — attend over positions <= pos (the row written this tick
     included).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (float32 or bfloat16, any dh up to 256)."""
+    the kernel (float32 or bfloat16, any dh up to 256).  ``split_rows``
+    (slots, heads): this call is one shard of a sharded tick, and the
+    split-K chunk follows that unsharded shape (:func:`decode_chunk`)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_decode_attention", "[B, h, dh]", q, k_pool, v_pool,
@@ -300,7 +329,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
-    out = _launch(q, k_pool, v_pool, block_table, pos, float(scale))
+    out = _launch(q, k_pool, v_pool, block_table, pos, float(scale),
+                  split_rows)
     paged_decode_attention.launches += 1
     _ROUTE_KERNEL.inc()
     return out
@@ -348,7 +378,8 @@ def verify_split_rows(B: int, W: int, h: int, capacity: int,
     return -(-chunk // _VERIFY_TILE) * _VERIFY_TILE
 
 
-def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
+def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float,
+                   split_rows=None):
     """Launch the verify kernel on the current stream; raise on a refused
     launch.  ``q`` is read, and the output written, in the [B, W, h, dh]
     layout as it stands; the f32 partials go to scratch allocated here."""
@@ -357,9 +388,11 @@ def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
     if not _fast_dh(dh):
         return _launch_any_dh("paged_verify",
                               "dl4j_paged_verify_attention_any", q, k_pool,
-                              v_pool, block_table, pos0, W, scale)
+                              v_pool, block_table, pos0, W, scale,
+                              split_rows)
     bs, mb = k_pool.shape[2], block_table.shape[1]
-    chunk = verify_split_rows(B, W, h, mb * bs, _sm_count(q.device))
+    chunk = verify_chunk(q, k_pool, block_table, split_rows,
+                         _sm_count(q.device))
     n_split = -(-(mb * bs) // chunk)
     n_grp = -(-W // _VERIFY_GROUP)
     fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 8, 7)
@@ -379,7 +412,8 @@ def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float):
 
 
 def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           split_rows=None):
     """softmax(q . K_table^T) V_table for a CHUNK of W query tokens per
     slot — the speculative verification read.  Query row j of slot b is
     the chunk's j-th token, at position ``pos0[b] + j``, attending over
@@ -389,7 +423,8 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
     ``q`` [B, W, h, dh]; pools / table as :func:`paged_decode_attention`;
     ``pos0`` [B] int32.  Returns [B, W, h, dh].  CPU tensors take the
     plain version; CUDA tensors launch the kernel (float32 or bfloat16,
-    any dh up to 256, any W)."""
+    any dh up to 256, any W).  ``split_rows`` as in
+    :func:`paged_decode_attention`."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_verify_attention", "[B, W, h, dh]", q, k_pool, v_pool,
@@ -402,7 +437,8 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
     if q.device.type != "cuda":
         raise ValueError(f"paged_verify_attention: unsupported device "
                          f"{q.device}")
-    out = _launch_verify(q, k_pool, v_pool, block_table, pos0, float(scale))
+    out = _launch_verify(q, k_pool, v_pool, block_table, pos0, float(scale),
+                         split_rows)
     paged_verify_attention.launches += 1
     _ROUTE_KERNEL.inc()
     return out

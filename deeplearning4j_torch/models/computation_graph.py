@@ -35,6 +35,7 @@ from deeplearning4j_torch.nn.conf.graph_vertices import (BaseGraphVertex,
                                                          vertex_from_dict)
 from deeplearning4j_torch.nn.conf.inputs import InputType, Preprocessor, adapt
 from deeplearning4j_torch.nn.conf.layers_core import BaseOutputLayerConf
+from deeplearning4j_torch.runtime import spmd
 from deeplearning4j_torch.runtime.backend import resolve_device
 from deeplearning4j_torch.runtime.rng import fold_in, split
 from deeplearning4j_torch.utils.trees import iter_leaves, map_leaves
@@ -466,10 +467,11 @@ class ComputationGraph(BaseNetwork):
                 labels[name], z, lmask, head_input=head_inputs[name],
                 rng=head_rng, params=params[name])
             if lmask is not None:
-                loss = loss + scores.sum() / torch.clamp(lmask.sum(), min=1.0)
+                loss = loss + spmd.masked_mean(scores, lmask)
             else:
-                loss = loss + scores.mean()
-        return loss + self._regularization_score(params), new_state
+                loss = loss + spmd.batch_mean(scores)
+        return (loss + spmd.regularization_share(
+            self._regularization_score(params)), new_state)
 
     # ------------------------------------------------------------------
     # Training

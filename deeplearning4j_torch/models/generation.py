@@ -86,6 +86,39 @@ def _qkv(ly: TransformerEncoderBlock, params, x):
     return torch.split(qkv, d, dim=-1)
 
 
+def _tp_qkv(params, x, shard):
+    """The mesh-sharded projection: per tp shard, (q, k, v) of ITS heads
+    ([..., h/tp * dh] each, on its device) from its q|k|v column block
+    ``params["Wqkv"][c]`` — output columns only, no contraction split."""
+    out = []
+    for c, dev in enumerate(shard.tp_devices):
+        w, b = params["Wqkv"][c], params["bqkv"][c]
+        qkv = x.to(dev) @ w.to(x.dtype) + b.to(x.dtype)
+        out.append(torch.split(qkv, qkv.shape[-1] // 3, dim=-1))
+    return out
+
+
+def _tp_paged(params, x, kpool, vpool, wblk, woff, shape, shard, attend):
+    """The mesh-sharded tick's attention: per tp shard, its heads' q/k/v
+    (``shape``: [b, h/tp, dh] a decode step, [B, W, h/tp, dh] a verify
+    chunk), written at (``wblk``, ``woff``) into that head slice of
+    every data row's replica of the pool, ``attend(q, k_pool, v_pool,
+    device)`` (K1 or K2) on its heads of its own row's replica; returns
+    the heads gathered (``shard.rep``), [rows, h * dh]."""
+    atts = []
+    for c, (q, k, v) in enumerate(_tp_qkv(params, x, shard)):
+        dev = q.device
+        for ks, vs in zip(kpool.replicas, vpool.replicas):
+            d = ks[c].device
+            wb, wo = wblk.to(d).long(), woff.to(d).long()
+            ks[c][wb, :, wo, :] = k.reshape(shape).to(d)
+            vs[c][wb, :, wo, :] = v.reshape(shape).to(d)
+        kp, vp = kpool.shards[c], vpool.shards[c]
+        att = attend(q.reshape(shape).contiguous(), kp, vp, dev)
+        atts.append(att.reshape(x.shape[0], -1))
+    return shard.rep(atts)
+
+
 def _block_decode_step(ly: TransformerEncoderBlock, params, kcache,
                        vcache, x, pos):
     """One cached decoder step.  x: [b, d] new-token hidden; caches
@@ -119,14 +152,30 @@ def _block_decode_step(ly: TransformerEncoderBlock, params, kcache,
 
 
 def _block_decode_step_paged(ly: TransformerEncoderBlock, params, kpool,
-                             vpool, x, pos, table, wblk, woff):
+                             vpool, x, pos, table, wblk, woff, shard=None):
     """Paged-cache variant of ``_block_decode_step``: x [b, d]; pools
     [n_blocks, h, block_size, dh]; ``table`` [b, max_blocks] int32; the
     new K/V row lands at (``wblk``, ``woff``) per slot — the caller masks
     inactive slots to the scratch block 0, offset 0 — and attention reads
-    THROUGH the table.  Returns (y [b, d], kpool, vpool)."""
+    THROUGH the table.  Returns (y [b, d], kpool, vpool).
+
+    ``shard`` (a ``parallel.mesh.TpShardCtx``, None = one device) is the
+    mesh-sharded tick (of one data row's slots): every tp shard projects
+    ITS heads' q/k/v, writes its slice of the head-sharded pool (in every
+    data row's replica) and runs the decode kernel on its heads;
+    ``shard.rep`` gathers the heads before ``@ Wo``, whose output columns
+    (like W1's and W2's) the shards compute as ``TpLeaf``s — no
+    contraction is split."""
     b, d = x.shape
     h, dh = ly.n_heads, d // ly.n_heads
+    if shard is not None:
+        att = _tp_paged(params, x, kpool, vpool, wblk, woff,
+                        (b, h // shard.tp, dh), shard,
+                        lambda q, kp, vp, dev: paged_decode_attention(
+                            q, kp, vp, table.to(dev), pos.to(dev),
+                            scale=1.0 / (dh ** 0.5),
+                            split_rows=(b * shard.replica_data, h)))
+        return _ffn_and_norms(ly, params, x, att), kpool, vpool
     q, k, v = _qkv(ly, params, x)
     q = q.reshape(b, h, dh).contiguous()
     # in-place pool write (the reference's kpool.at[wblk, :, woff, :]
@@ -142,17 +191,27 @@ def _block_decode_step_paged(ly: TransformerEncoderBlock, params, kpool,
 
 
 def _block_verify_step_paged(ly: TransformerEncoderBlock, params, kpool,
-                             vpool, x, table, wblk, woff, pos0):
+                             vpool, x, table, wblk, woff, pos0, shard=None):
     """W-token verification step for speculative decode: one block's
     forward over a chunk of W tokens per slot.  ``x`` is FLAT [B*W, d] —
     the matmuls and layer norms run on 2-D rows as in the decode step —
     K/V are written through the block table at (``wblk``, ``woff``)
     [B, W] (masked rows at the scratch block 0) and attention reads back
     through ``paged_verify_attention`` with query row j at position
-    ``pos0 + j``.  Returns (y [B*W, d], kpool, vpool)."""
+    ``pos0 + j``.  Returns (y [B*W, d], kpool, vpool).  ``shard`` as in
+    :func:`_block_decode_step_paged`: the verify kernel runs per tp
+    shard on its heads."""
     BW, d = x.shape
     B, W = wblk.shape
     h, dh = ly.n_heads, d // ly.n_heads
+    if shard is not None:
+        att = _tp_paged(params, x, kpool, vpool, wblk, woff,
+                        (B, W, h // shard.tp, dh), shard,
+                        lambda q, kp, vp, dev: paged_verify_attention(
+                            q, kp, vp, table.to(dev), pos0.to(dev),
+                            scale=1.0 / (dh ** 0.5),
+                            split_rows=(B * shard.replica_data, h)))
+        return _ffn_and_norms(ly, params, x, att), kpool, vpool
     q, k, v = _qkv(ly, params, x)
     q = q.reshape(B, W, h, dh).contiguous()
     wb, wo = wblk.long(), woff.long()
@@ -174,44 +233,60 @@ def _embed_prompt(ly: EmbeddingSequenceLayer, params, ids):
     return y
 
 
-def _causal_block(ly: TransformerEncoderBlock, params, x, kk, vv, q, mask):
+def _causal_att(q, kk, vv, mask):
     """Attention of ``q`` [b, h, s, dh] over ``kk``/``vv`` [b, h, T, dh]
-    under ``mask`` [s, T], then the block tail — the prefill math
-    (f32 scores, -1e9 mask, f32 softmax cast to V's dtype)."""
-    b, s_len, d = x.shape
-    dh = d // ly.n_heads
+    under ``mask`` [s, T] -> [b, s, h * dh] — the prefill math (f32
+    scores, -1e9 mask, f32 softmax cast to V's dtype)."""
+    b, h, s_len, dh = q.shape
     s = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * (1.0 / (dh ** 0.5))
     s = torch.where(mask[None, None], s, -1e9)
     p = torch.softmax(s, dim=-1).to(vv.dtype)
     att = torch.einsum("bhqk,bhkd->bhqd", p, vv)
-    att = att.transpose(1, 2).reshape(b, s_len, d)
-    return _ffn_and_norms(ly, params, x, att)
+    return att.transpose(1, 2).reshape(b, s_len, h * dh)
 
 
-def _block_prefill(ly: TransformerEncoderBlock, params, x):
-    """Whole-prompt causal forward for one block: x [b, t, d] ->
-    (y [b, t, d], k [b, h, t, dh], v) — ONE batched pass instead of t
-    cached single-token steps."""
+def _causal_block(ly: TransformerEncoderBlock, params, x, kk, vv, q, mask):
+    """Attention of ``q`` over ``kk``/``vv`` (all [b, h, ., dh]) under
+    ``mask``, then the block tail."""
+    return _ffn_and_norms(ly, params, x, _causal_att(q, kk, vv, mask))
+
+
+def _prefill_qkv(ly, params, x, shard):
+    """q, k, v [b, h, t, dh] of a prompt chunk x [b, t, d] (a sharded
+    projection's heads gathered, in shard order)."""
     b, t, d = x.shape
     h, dh = ly.n_heads, d // ly.n_heads
-    split = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)
-    q, k, v = (split(z) for z in _qkv(ly, params, x))
+    if shard is None:
+        split = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)
+        return tuple(split(z) for z in _qkv(ly, params, x))
+    hs = h // shard.tp
+    split = lambda z: z.reshape(b, t, hs, dh).transpose(1, 2).to(x.device)
+    parts = [tuple(split(z) for z in qkv)
+             for qkv in _tp_qkv(params, x, shard)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+
+
+def _block_prefill(ly: TransformerEncoderBlock, params, x, shard=None):
+    """Whole-prompt causal forward for one block: x [b, t, d] ->
+    (y [b, t, d], k [b, h, t, dh], v) — ONE batched pass instead of t
+    cached single-token steps.  ``shard``: the mesh-sharded admission
+    (per-shard heads; K/V come back gathered for the pool scatter)."""
+    t = x.shape[1]
+    q, k, v = _prefill_qkv(ly, params, x, shard)
     ar = torch.arange(t, device=x.device)
     mask = ar[None, :] <= ar[:, None]
     return _causal_block(ly, params, x, k, v, q, mask), k, v
 
 
 def _block_prefill_chunked(ly: TransformerEncoderBlock, params, x, pk, pv,
-                           p0: int):
+                           p0: int, shard=None):
     """Chunked (suffix) causal forward for one block: the query rows are
     the UNCACHED prompt suffix at global positions p0..p0+s-1 and the key
     set is [cached prefix K/V ; suffix K/V].  x: [b, s, d]; ``pk``/``pv``
     [b, h, P, dh] gathered prefix rows (valid cols < ``p0``).  Returns
     (y, k, v) with k/v the SUFFIX rows only."""
-    b, s_len, d = x.shape
-    h, dh = ly.n_heads, d // ly.n_heads
-    split = lambda z: z.reshape(b, s_len, h, dh).transpose(1, 2)
-    q, k, v = (split(z) for z in _qkv(ly, params, x))
+    s_len = x.shape[1]
+    q, k, v = _prefill_qkv(ly, params, x, shard)
     P = pk.shape[2]
     kk = torch.cat([pk, k], dim=2)              # [b, h, P+s, dh]
     vv = torch.cat([pv, v], dim=2)
@@ -411,21 +486,22 @@ class TransformerGenerator:
         return self._head(head_p, x), kc, vc
 
     def _step_paged(self, emb_p, blk_ps, head_p, kc, vc, tok, pos, table,
-                    wblk, woff):
+                    wblk, woff, shard=None):
         """Paged-pool decode tick: ``kc``/``vc`` are the global block
         pools [n_layers, n_blocks, h, block_size, dh] (written in place),
         ``table`` [b, max_blocks] the per-slot block tables, and the new
         row lands at (``wblk``, ``woff``) per slot.  Attention routes
-        through ``kernels.paged_decode_attention``."""
+        through ``kernels.paged_decode_attention``.  ``shard``: the
+        mesh-sharded tick (head-sharded pools, sharded params)."""
         x = _embed_token(self.emb, emb_p, tok, pos).to(self.compute_dtype)
         ly = self.blocks[0]
         for i, p in enumerate(blk_ps):
             x, _, _ = _block_decode_step_paged(ly, p, kc[i], vc[i], x, pos,
-                                               table, wblk, woff)
+                                               table, wblk, woff, shard)
         return self._head(head_p, x), kc, vc
 
     def _verify_rows_paged(self, emb_p, blk_ps, head_p, kc, vc, toks,
-                           pos0, epos, table, wblk, woff):
+                           pos0, epos, table, wblk, woff, shard=None):
         """Speculative verification forward: ONE pass over a chunk of W
         tokens per slot — ``toks`` [B, W] (the anchor + the draft's
         proposals, masked rows 0), ``pos0`` [B] the chunk's base position,
@@ -445,10 +521,12 @@ class TransformerGenerator:
         ly = self.blocks[0]
         for i, p in enumerate(blk_ps):
             x, _, _ = _block_verify_step_paged(ly, p, kc[i], vc[i], x,
-                                               table, wblk, woff, pos0)
+                                               table, wblk, woff, pos0,
+                                               shard)
         return self._head(head_p, x).reshape(B, W, -1), kc, vc
 
-    def _prefill_rows(self, emb_p, blk_ps, head_p, prompt, t0=None):
+    def _prefill_rows(self, emb_p, blk_ps, head_p, prompt, t0=None,
+                      shard=None):
         """Batched prompt pass over the layers.  Returns (logits [b, V],
         ks, vs [n_layers, b, h, t, dh]) — the raw per-layer K/V rows for
         the caller to place.  ``t0`` picks the logits position for prompts
@@ -459,14 +537,14 @@ class TransformerGenerator:
         x = _embed_prompt(self.emb, emb_p, prompt).to(cd)
         ks, vs = [], []
         for p in blk_ps:
-            x, k, v = _block_prefill(ly, p, x)
+            x, k, v = _block_prefill(ly, p, x, shard)
             ks.append(k.to(cd))
             vs.append(v.to(cd))
         last = x[:, -1] if t0 is None else x[:, t0 - 1]
         return self._head(head_p, last), torch.stack(ks), torch.stack(vs)
 
     def _prefill_rows_chunked(self, emb_p, blk_ps, head_p, suffix, pk, pv,
-                              p0: int, last_ix: int):
+                              p0: int, last_ix: int, shard=None):
         """Chunked-prefill counterpart of ``_prefill_rows`` for prefix-
         cache HITS: ``suffix`` [b, s] are the uncached prompt tokens at
         global positions p0..p0+s-1 (pad tail beyond the real suffix),
@@ -487,7 +565,8 @@ class TransformerGenerator:
         x = y.to(cd)
         ks, vs = [], []
         for i, p in enumerate(blk_ps):
-            x, k, v = _block_prefill_chunked(ly, p, x, pk[i], pv[i], p0)
+            x, k, v = _block_prefill_chunked(ly, p, x, pk[i], pv[i], p0,
+                                             shard)
             ks.append(k.to(cd))
             vs.append(v.to(cd))
         return (self._head(head_p, x[:, last_ix]), torch.stack(ks),

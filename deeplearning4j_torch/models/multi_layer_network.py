@@ -26,6 +26,7 @@ from deeplearning4j_torch.models.network import BaseNetwork
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, apply_layer
 from deeplearning4j_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_torch.nn.conf.layers_core import BaseOutputLayerConf
+from deeplearning4j_torch.runtime import spmd
 from deeplearning4j_torch.runtime.backend import resolve_device
 from deeplearning4j_torch.runtime.rng import fold_in, split
 from deeplearning4j_torch.utils.trees import iter_leaves
@@ -125,10 +126,11 @@ class MultiLayerNetwork(BaseNetwork):
                                              rng=head_rng,
                                              params=head_params)
         if lmask is not None:
-            loss = scores.sum() / torch.clamp(lmask.sum(), min=1.0)
+            loss = spmd.masked_mean(scores, lmask)
         else:
-            loss = scores.mean()
-        return loss + self._regularization_score(params), new_state
+            loss = spmd.batch_mean(scores)
+        return (loss + spmd.regularization_share(
+            self._regularization_score(params)), new_state)
 
     # ------------------------------------------------------------------
     # Training

@@ -71,6 +71,12 @@ class BaseNetwork:
     def _check_init(self):
         if self.params_tree is None:
             self.init()
+        # a trainer holding the live (sharded or pipeline-stacked) params
+        # installs this hook; it refreshes params_tree lazily, so the
+        # per-step hot path never pays the sync
+        hook = self.__dict__.get("_param_sync_hook")
+        if hook is not None:
+            hook()
 
     def _tensor(self, a):
         """A host array (float64 -> float32, as the reference's
@@ -261,6 +267,9 @@ class BaseNetwork:
         configuration, parameters, state and counters (not the updater
         state, as in the reference).  The tensors are copies: ``fit``
         updates parameters in place."""
+        hook = self.__dict__.get("_param_sync_hook")
+        if hook is not None:
+            hook()
         m = type(self)(type(self.conf).from_dict(self.conf.to_dict()))
         if self.params_tree is not None:
             m.params_tree = map_leaves(torch.clone, self.params_tree)

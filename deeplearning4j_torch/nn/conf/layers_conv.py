@@ -39,6 +39,7 @@ from deeplearning4j_torch.nn.conf.base import BaseLayerConf, register_layer
 from deeplearning4j_torch.nn.conf.layers_core import (BaseOutputLayerConf,
                                                       apply_dropout)
 from deeplearning4j_torch.nn.weights_init import init_weights
+from deeplearning4j_torch.runtime import spmd
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -595,9 +596,16 @@ class BatchNormalization(BaseLayerConf):
         stat_dtype = torch.promote_types(x.dtype, torch.float32)
         if training and not self.use_global_stats:
             n = x.numel() // x.shape[-1]
-            mean = torch.mean(x, dim=dims, dtype=stat_dtype)
-            var = torch.clamp(_sum_of_squares(x, dims, stat_dtype) / n
-                              - torch.square(mean), min=0.0)
+            # Σx and Σx² summed over every data shard of the mesh trainer
+            # (the identity outside one) over the global batch's count,
+            # so the statistics are the GLOBAL batch's (sync-BN), as
+            # GSPMD computes them
+            cnt = float(n * spmd.shard_rows(x.shape[0])[1] // x.shape[0])
+            s1, s2 = spmd.all_reduce_sum([
+                torch.sum(x, dim=dims, dtype=stat_dtype),
+                _sum_of_squares(x, dims, stat_dtype)])
+            mean = s1 / cnt
+            var = torch.clamp(s2 / cnt - torch.square(mean), min=0.0)
             d = self.decay
             new_state = {
                 "mean": (d * state["mean"] + (1 - d) * mean.detach()).float(),

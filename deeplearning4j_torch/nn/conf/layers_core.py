@@ -20,6 +20,7 @@ from deeplearning4j_torch.nn.activations import get_activation
 from deeplearning4j_torch.nn.conf.base import BaseLayerConf, register_layer
 from deeplearning4j_torch.nn.losses import FUSED_ACTIVATIONS, get_loss
 from deeplearning4j_torch.nn.weights_init import init_weights
+from deeplearning4j_torch.runtime import spmd
 from deeplearning4j_torch.runtime.rng import generator
 
 
@@ -32,8 +33,13 @@ def apply_dropout(x, rate: float, training: bool, rng):
     if not training or not rate or rng is None:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator(rng, x.device),
-                   device=x.device)
+    # a data shard of the mesh trainer draws the GLOBAL batch's mask and
+    # keeps its own rows, so data parallel equals one device
+    n = x.shape[0] if x.ndim else 1
+    off, total = spmd.shard_rows(n)
+    u = torch.rand((total,) + tuple(x.shape[1:]),
+                   generator=generator(rng, x.device),
+                   device=x.device)[off:off + n].reshape(x.shape)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

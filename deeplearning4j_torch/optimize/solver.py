@@ -171,23 +171,43 @@ class Solver:
         (the loss is still returned non-finite for the caller to see)."""
         loss, new_model_state, grads = self._loss_and_grads(
             params, model_state, batch, rng)
+        return self.apply_grads(params, opt_state, model_state,
+                                new_model_state, grads, loss, step_idx,
+                                lr_scale)
+
+    def apply_grads(self, params, opt_state, model_state, new_model_state,
+                    grads, loss, step_idx, lr_scale: float = 1.0,
+                    trainable_tree=None, decay_tree=None, normalize=None):
+        """The step after the backward: the finiteness probe, the frozen
+        mask, gradient normalization, the updater, decoupled weight decay
+        and the in-place update (what ``step`` runs on its own gradients;
+        the mesh trainer runs it on the gradients summed over its data
+        shards, with the mask and decay trees and the normalization laid
+        out like its parameter storage).  Returns (params, opt_state,
+        model_state, loss)."""
+        trainable_tree = (self.trainable_tree if trainable_tree is None
+                          else trainable_tree)
+        decay_tree = self.decay_tree if decay_tree is None else decay_tree
+        if normalize is None:
+            def normalize(g):
+                return normalize_gradients(g, self.grad_normalization,
+                                           self.grad_norm_threshold)
         with torch.no_grad():
-            ok = finite_step_ok(loss, grads, self.trainable_tree)
-            if self.trainable_tree is not None:
+            ok = finite_step_ok(loss, grads, trainable_tree)
+            if trainable_tree is not None:
                 # frozen grads zeroed BEFORE normalization and the updater
                 grads = map_leaves(lambda g, m: g * m, grads,
-                                   self.trainable_tree)
-            grads = normalize_gradients(grads, self.grad_normalization,
-                                        self.grad_norm_threshold)
+                                   trainable_tree)
+            grads = normalize(grads)
             updates, new_opt = self.updater.update(grads, opt_state, params,
                                                    step_idx)
-            if self.decay_tree is not None:
+            if decay_tree is not None:
                 lr = self.updater.lr_at(step_idx)
                 updates = map_leaves(lambda u, p, wd: u + lr * wd * p,
-                                     updates, params, self.decay_tree)
-            if self.trainable_tree is not None:
+                                     updates, params, decay_tree)
+            if trainable_tree is not None:
                 updates = map_leaves(lambda u, m: u * m, updates,
-                                     self.trainable_tree)
+                                     trainable_tree)
             apply_updates_if(ok, params, updates, lr_scale)
             new_opt = self.updater.finalize(new_opt, params)
             select_step(ok, new_opt, opt_state)

@@ -26,9 +26,14 @@ library; the port writes its own format, read with numpy alone:
 
 The port does not read orbax checkpoints; across packages the two are
 held to the same step labels, counters and trajectories, not bytes.
-The ``world_<step>.json`` sidecar records world, processes and devices;
-the optimizer-layout fields of the pipeline trainer come with the
-training scale-out slice.
+The ``world_<step>.json`` sidecar records world, processes, devices and
+the optimizer state's layout (``opt_layout``: "layers" or "pipe", and
+the pipelined run ``pipe_run``).  A checkpoint saved by a pipeline
+trainer restores into a plain one and the reverse (ELASTIC restore,
+``parallel.elastic``): the template is re-laid into the saved layout,
+the step read, and the optimizer state re-laid back — byte-preserving
+per layer.  A lost sidecar degrades only the world comparison: the
+saved layout is read off the array paths.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ import torch
 from deeplearning4j_torch import telemetry
 from deeplearning4j_torch.nn.conf.layers_recurrent import strip_rnn_carry
 from deeplearning4j_torch.optimize.listeners import TrainingListener
+from deeplearning4j_torch.parallel import elastic as _elastic
 from deeplearning4j_torch.resilience import faults as _faults
 
 log = logging.getLogger("deeplearning4j_torch")
@@ -191,17 +197,27 @@ class ShardedCheckpointer:
         return (dist.get_world_size()
                 if dist.is_available() and dist.is_initialized() else 1)
 
-    def _world_meta(self) -> dict:
+    def _world_meta(self, state: Any = None) -> dict:
         processes = self._processes()
-        return {"world": self.world if self.world is not None
+        meta = {"world": self.world if self.world is not None
                 else processes,
                 "processes": processes,
                 "devices": torch.cuda.device_count()
                 if torch.cuda.is_available() else 1}
+        opt = state.get("opt_state") if isinstance(state, dict) else None
+        layout = _elastic.opt_layout(opt)
+        if layout is not None:
+            meta["opt_layout"] = layout
+        if layout == "pipe":
+            run = _elastic.find_pipe_run(opt)
+            if run is not None:
+                meta["pipe_run"] = list(run)
+        return meta
 
     def world_at(self, step) -> Optional[dict]:
-        """The world metadata recorded when ``step`` was saved
-        (``{"world", "processes", "devices"}``), or None."""
+        """The world/layout metadata recorded when ``step`` was saved
+        (``{"world", "processes", "devices", "opt_layout", ...}``), or
+        None."""
         if step is None:
             return None
         try:
@@ -248,7 +264,7 @@ class ShardedCheckpointer:
             # best-effort sidecar (tiny, atomic by rename)
             try:
                 tmp = self._world_path(step).with_suffix(".tmp")
-                tmp.write_text(json.dumps(self._world_meta()))
+                tmp.write_text(json.dumps(self._world_meta(state)))
                 os.replace(tmp, self._world_path(step))
             except OSError:
                 log.exception("world sidecar write for step %d failed",
@@ -319,7 +335,69 @@ class ShardedCheckpointer:
         meta = json.loads((d / _META).read_text())
         with np.load(d / _ARRAYS, allow_pickle=False) as z:
             arrays = {k: z[k] for k in z.files}
-        return step, _rebuild(like, arrays, meta)
+        try:
+            return step, _rebuild(like, arrays, meta)
+        except ValueError as orig:
+            # ELASTIC: a differently-shaped trainer saved this step (a
+            # pipeline's stacked optimizer state vs per-layer): read it
+            # in the saved layout, then re-lay it into ``like``'s
+            alt = self._alternate_template(like, step, arrays)
+            if alt is None:
+                raise
+            try:
+                state = _rebuild(alt, arrays, meta)
+            except ValueError:
+                raise orig
+            converted = _elastic.convert_opt_layout(state["opt_state"],
+                                                    like["opt_state"])
+            if converted is None:
+                raise orig
+            state["opt_state"] = converted
+            log.info("elastic restore at step %d: optimizer state re-laid "
+                     "from the saved %r layout into %r (saved world=%s)",
+                     step, self._saved_opt_layout(step, arrays)[0],
+                     _elastic.opt_layout(like["opt_state"]),
+                     (self.world_at(step) or {}).get("world"))
+            return step, state
+
+    def _saved_opt_layout(self, step: int, arrays: Dict[str, np.ndarray]):
+        """``(layout, pipe_run)`` of the optimizer state saved at
+        ``step``: from the sidecar, else from the saved array paths (a
+        lost sidecar never strands a cross-layout restore)."""
+        meta = self.world_at(step) or {}
+        layout = meta.get("opt_layout")
+        if layout is not None:
+            run = meta.get("pipe_run")
+            return layout, (tuple(int(v) for v in run) if run else None)
+        tree: dict = {}
+        for key, arr in arrays.items():
+            parts = key.split("/")
+            if parts[0] != "opt_state":
+                continue
+            node = tree
+            for p in parts[1:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = arr
+        layout = _elastic.opt_layout(tree)
+        run = _elastic.find_pipe_run(tree) if layout == "pipe" else None
+        return layout, run
+
+    def _alternate_template(self, like: Any, step: int, arrays):
+        """A restore template in the SAVED optimizer layout, re-laid from
+        ``like``'s own — or None when no cross-layout restore applies."""
+        if not isinstance(like, dict) or "opt_state" not in like:
+            return None
+        mine = _elastic.opt_layout(like["opt_state"])
+        saved, run = self._saved_opt_layout(step, arrays)
+        if mine == "pipe" and saved != "pipe":
+            return {**like,
+                    "opt_state": _elastic.pipe_to_layers(like["opt_state"])}
+        if mine == "layers" and saved == "pipe" and run:
+            lo, hi = run
+            return {**like,
+                    "opt_state": _elastic.layers_to_pipe(
+                        like["opt_state"], int(lo), int(hi))}
+        return None
 
     def delete_step(self, step: int):
         """Drop one checkpoint step and its sidecar."""
@@ -366,6 +444,14 @@ class CheckpointListener(TrainingListener):
         # step on post-step params
         it = (completed_iterations if completed_iterations is not None
               else model.iteration_count)
+        hook = getattr(model, "_param_sync_hook", None)
+        if hook is not None:   # lazily-synced trainer-owned params
+            hook()
+            sync_opt = getattr(hook, "sync_opt", None)
+            if sync_opt is not None:
+                # a mesh trainer's live optimizer state is its own (the
+                # pipeline's pipe-structured tree, TP shards): capture it
+                sync_opt()
         state = {"params": model.params_tree,
                  "opt_state": model.opt_state,
                  "model_state": strip_rnn_carry(model.state_tree),
@@ -419,9 +505,16 @@ class CheckpointListener(TrainingListener):
 
     @staticmethod
     def _apply_trees(model, state):
+        """Overwrite the model's trees from a restored checkpoint and
+        disarm a mesh trainer's deferred sync (``parallel.trainer``'s hook
+        protocol): its next step rebuilds its storage from these trees."""
         model.params_tree = state["params"]
         model.opt_state = state["opt_state"]
         model.state_tree = state["model_state"]
+        discard = getattr(getattr(model, "_param_sync_hook", None),
+                          "discard_pending", None)
+        if discard is not None:
+            discard()
 
     def restore_params_into(self, model):
         """Restore ONLY the parameter, optimizer and model-state trees from

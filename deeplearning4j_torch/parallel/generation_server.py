@@ -1,6 +1,7 @@
 """GenerationServer: continuous-batching decode serving (port of
-``deeplearning4j_tpu/parallel/generation_server.py`` at tp = 1, with
-speculative decode, the host KV tier, prefix handoff and the watchdog).
+``deeplearning4j_tpu/parallel/generation_server.py``, with speculative
+decode, the host KV tier, prefix handoff, the watchdog and the
+mesh-sharded tick).
 
 Many concurrent ``submit()`` callers are multiplexed onto ONE decode
 tick over a fixed pool of ``n_slots`` slots — requests join and leave
@@ -105,7 +106,23 @@ writes can reach a block the new scheduler hands out.  A failed
 dispatch recovers the same way inline, implicating only the slot of a
 raising admission.
 
-Later slices: ``devices=``/``tp=`` raise ``NotImplementedError``.
+MESH-SHARDED replica (``devices=[...]``, ``tp=``; ``parallel.mesh``):
+the slice is a ``("data", "tp")`` mesh and the tick threads a
+``TpShardCtx``.  The KV pool splits its HEAD axis over the tp devices
+(:class:`HeadShardedPool`; the block axis and the host allocator stay
+global, and each data row holds a replica that every write reaches),
+the block weights their OUTPUT columns — each shard's own
+heads' q|k|v columns, and ``Wo``/``W1``/``W2``, the head's vocab columns
+and the embedding's vocab rows as ``TpLeaf``s — and every tp shard
+launches the decode and verify kernels on its own heads, choosing the
+split-K chunk from the replica's unsharded shape.  ``TpShardCtx.rep``
+gathers the heads before every reduction over the feature axis, so no
+contraction is split.  On the CPU the plain versions run, as
+everywhere.  The slice may repeat a device (one card driven as two
+shards).  With a data axis > 1 the tick runs data row r's slots, B/data
+of them, on row r's tp devices with its own placement of the weights
+and its own pool replica; the per-slot state rows stay with the server
+on the slice's first device and each tick hands row r its rows.
 """
 from __future__ import annotations
 
@@ -130,6 +147,8 @@ from deeplearning4j_torch.models.generation import (TransformerGenerator,
 from deeplearning4j_torch.parallel import speculative as _speculative
 from deeplearning4j_torch.parallel.inference import _bucket
 from deeplearning4j_torch.parallel.kv_tiering import HostKVTier
+from deeplearning4j_torch.parallel.mesh import (TpLeaf, TpShardCtx,
+                                                _own_copy, serving_mesh)
 from deeplearning4j_torch.resilience import faults as _faults
 from deeplearning4j_torch.resilience.errors import (CancelledError,
                                                     DeadlineExceededError,
@@ -306,8 +325,7 @@ _TENANT_SPEC_ACCEPT = telemetry.gauge(
     labelnames=("tenant",))
 _TP_DEGREE = telemetry.gauge(
     "generation_server_tp_degree",
-    "tensor-parallel degree of the most recently constructed server "
-    "(1: the port serves one device per replica)")
+    "tensor-parallel degree of the most recently constructed server")
 # Replica-side half of the request-phase family (the fleet router owns
 # the admission/placement/total phases): the spans that build a
 # request's trace tree observe these series, so TTFT decomposes into
@@ -329,10 +347,94 @@ STREAM_DRAFT = 0x5D
 STREAM_ACCEPT = 0xAC
 
 
-def _later(feature: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to deeplearning4j_torch yet; it comes "
-        f"with the {slice_name} (ROADMAP.md)")
+class HeadShardedPool:
+    """A KV pool [..., h, block_size, dh] with its head axis split over
+    the tp devices and one replica per data row of the slice:
+    ``replicas[r][c]`` holds heads ``[c*h/tp, (c+1)*h/tp)`` on device
+    (r, c), and ``shards`` is the replica of the row this view reads
+    (``own``; :meth:`for_row`).  An int or slice on the leading (layer)
+    axis gives the sharded view of those layers; any other read gathers
+    the heads of ``shards`` (in shard order) onto its first device, and
+    an assignment splits the value's heads over the shards of EVERY
+    replica — so the allocator's host-side reads and writes (export,
+    spill, restore, prefill scatter) run on it as on one tensor, and
+    every data row sees every block."""
+
+    def __init__(self, replicas, own: int = 0):
+        self.replicas = [list(r) for r in replicas]
+        self.own = own
+
+    @property
+    def shards(self):
+        return self.replicas[self.own]
+
+    def for_row(self, r: int) -> "HeadShardedPool":
+        """The view that reads data row ``r``'s replica."""
+        return HeadShardedPool(self.replicas, r)
+
+    @property
+    def shape(self):
+        s = list(self.shards[0].shape)
+        s[-3] = sum(t.shape[-3] for t in self.shards)
+        return torch.Size(s)
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def device(self):
+        return self.shards[0].device
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    def map(self, fn) -> "HeadShardedPool":
+        return HeadShardedPool([[fn(t) for t in r] for r in self.replicas],
+                               self.own)
+
+    @staticmethod
+    def _on(idx, device):
+        if isinstance(idx, tuple):
+            return tuple(HeadShardedPool._on(i, device) for i in idx)
+        return idx.to(device) if isinstance(idx, torch.Tensor) else idx
+
+    def __getitem__(self, idx):
+        if isinstance(idx, (int, slice)):
+            return self.map(lambda t: t[idx])
+        dev = self.device
+        return torch.cat([t[self._on(idx, t.device)].to(dev)
+                          for t in self.shards], dim=-3)
+
+    def __setitem__(self, idx, value):
+        sizes = [t.shape[-3] for t in self.shards]
+        parts = torch.split(value, sizes, dim=-3)
+        for r in self.replicas:
+            for t, part in zip(r, parts):
+                t[self._on(idx, t.device)] = part.to(t.device)
+
+
+def _pool_where(mask, pool, zero):
+    """``torch.where(mask, pool, zero)`` of a pool tensor or a
+    :class:`HeadShardedPool`."""
+    if isinstance(pool, HeadShardedPool):
+        return pool.map(lambda t: torch.where(mask.to(t.device), t,
+                                              zero.to(t.device)))
+    return torch.where(mask, pool, zero)
+
+
+def _blocks_finite(kc, vc):
+    """[n_blocks] bool (host): every K and V element of the block finite,
+    over every layer (and every head shard of every replica)."""
+    if isinstance(kc, HeadShardedPool):
+        fin = None
+        for kr, vr in zip(kc.replicas, vc.replicas):
+            for k, v in zip(kr, vr):
+                f = _blocks_finite(k, v)
+                fin = f if fin is None else fin & f
+        return fin
+    fin = torch.isfinite(kc) & torch.isfinite(vc)
+    return fin.flatten(2).all(dim=2).all(dim=0).cpu().numpy()
 
 
 def _pow2_floor(n: int) -> int:
@@ -513,9 +615,13 @@ class GenerationServer:
                  submit_retries: int = 0,
                  retry_backoff_s: float = 0.05,
                  device="cuda"):
-        if devices is not None or tp not in (None, 1):
-            raise _later("mesh-sharded serving (devices= / tp=)",
-                         "multi-GPU serving slice")
+        # a device slice builds the ("data", "tp") shard ctx every
+        # dispatch threads through the decode/verify/prefill bodies; the
+        # tick's replicated math runs on the slice's first device
+        ctx = None
+        if devices is not None:
+            ctx = TpShardCtx(serving_mesh(devices, tp))
+            device = ctx.devices[0]
         self._gen = TransformerGenerator(net, compute_dtype=compute_dtype,
                                          device=device)
         gen = self._gen
@@ -586,11 +692,31 @@ class GenerationServer:
                                    if request_deadline_s else None)
         self.submit_retries = int(submit_retries)
         self.retry_backoff_s = float(retry_backoff_s)
-        self.tp_degree = 1
-        #: "type:index" of the replica's device (profiler attribution)
+        self._shard = None
+        if ctx is not None:
+            h = gen.blocks[0].n_heads
+            if h % ctx.tp:
+                raise ValueError(
+                    f"n_heads={h} must divide by tp={ctx.tp} (the KV "
+                    "pool's head axis is the tp shard)")
+            if self._spec is not None:
+                self._spec.draft.check_tp(ctx.tp)
+            if self.n_slots % ctx.data:
+                raise ValueError(
+                    f"n_slots={self.n_slots} must divide by the mesh "
+                    f"data axis ({ctx.data}) to shard per-slot state")
+            # a one-device slice PINS the replica to that device and
+            # keeps the unsharded tick
+            self._shard = ctx if ctx.tp * ctx.data > 1 else None
+        #: the ctx of each data row of the slice ([None] unsharded)
+        self._rows = ([self._shard.row(r) for r in range(self._shard.data)]
+                      if self._shard is not None else [None])
+        self.tp_degree = ctx.tp if ctx is not None else 1
+        #: "type:index" of the replica's devices (profiler attribution)
         self._device_labels = [
-            f"{self.device.type}:{self.device.index or 0}"]
-        _TP_DEGREE.set(1)
+            f"{d.type}:{d.index or 0}"
+            for d in (ctx.devices if ctx is not None else [self.device])]
+        _TP_DEGREE.set(self.tp_degree)
 
         # Scheduler state shared with the watchdog: _active/_pending/
         # _free, the allocator and the device pool (_kc/_vc/_state)
@@ -668,8 +794,20 @@ class GenerationServer:
         nb = self.kv_blocks + 1      # + block 0, the never-read
                                      # scratch sink for masked writes
         shape = (n_layers, nb, h, self.block_size, dh)
-        kc = torch.zeros(shape, dtype=cd, device=dev)
-        vc = torch.zeros(shape, dtype=cd, device=dev)
+        if self._shard is not None:
+            # pool HEADS split over tp (each shard its head slice of
+            # every block); the block axis stays GLOBAL, so the host
+            # allocator's free view is the whole replica's, and each
+            # data row holds a replica (every write reaches all of them)
+            hs = h // self._shard.tp
+            shard_shape = (n_layers, nb, hs, self.block_size, dh)
+            kc, vc = (HeadShardedPool(
+                [[torch.zeros(shard_shape, dtype=cd, device=d)
+                  for d in row.tp_devices] for row in self._rows])
+                for _ in range(2))
+        else:
+            kc = torch.zeros(shape, dtype=cd, device=dev)
+            vc = torch.zeros(shape, dtype=cd, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         state = {
             "pos": torch.zeros((B,), **i32),           # next write index
@@ -728,11 +866,64 @@ class GenerationServer:
         """Snapshot the net's params for serving: on the server's device,
         floating leaves cast ONCE to the compute dtype.  Call again after
         the underlying net's weights change."""
-        self._params = self._gen._serving_params()
+        params = self._gen._serving_params()
+        #: one placement per data row of the slice (row 0's serves the
+        #: admissions); the tick runs each row on its own
+        self._params_rows = [self._place_params(params, c)
+                             for c in self._rows]
+        self._params = self._params_rows[0]
         if self._spec is not None:
-            # a self-draft aliases the target's tensors; an external
-            # draft snapshots its own net
-            self._draft_params = self._spec.draft.params(self._params)
+            # a self-draft aliases the target's (placed) tensors; an
+            # external draft snapshots its own net, placed here
+            self._draft_rows = [
+                self._place_params(self._spec.draft.params(p), c)
+                for p, c in zip(self._params_rows, self._rows)]
+            self._draft_params = self._draft_rows[0]
+
+    @staticmethod
+    def _place_params(params, shard):
+        """Spread one serving snapshot over the tp devices of one data
+        row (``shard``, a row's ctx; identity for None, and for a
+        snapshot already placed): each block's q|k|v columns of shard
+        c's heads (a list, one block per shard), ``Wo``/``W1``/``W2``
+        and the head's ``W`` by output columns and the embedding's ``W``
+        by vocab rows (``TpLeaf``s); biases, layer norms and the
+        position table on the row's first device.  A weight whose split
+        axis tp does not divide stays whole there."""
+        emb_p, blk_ps, head_p = params
+        if shard is None or (blk_ps and isinstance(blk_ps[0]["Wqkv"],
+                                                     list)):
+            return params
+        tp, devs = shard.tp, shard.tp_devices
+        home = lambda p: {k: v.to(devs[0])  # noqa: E731
+                          for k, v in p.items()}
+
+        def split(w, kind):
+            axis = -1 if kind == "col" else 0
+            if w.shape[axis] % tp:
+                return w.to(devs[0])
+            return TpLeaf([_own_copy(p.contiguous(), d) for p, d in
+                           zip(torch.chunk(w, tp, dim=axis), devs)], kind)
+
+        def qkv_cols(w):
+            # [.., 3d] = q | k | v; shard c takes its heads' columns of
+            # each third
+            q, k, v = torch.chunk(w, 3, dim=-1)
+            return [_own_copy(torch.cat([z.chunk(tp, dim=-1)[c]
+                                         for z in (q, k, v)],
+                                        dim=-1).contiguous(), d)
+                    for c, d in enumerate(devs)]
+
+        emb_p = dict(home(emb_p), W=split(emb_p["W"], "row"))
+        placed = []
+        for p in blk_ps:
+            p = home(p)
+            p["Wqkv"], p["bqkv"] = qkv_cols(p["Wqkv"]), qkv_cols(p["bqkv"])
+            for k in ("Wo", "W1", "W2"):
+                p[k] = split(p[k], "col")
+            placed.append(p)
+        head_p = dict(home(head_p), W=split(head_p["W"], "col"))
+        return emb_p, placed, head_p
 
     def healthy(self) -> bool:
         """True while the scheduler thread is alive and not shut down."""
@@ -1384,6 +1575,26 @@ class GenerationServer:
 
         return pick_sampled if sampled else pick_greedy
 
+    def _by_rows(self, step, params_rows, kc, vc, *rows):
+        """``step(*params, kc, vc, *rows, shard)`` — a decode step or a
+        verify pass of the generator; its logits — over the slice's data
+        rows: row r runs slots ``[r*B/data, (r+1)*B/data)`` (its rows of
+        every per-slot argument, on its devices) with its own placement
+        of the params, reading its replica of the pool (the pool writes
+        reach every replica); the logits come back in slot order on the
+        first device.  One call when the slice has one data row."""
+        shard = self._shard
+        if shard is None or shard.data == 1:
+            return step(*params_rows[0], kc, vc, *rows, shard)[0]
+        n = self.n_slots // shard.data
+        out = []
+        for r, ctx in enumerate(self._rows):
+            dev = ctx.devices[0]
+            part = [a[r * n:(r + 1) * n].to(dev) for a in rows]
+            out.append(step(*params_rows[r], kc.for_row(r), vc.for_row(r),
+                            *part, ctx)[0].to(self.device))
+        return torch.cat(out)
+
     def _decode_scan(self, K: int, sampled: bool, kc, vc, state):
         """K decode ticks back to back on the device, nothing read back:
         each tick samples every active slot's next token from its held
@@ -1398,7 +1609,6 @@ class GenerationServer:
         counts each slot's live ticks so the host unpacks exactly the
         tokens that were really generated."""
         gen = self._gen
-        emb_p, blk_ps, head_p = self._params
         pick = self._sampler(sampled)
         bs = self.block_size
         emitted = torch.zeros_like(state["remaining"])
@@ -1411,8 +1621,8 @@ class GenerationServer:
             bidx = tbl.gather(1, (pos // bs).long()[:, None])[:, 0]
             wblk = torch.where(active, bidx, 0)
             woff = torch.where(active, pos % bs, 0)
-            new_logits, kc, vc = gen._step_paged(
-                emb_p, blk_ps, head_p, kc, vc, tok, pos, tbl, wblk, woff)
+            new_logits = self._by_rows(gen._step_paged, self._params_rows,
+                                       kc, vc, tok, pos, tbl, wblk, woff)
             hit_eos = active & (tok == state["eos"])
             remaining = torch.where(active, state["remaining"] - 1, 0)
             remaining = torch.where(hit_eos, 0, remaining)
@@ -1458,8 +1668,6 @@ class GenerationServer:
         per-slot commit counts, and per-slot proposal tallies (proposals
         that could commit: past a committed EOS nothing counts)."""
         gen, dgen = self._gen, self._spec.draft.gen
-        emb_p, blk_ps, head_p = self._params
-        demb_p, dblk_ps, dhead_p = self._draft_params
         d = self._spec.draft.n_layers
         kcd, vcd = kc[:d], vc[:d]           # the draft's pool layers
         pick = self._sampler(sampled)
@@ -1482,9 +1690,10 @@ class GenerationServer:
                 ok = active & (j < rem)
                 p = torch.where(ok, pos + j, 0)
                 bidx = dtbl.gather(1, (p // bs).long()[:, None])[:, 0]
-                lg, _, _ = dgen._step_paged(
-                    demb_p, dblk_ps, dhead_p, kcd, vcd, tok, p, dtbl,
-                    torch.where(ok, bidx, 0), torch.where(ok, p % bs, 0))
+                lg = self._by_rows(
+                    dgen._step_paged, self._draft_rows, kcd, vcd, tok, p,
+                    dtbl, torch.where(ok, bidx, 0),
+                    torch.where(ok, p % bs, 0))
                 consumed.append(tok)
                 if j == K:               # the discarded last proposal
                     break
@@ -1503,10 +1712,11 @@ class GenerationServer:
             okv = active[:, None] & (jidx < rem[:, None])
             p = pos[:, None] + jidx
             bidx = tbl.gather(1, torch.where(okv, p // bs, 0).long())
-            G, _, _ = gen._verify_rows_paged(
-                emb_p, blk_ps, head_p, kc, vc, torch.where(okv, v, 0),
-                torch.where(active, pos, 0), torch.where(okv, p, 0), tbl,
-                torch.where(okv, bidx, 0), torch.where(okv, p % bs, 0))
+            G = self._by_rows(
+                gen._verify_rows_paged, self._params_rows, kc, vc,
+                torch.where(okv, v, 0), torch.where(active, pos, 0),
+                torch.where(okv, p, 0), tbl, torch.where(okv, bidx, 0),
+                torch.where(okv, p % bs, 0))
             g = torch.argmax(G, dim=-1)
             if sampled:
                 # the target's filtered law at each proposal's position
@@ -1609,7 +1819,8 @@ class GenerationServer:
         padded = np.zeros((1, tb), np.int64)
         padded[0, :req.t0] = req.prompt
         logits, ks, vs = gen._prefill_rows(
-            *params, torch.as_tensor(padded, device=self.device), req.t0)
+            *params, torch.as_tensor(padded, device=self.device), req.t0,
+            self._shard)
         phys = self._scatter_ids(ids, tb // bs)
         self._scatter_rows(kc, ks, phys)
         self._scatter_rows(vc, vs, phys)
@@ -1638,7 +1849,7 @@ class GenerationServer:
 
         logits, ks, vs = gen._prefill_rows_chunked(
             *params, torch.as_tensor(padded, device=self.device),
-            gather(kc), gather(vc), p0, req.t0 - p0 - 1)
+            gather(kc), gather(vc), p0, req.t0 - p0 - 1, self._shard)
         phys = self._scatter_ids(ids[matched:], sb // bs)
         self._scatter_rows(kc, ks, phys)
         self._scatter_rows(vc, vs, phys)
@@ -1851,8 +2062,8 @@ class GenerationServer:
         dev = self.device
         bm = torch.as_tensor(bmask, device=dev)[:, None, None, None]
         zero = torch.zeros((), dtype=self._kc.dtype, device=dev)
-        kc = torch.where(bm, self._kc, zero)
-        vc = torch.where(bm, self._vc, zero)
+        kc = _pool_where(bm, self._kc, zero)
+        vc = _pool_where(bm, self._vc, zero)
         mask = np.zeros((self.n_slots,), bool)
         mask[keep] = True
         m = torch.as_tensor(mask, device=dev)
@@ -1896,9 +2107,7 @@ class GenerationServer:
                 return False
             kc, vc, state = self._kc, self._vc, self._state
             try:
-                fin = (torch.isfinite(kc) & torch.isfinite(vc))
-                blk_fin = fin.flatten(2).all(dim=2).all(dim=0).cpu() \
-                    .numpy()
+                blk_fin = _blocks_finite(kc, vc)
                 log_fin = torch.isfinite(state["logits"]).all(dim=1) \
                     .cpu().numpy()
                 pos_h = state["pos"].cpu().numpy()

@@ -62,6 +62,15 @@ class DraftModel:
         the draft too."""
         return self._params_fn(target_params)
 
+    def check_tp(self, tp: int) -> None:
+        """The draft's K/V share the target's head-sharded pool leaves:
+        its head count must split over ``tp`` the same way."""
+        h = self.gen.blocks[0].n_heads
+        if h % int(tp):
+            raise ValueError(
+                f"draft n_heads={h} must divide by tp={tp} (its K/V rows "
+                "land in the head-sharded pool)")
+
 
 def make_self_draft(gen: TransformerGenerator,
                     draft_layers: Optional[int] = None) -> DraftModel:

@@ -111,6 +111,7 @@ import time
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+import torch
 
 from deeplearning4j_torch import telemetry
 from deeplearning4j_torch.parallel.generation_server import GenerationServer
@@ -467,9 +468,14 @@ class ServingFleet:
             seen = {}
             for i, slc in enumerate(dev_list):
                 for d in (slc or ()):
-                    key = (getattr(d, "platform", "?"),
-                           getattr(d, "id", id(d)))
-                    if key in seen:
+                    # a torch device by (type, index); a slice may list
+                    # one device twice (one card driven as two tp
+                    # shards), two replicas may not share one
+                    key = ((d.type, d.index or 0)
+                           if isinstance(d, torch.device) else
+                           (getattr(d, "platform", "?"),
+                            getattr(d, "id", id(d))))
+                    if seen.get(key, i) != i:
                         raise ValueError(
                             f"device {key[0]}:{key[1]} appears in "
                             f"replica {seen[key]}'s and replica "

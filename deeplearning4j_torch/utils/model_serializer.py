@@ -77,6 +77,12 @@ def _tree_from_npz(data: bytes, device):
 
 def write_model(model, path, save_updater: bool = True) -> None:
     """DL4J ``ModelSerializer.writeModel(model, file, saveUpdater)``."""
+    hook = getattr(model, "_param_sync_hook", None)
+    if hook is not None:   # lazily-synced trainer-owned params
+        hook()
+        sync_opt = getattr(hook, "sync_opt", None)
+        if sync_opt is not None and save_updater:
+            sync_opt()
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(_CONFIG, json.dumps(model.conf.to_dict(), indent=2))
         zf.writestr(_PARAMS, _npz_bytes(model.params_tree or {}))

@@ -353,13 +353,20 @@ def test_validation(net):
     {"devices": ["cpu"]}, {"tp": 2},
     {"host_tier_blocks": 4}, {"tick_timeout_s": 30.0}])
 def test_left_out_features_raise(net, kwargs):
-    """Mesh-sharded serving (``devices=`` / ``tp=``) still raises; the
-    host KV tier and the watchdog are ported and construct a working
-    server (their behaviour is held in ``test_torch_kv_tiering.py`` and
-    ``test_torch_resilience.py``)."""
+    """Every one of these features is ported now and constructs a working
+    server: a one-device slice (``devices=``) pins the replica at tp 1,
+    ``tp=`` without a slice is ignored as in the reference (the sharded
+    tick is held in ``test_torch_serving_mesh.py``), and the host KV tier
+    and the watchdog are held in ``test_torch_kv_tiering.py`` and
+    ``test_torch_resilience.py``."""
     if "devices" in kwargs or "tp" in kwargs:
-        with pytest.raises(NotImplementedError, match="slice"):
-            GenerationServer(net, n_slots=1, max_len=32, **CPU, **kwargs)
+        with GenerationServer(net, n_slots=1, max_len=32, **CPU,
+                              **kwargs) as srv:
+            st = srv.stats()
+            assert st["healthy"] and st["tp"] == 1
+            assert st["devices"] == ["cpu:0"]
+            assert srv.submit(np.asarray([1, 2, 3], np.int32),
+                              n_new=2).shape == (5,)
         return
     with GenerationServer(net, n_slots=1, max_len=32, **CPU,
                           **kwargs) as srv:

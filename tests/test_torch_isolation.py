@@ -158,6 +158,19 @@ def test_import_leaves_jax_unloaded():
         "import deeplearning4j_torch.autodiff.tf_import\n"
         "import deeplearning4j_torch.utils.bert_fixture\n"
         "from deeplearning4j_torch.utils import samediff_from_dict\n"
+        "import deeplearning4j_torch.parallel.mesh\n"
+        "import deeplearning4j_torch.parallel.distributed\n"
+        "import deeplearning4j_torch.parallel.trainer\n"
+        "import deeplearning4j_torch.parallel.pipeline\n"
+        "import deeplearning4j_torch.parallel.elastic\n"
+        "import deeplearning4j_torch.parallel.ring_attention\n"
+        "import deeplearning4j_torch.parallel.scaling\n"
+        "import deeplearning4j_torch.resilience.coordination\n"
+        "import deeplearning4j_torch.runtime.spmd\n"
+        "from deeplearning4j_torch.parallel import (MeshConfig, \n"
+        "    ShardedTrainer, ring_attention, ring_self_attention, \n"
+        "    gpipe_apply, stack_block_params, PipelinedTransformerLM)\n"
+        "from deeplearning4j_torch.resilience import fleet_resume_fit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', 'cv2')]\n"
         "assert not bad, bad\n"

@@ -154,7 +154,9 @@ def _series(name):
 
 def test_batches_padded_to_powers_of_two_with_the_sync_hook():
     """Three rows coalesced into one batch run as a bucket of 4 (one
-    padded row: waste 0.25), and the hook runs before each batch."""
+    padded row: waste 0.25), and the hook runs before each batch (and
+    once at construction: ``_check_init`` syncs a lazily synced model,
+    as the reference's does)."""
     net = _port_mlp()
     seen, hooks = [], []
     orig = net._forward_infer
@@ -165,7 +167,7 @@ def test_batches_padded_to_powers_of_two_with_the_sync_hook():
     waste_sum0 = _series("inference_padding_waste").sum
     with ParallelInference(net, batch_limit=8) as pi:
         out = pi.output(np.ones((3, 8), np.float32))
-    assert out.shape == (3, 4) and seen == [4] and hooks == [1]
+    assert out.shape == (3, 4) and seen == [4] and hooks == [1, 1]
     assert _series("inference_padding_waste").count == waste0 + 1
     assert _series("inference_padding_waste").sum - waste_sum0 == \
         pytest.approx(0.25)
