@@ -312,7 +312,7 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
           "train", "resume", "rnn", "bert", "resnet", "infer", "samediff",
-          "mesh", "timings")
+          "mesh", "periphery", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -3653,7 +3653,10 @@ INFER_CFG = {"vgg_b": 2, "tl_b": 16, "tl_steps": 10, "tl_classes": 5,
              "pi_queue_limit": 64, "q_images": 64, "zoo_b": 2,
              "zoo_kwargs": {}, "attn_b": 32, "attn_t": 512,
              "attn_t_long": 1024, "attn_heads": 12, "attn_head": 64,
-             "attn_steps": 5, "attn_long_steps": 2}
+             "attn_steps": 5, "attn_long_steps": 2,
+             # (g): past head dim 256, on the chunked kernels
+             "wide_b": 16, "wide_heads": 2, "wide_head": 320,
+             "wide_steps": 2, "wide_long_steps": 2}
 # (a) the card against the CPU in f64 on the same f32-representable
 # params: output, loss and every gradient within INFER_F64_TOL (each
 # element to its own size for output and loss, normwise for gradients).
@@ -4139,10 +4142,10 @@ def infer_zoo(torch, np, cfg, device):
             "lenet_pretrained": {"sha256": sha, "vs_cpu_max_abs": d}}
 
 
-def infer_attn_net(cfg, device):
-    """The sequence classifier of part (f): SelfAttentionLayer(heads x
-    head, flash) -> masked average pooling -> 2-way softmax, bf16 on f32
-    masters, Adam."""
+def infer_attn_net(cfg, device, heads, head):
+    """The sequence classifier of parts (f) and (g):
+    SelfAttentionLayer(heads x head, flash) -> masked average pooling ->
+    2-way softmax, bf16 on f32 masters, Adam."""
     from deeplearning4j_torch.models.multi_layer_network import (
         MultiLayerNetwork)
     from deeplearning4j_torch.nn.conf import (GlobalPoolingLayer, InputType,
@@ -4150,13 +4153,12 @@ def infer_attn_net(cfg, device):
                                               OutputLayer,
                                               SelfAttentionLayer)
     from deeplearning4j_torch.optimize.updaters import Adam
-    d = cfg["attn_heads"] * cfg["attn_head"]
+    d = heads * head
     conf = (NeuralNetConfiguration.builder().seed(16)
             .updater(Adam(learning_rate=1e-4)).compute_dtype("bfloat16")
             .list()
-            .layer(SelfAttentionLayer(n_heads=cfg["attn_heads"],
-                                      head_size=cfg["attn_head"], n_out=d,
-                                      use_flash=True))
+            .layer(SelfAttentionLayer(n_heads=heads, head_size=head,
+                                      n_out=d, use_flash=True))
             .layer(GlobalPoolingLayer(pooling_type="avg"))
             .layer(OutputLayer(n_out=2, activation="softmax",
                                loss="mcxent"))
@@ -4225,24 +4227,35 @@ def infer_kernel_errors(torch, fa, rec):
     return errs
 
 
-def infer_attention(torch, np, cfg, device, sync):
+def infer_attention(torch, np, cfg, device, sync, part="f"):
     """Part (f): the sequence classifier trained on the flash route —
     ``attn_steps`` counted fit steps at t ``attn_t`` with each row's
     valid length seeded in 64..t (K4 forward, K5 without dBias, K6),
     then ``attn_long_steps`` unmasked steps at ``attn_t_long`` (K3, K5,
     K6); each window after a warm-up step whose launches' operands are
     replayed through the kernels against their plain versions before the
-    counts are reset."""
+    counts are reset.  Part (g) is the same at ``wide_heads`` heads of
+    ``wide_head`` (past 256: the chunked kernels), b ``wide_b``,
+    ``wide_steps`` and ``wide_long_steps`` steps; its windows are
+    labelled ``dh<head>_masked`` and ``dh<head>_long``."""
     from deeplearning4j_torch.data import DataSet
     fa = flash_module()
-    net = infer_attn_net(cfg, device)
-    b, d = cfg["attn_b"], cfg["attn_heads"] * cfg["attn_head"]
+    if part == "f":
+        b, heads, head = cfg["attn_b"], cfg["attn_heads"], cfg["attn_head"]
+        steps_m, steps_l, prefix = (cfg["attn_steps"],
+                                    cfg["attn_long_steps"], "")
+    else:
+        b, heads, head = cfg["wide_b"], cfg["wide_heads"], cfg["wide_head"]
+        steps_m, steps_l, prefix = (cfg["wide_steps"],
+                                    cfg["wide_long_steps"], f"dh{head}_")
+    net = infer_attn_net(cfg, device, heads, head)
+    d = heads * head
     r = np.random.default_rng(17)
     out, counts, errs = {}, {}, {}
     y = np.eye(2, dtype=np.float32)[r.integers(0, 2, b)]
     for label, t, steps, masked in (
-            ("masked", cfg["attn_t"], cfg["attn_steps"], True),
-            ("long", cfg["attn_t_long"], cfg["attn_long_steps"], False)):
+            (prefix + "masked", cfg["attn_t"], steps_m, True),
+            (prefix + "long", cfg["attn_t_long"], steps_l, False)):
         x = r.normal(size=(b, t, d)).astype(np.float32)
         lens = bert_lengths(np, b, t, 3) if masked else np.full(b, t)
         mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
@@ -4257,12 +4270,14 @@ def infer_attention(torch, np, cfg, device, sync):
         finally:
             restore()
         if set(rec) != {n for n, c in want.items() if c}:
-            raise AssertionError(f"infer/f/{label}: captured {sorted(rec)}")
+            raise AssertionError(f"infer/{part}/{label}: captured "
+                                 f"{sorted(rec)}")
         e = infer_kernel_errors(torch, fa, rec)
         bad = {k: v for k, v in e.items()
                if not (math.isfinite(v) and v <= FLASH_TOL["bfloat16"])}
         if bad:
-            raise AssertionError(f"infer/f/{label}: kernel vs plain {bad}")
+            raise AssertionError(f"infer/{part}/{label}: kernel vs plain "
+                                 f"{bad}")
         sync()
         route0 = fa._ROUTE_FLASH.value
         fallback0 = fa._ROUTE_XLA_LONG_T.value
@@ -4274,21 +4289,22 @@ def infer_attention(torch, np, cfg, device, sync):
         wall = time.perf_counter() - t0
         cnt = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
         if cnt != want:
-            raise AssertionError(f"infer/f/{label}: launches {cnt} != "
+            raise AssertionError(f"infer/{part}/{label}: launches {cnt} != "
                                  f"{want}")
         if fa._ROUTE_FLASH.value - route0 != steps:
-            raise AssertionError(f"infer/f/{label}: flash_route_total "
+            raise AssertionError(f"infer/{part}/{label}: flash_route_total "
                                  "did not move once a step")
         if fa._ROUTE_XLA_LONG_T.value != fallback0:
-            raise AssertionError(f"infer/f/{label}: long-t fallback")
+            raise AssertionError(f"infer/{part}/{label}: long-t fallback")
         if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"infer/f/{label}: losses {losses}")
+            raise AssertionError(f"infer/{part}/{label}: losses {losses}")
         if masked and not losses[-1] < losses[0]:
-            raise AssertionError(f"infer/f/{label}: losses {losses} not "
-                                 "falling")
+            raise AssertionError(f"infer/{part}/{label}: losses {losses} "
+                                 "not falling")
         counts[label] = cnt
         errs.update({f"{label}/{k}": v for k, v in e.items()})
-        out[label] = {"b": b, "t": t, "steps": steps, "losses": losses,
+        out[label] = {"b": b, "t": t, "heads": heads, "head": head,
+                      "steps": steps, "losses": losses,
                       "valid_tokens": int(lens.sum()), "launches": cnt,
                       "step_ms": wall * 1e3 / steps,
                       "tokens_per_s": steps * b * t / wall,
@@ -4300,9 +4316,10 @@ def infer_attention(torch, np, cfg, device, sync):
 
 
 def infer_parts(torch, np, device, cfg, vgg, sync, card):
-    """Parts (a)-(f) of :func:`phase_infer` on ``device`` at ``cfg``'s
+    """Parts (a)-(g) of :func:`phase_infer` on ``device`` at ``cfg``'s
     sizes, ``vgg`` the VGG16 model config (smaller in the rehearsal).
-    Emits one row and returns part (f)'s launch counts by window."""
+    Emits one row and returns parts (f) and (g)'s launch counts by
+    window."""
     t_phase = time.perf_counter()
     row = {"phase": "infer", "card": card}
     row["a_vgg_card_vs_cpu"] = infer_vgg_card_vs_cpu(torch, np, vgg, cfg,
@@ -4315,6 +4332,9 @@ def infer_parts(torch, np, device, cfg, vgg, sync, card):
     row["e_zoo"] = infer_zoo(torch, np, cfg, device)
     row["f_attention"], counts, _ = infer_attention(torch, np, cfg, device,
                                                     sync)
+    row["g_attention_wide"], wide, _ = infer_attention(torch, np, cfg,
+                                                       device, sync, "g")
+    counts.update(wide)
     row["reduced"] = [
         "seeded random weights for VGG16 and every zoo model (no "
         "pretrained VGG16/YOLO2 weights are in the repo)",
@@ -4352,7 +4372,9 @@ def phase_infer(torch, np):
     classes; bf16 on f32 masters, Adam) at b 32: 5 steps at t 512 with
     seeded padding (K4, K5, K6 once a step each) and 2 unmasked steps at
     t 1024 (K3, K5, K6), every launch's operands replayed against the
-    plain versions. Returns (f)'s launch counts."""
+    plain versions; (g) the same classifier past the fast kernels' head
+    dims, 2 heads of 320 (the chunked kernels), b 16, 2 steps at t 512
+    masked and 2 at t 1024.  Returns (f) and (g)'s launch counts."""
     from deeplearning4j_torch.zoo import VGG16
     try:
         return infer_parts(torch, np, "cuda", INFER_CFG, VGG16(),
@@ -5673,6 +5695,755 @@ def phase_mesh(torch, np):
 
 
 # -- phase 10 ----------------------------------------------------------
+# -- phase 9e ----------------------------------------------------------
+# The periphery on the card, each part at the size its users run:
+# (a) Keras import: dl4j-examples' LeNet golden and Keras's ResNet-50
+#     functional config at 224 (seeded weights); (b) Word2Vec at
+#     dl4j-examples' Word2VecRawTextExample settings (layerSize 100,
+#     windowSize 5, minWordFrequency 5, seed 42, negative sampling with 5
+#     negatives, 1 epoch) over a seeded Zipf corpus of planted topics,
+#     then ParagraphVectors, FastText and the serializer; (c) rl4j's
+#     learners at the reference tests' gridworld configurations; (d) the
+#     reference test's arbiter random search; (e) the ui listeners on
+#     Gpt(); (f) native_io over a seeded 200,000 x 32 CSV.
+PERIPHERY_CFG = {
+    "lenet": "tests/fixtures/keras_lenet_golden.npz",
+    "resnet_config": "tests/fixtures/keras_resnet50_config.json",
+    "resnet_hw": 224, "resnet_b": 2, "resnet_fit_b": 64, "resnet_steps": 3,
+    "w2v": {"tokens": 1_000_000, "topics": 64, "topic_words": 300,
+            "sent_len": 20, "zipf": 1.0, "layer_size": 100, "window": 5,
+            "min_freq": 5, "negative": 5, "seed": 42, "epochs": 1,
+            "probe_steps": 200},
+    "pv_sentences": 5000, "ft_tokens": 200_000, "ft_bucket": 50000,
+    "grid": 4,
+    "dqn": {"seed": 7, "max_step": 2500, "batch_size": 32,
+            "update_start": 64, "target_dqn_update_freq": 50,
+            "eps_decay_steps": 1500, "learning_rate": 2e-3,
+            "exp_replay_size": 4000},
+    "dqn_hidden": 32,
+    "a3c": {"n_threads": 2, "max_step": 5000, "t_max": 8,
+            "learning_rate": 5e-3, "seed": 1},
+    "nstepq": {"n_threads": 2, "max_step": 6000}, "nstepq_seeds": (2, 12, 22),
+    "arbiter_candidates": 6, "arbiter_epochs": 20,
+    "ui_gpt": {}, "ui_b": 8, "ui_t": 2048, "ui_steps": 5, "prof_start": 2,
+    "prof_n": 2,
+    "csv_rows": 200_000, "csv_cols": 32, "csv_classes": 10,
+    "csv_batch": 1000, "csv_python_rows": 40_000,
+}
+# (a) the LeNet golden against Keras's predict; ResNet-50's f32 logits on
+# the card against the port's f64 on the CPU, each element to its own
+# size (flash_err; TF32 off); (b) one NS and one HS step on the card in
+# f32 against the CPU in f64 (flash_err over both tables)
+PERIPHERY_TOL = {"lenet": 1e-5, "resnet_f32": 1e-4, "w2v_step": 1e-5,
+                 "serializer": 1e-6}
+
+
+def keras_resnet50_config(root, hw):
+    """Keras's ResNet-50 functional config (the committed
+    ``keras_resnet50_config.json``) with its input at hw x hw x 3."""
+    with open(os.path.join(root, PERIPHERY_CFG["resnet_config"])) as f:
+        cfg = json.load(f)
+    inp = cfg["config"]["layers"][0]
+    if inp["class_name"] != "InputLayer":
+        raise AssertionError("periphery/a: the config's first layer is "
+                             f"{inp['class_name']}")
+    inp["config"]["batch_shape"] = [None, hw, hw, 3]
+    return cfg
+
+
+def seeded_keras_weights(np, model, seed):
+    """Weights in ``KerasModelImport._read_weights``' form for every
+    parameter and batch-norm statistic of an imported graph, numpy-seeded:
+    He-scaled kernels, gamma near 1, small beta and means, variances in
+    [0.5, 1.5]."""
+    leaf = {"W": "kernel", "b": "bias", "gamma": "gamma", "beta": "beta",
+            "mean": "moving_mean", "var": "moving_variance"}
+    r = np.random.default_rng(seed)
+    out = {}
+    for name in model.params_tree:
+        w = {}
+        for ours, t in {**model.params_tree[name],
+                        **model.state_tree[name]}.items():
+            shape = tuple(t.shape)
+            if ours == "W":
+                v = r.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
+            elif ours == "gamma":
+                v = 1.0 + 0.1 * r.normal(size=shape)
+            elif ours == "var":
+                v = r.uniform(0.5, 1.5, size=shape)
+            else:
+                v = 0.1 * r.normal(size=shape)
+            w[leaf[ours]] = v.astype(np.float32)
+        if w:
+            out[name] = w
+    return out
+
+
+def only_output(y):
+    """A graph's single output (``output`` returns {name: tensor} for a
+    graph, the tensor for a list)."""
+    if isinstance(y, dict):
+        (y,) = y.values()
+    return y
+
+
+def keras_graph_as(torch, model, dtype, compute_dtype, device):
+    """The imported graph ``model`` rebuilt from its configuration with
+    parameter type ``dtype`` and compute type ``compute_dtype``, its
+    parameters and batch-norm statistics carried over, on ``device``."""
+    from deeplearning4j_torch.models.computation_graph import (
+        ComputationGraph, ComputationGraphConfiguration)
+    from deeplearning4j_torch.utils.convert import (load_numpy_params,
+                                                    load_numpy_state)
+    from deeplearning4j_torch.utils.trees import map_leaves
+    conf = ComputationGraphConfiguration.from_dict(model.conf.to_dict())
+    conf.global_conf.dtype = dtype
+    conf.global_conf.compute_dtype = compute_dtype
+    host = {"float64": torch.float64}.get(dtype, torch.float32)
+    net = load_numpy_params(ComputationGraph(conf), map_leaves(
+        lambda t: t.to("cpu", host).numpy(), model.params_tree),
+        device=device)
+    return load_numpy_state(net, map_leaves(
+        lambda t: t.to("cpu", host).numpy(), model.state_tree))
+
+
+def periphery_keras(torch, np, root, cfg, device, sync):
+    """Part (a): the LeNet golden on ``device`` against Keras's predict;
+    ResNet-50's config at ``resnet_hw`` with seeded weights, f32 on
+    ``device`` against f64 on the CPU at b ``resnet_b``, then bf16 on f32
+    masters at b ``resnet_fit_b``, ``resnet_steps`` timed fit steps."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.keras_import import KerasModelImport
+    t_part = time.perf_counter()
+    g = np.load(os.path.join(root, cfg["lenet"]))
+    weights = {}
+    for key in g.files:
+        if key.startswith("w/"):
+            _, layer, leaf = key.split("/")
+            weights.setdefault(layer, {})[leaf] = g[key]
+    lcfg = json.loads(str(g["config"]))
+    lenet = KerasModelImport._import_sequential(lcfg["config"], weights,
+                                                device=device)
+    got = lenet.output(g["x"]).float().cpu()
+    lenet_err = float((got - torch.from_numpy(g["predict"])).abs().max())
+    if not lenet_err <= PERIPHERY_TOL["lenet"]:
+        raise AssertionError(f"periphery/a: LeNet vs Keras predict "
+                             f"{lenet_err} > {PERIPHERY_TOL['lenet']}")
+    out = {"lenet": {"layers": [type(ly).__name__
+                                for ly in lenet.conf.layers],
+                     "max_abs_err_vs_keras": lenet_err,
+                     "tol": PERIPHERY_TOL["lenet"]}}
+    hw, b = cfg["resnet_hw"], cfg["resnet_b"]
+    rcfg = keras_resnet50_config(root, hw)["config"]
+    t0 = time.perf_counter()
+    probe = KerasModelImport._import_functional(rcfg, {}, device="cpu")
+    kw = seeded_keras_weights(np, probe, 0)
+    del probe
+    card = KerasModelImport._import_functional(rcfg, kw, device=device)
+    sync()
+    import_s = time.perf_counter() - t0
+    # the comparison reads the logits: the same graph with the head's
+    # softmax off (random weights saturate the softmax to one-hot)
+    lcfg_r = json.loads(json.dumps(rcfg))
+    head = lcfg_r["layers"][-1]["config"]
+    if head.get("activation") != "softmax":
+        raise AssertionError(f"periphery/a: the head is {head}")
+    head["activation"] = "linear"
+    logits = KerasModelImport._import_functional(lcfg_r, kw, device=device)
+    cpu64 = keras_graph_as(torch, logits, "float64", "float64", "cpu")
+    x = np.random.default_rng(2).random((b, hw, hw, 3)).astype(np.float32)
+    y32 = only_output(logits.output(x)).double().cpu()
+    y64 = only_output(cpu64.output(x.astype(np.float64)))
+    err, detail = flash_err(torch, y32, y64)
+    if not (bool(torch.isfinite(y32).all()) and err <= PERIPHERY_TOL[
+            "resnet_f32"]):
+        raise AssertionError(f"periphery/a: ResNet-50 card f32 vs CPU f64 "
+                             f"{err} > {PERIPHERY_TOL['resnet_f32']}")
+    del cpu64, logits
+    n_params = sum(int(t.numel()) for layer in card.params_tree.values()
+                   for t in layer.values())
+    bf = keras_graph_as(torch, card, "float32", "bfloat16", device)
+    del card
+    fb = cfg["resnet_fit_b"]
+    r = np.random.default_rng(3)
+    ds = DataSet(r.random((fb, hw, hw, 3)).astype(np.float32),
+                 np.eye(1000, dtype=np.float32)[r.integers(0, 1000, fb)])
+    losses = [float(bf.fit(ds))]                      # warm-up
+    sync()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses += [float(bf.fit(ds)) for _ in range(cfg["resnet_steps"])]
+    sync()
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"periphery/a: ResNet-50 losses {losses}")
+    out["resnet50"] = {
+        "hw": hw, "params": n_params, "weights_leaves": len(kw),
+        "import_s": import_s,
+        "f32_vs_f64": {"b": b, "compared": "logits", "flash_err": err,
+                       **detail,
+                       "tol": PERIPHERY_TOL["resnet_f32"]},
+        "bf16_fit": {"b": fb, "steps": cfg["resnet_steps"],
+                     "losses": losses,
+                     "step_ms": wall * 1e3 / cfg["resnet_steps"],
+                     "images_per_s": fb * cfg["resnet_steps"] / wall,
+                     "peak_bytes": (torch.cuda.max_memory_allocated()
+                                    if device == "cuda" else None)}}
+    del bf
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def zipf_topic_corpus(np, topics, topic_words, tokens, sent_len, zipf, seed):
+    """Sentences of ``sent_len`` words, each from one seeded topic of
+    ``topic_words`` words (``t<topic>w<rank>``) with Zipf(``zipf``) rank
+    frequencies, ``tokens`` words in all; returns (sentences, topic of
+    each sentence)."""
+    r = np.random.default_rng(seed)
+    n = tokens // sent_len
+    p = 1.0 / np.arange(1, topic_words + 1) ** zipf
+    sent_topic = r.integers(0, topics, n)
+    ranks = r.choice(topic_words, size=(n, sent_len), p=p / p.sum())
+    names = np.asarray([[f"t{t}w{w}" for w in range(topic_words)]
+                        for t in range(topics)])
+    words = names[sent_topic[:, None], ranks]
+    return [" ".join(row) for row in words], sent_topic
+
+
+def window_pair_count(np, lengths, w):
+    """How many (centre, context) pairs windows of ``w`` make over
+    sentences of ``lengths`` in-vocabulary words."""
+    total = 0
+    for n, c in zip(*np.unique(np.asarray(lengths), return_counts=True)):
+        i = np.arange(n)
+        total += int(c) * int((np.minimum(n, i + w + 1)
+                               - np.maximum(0, i - w) - 1).sum())
+    return total
+
+
+def topic_cosines(np, vec, topics, n_words=5):
+    """(mean cosine of frequent words within a topic, across topics):
+    the ``n_words`` most frequent words (ranks 0..) of each topic."""
+    v = np.stack([[vec(f"t{t}w{w}") for w in range(n_words)]
+                  for t in range(topics)])
+    v = v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-12)
+    intra = np.einsum("twd,tud->twu", v, v)
+    off = ~np.eye(n_words, dtype=bool)
+    same = float(intra[:, off].mean())
+    # each topic's words against the previous topic's
+    other = float(np.einsum("twd,tud->twu", v, np.roll(v, 1, axis=0))
+                  .mean())
+    return same, other
+
+
+def w2v_step_checks(torch, np, model, device):
+    """One NS step with the same negatives and one HS step on ``device``
+    in f32 against the CPU in f64, from the trained tables: flash_err
+    over both tables after the step."""
+    from deeplearning4j_torch.nlp import word2vec as w2v
+    n = len(model.vocab)
+    r = np.random.default_rng(11)
+    c, x = (torch.as_tensor(r.integers(0, n, 512)) for _ in range(2))
+    gen = torch.Generator(device=device).manual_seed(5)
+    negs = w2v.sample_negatives(model._unigram_cdf(n), n, model.negative,
+                                512, gen, device).cpu()
+    hs1 = (r.normal(size=(n - 1, model.vector_size)) * 0.1).astype(
+        np.float32)
+    out = {}
+    for kind in ("ns", "hs"):
+        tables = {}
+        for side, dev, dt in (("card", device, torch.float32),
+                              ("cpu", "cpu", torch.float64)):
+            s0 = torch.tensor(model.syn0, dtype=dt, device=dev)  # copies
+            s1 = torch.tensor(model.syn1 if kind == "ns" else hs1,
+                              dtype=dt, device=dev)
+            if kind == "ns":
+                loss = w2v.ns_update(s0, s1, c.to(dev), x.to(dev),
+                                     negs.to(dev), 0.025)
+            else:
+                pts, cds, msk = model._huffman_tensors(dev)
+                loss = w2v.hs_update(s0, s1, c.to(dev), x.to(dev), pts,
+                                     cds.to(dt), msk.to(dt), 0.025)
+            tables[side] = (
+                float(loss), s0.double().cpu(), s1.double().cpu())
+        card, cpu = tables["card"], tables["cpu"]
+        errs = [flash_err(torch, card[i], cpu[i])[0] for i in (1, 2)]
+        out[kind] = {"loss_card": card[0], "loss_cpu_f64": cpu[0],
+                     "loss_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+                     "syn0_err": errs[0], "syn1_err": errs[1]}
+        if not max(errs + [out[kind]["loss_err"]]) <= PERIPHERY_TOL[
+                "w2v_step"]:
+            raise AssertionError(f"periphery/b: {kind} step card vs CPU "
+                                 f"f64 {out[kind]}")
+    out["tol"] = PERIPHERY_TOL["w2v_step"]
+    return out
+
+
+def periphery_word2vec(torch, np, cfg, device, sync, profile, tmpdir):
+    """Part (b): Word2Vec's fit over the planted-topic corpus on
+    ``device`` (pairs/s, words/s, the device's busy share over a window
+    of ``probe_steps`` NS steps), its loss and topic structure, the NS/HS
+    step checks, then ParagraphVectors and FastText on cut corpora and a
+    serializer round trip."""
+    from deeplearning4j_torch.nlp import (FastText, ParagraphVectors,
+                                          Word2Vec, WordVectorSerializer)
+    t_part = time.perf_counter()
+    c = cfg["w2v"]
+    sents, topic_of = zipf_topic_corpus(
+        np, c["topics"], c["topic_words"], c["tokens"], c["sent_len"],
+        c["zipf"], c["seed"])
+    kw = dict(vector_size=c["layer_size"], window_size=c["window"],
+              min_word_frequency=c["min_freq"], negative=c["negative"],
+              seed=c["seed"], epochs=c["epochs"], device=device)
+    m = Word2Vec(**kw)
+    t0 = time.perf_counter()
+    losses = m.fit(sents)
+    sync()
+    wall = time.perf_counter() - t0
+    lengths = [sum(w in m.vocab for w in s.split()) for s in sents]
+    n_pairs = window_pair_count(np, lengths, c["window"]) * c["epochs"]
+    k = max(1, len(losses) // 20)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    same, other = topic_cosines(np, m.get_word_vector, c["topics"])
+    if not (all(math.isfinite(v) for v in losses) and last < first
+            and same > other):
+        raise AssertionError(f"periphery/b: Word2Vec losses {first} -> "
+                             f"{last}, topic cosines {same} vs {other}")
+    # the device's share of a window of the same NS steps
+    n = len(m.vocab)
+    step = m._make_step(n)
+    s0 = torch.tensor(m.syn0, device=device)      # copies: the steps
+    s1 = torch.tensor(m.syn1, device=device)      # write in place
+    gen = torch.Generator(device=device).manual_seed(1)
+    pairs = torch.as_tensor(np.random.default_rng(4).integers(
+        0, n, (c["probe_steps"], 512, 2)), device=device)
+
+    def window():
+        for i in range(c["probe_steps"]):
+            step(s0, s1, pairs[i, :, 0], pairs[i, :, 1], 0.025, gen)
+    prof = profile(window)
+    out = {"settings": {k2: c[k2] for k2 in ("layer_size", "window",
+                                             "min_freq", "negative",
+                                             "seed", "epochs")},
+           "corpus": {"tokens": c["tokens"], "sentences": len(sents),
+                      "topics": c["topics"],
+                      "topic_words": c["topic_words"], "zipf": c["zipf"]},
+           "vocab": n, "pairs": n_pairs, "steps": len(losses),
+           "fit_s": wall, "pairs_per_s": n_pairs / wall,
+           "words_per_s": c["tokens"] * c["epochs"] / wall,
+           "loss_first": first, "loss_last": last,
+           "topic_cosine": {"same": same, "other": other},
+           "ns_window": {"steps": c["probe_steps"], **prof}}
+    out["step_checks"] = w2v_step_checks(torch, np, m, device)
+    # ParagraphVectors on the first sentences (one document each)
+    docs = sents[:cfg["pv_sentences"]]
+    pv = ParagraphVectors(**kw)
+    t0 = time.perf_counter()
+    pv_losses = pv.fit(docs)
+    pv_s = time.perf_counter() - t0
+    dv = np.stack([pv.get_doc_vector(i) for i in range(len(docs))])
+    dv /= np.linalg.norm(dv, axis=1, keepdims=True) + 1e-12
+    tops = topic_of[:len(docs)]
+    cent = np.stack([dv[tops == t].mean(0) for t in range(c["topics"])])
+    own = float(np.mean(np.einsum("nd,nd->n", dv, cent[tops])))
+    rest = float(np.mean(dv @ cent.T))
+    if not (np.isfinite(pv_losses).all() and own > rest):
+        raise AssertionError(f"periphery/b: ParagraphVectors doc/topic "
+                             f"cosine {own} vs {rest}")
+    out["paragraph_vectors"] = {"documents": len(docs), "vocab":
+                                len(pv.vocab), "steps": len(pv_losses),
+                                "fit_s": pv_s,
+                                "doc_topic_cosine": {"own": own,
+                                                     "mean": rest}}
+    # FastText on the first ft_tokens words
+    ft_sents = sents[:cfg["ft_tokens"] // c["sent_len"]]
+    ft = FastText(bucket=cfg["ft_bucket"], **kw)
+    t0 = time.perf_counter()
+    ft_losses = ft.fit(ft_sents)
+    sync()
+    ft_wall = time.perf_counter() - t0
+    fs, fo = topic_cosines(np, ft.get_word_vector, c["topics"])
+    oov = ft.get_word_vector("t0w99999")
+    k = max(1, len(ft_losses) // 20)
+    if not (np.isfinite(ft_losses).all() and np.isfinite(oov).all()
+            and np.mean(ft_losses[-k:]) < np.mean(ft_losses[:k])
+            and fs > fo):
+        raise AssertionError(f"periphery/b: FastText topic cosines {fs} vs "
+                             f"{fo}")
+    out["fasttext"] = {"tokens": len(ft_sents) * c["sent_len"],
+                       "bucket": cfg["ft_bucket"], "vocab": len(ft.vocab),
+                       "steps": len(ft_losses), "fit_s": ft_wall,
+                       "topic_cosine": {"same": fs, "other": fo},
+                       "oov_norm": float(np.linalg.norm(oov))}
+    # the serializer round trip of the Word2Vec model
+    path = os.path.join(tmpdir, "vectors.txt")
+    t0 = time.perf_counter()
+    WordVectorSerializer.write_word_vectors(m, path)
+    back = WordVectorSerializer.read_word_vectors(path)
+    ser_s = time.perf_counter() - t0
+    ser_err = float(np.abs(back.syn0 - m.syn0).max())
+    if back.index2word != m.index2word or not ser_err <= PERIPHERY_TOL[
+            "serializer"]:
+        raise AssertionError(f"periphery/b: serializer round trip {ser_err}")
+    out["serializer"] = {"bytes": os.path.getsize(path), "seconds": ser_s,
+                         "max_abs_err": ser_err,
+                         "tol": PERIPHERY_TOL["serializer"]}
+    out["reduced"] = [
+        f"ParagraphVectors on the corpus's first {len(docs)} sentences",
+        f"FastText on its first {len(ft_sents) * c['sent_len']} tokens"]
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def periphery_rl(torch, np, cfg, device, sync):
+    """Part (c): DQN, A3C (two actor threads) and async n-step Q-learning
+    on ``device`` at the reference tests' gridworld configurations, each
+    held to the return its test asserts; env steps per second."""
+    from deeplearning4j_torch import rl
+    n = cfg["grid"]
+    out = {}
+    t0 = time.perf_counter()
+    ql = rl.QLearningDiscrete(rl.SimpleGridWorld(n),
+                              rl.QLearningConfiguration(**cfg["dqn"]),
+                              hidden=cfg["dqn_hidden"], device=device)
+    rewards = ql.train()
+    wall = time.perf_counter() - t0
+    score = ql.get_policy().play(rl.SimpleGridWorld(n), max_steps=40)
+    if not (len(rewards) > 5 and score > 0.8):
+        raise AssertionError(f"periphery/c: DQN greedy return {score}")
+    out["dqn"] = {"steps": ql.step_count, "episodes": len(rewards),
+                  "greedy_return": score, "seconds": wall,
+                  "steps_per_s": ql.step_count / wall}
+    t0 = time.perf_counter()
+    a3c = rl.A3CDiscrete(lambda: rl.SimpleGridWorld(n),
+                         rl.A3CConfiguration(**cfg["a3c"]), device=device)
+    rewards = a3c.train()
+    wall = time.perf_counter() - t0
+    early, late = float(np.mean(rewards[:10])), float(np.mean(rewards[-10:]))
+    score = a3c.get_policy().play(rl.SimpleGridWorld(n), max_steps=50)
+    if not (len(rewards) > 50 and late > 0.8 and late > early + 0.3
+            and score > 0.8):
+        raise AssertionError(f"periphery/c: A3C returns {early} -> {late}, "
+                             f"greedy {score}")
+    out["a3c"] = {"steps": a3c.step_count, "episodes": len(rewards),
+                  "early": early, "late": late, "greedy_return": score,
+                  "seconds": wall, "steps_per_s": a3c.step_count / wall}
+    tries = []
+    for seed in cfg["nstepq_seeds"]:
+        t0 = time.perf_counter()
+        nq = rl.AsyncNStepQLearningDiscrete(
+            lambda: rl.SimpleGridWorld(n),
+            rl.AsyncNStepQConfiguration(seed=seed, **cfg["nstepq"]),
+            device=device)
+        rewards = nq.train()
+        wall = time.perf_counter() - t0
+        tries.append({"seed": seed, "steps": nq.step_count,
+                      "episodes": len(rewards),
+                      "late": float(np.mean(rewards[-10:])),
+                      "seconds": wall, "steps_per_s": nq.step_count / wall})
+        if tries[-1]["late"] > 0.8:
+            break
+    if not tries[-1]["late"] > 0.8:
+        raise AssertionError(f"periphery/c: async n-step Q {tries}")
+    out["async_nstep_q"] = tries
+    return out
+
+
+def arbiter_data(np):
+    """The reference arbiter test's data: 256 seeded points, the XOR of
+    the first two features' signs, 192 to train in batches of 48."""
+    from deeplearning4j_torch.data import DataSet, ListDataSetIterator
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(256, 6)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x[:, 0] * x[:, 1] > 0).astype(int)]
+    return (ListDataSetIterator(DataSet(x[:192], y[:192]).batch_by(48)),
+            ListDataSetIterator(DataSet(x[192:], y[192:]).batch_by(64)))
+
+
+def arbiter_space():
+    from deeplearning4j_torch.arbiter import (ContinuousParameterSpace,
+                                              IntegerParameterSpace)
+    return {"lr": ContinuousParameterSpace(1e-4, 0.3, log_scale=True),
+            "hidden": IntegerParameterSpace(4, 32)}
+
+
+def periphery_arbiter(np, cfg, device):
+    """Part (d): the reference test's random search (seed 4, lr
+    log-uniform in [1e-4, 0.3], hidden in [4, 32]), each candidate an MLP
+    trained on ``device``; the candidates in the order the same generator
+    gives on the host, the best accuracy above 0.8."""
+    from deeplearning4j_torch.arbiter import (OptimizationRunner,
+                                              RandomSearchGenerator)
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (DenseLayer,
+                                              NeuralNetConfiguration,
+                                              OutputLayer)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    train, test = arbiter_data(np)
+
+    def build(params):
+        conf = (NeuralNetConfiguration.builder().seed(9)
+                .updater(Adam(learning_rate=params["lr"])).list()
+                .layer(DenseLayer(n_in=6, n_out=params["hidden"],
+                                  activation="tanh"))
+                .layer(OutputLayer(n_out=2, activation="softmax",
+                                   loss="mcxent"))
+                .build())
+        return MultiLayerNetwork(conf).init(device=device)
+
+    def score(model, params):
+        model.fit(train, n_epochs=cfg["arbiter_epochs"])
+        return model.evaluate(test).accuracy()
+
+    n = cfg["arbiter_candidates"]
+    t0 = time.perf_counter()
+    res = OptimizationRunner(RandomSearchGenerator(arbiter_space(), seed=4),
+                             build, score, max_candidates=n).execute()
+    wall = time.perf_counter() - t0
+    gen = iter(RandomSearchGenerator(arbiter_space(), seed=4))
+    host = [next(gen) for _ in range(n)]
+    ran = [r["candidate"] for r in res.all_results]
+    if ran != host or not res.best_score > 0.8:
+        raise AssertionError(f"periphery/d: candidates {ran} vs {host}, "
+                             f"best {res.best_score}")
+    return {"candidates": ran, "scores": [r["score"]
+                                          for r in res.all_results],
+            "best_candidate": res.best_candidate,
+            "best_score": res.best_score, "order_equals_host": True,
+            "seconds": wall}
+
+
+def periphery_ui(torch, np, cfg, device, sync, tmpdir):
+    """Part (e): ``StatsListener`` into a ``FileStatsStorage`` beside a
+    ``ProfilerListener(prof_start, prof_n)`` on Gpt() (bf16 on f32
+    masters) for ``ui_steps`` fit steps at b ``ui_b``, t ``ui_t``: one
+    record per step with parameter summaries, a Chrome trace naming the
+    flash kernels the steps launched (K3, K5, K6 on the card), the HTML
+    report.  Returns (row, the flash launch counts of the steps)."""
+    from deeplearning4j_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_torch.ui import (FileStatsStorage, ProfilerListener,
+                                         StatsListener, render_report)
+    from deeplearning4j_torch.zoo import Gpt
+    fa = flash_module()
+    gpt = Gpt(seq_len=cfg["ui_t"], **cfg["ui_gpt"])
+    net = gpt.init_graph(device=device)
+    store = FileStatsStorage(os.path.join(tmpdir, "stats.jsonl"))
+    prof = ProfilerListener(os.path.join(tmpdir, "trace"),
+                            start_iteration=cfg["prof_start"],
+                            n_iterations=cfg["prof_n"])
+    net.set_listeners(StatsListener(store, collect_param_stats=True,
+                                    param_stats_frequency=2), prof)
+    # one epoch of ui_steps seeded batches: the profiler's window must lie
+    # inside one fit (an epoch's end closes it, as in the reference)
+    it = ListDataSetIterator([DataSet(*train_batch(
+        np, cfg["ui_b"], cfg["ui_t"], gpt.vocab_size, 21 + i))
+        for i in range(cfg["ui_steps"])])
+    sync()
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    t0 = time.perf_counter()
+    net.fit(it, async_prefetch=False)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+    n_layers = gpt.n_layers
+    want = {"flash_fwd": n_layers * cfg["ui_steps"], "flash_fwd_single": 0,
+            "flash_bwd_dkdv": n_layers * cfg["ui_steps"],
+            "flash_bwd_dq": n_layers * cfg["ui_steps"]}
+    if counts != want:
+        raise AssertionError(f"periphery/e: launches {counts} != {want}")
+    recs = store.records()
+    if [r["iteration"] for r in recs] != list(range(cfg["ui_steps"])) or \
+            "params" not in recs[0]:
+        raise AssertionError(f"periphery/e: stats records "
+                             f"{[sorted(r) for r in recs]}")
+    with open(prof.trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    cats, by_class = {}, {}
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        cats[cat] = cats.get(cat, 0) + 1
+        if cat == "kernel":
+            cls = kernel_class(e.get("name", ""))
+            by_class[cls] = by_class.get(cls, 0) + 1
+    # the trace names each flash kernel, a launch a layer a step of its
+    # window; the device tracer can start a few microseconds after the
+    # window's first launch (an H100 trace missed one K3 of 24), so the
+    # count is held to the window's last step at least — the counters
+    # above hold the exact launches
+    full = n_layers * cfg["prof_n"]
+    if device == "cuda" and not all(
+            full - n_layers < by_class.get(k, 0) <= full
+            for k in ("K3", "K5", "K6")):
+        raise AssertionError(f"periphery/e: trace kernels {by_class}, "
+                             f"event categories {cats}")
+    html = render_report(store, os.path.join(tmpdir, "report.html"),
+                         title="Gpt() bf16")
+    with open(html) as f:
+        page = f.read()
+    if "<svg" not in page or f"{cfg['ui_steps']} iterations" not in page:
+        raise AssertionError("periphery/e: the report lacks its chart")
+    return {"b": cfg["ui_b"], "t": cfg["ui_t"], "steps": cfg["ui_steps"],
+            "records": len(recs), "param_leaves": len(recs[0]["params"]),
+            "launches": counts, "trace_kernels_by_class": by_class,
+            "trace_bytes": os.path.getsize(prof.trace_path),
+            "report_bytes": len(page), "step_ms": wall * 1e3
+            / cfg["ui_steps"]}, counts
+
+
+def periphery_native(torch, np, cfg, device, sync, tmpdir):
+    """Part (f): ``build_native`` (cmake, in the checkout), a seeded
+    ``csv_rows`` x ``csv_cols`` CSV (the last column a class label),
+    parsed natively and, its first ``csv_python_rows`` rows, by the
+    port's ``CSVRecordReader`` (~12 k rows/s: the whole file would take
+    ~17 s of the phase) — equal — rows/s of each, then one epoch of an
+    MLP on ``device`` fed by ``NativeCSVRecordReader``."""
+    import itertools
+
+    from deeplearning4j_torch import native_io
+    from deeplearning4j_torch.datavec import (CSVRecordReader,
+                                              RecordReaderDataSetIterator)
+    from deeplearning4j_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_torch.nn.conf import (DenseLayer,
+                                              NeuralNetConfiguration,
+                                              OutputLayer)
+    from deeplearning4j_torch.optimize.updaters import Adam
+    t0 = time.perf_counter()
+    lib = native_io.build_native()
+    build_s = time.perf_counter() - t0
+    rows, cols, k = cfg["csv_rows"], cfg["csv_cols"], cfg["csv_classes"]
+    r = np.random.default_rng(6)
+    x = r.normal(size=(rows, cols - 1)).astype(np.float32)
+    w = r.normal(size=(cols - 1, k))
+    label = (x @ w).argmax(1)
+    path = os.path.join(tmpdir, "data.csv")
+    np.savetxt(path, np.column_stack([x, label]), fmt="%.6f", delimiter=",")
+    t0 = time.perf_counter()
+    nat = native_io.load_csv_native(path)
+    nat_s = time.perf_counter() - t0
+    n_py = min(rows, cfg["csv_python_rows"])
+    t0 = time.perf_counter()
+    py = np.asarray(list(itertools.islice(CSVRecordReader(path), n_py)),
+                    np.float32)
+    py_s = time.perf_counter() - t0
+    if nat.shape != (rows, cols) or not np.array_equal(nat[:n_py], py):
+        raise AssertionError(f"periphery/f: native parse {nat.shape} "
+                             "differs from CSVRecordReader's")
+    it = RecordReaderDataSetIterator(native_io.NativeCSVRecordReader(path),
+                                     batch_size=cfg["csv_batch"],
+                                     label_index=-1, n_classes=k)
+    conf = (NeuralNetConfiguration.builder().seed(1)
+            .updater(Adam(learning_rate=1e-2)).list()
+            .layer(DenseLayer(n_in=cols - 1, n_out=64, activation="relu"))
+            .layer(OutputLayer(n_out=k, activation="softmax",
+                               loss="mcxent"))
+            .build())
+    net = MultiLayerNetwork(conf).init(device=device)
+    first = float(net.score(next(iter(it))))
+    t0 = time.perf_counter()
+    net.fit(it, n_epochs=1)
+    sync()
+    fit_s = time.perf_counter() - t0
+    last = float(net.score(next(iter(it))))
+    if not last < first:
+        raise AssertionError(f"periphery/f: the epoch's score {first} -> "
+                             f"{last}")
+    return {"library": os.path.relpath(lib, ROOT_DIR), "build_s": build_s,
+            "rows": rows, "cols": cols, "bytes": os.path.getsize(path),
+            "native_s": nat_s, "native_rows_per_s": rows / nat_s,
+            "python_rows": n_py, "python_s": py_s,
+            "python_rows_per_s": n_py / py_s,
+            "parses_equal": True,
+            "epoch": {"batches": -(-rows // cfg["csv_batch"]),
+                      "fit_s": fit_s, "score_first_batch": [first, last]}}
+
+
+def periphery_parts(torch, np, device, cfg, sync, card, profile, root):
+    """Parts (a)-(f) of :func:`phase_periphery` on ``device`` at ``cfg``'s
+    sizes; ``profile(fn)`` measures the device's share of ``fn()`` (the
+    card's CUDA-only trace, :func:`step_profile`).  Emits a row per part
+    as it ends (``periphery/<part>``) and a closing ``periphery`` row;
+    returns part (e)'s flash launch counts."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="periphery-")
+    row = {"phase": "periphery", "card": card}
+    try:
+        parts = (("a_keras", lambda: periphery_keras(torch, np, root, cfg,
+                                                     device, sync)),
+                 ("b_word2vec", lambda: periphery_word2vec(
+                     torch, np, cfg, device, sync, profile, tmp)),
+                 ("c_rl4j", lambda: periphery_rl(torch, np, cfg, device,
+                                                 sync)),
+                 ("d_arbiter", lambda: periphery_arbiter(np, cfg, device)))
+        row["part_s"] = {}
+
+        def run(key, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            row["part_s"][key] = time.perf_counter() - t0
+            part = out[0] if isinstance(out, tuple) else out
+            emit({"phase": f"periphery/{key}", "card": card, **part})
+            return out
+        for key, fn in parts:
+            run(key, fn)
+        _, counts = run("e_ui", lambda: periphery_ui(torch, np, cfg, device,
+                                                     sync, tmp))
+        run("f_native_io", lambda: periphery_native(torch, np, cfg, device,
+                                                    sync, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["e_launches"] = counts
+    row["reduced"] = [
+        "seeded random weights for Keras's ResNet-50 (weights=None) and "
+        "Gpt(); a seeded Zipf corpus of planted topics for the "
+        "example's raw text, which is not in the repo",
+        f"the Python CSVRecordReader parses the CSV's first "
+        f"{cfg['csv_python_rows']} rows (the native parse all "
+        f"{cfg['csv_rows']})"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+def phase_periphery(torch, np, root):
+    """The periphery on the card (phase 9e): (a) Keras import — the
+    committed LeNet golden (config + weights of a Keras 3.13.1 legacy
+    h5, no h5py here) within 1e-5 of Keras's predict, Keras's ResNet-50
+    functional config at 224 with seeded weights, f32 on the card
+    against f64 on the CPU at b 2, then bf16 on f32 masters at b 64, 3
+    timed fit steps (step ms, images/s, peak); (b) Word2Vec at
+    dl4j-examples' Word2VecRawTextExample settings over a seeded Zipf
+    corpus (64 topics x 300 words, 1,000,000 tokens): pairs/s, words/s,
+    the device's busy share over 200 NS steps, the loss falls and
+    same-topic words embed closer, one NS step (same negatives) and one
+    HS step against the CPU in f64, then ParagraphVectors and FastText
+    on cut corpora and a WordVectorSerializer round trip; (c) DQN, A3C
+    and async n-step Q on the gridworld, each to the return its
+    reference test asserts; (d) the arbiter random search, candidates in
+    the host generator's order; (e) StatsListener, FileStatsStorage and
+    ProfilerListener(start 2, n 2) on Gpt() bf16, b 8, t 2048, 5 steps:
+    K3/K5/K6 launches counted from 0 and named in the trace, the HTML
+    report; (f) native_io built with cmake, a seeded 200,000 x 32 CSV
+    parsed natively and by CSVRecordReader (equal, rows/s), one MLP epoch
+    from it.  Returns (e)'s launch counts."""
+    def profile(fn):
+        prof = step_profile(torch, fn)
+        return {k: prof[k] for k in ("profiled_wall_ms", "device_ms",
+                                     "device_events",
+                                     "device_busy_share")}
+    try:
+        return periphery_parts(torch, np, "cuda", PERIPHERY_CFG,
+                               torch.cuda.synchronize, card_line(), profile,
+                               root)
+    finally:
+        torch.cuda.empty_cache()
+
+
 def time_ms(torch, fn, n_inner=24, reps=9, stream=None, spread=False):
     """Median device milliseconds per call of ``fn(i)``.  The calls are
     captured once in a CUDA graph and the graph is replayed between two
@@ -5752,11 +6523,14 @@ def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True,
             else "bytes", flops, n_bytes)
 
 
-def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
+def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
+                        ts=(2048, 512), causal=True):
     """K3, K5 and K6 at the training path's shapes (bf16, b 8, t 2048,
     ``h`` heads of ``dh`` (6 of 128), causal, bthd views of a [b, t, 3d]
-    projection) and K4 at t 512, against their plain versions; yardsticks: one
-    ``F.scaled_dot_product_attention(is_causal=True)`` call (forward) and
+    projection) and K4 at t 512, against their plain versions (``b``,
+    ``ts`` = (K3/K5/K6's t, K4's t) and ``causal`` for other paths);
+    yardsticks: one
+    ``F.scaled_dot_product_attention(is_causal=causal)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
     forward recorded beforehand).  The port never calls SDPA.  Kernels,
     plain versions and both SDPA yardsticks are timed by CUDA-graph replay
@@ -5764,12 +6538,12 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
     backward with the spread of its 9 replays."""
     import torch.nn.functional as F
     fa = flash_module()
-    dev, dt, NB, b = "cuda", torch.bfloat16, 4, 8
+    dev, dt, NB = "cuda", torch.bfloat16, 4
     scale = dh ** -0.5
     g = torch.Generator(device=dev).manual_seed(9)
     bh = fa._to_bh
     rows = {}
-    for t in (2048, 512):
+    for t in ts:
         sets = []
         for _ in range(NB):
             qkv = torch.randn((b, t, 3 * h * dh), generator=g,
@@ -5778,30 +6552,32 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
                        for z in qkv.split(h * dh, dim=-1))
             do = torch.randn((b, t, h, dh), generator=g, device=dev).to(dt)
             sets.append((qkv, q, k, v, do))
-        single = t == 512
+        single = t == ts[1]
         fwd = fa.flash_fwd_single if single else fa.flash_fwd
-        outs = [fwd(q, k, v, None, causal=True, scale=scale)
+        outs = [fwd(q, k, v, None, causal=causal, scale=scale)
                 for _, q, k, v, _ in sets]
         deltas = [fa.row_delta(s[4], o) for s, (o, _) in zip(sets, outs)]
         plain_in = [tuple(bh(x) for x in s[1:]) for s in sets]
         sdpa_in = [tuple(x.transpose(1, 2).contiguous() for x in s[1:])
                    for s in sets]
         kern = {
-            "fwd": lambda i: fwd(*sets[i % NB][1:4], None, causal=True,
+            "fwd": lambda i: fwd(*sets[i % NB][1:4], None, causal=causal,
                                  scale=scale),
             "dkdv": lambda i: fa.flash_bwd_dkdv(
                 *sets[i % NB][1:4], None, sets[i % NB][4],
-                outs[i % NB][1], deltas[i % NB], causal=True, scale=scale),
+                outs[i % NB][1], deltas[i % NB], causal=causal,
+                scale=scale),
             "dq": lambda i: fa.flash_bwd_dq(
                 *sets[i % NB][1:4], None, sets[i % NB][4], outs[i % NB][1],
-                deltas[i % NB], causal=True, scale=scale)}
+                deltas[i % NB], causal=causal, scale=scale)}
         plain = {
             "fwd": lambda i: fa.flash_fwd_reference(
-                *plain_in[i % NB][:3], None, causal=True, scale=scale,
+                *plain_in[i % NB][:3], None, causal=causal, scale=scale,
                 single=single),
             "bwd": lambda i: fa.flash_bwd_reference(
                 *plain_in[i % NB][:3], None, plain_in[i % NB][3],
-                outs[i % NB][1], deltas[i % NB], causal=True, scale=scale)}
+                outs[i % NB][1], deltas[i % NB], causal=causal,
+                scale=scale)}
         # errors of this run at these shapes (absolute, bf16)
         ro, _ = plain["fwd"](0)
         rq, rk, rv, _ = plain["bwd"](0)
@@ -5818,8 +6594,9 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
                    for n, fn in plain.items()})
         ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
         lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            *sdpa_in[i % NB][:3], is_causal=True, scale=scale))
-        lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale, NB)
+            *sdpa_in[i % NB][:3], is_causal=causal, scale=scale))
+        lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale, NB,
+                                            causal=causal)
         names = ({"fwd": "flash_fwd_single"} if single else
                  {"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
                   "dq": "flash_bwd_dq"})
@@ -5829,7 +6606,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
         spec = {"fwd": (2, 4, 1), "dkdv": (4, 6, 2), "dq": (3, 5, 2)}
         for part, name in names.items():
             bound, by, flops, n_bytes = flash_bound(
-                spec[part][0], b, t, h, dh, *spec[part][1:])
+                spec[part][0], b, t, h, dh, *spec[part][1:], causal=causal)
             rows[name] = {
                 "kernel_ms": ms[f"kernel_{part}"],
                 "plain_ms": ms["plain_fwd" if part == "fwd" else
@@ -5842,7 +6619,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash"):
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes, "max_abs_err": errs[part],
                 "shapes": {"b": b, "t": t, "h": h, "dh": dh,
-                           "dtype": "bfloat16", "causal": True}}
+                           "dtype": "bfloat16", "causal": causal}}
         rows[names["fwd"]]["kernel_ms_again"] = ms["kernel_fwd_again"]
         if not single:
             for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
@@ -6310,6 +7087,7 @@ def main(argv=None) -> int:
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
         i_counts, sd_launches, m_counts = None, None, None
+        p_counts, w_timing = None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -6338,12 +7116,22 @@ def main(argv=None) -> int:
             sd_launches = phase_samediff(torch, np)
         if "mesh" in phases:
             m_counts = phase_mesh(torch, np)
+        if "periphery" in phases:
+            p_counts = phase_periphery(torch, np, root)
         if "timings" in phases:
             mid = path_mid(np)
             timing = phase_timings(torch, pa, mid)
             v_timing = phase_timings_verify(torch, pa, mid)
             f_timing = phase_timings_flash(torch)
             b_timing = phase_timings_bert(torch, np)
+            # K3-K6 at infer (g)'s shapes: 2 heads of 320 (the chunked
+            # kernels), b 16, t 1024 (K3, K5, K6) and t 512 (K4)
+            w_timing = phase_timings_flash(
+                torch, h=INFER_CFG["wide_heads"], dh=INFER_CFG["wide_head"],
+                phase=f"timings/flash_dh{INFER_CFG['wide_head']}",
+                b=INFER_CFG["wide_b"],
+                ts=(INFER_CFG["attn_t_long"], INFER_CFG["attn_t"]),
+                causal=False)
         elif "kbert" in phases:
             phase_timings_bert(torch, np)
         if "profile" in phases:
@@ -6414,6 +7202,25 @@ def main(argv=None) -> int:
                     by = {p: c[name] for p, c in m_counts["train"].items()}
                     rows[-1]["mesh"] = {"launches": sum(by.values()),
                                         "by_part": by}
+                if p_counts is not None:
+                    # the same kernel under the ui listeners on Gpt()
+                    # (phase 9e (e))
+                    rows[-1]["periphery"] = {"launches": p_counts[name]}
+                if w_timing is not None and name in w_timing:
+                    # the chunked build past head dim 256 (phase 9b (g)),
+                    # timed at its shapes
+                    wt = w_timing[name]
+                    wide = f"dh{INFER_CFG['wide_head']}_"
+                    rows[-1][f"dh{INFER_CFG['wide_head']}"] = {
+                        "launches": (sum(c[name] for w, c in i_counts.items()
+                                         if w.startswith(wide))
+                                     if i_counts is not None else None),
+                        "ms": wt["kernel_ms"], "plain_ms": wt["plain_ms"],
+                        "bound_ms": wt["bound_ms"],
+                        "bound_by": wt["bound_by"],
+                        "library_ms": wt["library_ms"],
+                        "max_abs_err": wt["max_abs_err"],
+                        "shapes": wt["shapes"]}
                 if sd_launches is not None:
                     # the same kernel on the imported graphs (phase 9c):
                     # BERT-base's counted fine-tune and gpt_toy's

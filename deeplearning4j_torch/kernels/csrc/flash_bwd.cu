@@ -68,6 +68,9 @@
 //   them and dQ, dK and dV are written as bf16.  At dh 256 the tiles take
 //   ~213 KB of shared memory.  A simple kernel that is right, bound by its
 //   FMAs, not the tensor cores.
+// * past head dim 256 (any multiple of 64): the same FMA route chunked —
+//   S and dP summed over 64-column chunks, each block owning 128 output
+//   columns of dQ or of dK and dV (flash_bwd_chunked_kernel).
 #include "flash_hopper.cuh"
 
 using namespace flash;
@@ -653,6 +656,138 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_plain_kernel(BwdArgs a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// chunked route (f32 and bf16 past dh 256): the plain route's arithmetic
+// with the head dim in chunks
+// ---------------------------------------------------------------------------
+// S = Q K^T and dP = dO V^T sum over 64-column chunks of Q, K, dO and V
+// staged in turn, so the [32, 32] tiles of P, dS and dBias are the plain
+// route's; each block owns kOutCols output columns (grid z) of dQ (K6) or
+// of dK and dV (K5), multiplies dS or P by just those columns of K, Q or
+// dO, and recomputes S and dP for them.  dBias is written by the blocks
+// of the first output chunk.  ~118 KB of shared memory at any head dim.
+struct ChunkBwdLayout {
+  static constexpr int BR = kF32Tile, BC = kF32Tile;
+  static constexpr int LDC = kDhChunk + 4;   // q, dO, k, v column chunks
+  static constexpr int LDO = kOutCols + 4;   // output-column operands, accumulators
+  static constexpr int LDS = BC + 4;         // [BR, BC] tiles
+  static constexpr int kTileC = BR * LDC, kTileO = BR * LDO, kTileS = BR * LDS;
+  // q, dO, k, v chunks; two operand tiles (K, or dO and Q, at this
+  // block's columns); acc0 (dK or dQ), acc1 (dV); S (then dS), dP, P,
+  // dS * scale; LSE, delta, dBias
+  static constexpr size_t kBytes =
+      sizeof(float) * (4 * kTileC + 4 * kTileO + 4 * kTileS + 3 * BR);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_chunked_kernel(BwdArgs a,
+                                                                        bool dq_pass,
+                                                                        int dh) {
+  using L = ChunkBwdLayout;
+  constexpr int BR = L::BR, BC = L::BC, LDC = L::LDC, LDO = L::LDO, LDS = L::LDS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + L::kTileC;
+  float* k_s = do_s + L::kTileC;
+  float* v_s = k_s + L::kTileC;
+  float* oa_s = v_s + L::kTileC;      // K (K6) or dO (K5) at this block's columns
+  float* ob_s = oa_s + L::kTileO;     // Q at this block's columns (K5)
+  float* acc0 = ob_s + L::kTileO;
+  float* acc1 = acc0 + L::kTileO;
+  float* s_s = acc1 + L::kTileO;      // scores, then dS
+  float* dp_s = s_s + L::kTileS;
+  float* p_s = dp_s + L::kTileS;
+  float* ds_s = p_s + L::kTileS;      // dS * scale
+  float* lse_s = ds_s + L::kTileS;
+  float* dl_s = lse_s + BR;
+  float* db_s = dl_s + BR;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int t = a.t;
+  const int c0 = (int)blockIdx.z * kOutCols;   // this block's output columns
+  const int w = min(kOutCols, dh - c0);
+  const T* qp = static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h;
+  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const T* dop = static_cast<const T*>(a.dout) + bi * a.sdo.b + hi * a.sdo.h;
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  const bool want_db = !dq_pass && a.dbias != nullptr && blockIdx.z == 0;
+  const int n_tiles = (t + BR - 1) / BR;
+  // K6 owns a query tile (heaviest causal first), K5 a key tile
+  const int own0 = dq_pass ? (n_tiles - 1 - (int)blockIdx.x) * BR
+                           : (int)blockIdx.x * BC;
+  for (int i = tid; i < 2 * L::kTileO; i += kF32Threads) acc0[i] = 0.f;
+  for (int i = tid; i < BC; i += kF32Threads) db_s[i] = 0.f;
+  if (dq_pass) load_stats<BR, kF32Threads>(a, bh, own0, lse_s, dl_s);
+  const int o_begin = (!dq_pass && a.causal) ? own0 : 0;
+  const int o_end = (dq_pass && a.causal) ? min(t, own0 + BR) : t;
+  for (int o0 = o_begin; o0 < o_end; o0 += BR) {
+    const int q0 = dq_pass ? own0 : o0, k0 = dq_pass ? o0 : own0;
+    if (!dq_pass) load_stats<BR, kF32Threads>(a, bh, q0, lse_s, dl_s);
+    for (int d0 = 0; d0 < dh; d0 += kDhChunk) {
+      __syncthreads();
+      load_rows_f32<T, BR, kDhChunk, LDC, kF32Threads>(q_s, qp + d0, a.sq.t, q0, t);
+      load_rows_f32<T, BR, kDhChunk, LDC, kF32Threads>(do_s, dop + d0, a.sdo.t, q0, t);
+      load_rows_f32<T, BC, kDhChunk, LDC, kF32Threads>(k_s, kp + d0, a.sk.t, k0, t);
+      load_rows_f32<T, BC, kDhChunk, LDC, kF32Threads>(v_s, vp + d0, a.sv.t, k0, t);
+      __syncthreads();
+      if (d0 == 0) {
+        mm<BR, BC, kDhChunk, false, true, false>(s_s, LDS, q_s, LDC, k_s, LDC);
+        mm<BR, BC, kDhChunk, false, true, false>(dp_s, LDS, do_s, LDC, v_s, LDC);
+      } else {
+        mm<BR, BC, kDhChunk, false, true, true>(s_s, LDS, q_s, LDC, k_s, LDC);
+        mm<BR, BC, kDhChunk, false, true, true>(dp_s, LDS, do_s, LDC, v_s, LDC);
+      }
+    }
+    if (dq_pass) {
+      load_cols_f32<T, BC, kOutCols, LDO, kF32Threads>(oa_s, kp + c0, a.sk.t, k0, t, w);
+    } else {
+      load_cols_f32<T, BR, kOutCols, LDO, kF32Threads>(oa_s, dop + c0, a.sdo.t, q0, t, w);
+      load_cols_f32<T, BR, kOutCols, LDO, kF32Threads>(ob_s, qp + c0, a.sq.t, q0, t, w);
+    }
+    __syncthreads();
+    for (int i = tid; i < BR * BC; i += kF32Threads) {
+      const int r = i / BC, c = i - r * BC;
+      const float p = recompute_p(a, bias, s_s[r * LDS + c], q0 + r, k0 + c,
+                                  lse_s[r]);
+      const float ds = p * (dp_s[r * LDS + c] - dl_s[r]);
+      p_s[r * LDS + c] = round_as<T>(p);   // as K5 rounds P for P^T dO
+      s_s[r * LDS + c] = ds;
+      ds_s[r * LDS + c] = round_as<T>(ds * a.scale);
+    }
+    __syncthreads();
+    if (dq_pass) {
+      mm<BR, kOutCols, BC, false, false, true>(acc0, LDO, ds_s, LDS, oa_s, LDO);
+    } else {
+      mm<BC, kOutCols, BR, true, false, true>(acc1, LDO, p_s, LDS, oa_s, LDO);
+      mm<BC, kOutCols, BR, true, false, true>(acc0, LDO, ds_s, LDS, ob_s, LDO);
+      if (want_db) {
+        for (int c = tid; c < BC; c += kF32Threads) {
+          float acc = 0.f;
+          for (int r = 0; r < BR; ++r) acc += s_s[r * LDS + c];
+          db_s[c] += acc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (dq_pass) {
+    store_cols<T, BR, kOutCols, LDO>(
+        static_cast<T*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h + c0, a.sdq.t, acc0, own0, t, w);
+    return;
+  }
+  store_cols<T, BC, kOutCols, LDO>(
+      static_cast<T*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h + c0, a.sdk.t, acc0, own0, t, w);
+  store_cols<T, BC, kOutCols, LDO>(
+      static_cast<T*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h + c0, a.sdv.t, acc1, own0, t, w);
+  if (want_db) {
+    for (int c = tid; c < BC; c += kF32Threads)
+      if (own0 + c < t) a.dbias[(long long)bh * t + own0 + c] = db_s[c];
+  }
+}
+
 template <typename Kernel, typename... Args>
 int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
            int threads, cudaStream_t s, const Args&... args) {
@@ -700,8 +835,19 @@ int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
                 configured, grid, kBwThreads, s, tq, tk, tv, tdo, a);
 }
 
+template <typename T>
+int launch_chunked(const BwdArgs& a, int b, int dh, bool dq_pass, cudaStream_t s) {
+  static bool configured = false;
+  const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h, (dh + kOutCols - 1) / kOutCols);
+  return launch(flash_bwd_chunked_kernel<T>, ChunkBwdLayout::kBytes, configured, grid,
+                kF32Threads, s, a, dq_pass, dh);
+}
+
 int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, bool dq_pass,
                cudaStream_t s) {
+  if (dh > 256)
+    return is_bf16 ? launch_chunked<__nv_bfloat16>(a, b, dh, dq_pass, s)
+                   : launch_chunked<float>(a, b, dh, dq_pass, s);
   switch (dh) {
     case 64: return launch_dh<64>(a, b, is_bf16, dq_pass, s);
     case 128: return launch_dh<128>(a, b, is_bf16, dq_pass, s);
@@ -718,8 +864,7 @@ int fill(BwdArgs& a, const void* q, const void* k, const void* v,
          const void* dout, const void* bias, const void* lse,
          const void* delta, const long long* strides, int b, int h, int t,
          int dh, float scale, int causal) {
-  if (b <= 0 || h <= 0 || t <= 0 || (dh != 64 && dh != 128 && dh != 192 && dh != 256) ||
-      b * h > 65535)
+  if (b <= 0 || h <= 0 || t <= 0 || !valid_head_dim(dh) || b * h > 65535)
     return (int)cudaErrorInvalidValue;
   a.q = q;
   a.k = k;

@@ -18,6 +18,9 @@
 //   and 256, where the wgmma tiles would not fit in registers): f32 tiles
 //   in shared memory and plain FMAs (`mm`), so a run has f32 products of
 //   its inputs throughout and rounds only where the bf16 kernels round.
+//   Past 256 (any multiple of 64) the same arithmetic runs chunked: score
+//   sums walk the head dim 64 columns at a time, and each block owns 128
+//   output columns (`kDhChunk`, `kOutCols`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -141,6 +144,62 @@ __device__ __forceinline__ void store_rows(T* dst, long long st,
     const int r = i / DH;
     const int d = i - r * DH;
     if (r0 + r < t) dst[(long long)(r0 + r) * st + d] = from_float<T>(src[r * LD + d]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// chunked route (head dims past 256, f32 and bf16): the plain route with
+// the head dim walked in column chunks, so shared memory stays bounded at
+// any head dim
+// ---------------------------------------------------------------------------
+constexpr int kDhChunk = 64;    // head columns staged per step of a score sum
+constexpr int kOutCols = 128;   // output head columns a block owns (grid z)
+
+// the head dims the kernels are built for: 64, 128, 192, 256, and any
+// multiple of 64 past 256 (the chunked route)
+inline bool valid_head_dim(int dh) {
+  return dh == 64 || dh == 128 || dh == 192 || dh == 256 || (dh > 256 && dh % kDhChunk == 0);
+}
+
+// Columns [0, w) of rows [r0, r0 + R) into an f32 tile of W columns
+// (pitch LD; bf16 widened as it lands) with 16-byte loads; w <= W is a
+// multiple of 8, and columns [w, W) and rows at or past t are zero.
+template <typename T, int R, int W, int LD, int NT>
+__device__ __forceinline__ void load_cols_f32(float* dst, const T* src, long long st,
+                                              int r0, int t, int w) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kVpr = W / kVec;
+  for (int c = threadIdx.x; c < R * kVpr; c += NT) {
+    const int r = c / kVpr;
+    const int v = c - r * kVpr;
+    const int row = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < t && v * kVec < w)
+      val = reinterpret_cast<const uint4*>(src + (long long)row * st)[v];
+    float* d = dst + r * LD + v * kVec;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<uint4*>(d) = val;
+    } else {
+      const __nv_bfloat162* pr = reinterpret_cast<const __nv_bfloat162*>(&val);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(pr[e]);
+        d[2 * e] = f.x;
+        d[2 * e + 1] = f.y;
+      }
+    }
+  }
+}
+
+// Columns [0, w) of rows [r0, r0 + R) (those below t) of an f32 tile of
+// W columns (pitch LD) written as T.
+template <typename T, int R, int W, int LD>
+__device__ __forceinline__ void store_cols(T* dst, long long st, const float* src,
+                                           int r0, int t, int w) {
+  for (int i = threadIdx.x; i < R * W; i += kF32Threads) {
+    const int r = i / W;
+    const int d = i - r * W;
+    if (d < w && r0 + r < t) dst[(long long)(r0 + r) * st + d] = from_float<T>(src[r * LD + d]);
   }
 }
 

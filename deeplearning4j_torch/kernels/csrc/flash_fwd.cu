@@ -61,6 +61,10 @@
 //   inputs' exact values; in bf16, P is rounded where K3 and K4 round it
 //   and O is written as bf16.  A simple kernel that is right, bound by
 //   its FMAs (~67 TFLOP/s f32 peak), not the tensor cores.
+// * past head dim 256 (any multiple of 64; the TPU kernels take any head
+//   dim): the same FMA route chunked — S summed over 64-column chunks of
+//   Q and K, each block owning 128 output columns and recomputing S for
+//   them (flash_fwd_chunked_kernel).
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
 // later work: each 128-row query block reads every K/V tile below its
@@ -521,6 +525,160 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
   }
 }
 
+// ---------------------------------------------------------------------------
+// chunked route (f32 and bf16 past dh 256): the plain route's arithmetic
+// with the head dim in chunks
+// ---------------------------------------------------------------------------
+// S = Q K^T sums over 64-column chunks of Q and K staged in turn (in the
+// order the unchunked route sums them), so the [32, 32] score tile, the
+// online softmax and the running max and denominator are those of the
+// plain route.  O is not kept whole: each block owns kOutCols output
+// columns (grid z) and recomputes S for them, so shared memory stays at
+// ~56 KB at any head dim and a (batch, head) slice spreads over dh / 128
+// blocks; the price is S computed once per output chunk (at dh 320,
+// three chunks: twice the products of one pass).  An f32 O of the whole head dim in
+// shared memory would bound the head dim instead.
+struct ChunkFwdLayout {
+  static constexpr int BR = kF32Tile, BC = kF32Tile;
+  static constexpr int LDC = kDhChunk + 4;   // q, k column chunks
+  static constexpr int LDO = kOutCols + 4;   // v's output columns, O
+  static constexpr int LDS = BC + 4;         // scores, then P
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kK = align128(kQ + sizeof(float) * BR * LDC);
+  static constexpr size_t kV = align128(kK + sizeof(float) * BC * LDC);
+  static constexpr size_t kS = align128(kV + sizeof(float) * BC * LDO);
+  static constexpr size_t kO = align128(kS + sizeof(float) * BR * LDS);
+  static constexpr size_t kStat = align128(kO + sizeof(float) * BR * LDO);
+  static constexpr size_t kBytes = kStat + sizeof(float) * 3 * BR;
+};
+
+template <typename T, bool kSingle>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_chunked_kernel(FwdArgs a, int dh) {
+  using L = ChunkFwdLayout;
+  constexpr int BR = L::BR, BC = L::BC, LDC = L::LDC, LDO = L::LDO, LDS = L::LDS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem + L::kQ);
+  float* k_s = reinterpret_cast<float*>(smem + L::kK);
+  float* v_s = reinterpret_cast<float*>(smem + L::kV);
+  float* s_s = reinterpret_cast<float*>(smem + L::kS);   // scores, then P
+  float* o_s = reinterpret_cast<float*>(smem + L::kO);
+  float* m_s = reinterpret_cast<float*>(smem + L::kStat);  // running max
+  float* l_s = m_s + BR;                                    // running denominator
+  float* c_s = l_s + BR;                                    // this tile's rescale
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.y;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int t = a.t;
+  const int n_q = (t + BR - 1) / BR;
+  const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;
+  const int c0 = (int)blockIdx.z * kOutCols;   // this block's output columns
+  const int w = min(kOutCols, dh - c0);
+  const T* qp = static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h;
+  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+
+  for (int i = tid; i < BR * LDO; i += kF32Threads) o_s[i] = 0.f;
+  for (int i = tid; i < BR; i += kF32Threads) {
+    m_s[i] = kNeg;
+    l_s[i] = 0.f;
+  }
+  const int k_end = a.causal ? min(t, q0 + BR) : t;
+
+  // s_s = Q K^T of key tile k0 over the whole head dim; starts and ends
+  // synchronised
+  auto scores = [&](int k0) {
+    for (int d0 = 0; d0 < dh; d0 += kDhChunk) {
+      __syncthreads();
+      load_rows_f32<T, BR, kDhChunk, LDC, kF32Threads>(q_s, qp + d0, a.sq.t, q0, t);
+      load_rows_f32<T, BC, kDhChunk, LDC, kF32Threads>(k_s, kp + d0, a.sk.t, k0, t);
+      __syncthreads();
+      if (d0 == 0)
+        mm<BR, BC, kDhChunk, false, true, false>(s_s, LDS, q_s, LDC, k_s, LDC);
+      else
+        mm<BR, BC, kDhChunk, false, true, true>(s_s, LDS, q_s, LDC, k_s, LDC);
+    }
+    __syncthreads();
+  };
+  auto load_v = [&](int k0) {
+    load_cols_f32<T, BC, kOutCols, LDO, kF32Threads>(v_s, vp + c0, a.sv.t, k0, t, w);
+  };
+  // one warp per row, one key per lane (BC == 32)
+  auto row_score = [&](int r, int k0) {
+    return masked_score(a, bias, s_s[r * LDS + lane], q0 + r, k0 + lane);
+  };
+
+  if constexpr (kSingle) {
+    for (int k0 = 0; k0 < k_end; k0 += BC) {   // pass 1: max, denominator
+      scores(k0);
+      for (int r = warp; r < BR; r += kF32Warps) {
+        const float s = row_score(r, k0);
+        const float m_new = fmaxf(m_s[r], warp_max(s));
+        const float sum = warp_sum(s > 0.5f * kNeg ? expf(s - m_new) : 0.f);
+        if (lane == 0) {
+          l_s[r] = l_s[r] * expf(m_s[r] - m_new) + sum;
+          m_s[r] = m_new;
+        }
+      }
+    }
+    for (int k0 = 0; k0 < k_end; k0 += BC) {   // pass 2: P / l, then P.V
+      scores(k0);
+      load_v(k0);
+      for (int r = warp; r < BR; r += kF32Warps) {
+        const float s = row_score(r, k0);
+        const float l = l_s[r] == 0.f ? 1.f : l_s[r];
+        s_s[r * LDS + lane] = s > 0.5f * kNeg ? round_as<T>(expf(s - m_s[r]) / l) : 0.f;
+      }
+      __syncthreads();
+      mm<BR, kOutCols, BC, false, false, true>(o_s, LDO, s_s, LDS, v_s, LDO);
+    }
+  } else {
+    for (int k0 = 0; k0 < k_end; k0 += BC) {
+      scores(k0);
+      load_v(k0);
+      for (int r = warp; r < BR; r += kF32Warps) {
+        const float s = row_score(r, k0);
+        const float m_prev = m_s[r];
+        const float m_new = fmaxf(m_prev, warp_max(s));
+        const float p = s > 0.5f * kNeg ? expf(s - m_new) : 0.f;
+        s_s[r * LDS + lane] = round_as<T>(p);   // P in the input dtype, as K3
+        const float sum = warp_sum(p);
+        if (lane == 0) {
+          const float corr = expf(m_prev - m_new);
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
+          c_s[r] = corr;
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < BR * kOutCols; i += kF32Threads) {
+        const int r = i / kOutCols;
+        o_s[r * LDO + (i - r * kOutCols)] *= c_s[r];
+      }
+      __syncthreads();
+      mm<BR, kOutCols, BC, false, false, true>(o_s, LDO, s_s, LDS, v_s, LDO);
+    }
+  }
+  __syncthreads();
+  if (!kSingle) {
+    for (int i = tid; i < BR * kOutCols; i += kF32Threads) {
+      const int r = i / kOutCols;
+      const float l = l_s[r];
+      o_s[r * LDO + (i - r * kOutCols)] /= (l == 0.f ? 1.f : l);
+    }
+    __syncthreads();
+  }
+  store_cols<T, BR, kOutCols, LDO>(
+      static_cast<T*>(a.o) + bi * a.so.b + hi * a.so.h + c0, a.so.t, o_s, q0, t, w);
+  if (blockIdx.z != 0) return;   // one block of the row writes its LSE
+  for (int r = tid; r < BR; r += kF32Threads) {
+    if (q0 + r >= t) continue;
+    const float l = l_s[r];
+    a.lse[(long long)bh * t + q0 + r] = l == 0.f ? kPos : m_s[r] + logf(l);
+  }
+}
+
 template <typename Kernel>
 int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
            int threads, const FwdArgs& a, cudaStream_t s) {
@@ -573,13 +731,32 @@ int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
     return launch_plain<__nv_bfloat16, DH, kSingle>(a, b, s);
 }
 
+template <typename T, bool kSingle>
+int launch_chunked(const FwdArgs& a, int b, int dh, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {   // once, on the first (uncaptured) launch
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_chunked_kernel<T, kSingle>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)ChunkFwdLayout::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h, (dh + kOutCols - 1) / kOutCols);
+  flash_fwd_chunked_kernel<T, kSingle>
+      <<<grid, kF32Threads, ChunkFwdLayout::kBytes, s>>>(a, dh);
+  return (int)cudaGetLastError();
+}
+
 template <bool kSingle>
 int launch_any(const FwdArgs& a, int b, int dh, int is_bf16, cudaStream_t s) {
   switch (dh) {
     case 64: return launch_dh<64, kSingle>(a, b, is_bf16, s);
     case 128: return launch_dh<128, kSingle>(a, b, is_bf16, s);
     case 192: return launch_dh<192, kSingle>(a, b, is_bf16, s);
-    default: return launch_dh<256, kSingle>(a, b, is_bf16, s);
+    case 256: return launch_dh<256, kSingle>(a, b, is_bf16, s);
+    default:
+      return is_bf16 ? launch_chunked<__nv_bfloat16, kSingle>(a, b, dh, s)
+                     : launch_chunked<float, kSingle>(a, b, dh, s);
   }
 }
 
@@ -594,8 +771,7 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               const long long* strides, int b, int h, int t,
                               int dh, float scale, int causal, int single,
                               int is_bf16, void* stream) {
-  if (b <= 0 || h <= 0 || t <= 0 || (dh != 64 && dh != 128 && dh != 192 && dh != 256) ||
-      b * h > 65535)
+  if (b <= 0 || h <= 0 || t <= 0 || !valid_head_dim(dh) || b * h > 65535)
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.q = q;

@@ -23,11 +23,13 @@ Beside them the plain PyTorch versions ``flash_fwd_reference`` (its
 compute the same functions in full-row form, in f32 with the kernels'
 rounding points.  Each wrapper routes by the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel or raise (float32
-or bfloat16, head dim up to 256) — there is no fallback and no switch.
+or bfloat16, any head dim) — there is no fallback and no switch.
 The kernels are built for head dims 64, 128, 192 and 256 (bf16 at 192
 and 256 on plain FMA tiles, where the tensor-core tiles would not fit in
-registers); every wrapper zero-pads q, k, v and dO along the head dim to
-the next of those (:func:`pad_head_dim`) on both routes, and slices the
+registers), and past 256 for any multiple of 64 (the same FMA tiles with
+the head dim walked in chunks, as the reference's kernels take any head
+dim); every wrapper zero-pads q, k, v and dO along the head dim to the
+next of those (:func:`pad_head_dim`) on both routes, and slices the
 padding off O, dQ, dK and dV.  That is exact: zero columns add nothing to Q K^T or to dO
 V^T, the scale is the caller's (``dh ** -0.5`` of the unpadded dh), and
 LSE, delta and dBias do not change.
@@ -65,6 +67,7 @@ log = logging.getLogger("deeplearning4j_torch.kernels")
 _NEG = -1e30   # finite "-inf": masked scores (as the reference)
 _POS = 1e30    # LSE of a row with no unmasked key (=> p == 0 in bwd)
 _KERNEL_DH = (64, 128, 192, 256)   # head dims the CUDA kernels are built for
+_DH_CHUNK = 64    # past the last: any multiple of this (the chunked route)
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +159,10 @@ def _bth_strides(x):
 
 def kernel_head_dim(dh: int) -> int:
     """The head dim the kernels take for ``dh``: the smallest built size
-    at or above it (``dh`` itself past the largest, which the CUDA route
-    refuses)."""
-    return next((size for size in _KERNEL_DH if size >= dh), dh)
+    at or above it, and past the largest the next multiple of 64 (the
+    chunked route)."""
+    return next((size for size in _KERNEL_DH if size >= dh),
+                -(-dh // _DH_CHUNK) * _DH_CHUNK)
 
 
 def pad_head_dim(xs, dh: int):
@@ -173,7 +177,7 @@ def pad_head_dim(xs, dh: int):
 def _check_kernel_operands(name, tensors, stats):
     """The kernels' operand contract, checked before the head dim is
     padded: one CUDA device, one dtype (float32 or bfloat16), [b, t, h,
-    dh] views with dh <= 256; at a built dh (64 to 256; no padding copy)
+    dh] views of any dh; at a built dh (no padding copy)
     the head dim contiguous and rows 16-byte aligned; the [b*h, t] f32
     stats contiguous."""
     q = tensors[0]
@@ -181,9 +185,6 @@ def _check_kernel_operands(name, tensors, stats):
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: float32 or bfloat16 operands, got {dt}")
     b, t, h, dh = q.shape
-    if dh > _KERNEL_DH[-1]:
-        raise ValueError(f"{name}: head dim {dh}; the CUDA kernels take "
-                         f"head dims up to {_KERNEL_DH[-1]}")
     vec = 16 // q.element_size()
     padded = kernel_head_dim(dh) != dh   # the kernels read fresh copies
     for x in tensors:

@@ -234,11 +234,16 @@ class ShardedCheckpointer:
     def all_steps(self) -> List[int]:
         """The steps kept: committed ones and the one being written, the
         newest ``keep_last``, ascending (rotation on disk follows the
-        write's commit)."""
-        steps = set(self._committed())
+        write's commit).  The write in flight is read BEFORE the
+        directory: the writer commits, rotates and only then clears it, so
+        a write that lands between the two reads is listed either way (the
+        other order could list the directory before the commit and then
+        find nothing pending, and miss the step orbax lists)."""
         with self._lock:
-            if self._pending is not None:
-                steps.add(self._pending)
+            pending = self._pending
+        steps = set(self._committed())
+        if pending is not None:
+            steps.add(pending)
         steps = sorted(steps)
         return steps if self.keep_last is None else steps[-self.keep_last:]
 

@@ -117,6 +117,46 @@ def test_wide_head_dims_match_jax_fwd_and_grads(case):
     assert fa.kernel_head_dim(case[4]) == (192 if case[4] == 160 else 256)
 
 
+# (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
+# largest build: the head dims the chunked kernels take (272 padded to
+# 320, 320 and 512), t 256 in two key blocks (K3) and in one (K4)
+CHUNKED_CASES = [
+    ("dh272_causal_bias", 1, 2, 256, 272, 128, 128, True, "random", "bthd"),
+    ("dh320_causal_bias", 1, 2, 256, 320, 128, 128, True, "random", "bhtd"),
+    ("dh512_single_bias", 1, 2, 256, 512, 256, 256, True, "pad", "bthd"),
+]
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES,
+                         ids=[c[0] for c in CHUNKED_CASES])
+def test_chunked_head_dims_match_jax_fwd_and_grads(case):
+    """The plain route past head dim 256 (where the CUDA route takes the
+    chunked kernels, the head dim padded to a multiple of 64) against the
+    JAX package's ``flash_attention`` in interpret mode, whose kernels
+    take any head dim: forward and every gradient within 1e-5 (absolute,
+    and relative for the key-bias gradient's sums of dS over 256 queries,
+    which reach ~50), causal with a key bias."""
+    jax, jnp, jk, jfa = _jax()
+    _, b, h, t, d, bq, bk, causal, bias_kind, layout = case
+    q, k, v, g, bias = _inputs(d, b, h, t, d, bias_kind, layout)
+    kw = dict(causal=causal, layout=layout)
+
+    def jf(*a):
+        return jfa.flash_attention(a[0], a[1], a[2], bq, bk, bias=a[3], **kw)
+
+    jout, vjp = jax.vjp(jf, *(jnp.asarray(a) for a in (q, k, v, bias)))
+    jgrads = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a).requires_grad_(True)
+             for a in (q, k, v, bias)]
+    out = fa.flash_attention(*targs[:3], bq, bk, bias=targs[3], **kw)
+    out.backward(torch.from_numpy(g))
+    assert fa.kernel_head_dim(d) == -(-d // 64) * 64 > 256
+    for name, got, want in zip("oqkvb", [out] + [x.grad for x in targs],
+                               [jout] + list(jgrads)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
 def test_bias_gradient_is_real_and_unscaled():
     """dBias is the sum over queries of dS — no division by 8 survives
     from the TPU's sublane broadcast (the reference's gradient is
@@ -461,12 +501,13 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
                          ids=["flash_fwd", "flash_fwd_single"])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256])
+@pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256, 272, 320, 512])
 def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
     """K3 (or K4), K5 and K6 on the card at head dims the tensor-core
     kernels are not built for — zero-padded to 64 or 128 (16, 32, 96) or
-    to the 192 build (160) by the wrappers, and the plain-FMA 192 and 256
-    builds themselves — causal with a key bias at a ragged t, against the
+    to the 192 build (160) by the wrappers, the plain-FMA 192 and 256
+    builds themselves, and the chunked kernels past 256 (272 padded to
+    320, 320, 512) — causal with a key bias at a ragged t, against the
     plain versions on the unpadded operands; each element held to its own
     size.  These raised before."""
     _cuda_or_skip()

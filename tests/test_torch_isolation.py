@@ -171,8 +171,26 @@ def test_import_leaves_jax_unloaded():
         "    ShardedTrainer, ring_attention, ring_self_attention, \n"
         "    gpipe_apply, stack_block_params, PipelinedTransformerLM)\n"
         "from deeplearning4j_torch.resilience import fleet_resume_fit\n"
+        "import deeplearning4j_torch.keras_import\n"
+        "import deeplearning4j_torch.keras_import.keras_import\n"
+        "from deeplearning4j_torch.keras_import import KerasModelImport\n"
+        "import deeplearning4j_torch.nlp.word2vec\n"
+        "import deeplearning4j_torch.nlp.fasttext\n"
+        "import deeplearning4j_torch.nlp.serializer\n"
+        "from deeplearning4j_torch.nlp import (Word2Vec, ParagraphVectors,\n"
+        "    FastText, WordVectorSerializer)\n"
+        "import deeplearning4j_torch.rl, deeplearning4j_torch.rl.mdp\n"
+        "import deeplearning4j_torch.rl.dqn, deeplearning4j_torch.rl.a3c\n"
+        "import deeplearning4j_torch.arbiter\n"
+        "import deeplearning4j_torch.arbiter.space\n"
+        "import deeplearning4j_torch.arbiter.runner\n"
+        "import deeplearning4j_torch.ui, deeplearning4j_torch.ui.stats\n"
+        "import deeplearning4j_torch.ui.report\n"
+        "import deeplearning4j_torch.native_io\n"
+        "import deeplearning4j_torch.native_io.binding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', 'cv2')]\n"
+        "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', 'cv2', "
+        "'h5py', 'keras')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -213,3 +231,33 @@ def test_graph_import_modules_import_no_tensorflow_at_import_time():
                     if (rel, where) not in TF_ALLOWED:
                         offenders.append(f"{rel}:{node.lineno} in {where}")
     assert not offenders, offenders
+
+
+def test_keras_import_reads_h5py_only_inside_its_readers():
+    """h5py (absent from the card's machine) is imported only inside the
+    Keras importer's two readers, never at a module's top level; the
+    config-and-weights entry points run without it."""
+    allowed = {("deeplearning4j_torch/keras_import/keras_import.py",
+                "import_keras_model_and_weights"),
+               ("deeplearning4j_torch/keras_import/keras_import.py",
+                "_read_weights")}
+    found = set()
+    for path in sorted((ROOT / "deeplearning4j_torch").rglob("*.py")) + [
+            ROOT / "chip_smoke.py"]:
+        rel = str(path.relative_to(ROOT))
+        tree = ast.parse(path.read_text(), rel)
+        parents = {}
+        for node in ast.walk(tree):
+            for child in ast.iter_child_nodes(node):
+                parents[child] = node
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if any(n.split(".")[0] == "h5py" for n in names):
+                fn = parents.get(node)
+                while fn is not None and not isinstance(fn, ast.FunctionDef):
+                    fn = parents.get(fn)
+                found.add((rel, None if fn is None else fn.name))
+    assert found == allowed, found

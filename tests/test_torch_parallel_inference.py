@@ -330,7 +330,8 @@ def test_infer_phase_rehearsal_on_cpu(monkeypatch):
     tests' sizes for (e), and the attention classifier at 2 heads of 8
     (t 512 and 1024, the flash route's plain versions) with counting
     stand-ins for the flash wrappers: one launch of K4, K5 and K6 a step
-    at t 512, of K3, K5 and K6 at t 1024."""
+    at t 512, of K3, K5 and K6 at t 1024; part (g) the same at 2 heads of
+    320 (past the fast kernels' head dims), b 2."""
     import importlib
 
     import chip_smoke
@@ -355,7 +356,8 @@ def test_infer_phase_rehearsal_on_cpu(monkeypatch):
                pi_threads=3, pi_requests=4, pi_batch_limit=4,
                pi_queue_limit=8, q_images=8, attn_b=2, attn_heads=2,
                attn_head=8, attn_steps=2, attn_long_steps=1,
-               zoo_kwargs=SMALL)
+               wide_b=2, wide_heads=2, wide_head=320, wide_steps=2,
+               wide_long_steps=1, zoo_kwargs=SMALL)
     torch.manual_seed(0)
     counts = chip_smoke.infer_parts(
         torch, np, "cpu", cfg, TinyVGG(n_classes=10,
@@ -365,7 +367,11 @@ def test_infer_phase_rehearsal_on_cpu(monkeypatch):
         "masked": {"flash_fwd": 0, "flash_fwd_single": 2,
                    "flash_bwd_dkdv": 2, "flash_bwd_dq": 2},
         "long": {"flash_fwd": 1, "flash_fwd_single": 0,
-                 "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}}
+                 "flash_bwd_dkdv": 1, "flash_bwd_dq": 1},
+        "dh320_masked": {"flash_fwd": 0, "flash_fwd_single": 2,
+                         "flash_bwd_dkdv": 2, "flash_bwd_dq": 2},
+        "dh320_long": {"flash_fwd": 1, "flash_fwd_single": 0,
+                       "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}}
     (row,) = lines
     assert row["b_transfer"]["frozen_bit_identical"]
     assert row["c_parallel_inference"]["requests"] == 12
@@ -375,6 +381,8 @@ def test_infer_phase_rehearsal_on_cpu(monkeypatch):
     assert row["e_zoo"]["fit"]["FaceNetNN4Small2"]["center_term"] > 0
     assert all(v == 0 for v in
                row["f_attention"]["masked"]["kernel_vs_plain"].values())
+    assert all(v == 0 for v in row["g_attention_wide"]["dh320_long"][
+        "kernel_vs_plain"].values())
     a = row["a_vgg_card_vs_cpu"]
     assert {k.split()[0] for k in a["layers"]} == {
         "ConvolutionLayer", "SubsamplingLayer", "DenseLayer"}

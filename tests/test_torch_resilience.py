@@ -763,6 +763,33 @@ def test_async_write_failure_surfaces_at_wait(tmp_path, monkeypatch):
         "1", "world_1.json", "world_2.json"]
 
 
+def test_all_steps_lists_a_write_that_lands_during_the_call(tmp_path,
+                                                           monkeypatch):
+    """A write that commits (and rotates) while ``all_steps()`` runs is
+    still listed, as orbax lists a save from the moment it is taken: the
+    write in flight is read before the directory.  Here the writer lands
+    right after the directory is listed — reading the directory first
+    would give [1, 2] and miss step 3, which made ``fit``'s forced
+    preemption save collide with the periodic save of the same step."""
+    from deeplearning4j_torch.parallel import ShardedCheckpointer
+    ck = ShardedCheckpointer(tmp_path / "race", keep_last=2,
+                             async_save=False)
+    for step in (1, 2):
+        ck.save(step, {"w": torch.ones(2)})
+    listed = ck._committed
+
+    def list_then_land():
+        before = listed()
+        (tmp_path / "race" / "3").mkdir()          # the writer commits
+        ck.delete_step(1)                          # rotates
+        ck._pending = None                         # and clears
+        return before
+
+    ck._pending = 3
+    monkeypatch.setattr(ck, "_committed", list_then_land)
+    assert ck.all_steps() == [2, 3]
+
+
 def test_preemption_stops_the_prefetch_thread(tmp_path):
     """fit with async prefetch, preempted: the producer thread is gone
     when TrainingPreempted reaches the caller."""

@@ -298,6 +298,40 @@ def test_cuda_fused_attention_takes_the_kernels_or_raises():
 
 
 @pytest.mark.gpu
+def test_cuda_fused_attention_past_head_dim_256():
+    """``fused_attention`` at head dim 320 and t 512 on the card launches
+    the chunked kernels (K4, K5, K6 once each; it raised before) in f32,
+    and its output and q/k/v gradients agree with the CPU's within 1e-5
+    of each element's size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from deeplearning4j_torch.autodiff.ops import OP_REGISTRY, device_scope
+    fa, fn = _fa(), OP_REGISTRY["fused_attention"].fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = np.random.default_rng(320)
+    host = [r.normal(size=(2, 2, 512, 320)).astype(np.float32)
+            for _ in range(4)]
+    names = ("flash_fwd_single", "flash_bwd_dkdv", "flash_bwd_dq")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.tensor(a, device=dev, requires_grad=True)
+                   for a in host[:3])
+        before = {n: getattr(fa, n).launches for n in names}
+        with device_scope(dev):
+            out = fn(q, k, v)
+            out.backward(torch.tensor(host[3], device=dev))
+        got[dev] = [x.detach().cpu().numpy().astype(np.float64)
+                    for x in (out, q.grad, k.grad, v.grad)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {n: getattr(fa, n).launches - before[n]
+                    for n in names} == dict.fromkeys(names, 1)
+    for name, a, b in zip("oqkv", got["cuda"], got["cpu"]):
+        rms = np.sqrt(np.mean(b ** 2))
+        assert float((np.abs(a - b) / (np.abs(b) + rms)).max()) <= 1e-5, name
+
+
+@pytest.mark.gpu
 def test_cuda_imported_causal_graph_matches_the_cpu():
     """The fused toy GPT (t 512, causal) on the card: K4's causal route,
     within 1e-4 of the CPU's output and TensorFlow's golden."""
