@@ -267,6 +267,19 @@ Phases:
                (e) one NCCL world: reductions, the gradient all-reduce,
                the scaling harness, an elastic pipeline resume and a
                coordinated preemption.
+ 9f. dist    — every mesh axis across OS processes: workers of this
+               script (``--dist-worker``) on cuda:0 joined by gloo
+               (``initialize(backend="gloo")``): (a) Gpt() b 8, t 2048,
+               bf16 under model = 2 over 2 processes, 2 steps, and a
+               control whose model sums drop a rank's share; (b)
+               pipeline = 2 (n_micro 4) over 2; (c) data 2 x model 2 x
+               pipeline 2 over 8 at depth 4; losses equal on every rank
+               (1e-6) and within MESH_TOL of the one-process mesh and the
+               unsharded step, K3/K5/K6 counted in every worker, one
+               launch of each held to its plain version; (d) ring
+               attention over a 2-process sequence axis, t 2048; (e) the
+               data 2 x tp 2 server, its per-slot state on its rows; (f)
+               a worker SIGKILLed mid-decode, its black box salvaged.
  10. timings — K1 and K2, their plain versions and one PyTorch SDPA call
                each at the path shapes (CUDA-graph replay, medians), beside
                the memory bound; K3-K6 at the training shapes beside their
@@ -283,6 +296,7 @@ Phases:
 ``--phases build,infer`` for batched inference and transfer learning
 alone, ``--phases build,samediff`` for graph import alone,
 ``--phases build,mesh`` for the multi-device slice alone,
+``--phases build,dist`` for the cross-process mesh alone,
 ``--phases build,resnet`` for the conv slice alone, or ``--phases
 build,slo`` for the control plane alone).  The extra
 phase ``profile`` (not run by default) traces a steady bf16 decode window
@@ -312,7 +326,7 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
           "train", "resume", "rnn", "bert", "resnet", "infer", "samediff",
-          "mesh", "periphery", "timings")
+          "mesh", "dist", "periphery", "timings")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
                 "bertops", "wide")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
@@ -5694,6 +5708,643 @@ def phase_mesh(torch, np):
         torch.cuda.empty_cache()
 
 
+# -- phase 9f ----------------------------------------------------------
+# Every mesh axis across OS processes on the card: worker processes of
+# this script (``--dist-worker``), each on cuda:0, joined by
+# torch.distributed over gloo (NCCL refuses two ranks on one device; gloo
+# stages every collective through host memory).  (a) Gpt() at b 8, t 2048,
+# bf16 under MeshConfig(model=2) over 2 processes; (b) (pipeline=2,
+# n_micro 4) over 2; (c) (data=2, model=2, pipeline=2) over 8 at depth 4
+# (the time limit); (d) ring attention over a 2-process sequence axis at
+# t 2048; (e) phase 9d's data 2 x tp 2 server, its per-slot state on its
+# rows; (f) a worker SIGKILLed mid-decode and its black box salvaged.
+DIST_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "steps": 2,
+            "n_micro": 4, "axis3_layers": 4,
+            "ring": {"b": 2, "h": 12, "dh": 64, "t": 2048},
+            "serve": {"n_slots": 8, "max_len": 1024, "block_size": 16,
+                      "tick_batch": 8, "tp": 2, "requests": 4, "new": 32,
+                      "prompt_t": [64, 769],
+                      "spec": {"k": 4, "rounds": 2, "draft_layers": 2}},
+            "device": "cuda", "kernels": True, "timeout_s": 420}
+
+
+def dist_grad_probe(solver):
+    """Keep the first step's gradients handed to ``solver``: {storage
+    path: f32 copy}."""
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    kept, real = {}, solver.apply_grads
+
+    def apply(params, opt, state, new_state, grads, *a, **kw):
+        if not kept:
+            kept.update(("/".join(map(str, p)), g.detach().float().clone())
+                        for p, g in iter_leaves(grads))
+        return real(params, opt, state, new_state, grads, *a, **kw)
+    solver.apply_grads = apply
+    return kept
+
+
+def dist_grad_diff(got, ref):
+    """Normwise difference of the gradients ``got`` holds (a process's
+    shards) from the same storage leaves of ``ref``."""
+    num = sum(float((g.to(ref[p].device) - ref[p]).square().sum())
+              for p, g in got.items())
+    den = sum(float(ref[p].square().sum()) for p in got)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def dist_train_job(torch, np, cfg, dev, mesh_kw, gpt_kw, fault=None,
+                   capture=False, probe=None):
+    """One worker's share of a cross-process mesh run: a warm-up step
+    (its flash operands captured and replayed against the plain versions
+    when ``capture``), then ``steps`` counted steps with the flash counts
+    set to 0 just before.  ``fault="drop"``: the model group's sums
+    (forward and backward) leave coordinate 1's part out (the control);
+    the warm-up step and one more.  ``probe``: a file the warm-up step's
+    gradients of this process's storage go to."""
+    from deeplearning4j_torch.parallel import (MeshConfig, ShardedTrainer,
+                                               distributed)
+    from deeplearning4j_torch.utils.trees import iter_leaves
+    from deeplearning4j_torch.zoo import Gpt
+    fa = flash_module()
+    b, t, steps = cfg["b"], cfg["t"], cfg["steps"]
+    net = Gpt(**dict(cfg["gpt"], **gpt_kw, seed=0, seq_len=t)).init_graph(
+        device=dev)
+    tr = ShardedTrainer(net, MeshConfig(**mesh_kw),
+                        devices=distributed.global_devices([dev]),
+                        n_micro=cfg["n_micro"])
+    data = [train_batch(np, b, t, cfg["vocab"], 20 + i)
+            for i in range(steps + 1)]
+    kept = dist_grad_probe(tr.solver) if probe else None
+    if fault == "drop":
+        g = tr._gm
+        g.sum = lambda x: g.gather(x)[0]
+        try:
+            losses = [float(tr.fit_batch(*xy)) for xy in data[:2]]
+        finally:
+            del g.sum
+        if kept is not None:
+            torch.save({k: v.cpu() for k, v in kept.items()}, probe)
+        return {"losses": losses}
+    rec, restore = infer_capture(fa) if capture else (None, lambda: None)
+    try:
+        warm = float(tr.fit_batch(*data[0]))
+    finally:
+        restore()
+    errs = infer_kernel_errors(torch, fa, rec) if rec else {}
+    if kept is not None:
+        torch.save({k: v.cpu() for k, v in kept.items()}, probe)
+        kept.clear()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    coll = dist_collective_clock()
+    sync()
+    torch.distributed.barrier()      # every rank starts the window at once
+    for n in FLASH_WRAPPERS:
+        getattr(fa, n).launches = 0
+    coll.reset()
+    t0 = time.perf_counter()
+    losses = [float(tr.fit_batch(*xy)) for xy in data[1:]]
+    sync()
+    wall = time.perf_counter() - t0
+    coll.stop()
+    held = sum(x.numel() * x.element_size()
+               for _, x in iter_leaves(tr._store[0]))
+    return {"warmup_loss": warm, "losses": losses,
+            "step_ms": wall * 1e3 / steps,
+            "collective_share": coll.seconds / wall,
+            "launches": {n: getattr(fa, n).launches
+                         for n in FLASH_WRAPPERS},
+            "kernel_vs_plain": errs, "held_param_bytes": held,
+            "owners": tr.mesh.owners.reshape(-1).tolist()}
+
+
+class dist_collective_clock:
+    """Host seconds spent inside the port's cross-process collectives
+    (the ``AxisGroup`` methods, the pipeline's hand-off included): gloo
+    stages each through host memory and blocks, so this is the staging,
+    the transfer and any wait for the peer."""
+
+    def __init__(self):
+        from deeplearning4j_torch.parallel import distributed as d
+        self.seconds, self._saved = 0.0, []
+        for name in ("gather", "broadcast", "rotate", "send", "recv"):
+            orig = getattr(d.AxisGroup, name)
+            self._saved.append((name, orig))
+            setattr(d.AxisGroup, name, self._timed(orig))
+
+    def _timed(self, fn):
+        def w(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return w
+
+    def reset(self):
+        self.seconds = 0.0
+
+    def stop(self):
+        from deeplearning4j_torch.parallel import distributed as d
+        for name, orig in self._saved:
+            setattr(d.AxisGroup, name, orig)
+
+
+def dist_ring_job(torch, np, cfg, dev):
+    """(d): ring_self_attention over a 2-process sequence axis, f32 (TF32
+    off), output and q/k/v gradients against one softmax; every rank
+    returns the full tensors."""
+    from deeplearning4j_torch.parallel import (MeshConfig, distributed,
+                                               ring_self_attention)
+    from deeplearning4j_torch.parallel.ring_attention import (
+        full_attention_reference)
+    r = cfg["ring"]
+    mesh = MeshConfig(sequence=2).build(distributed.global_devices([dev]))
+    g = torch.Generator(device=dev).manual_seed(5)
+    shape = (r["b"], r["h"], r["t"], r["dh"])
+    qkv = [torch.randn(shape, generator=g, device=dev).requires_grad_(True)
+           for _ in range(3)]
+    do = torch.randn(shape, generator=g, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    torch.autograd.grad(ring_self_attention(mesh, *qkv), qkv, do)  # warm
+    sync()
+    torch.distributed.barrier()
+    coll = dist_collective_clock()
+    t0 = time.perf_counter()
+    out = ring_self_attention(mesh, *qkv)
+    sync()
+    t1 = time.perf_counter()
+    g_ring = torch.autograd.grad(out, qkv, do)
+    sync()
+    wall = time.perf_counter() - t0
+    coll.stop()
+    ref = full_attention_reference(*qkv)
+    g_ref = torch.autograd.grad(ref, qkv, do)
+    return {"out_err": flash_err(torch, out.detach(), ref.detach())[0],
+            "grad_err": max(float((a - c).abs().max())
+                            / float(c.abs().max())
+                            for a, c in zip(g_ring, g_ref)),
+            "step_ms": wall * 1e3, "forward_ms": (t1 - t0) * 1e3,
+            "collective_share": coll.seconds / wall}
+
+
+def dist_blackbox_job(torch, np, cfg, dev, out_dir):
+    """(f)'s victim: a small GenerationServer on the device with the
+    flight recorder's black box persisted every 50 ms and every scheduler
+    pass throttled, so one decode stays in flight until the SIGKILL."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.resilience import FaultInjector
+    from deeplearning4j_torch.resilience.faults import throttled_stall_plan
+    from deeplearning4j_torch.zoo import Gpt
+    telemetry.get_flight_recorder().install_dump(
+        out_dir, host=f"victim-{os.getpid()}", persist_interval_s=0.05)
+    net = Gpt(vocab_size=50, max_len=64, d_model=32, n_layers=2, n_heads=4,
+              d_ff=64, seq_len=8, compute_dtype=None,
+              seed=3).init_graph(device=dev)
+    with FaultInjector(throttled_stall_plan(
+            4000, "serve_tick_stall@4001:0.05", enqueue_s=0.05)):
+        with GenerationServer(net, n_slots=2, max_len=64, tick_batch=1,
+                              tick_timeout_s=None, device=dev) as srv:
+            srv.submit_async(np.asarray([1, 2, 3, 4], np.int32),
+                             n_new=40).result(timeout=600)
+    raise SystemExit("the decode finished before the SIGKILL")
+
+
+def dist_worker(argv) -> int:
+    """``chip_smoke.py --dist-worker JOBS RANK WORLD PORT OUT CFG``: one
+    rank of phase 9f; writes ``OUT/rank<RANK>.json``."""
+    jobs, rank, world, port, out_dir, cfg_path = argv
+    rank, world = int(rank), int(world)
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT_DIR)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    dev = torch.device(cfg["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if jobs == "blackbox":
+        return dist_blackbox_job(torch, np, cfg, dev, out_dir)
+    from deeplearning4j_torch.parallel import distributed
+    # the caller's explicit choice: gloo moves the cross-process traffic
+    # through host memory; NCCL stays initialize()'s default
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank,
+                           backend="gloo")
+    depth = {"n_layers": cfg["axis3_layers"]}
+    probe = (lambda tag: os.path.join(out_dir, f"grads_{tag}.pt")
+             if rank == 0 else None)
+    run = {"tp": lambda: dist_train_job(torch, np, cfg, dev,
+                                        {"model": 2}, {},
+                                        capture=rank == 0,
+                                        probe=probe("tp")),
+           "tp_drop": lambda: dist_train_job(torch, np, cfg, dev,
+                                             {"model": 2}, {},
+                                             fault="drop",
+                                             probe=probe("tp_drop")),
+           "pp": lambda: dist_train_job(torch, np, cfg, dev,
+                                        {"pipeline": 2}, {}),
+           "axis3": lambda: dist_train_job(
+               torch, np, cfg, dev,
+               {"data": 2, "model": 2, "pipeline": 2}, depth),
+           "ring": lambda: dist_ring_job(torch, np, cfg, dev)}
+    out = {}
+    for job in jobs.split(","):
+        out[job] = run[job]()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    return 0
+
+
+def dist_launch(world, jobs, out_dir, cfg_path, timeout_s):
+    """Start ``world`` worker processes on ``jobs``; every one must exit 0
+    within ``timeout_s`` (else all are killed and the phase fails).
+    Returns their result dicts by rank."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT_DIR + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    logs = [os.path.join(out_dir, f"{jobs}_{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 jobs, str(r), str(world), str(port), out_dir, cfg_path],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = {r: open(logs[r]).read()[-2500:] for r in bad}
+        raise AssertionError(f"dist {jobs}: ranks {bad} failed or hung "
+                             f"past {timeout_s} s: {tails}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+        os.remove(os.path.join(out_dir, f"rank{r}.json"))
+    return out
+
+
+def dist_reference(torch, np, cfg, dev, mesh, gpt_kw, n=None, probe=False):
+    """The same steps in this process: unsharded (``mesh`` None) or on a
+    one-process mesh over ``[dev] * n``; returns the losses, warm-up
+    first (and with ``probe`` the warm-up step's gradients by storage
+    path)."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.parallel import ShardedTrainer
+    from deeplearning4j_torch.zoo import Gpt
+    b, t = cfg["b"], cfg["t"]
+    net = Gpt(**dict(cfg["gpt"], **gpt_kw, seed=0, seq_len=t)).init_graph(
+        device=dev)
+    data = [train_batch(np, b, t, cfg["vocab"], 20 + i)
+            for i in range(cfg["steps"] + 1)]
+    if mesh is None:
+        losses = [float(net.fit(DataSet(x, y))) for x, y in data]
+    else:
+        tr = ShardedTrainer(net, mesh, devices=[dev] * n,
+                            n_micro=cfg["n_micro"])
+        kept = dist_grad_probe(tr.solver) if probe else None
+        losses = [float(tr.fit_batch(x, y)) for x, y in data]
+        del tr
+    del net
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return (losses, kept) if probe else losses
+
+
+def dist_check_train(tag, ranks, refs, cfg, per_step):
+    """Every rank's losses equal (rtol 1e-6) and within MESH_TOL of each
+    reference; on the card, K3/K5/K6 = ``per_step`` x steps in every
+    worker (K4 none) and the captured launches within FLASH_TOL."""
+    got = [[r[tag]["warmup_loss"]] + r[tag]["losses"] for r in ranks]
+    spread = max(abs(a - c) / abs(c) for g in got[1:]
+                 for a, c in zip(g, got[0]))
+    diffs = {name: max(abs(a - c) / abs(c) for a, c in zip(got[0], ref))
+             for name, ref in refs.items()}
+    launches = [r[tag]["launches"] for r in ranks]
+    want = {n: (per_step * cfg["steps"]
+                if n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+                else 0) for n in FLASH_WRAPPERS}
+    errs = {k: v for r in ranks for k, v in
+            r[tag]["kernel_vs_plain"].items()}
+    bad = [k for k, v in errs.items() if not v <= FLASH_TOL["bfloat16"]]
+    if not (all(math.isfinite(x) for g in got for x in g) and spread <= 1e-6
+            and all(d <= MESH_TOL["train_loss"] for d in diffs.values())
+            and not bad and (not cfg["kernels"]
+                             or all(c == want for c in launches))):
+        raise AssertionError(
+            f"dist {tag}: losses {got} (rank spread {spread}), against "
+            f"the references {diffs}, launches {launches} (want {want}), "
+            f"kernels over the bound {bad}")
+    r0 = ranks[0][tag]
+    return {"losses": got[0], "rank_spread": spread,
+            "ref_max_rel_diff": diffs, "step_ms": [r[tag]["step_ms"]
+                                                   for r in ranks],
+            "collective_share": [r[tag]["collective_share"]
+                                 for r in ranks],
+            "held_param_bytes": [r[tag]["held_param_bytes"]
+                                 for r in ranks],
+            "owners": r0["owners"], "launches_by_rank": launches,
+            "kernel_vs_plain": errs}
+
+
+def dist_serve(torch, np, cfg, dev, sync):
+    """(e): phase 9d's data 2 x tp 2 replica of Gpt() (f32 greedy) against
+    a tp = 1 one: the streams (near-tie rule), each data row's per-slot
+    state on its row's device in tensors of its own slots, every row's
+    tick reading its own block table in place (no per-tick row copy), and
+    K1 launched per row and shard; then the same replica speculative (K2
+    per row and shard on every verify pass)."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.zoo import Gpt
+    s = cfg["serve"]
+    pa, fa = pa_module(), flash_module()
+    net = Gpt(seed=0, **cfg["gpt"]).init_graph(device=dev)
+    n_layers = len(net.layers) - 2
+    kw = dict(n_slots=s["n_slots"], max_len=s["max_len"],
+              block_size=s["block_size"], tick_batch=s["tick_batch"])
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg["vocab"], int(t)).astype(np.int32),
+             s["new"], None)
+            for t in rng.integers(*s["prompt_t"], s["requests"])]
+    with GenerationServer(net, compute_dtype=None, device=dev, **kw) as s1:
+        one, _, _ = serve(s1, reqs)
+    with GenerationServer(net, compute_dtype=None, devices=[dev] * 4,
+                          tp=s["tp"], **kw) as s4:
+        seen = []
+        inner = s4._row_step
+
+        def row_step(step, params_rows, kc, vc, r=0):
+            fn = inner(step, params_rows, kc, vc, r)
+
+            def spy(*rows):
+                tbl = rows[2]
+                seen.append((r, tbl.shape[0], tbl.untyped_storage().nbytes()
+                             // tbl.element_size() // tbl.shape[1]))
+                return fn(*rows)
+            return spy
+        s4._row_step = row_step
+        mesh_zero(pa, fa)
+        t0 = time.perf_counter()
+        four, _, _ = serve(s4, reqs)
+        sync()
+        wall = time.perf_counter() - t0
+        k1 = pa.paged_decode_attention.launches
+        state, row_devs = s4._state, [c.devices[0] for c in s4._rows]
+        ticks = s4.stats().get("ticks")
+    n = s["n_slots"] // 2
+    placed = all(len(getattr(state, "rows", ())) == 2 and
+                 t.shape[0] == n and t.device == row_devs[r]
+                 for r, row in enumerate(getattr(state, "rows", ()))
+                 for t in row.values())
+    in_place = bool(seen) and {r for r, _, _ in seen} == {0, 1} and all(
+        m == n and rows == n for _, m, rows in seen)
+    gen = TransformerGenerator(net, device=dev)
+    ties = check_streams(torch, gen, list(zip(four, one)), NEAR_TIE_F32)
+    if not (placed and in_place):
+        raise AssertionError(f"dist/serve: per-slot state on its rows "
+                             f"{placed}, read in place {in_place}")
+    if cfg["kernels"] and k1 < n_layers * 2 * s["tp"]:
+        raise AssertionError(f"dist/serve: {k1} K1 launches")
+    ticks_c = telemetry.get_registry().counter(
+        "generation_server_ticks_total")
+    with GenerationServer(net, compute_dtype=None, devices=[dev] * 4,
+                          tp=s["tp"], speculative=s["spec"], **kw) as sp:
+        mesh_zero(pa, fa)
+        p0 = ticks_c.value
+        spec_outs, _, spec_wall = serve(sp, reqs)
+        sync()
+        passes, k2 = ticks_c.value - p0, pa.paged_verify_attention.launches
+        spec_rows = len(getattr(sp._state, "rows", ()))
+    spec_ties = check_streams(torch, gen, list(zip(spec_outs, one)),
+                              NEAR_TIE_F32)
+    if spec_rows != 2 or (cfg["kernels"] and not (
+            k2 > 0 and k2 == n_layers * 2 * s["tp"] * passes)):
+        raise AssertionError(f"dist/serve spec: {spec_rows} state rows, "
+                             f"{k2} K2 launches for {passes} verify "
+                             "passes")
+    del net
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"requests": len(reqs), "data": 2, "tp": s["tp"],
+            "near_ties": ties, "state_on_rows": placed,
+            "row_ticks_read_in_place": len(seen), "k1_launches": k1,
+            "ticks": ticks, "wall_s": wall,
+            "spec": {"speculative": s["spec"], "verify_passes": passes,
+                     "k2_launches": k2, "near_ties": spec_ties,
+                     "wall_s": spec_wall}}
+
+
+def dist_blackbox(out_dir, cfg_path, timeout_s):
+    """(f): a worker SIGKILLed mid-decode; its black box salvaged into a
+    postmortem bundle holding its admit event and its open decode span."""
+    import signal
+    from deeplearning4j_torch.telemetry import flightrec
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT_DIR + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    box = os.path.join(out_dir, "blackbox")
+    os.makedirs(box)
+    log = os.path.join(out_dir, "blackbox.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             "blackbox", "0", "1", "0", box, cfg_path], env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    bbdir = os.path.join(box, flightrec.BLACKBOX_DIRNAME)
+    ready, t0 = False, time.monotonic()
+    try:
+        while not ready and time.monotonic() - t0 < timeout_s and \
+                proc.poll() is None:
+            for name in (os.listdir(bbdir) if os.path.isdir(bbdir)
+                         else []):
+                try:
+                    doc = flightrec.load_bundle(os.path.join(bbdir, name))
+                except (OSError, ValueError):
+                    continue
+                ready = ready or (
+                    "admit" in {e["kind"] for e in doc.get("events", ())}
+                    and "request/decode" in
+                    {s["name"] for s in doc.get("open_spans", ())})
+            time.sleep(0.05)
+        if not ready:
+            raise AssertionError(f"dist/blackbox: no decode-in-flight "
+                                 f"black box (rc {proc.poll()}): "
+                                 f"{open(log).read()[-2000:]}")
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    new = flightrec.salvage_bundles(box)
+    doc = flightrec.load_bundle(new[0]) if len(new) == 1 else {}
+    kinds = [e["kind"] for e in doc.get("events", ())]
+    spans = {s["name"] for s in doc.get("open_spans", ())}
+    if not (len(new) == 1 and doc["salvaged"] and "admit" in kinds
+            and "request/decode" in spans and proc.returncode == -9):
+        raise AssertionError(f"dist/blackbox: salvaged {new}, events "
+                             f"{kinds}, open spans {spans}")
+    return {"killed_by": "SIGKILL", "salvaged": True, "events": len(kinds),
+            "open_spans": sorted(spans), "reason": doc["reason"]}
+
+
+def dist_parts(torch, np, device, cfg, sync, card, parts="abcdef"):
+    """Parts (a)-(f) of :func:`phase_dist` on ``device`` at ``cfg``'s
+    sizes.  Emits a row per part as it ends (``dist/<part>``), then the
+    phase's row; returns the launch counts by part (the sum over the
+    workers)."""
+    import shutil
+    import tempfile
+    from deeplearning4j_torch.parallel import MeshConfig
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t_phase = time.perf_counter()
+    row = {"phase": "dist", "card": card, "backend": "gloo",
+           "device": str(dev)}
+    counts = {}
+    tmp = tempfile.mkdtemp()
+    cfg_path = os.path.join(tmp, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(cfg, device=str(dev)), f)
+    depth = {"n_layers": cfg["axis3_layers"]}
+    n_layers = cfg["gpt"].get("n_layers", 12)
+    try:
+        jobs = [j for j, p in (("tp", "a"), ("tp_drop", "a"), ("pp", "b"),
+                               ("ring", "d")) if p in parts]
+        if jobs:
+            t0 = time.perf_counter()
+            ranks = dist_launch(2, ",".join(jobs), tmp, cfg_path,
+                                cfg["timeout_s"])
+            row["workers_2_s"] = time.perf_counter() - t0
+        if "a" in parts:
+            t0 = time.perf_counter()
+            one = dist_reference(torch, np, cfg, dev, None, {})
+            mesh1, grads1 = dist_reference(torch, np, cfg, dev,
+                                           MeshConfig(model=2), {}, 2,
+                                           probe=True)
+            refs = {"unsharded": one, "one_process_mesh": mesh1}
+            row["a_tp"] = dist_check_train("tp", ranks, refs, cfg,
+                                           n_layers)
+            # rank 0's first-step gradients (its shards and the
+            # replicated leaves) against the one-process mesh's, sound
+            # and with the dropped sums: the limit sits between them
+            gd = {tag: dist_grad_diff(torch.load(os.path.join(
+                tmp, f"grads_{tag}.pt")), grads1)
+                for tag in ("tp", "tp_drop")}
+            del grads1
+            drop = ranks[0]["tp_drop"]["losses"]
+            off = max(abs(a - c) / abs(c) for a, c in zip(drop, one))
+            tripped = [k for k, v, lim in (
+                ("loss", off, MESH_TOL["train_loss"]),
+                ("first_grad", gd["tp_drop"], MESH_TOL["train_grad"]))
+                if not v <= lim]
+            row["a_tp"]["first_grad_normwise_diff"] = gd["tp"]
+            row["a_tp"]["control_drop"] = {
+                "losses": drop, "loss_rel_diff": off,
+                "first_grad_normwise_diff": gd["tp_drop"],
+                "tripped": tripped}
+            if not gd["tp"] <= MESH_TOL["train_grad"] or not tripped:
+                raise AssertionError(
+                    f"dist/tp: first-step gradients {gd['tp']} from the "
+                    f"one-process mesh; the control (a model rank's sums "
+                    f"dropped) tripped {tripped}: {row['a_tp']}")
+            row["a_tp"]["reference_s"] = time.perf_counter() - t0
+            counts["tp"] = {n: sum(r["tp"]["launches"][n] for r in ranks)
+                            for n in FLASH_WRAPPERS}
+        if "a" in parts:
+            emit({"phase": "dist/a_tp", **row["a_tp"]})
+        if "b" in parts:
+            refs = {"unsharded": one if "a" in parts else dist_reference(
+                torch, np, cfg, dev, None, {}),
+                "one_process_mesh": dist_reference(
+                    torch, np, cfg, dev, MeshConfig(pipeline=2), {}, 2)}
+            row["b_pp"] = dist_check_train(
+                "pp", ranks, refs, cfg, n_layers // 2 * cfg["n_micro"])
+            counts["pp"] = {n: sum(r["pp"]["launches"][n] for r in ranks)
+                            for n in FLASH_WRAPPERS}
+            emit({"phase": "dist/b_pp", **row["b_pp"]})
+        if "c" in parts:
+            t0 = time.perf_counter()
+            ranks8 = dist_launch(8, "axis3", tmp, cfg_path,
+                                 cfg["timeout_s"])
+            row["workers_8_s"] = time.perf_counter() - t0
+            refs = {"unsharded": dist_reference(torch, np, cfg, dev, None,
+                                                depth),
+                    "one_process_mesh": dist_reference(
+                        torch, np, cfg, dev,
+                        MeshConfig(data=2, model=2, pipeline=2), depth, 8)}
+            row["c_axis3"] = dist_check_train(
+                "axis3", ranks8, refs, cfg,
+                cfg["axis3_layers"] // 2 * cfg["n_micro"])
+            row["c_axis3"]["n_layers"] = cfg["axis3_layers"]
+            counts["axis3"] = {n: sum(r["axis3"]["launches"][n]
+                                      for r in ranks8)
+                               for n in FLASH_WRAPPERS}
+            emit({"phase": "dist/c_axis3", **row["c_axis3"]})
+        if "d" in parts:
+            rr = [r["ring"] for r in ranks]
+            if not all(x["out_err"] <= MESH_TOL["ring_out"] and
+                       x["grad_err"] <= MESH_TOL["ring_grad"] for x in rr):
+                raise AssertionError(f"dist/ring: {rr}")
+            row["d_ring"] = dict(cfg["ring"], processes=2, dtype="float32",
+                                 by_rank=rr)
+            emit({"phase": "dist/d_ring", **row["d_ring"]})
+        if "e" in parts:
+            t0 = time.perf_counter()
+            row["e_serve"] = dist_serve(torch, np, cfg, dev, sync)
+            row["e_serve"]["seconds"] = time.perf_counter() - t0
+            counts["serve"] = {"paged_decode_attention":
+                               row["e_serve"]["k1_launches"],
+                               "paged_verify_attention":
+                               row["e_serve"]["spec"]["k2_launches"]}
+        if "f" in parts:
+            t0 = time.perf_counter()
+            row["f_blackbox"] = dist_blackbox(tmp, cfg_path,
+                                              cfg["timeout_s"])
+            row["f_blackbox"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["reduced"] = [
+        "every process on the one H100 (cuda:0): gloo through host "
+        "memory, so the times say nothing of NVLink or NCCL",
+        f"(c) at depth {cfg['axis3_layers']} of {n_layers}: eight "
+        "processes within the phase's time"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+def phase_dist(torch, np):
+    """Every mesh axis across processes on the card (phase 9f, parts
+    (a)-(f) above).  Returns the launch counts by part."""
+    try:
+        return dist_parts(torch, np, "cuda", DIST_CFG,
+                          torch.cuda.synchronize, card_line())
+    finally:
+        torch.cuda.empty_cache()
+
+
 # -- phase 10 ----------------------------------------------------------
 # -- phase 9e ----------------------------------------------------------
 # The periphery on the card, each part at the size its users run:
@@ -7047,6 +7698,9 @@ def kernel_row(name, source, replaces, launches, err, timing):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--dist-worker"]:
+        return dist_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
@@ -7086,7 +7740,7 @@ def main(argv=None) -> int:
         launches, timing = None, None
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
-        i_counts, sd_launches, m_counts = None, None, None
+        i_counts, sd_launches, m_counts, d_counts = None, None, None, None
         p_counts, w_timing = None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
@@ -7116,6 +7770,8 @@ def main(argv=None) -> int:
             sd_launches = phase_samediff(torch, np)
         if "mesh" in phases:
             m_counts = phase_mesh(torch, np)
+        if "dist" in phases:
+            d_counts = phase_dist(torch, np)
         if "periphery" in phases:
             p_counts = phase_periphery(torch, np, root)
         if "timings" in phases:
@@ -7174,6 +7830,11 @@ def main(argv=None) -> int:
                           if name in c}
                     rows[i]["mesh"] = {"launches": sum(by.values()),
                                        "by_part": by}
+            if d_counts is not None and "serve" in d_counts:
+                # K1 and K2 on the data 2 x tp 2 replica of phase 9f (e)
+                for i, name in ((0, "paged_decode_attention"),
+                                (1, "paged_verify_attention")):
+                    rows[i]["dist"] = {"launches": d_counts["serve"][name]}
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",
@@ -7201,6 +7862,13 @@ def main(argv=None) -> int:
                     # (b)): data, model and pipeline axes
                     by = {p: c[name] for p, c in m_counts["train"].items()}
                     rows[-1]["mesh"] = {"launches": sum(by.values()),
+                                        "by_part": by}
+                if d_counts is not None:
+                    # the same kernel in the cross-process workers of
+                    # phase 9f, summed over the workers of each part
+                    by = {p: c[name] for p, c in d_counts.items()
+                          if name in c}
+                    rows[-1]["dist"] = {"launches": sum(by.values()),
                                         "by_part": by}
                 if p_counts is not None:
                     # the same kernel under the ui listeners on Gpt()

@@ -15,7 +15,7 @@ from deeplearning4j_torch.parallel.inference import ParallelInference
 from deeplearning4j_torch.parallel.generation_server import GenerationServer
 from deeplearning4j_torch.parallel.kv_tiering import HostKVTier
 from deeplearning4j_torch.parallel.distributed import (
-    global_mesh, host_local_batch_to_global, initialize)
+    global_devices, global_mesh, host_local_batch_to_global, initialize)
 from deeplearning4j_torch.parallel.checkpoint import (CheckpointListener,
                                                       ShardedCheckpointer)
 from deeplearning4j_torch.parallel import elastic
@@ -32,7 +32,8 @@ from deeplearning4j_torch.parallel.scaling import (  # noqa: E402
 
 __all__ = ["MeshConfig", "ShardedTrainer", "ParallelInference",
            "GenerationServer", "HostKVTier",
-           "initialize", "initialize_distributed", "global_mesh",
+           "initialize", "initialize_distributed", "global_devices",
+           "global_mesh",
            "host_local_batch_to_global", "ShardedCheckpointer",
            "CheckpointListener", "ring_attention", "ring_self_attention",
            "gpipe_apply", "stack_block_params", "PipelinedTransformerLM",

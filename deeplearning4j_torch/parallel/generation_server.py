@@ -132,7 +132,7 @@ import queue
 import threading
 import time
 from collections import OrderedDict, namedtuple
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -480,9 +480,40 @@ _AdmitPlan = namedtuple("_AdmitPlan", ("phys", "matched", "hashes",
                         defaults=((), 0, (), 0))
 
 
+class RowState:
+    """The per-slot device state of a slice with several data rows, placed
+    as the reference's ``put_batch`` places it (the slot axis on
+    ``data``): ``rows[r]`` is a dict of row r's slots ``[r*n, (r+1)*n)``
+    on that row's first device.  The tick runs each row on its own dict;
+    a key read (``state[key]``) gathers the rows onto ``device`` — the
+    scheduler's host-side reads."""
+
+    def __init__(self, rows, device):
+        self.rows = list(rows)
+        self.device = device
+        self.n = int(self.rows[0]["pos"].shape[0])
+
+    def __getitem__(self, key) -> torch.Tensor:
+        return torch.cat([r[key].to(self.device) for r in self.rows])
+
+    def split(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A [B, ...] tensor's slots, row by row on each row's device."""
+        n = self.n
+        return [t[r * n:(r + 1) * n].to(row["pos"].device)
+                for r, row in enumerate(self.rows)]
+
+    def map_rows(self, fn) -> "RowState":
+        """``fn(row dict, slot mask piece)`` per row -> a new state."""
+        return RowState([fn(r, row) for r, row in enumerate(self.rows)],
+                        self.device)
+
+
 def _kill_slots(state, mask):
     """Zero the remaining budget of masked slots — the device-side
     early-kill for cancelled / deadline-expired requests."""
+    if isinstance(state, RowState):
+        parts = state.split(mask)
+        return state.map_rows(lambda r, row: _kill_slots(row, parts[r]))
     return dict(state, remaining=torch.where(
         mask, torch.zeros_like(state["remaining"]), state["remaining"]))
 
@@ -808,8 +839,38 @@ class GenerationServer:
         else:
             kc = torch.zeros(shape, dtype=cd, device=dev)
             vc = torch.zeros(shape, dtype=cd, device=dev)
+        if len(self._rows) > 1:
+            # the per-slot state of each data row on that row's device
+            # (the reference's put_batch); the tick reads it in place
+            n = B // len(self._rows)
+            state = RowState([self._slot_state(n, ctx.devices[0])
+                              for ctx in self._rows], dev)
+        else:
+            state = self._slot_state(B, dev)
+        with self._lock:
+            self._kc, self._vc, self._state = kc, vc, state
+            self._mark_commit_locked()
+            self._blocks_free = list(range(self.kv_blocks, 0, -1))
+            self._block_ref = np.zeros((nb,), np.int64)
+            self._prefix_map = {}        # chain hash -> (pool block id,
+                                         #  block token bytes — verified
+                                         #  on every hit)
+            self._block_hash = {}        # pool block id -> chain hash
+            self._evictable = OrderedDict()   # cached ref-0 blocks, LRU
+            self._slot_blocks = {}       # slot -> [pool block ids]
+            # the DRAFT's prefix cache: same chain hashes, its own map —
+            # a block holds either target KV or draft KV, never both;
+            # _draft_cached marks the _block_hash entries of this domain
+            # (draft blocks never spill: the tier holds target blocks)
+            self._dprefix_map = {}       # chain hash -> (blk, tok)
+            self._draft_cached = set()
+        _POOL_FREE.set(self.kv_blocks)
+        _POOL_EVICTABLE.set(0)
+
+    def _slot_state(self, B: int, dev) -> dict:
+        """Fresh per-slot device state of ``B`` slots on ``dev``."""
         i32 = dict(dtype=torch.int32, device=dev)
-        state = {
+        return {
             "pos": torch.zeros((B,), **i32),           # next write index
             "remaining": torch.zeros((B,), **i32),     # tokens to emit
             "eos": torch.full((B,), -1, **i32),        # -1 disables
@@ -832,25 +893,6 @@ class GenerationServer:
             # fills the first draft.n_layers pool layers of these blocks
             "dtable": torch.zeros((B, self.max_blocks), **i32),
         }
-        with self._lock:
-            self._kc, self._vc, self._state = kc, vc, state
-            self._mark_commit_locked()
-            self._blocks_free = list(range(self.kv_blocks, 0, -1))
-            self._block_ref = np.zeros((nb,), np.int64)
-            self._prefix_map = {}        # chain hash -> (pool block id,
-                                         #  block token bytes — verified
-                                         #  on every hit)
-            self._block_hash = {}        # pool block id -> chain hash
-            self._evictable = OrderedDict()   # cached ref-0 blocks, LRU
-            self._slot_blocks = {}       # slot -> [pool block ids]
-            # the DRAFT's prefix cache: same chain hashes, its own map —
-            # a block holds either target KV or draft KV, never both;
-            # _draft_cached marks the _block_hash entries of this domain
-            # (draft blocks never spill: the tier holds target blocks)
-            self._dprefix_map = {}       # chain hash -> (blk, tok)
-            self._draft_cached = set()
-        _POOL_FREE.set(self.kv_blocks)
-        _POOL_EVICTABLE.set(0)
 
     def _mark_commit_locked(self) -> None:
         """Record a CUDA event behind the dispatch just committed (caller
@@ -1575,27 +1617,40 @@ class GenerationServer:
 
         return pick_sampled if sampled else pick_greedy
 
-    def _by_rows(self, step, params_rows, kc, vc, *rows):
+    def _row_step(self, step, params_rows, kc, vc, r: int = 0):
         """``step(*params, kc, vc, *rows, shard)`` — a decode step or a
-        verify pass of the generator; its logits — over the slice's data
-        rows: row r runs slots ``[r*B/data, (r+1)*B/data)`` (its rows of
-        every per-slot argument, on its devices) with its own placement
-        of the params, reading its replica of the pool (the pool writes
-        reach every replica); the logits come back in slot order on the
-        first device.  One call when the slice has one data row."""
-        shard = self._shard
-        if shard is None or shard.data == 1:
-            return step(*params_rows[0], kc, vc, *rows, shard)[0]
-        n = self.n_slots // shard.data
-        out = []
-        for r, ctx in enumerate(self._rows):
-            dev = ctx.devices[0]
-            part = [a[r * n:(r + 1) * n].to(dev) for a in rows]
-            out.append(step(*params_rows[r], kc.for_row(r), vc.for_row(r),
-                            *part, ctx)[0].to(self.device))
-        return torch.cat(out)
+        verify pass of the generator — bound to data row ``r``: that
+        row's placement of the params, its replica of the pool (the pool
+        writes reach every replica) and its ctx; called on the row's own
+        per-slot tensors, it returns their logits on the row's device."""
+        if len(self._rows) == 1:
+            ctx = self._shard
+        else:
+            ctx, kc, vc = self._rows[r], kc.for_row(r), vc.for_row(r)
+        params = params_rows[r]
+        return lambda *rows: step(*params, kc, vc, *rows, ctx)[0]
+
+    def _each_row(self, state, run):
+        """``run(r, row state)`` -> (new row state, *[B_r, ...] outputs)
+        over the slice's data rows: each row on its own state (a
+        :class:`RowState`) with no copy in; the outputs come back in
+        slot order on the first device.  One call without data rows."""
+        if not isinstance(state, RowState):
+            return run(0, state)
+        parts = [run(r, row) for r, row in enumerate(state.rows)]
+        out = [RowState([p[0] for p in parts], state.device)]
+        for i in range(1, len(parts[0])):
+            out.append(torch.cat([p[i].to(state.device) for p in parts]))
+        return tuple(out)
 
     def _decode_scan(self, K: int, sampled: bool, kc, vc, state):
+        """K decode ticks over every data row (:meth:`_decode_row`)."""
+        gen = self._gen
+        return self._each_row(state, lambda r, st: self._decode_row(
+            K, sampled, self._row_step(gen._step_paged, self._params_rows,
+                                       kc, vc, r), st))
+
+    def _decode_row(self, K: int, sampled: bool, step, state):
         """K decode ticks back to back on the device, nothing read back:
         each tick samples every active slot's next token from its held
         logits, writes it at the slot's (block, offset) through its table
@@ -1608,7 +1663,6 @@ class GenerationServer:
         Returns ``(state, tokens [B, K], emitted [B])`` — ``emitted``
         counts each slot's live ticks so the host unpacks exactly the
         tokens that were really generated."""
-        gen = self._gen
         pick = self._sampler(sampled)
         bs = self.block_size
         emitted = torch.zeros_like(state["remaining"])
@@ -1621,8 +1675,7 @@ class GenerationServer:
             bidx = tbl.gather(1, (pos // bs).long()[:, None])[:, 0]
             wblk = torch.where(active, bidx, 0)
             woff = torch.where(active, pos % bs, 0)
-            new_logits = self._by_rows(gen._step_paged, self._params_rows,
-                                       kc, vc, tok, pos, tbl, wblk, woff)
+            new_logits = step(tok, pos, tbl, wblk, woff)
             hit_eos = active & (tok == state["eos"])
             remaining = torch.where(active, state["remaining"] - 1, 0)
             remaining = torch.where(hit_eos, 0, remaining)
@@ -1640,6 +1693,21 @@ class GenerationServer:
 
     def _spec_rounds(self, R: int, K: int, sampled: bool, kc, vc, state,
                      kcap):
+        """R speculative rounds over every data row
+        (:meth:`_spec_row`)."""
+        gen, dgen = self._gen, self._spec.draft.gen
+        d = self._spec.draft.n_layers
+        kcaps = (state.split(kcap) if isinstance(state, RowState)
+                 else [kcap])
+        return self._each_row(state, lambda r, st: self._spec_row(
+            R, K, sampled,
+            self._row_step(dgen._step_paged, self._draft_rows, kc[:d],
+                           vc[:d], r),
+            self._row_step(gen._verify_rows_paged, self._params_rows, kc,
+                           vc, r), st, kcaps[r]))
+
+    def _spec_row(self, R: int, K: int, sampled: bool, draft_step,
+                  verify_step, state, kcap):
         """R speculative rounds back to back on the device, nothing read
         back (the speculative analogue of ``_decode_scan``).  ``K`` is the
         dispatch's draft depth (the pool max), ``kcap`` [B] int32 each
@@ -1667,11 +1735,9 @@ class GenerationServer:
         accepted [B])`` — committed tokens staged at each slot's cursor,
         per-slot commit counts, and per-slot proposal tallies (proposals
         that could commit: past a committed EOS nothing counts)."""
-        gen, dgen = self._gen, self._spec.draft.gen
-        d = self._spec.draft.n_layers
-        kcd, vcd = kc[:d], vc[:d]           # the draft's pool layers
         pick = self._sampler(sampled)
-        W, bs, B, dev = K + 1, self.block_size, self.n_slots, self.device
+        B, dev = state["pos"].shape[0], state["pos"].device
+        W, bs = K + 1, self.block_size
         jidx = torch.arange(W, device=dev)[None, :]
         rows = torch.arange(B, device=dev)
         zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -1690,10 +1756,8 @@ class GenerationServer:
                 ok = active & (j < rem)
                 p = torch.where(ok, pos + j, 0)
                 bidx = dtbl.gather(1, (p // bs).long()[:, None])[:, 0]
-                lg = self._by_rows(
-                    dgen._step_paged, self._draft_rows, kcd, vcd, tok, p,
-                    dtbl, torch.where(ok, bidx, 0),
-                    torch.where(ok, p % bs, 0))
+                lg = draft_step(tok, p, dtbl, torch.where(ok, bidx, 0),
+                                torch.where(ok, p % bs, 0))
                 consumed.append(tok)
                 if j == K:               # the discarded last proposal
                     break
@@ -1712,8 +1776,7 @@ class GenerationServer:
             okv = active[:, None] & (jidx < rem[:, None])
             p = pos[:, None] + jidx
             bidx = tbl.gather(1, torch.where(okv, p // bs, 0).long())
-            G = self._by_rows(
-                gen._verify_rows_paged, self._params_rows, kc, vc,
+            G = verify_step(
                 torch.where(okv, v, 0), torch.where(active, pos, 0),
                 torch.where(okv, p, 0), tbl, torch.where(okv, bidx, 0),
                 torch.where(okv, p % bs, 0))
@@ -1784,12 +1847,17 @@ class GenerationServer:
     def _arm_slot(self, state, logits, slot, req, plan):
         """Slot device-state update shared by both admission paths (on
         copies of the [B] tensors — a concurrent reader of the committed
-        state never sees a half-armed slot)."""
+        state never sees a half-armed slot).  With data rows only the
+        slot's row is copied and armed."""
+        if isinstance(state, RowState):
+            r, i = divmod(slot, state.n)
+            return state.map_rows(lambda j, row: row if j != r else
+                                  self._arm_slot(row, logits, i, req, plan))
         st = {k: v.clone() for k, v in state.items()}
         st["pos"][slot] = req.t0
         st["remaining"][slot] = req.n_new
         st["eos"][slot] = req.eos_id
-        st["logits"][slot] = logits[0]
+        st["logits"][slot] = logits[0].to(st["logits"].device)
         st["seed"][slot] = req.seed
         st["temp"][slot] = req.temperature
         st["tk"][slot] = req.top_k
@@ -1798,7 +1866,7 @@ class GenerationServer:
         for key, ids in (("table", plan.phys), ("dtable", plan.dphys)):
             row = np.zeros((self.max_blocks,), np.int32)
             row[:len(ids)] = ids
-            st[key][slot] = torch.as_tensor(row, device=self.device)
+            st[key][slot] = torch.as_tensor(row, device=st[key].device)
         return st
 
     def _scatter_ids(self, ids, n: int):
@@ -2070,10 +2138,20 @@ class GenerationServer:
         fills = {"pos": 0, "remaining": 0, "eos": -1, "logits": 0.0,
                  "seed": 0, "temp": 0.0, "tk": self._vocab, "tp": 1.0,
                  "rawlg": False, "table": 0, "dtable": 0}
-        state = {}
-        for key, x in self._state.items():
-            mm = m.view(-1, *([1] * (x.dim() - 1)))
-            state[key] = torch.where(mm, x, torch.full_like(x, fills[key]))
+
+        def keep_rows(row, m):
+            out = {}
+            for key, x in row.items():
+                mm = m.view(-1, *([1] * (x.dim() - 1)))
+                out[key] = torch.where(mm, x,
+                                       torch.full_like(x, fills[key]))
+            return out
+        state = self._state
+        if isinstance(state, RowState):
+            parts = state.split(m)
+            state = state.map_rows(lambda r, row: keep_rows(row, parts[r]))
+        else:
+            state = keep_rows(state, m)
         self._kc, self._vc, self._state = kc, vc, state
         self._mark_commit_locked()
         return bmask

@@ -15,6 +15,14 @@ never alias), so one card runs the sharded math with real gathers and
 sums.  The reference's meshes are built over distinct devices; the
 repeated device is the port's deliberate addition.
 
+A mesh may span processes, as the reference's global mesh does: built
+over ``distributed.global_devices()`` (one :class:`ProcessDevice` per
+device of every process), each coordinate knows its owning process
+(``owners``) and each process holds the ``torch.device`` of its own
+coordinates only (None elsewhere).  A :class:`TpLeaf` whose model axis
+crosses processes holds this process's shard alone and does its
+collectives through an ``AxisGroup`` (Megatron's pairs below).
+
 Serving (:func:`serving_mesh` + :class:`TpShardCtx`) carries ONE
 replica's slice as a ``("data", "tp")`` mesh: the KV pool shards its
 head axis along ``tp``, block weights their OUTPUT columns, and
@@ -57,18 +65,44 @@ def default_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+@dataclasses.dataclass(frozen=True)
+class ProcessDevice:
+    """One device of a multi-process job: the ``process`` that owns it
+    and, in that process alone, its ``torch.device`` (None in every
+    other process)."""
+    process: int
+    device: Optional[torch.device] = None
+
+
 def _device_array(devices, shape) -> np.ndarray:
     arr = np.empty(len(devices), dtype=object)
     for i, d in enumerate(devices):
-        arr[i] = torch.device(d)
+        if isinstance(d, ProcessDevice):
+            d = d.device
+        arr[i] = None if d is None else torch.device(d)
     return arr.reshape(shape)
+
+
+def _owner_array(devices, shape) -> Optional[np.ndarray]:
+    """The owning process per coordinate of a global device list, or None
+    for a list of this process's devices."""
+    if not any(isinstance(d, ProcessDevice) for d in devices):
+        return None
+    if not all(isinstance(d, ProcessDevice) for d in devices):
+        raise ValueError("a device list mixes ProcessDevice entries with "
+                         "plain devices")
+    return np.asarray([d.process for d in devices],
+                      dtype=np.int64).reshape(shape)
 
 
 class Mesh:
     """An array of ``torch.device``s with named axes (the reference's
-    ``jax.sharding.Mesh``)."""
+    ``jax.sharding.Mesh``).  ``owners`` (same shape, int) gives the
+    process of each coordinate when the mesh spans processes; a foreign
+    coordinate's device is None."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 owners: Optional[np.ndarray] = None):
         devices = np.asarray(devices, dtype=object) \
             if isinstance(devices, np.ndarray) else devices
         if not isinstance(devices, np.ndarray):
@@ -78,6 +112,25 @@ class Mesh:
             raise ValueError(f"{devices.ndim}-d device array for axes "
                              f"{self.axis_names}")
         self.devices = devices
+        self.owners = None if owners is None else \
+            np.asarray(owners, dtype=np.int64).reshape(devices.shape)
+
+    @property
+    def spans_processes(self) -> bool:
+        """True when more than one process owns a coordinate."""
+        return self.owners is not None and \
+            len(np.unique(self.owners)) > 1
+
+    def local_coords(self, name: str) -> List[int]:
+        """The coordinates along ``name`` that this process holds ([0]
+        for an axis the mesh lacks)."""
+        if name not in self.axis_names:
+            return [0]
+        ax = self.axis_names.index(name)
+        held = np.vectorize(lambda d: d is not None, otypes=[bool])(
+            self.devices)
+        return [int(i) for i in np.nonzero(held.any(
+            axis=tuple(a for a in range(held.ndim) if a != ax)))[0]]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -97,7 +150,10 @@ class Mesh:
         return self.devices[idx]
 
     def __repr__(self):
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
+        owners = "" if self.owners is None else \
+            f", owners={self.owners.reshape(-1).tolist()}"
+        return (f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]}"
+                f"{owners})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +175,9 @@ class MeshConfig:
         return self.data * self.model * self.pipeline * self.sequence
 
     def build(self, devices=None) -> Mesh:
+        """The mesh over ``devices`` (default: this process's CUDA
+        devices); a global list (``distributed.global_devices()``) builds
+        a mesh whose axes may cross processes."""
         devices = list(devices) if devices is not None else \
             default_devices()
         n = self.total()
@@ -130,7 +189,8 @@ class MeshConfig:
         sizes = [size for _, size in self.axis_sizes() if size > 1]
         if not names:
             names, sizes = ["data"], [1]
-        return Mesh(_device_array(devices[:n], tuple(sizes)), names)
+        return Mesh(_device_array(devices[:n], tuple(sizes)), names,
+                    _owner_array(devices[:n], tuple(sizes)))
 
     @staticmethod
     def data_parallel(n_devices: Optional[int] = None) -> "MeshConfig":
@@ -163,6 +223,60 @@ def _own_copy(t: torch.Tensor, device) -> torch.Tensor:
     return out.clone() if out.data_ptr() == t.data_ptr() else out
 
 
+class _ToGroup(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; the backward sums the
+    gradient over the group, so a replicated input of a sharded product
+    gets every shard's share."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum(g.contiguous()), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Megatron's ``g``: every process's block concatenated along ``dim``
+    in coordinate order; the backward keeps this process's slice."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, t.shape[dim]
+        return torch.cat(group.gather(t.contiguous()), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.group.index * ctx.n, ctx.n)
+                .contiguous(), None, None)
+
+
+class _SumShards(torch.autograd.Function):
+    """The sum of every process's partial product in coordinate order (the
+    single-process shard order, so both meshes add alike); the backward
+    is the identity."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return group.sum(t.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_blocks(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Differentiable all-gather of ``t`` over ``group`` along ``dim``."""
+    return _GatherShards.apply(t, group, dim % t.ndim)
+
+
+def to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity whose backward sums over ``group`` (Megatron's ``f``)."""
+    return _ToGroup.apply(x, group)
+
+
 class TpLeaf:
     """A weight split over the tensor-parallel devices: ``shards`` split
     by columns (``col``) or rows (``row``).  ``x @ W`` runs each shard's
@@ -173,17 +287,28 @@ class TpLeaf:
     functions, attributes) sees the gathered tensor, so a layer's code
     runs on it unchanged.  The mesh trainer hands these to the forward;
     the sharded decode tick holds its embedding, head and MLP weights
-    as these."""
+    as these.
 
-    def __init__(self, shards: List[torch.Tensor], kind: str):
+    With a ``group`` (a model axis across processes) ``shards`` is this
+    process's one shard and every collective crosses the processes:
+    the input passes Megatron's ``f`` (its gradient summed over the
+    group), a column product is all-gathered (the backward keeps this
+    process's columns), a row product and a row lookup are summed over
+    the group (identity backward)."""
+
+    def __init__(self, shards: List[torch.Tensor], kind: str, group=None):
         self.shards = shards
         self.kind = kind
         self.axis = -1 if kind == "col" else 0
+        self.group = group
 
     @property
     def shape(self):
         s = list(self.shards[0].shape)
-        s[self.axis] = sum(t.shape[self.axis] for t in self.shards)
+        if self.group is not None:
+            s[self.axis] *= self.group.size
+        else:
+            s[self.axis] = sum(t.shape[self.axis] for t in self.shards)
         return torch.Size(s)
 
     @property
@@ -204,18 +329,28 @@ class TpLeaf:
     def full(self, device=None) -> torch.Tensor:
         """The gathered tensor (a differentiable concatenation)."""
         dev = self.device if device is None else device
+        if self.group is not None:
+            return gather_blocks(self.shards[0], self.group,
+                                 self.axis).to(dev)
         return torch.cat([s.to(dev) for s in self.shards], self.axis)
 
     def to(self, *args, **kwargs):
         dtypes = [a for a in args if isinstance(a, torch.dtype)]
         if len(dtypes) == len(args) and set(kwargs) <= {"dtype"}:
             return TpLeaf([s.to(*args, **kwargs) for s in self.shards],
-                           self.kind)
+                          self.kind, self.group)
         return self.full().to(*args, **kwargs)
 
     def matmul_from_left(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ W``: column shards' products concatenated, or row shards'
         partial products added in shard order."""
+        if self.group is not None:
+            s, g = self.shards[0], self.group
+            x = to_group(x, g)
+            if self.kind == "col":
+                return gather_blocks(x @ s, g, -1)
+            n = s.shape[0]
+            return _SumShards.apply(x.narrow(-1, g.index * n, n) @ s, g)
         if self.kind == "col":
             return torch.cat([(x.to(s.device) @ s).to(x.device)
                               for s in self.shards], -1)
@@ -226,19 +361,27 @@ class TpLeaf:
             acc = part if acc is None else acc + part
         return acc
 
+    @staticmethod
+    def _rows_in(s, idx, lo):
+        n = s.shape[0]
+        i = idx.to(s.device)
+        inside = (i >= lo) & (i < lo + n)
+        part = s[torch.where(inside, i - lo, torch.zeros_like(i))]
+        return part * inside[..., None].to(part.dtype)
+
     def take_rows(self, idx: torch.Tensor) -> torch.Tensor:
         """``W[idx]`` of a row-split table: each vocab shard's rows where
         the id falls in its range, zeros elsewhere, added up."""
+        if self.group is not None:
+            s = self.shards[0]
+            return _SumShards.apply(
+                self._rows_in(s, idx, self.group.index * s.shape[0]),
+                self.group)
         acc, lo = None, 0
         for s in self.shards:
-            n = s.shape[0]
-            i = idx.to(s.device)
-            inside = (i >= lo) & (i < lo + n)
-            part = s[torch.where(inside, i - lo, torch.zeros_like(i))]
-            part = part * inside[..., None].to(part.dtype)
-            part = part.to(idx.device)
+            part = self._rows_in(s, idx, lo).to(idx.device)
             acc = part if acc is None else acc + part
-            lo += n
+            lo += s.shape[0]
         return acc
 
     def __getitem__(self, idx):

@@ -13,6 +13,15 @@ through the schedule (the copies are differentiable), so the GPipe
 backward falls out as in the reference.  Values equal sequential block
 application; the bubble fraction is (S-1)/(S-1+n_micro).
 
+When the pipe axis crosses processes (a mesh over
+``distributed.global_devices()``), each process runs its own stage
+(:func:`gpipe_stage`): stage 0 splits the batch, every stage hands each
+microbatch's activations to the next stage's process as soon as they
+are ready (``send``/``recv``, staged through the host under gloo), and
+the backward runs from the last stage down, each stage sending its
+inputs' gradients back (``parallel.trainer``).  The reference's
+``lax.ppermute`` carries the same hand-offs.
+
 Scope as in the reference: homogeneous stacks (N identical blocks);
 N must divide by the stage count.
 """
@@ -92,6 +101,32 @@ def gpipe_schedule(stage_fns: Sequence[Callable], stage_devices,
             if 0 <= m < n_micro:
                 micro[m] = stage_fns[s](micro[m].to(stage_devices[s]))
     return torch.cat(micro, 0)
+
+
+def gpipe_stage(stage_fn: Callable, group, x: Optional[torch.Tensor],
+                n_micro: int, device):
+    """This process's stage of the GPipe schedule across processes:
+    ``group`` is the pipeline ``AxisGroup`` (its ``index`` the stage).
+    Stage 0 splits ``x`` [B, ...] into ``n_micro`` microbatches; every
+    later stage receives them from the previous stage's process (leaves
+    that require grad).  Each microbatch's output goes on to the next
+    stage as soon as it is computed.  Returns ``(inputs, outputs)``: the
+    received activations ([] on stage 0) and this stage's outputs, one
+    per microbatch."""
+    s, S = group.index, group.size
+    micro = list(torch.split(x, x.shape[0] // n_micro)) if s == 0 else None
+    ins, outs = [], []
+    for m in range(n_micro):
+        if s == 0:
+            h = micro[m]
+        else:
+            h = group.recv(s - 1, device).requires_grad_(True)
+            ins.append(h)
+        y = stage_fn(h)
+        if s < S - 1:
+            group.send(y.detach(), s + 1)
+        outs.append(y)
+    return ins, outs
 
 
 def check_pipeline(n_blocks: int, S: int, B: int, n_micro: int,

@@ -17,6 +17,15 @@ function over lists of per-shard blocks; ``ring_self_attention(mesh, q,
 k, v, mask)`` splits [b, h, t, d] tensors over the mesh's 'sequence'
 axis (and the batch over 'data' when the mesh has one), runs the ring
 and returns the full output on q's device.
+
+When the 'sequence' axis crosses processes (a mesh over
+``distributed.global_devices()``), each process keeps its Q block and
+passes its K/V block to the next process of the ring through
+:class:`_Rotate`, whose backward passes the gradients the other way —
+``lax.ppermute`` under ``shard_map`` in the reference.  Every process
+gives the full q/k/v and gets the full output; the inputs' gradients are
+summed over the ring (Megatron's ``f``), so each process holds them
+whole.
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from deeplearning4j_torch.parallel.mesh import Mesh
+from deeplearning4j_torch.parallel.mesh import Mesh, gather_blocks, to_group
 
 
 def _block_attend(q, k, v, mask_k, m, l, o):
@@ -75,11 +84,71 @@ def ring_attention(q_blocks: Sequence[torch.Tensor],
     return [o / torch.clamp(l, min=1e-30)[..., None] for _, l, o in state]
 
 
+class _Rotate(torch.autograd.Function):
+    """One ring step: this process's block goes to the next process and
+    the previous one's arrives; the backward sends the gradient back."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.rotate(t, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.rotate(g.contiguous(), -1), None
+
+
+def ring_attention_blocks(group, q, k, v, mask=None) -> torch.Tensor:
+    """The ring over processes: ``q``/``k``/``v`` [b, h, t_i, d] and
+    ``mask`` [b, t_i] are this process's blocks (coordinate
+    ``group.index`` of the sequence); ``group.size`` steps fold the K/V
+    block held, passing it on between steps.  Returns this process's
+    output block."""
+    n = group.size
+    m0 = torch.full(q.shape[:-1], float("-inf"), dtype=q.dtype,
+                    device=q.device)
+    state = (m0, torch.zeros_like(m0), torch.zeros_like(q))
+    for step in range(n):
+        state = _block_attend(q, k, v, mask, *state)
+        if step < n - 1:
+            k, v = _Rotate.apply(k, group), _Rotate.apply(v, group)
+            if mask is not None:
+                mask = group.rotate(mask, 1)
+    _, l, o = state
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _ring_across_processes(mesh, group, q, k, v, mask):
+    from deeplearning4j_torch.parallel import distributed
+    if distributed.mesh_groups(mesh).get("data") is not None:
+        raise ValueError("ring_self_attention over processes keeps the "
+                         "data axis inside each process")
+    n_data = mesh.shape.get("data", 1)
+    q, k, v = (to_group(x, group) for x in (q, k, v))
+    c = group.index
+    outs = []
+    for r in range(n_data):
+        rows = slice(r * q.shape[0] // n_data,
+                     (r + 1) * q.shape[0] // n_data)
+        dev = mesh.device(data=r, sequence=c)
+
+        def block(x):
+            return torch.chunk(x[rows], group.size, dim=2)[c].to(dev)
+        mblk = None if mask is None else torch.chunk(
+            mask[rows].to(q.dtype), group.size, dim=1)[c].to(dev)
+        o = ring_attention_blocks(group, block(q), block(k), block(v),
+                                  mblk)
+        outs.append(gather_blocks(o, group, 2).to(q.device))
+    return torch.cat(outs, dim=0)
+
+
 def ring_self_attention(mesh: Mesh, q, k, v,
                         mask: Optional[torch.Tensor] = None):
     """q/k/v [b, h, t, d] split over the mesh's 'sequence' axis on t (and
     'data' on b when the mesh has one); returns [b, h, t, d] on q's
-    device."""
+    device.  With a sequence axis across processes (collective: every
+    process of the ring calls it with the same full q/k/v), each process
+    runs its block of the ring."""
     if "sequence" not in mesh.shape:
         raise ValueError(f"mesh {mesh.shape} has no 'sequence' axis")
     n_seq = mesh.shape["sequence"]
@@ -87,6 +156,11 @@ def ring_self_attention(mesh: Mesh, q, k, v,
     if q.shape[2] % n_seq or q.shape[0] % n_data:
         raise ValueError(f"[b={q.shape[0]}, t={q.shape[2]}] does not "
                          f"divide over data={n_data} x sequence={n_seq}")
+    if mesh.spans_processes:
+        from deeplearning4j_torch.parallel import distributed
+        group = distributed.mesh_groups(mesh).get("sequence")
+        if group is not None:
+            return _ring_across_processes(mesh, group, q, k, v, mask)
     outs = []
     for r in range(n_data):
         rows = slice(r * q.shape[0] // n_data,

@@ -30,9 +30,25 @@ collective itself:
   model's own tree is refreshed lazily through ``_param_sync_hook``.
 
 A mesh may repeat a device (``[cuda:0] * 2``): every shard still holds
-tensors of its own.  ``fit`` drives ``optimize.fit_loop.run_fit`` with
-this trainer's step, so tBPTT, listeners, checkpoints and
-``resume=True`` work as on one device.
+tensors of its own.
+
+A mesh may span processes (built over ``distributed.global_devices()``):
+any axis may then cross a process boundary, and each process stores only
+its own shards and their optimizer state.  Along the ``model`` axis the
+``TpLeaf`` collectives cross the processes (Megatron's pairs,
+``parallel.mesh``); along ``pipeline`` each process runs its stage and
+hands activations on and gradients back point to point
+(``pipeline.gpipe_stage``), the last stage broadcasting the loss; along
+``data`` the gradients and the loss are summed over the data group only
+(every model and pipeline rank of a data row computes its own shards'
+gradients whole).  Every sum runs in coordinate order, so every rank —
+and the one-process mesh — adds alike.  Reading the model's tree
+(``sync_model``, a checkpoint) gathers every shard: a collective, called
+on every rank at the same point.
+
+``fit`` drives ``optimize.fit_loop.run_fit`` with this trainer's step,
+so tBPTT, listeners, checkpoints and ``resume=True`` work as on one
+device.
 """
 from __future__ import annotations
 
@@ -56,7 +72,8 @@ from deeplearning4j_torch.parallel.mesh import (MeshConfig, P,
                                                 _own_copy)
 from deeplearning4j_torch.parallel.pipeline import (_PIPE_BUBBLE,
                                                     check_pipeline,
-                                                    gpipe_schedule)
+                                                    gpipe_schedule,
+                                                    gpipe_stage)
 from deeplearning4j_torch.resilience.errors import ElasticWorldError
 from deeplearning4j_torch.runtime import spmd
 from deeplearning4j_torch.utils.trees import iter_leaves, map_leaves
@@ -157,7 +174,26 @@ def _is_tp_node(node) -> bool:
 
 
 def _tp_shards(node) -> List[torch.Tensor]:
-    return [node[f"{_TP}{c}"] for c in range(len(node))]
+    """A TP node's shards in coordinate order (this process's alone when
+    the model axis crosses processes)."""
+    return [node[k] for k in sorted(node, key=lambda k: int(k[len(_TP):]))]
+
+
+_ABSENT = object()      # a leaf another pipeline stage's process holds
+
+
+class _SumBoth(torch.autograd.Function):
+    """A differentiable sum over a process group: the sum forward and
+    backward (batch norm's statistics over the data group)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.sum(t.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum(g.contiguous()), None
 
 
 class ShardedTrainer:
@@ -177,10 +213,10 @@ class ShardedTrainer:
         self.mesh_conf = mesh_conf or MeshConfig.data_parallel()
         self.mesh = self.mesh_conf.build(devices)
         self.tp = self.mesh_conf.model
-        self.n_data = self.mesh_conf.data
         self.n_micro = n_micro
         self._procs = distributed.process_count()
         self._proc = distributed.process_index()
+        self._init_axes()
         self._step_counter = _STEPS.labels(worker=self._proc)
         model._check_init()
         model._build_solver(alloc_opt_state=False)
@@ -199,6 +235,45 @@ class ShardedTrainer:
         self._install_hook()
 
     # -- placement -------------------------------------------------------
+    def _init_axes(self):
+        """This process's coordinates and, on a mesh that spans processes,
+        the process group of each axis that crosses them."""
+        mesh = self.mesh
+        groups = distributed.mesh_groups(mesh)    # collective
+        self._dist = mesh.spans_processes
+        self._dcoords = mesh.local_coords("data")
+        self._mcoords = mesh.local_coords("model")
+        self._scoords = mesh.local_coords("pipeline")
+        self._gd = groups.get("data")
+        self._gm = groups.get("model")
+        self._gp = groups.get("pipeline")
+        self._gall = groups.get("*")
+        self.n_data = len(self._dcoords)
+        if self._dist:
+            if self._proc not in set(mesh.owners.reshape(-1).tolist()):
+                raise ValueError(f"process {self._proc} holds no "
+                                 f"coordinate of the mesh {mesh}")
+            if (self._gm or self._gp) and self.n_data > 1:
+                raise ValueError(
+                    "a mesh whose model or pipeline axis crosses "
+                    "processes holds one data coordinate per process")
+            for name, g, held in (("model", self._gm, self._mcoords),
+                                  ("pipeline", self._gp, self._scoords)):
+                if g is not None and len(held) != 1:
+                    raise ValueError(f"the {name} axis crosses processes "
+                                     "with one coordinate each")
+            self._data_total = self.mesh_conf.data
+        else:
+            # a mesh of this process's devices: the data axis repeats
+            # over the processes of the job
+            self._data_total = self.n_data * self._procs
+
+    def _data_index(self, r: int) -> int:
+        """The global data shard of local data shard ``r``."""
+        if self._dist:
+            return self._dcoords[r]
+        return self._proc * self.n_data + r
+
     def _spec_tree(self, tree):
         """PartitionSpec per leaf: the placement record (the reference's
         ``_param_shardings``)."""
@@ -227,36 +302,50 @@ class ShardedTrainer:
                 return (idx - lo) // ((hi - lo) // self.mesh_conf.pipeline)
         return 0
 
-    def _device(self, r: int, c: int = 0, stage: int = 0):
-        return self.mesh.device(data=r, model=c, pipeline=stage)
+    def _device(self, r: int, c: Optional[int] = None,
+                stage: Optional[int] = None):
+        """The device of local data shard ``r`` at model coordinate ``c``
+        and pipeline stage ``stage`` (default: this process's first)."""
+        return self.mesh.device(
+            data=self._dcoords[r],
+            model=self._mcoords[0] if c is None else c,
+            pipeline=self._scoords[0] if stage is None else stage)
 
     def _layout(self, tree, r: int, alias: bool = False):
         """A logical tree (per-layer, or the pipeline's {pre, run, post})
         in storage layout for data shard ``r``: a TP leaf becomes
         ``{"__tp0": shard, ...}`` on its model-axis devices, every leaf
         sits on its stage's device in storage of its own (``alias``: a
-        leaf already there stays the same tensor)."""
+        leaf already there stays the same tensor).  On a mesh that spans
+        processes only this process's shards and stages are kept."""
         def build(node, path):
             if isinstance(node, dict):
-                return {k: build(v, path + (k,)) for k, v in node.items()}
+                out = {k: build(v, path + (k,)) for k, v in node.items()}
+                return {k: v for k, v in out.items() if v is not _ABSENT}
             if not isinstance(node, torch.Tensor):
                 return node
             stage = self._stage_of(path)
+            if stage not in self._scoords:
+                return _ABSENT
             kind = _param_kind(path, tuple(node.shape), self.tp,
                                self._shardable)
             if kind is None:
-                dev = self._device(r, 0, stage)
+                dev = self._device(r, stage=stage)
                 return node.to(dev) if alias else _own_copy(node, dev)
             parts = torch.chunk(node, self.tp, dim=-1 if kind == "col"
                                 else 0)
-            return {f"{_TP}{c}": _own_copy(p.contiguous(),
+            return {f"{_TP}{c}": _own_copy(parts[c].contiguous(),
                                            self._device(r, c, stage))
-                    for c, p in enumerate(parts)}
+                    for c in self._mcoords}
         return build(tree, ())
 
     def _logical(self, tree, device):
         """Storage layout -> logical tree on ``device`` (TP shards
-        concatenated)."""
+        concatenated; every process's shards on a mesh that spans
+        processes — a collective)."""
+        if self._dist:
+            return self._gather_logical(tree, device)
+
         def build(node, path):
             if _is_tp_node(node):
                 shards = [s.to(device) for s in _tp_shards(node)]
@@ -267,6 +356,39 @@ class ShardedTrainer:
             return node.to(device) if isinstance(node, torch.Tensor) \
                 else node
         return build(tree, ())
+
+    def _gather_logical(self, tree, device):
+        """The logical tree of a storage tree whose shards and stages lie
+        on several processes: the data-row-0 processes contribute their
+        leaves (one all-gather over the mesh's processes), TP shards are
+        concatenated in coordinate order, and the result takes this
+        process's skeleton (every layer key, empty subtrees kept)."""
+        import torch.distributed as dist
+        mine = {}
+        if self._dcoords[0] == 0:
+            mine = {path: leaf.detach().to("cpu", copy=True)
+                    for path, leaf in iter_leaves(tree)
+                    if isinstance(leaf, torch.Tensor)}
+        every = [None] * self._gall.size
+        dist.all_gather_object(every, mine, group=self._gall.pg)
+        pieces, whole = {}, {}
+        for got in every:
+            for path, t in got.items():
+                if str(path[-1]).startswith(_TP):
+                    c = int(str(path[-1])[len(_TP):])
+                    pieces.setdefault(path[:-1], {})[c] = t
+                else:
+                    whole[path] = t
+        for path, parts in pieces.items():
+            dim = -1 if _rule(path, self._shardable) == "col" else 0
+            whole[path] = torch.cat([parts[c] for c in sorted(parts)], dim)
+        out = map_leaves(lambda _: None, tree)
+        for path, t in whole.items():
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t.to(device)
+        return out
 
     # -- pipeline --------------------------------------------------------
     def _init_pipelined(self):
@@ -397,7 +519,7 @@ class ShardedTrainer:
                 return node
             return {f"{_TP}{c}": (node.to(self._device(0, c))
                                   if isinstance(node, torch.Tensor)
-                                  else node) for c in range(self.tp)}
+                                  else node) for c in self._mcoords}
         return build(tree, ())
 
     @staticmethod
@@ -415,6 +537,10 @@ class ShardedTrainer:
         if self._pipe is not None:
             # the pipe template's structure and shapes, no data
             canon = self._run_to_blocks(
+                self._updater.init_state(map_leaves(
+                    lambda t: t.to("meta"),
+                    self._pipe_split(self.model.params_tree)))
+                if self._dist else
                 self._logical(fresh, torch.device("meta")))
             if elastic.opt_layout(restored) == "layers":
                 converted = elastic.convert_opt_layout(restored, canon)
@@ -493,7 +619,7 @@ class ShardedTrainer:
         feeds the identical global batch; process p keeps rows
         [p*B/P, (p+1)*B/P) and splits them over its data shards).
         Returns one batch dict per local data shard, on its device."""
-        shards = self.n_data * self._procs
+        shards = self._data_total
 
         def split(v, r, dev):
             if isinstance(v, dict):
@@ -511,7 +637,7 @@ class ShardedTrainer:
                         "per-rank microbatches, which only works in "
                         "whole examples")
                 n = t.shape[0] // shards
-                k = self._proc * self.n_data + r
+                k = self._data_index(r)
                 t = t[k * n:(k + 1) * n]
             return t.to(dev)
         return [split(batch, r, self._device(r)) for r in
@@ -526,7 +652,8 @@ class ShardedTrainer:
                 shards = [s.detach().requires_grad_(True)
                           for s in _tp_shards(node)]
                 leaves.extend(shards)
-                return TpLeaf(shards, _rule(path, self._shardable))
+                return TpLeaf(shards, _rule(path, self._shardable),
+                              self._gm)
             if isinstance(node, dict):
                 return {k: build(node[k], path + (k,))
                         for k in sorted(node)}
@@ -568,9 +695,33 @@ class ShardedTrainer:
         return build(states)
 
     def _process_sum(self, tensors):
-        """Differentiable sum over the processes (batch norm's sums)."""
+        """Differentiable sum over the processes of the data axis (batch
+        norm's sums)."""
+        if self._dist:
+            return [_SumBoth.apply(t, self._gd) for t in tensors]
         import torch.distributed.nn.functional as dfn
         return [dfn.all_reduce(t) for t in tensors]
+
+    def _data_sum(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum over the data group of a mesh that spans processes, one
+        flat bucket per dtype, in data-coordinate order."""
+        if self._gd is None:
+            return list(tensors)
+        out = list(tensors)
+        by_dtype = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = self._gd.sum(torch.cat(
+                [tensors[i].reshape(-1).to(tensors[idx[0]].device)
+                 for i in idx]))
+            off = 0
+            for i in idx:
+                n = tensors[i].numel()
+                out[i] = flat[off:off + n].view_as(tensors[i]) \
+                    .to(tensors[i].device)
+                off += n
+        return out
 
     def _forward_backward(self, shards: List[dict], rng, pipe: bool):
         """Every data shard's forward (in lockstep threads), one backward
@@ -579,19 +730,21 @@ class ShardedTrainer:
         m = self.model
         n_rows = next(t for _, t in iter_leaves(shards[0])
                       if isinstance(t, torch.Tensor)).shape[0]
-        total = n_rows * self.n_data * self._procs
+        total = n_rows * self._data_total
         group = spmd.Lockstep(self.n_data)
         lives = [self._live(s) for s in self._store]
+        if pipe and self._gp is not None:
+            return self._pipe_stage_step(lives[0], shards[0], n_rows)
         states = (None if pipe else
                   self._shard_states(m.state_tree, n_rows))
-        psum = self._process_sum if self._procs > 1 else None
+        psum = (self._process_sum if (self._gd is not None if self._dist
+                                      else self._procs > 1) else None)
 
         def body(r):
             info = spmd.ShardRows(
-                rank=r,
-                offset=(self._proc * self.n_data + r) * n_rows,
+                rank=r, offset=self._data_index(r) * n_rows,
                 rows=n_rows, total=total,
-                lead=(r == 0 and self._proc == 0), group=group,
+                lead=self._data_index(r) == 0, group=group,
                 process_sum=psum)
 
             def run():
@@ -625,7 +778,10 @@ class ShardedTrainer:
                 acc = g if acc is None else acc + g
             summed.append(acc)
         loss = loss.detach()
-        if distributed.group_live():
+        if self._dist:
+            summed = self._data_sum(summed)
+            loss = self._data_sum([loss])[0]
+        elif distributed.group_live():
             # the gradient all-reduce after the local shard sum (a joined
             # process group of one world still takes it: the collective
             # path is the same)
@@ -634,6 +790,86 @@ class ShardedTrainer:
         new_state = None if pipe else self._merge_states(
             [map_leaves(torch.Tensor.detach, o[1]) for o in outs])
         return loss, summed, new_state
+
+    def _pipe_stage_step(self, live, batch, n_rows):
+        """This process's pipeline stage of one step when the pipeline
+        axis crosses processes: stage 0 runs the pre layers, every stage
+        its blocks under ``gpipe_stage`` (activations on to the next
+        stage's process), the last stage the rest and the loss; the
+        backward runs from the last stage down, each stage receiving its
+        outputs' gradients and sending its inputs' back.  Each stage adds
+        its own layers' regularization.  Returns (loss, grads, None)
+        with the loss broadcast from the last stage and everything
+        summed over the data group."""
+        m = self.model
+        lo, hi = self._pipe
+        gp, S = self._gp, self.mesh_conf.pipeline
+        s = gp.index
+        layers, confs = m.layers, m.conf
+        tree, leaves = live
+        params = {**tree["pre"], **tree["run"], **tree["post"]}
+        cd, state0, dev = m._compute_dtype, m.state_tree, self._device(0)
+        per = (hi - lo) // S
+        check_pipeline(hi - lo, S, n_rows, self.n_micro)
+        sign = 1.0 if self.solver.minimize else -1.0
+
+        def outer(i, x):
+            pre = confs.preprocessors[i]
+            if pre is not None:
+                x = pre(x)
+            return apply_layer(layers[i], params[f"layer_{i}"],
+                               state0[f"layer_{i}"], x, compute_dtype=cd,
+                               training=False, rng=None)[0]
+
+        def stage(h):
+            for i in range(lo + s * per, lo + (s + 1) * per):
+                h = layers[i].apply(params[f"layer_{i}"], h,
+                                    compute_dtype=cd, training=False)
+            return h
+
+        info = spmd.ShardRows(rank=0, offset=self._data_index(0) * n_rows,
+                              rows=n_rows, total=n_rows * self._data_total,
+                              lead=self._data_index(0) == 0)
+        with spmd.shard_scope(info), torch.enable_grad():
+            x = None
+            if s == 0:
+                x = batch["features"].to(dev)
+                for i in range(lo):
+                    x = outer(i, x)
+            ins, outs = gpipe_stage(stage, gp, x, self.n_micro, dev)
+            reg = spmd.regularization_share(m._regularization_score(params))
+            if s == S - 1:
+                x = torch.cat(outs, 0)
+                for i in range(hi, len(layers) - 1):
+                    x = outer(i, x)
+                pre = confs.preprocessors[-1]
+                if pre is not None:
+                    x = pre(x)
+                last = f"layer_{len(layers) - 1}"
+                z = layers[-1].pre_output(params[last], x, cd)
+                scores = layers[-1].per_example_score(
+                    batch["labels"].to(z.device), z, None, head_input=x,
+                    params=params[last])
+                loss = spmd.batch_mean(scores)
+                obj = sign * (loss + reg)
+            else:
+                # the surrogate whose gradient is the received one
+                obj = sum((o.float() * gp.recv(s + 1, dev).float()).sum()
+                          for o in outs) + sign * reg
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+        with torch.enable_grad():
+            grads = torch.autograd.grad(obj, leaves + ins,
+                                        allow_unused=True)
+        for g, h in zip(grads[len(leaves):], ins):
+            gp.send(torch.zeros_like(h) if g is None else g, s - 1)
+        grads = [torch.zeros_like(lf) if g is None else g
+                 for g, lf in zip(grads[:len(leaves)], leaves)]
+        loss = gp.broadcast(loss.detach().float().reshape(1), S - 1)
+        reg_t = torch.as_tensor(reg, dtype=torch.float32, device=dev)
+        loss = (loss + gp.sum(reg_t.detach().reshape(1)))[0]
+        grads = self._data_sum(grads)
+        loss = self._data_sum([loss])[0]
+        return loss, grads, None
 
     def _broadcast(self):
         """The updated master parameters into every other data shard's
@@ -709,7 +945,7 @@ class ShardedTrainer:
         kind = self.solver.grad_normalization
         if not kind or kind == "none":
             return grads
-        if not self._shardable:
+        if not self._shardable and not self._dist:
             return normalize_gradients(grads, kind,
                                        self.solver.grad_norm_threshold)
         logical = self._logical(grads, self._device(0))
@@ -749,12 +985,12 @@ class ShardedTrainer:
                                training=False, rng=None)[0]
 
         x, labels = batch["features"], batch["labels"]
-        x = x.to(self._device(r, 0, 0))
+        x = x.to(self._device(r, stage=0))
         for i in range(lo):
             x = outer(i, x)
         per = (hi - lo) // S
         check_pipeline(hi - lo, S, x.shape[0], self.n_micro)
-        devs = [self._device(r, 0, s) for s in range(S)]
+        devs = [self._device(r, stage=s) for s in range(S)]
 
         def stage(s, h):
             for i in range(lo + s * per, lo + (s + 1) * per):

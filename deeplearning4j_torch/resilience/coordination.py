@@ -301,7 +301,11 @@ class FleetCoordinator:
         different device total than this rank's own mesh means a rank
         re-initialized with a different topology mid-job."""
         from deeplearning4j_torch.parallel import distributed
-        local_view = ((self.mesh.size if self.mesh is not None else 1)
+        # a mesh of this process's devices repeats over the processes; a
+        # global mesh already counts every process's devices
+        local_view = (self.mesh.size if self.mesh is not None
+                      and self.mesh.owners is not None else
+                      (self.mesh.size if self.mesh is not None else 1)
                       * distributed.process_count())
         # every device contributes a 1: the sum is the device total,
         # and the dispatch itself is the barrier (the collective cannot

@@ -500,12 +500,13 @@ def test_global_mesh_and_host_batch(rng):
 
 
 def test_global_mesh_validates_size():
+    """The reference's size check: a mesh whose product is not the job's
+    device count raises ValueError (a model axis wider than a process's
+    devices would span processes in a larger job)."""
     from deeplearning4j_torch.parallel import global_mesh
-    from deeplearning4j_torch.parallel.distributed import (
-        CrossProcessAxisError)
     with pytest.raises(ValueError, match="devices"):
         global_mesh(data=5, model=2, devices=CPU8)
-    with pytest.raises(CrossProcessAxisError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="devices"):
         global_mesh(data=1, model=16, devices=CPU8)
 
 

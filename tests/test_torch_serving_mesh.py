@@ -157,10 +157,11 @@ def test_data2_tp2_streams_equal_tp1_and_jax(net, head_counts):
     """A data = 2 x tp = 2 replica over ``[cpu] * 4``: each data row
     decodes its half of the slots on its own tp pair (K1 on 2 of the 4
     heads, the chunk of the replica's 4 slots and 4 heads) with its own
-    pool replica, and every pool write reaches both replicas; cold
-    admissions and a prefix hit stream as a tp = 1 server's and as the
-    JAX package's server on 4 of its virtual devices at tp = 2, up to
-    near ties."""
+    pool replica, and every pool write reaches both replicas; each row's
+    per-slot state lives on the row's device and its tick reads it in
+    place; cold admissions and a prefix hit stream as a tp = 1 server's
+    and as the JAX package's server on 4 of its virtual devices at tp =
+    2, up to near ties."""
     import jax
     from deeplearning4j_tpu.models.multi_layer_network import (
         MultiLayerNetwork as JMLN)
@@ -183,9 +184,35 @@ def test_data2_tp2_streams_equal_tp1_and_jax(net, head_counts):
         one = serve(srv)
     del head_counts[:]
     with GenerationServer(net, devices=[CPU] * 4, tp=2, **kw) as srv:
+        seen = []
+        inner = srv._row_step
+
+        def row_step(step, params_rows, kc, vc, r=0):
+            fn = inner(step, params_rows, kc, vc, r)
+
+            def spy(*rows):
+                # the block table a row's step reads: its own [2, mb]
+                # tensor, not a view into a [4, mb] one
+                tbl = rows[2]
+                seen.append((r, tbl.shape[0], tbl.untyped_storage()
+                             .nbytes() // tbl.element_size()
+                             // tbl.shape[1]))
+                return fn(*rows)
+            return spy
+        srv._row_step = row_step
         four = serve(srv)
         st = srv.stats()
         kc = srv._kc
+        state = srv._state
+        row_devs = [ctx.devices[0] for ctx in srv._rows]
+    # the per-slot state lives per data row on that row's device, and
+    # each row's tick reads it in place (no per-tick row copy)
+    assert len(state.rows) == 2
+    for r, row in enumerate(state.rows):
+        for key, t in row.items():
+            assert t.shape[0] == 2 and t.device == row_devs[r], key
+    assert {r for r, _, _ in seen} == {0, 1}
+    assert all(n == 2 and rows == 2 for _, n, rows in seen)
     assert st["tp"] == 2 and st["devices"] == ["cpu:0"] * 4
     assert st["prefix_hits"] >= 1
     assert len(kc.replicas) == 2 and all(len(r) == 2 for r in kc.replicas)

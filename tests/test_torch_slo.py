@@ -800,3 +800,66 @@ def test_plane_series_names_match_reference_after_the_same_drive():
             "generation_tokens_total", "generation_seconds",
             "generation_decode_steps_per_sec"} <= got
     assert got == want, (sorted(got - want), sorted(want - got))
+
+
+# ---------------------------------------------------------------------------
+# the real SIGKILL (slow, as the reference's: a subprocess)
+# ---------------------------------------------------------------------------
+@pytest.mark.slow
+def test_sigkill_postmortem_bundle_salvaged(tmp_path):
+    """``tests/test_slo.py``'s SIGKILL case on the port: a server process
+    (``tests/workers/torch_flightrec_worker.py``, no JAX) SIGKILLed
+    mid-decode runs no handlers — the salvaged black-box bundle still
+    holds its admit events and its open decode span, and
+    ``scripts/postmortem.py`` merges them into one timeline."""
+    import signal
+    from deeplearning4j_torch.telemetry import flightrec
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tests", "workers",
+                                      "torch_flightrec_worker.py"),
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    bbdir = os.path.join(str(tmp_path), flightrec.BLACKBOX_DIRNAME)
+    ready = False
+    deadline = time.monotonic() + 180
+    try:
+        while time.monotonic() < deadline and proc.poll() is None:
+            for name in (os.listdir(bbdir) if os.path.isdir(bbdir)
+                         else []):
+                try:
+                    doc = flightrec.load_bundle(os.path.join(bbdir, name))
+                except (OSError, ValueError):
+                    continue               # mid-replace
+                kinds = {e["kind"] for e in doc.get("events", ())}
+                spans = {s["name"] for s in doc.get("open_spans", ())}
+                if "admit" in kinds and "request/decode" in spans:
+                    ready = True
+                    break
+            if ready:
+                break
+            time.sleep(0.05)
+        assert ready, (
+            f"worker never persisted a decode-in-flight black box "
+            f"(rc={proc.poll()}): "
+            f"{proc.stdout.read().decode(errors='replace')[-2000:]}")
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    new = flightrec.salvage_bundles(tmp_path)
+    assert len(new) == 1
+    doc = flightrec.load_bundle(new[0])
+    assert doc["reason"].startswith("salvaged:")
+    assert doc["salvaged"] is True
+    assert "admit" in [e["kind"] for e in doc["events"]]
+    assert "request/decode" in {s["name"] for s in doc["open_spans"]}
+    assert doc["metrics"]["counters"].get(
+        "generation_server_admitted_total", 0) >= 1
+    assert flightrec.salvage_bundles(tmp_path) == []
+    pm = _load_postmortem()
+    txt = pm.render_timeline(pm.merge_timeline(doc, None), doc["reason"])
+    assert "admit" in txt and "request/decode" in txt
