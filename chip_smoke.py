@@ -289,6 +289,21 @@ Phases:
                bound; K4, K5 and K6 again at BERT-base's training shape
                (b 32, t 512, 12 x 64, phase 8(b)'s padding as the bias,
                SDPA with it as a float attn_mask).
+ 10b. wide   — the head dims past 128 (``WIDE_CFG``): (a) timings as in
+               phase 10 of K1 and K2 at 3 heads of 256, and of K3-K6 at
+               b 8, t 2048 causal (K4 at t 512) at 3 heads of 256 and at
+               4 heads of 192 — the bf16 forward on wgmma with 64-key
+               tiles, the backward on FMA tiles; (b) the main path of
+               those builds: default-width zoo.Gpt(n_heads=3) (12 x 768,
+               3 heads of 256, vocab 32000, bf16, seeded weights), b 8:
+               one output() at t 2048 (K3 = 12) and one at t 512 (K4 =
+               12), then 2 fit steps at t 2048 (K3 = K5 = K6 = 12 a step)
+               — each window after a warm-up whose launches' operands are
+               replayed through the kernels against their plain versions,
+               counts from 0; output finite, the loss curve within 1e-3
+               of the same steps on plain attention, ms, tokens/s, peak
+               memory and a profiled step; (c) the
+               same forward at Gpt(n_heads=4) (4 heads of 192), t 2048.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
@@ -308,9 +323,8 @@ padding bias; K6 beside SDPA's backward), and ``k2`` the verify kernel
 at phase 4(b)'s mid contexts with W = 5 beside one SDPA call, three
 medians each, for quick comparisons of kernel versions in turns; ``kbert``
 runs phase 10's BERT-shape timings alone, and ``bertops`` charges one BERT
-main-path step's device time to the PyTorch ops that launched it.  The
-extra phase ``wide`` times the head-dim-256 builds (K1, K2 at 3 heads of
-256; K3-K6 at b 8, 3 heads of 256) beside their plain versions and SDPA.
+main-path step's device time to the PyTorch ops that launched it.
+``--phases build,wide`` runs phase 10b alone.
 """
 from __future__ import annotations
 
@@ -326,9 +340,9 @@ import traceback
 
 PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
           "train", "resume", "rnn", "bert", "resnet", "infer", "samediff",
-          "mesh", "dist", "periphery", "timings")
+          "mesh", "dist", "periphery", "timings", "wide")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
-                "bertops", "wide")  # only when asked
+                "bertops")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -356,7 +370,10 @@ PAGED_TOL = {"K1": {"float32": 1.5e-6, "bfloat16": 3e-2},
 # one ulp (2^-7 relative), and K3 rounds P at each tile's running max
 # where the plain version rounds it at the row's final max: on an H100
 # the largest reading is 1.2e-2 (K3's O at t 2048), the others <= 7.4e-3,
-# f32 <= 4e-6.  A K5 that skips its last query tile reads 1.27.
+# f32 <= 4e-6; at head dims 192 and 256, whose 64-key tiles move the
+# running max twice as often, K3's O reads up to 2.1e-2 (b 8, t 2048,
+# 4 heads of 192) and K4's 7.1e-3.  A K5 that skips its last query tile
+# reads 1.27.
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
 # (head dim, heads) of the K1/K2 cases the fast kernels do not take
@@ -1293,14 +1310,98 @@ def slo_requests(np, vocab, max_len):
     return chat, bulk
 
 
-def wait_until(pred, timeout_s, what, state):
-    """Poll ``pred`` until true; fail with ``state()`` past the deadline."""
+def wait_until(pred, timeout_s, what, state, clock=None):
+    """Poll ``pred`` until true; fail with ``state()`` past the deadline.
+    With a :class:`PlaneClock` the wait moves the plane's timeline
+    instead: one loop interval a poll, ``timeout_s`` on that timeline
+    (the phase's waits with no request in flight)."""
+    if clock is not None:
+        end = clock.monotonic() + timeout_s
+        while not pred():
+            if clock.monotonic() > end:
+                raise AssertionError(f"slo: {what} not reached within "
+                                     f"{timeout_s:g} s of the plane's "
+                                     f"timeline; saw {state()}")
+            clock.advance(clock.interval_s)
+        return
     deadline = time.monotonic() + timeout_s
     while not pred():
         if time.monotonic() > deadline:
             raise AssertionError(f"slo: {what} not reached within "
                                  f"{timeout_s:g} s; saw {state()}")
         time.sleep(0.02)
+
+
+class PlaneClock:
+    """An injected timeline for the control plane, as the CPU rehearsal
+    of this phase runs it (``cfg["clock"]``): ``monotonic()`` and
+    ``time()`` start at the real clocks' readings and move only by
+    :meth:`advance` — called by each serving dispatch during a burst
+    and by the phase's own waits when nothing is in flight — and every
+    ``interval_s`` of it one thread runs one pass of each registered
+    loop (:meth:`add_pass`), in order, while the caller of ``advance``
+    waits.  Handed to the plane's modules as their ``time``, it gives
+    the plane the same timeline however fast the host runs: the
+    recorder, the alert engine, the ladder and the autoscaler see the
+    bursts' events the same number of dispatches apart.  Any other
+    ``time`` attribute is the real module's."""
+
+    def __init__(self, interval_s):
+        self.interval_s = float(interval_s)
+        self._mono0, self._wall0 = time.monotonic(), time.time()
+        self._t = 0.0                 # the timeline, seconds from start
+        self._target = 0.0            # where advance() has asked it to be
+        self._next = self.interval_s  # the next pass
+        self._passes = {}
+        self._cond = threading.Condition()
+        self._thread = None
+
+    def monotonic(self):
+        return self._mono0 + self._t
+
+    def time(self):
+        return self._wall0 + self._t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    def add_pass(self, key, fn):
+        with self._cond:
+            self._passes[key] = fn
+
+    def remove_pass(self, key):
+        with self._cond:
+            self._passes.pop(key, None)
+
+    def advance(self, dt, timeout_s=30.0):
+        """Move the timeline ``dt`` seconds on; return once every pass
+        due by then has run (at most ``timeout_s`` of real time)."""
+        with self._cond:
+            self._target += float(dt)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True, name="slo-plane-clock")
+                self._thread.start()
+            self._cond.notify_all()
+            target = self._target
+            self._cond.wait_for(lambda: self._t >= target, timeout_s)
+
+    def _run(self):
+        passes = []
+        while True:
+            for fn in passes:
+                try:
+                    fn()
+                except Exception:
+                    traceback.print_exc()
+            with self._cond:
+                self._cond.notify_all()
+                self._cond.wait_for(lambda: self._t < self._target)
+                due = self._next <= self._target
+                self._t = self._next if due else self._target
+                passes = list(self._passes.values()) if due else []
+                if due:
+                    self._next += self.interval_s
 
 
 class SloPlane:
@@ -1311,6 +1412,7 @@ class SloPlane:
 
     def __init__(self, fleet, cfg, max_replicas=2):
         from deeplearning4j_torch import telemetry
+        self.clock = cfg.get("clock")
         from deeplearning4j_torch.serving import (AutoscalePolicy,
                                                   Autoscaler, DegradeLadder)
         from deeplearning4j_torch.telemetry.slo import AlertEngine, SLOSpec
@@ -1323,6 +1425,11 @@ class SloPlane:
                      threshold_s=cfg["ttft_s"], **common),
              SLOSpec("chat-avail", objective="availability", tenant="chat",
                      **common)], history=self.tsdb, interval_s=iv)
+        # a new plane reads only its own samples: the store is the
+        # process's, and an earlier engine's specs of the same names
+        # would otherwise sit inside this one's windows
+        for spec in self.engine.specs:
+            self.tsdb.clear(self.engine._series_key(spec))
         self.ladder = DegradeLadder(fleet, self.engine,
                                     hold_down_s=cfg["hold_down_s"],
                                     interval_s=iv)
@@ -1334,15 +1441,38 @@ class SloPlane:
             interval_s=iv, tenant_classes=SLO_TENANTS,
             remove_timeout_s=60.0, alert_engine=self.engine)
         self.fleet = fleet
-        self.tsdb.start_recorder(interval_s=iv)
-        self.engine.start()
         fleet.attach_slo(self.engine)
         fleet.attach_degrade(self.ladder)
-        self.ladder.start()
-        self.scaler.start()
+        if self.clock is None:
+            self.tsdb.start_recorder(interval_s=iv)
+            self.engine.start()
+            self.ladder.start()
+            self.scaler.start()
+        else:
+            # the same loops, one pass each an interval of the clock's
+            # timeline
+            reg = telemetry.get_registry()
+            self.clock.add_pass((id(self), "loops"), lambda: (
+                self.tsdb.record(reg), self.engine.evaluate(),
+                self.ladder.evaluate(), self.scaler.evaluate()))
+
+    def now(self):
+        """The plane's monotonic clock."""
+        return (self.clock or time).monotonic()
+
+    def wait(self, seconds):
+        """Let ``seconds`` of the plane's timeline pass, no request in
+        flight."""
+        if self.clock is None:
+            time.sleep(seconds)
+        else:
+            self.clock.advance(seconds)
 
     def stop_loops(self):
-        """Stop every real-time loop (the fleet stays attached)."""
+        """Stop every loop (the fleet stays attached)."""
+        if self.clock is not None:
+            self.clock.remove_pass((id(self), "loops"))
+            return
         self.scaler.close()
         self.ladder.close()
         self.engine.close()
@@ -1362,9 +1492,11 @@ class PlaneTimeline:
     ``seen[key]`` holds (seconds, value) at each change of the ladder's
     rung, the ttft alert's state, the healthy replica count and the
     number of first tokens observed (ladder steps are a hold-down apart,
-    so none is missed)."""
+    so none is missed).  On a plane with a :class:`PlaneClock` it samples
+    after each of the clock's passes instead, in the clock's seconds."""
 
     def __init__(self, plane):
+        self._clock = plane.clock
         from deeplearning4j_torch import telemetry
         reg = telemetry.get_registry()
         healthy = reg.gauge("fleet_replicas_healthy")
@@ -1379,7 +1511,7 @@ class PlaneTimeline:
                                         name="slo-plane-timeline")
 
     def _sample(self):
-        t = round(time.perf_counter() - self._t0, 3)
+        t = round(self._now() - self._t0, 3)
         for k, probe in self._probes.items():
             v = probe()
             if not self.seen[k] or self.seen[k][-1][1] != v:
@@ -1389,13 +1521,23 @@ class PlaneTimeline:
         while not self._stop.wait(0.01):
             self._sample()
 
+    def _now(self):
+        return (self._clock.monotonic() if self._clock is not None
+                else time.perf_counter())
+
     def start(self):
-        self._t0 = time.perf_counter()
-        self._thread.start()
+        self._t0 = self._now()
+        if self._clock is not None:
+            self._clock.add_pass((id(self), "timeline"), self._sample)
+        else:
+            self._thread.start()
 
     def stop(self):
-        self._stop.set()
-        self._thread.join(timeout=5)
+        if self._clock is not None:
+            self._clock.remove_pass((id(self), "timeline"))
+        else:
+            self._stop.set()
+            self._thread.join(timeout=5)
         self._sample()
 
     def first(self, key, value):
@@ -1436,7 +1578,7 @@ def slo_burst(torch, np, fleet, plane, gen, k1, k2, chat, bulk, cfg):
 
     # the engine needs its long window's coverage before a burst can page
     long_s = max(w[1] for w in cfg["windows"])
-    time.sleep(long_s + 2 * cfg["interval_s"])
+    plane.wait(long_s + 2 * cfg["interval_s"])
     k1.launches = k2.launches = 0
     t0 = time.perf_counter()
     tl.start()
@@ -1511,17 +1653,20 @@ def slo_burst(torch, np, fleet, plane, gen, k1, k2, chat, bulk, cfg):
              "added_replica_device": str(new._kc.device),
              "launches": launches, "near_ties": ties}
 
-    # (c) recovery with no load
-    t1 = time.perf_counter()
+    # (c) recovery with no load (on the plane's own timeline when it has
+    # a clock)
+    t1 = plane.now()
     wait_until(lambda: plane.alert()["state"] == "resolved",
-               cfg["deadline_s"], "the alert resolved", state)
-    t_resolved = time.perf_counter() - t1
-    wait_until(lambda: lad.rung() == 0, cfg["deadline_s"], "rung 0", state)
-    t_rung0 = time.perf_counter() - t1
+               cfg["deadline_s"], "the alert resolved", state, plane.clock)
+    t_resolved = plane.now() - t1
+    wait_until(lambda: lad.rung() == 0, cfg["deadline_s"], "rung 0", state,
+               plane.clock)
+    t_rung0 = plane.now() - t1
     wait_until(lambda: scale_actions(reg).get("down", 0)
                - acts0.get("down", 0) >= 1 and len(live_replicas(fleet)) == 1,
-               cfg["deadline_s"], "one scale-down to 1 replica", state)
-    t_down = time.perf_counter() - t1
+               cfg["deadline_s"], "one scale-down to 1 replica", state,
+               plane.clock)
+    t_down = plane.now() - t1
     tl.stop()
     rungs = tl.seen["rung"]
     exits = {k: v for k, v in lad.state()["transitions"].items()
@@ -1576,7 +1721,7 @@ def slo_walk(torch, np, fleet, plane, gen, k1, k2, prompt, n_new, bulk,
     adaptive_k = reg.gauge("generation_server_spec_adaptive_k")
     lad = plane.ladder
     samp = {"temperature": 0.8, "top_k": 40, "seed": 3}
-    t = [time.monotonic()]
+    t = [plane.now()]
     ref = gen.generate(prompt[None], n_new)[0]
 
     def to_rung(r):
@@ -1756,7 +1901,9 @@ def slo_turns(torch, np, net, kw, reqs, cfg):
                 wall = time.perf_counter() - t
                 if plane is not None and (plane.ladder.state()["transitions"]
                                           or plane.alert()["transitions"]):
-                    raise AssertionError("slo (f): the quiet plane acted")
+                    raise AssertionError(
+                        f"slo (f): the quiet plane acted: ladder "
+                        f"{plane.ladder.state()}, alert {plane.alert()}")
             finally:
                 if plane is not None:
                     plane.close()
@@ -1880,6 +2027,8 @@ def kernel_class(name):
         return "K5"
     if "flash_bwd_dq" in name:
         return "K6"
+    if "flash_bwd_plain" in name or "flash_bwd_chunked" in name:
+        return "K5+K6 (FMA)"
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul"
@@ -4206,11 +4355,11 @@ def infer_capture(fa):
     return rec, restore
 
 
-def infer_kernel_errors(torch, fa, rec):
+def infer_kernel_errors(torch, fa, rec, label="infer/f"):
     """Each captured launch replayed through its wrapper (before the
     counts are reset for the counted steps) against the plain version on
     the same operands, each output held to ``FLASH_TOL`` by
-    ``flash_err``."""
+    ``flash_err``; ``label`` names the window in a failure."""
     bh = fa._to_bh
     errs = {}
     for name, (a, kw) in rec.items():
@@ -4236,7 +4385,7 @@ def infer_kernel_errors(torch, fa, rec):
         for key, (x, r) in pairs.items():
             x, r = x.float(), r.float()
             if not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"infer/f: {name} {key} non-finite")
+                raise AssertionError(f"{label}: {name} {key} non-finite")
             errs[f"{name}/{key}"] = flash_err(torch, x, r)[0]
     return errs
 
@@ -7681,6 +7830,180 @@ def phase_profile(torch, np):
           "card": card_line()})
 
 
+# -- phase 10b: wide -------------------------------------------------------
+# Gpt() at its widths (12 x 768, ff 3072, vocab 32000, bf16, seeded random
+# weights) with wider heads — the reference's zoo.Gpt(n_heads=...)
+# (deeplearning4j_tpu/zoo/gpt.py:62): (b) 3 heads of 256, (c) 4 of 192,
+# the bf16 forward on the wgmma builds at those head dims.
+WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
+            "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
+            "kernels": True}
+
+
+def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
+    """``run()`` once as a warm-up whose flash launches' operands are
+    replayed through the kernels against their plain versions
+    (``infer_kernel_errors``, ``FLASH_TOL``); then every count set to 0,
+    ``run()`` ``reps`` times, the counts read and, when ``cfg["kernels"]``
+    (the card), held to ``want`` x ``reps``.  Returns (the warm-up's and
+    the counted runs' results, the counted runs' wall seconds, counts,
+    errors, peak bytes or None)."""
+    rec, restore = infer_capture(fa)
+    try:
+        first = run()
+    finally:
+        restore()
+    if set(rec) != {n for n, c in want.items() if c}:
+        raise AssertionError(f"{label}: captured {sorted(rec)}")
+    errs = infer_kernel_errors(torch, fa, rec, label)
+    del rec
+    bad = {k: v for k, v in errs.items()
+           if not (math.isfinite(v) and v <= FLASH_TOL["bfloat16"])}
+    if bad:
+        raise AssertionError(f"{label}: kernel vs plain {bad}")
+    sync()
+    cuda = cfg["kernels"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    t0 = time.perf_counter()
+    outs = [run() for _ in range(reps)]
+    sync()
+    wall = time.perf_counter() - t0
+    cnt = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+    want = {n: c * reps for n, c in want.items()}
+    if cuda and cnt != want:
+        raise AssertionError(f"{label}: launches {cnt} != {want}")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return [first] + outs, wall, cnt, errs, peak
+
+
+def wide_forward(torch, np, fa, net, cfg, t, label, sync):
+    """One counted ``output()`` of ``net`` at [b, t] after a warm-up (K3
+    past t 512, K4 at it; once a layer): finite probabilities of shape
+    [b, t, vocab]."""
+    b, vocab = cfg["b"], cfg["vocab"]
+    x = train_batch(np, b, t, vocab, 4)[0]
+    fwd = "flash_fwd" if t > 512 else "flash_fwd_single"
+    want = {n: (len(net.layers) - 2 if n == fwd else 0)
+            for n in FLASH_WRAPPERS}
+    ys, wall, cnt, errs, peak = wide_window(
+        torch, fa, label, lambda: net.output(x), want, cfg, sync)
+    y = ys[-1]
+    if tuple(y.shape) != (b, t, vocab) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{label}: output {tuple(y.shape)}, finite "
+                             f"{bool(torch.isfinite(y).all())}")
+    return {"b": b, "t": t, "ms": wall * 1e3, "tokens_per_s": b * t / wall,
+            "peak_allocated_bytes": peak, "launches": cnt,
+            "kernel_vs_plain": errs}
+
+
+def wide_parts(torch, np, device, cfg, sync, card):
+    """Parts (b) and (c) of :func:`phase_wide` on ``device`` at ``cfg``'s
+    sizes: (b) Gpt(n_heads=cfg["heads"]) — one output() at t (K3) and one
+    at t_single (K4), then ``steps`` fit steps at t (K3, K5 and K6 once a
+    layer a step), each window after a warm-up (:func:`wide_window`);
+    (c) the same forward at t with ``cfg["narrow"]``.  Emits
+    ``wide/gpt`` and returns the launch counts by window."""
+    from deeplearning4j_torch.data import DataSet
+    from deeplearning4j_torch.zoo import Gpt
+    fa = flash_module()
+    t_phase = time.perf_counter()
+    t, d = cfg["t"], cfg["gpt"].get("d_model", 768)
+    net = Gpt(seed=0, seq_len=t, n_heads=cfg["heads"],
+              **cfg["gpt"]).init_graph(device=device)
+    n_layers = len(net.layers) - 2
+    row = {"phase": "wide/gpt", "card": card, "weights": "random (seeded)",
+           "n_layers": n_layers, "heads": cfg["heads"],
+           "head_dim": d // cfg["heads"], "tol": FLASH_TOL["bfloat16"]}
+    counts = {}
+    for label, tt in (("fwd", t), ("fwd_single", cfg["t_single"])):
+        row[label] = wide_forward(torch, np, fa, net, cfg, tt,
+                                  f"wide/b/{label}", sync)
+        counts[label] = row[label]["launches"]
+
+    ds = DataSet(*train_batch(np, cfg["b"], t, cfg["vocab"], 2))
+    want = {n: (n_layers if n != "flash_fwd_single" else 0)
+            for n in FLASH_WRAPPERS}
+    losses, wall, cnt, errs, peak = wide_window(
+        torch, fa, "wide/b/fit", lambda: float(net.fit(ds)), want, cfg,
+        sync, reps=cfg["steps"])
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"wide/b/fit: losses {losses}")
+    counts["fit"] = cnt
+    row["fit"] = {"b": cfg["b"], "t": t, "steps": cfg["steps"],
+                  "losses": losses, "step_ms": wall * 1e3 / cfg["steps"],
+                  "tokens_per_s": cfg["steps"] * cfg["b"] * t / wall,
+                  "peak_allocated_bytes": peak, "launches": cnt,
+                  "kernel_vs_plain": errs}
+    if cfg["kernels"]:
+        row["fit"]["profile"] = step_profile(torch, lambda: net.fit(ds))
+    del net
+    # the same seeded init and batch on plain attention: the two loss
+    # curves agree to bf16 rounding, and no flash kernel runs
+    plain = Gpt(seed=0, seq_len=t, n_heads=cfg["heads"], use_flash=False,
+                **cfg["gpt"]).init_graph(device=device)
+    for name in FLASH_WRAPPERS:
+        getattr(fa, name).launches = 0
+    p_losses = [float(plain.fit(ds)) for _ in losses]
+    p_cnt = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+    curve = max(abs(a - c) / abs(c) for a, c in zip(losses, p_losses))
+    if curve > 1e-3 or any(p_cnt.values()):
+        raise AssertionError(f"wide/b/fit: plain-attention losses "
+                             f"{p_losses} vs flash {losses} (max rel "
+                             f"{curve}), launches {p_cnt}")
+    row["fit"]["plain_attention"] = {"losses": p_losses,
+                                     "loss_curve_max_rel_diff": curve}
+    del plain, ds
+
+    gpt = {**cfg["gpt"], **cfg["narrow"]}
+    narrow = Gpt(seed=0, seq_len=t, **gpt).init_graph(device=device)
+    row["narrow"] = {"gpt": cfg["narrow"],
+                     "head_dim": gpt.get("d_model", 768) // gpt["n_heads"],
+                     **wide_forward(torch, np, fa, narrow, cfg, t,
+                                    "wide/c/fwd", sync)}
+    counts["narrow"] = row["narrow"]["launches"]
+    del narrow
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+def phase_wide(torch, np, pa):
+    """Phase 10b: (a) the head-dim-256 builds timed at the width of the
+    path (K1 and K2 at 3 heads of 256; K3-K6 at b 8, 3 heads of 256,
+    t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, each
+    beside its plain version, SDPA and the bound; then (b) and (c),
+    :func:`wide_parts` at ``WIDE_CFG``.  Returns (the timings by build,
+    the launch counts by window)."""
+    mid = path_mid(np)
+    timing = {
+        "dh256_decode": phase_timings(torch, pa, mid, h=3, dh=256,
+                                      phase="timings/dh256"),
+        "dh256_verify": phase_timings_verify(torch, pa, mid, h=3, dh=256,
+                                             phase="timings/verify_dh256"),
+        "dh256": phase_timings_flash(torch, h=3, dh=256,
+                                     phase="timings/flash_dh256"),
+        "dh192": phase_timings_flash(torch, h=4, dh=192,
+                                     phase="timings/flash_dh192")}
+    try:
+        counts = wide_parts(torch, np, "cuda", WIDE_CFG,
+                            torch.cuda.synchronize, card_line())
+    finally:
+        torch.cuda.empty_cache()
+    return timing, counts
+
+
+def wide_sub(timing):
+    """A timing row's numbers as a sub-entry of a ``kernels`` row (a
+    build past the path's head dim)."""
+    keys = ("max_abs_err", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shapes")
+    return {"ms": timing["kernel_ms"],
+            **{k: timing[k] for k in keys if k in timing}}
+
+
 def kernel_row(name, source, replaces, launches, err, timing):
     """One entry of the closing ``kernels`` line.  ``plain_scope`` and
     ``library_scope`` say what the plain and library times cover: this
@@ -7741,7 +8064,7 @@ def main(argv=None) -> int:
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
         i_counts, sd_launches, m_counts, d_counts = None, None, None, None
-        p_counts, w_timing = None, None
+        p_counts, w_timing, wide_res = None, None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -7800,14 +8123,7 @@ def main(argv=None) -> int:
         if "k2" in phases:
             phase_solo_verify(torch, pa, path_mid(np))
         if "wide" in phases:
-            # the dh-256 builds at the width of the path (3 heads of 256)
-            mid = path_mid(np)
-            phase_timings(torch, pa, mid, h=3, dh=256,
-                          phase="timings/dh256")
-            phase_timings_verify(torch, pa, mid, h=3, dh=256,
-                                 phase="timings/verify_dh256")
-            phase_timings_flash(torch, h=3, dh=256,
-                                phase="timings/flash_dh256")
+            wide_res = phase_wide(torch, np, pa)
         if None not in (launches, timing, v_launches, v_timing, t_counts,
                         f_timing, b_counts, b_timing):
             rows = [
@@ -7835,6 +8151,12 @@ def main(argv=None) -> int:
                 for i, name in ((0, "paged_decode_attention"),
                                 (1, "paged_verify_attention")):
                     rows[i]["dist"] = {"launches": d_counts["serve"][name]}
+            if wide_res is not None:
+                # the any-dh builds at 3 heads of 256 (phase 10b (a)); no
+                # path of this script runs them
+                for i, key in ((0, "dh256_decode"), (1, "dh256_verify")):
+                    rows[i]["dh256"] = {"launches": None,
+                                        **wide_sub(wide_res[0][key])}
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",
@@ -7877,18 +8199,24 @@ def main(argv=None) -> int:
                 if w_timing is not None and name in w_timing:
                     # the chunked build past head dim 256 (phase 9b (g)),
                     # timed at its shapes
-                    wt = w_timing[name]
                     wide = f"dh{INFER_CFG['wide_head']}_"
                     rows[-1][f"dh{INFER_CFG['wide_head']}"] = {
                         "launches": (sum(c[name] for w, c in i_counts.items()
                                          if w.startswith(wide))
                                      if i_counts is not None else None),
-                        "ms": wt["kernel_ms"], "plain_ms": wt["plain_ms"],
-                        "bound_ms": wt["bound_ms"],
-                        "bound_by": wt["bound_by"],
-                        "library_ms": wt["library_ms"],
-                        "max_abs_err": wt["max_abs_err"],
-                        "shapes": wt["shapes"]}
+                        **wide_sub(w_timing[name])}
+                if wide_res is not None:
+                    # the builds at head dims 256 and 192 (phase 10b):
+                    # timed in (a), launched on Gpt(n_heads=3)'s forward
+                    # and fit steps in (b) and Gpt(n_heads=4)'s forward in
+                    # (c)
+                    w_time, w_cnt = wide_res
+                    for dh, windows in (("dh256", ("fwd", "fwd_single",
+                                                   "fit")),
+                                        ("dh192", ("narrow",))):
+                        rows[-1][dh] = {
+                            "launches": sum(w_cnt[w][name] for w in windows),
+                            **wide_sub(w_time[dh][name])}
                 if sd_launches is not None:
                     # the same kernel on the imported graphs (phase 9c):
                     # BERT-base's counted fine-tune and gpt_toy's

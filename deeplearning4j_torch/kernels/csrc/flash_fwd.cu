@@ -28,26 +28,31 @@
 //   tiles twice: once for each row's max and denominator, once for P.V
 //   with P normalised THEN rounded — K4's rounding point (p / l before the
 //   cast).
-// * bf16 K3 and K4 (v3): one kernel on wgmma and TMA tiles, templated on
-//   kSingle.  A block is two warpgroups on 128 query rows (64 each:
-//   wgmma's M); both fit in registers at dh 128 (no spill), so no
+// * bf16 K3 and K4 (v3; at head dims 192 and 256 too, in place of an
+//   FMA build): one kernel on wgmma and TMA tiles, templated on
+//   the head dim and kSingle.  A block is two warpgroups on 128 query
+//   rows (64 each: wgmma's M); both fit in registers up to dh 256, so no
 //   producer warpgroup and no setmaxnreg: thread 0 issues the TMA copies,
 //   prefetching the next key tile before the current one is computed (one
 //   barrier per tile).  Q (once) and a two-stage ring of K and V tiles
-//   (128 keys) arrive by TMA from 4-D tensor maps over the bthd views
+//   (128 keys up to dh 128; 64 at dh 192 and 256, where 128-key tiles
+//   would not fit in shared memory beside Q, and O's accumulator takes
+//   128 registers a thread at dh 256) arrive by TMA from 4-D tensor maps
+//   over the bthd views
 //   ((dh, h, t, b) with the projection's strides; rows past t read as
 //   zeros), completion on mbarriers, 128-byte swizzled panels of 64 head
-//   columns (flash_hopper.cuh).  S = Q K^T is wgmma m64n128k16 with both
+//   columns (flash_hopper.cuh).  S = Q K^T is wgmma m64n{keys}k16 with both
 //   operands in shared memory; the softmax runs in registers in base 2
 //   (the scale times log2 e folded into one FFMA per score, ex2.approx),
 //   with a branch-free path for interior tiles (wholly below the
 //   diagonal, every key below t, no bias) and masking only on diagonal,
 //   ragged and biased tiles (the bias slice read once per tile).  P is the
-//   register A operand of O += P V (wgmma m64n{dh}k16, V MN-major through
-//   the descriptor's transpose bit).  K4's two passes are one sequence of
-//   2 n_k tiles through the same ring: the first n_k bring K alone (max
-//   and denominator, no P V), the next n_k K and V again (from L2; K is
-//   not kept resident, which would not fit beside the V ring past t 512).
+//   register A operand of O += P V (one wgmma m64n{dh}k16 a k-step, V
+//   MN-major through the descriptor's transpose bit).  K4's two passes
+//   are one sequence of 2 n_k tiles through the same ring: the first n_k
+//   bring K alone (max and denominator, no P V), the next n_k K and V
+//   again (from L2; K is not kept resident, which would not fit beside
+//   the V ring past t 512).
 //   Blocks start in groups of 8 (batch, head) slices, so the K/V that
 //   running blocks read stays in L2 (K3 is bound by moving K/V tiles:
 //   without its products and exponentials it still takes ~75% of its
@@ -55,12 +60,9 @@
 //   query tile goes first, so the lightest blocks fill the last wave (at
 //   t 512, b 8, 6 heads: 192 blocks of 4..1 key tiles on 132 SMs, one
 //   block an SM).
-// * f32, and bf16 at head dims 192 and 256 (the wgmma route's O
-//   accumulator and its two S tiles would not fit in registers there): 8
+// * f32 at every head dim up to 256 (tf32 would change the results): 8
 //   warps, 32-row tiles, f32 tiles in shared memory and plain FMAs on the
-//   inputs' exact values; in bf16, P is rounded where K3 and K4 round it
-//   and O is written as bf16.  A simple kernel that is right, bound by
-//   its FMAs (~67 TFLOP/s f32 peak), not the tensor cores.
+//   inputs' exact values (flash_fwd_plain_kernel).
 // * past head dim 256 (any multiple of 64; the TPU kernels take any head
 //   dim): the same FMA route chunked — S summed over 64-column chunks of
 //   Q and K, each block owning 128 output columns and recomputing S for
@@ -104,23 +106,29 @@ __device__ __forceinline__ float masked_score(const FwdArgs& a, const float* bia
 // ---------------------------------------------------------------------------
 // bf16 K3 and K4 v3: wgmma on TMA-filled, 128-byte-swizzled tiles
 // ---------------------------------------------------------------------------
-// Two consumer warpgroups take 64 query rows each (128 a block); the key
-// tile is 128 keys.  Shared memory holds Q once, and a two-stage ring of K
-// and V tiles, each stage with its own mbarriers.
+// Two consumer warpgroups take 64 query rows each (128 a block).  Shared
+// memory holds Q once, and a two-stage ring of K and V tiles, each stage
+// with its own mbarriers.  A key tile is 128 keys up to head dim 128 and
+// 64 at 192 and 256: with 128 keys, Q and the ring would take 240 KB at
+// dh 192 and 320 KB at dh 256, over the 227 KB a block may have; with 64
+// they take 144 and 192 KB.  In registers, a thread of a warpgroup then
+// holds O (DH / 2 f32: 128 at dh 256), S (32 f32) and P (16 bf16 pairs).
 constexpr int kWgThreads = 256;   // two warpgroups
 constexpr int kWgRows = 128;      // query rows per block (64 a warpgroup)
-constexpr int kWgKeys = 128;      // keys per tile
 constexpr int kWgStages = 2;
 
 template <int DH>
 struct WgLayout {
   static constexpr int NP = DH / kPanel;
-  static constexpr uint32_t kPanelBytes = 128 * kWgRows;   // 128 rows of 128 B
-  static constexpr uint32_t kTileBytes = NP * kPanelBytes;
+  static constexpr int kKeys = DH <= 128 ? 128 : 64;        // keys per K/V tile
+  static constexpr uint32_t kQPanel = 128 * kWgRows;        // 128 rows of 128 B
+  static constexpr uint32_t kKvPanel = 128 * kKeys;
+  static constexpr uint32_t kQBytes = NP * kQPanel;
+  static constexpr uint32_t kKvBytes = NP * kKvPanel;       // one K or V tile
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = kTileBytes;
-  static constexpr uint32_t kV = kK + kWgStages * kTileBytes;
-  static constexpr uint32_t kBar = kV + kWgStages * kTileBytes;   // 1 + 2 kWgStages mbarriers
+  static constexpr uint32_t kK = kQBytes;
+  static constexpr uint32_t kV = kK + kWgStages * kKvBytes;
+  static constexpr uint32_t kBar = kV + kWgStages * kKvBytes;   // 1 + 2 kWgStages mbarriers
   static constexpr size_t kBytes = kBar + 64 + 1024;   // + slack to align to 1024
 };
 
@@ -131,7 +139,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                 const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
   using bf16 = __nv_bfloat16;
   using L = WgLayout<DH>;
-  constexpr int BR = kWgRows, BC = kWgKeys;
+  constexpr int BR = kWgRows, BC = L::kKeys;
   constexpr int NJ = BC / 8;   // score column blocks per key tile
   constexpr int ND = DH / 8;   // output column blocks
   constexpr int NK = DH / 16;  // k-steps of Q K^T
@@ -166,16 +174,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   auto issue = [&](int j) {
     const int st = j % kWgStages;
     const int kt = kSingle && j >= n_k ? j - n_k : j;
-    mbar_expect(bar_k(st), L::kTileBytes);
+    mbar_expect(bar_k(st), L::kKvBytes);
 #pragma unroll
     for (int p = 0; p < L::NP; ++p)
-      tma_load(k_s + st * L::kTileBytes + p * L::kPanelBytes, tk, bar_k(st), kPanel * p, hi,
+      tma_load(k_s + st * L::kKvBytes + p * L::kKvPanel, tk, bar_k(st), kPanel * p, hi,
                kt * BC, bi);
     if (kSingle && j < n_k) return;
-    mbar_expect(bar_v(st), L::kTileBytes);
+    mbar_expect(bar_v(st), L::kKvBytes);
 #pragma unroll
     for (int p = 0; p < L::NP; ++p)
-      tma_load(v_s + st * L::kTileBytes + p * L::kPanelBytes, tv, bar_v(st), kPanel * p, hi,
+      tma_load(v_s + st * L::kKvBytes + p * L::kKvPanel, tv, bar_v(st), kPanel * p, hi,
                kt * BC, bi);
   };
   if (tid == 0) {
@@ -184,10 +192,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect(bar_q, L::kTileBytes);
+    mbar_expect(bar_q, L::kQBytes);
 #pragma unroll
     for (int p = 0; p < L::NP; ++p)
-      tma_load(q_s + p * L::kPanelBytes, tq, bar_q, kPanel * p, hi, q0, bi);
+      tma_load(q_s + p * L::kQPanel, tq, bar_q, kPanel * p, hi, q0, bi);
     for (int j = 0; j < kAhead && j < n_seq; ++j) issue(j);
   }
 
@@ -222,9 +230,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
-      const uint32_t koff = (kk / 4) * L::kPanelBytes + (kk % 4) * 32;
-      Wgmma<BC>::ss(s, sw128_desc(q_s + koff + wg * 64 * 128, 16, 1024),
-                    sw128_desc(k_s + st * L::kTileBytes + koff, 16, 1024), kk > 0);
+      const uint32_t kb = (kk % 4) * 32;
+      Wgmma<BC>::ss(s, sw128_desc(q_s + (kk / 4) * L::kQPanel + kb + wg * 64 * 128, 16, 1024),
+                    sw128_desc(k_s + st * L::kKvBytes + (kk / 4) * L::kKvPanel + kb, 16, 1024),
+                    kk > 0);
     }
     wg_commit();
     wg_wait0();
@@ -365,8 +374,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int kc = 0; kc < NJ / 2; ++kc)
       Wgmma<DH>::rs(o, pf[kc],
-                    sw128_desc(v_s + st * L::kTileBytes + kc * 16 * 128, L::kPanelBytes, 1024),
-                    1);
+                    sw128_desc(v_s + st * L::kKvBytes + kc * 16 * 128, L::kKvPanel, 1024), 1);
     wg_commit();
     wg_wait0();
     keep(o);
@@ -390,7 +398,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// plain route (f32; bf16 past dh 128): f32 tiles in shared memory, FMAs
+// plain route (f32): f32 tiles in shared memory, FMAs
 // ---------------------------------------------------------------------------
 template <int DH>
 struct F32FwdLayout {
@@ -406,7 +414,7 @@ struct F32FwdLayout {
   static constexpr size_t kBytes = kStat + sizeof(float) * 3 * BR;
 };
 
-template <typename T, int DH, bool kSingle>
+template <int DH, bool kSingle>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a) {
   using L = F32FwdLayout<DH>;
   constexpr int BR = L::BR, BC = L::BC, LDT = L::LDT, LDS = L::LDS;
@@ -426,12 +434,12 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
   const int t = a.t;
   const int n_q = (t + BR - 1) / BR;
   const int q0 = (n_q - 1 - (int)blockIdx.x) * BR;
-  const T* kp = static_cast<const T*>(a.k) + bi * a.sk.b + hi * a.sk.h;
-  const T* vp = static_cast<const T*>(a.v) + bi * a.sv.b + hi * a.sv.h;
+  const float* kp = static_cast<const float*>(a.k) + bi * a.sk.b + hi * a.sk.h;
+  const float* vp = static_cast<const float*>(a.v) + bi * a.sv.b + hi * a.sv.h;
   const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
 
-  load_rows_f32<T, BR, DH, LDT, kF32Threads>(
-      q_s, static_cast<const T*>(a.q) + bi * a.sq.b + hi * a.sq.h, a.sq.t, q0, t);
+  load_rows_f32<float, BR, DH, LDT, kF32Threads>(
+      q_s, static_cast<const float*>(a.q) + bi * a.sq.b + hi * a.sq.h, a.sq.t, q0, t);
   for (int i = tid; i < BR * LDT; i += kF32Threads) o_s[i] = 0.f;
   for (int i = tid; i < BR; i += kF32Threads) {
     m_s[i] = kNeg;
@@ -447,7 +455,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
   if constexpr (kSingle) {
     for (int k0 = 0; k0 < k_end; k0 += BC) {   // pass 1: max, denominator
       __syncthreads();
-      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
       __syncthreads();
       mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
       __syncthreads();
@@ -463,15 +471,15 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
     }
     for (int k0 = 0; k0 < k_end; k0 += BC) {   // pass 2: P / l, then P.V
       __syncthreads();
-      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
-      load_rows_f32<T, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
+      load_rows_f32<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
       __syncthreads();
       mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
       __syncthreads();
       for (int r = warp; r < BR; r += kF32Warps) {
         const float s = row_score(r, k0);
         const float l = l_s[r] == 0.f ? 1.f : l_s[r];
-        s_s[r * LDS + lane] = s > 0.5f * kNeg ? round_as<T>(expf(s - m_s[r]) / l) : 0.f;
+        s_s[r * LDS + lane] = s > 0.5f * kNeg ? expf(s - m_s[r]) / l : 0.f;
       }
       __syncthreads();
       mm<BR, DH, BC, false, false, true>(o_s, LDT, s_s, LDS, v_s, LDT);
@@ -479,8 +487,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
   } else {
     for (int k0 = 0; k0 < k_end; k0 += BC) {
       __syncthreads();
-      load_rows_f32<T, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
-      load_rows_f32<T, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
+      load_rows_f32<float, BC, DH, LDT, kF32Threads>(k_s, kp, a.sk.t, k0, t);
+      load_rows_f32<float, BC, DH, LDT, kF32Threads>(v_s, vp, a.sv.t, k0, t);
       __syncthreads();
       mm<BR, BC, DH, false, true, false>(s_s, LDS, q_s, LDT, k_s, LDT);
       __syncthreads();
@@ -489,7 +497,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
         const float m_prev = m_s[r];
         const float m_new = fmaxf(m_prev, warp_max(s));
         const float p = s > 0.5f * kNeg ? expf(s - m_new) : 0.f;
-        s_s[r * LDS + lane] = round_as<T>(p);   // P in the input dtype, as K3
+        s_s[r * LDS + lane] = p;
         const float sum = warp_sum(p);
         if (lane == 0) {
           const float corr = expf(m_prev - m_new);
@@ -516,7 +524,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
     }
     __syncthreads();
   }
-  store_rows<T, BR, DH, LDT>(static_cast<T*>(a.o) + bi * a.so.b + hi * a.so.h,
+  store_rows<float, BR, DH, LDT>(static_cast<float*>(a.o) + bi * a.so.b + hi * a.so.h,
                              a.so.t, o_s, q0, t);
   for (int r = tid; r < BR; r += kF32Threads) {
     if (q0 + r >= t) continue;
@@ -697,8 +705,8 @@ template <int DH, bool kSingle>
 int launch_wgmma(const FwdArgs& a, int b, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, DH, kWgRows);
-  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH, kWgKeys);
-  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH, kWgKeys);
+  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH, WgLayout<DH>::kKeys);
+  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH, WgLayout<DH>::kKeys);
   if (rc) return rc;
   static bool configured = false;
   if (!configured) {   // once, on the first (uncaptured) launch
@@ -714,21 +722,17 @@ int launch_wgmma(const FwdArgs& a, int b, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH, bool kSingle>
+template <int DH, bool kSingle>
 int launch_plain(const FwdArgs& a, int b, cudaStream_t s) {
   static bool configured = false;
   const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);
-  return launch(flash_fwd_plain_kernel<T, DH, kSingle>, F32FwdLayout<DH>::kBytes,
+  return launch(flash_fwd_plain_kernel<DH, kSingle>, F32FwdLayout<DH>::kBytes,
                 configured, grid, kF32Threads, a, s);
 }
 
 template <int DH, bool kSingle>
 int launch_dh(const FwdArgs& a, int b, int is_bf16, cudaStream_t s) {
-  if (!is_bf16) return launch_plain<float, DH, kSingle>(a, b, s);
-  if constexpr (DH <= 128)
-    return launch_wgmma<DH, kSingle>(a, b, s);
-  else
-    return launch_plain<__nv_bfloat16, DH, kSingle>(a, b, s);
+  return is_bf16 ? launch_wgmma<DH, kSingle>(a, b, s) : launch_plain<DH, kSingle>(a, b, s);
 }
 
 template <typename T, bool kSingle>

@@ -199,6 +199,68 @@ struct Wgmma<128> {
   }
 };
 
+// The forward's O += P V at head dims 192 and 256: the whole head dim in
+// one instruction (rs only; its accumulator is 96 or 128 registers a
+// thread).  FLASH_WG_D4(j) is accumulator column block j's four operands.
+#define FLASH_WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void rs(float (&d)[24][4], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1), FLASH_WG_D4(2), FLASH_WG_D4(3),
+          FLASH_WG_D4(4), FLASH_WG_D4(5), FLASH_WG_D4(6), FLASH_WG_D4(7),
+          FLASH_WG_D4(8), FLASH_WG_D4(9), FLASH_WG_D4(10), FLASH_WG_D4(11),
+          FLASH_WG_D4(12), FLASH_WG_D4(13), FLASH_WG_D4(14), FLASH_WG_D4(15),
+          FLASH_WG_D4(16), FLASH_WG_D4(17), FLASH_WG_D4(18), FLASH_WG_D4(19),
+          FLASH_WG_D4(20), FLASH_WG_D4(21), FLASH_WG_D4(22), FLASH_WG_D4(23)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[32][4], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1), FLASH_WG_D4(2), FLASH_WG_D4(3),
+          FLASH_WG_D4(4), FLASH_WG_D4(5), FLASH_WG_D4(6), FLASH_WG_D4(7),
+          FLASH_WG_D4(8), FLASH_WG_D4(9), FLASH_WG_D4(10), FLASH_WG_D4(11),
+          FLASH_WG_D4(12), FLASH_WG_D4(13), FLASH_WG_D4(14), FLASH_WG_D4(15),
+          FLASH_WG_D4(16), FLASH_WG_D4(17), FLASH_WG_D4(18), FLASH_WG_D4(19),
+          FLASH_WG_D4(20), FLASH_WG_D4(21), FLASH_WG_D4(22), FLASH_WG_D4(23),
+          FLASH_WG_D4(24), FLASH_WG_D4(25), FLASH_WG_D4(26), FLASH_WG_D4(27),
+          FLASH_WG_D4(28), FLASH_WG_D4(29), FLASH_WG_D4(30), FLASH_WG_D4(31)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+#undef FLASH_WG_D4
+
 // The block's place in the launch order: the (batch, head) slices go in
 // groups of kHeadGroup, so the tiles the running blocks share stay within
 // L2; within a group every slice's tile 0 goes first, then tile 1, ...

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time the port's bf16 flash forward (K3 and K4) of two checkouts in
+turns on one CUDA card.
+
+    python3 scripts/flash_turns.py BEFORE_DIR AFTER_DIR
+
+Each directory is a checkout of the repository (for example the parent
+commit unpacked with ``git archive``).  The turns run BEFORE, AFTER,
+AFTER, BEFORE, each in a process of its own that imports that
+checkout's ``deeplearning4j_torch`` (its kernels built in its own
+``kernels/_build``), and time ``flash_fwd`` (K3) at b 8, t 2048, causal
+and ``flash_fwd_single`` (K4) at t 512 — bthd views of a [b, t, 3d]
+projection, at 3 heads of 256 and at 4 heads of 192 — by CUDA-graph
+replay over 4 rotating input sets (``chip_smoke.time_ms``'s measure,
+from this script's checkout).  Each turn also holds its kernels to their
+plain versions (``chip_smoke.flash_err``, ``FLASH_TOL``).  Prints one
+JSON line per turn, then a summary with the card's name and power
+limit; exits nonzero without a card or when a kernel disagrees."""
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPES = ((256, 3), (192, 4))      # (head dim, heads)
+B, T_STREAM, T_SINGLE, N_SETS = 8, 2048, 512, 4
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def turn(tree: str) -> dict:
+    """One turn: this process times ``tree``'s kernels."""
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    fa = importlib.import_module(
+        "deeplearning4j_torch.kernels.flash_attention")
+    cs = _chip_smoke()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {"tree": tree, "ms": {}, "err": {}}
+    for dh, h in SHAPES:
+        for name, t in (("flash_fwd", T_STREAM),
+                        ("flash_fwd_single", T_SINGLE)):
+            sets = []
+            for _ in range(N_SETS):
+                qkv = torch.randn((B, t, 3 * h * dh), generator=g,
+                                  device="cuda").to(torch.bfloat16)
+                sets.append([z.reshape(B, t, h, dh)
+                             for z in qkv.split(h * dh, dim=-1)])
+            fn = getattr(fa, name)
+            kw = dict(causal=True, scale=dh ** -0.5)
+            o, _ = fn(*sets[0], None, **kw)
+            ro, _ = fa.flash_fwd_reference(*(fa._to_bh(x) for x in sets[0]),
+                                           None, single=name.endswith(
+                                               "single"), **kw)
+            err = cs.flash_err(torch, fa._to_bh(o).float(), ro.float())[0]
+            if not err <= cs.FLASH_TOL["bfloat16"]:
+                raise AssertionError(f"{tree}: {name} dh {dh} kernel vs "
+                                     f"plain {err}")
+            key = f"{name}/dh{dh}"
+            out["err"][key] = err
+            out["ms"][key] = cs.time_ms(
+                torch, lambda i: fn(*sets[i % N_SETS], None, **kw))
+            del sets, o, ro
+            torch.cuda.empty_cache()
+    return out
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--turn"]:
+        print(json.dumps(turn(argv[1])), flush=True)
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_turns: needs a CUDA card", file=sys.stderr)
+        return 2
+    before, after = argv
+    turns = []
+    for tree in (before, after, after, before):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--turn", tree], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        turns.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(turns[-1]), flush=True)
+    card = _chip_smoke().card_line()
+    summary = {}
+    for key in turns[0]["ms"]:
+        b_ms = [turns[i]["ms"][key] for i in (0, 3)]
+        a_ms = [turns[i]["ms"][key] for i in (1, 2)]
+        summary[key] = {"before_ms": b_ms, "after_ms": a_ms,
+                        "speedup": min(b_ms) / max(a_ms)}
+    print(json.dumps({"summary": summary, "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

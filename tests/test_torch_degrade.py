@@ -11,6 +11,7 @@ to the JAX package's OWN offline greedy streams (cross-framework greedy
 streams are equal on the tiny Gpt), and to the port's offline streams by
 the near-tie rule.  The reference marks its two fleet cases slow (JAX
 compiles); the eager port runs them in the tier-1 suite."""
+import importlib
 import time
 
 import numpy as np
@@ -515,17 +516,30 @@ def test_slo_phase_rehearsal_on_cpu(monkeypatch, capsys):
     """The whole ``slo`` phase of ``chip_smoke.py`` — plane attached,
     burst, recovery, rung walk, exposition, costs and turns — on a tiny
     speculative Gpt on the CPU, its clocks scaled down, every TTFT over
-    the bar (1e-4 s) and each dispatch throttled 30 ms so the burst
-    outlasts the alert's hold times.  Its own checks are the assertions:
-    the alert fires and resolves, the ladder climbs to 5 and walks back
-    one rung per hold-down, one scale-up and one scale-down, K2 frozen
-    at spec_off, streams equal offline by the near-tie rule."""
+    the bar (1e-4 s).  The plane runs on an injected timeline
+    (``chip_smoke.PlaneClock``, the plane modules' ``time``): each
+    dispatch moves it 30 ms, so the burst outlasts the alert's hold
+    times by the same number of dispatches however loaded the host is,
+    and the recovery's waits move it one loop interval at a time.  Its
+    own checks are the assertions: the alert fires and resolves, the
+    ladder climbs to 5 and walks back one rung per hold-down, one
+    scale-up and one scale-down, K2 frozen at spec_off, streams equal
+    offline by the near-tie rule."""
     import json
     import chip_smoke
     from deeplearning4j_torch.models import generation
     from deeplearning4j_torch.parallel import generation_server as gs
     from deeplearning4j_torch.zoo import Gpt
 
+    cfg = {"ttft_s": 1e-4, "windows": ((0.6, 1.5, 14.4, "page"),),
+           "for_s": 0.2, "clear_for_s": 0.3, "interval_s": 0.1,
+           "hold_down_s": 0.3, "cooldown_s": 1.0,
+           "near_tie": chip_smoke.NEAR_TIE_F32, "deadline_s": 120.0}
+    clock = cfg["clock"] = chip_smoke.PlaneClock(cfg["interval_s"])
+    for mod in ("telemetry.tsdb", "telemetry.slo", "serving.degrade",
+                "serving.autoscale"):
+        monkeypatch.setattr(importlib.import_module(f"{PORT}.{mod}"),
+                            "time", clock)
     k1 = _Counted(generation.paged_decode_attention)
     k2 = _Counted(generation.paged_verify_attention)
     monkeypatch.setattr(generation, "paged_decode_attention", k1)
@@ -534,16 +548,12 @@ def test_slo_phase_rehearsal_on_cpu(monkeypatch, capsys):
         orig = getattr(gs.GenerationServer, name)
 
         def slow(self, *a, _orig=orig, **kw):
-            time.sleep(0.03)
+            clock.advance(0.03)
             return _orig(self, *a, **kw)
         monkeypatch.setattr(gs.GenerationServer, name, slow)
     net = Gpt(**dict(TINY, max_len=128)).init_graph(device="cpu")
     kw = dict(compute_dtype=None, n_slots=2, max_len=128, block_size=8,
               tick_batch=1, device="cpu")
-    cfg = {"ttft_s": 1e-4, "windows": ((0.6, 1.5, 14.4, "page"),),
-           "for_s": 0.2, "clear_for_s": 0.3, "interval_s": 0.1,
-           "hold_down_s": 0.3, "cooldown_s": 1.0,
-           "near_tie": chip_smoke.NEAR_TIE_F32, "deadline_s": 120.0}
     launches = chip_smoke.slo_parts(torch, np, net, kw, k1, k2, 50, "cpu",
                                     cfg)
     assert launches["k1"] > 0 and launches["k2"] > 0
@@ -587,7 +597,8 @@ def test_cuda_slo_rung_walk_at_small_width():
         lad = DegradeLadder(fleet, hold_down_s=1.0)
         fleet.attach_degrade(lad)
         rows = chip_smoke.slo_walk(torch, np, fleet,
-                                   types.SimpleNamespace(ladder=lad), gen,
+                                   types.SimpleNamespace(
+                                       ladder=lad, now=time.monotonic), gen,
                                    pa.paged_decode_attention,
                                    pa.paged_verify_attention, p, 32,
                                    (p[:8], 4), chip_smoke.NEAR_TIE_BF16)

@@ -436,15 +436,16 @@ def _ragged_bf16(seed, dh, with_bias):
 @pytest.mark.gpu
 @pytest.mark.parametrize("single", [False, True],
                          ids=["flash_fwd", "flash_fwd_single"])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
                                               (True, True)])
 def test_cuda_k3_ragged_t(dh, causal, with_bias, single):
     """K3 (or K4) alone in bf16 at a t that fills neither its 128-row
-    query tiles nor its 128-key tiles, with and without a key bias, at
-    both head dims: the interior, diagonal, ragged and biased tiles all
-    run.  Held to the plain version with the measure of
-    :func:`test_cuda_kernels_match_plain` (O at 2e-2, LSE at 1e-5)."""
+    query tiles nor its key tiles (128 keys; 64 at dh 192 and 256), with
+    and without a key bias, at every built head dim: the interior,
+    diagonal, ragged and biased tiles all run.  Held to the plain version
+    with the measure of :func:`test_cuda_kernels_match_plain` (O at 2e-2,
+    LSE at 1e-5)."""
     _cuda_or_skip()
     q, k, v, _, bias = _ragged_bf16(dh + 2 * causal + with_bias, dh,
                                     with_bias)
@@ -454,6 +455,40 @@ def test_cuda_k3_ragged_t(dh, causal, with_bias, single):
     o, lse = wrapper(q, k, v, bias, causal=causal, scale=scale)
     bh = fa._to_bh
     ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, causal=causal,
+                                    scale=scale, single=single)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    assert _elem_err(bh(o), ro) <= 2e-2
+    assert _elem_err(lse, rl) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("single", [False, True],
+                         ids=["flash_fwd", "flash_fwd_single"])
+@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("t", [2000, 2048])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_cuda_wide_fwd_causal_long_t(dh, t, with_bias, single):
+    """K3 (or K4) in bf16 at head dims 192 and 256 (64-key tiles), causal
+    at t 2048 and at a ragged t 2000, with and without a key bias: each
+    128-row query tile walks up to 32 key tiles — interior ones on the
+    branch-free path (no bias), the two on its diagonal masked, the last
+    one ragged at t 2000, every one biased with the bias.  Held as
+    :func:`test_cuda_k3_ragged_t` holds it (O at 2e-2, LSE at 1e-5)."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(dh + t + with_bias)
+    b, h = 1, 2
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+    bias = (torch.randn((b * h, t), generator=g, device="cuda")
+            if with_bias else None)
+    scale = dh ** -0.5
+    wrapper = fa.flash_fwd_single if single else fa.flash_fwd
+    n0 = wrapper.launches
+    o, lse = wrapper(q, k, v, bias, causal=True, scale=scale)
+    bh = fa._to_bh
+    ro, rl = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, causal=True,
                                     scale=scale, single=single)
     torch.cuda.synchronize()
     assert wrapper.launches == n0 + 1
@@ -503,13 +538,13 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
                                        ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256, 272, 320, 512])
 def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
-    """K3 (or K4), K5 and K6 on the card at head dims the tensor-core
-    kernels are not built for — zero-padded to 64 or 128 (16, 32, 96) or
-    to the 192 build (160) by the wrappers, the plain-FMA 192 and 256
-    builds themselves, and the chunked kernels past 256 (272 padded to
-    320, 320, 512) — causal with a key bias at a ragged t, against the
-    plain versions on the unpadded operands; each element held to its own
-    size.  These raised before."""
+    """K3 (or K4), K5 and K6 on the card at head dims past the first
+    builds — zero-padded to 64 or 128 (16, 32, 96) or to the 192 build
+    (160) by the wrappers, the 192 and 256 builds themselves (the bf16
+    forward on wgmma with 64-key tiles, the rest on FMA tiles), and the
+    chunked kernels past 256 (272 padded to 320, 320, 512) — causal with
+    a key bias at a ragged t, against the plain versions on the unpadded
+    operands; each element held to its own size.  These raised before."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(dh)
