@@ -292,18 +292,20 @@ Phases:
  10b. wide   — the head dims past 128 (``WIDE_CFG``): (a) timings as in
                phase 10 of K1 and K2 at 3 heads of 256, and of K3-K6 at
                b 8, t 2048 causal (K4 at t 512) at 3 heads of 256 and at
-               4 heads of 192 — the bf16 forward on wgmma with 64-key
-               tiles, the backward on FMA tiles; (b) the main path of
-               those builds: default-width zoo.Gpt(n_heads=3) (12 x 768,
-               3 heads of 256, vocab 32000, bf16, seeded weights), b 8:
-               one output() at t 2048 (K3 = 12) and one at t 512 (K4 =
-               12), then 2 fit steps at t 2048 (K3 = K5 = K6 = 12 a step)
-               — each window after a warm-up whose launches' operands are
-               replayed through the kernels against their plain versions,
-               counts from 0; output finite, the loss curve within 1e-3
-               of the same steps on plain attention, ms, tokens/s, peak
-               memory and a profiled step; (c) the
-               same forward at Gpt(n_heads=4) (4 heads of 192), t 2048.
+               4 heads of 192 — forward and backward on wgmma with
+               64-row tiles; (b) the main path of those builds:
+               default-width zoo.Gpt(n_heads=3) (12 x 768, 3 heads of
+               256, vocab 32000, bf16, seeded weights), b 8: one output()
+               at t 2048 (K3 = 12) and one at t 512 (K4 = 12), then 2 fit
+               steps at t 2048 (K3 = K5 = K6 = 12 a step) — each window
+               after a warm-up whose launches' operands are replayed
+               through the kernels against their plain versions, counts
+               from 0; output finite, the loss curve within 1e-3 of the
+               same steps on plain attention, ms, tokens/s, peak memory
+               and a profiled step; (c) Gpt(n_heads=4) (4 heads of 192)
+               the same way: its output() at t 2048 (K3 = 12) and 2 fit
+               steps (K3 = K5 = K6 = 12 a step), replayed, counted and
+               held to plain attention's loss curve.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
@@ -651,7 +653,7 @@ FLASH_CASES = [
     ("ragged_causal_bias_dh32", 2, 777, 4, 32, True, "random", False),
     ("ragged_bias_dh32_k4", 2, 333, 4, 32, False, "random", True),
     # past dh 128: dh 160 (zero-padded to the 192 build) and 256, on the
-    # plain-FMA tiles the bf16 route takes there
+    # 64-row wgmma tiles of the bf16 route (f32 on FMA tiles)
     ("ragged_causal_bias_dh160", 2, 777, 3, 160, True, "random", False),
     ("ragged_bias_dh160_k4", 2, 333, 3, 160, False, "random", True),
     ("causal_dh256", 2, 1000, 3, 256, True, None, False),
@@ -7834,7 +7836,7 @@ def phase_profile(torch, np):
 # Gpt() at its widths (12 x 768, ff 3072, vocab 32000, bf16, seeded random
 # weights) with wider heads — the reference's zoo.Gpt(n_heads=...)
 # (deeplearning4j_tpu/zoo/gpt.py:62): (b) 3 heads of 256, (c) 4 of 192,
-# the bf16 forward on the wgmma builds at those head dims.
+# forward and backward on the wgmma builds at those head dims.
 WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
             "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
             "kernels": True}
@@ -7899,72 +7901,87 @@ def wide_forward(torch, np, fa, net, cfg, t, label, sync):
             "kernel_vs_plain": errs}
 
 
-def wide_parts(torch, np, device, cfg, sync, card):
-    """Parts (b) and (c) of :func:`phase_wide` on ``device`` at ``cfg``'s
-    sizes: (b) Gpt(n_heads=cfg["heads"]) — one output() at t (K3) and one
-    at t_single (K4), then ``steps`` fit steps at t (K3, K5 and K6 once a
-    layer a step), each window after a warm-up (:func:`wide_window`);
-    (c) the same forward at t with ``cfg["narrow"]``.  Emits
-    ``wide/gpt`` and returns the launch counts by window."""
+def wide_fit(torch, np, fa, net, make_plain, cfg, label, sync,
+             profile=False):
+    """``cfg["steps"]`` counted fit steps of ``net`` (a Gpt) at [b, t]
+    after a warm-up (:func:`wide_window`; K3, K5 and K6 once a layer a
+    step), finite losses, then the same steps of ``make_plain()`` — the
+    same seeded init on plain attention — from the same batch: the two
+    loss curves agree to bf16 rounding (1e-3), and no flash kernel runs.
+    With ``profile`` (and the card) one more step is profiled."""
     from deeplearning4j_torch.data import DataSet
-    from deeplearning4j_torch.zoo import Gpt
-    fa = flash_module()
-    t_phase = time.perf_counter()
-    t, d = cfg["t"], cfg["gpt"].get("d_model", 768)
-    net = Gpt(seed=0, seq_len=t, n_heads=cfg["heads"],
-              **cfg["gpt"]).init_graph(device=device)
+    t = cfg["t"]
     n_layers = len(net.layers) - 2
-    row = {"phase": "wide/gpt", "card": card, "weights": "random (seeded)",
-           "n_layers": n_layers, "heads": cfg["heads"],
-           "head_dim": d // cfg["heads"], "tol": FLASH_TOL["bfloat16"]}
-    counts = {}
-    for label, tt in (("fwd", t), ("fwd_single", cfg["t_single"])):
-        row[label] = wide_forward(torch, np, fa, net, cfg, tt,
-                                  f"wide/b/{label}", sync)
-        counts[label] = row[label]["launches"]
-
     ds = DataSet(*train_batch(np, cfg["b"], t, cfg["vocab"], 2))
     want = {n: (n_layers if n != "flash_fwd_single" else 0)
             for n in FLASH_WRAPPERS}
     losses, wall, cnt, errs, peak = wide_window(
-        torch, fa, "wide/b/fit", lambda: float(net.fit(ds)), want, cfg,
-        sync, reps=cfg["steps"])
+        torch, fa, label, lambda: float(net.fit(ds)), want, cfg, sync,
+        reps=cfg["steps"])
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"wide/b/fit: losses {losses}")
-    counts["fit"] = cnt
-    row["fit"] = {"b": cfg["b"], "t": t, "steps": cfg["steps"],
-                  "losses": losses, "step_ms": wall * 1e3 / cfg["steps"],
-                  "tokens_per_s": cfg["steps"] * cfg["b"] * t / wall,
-                  "peak_allocated_bytes": peak, "launches": cnt,
-                  "kernel_vs_plain": errs}
-    if cfg["kernels"]:
-        row["fit"]["profile"] = step_profile(torch, lambda: net.fit(ds))
-    del net
-    # the same seeded init and batch on plain attention: the two loss
-    # curves agree to bf16 rounding, and no flash kernel runs
-    plain = Gpt(seed=0, seq_len=t, n_heads=cfg["heads"], use_flash=False,
-                **cfg["gpt"]).init_graph(device=device)
+        raise AssertionError(f"{label}: losses {losses}")
+    row = {"b": cfg["b"], "t": t, "steps": cfg["steps"], "losses": losses,
+           "step_ms": wall * 1e3 / cfg["steps"],
+           "tokens_per_s": cfg["steps"] * cfg["b"] * t / wall,
+           "peak_allocated_bytes": peak, "launches": cnt,
+           "kernel_vs_plain": errs}
+    if profile and cfg["kernels"]:
+        row["profile"] = step_profile(torch, lambda: net.fit(ds))
+    plain = make_plain()
     for name in FLASH_WRAPPERS:
         getattr(fa, name).launches = 0
     p_losses = [float(plain.fit(ds)) for _ in losses]
     p_cnt = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
     curve = max(abs(a - c) / abs(c) for a, c in zip(losses, p_losses))
     if curve > 1e-3 or any(p_cnt.values()):
-        raise AssertionError(f"wide/b/fit: plain-attention losses "
+        raise AssertionError(f"{label}: plain-attention losses "
                              f"{p_losses} vs flash {losses} (max rel "
                              f"{curve}), launches {p_cnt}")
-    row["fit"]["plain_attention"] = {"losses": p_losses,
-                                     "loss_curve_max_rel_diff": curve}
-    del plain, ds
+    row["plain_attention"] = {"losses": p_losses,
+                              "loss_curve_max_rel_diff": curve}
+    return row
 
-    gpt = {**cfg["gpt"], **cfg["narrow"]}
-    narrow = Gpt(seed=0, seq_len=t, **gpt).init_graph(device=device)
-    row["narrow"] = {"gpt": cfg["narrow"],
-                     "head_dim": gpt.get("d_model", 768) // gpt["n_heads"],
-                     **wide_forward(torch, np, fa, narrow, cfg, t,
-                                    "wide/c/fwd", sync)}
-    counts["narrow"] = row["narrow"]["launches"]
-    del narrow
+
+def wide_parts(torch, np, device, cfg, sync, card):
+    """Parts (b) and (c) of :func:`phase_wide` on ``device`` at ``cfg``'s
+    sizes: (b) Gpt(n_heads=cfg["heads"]) — one output() at t (K3) and one
+    at t_single (K4), then ``steps`` fit steps at t (K3, K5 and K6 once a
+    layer a step, :func:`wide_fit`, one more step profiled), each window
+    after a warm-up (:func:`wide_window`); (c) the same forward at t and
+    the same fit steps with ``cfg["narrow"]``.  Emits ``wide/gpt`` and
+    returns the launch counts by window."""
+    from deeplearning4j_torch.zoo import Gpt
+    fa = flash_module()
+    t_phase = time.perf_counter()
+    t = cfg["t"]
+    row = {"phase": "wide/gpt", "card": card, "weights": "random (seeded)",
+           "tol": FLASH_TOL["bfloat16"]}
+    counts = {}
+    for part, gpt, windows in (
+            ("b", {**cfg["gpt"], "n_heads": cfg["heads"]},
+             (("fwd", t), ("fwd_single", cfg["t_single"]))),
+            ("c", {**cfg["gpt"], **cfg["narrow"]}, (("fwd", t),))):
+        def make(use_flash=True, gpt=gpt):
+            return Gpt(seed=0, seq_len=t, use_flash=use_flash,
+                       **gpt).init_graph(device=device)
+        net = make()
+        sub = {"n_layers": len(net.layers) - 2, "heads": gpt["n_heads"],
+               "head_dim": gpt.get("d_model", 768) // gpt["n_heads"]}
+        for label, tt in windows:
+            sub[label] = wide_forward(torch, np, fa, net, cfg, tt,
+                                      f"wide/{part}/{label}", sync)
+        sub["fit"] = wide_fit(torch, np, fa, net, lambda: make(False), cfg,
+                              f"wide/{part}/fit", sync, profile=part == "b")
+        del net
+        if part == "b":
+            row.update(sub)
+            counts.update({w: sub[w]["launches"]
+                           for w in ("fwd", "fwd_single", "fit")})
+        else:
+            fwd = sub.pop("fwd")
+            row["narrow"] = {"gpt": cfg["narrow"], **sub, **fwd}
+            counts["narrow"] = fwd["launches"]
+            counts["narrow_fit"] = sub["fit"]["launches"]
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     return counts
@@ -8208,12 +8225,12 @@ def main(argv=None) -> int:
                 if wide_res is not None:
                     # the builds at head dims 256 and 192 (phase 10b):
                     # timed in (a), launched on Gpt(n_heads=3)'s forward
-                    # and fit steps in (b) and Gpt(n_heads=4)'s forward in
-                    # (c)
+                    # and fit steps in (b) and Gpt(n_heads=4)'s in (c)
                     w_time, w_cnt = wide_res
                     for dh, windows in (("dh256", ("fwd", "fwd_single",
                                                    "fit")),
-                                        ("dh192", ("narrow",))):
+                                        ("dh192", ("narrow",
+                                                   "narrow_fit"))):
                         rows[-1][dh] = {
                             "launches": sum(w_cnt[w][name] for w in windows),
                             **wide_sub(w_time[dh][name])}

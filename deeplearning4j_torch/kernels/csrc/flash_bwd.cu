@@ -61,13 +61,21 @@
 //   causal query tile goes first, in groups of 8 (batch, head) slices so
 //   the K/V tiles the running blocks share stay in L2.  dQ is written
 //   once, at the end, with no atomics.
-// * f32, and bf16 at head dims 192 and 256 (the wgmma route's dK/dV or dQ
-//   accumulators would not fit in registers there): 8 warps, 32-row
-//   tiles, f32 tiles in shared memory, plain FMAs on the inputs' exact
-//   values; in bf16, P and dS * scale are rounded where K5 and K6 round
-//   them and dQ, dK and dV are written as bf16.  At dh 256 the tiles take
-//   ~213 KB of shared memory.  A simple kernel that is right, bound by its
-//   FMAs, not the tensor cores.
+// * bf16 K5 and K6 at head dims 192 and 256 (flash_bwd_dkdv_wide_kernel,
+//   flash_bwd_dq_wide_kernel): v3's machinery on 64 x 64 tiles, where
+//   v3's dK/dV or dQ accumulators and resident tiles would not fit.  A
+//   block owns 64 keys (K5) or 64 query rows (K6), both warpgroups on
+//   the same 64, each computing its 32-column half of S^T and dP^T (or S
+//   and dP) with wgmma m64n32k16.  K5 stages P^T and dS^T * scale in
+//   shared memory as bf16; warpgroup 0 then accumulates dV, warpgroup 1
+//   dK, each over the whole head dim (wgmma m64n{dh}k16, A from shared
+//   memory).  K6's warpgroups each accumulate a partial dQ over their
+//   32-key halves (dS * scale the register A operand), summed once at
+//   the end.  Registers and shared memory: see WideLayout.
+// * f32 (tf32 would change the results): 8 warps, 32-row tiles, f32
+//   tiles in shared memory, plain FMAs on the inputs' exact values.  At
+//   dh 256 the tiles take ~213 KB of shared memory.  A simple kernel that
+//   is right, bound by its FMAs, not the tensor cores.
 // * past head dim 256 (any multiple of 64): the same FMA route chunked —
 //   S and dP summed over 64-column chunks, each block owning 128 output
 //   columns of dQ or of dK and dV (flash_bwd_chunked_kernel).
@@ -539,7 +547,437 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// plain route (f32; bf16 past dh 128): f32 tiles in shared memory, FMAs
+// bf16 K5 and K6 at head dims 192 and 256: wgmma on 64 x 64 tiles
+// ---------------------------------------------------------------------------
+// v3's layout does not fit there: a warpgroup owning 64 keys (K5) or rows
+// (K6) with the whole head dim would hold dK and dV (K5: DH / 2 f32 each a
+// thread, 256 registers at dh 256) or dQ beside its 64 x 64 S and dP
+// tiles, and 128 resident rows of K and V (or Q and dO) beside a
+// two-stage ring of the other pair take 256 KB of shared memory at
+// dh 256.  So a block owns 64 keys (K5) or 64 query rows (K6), both
+// warpgroups on the same 64 (wgmma's M), the other axis streaming in
+// 64-row tiles; each warpgroup computes its 32-column half of the
+// transposed or plain score tiles (wgmma m64n32k16, both operands in
+// shared memory).
+// * K5: P^T and dS^T * scale go to shared memory as bf16 (two 64 x 64
+//   swizzled tiles), and after a barrier warpgroup 0 accumulates dV +=
+//   P^T dO and warpgroup 1 dK += (dS^T scale) Q over all 64 queries of the
+//   tile (wgmma m64n{dh}k16, A from shared memory K-major, B MN-major):
+//   one full-width accumulator a warpgroup, 128 registers at dh 256.  A
+//   split by head columns would put a warpgroup's half of dh 192 (96
+//   columns) across a swizzled panel's middle.  dBias: each warpgroup
+//   sums dS over its query halves; the halves meet in shared memory.
+//   Shared memory at dh 256: K + V 64 KB, the Q/dO ring 128 KB, P^T +
+//   dS^T 16 KB, stats 1 KB: ~210 KB (162 KB at dh 192).
+// * K6: each warpgroup accumulates a partial dQ over its 32-key half of
+//   every key tile, dS * scale its register A operand (wgmma m64n{dh}k16,
+//   K MN-major), with no barrier between the warpgroups inside the loop;
+//   at the end warpgroup 1's partial goes through shared memory (the K
+//   ring) to warpgroup 0, which adds and writes dQ once.  Registers: dQ
+//   128, S and dP halves 16 + 16 at dh 256.  Shared memory: Q + dO 64 KB,
+//   the K/V ring 128 KB: ~194 KB (146 KB at dh 192).
+// P is recomputed in base 2 as in v3, interior tiles branch-free and the
+// rest masked, with v3's rounding points and launch order.
+constexpr int kWide = 64;   // keys a K5 block / rows a K6 block, and the streamed tiles' rows
+
+template <int DH>
+struct WideLayout {
+  static constexpr int NP = DH / kPanel;
+  static constexpr uint32_t kPanelB = 128 * kWide;   // 64 rows of 128 B
+  static constexpr uint32_t kTile = NP * kPanelB;    // one 64-row operand tile
+  static constexpr uint32_t kStatBytes = 2 * kWide * sizeof(float);   // LSE, delta
+  // resident pair (K5: K, V; K6: Q, dO), then the streamed pair's rings
+  static constexpr uint32_t kRes0 = 0, kRes1 = kTile;
+  static constexpr uint32_t kRing0 = 2 * kTile;
+  static constexpr uint32_t kRing1 = kRing0 + kBwStages * kTile;
+  static constexpr uint32_t kEnd = kRing1 + kBwStages * kTile;
+  // K5 only: P^T, dS^T * scale (one bf16 panel each), the stats ring and
+  // warpgroup 1's dBias half
+  static constexpr uint32_t kPt = kEnd, kDst = kPt + kPanelB;
+  static constexpr uint32_t kStat = kDst + kPanelB;
+  static constexpr uint32_t kDb = kStat + kBwStages * kStatBytes;
+  static constexpr uint32_t kBarDkdv = kDb + kWide * sizeof(float);
+  static constexpr size_t kBytesDkdv = kBarDkdv + 8 * (1 + kBwStages) + 1024;
+  static constexpr size_t kBytesDq = kEnd + 8 * (1 + kBwStages) + 1024;
+  static_assert(kBytesDkdv <= 232448, "K5 wide tiles exceed shared memory");
+  // K6's second partial dQ (f32, 128 threads x DH / 2) fits in its rings
+  static_assert(128 * (DH / 2) * sizeof(float) <= 2 * kBwStages * kTile, "dQ partial");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = WideLayout<DH>;
+  constexpr int NJ = kWide / 2 / 8;   // query column blocks of a warpgroup's half
+  constexpr int ND = DH / 8;
+  constexpr int NK = DH / 16;         // k-steps of K Q^T and V dO^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  unsigned char* smem = smem_raw + (sb - raw);
+  const uint32_t k_s = sb + L::kRes0, v_s = sb + L::kRes1;
+  auto q_s = [&](int st) { return sb + L::kRing0 + st * L::kTile; };
+  auto do_s = [&](int st) { return sb + L::kRing1 + st * L::kTile; };
+  const uint32_t bar_kv = sb + L::kBarDkdv;
+  auto bar_q = [&](int st) { return bar_kv + 8 + 8 * st; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, qd = lane & 3;
+  const int t = a.t;
+  // low key tiles first: they carry the most causal work
+  const int2 blk = grouped_block((t + kWide - 1) / kWide);
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int k0 = blk.y * kWide;
+  const int key[2] = {k0 + 16 * wi + g, k0 + 16 * wi + g + 8};
+  // causal: query tiles wholly above this key tile see none of its keys
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = (t - q_begin + kWide - 1) / kWide;
+
+  // as v3: thread 0 issues the TMA copies of query tile j + kAhead before
+  // tile j is computed, the first 128 threads copy its LSE and delta rows
+  constexpr int kAhead = kBwStages - 1;
+  auto issue = [&](int j) {
+    const int st = j % kBwStages;
+    mbar_expect(bar_q(st), 2 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(q_s(st) + p * L::kPanelB, tq, bar_q(st), kPanel * p, hi,
+               q_begin + j * kWide, bi);
+      tma_load(do_s(st) + p * L::kPanelB, tdo, bar_q(st), kPanel * p, hi,
+               q_begin + j * kWide, bi);
+    }
+  };
+  auto copy_stats = [&](int j) {
+    if (j < n_tiles && tid < 2 * kWide) {
+      const int i = tid % kWide;
+      const int row = q_begin + j * kWide + i;
+      const float* src = (tid < kWide ? a.lse : a.delta) + (long long)bh * t + min(row, t - 1);
+      cp_async4(sb + L::kStat + (j % kBwStages) * L::kStatBytes + 4 * tid, src,
+                row < t ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kBwStages; ++i) mbar_init(bar_kv + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_kv, 2 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(k_s + p * L::kPanelB, tk, bar_kv, kPanel * p, hi, k0, bi);
+      tma_load(v_s + p * L::kPanelB, tv, bar_kv, kPanel * p, hi, k0, bi);
+    }
+    for (int j = 0; j < kAhead && j < n_tiles; ++j) issue(j);
+  }
+  for (int j = 0; j < kAhead; ++j) copy_stats(j);
+
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  float bk[2];   // the bias of this thread's two keys, constant over the block
+#pragma unroll
+  for (int r = 0; r < 2; ++r) bk[r] = bias && key[r] < t ? bias[key[r]] : 0.f;
+  const float c = a.scale * kLog2e;
+  float acc[ND][4];   // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float db[2] = {0.f, 0.f};
+  // warpgroup 0 multiplies P^T by dO, warpgroup 1 dS^T * scale by Q
+  const uint32_t a_s = sb + (wg ? L::kDst : L::kPt);
+  mbar_wait(bar_kv, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kBwStages;
+    const int q0 = q_begin + j * kWide;
+    cp_async_wait<kAhead - 1>();
+    // tile j's stats visible; tile j - 1 read by everyone: its stage and
+    // the P^T / dS^T tiles are free
+    __syncthreads();
+    if (tid == 0 && j + kAhead < n_tiles) issue(j + kAhead);
+    copy_stats(j + kAhead);
+    mbar_wait(bar_q(st), (j / kBwStages) & 1);
+
+    // this warpgroup's half of the transposed tiles, all 64 keys x its 32
+    // queries: S^T = K Q^T, dP^T = V dO^T, both operands K-major
+    float sT[NJ][4], dpT[NJ][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t ka = (kk / 4) * L::kPanelB + (kk % 4) * 32;
+      const uint32_t kb = ka + wg * (kWide / 2) * 128;
+      Wgmma<32>::ss(sT, sw128_desc(k_s + ka, 16, 1024), sw128_desc(q_s(st) + kb, 16, 1024),
+                    kk > 0);
+      Wgmma<32>::ss(dpT, sw128_desc(v_s + ka, 16, 1024), sw128_desc(do_s(st) + kb, 16, 1024),
+                    kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    keep(sT);
+    keep(dpT);
+
+    // P^T in base 2 from each query column's LSE, dS^T = P^T (dP^T -
+    // delta), as v3; then P^T and dS^T * scale to shared memory as bf16 in
+    // the 128-byte swizzle wgmma reads (16-byte chunk index ^ row % 8)
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::kStat + st * L::kStatBytes);
+    const float* dl_s = lse_s + kWide;
+    const bool interior = !bias && (!a.causal || q0 >= k0 + kWide);
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int cq = (kWide / 2) * wg + 8 * jj + 2 * qd;
+      const float2 lse = *reinterpret_cast<const float2*>(lse_s + cq);
+      const float2 dl = *reinterpret_cast<const float2*>(dl_s + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float lse_e = (e & 1) ? lse.y : lse.x;
+        float p;
+        if (interior) {
+          p = ex2(fmaf(sT[jj][e], c, -lse_e * kLog2e));
+        } else {
+          const int qrow = q0 + cq + (e & 1);
+          p = qrow >= t || (a.causal && key[r] > qrow)
+                  ? 0.f
+                  : ex2((fmaf(sT[jj][e], a.scale, bk[r]) - lse_e) * kLog2e);
+        }
+        const float ds = p * (dpT[jj][e] - ((e & 1) ? dl.y : dl.x));
+        db[r] += ds;
+        sT[jj][e] = p;
+        dpT[jj][e] = ds * a.scale;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * wi + g + 8 * r;
+        const uint32_t off = row * 128 + ((((cq >> 3) ^ (row & 7)) << 4) | (4 * qd));
+        *reinterpret_cast<uint32_t*>(smem + L::kPt + off) =
+            pack_bf16(sT[jj][2 * r], sT[jj][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(smem + L::kDst + off) =
+            pack_bf16(dpT[jj][2 * r], dpT[jj][2 * r + 1]);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();   // both halves of P^T and dS^T written
+
+    // dV += P^T dO (warpgroup 0) or dK += (dS^T scale) Q (warpgroup 1)
+    // over the tile's 64 queries: A K-major (a k-step 32 bytes inside the
+    // swizzled row), B MN-major through the transpose bit (a k-step is 16
+    // query rows, 2048 bytes; the next 64 head columns a panel further)
+    const uint32_t b_s = wg ? q_s(st) : do_s(st);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < kWide / 16; ++kc)
+      Wgmma<DH>::ss_tb(acc, sw128_desc(a_s + kc * 32, 16, 1024),
+                       sw128_desc(b_s + kc * 16 * 128, L::kPanelB, 1024), 1);
+    wg_commit();
+    wg_wait0();
+    keep(acc);
+  }
+
+  if (wg)
+    store_frag_rows<ND>(static_cast<bf16*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h, a.sdk.t, acc,
+                        key, t, qd);
+  else
+    store_frag_rows<ND>(static_cast<bf16*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h, a.sdv.t, acc,
+                        key, t, qd);
+  if (a.dbias) {
+    float* db_s = reinterpret_cast<float*>(smem + L::kDb);
+    float sum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] = quad_sum(db[r]);
+      if (wg == 1 && qd == 0) db_s[16 * wi + g + 8 * r] = sum[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (wg == 0 && qd == 0 && key[r] < t)
+        a.dbias[(long long)bh * t + key[r]] = sum[r] + db_s[16 * wi + g + 8 * r];
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = WideLayout<DH>;
+  constexpr int NJ = kWide / 2 / 8;   // key column blocks of a warpgroup's half
+  constexpr int ND = DH / 8;
+  constexpr int NK = DH / 16;         // k-steps of Q K^T and dO V^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  unsigned char* smem = smem_raw + (sb - raw);
+  const uint32_t q_s = sb + L::kRes0, do_s = sb + L::kRes1;
+  auto k_s = [&](int st) { return sb + L::kRing0 + st * L::kTile; };
+  auto v_s = [&](int st) { return sb + L::kRing1 + st * L::kTile; };
+  const uint32_t bar_q = sb + L::kEnd;
+  auto bar_kv = [&](int st) { return bar_q + 8 + 8 * st; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, qd = lane & 3;
+  const int t = a.t;
+  const int n_q = (t + kWide - 1) / kWide;
+  const int2 blk = grouped_block(n_q);   // heaviest causal tile first
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int q0 = (n_q - 1 - blk.y) * kWide;
+  const int row[2] = {q0 + 16 * wi + g, q0 + 16 * wi + g + 8};
+  const int k_end = a.causal ? min(t, q0 + kWide) : t;
+  const int n_k = (k_end + kWide - 1) / kWide;
+
+  constexpr int kAhead = kBwStages - 1;
+  auto issue = [&](int j) {
+    const int st = j % kBwStages;
+    mbar_expect(bar_kv(st), 2 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(k_s(st) + p * L::kPanelB, tk, bar_kv(st), kPanel * p, hi, j * kWide, bi);
+      tma_load(v_s(st) + p * L::kPanelB, tv, bar_kv(st), kPanel * p, hi, j * kWide, bi);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kBwStages; ++i) mbar_init(bar_q + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_q, 2 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(q_s + p * L::kPanelB, tq, bar_q, kPanel * p, hi, q0, bi);
+      tma_load(do_s + p * L::kPanelB, tdo, bar_q, kPanel * p, hi, q0, bi);
+    }
+    for (int j = 0; j < kAhead && j < n_k; ++j) issue(j);
+  }
+
+  // each row's LSE (and in base 2) and delta, read once; rows at or past
+  // t get LSE = 1e30 (p == 0) and delta 0
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  float lse[2], lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < t;
+    lse[r] = in ? a.lse[(long long)bh * t + row[r]] : kPos;
+    lse2[r] = lse[r] * kLog2e;
+    dl[r] = in ? a.delta[(long long)bh * t + row[r]] : 0.f;
+  }
+  const float c = a.scale * kLog2e;
+  float dq[ND][4];   // this warpgroup's partial: its 32-key half of every tile
+#pragma unroll
+  for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_k; ++j) {
+    const int st = j % kBwStages;
+    const int kw0 = j * kWide + (kWide / 2) * wg;   // this warpgroup's keys
+    __syncthreads();   // tile j - 1 read by every warpgroup: its stage is free
+    if (tid == 0 && j + kAhead < n_k) issue(j + kAhead);
+    mbar_wait(bar_kv(st), (j / kBwStages) & 1);
+
+    // S = Q K^T and dP = dO V^T at all 64 rows x this warpgroup's 32 keys,
+    // both operands K-major
+    float s[NJ][4], dp[NJ][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t qa = (kk / 4) * L::kPanelB + (kk % 4) * 32;
+      const uint32_t kb = qa + wg * (kWide / 2) * 128;
+      Wgmma<32>::ss(s, sw128_desc(q_s + qa, 16, 1024), sw128_desc(k_s(st) + kb, 16, 1024),
+                    kk > 0);
+      Wgmma<32>::ss(dp, sw128_desc(do_s + qa, 16, 1024), sw128_desc(v_s(st) + kb, 16, 1024),
+                    kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    keep(s);
+    keep(dp);
+
+    // P from each row's LSE in base 2, dS * scale = P (dP - delta) scale;
+    // interior halves (no bias, every key below t and, causal, at or below
+    // the block's first row) are branch-free, the rest mask
+    const bool interior =
+        !bias && (a.causal ? kw0 + kWide / 2 - 1 <= q0 : kw0 + kWide / 2 <= t);
+    if (interior) {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = ex2(fmaf(s[jj][e], c, -lse2[r]));
+          s[jj][e] = p * (dp[jj][e] - dl[r]) * a.scale;
+        }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int col0 = kw0 + 8 * jj + 2 * qd;
+        const float b0 = bias && col0 < t ? bias[col0] : 0.f;
+        const float b1 = bias && col0 + 1 < t ? bias[col0 + 1] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = col0 + (e & 1);
+          const float p =
+              col >= t || row[r] >= t || (a.causal && col > row[r])
+                  ? 0.f
+                  : ex2((fmaf(s[jj][e], a.scale, (e & 1) ? b1 : b0) - lse[r]) * kLog2e);
+          s[jj][e] = p * (dp[jj][e] - dl[r]) * a.scale;
+        }
+      }
+    }
+
+    // dQ += (dS scale) K over this warpgroup's 32 keys: dS * scale rounded
+    // to bf16 as the register A operand; K MN-major through the transpose
+    // bit — a k-step is 16 key rows (2048 bytes), the next 64 head columns
+    // a panel further (LBO)
+    uint32_t sf[NJ / 2][4];
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) pack_a<NJ>(sf[kc], s, kc);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc)
+      Wgmma<DH>::rs(dq, sf[kc],
+                    sw128_desc(k_s(st) + ((kWide / 2) * wg + 16 * kc) * 128, L::kPanelB, 1024),
+                    1);
+    wg_commit();
+    wg_wait0();
+    keep(dq);
+    keep(sf);
+  }
+
+  // warpgroup 1's partial through shared memory (the K ring, free now),
+  // element (j, e) of thread i at [4 j + e][i]; warpgroup 0 adds and writes
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem + L::kRing0);
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[(4 * j + e) * 128 + tid - 128] = dq[j][e];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[j][e] += part[(4 * j + e) * 128 + tid];
+    store_frag_rows<ND>(static_cast<bf16*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h, a.sdq.t, dq,
+                        row, t, qd);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// plain route (f32): f32 tiles in shared memory, FMAs
 // ---------------------------------------------------------------------------
 template <int DH>
 struct F32BwdLayout {
@@ -802,37 +1240,67 @@ int launch(Kernel kern, size_t bytes, bool& configured, dim3 grid,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch_plain(const BwdArgs& a, int b, bool dq_pass, cudaStream_t s) {
   static bool configured = false;
   const dim3 grid((a.t + kF32Tile - 1) / kF32Tile, b * a.h);
-  return launch(flash_bwd_plain_kernel<T, DH>, F32BwdLayout<DH>::kBytes,
+  return launch(flash_bwd_plain_kernel<float, DH>, F32BwdLayout<DH>::kBytes,
                 configured, grid, kF32Threads, s, a, dq_pass);
 }
 
+// the TMA maps of q, dO (boxes of q_rows rows) and k, v (k_rows rows)
 template <int DH>
-int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass,
-              cudaStream_t s) {
-  if (!is_bf16) return launch_plain<float, DH>(a, b, dq_pass, s);
-  // K5 reads Q/dO in 64-row tiles beside 128-key blocks, K6 Q/dO in
-  // 128-row blocks beside 64-key tiles
+int make_maps(const BwdArgs& a, int b, int q_rows, int k_rows, CUtensorMap (&m)[4]) {
+  int rc = make_map(&m[0], a.q, a.sq, b, a.h, a.t, DH, q_rows);
+  if (!rc) rc = make_map(&m[1], a.k, a.sk, b, a.h, a.t, DH, k_rows);
+  if (!rc) rc = make_map(&m[2], a.v, a.sv, b, a.h, a.t, DH, k_rows);
+  if (!rc) rc = make_map(&m[3], a.dout, a.sdo, b, a.h, a.t, DH, q_rows);
+  return rc;
+}
+
+// bf16 at head dims 192 and 256: 64-row tiles of every operand, one
+// block a 64-key (K5) or 64-row (K6) tile
+template <int DH>
+int launch_wide(const BwdArgs& a, int b, bool dq_pass, cudaStream_t s) {
+  CUtensorMap m[4];
+  if (int rc = make_maps<DH>(a, b, kWide, kWide, m)) return rc;
+  const dim3 grid(b * a.h, (a.t + kWide - 1) / kWide);
+  if (dq_pass) {
+    static bool configured = false;
+    return launch(flash_bwd_dq_wide_kernel<DH>, WideLayout<DH>::kBytesDq, configured, grid,
+                  kBwThreads, s, m[0], m[1], m[2], m[3], a);
+  }
+  static bool configured = false;
+  return launch(flash_bwd_dkdv_wide_kernel<DH>, WideLayout<DH>::kBytesDkdv, configured, grid,
+                kBwThreads, s, m[0], m[1], m[2], m[3], a);
+}
+
+// bf16 up to head dim 128 (v3): K5 reads Q/dO in 64-row tiles beside
+// 128-key blocks, K6 Q/dO in 128-row blocks beside 64-key tiles
+template <int DH>
+int launch_v3(const BwdArgs& a, int b, bool dq_pass, cudaStream_t s) {
+  CUtensorMap m[4];
   const int q_rows = dq_pass ? kDqRows : kBwRows, k_rows = dq_pass ? kDqKeys : kBwKeys;
-  CUtensorMap tq, tk, tv, tdo;
-  int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, DH, q_rows);
-  if (!rc) rc = make_map(&tdo, a.dout, a.sdo, b, a.h, a.t, DH, q_rows);
-  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, DH, k_rows);
-  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, DH, k_rows);
-  if (rc) return rc;
+  if (int rc = make_maps<DH>(a, b, q_rows, k_rows, m)) return rc;
   if (dq_pass) {
     static bool configured = false;
     const dim3 grid(b * a.h, (a.t + kDqRows - 1) / kDqRows);
     return launch(flash_bwd_dq_bf16_kernel<DH>, DqLayout<DH>::kBytes, configured, grid,
-                  kBwThreads, s, tq, tk, tv, tdo, a);
+                  kBwThreads, s, m[0], m[1], m[2], m[3], a);
   }
   static bool configured = false;
   const dim3 grid(b * a.h, (a.t + kBwKeys - 1) / kBwKeys);
-  return launch(flash_bwd_dkdv_bf16_kernel<DH>, DkdvLayout<DH>::kBytes,
-                configured, grid, kBwThreads, s, tq, tk, tv, tdo, a);
+  return launch(flash_bwd_dkdv_bf16_kernel<DH>, DkdvLayout<DH>::kBytes, configured, grid,
+                kBwThreads, s, m[0], m[1], m[2], m[3], a);
+}
+
+template <int DH>
+int launch_dh(const BwdArgs& a, int b, int is_bf16, bool dq_pass, cudaStream_t s) {
+  if (!is_bf16) return launch_plain<DH>(a, b, dq_pass, s);
+  if constexpr (DH > 128)
+    return launch_wide<DH>(a, b, dq_pass, s);
+  else
+    return launch_v3<DH>(a, b, dq_pass, s);
 }
 
 template <typename T>
@@ -851,12 +1319,8 @@ int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, bool dq_pass,
   switch (dh) {
     case 64: return launch_dh<64>(a, b, is_bf16, dq_pass, s);
     case 128: return launch_dh<128>(a, b, is_bf16, dq_pass, s);
-    case 192:
-      return is_bf16 ? launch_plain<__nv_bfloat16, 192>(a, b, dq_pass, s)
-                     : launch_plain<float, 192>(a, b, dq_pass, s);
-    default:
-      return is_bf16 ? launch_plain<__nv_bfloat16, 256>(a, b, dq_pass, s)
-                     : launch_plain<float, 256>(a, b, dq_pass, s);
+    case 192: return launch_dh<192>(a, b, is_bf16, dq_pass, s);
+    default: return launch_dh<256>(a, b, is_bf16, dq_pass, s);
   }
 }
 

@@ -1,7 +1,8 @@
 // Hopper machinery shared by the bf16 flash kernels on wgmma (flash_fwd.cu:
-// K3 v3 and K4 v3, flash_bwd.cu: K5 v3 and K6 v3): TMA tensor maps over
-// the bthd views, mbarriers, wgmma descriptors of 128-byte-swizzled
-// tiles, the wgmma instructions, base-2 exponentials and cp.async.
+// K3 v3 and K4 v3, flash_bwd.cu: K5 v3 and K6 v3 and their builds at head
+// dims 192 and 256): TMA tensor maps over the bthd views, mbarriers,
+// wgmma descriptors of 128-byte-swizzled tiles, the wgmma instructions,
+// base-2 exponentials and cp.async.
 //
 // Shared memory holds a tile as panels of 64 head columns (128 bytes a
 // row) in the 128-byte swizzle that TMA writes and wgmma reads; a panel
@@ -78,6 +79,12 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// make this thread's plain shared-memory stores visible to wgmma's reads
+// (the async proxy); a barrier then orders them for the other threads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -199,12 +206,53 @@ struct Wgmma<128> {
   }
 };
 
-// The forward's O += P V at head dims 192 and 256: the whole head dim in
-// one instruction (rs only; its accumulator is 96 or 128 registers a
-// thread).  FLASH_WG_D4(j) is accumulator column block j's four operands.
+// FLASH_WG_D4(j) is accumulator column block j's four operands.
 #define FLASH_WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// The backward's half tiles at head dims 192 and 256: 64 rows x 32
+// columns of S or dP (ss, both K-major).
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[4][4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1), FLASH_WG_D4(2), FLASH_WG_D4(3)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// The whole head dim in one instruction at 192 and 256 (an accumulator
+// of 96 or 128 registers a thread): rs, the forward's O += P V and the
+// backward's dQ += dS K; ss_tb, A K-major and B MN-major (transposed),
+// both from shared memory, the backward's dV += P^T dO and dK += dS^T Q
+// with P^T and dS^T staged in shared memory.
 template <>
 struct Wgmma<192> {
+  static __device__ __forceinline__ void ss_tb(float (&d)[24][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1), FLASH_WG_D4(2), FLASH_WG_D4(3),
+          FLASH_WG_D4(4), FLASH_WG_D4(5), FLASH_WG_D4(6), FLASH_WG_D4(7),
+          FLASH_WG_D4(8), FLASH_WG_D4(9), FLASH_WG_D4(10), FLASH_WG_D4(11),
+          FLASH_WG_D4(12), FLASH_WG_D4(13), FLASH_WG_D4(14), FLASH_WG_D4(15),
+          FLASH_WG_D4(16), FLASH_WG_D4(17), FLASH_WG_D4(18), FLASH_WG_D4(19),
+          FLASH_WG_D4(20), FLASH_WG_D4(21), FLASH_WG_D4(22), FLASH_WG_D4(23)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   static __device__ __forceinline__ void rs(float (&d)[24][4], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -231,6 +279,33 @@ struct Wgmma<192> {
 
 template <>
 struct Wgmma<256> {
+  static __device__ __forceinline__ void ss_tb(float (&d)[32][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1), FLASH_WG_D4(2), FLASH_WG_D4(3),
+          FLASH_WG_D4(4), FLASH_WG_D4(5), FLASH_WG_D4(6), FLASH_WG_D4(7),
+          FLASH_WG_D4(8), FLASH_WG_D4(9), FLASH_WG_D4(10), FLASH_WG_D4(11),
+          FLASH_WG_D4(12), FLASH_WG_D4(13), FLASH_WG_D4(14), FLASH_WG_D4(15),
+          FLASH_WG_D4(16), FLASH_WG_D4(17), FLASH_WG_D4(18), FLASH_WG_D4(19),
+          FLASH_WG_D4(20), FLASH_WG_D4(21), FLASH_WG_D4(22), FLASH_WG_D4(23),
+          FLASH_WG_D4(24), FLASH_WG_D4(25), FLASH_WG_D4(26), FLASH_WG_D4(27),
+          FLASH_WG_D4(28), FLASH_WG_D4(29), FLASH_WG_D4(30), FLASH_WG_D4(31)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   static __device__ __forceinline__ void rs(float (&d)[32][4], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
     asm volatile(

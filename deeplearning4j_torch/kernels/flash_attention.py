@@ -24,11 +24,11 @@ compute the same functions in full-row form, in f32 with the kernels'
 rounding points.  Each wrapper routes by the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel or raise (float32
 or bfloat16, any head dim) — there is no fallback and no switch.
-The kernels are built for head dims 64, 128, 192 and 256 (the bf16
-forward on the tensor cores at all four, with 64-key tiles at 192 and
-256; the bf16 backward at 192 and 256 and every f32 build on plain FMA
-tiles), and past 256 for any multiple of 64 (FMA tiles with the head dim
-walked in chunks, as the reference's kernels take any head dim); every
+The kernels are built for head dims 64, 128, 192 and 256 (bf16 on the
+tensor cores at all four, with 64-row tiles at 192 and 256; every f32
+build on plain FMA tiles), and past 256 for any multiple of 64 (FMA
+tiles with the head dim walked in chunks, as the reference's kernels
+take any head dim); every
 wrapper zero-pads q, k, v and dO along the head dim to the
 next of those (:func:`pad_head_dim`) on both routes, and slices the
 padding off O, dQ, dK and dV.  That is exact: zero columns add nothing to Q K^T or to dO

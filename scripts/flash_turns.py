@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash forward (K3 and K4) of two checkouts in
-turns on one CUDA card.
+"""Time the port's bf16 flash kernels at head dims 256 and 192 of two
+checkouts in turns on one CUDA card.
 
     python3 scripts/flash_turns.py BEFORE_DIR AFTER_DIR
 
@@ -8,14 +8,18 @@ Each directory is a checkout of the repository (for example the parent
 commit unpacked with ``git archive``).  The turns run BEFORE, AFTER,
 AFTER, BEFORE, each in a process of its own that imports that
 checkout's ``deeplearning4j_torch`` (its kernels built in its own
-``kernels/_build``), and time ``flash_fwd`` (K3) at b 8, t 2048, causal
-and ``flash_fwd_single`` (K4) at t 512 — bthd views of a [b, t, 3d]
-projection, at 3 heads of 256 and at 4 heads of 192 — by CUDA-graph
-replay over 4 rotating input sets (``chip_smoke.time_ms``'s measure,
-from this script's checkout).  Each turn also holds its kernels to their
-plain versions (``chip_smoke.flash_err``, ``FLASH_TOL``).  Prints one
-JSON line per turn, then a summary with the card's name and power
-limit; exits nonzero without a card or when a kernel disagrees."""
+``kernels/_build``), and time ``flash_fwd`` (K3) at b 8, t 2048, causal,
+``flash_fwd_single`` (K4) at t 512, and the backward at t 2048:
+``flash_bwd_dkdv`` (K5) and ``flash_bwd_dq`` (K6) on the turn's own
+forward's LSE — bthd views of a [b, t, 3d] projection, at 3 heads of
+256 and at 4 heads of 192 — by CUDA-graph replay over 4 rotating input
+sets (``chip_smoke.time_ms``'s measure, from this script's checkout).
+Each turn also times SDPA's whole backward (dq, dk and dv at once,
+``chip_smoke.sdpa_bwd_ms``) on the same inputs as the yardstick, and
+holds its kernels to their plain versions (``chip_smoke.flash_err``,
+``FLASH_TOL``).  Prints one JSON line per turn, then a summary with the
+card's name and power limit; exits nonzero without a card or when a
+kernel disagrees."""
 import importlib
 import importlib.util
 import json
@@ -36,40 +40,81 @@ def _chip_smoke():
     return mod
 
 
+def _sets(torch, g, h, dh, t):
+    """N_SETS bf16 (q, k, v, dO) bthd views of [B, t, 3 h dh]
+    projections."""
+    sets = []
+    for _ in range(N_SETS):
+        qkv = torch.randn((B, t, 3 * h * dh), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        do = torch.randn((B, t, h, dh), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        sets.append([z.reshape(B, t, h, dh)
+                     for z in qkv.split(h * dh, dim=-1)] + [do])
+    return sets
+
+
 def turn(tree: str) -> dict:
     """One turn: this process times ``tree``'s kernels."""
     import torch
+    import torch.nn.functional as F
     sys.path.insert(0, os.path.abspath(tree))
     fa = importlib.import_module(
         "deeplearning4j_torch.kernels.flash_attention")
     cs = _chip_smoke()
     g = torch.Generator(device="cuda").manual_seed(9)
     out = {"tree": tree, "ms": {}, "err": {}}
+
+    def hold(key, got, want):
+        err = cs.flash_err(torch, got.float(), want.float())[0]
+        if not err <= cs.FLASH_TOL["bfloat16"]:
+            raise AssertionError(f"{tree}: {key} kernel vs plain {err}")
+        out["err"][key] = err
+
+    bh = fa._to_bh
     for dh, h in SHAPES:
+        kw = dict(causal=True, scale=dh ** -0.5)
         for name, t in (("flash_fwd", T_STREAM),
                         ("flash_fwd_single", T_SINGLE)):
-            sets = []
-            for _ in range(N_SETS):
-                qkv = torch.randn((B, t, 3 * h * dh), generator=g,
-                                  device="cuda").to(torch.bfloat16)
-                sets.append([z.reshape(B, t, h, dh)
-                             for z in qkv.split(h * dh, dim=-1)])
+            sets = _sets(torch, g, h, dh, t)
             fn = getattr(fa, name)
-            kw = dict(causal=True, scale=dh ** -0.5)
-            o, _ = fn(*sets[0], None, **kw)
-            ro, _ = fa.flash_fwd_reference(*(fa._to_bh(x) for x in sets[0]),
+            o, _ = fn(*sets[0][:3], None, **kw)
+            ro, _ = fa.flash_fwd_reference(*(bh(x) for x in sets[0][:3]),
                                            None, single=name.endswith(
                                                "single"), **kw)
-            err = cs.flash_err(torch, fa._to_bh(o).float(), ro.float())[0]
-            if not err <= cs.FLASH_TOL["bfloat16"]:
-                raise AssertionError(f"{tree}: {name} dh {dh} kernel vs "
-                                     f"plain {err}")
             key = f"{name}/dh{dh}"
-            out["err"][key] = err
+            hold(key, bh(o), ro)
             out["ms"][key] = cs.time_ms(
-                torch, lambda i: fn(*sets[i % N_SETS], None, **kw))
+                torch, lambda i: fn(*sets[i % N_SETS][:3], None, **kw))
             del sets, o, ro
             torch.cuda.empty_cache()
+        # the backward at t 2048 on this turn's forward
+        sets = _sets(torch, g, h, dh, T_STREAM)
+        outs = [fa.flash_fwd(*s[:3], None, **kw) for s in sets]
+        deltas = [fa.row_delta(s[3], o) for s, (o, _) in zip(sets, outs)]
+        bwd = {
+            "flash_bwd_dkdv": lambda i: fa.flash_bwd_dkdv(
+                *sets[i % N_SETS][:3], None, sets[i % N_SETS][3],
+                outs[i % N_SETS][1], deltas[i % N_SETS], **kw),
+            "flash_bwd_dq": lambda i: fa.flash_bwd_dq(
+                *sets[i % N_SETS][:3], None, sets[i % N_SETS][3],
+                outs[i % N_SETS][1], deltas[i % N_SETS], **kw)}
+        rq, rk, rv, _ = fa.flash_bwd_reference(
+            *(bh(x) for x in sets[0][:3]), None, bh(sets[0][3]),
+            outs[0][1], deltas[0], **kw)
+        dk, dv, _ = bwd["flash_bwd_dkdv"](0)
+        hold(f"flash_bwd_dkdv/dh{dh}/dk", bh(dk), rk)
+        hold(f"flash_bwd_dkdv/dh{dh}/dv", bh(dv), rv)
+        hold(f"flash_bwd_dq/dh{dh}/dq", bh(bwd["flash_bwd_dq"](0)), rq)
+        del rq, rk, rv, dk, dv
+        for name, fn in bwd.items():
+            out["ms"][f"{name}/dh{dh}"] = cs.time_ms(torch, fn)
+        sdpa_in = [tuple(x.transpose(1, 2).contiguous() for x in s)
+                   for s in sets]
+        out["ms"][f"sdpa_bwd/dh{dh}"] = cs.sdpa_bwd_ms(
+            torch, F, sdpa_in, kw["scale"], N_SETS, causal=True)[0]
+        del sets, outs, deltas, sdpa_in
+        torch.cuda.empty_cache()
     return out
 
 

@@ -97,11 +97,12 @@ def test_flash_matches_jax_fwd_and_grads(case):
 
 
 # (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
-# tensor-core kernels' head dims: dh 160 (zero-padded to the 192 build)
+# first builds' head dims: dh 160 (zero-padded to the 192 build), 192
 # and 256, streaming (K3) and one key block (K4)
 WIDE_CASES = [
     ("dh160_causal_bias", 1, 2, 32, 160, 16, 16, True, "random", "bthd"),
     ("dh160_single", 1, 2, 16, 160, 16, 16, False, "pad", "bhtd"),
+    ("dh192_causal_bias", 1, 2, 32, 192, 16, 16, True, "random", "bthd"),
     ("dh256_causal", 1, 2, 32, 256, 16, 16, True, None, "bhtd"),
     ("dh256_single_bias", 1, 2, 16, 256, 16, 16, True, "random", "bthd"),
 ]
@@ -109,12 +110,13 @@ WIDE_CASES = [
 
 @pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
 def test_wide_head_dims_match_jax_fwd_and_grads(case):
-    """The plain route at head dims 160 and 256 (where the CUDA route now
-    takes the 192 and 256 builds) against the JAX package's
-    ``flash_attention`` in interpret mode: forward within 1e-5,
-    gradients within 1e-4, as at the small head dims."""
+    """The plain route at head dims 160, 192 and 256 (where the CUDA
+    route takes the 192 and 256 builds, bf16 on 64-row wgmma tiles)
+    against the JAX package's ``flash_attention`` in interpret mode:
+    forward within 1e-5, gradients within 1e-4, as at the small head
+    dims."""
     test_flash_matches_jax_fwd_and_grads(case)
-    assert fa.kernel_head_dim(case[4]) == (192 if case[4] == 160 else 256)
+    assert fa.kernel_head_dim(case[4]) == (256 if case[4] == 256 else 192)
 
 
 # (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
@@ -497,14 +499,14 @@ def test_cuda_wide_fwd_causal_long_t(dh, t, with_bias, single):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
                                               (True, True)])
 def test_cuda_k5_ragged_t(dh, causal, with_bias):
     """K5 alone in bf16 at the ragged t of :func:`test_cuda_k3_ragged_t`
-    (its 128-key blocks and 64-row query tiles both ragged), on the plain
-    forward's O and LSE: dK, dV and dBias held to the plain backward at
-    2e-2 with the same measure."""
+    (its key blocks — 128 keys, 64 at dh 192 and 256 — and 64-row query
+    tiles both ragged), on the plain forward's O and LSE: dK, dV and
+    dBias held to the plain backward at 2e-2 with the same measure."""
     _cuda_or_skip()
     q, k, v, do, bias = _ragged_bf16(7 + dh + 2 * causal + with_bias, dh,
                                      with_bias)
@@ -540,8 +542,8 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
 def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
     """K3 (or K4), K5 and K6 on the card at head dims past the first
     builds — zero-padded to 64 or 128 (16, 32, 96) or to the 192 build
-    (160) by the wrappers, the 192 and 256 builds themselves (the bf16
-    forward on wgmma with 64-key tiles, the rest on FMA tiles), and the
+    (160) by the wrappers, the 192 and 256 builds themselves (bf16 on
+    wgmma with 64-row tiles, f32 on FMA tiles), and the
     chunked kernels past 256 (272 padded to 320, 320, 512) — causal with
     a key bias at a ragged t, against the plain versions on the unpadded
     operands; each element held to its own size.  These raised before."""
@@ -578,14 +580,14 @@ def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
                                               (True, True), (False, False)])
 def test_cuda_k6_ragged_t(dh, causal, with_bias):
     """K6 alone in bf16 at the ragged t of :func:`test_cuda_k3_ragged_t`
-    (its 128-row query blocks and 64-key tiles both ragged), on the plain
-    forward's O and LSE: dQ held to the plain backward at 2e-2 with the
-    same measure."""
+    (its query blocks — 128 rows, 64 at dh 192 and 256 — and 64-key
+    tiles both ragged), on the plain forward's O and LSE: dQ held to the
+    plain backward at 2e-2 with the same measure."""
     _cuda_or_skip()
     q, k, v, do, bias = _ragged_bf16(13 + dh + 2 * causal + with_bias, dh,
                                      with_bias)
@@ -604,3 +606,47 @@ def test_cuda_k6_ragged_t(dh, causal, with_bias):
     torch.cuda.synchronize()
     assert fa.flash_bwd_dq.launches == n0 + 1
     assert _elem_err(bh(dq), rq) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("t", [2000, 2048])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_cuda_wide_bwd_causal_long_t(dh, t, with_bias):
+    """K5 and K6 in bf16 at head dims 192 and 256 (64 x 64 tiles), causal
+    at t 2048 and at a ragged t 2000, with and without a key bias — the
+    backward twin of :func:`test_cuda_wide_fwd_causal_long_t`: each
+    64-key block of K5 walks up to 32 query tiles and each 64-row block
+    of K6 up to 32 key tiles, interior ones branch-free (no bias), the
+    diagonal one masked, the last one ragged at t 2000.  On the plain
+    forward's O and LSE, dQ, dK, dV and dBias held to the plain backward
+    with the measure of :func:`test_cuda_kernels_match_plain` at 2e-2."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(dh + t + with_bias + 1)
+    b, h = 1, 2
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+    bias = (torch.randn((b * h, t), generator=g, device="cuda")
+            if with_bias else None)
+    do = torch.randn((b, t, h, dh), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    kw = dict(causal=True, scale=dh ** -0.5)
+    bh = fa._to_bh
+    o, lse = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, **kw)
+    delta = fa.row_delta(do, fa._from_bh(o, b, h))
+    counts = [w.launches for w in (fa.flash_bwd_dkdv, fa.flash_bwd_dq)]
+    dk, dv, db = fa.flash_bwd_dkdv(q, k, v, bias, do, lse, delta,
+                                   need_dbias=with_bias, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, bias, do, lse, delta, **kw)
+    rq, rk, rv, rb = fa.flash_bwd_reference(bh(q), bh(k), bh(v), bias,
+                                            bh(do), lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (fa.flash_bwd_dkdv, fa.flash_bwd_dq)] == [
+        n + 1 for n in counts]
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert _elem_err(bh(got), want) <= 2e-2
+    if with_bias:
+        assert _elem_err(db, rb) <= 2e-2
+    else:
+        assert db is None

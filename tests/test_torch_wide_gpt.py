@@ -1,11 +1,14 @@
-"""``Gpt`` with 256-wide heads in the PyTorch port against the JAX package.
+"""``Gpt`` with 256- and 192-wide heads in the PyTorch port against the
+JAX package.
 
-The card's phase ``wide`` drives ``zoo.Gpt(n_heads=3)`` at ``Gpt()``'s
-widths: 3 heads of 256, whose bf16 forward runs the wgmma builds of K3
-and K4 at head dim 256.  Here the same head width at a tiny size: a
-2-layer ``Gpt(vocab 50, d 512, 2 heads of 256, ff 256)`` at f32, b 2,
-t 512 (attention takes the flash route, one key block: K4; K5 and K6 in
-the backward).  The JAX package's parameters are carried into the port
+The card's phase ``wide`` drives ``zoo.Gpt(n_heads=3)`` and
+``Gpt(n_heads=4)`` at ``Gpt()``'s widths: 3 heads of 256 and 4 of 192,
+whose bf16 forward and backward run the wgmma builds of K3-K6 at those
+head dims.  Here the same head widths at a tiny size: a 2-layer
+``Gpt(vocab 50, d 512, 2 heads of 256, ff 256)`` (and d 384, 2 heads of
+192, for the Adam step) at f32, b 2, t 512 (attention takes the flash
+route, one key block: K4; K5 and K6 in the backward).  The JAX
+package's parameters are carried into the port
 (``utils.load_numpy_params``); the JAX package runs its Pallas kernels
 in interpret mode, the port the kernels' plain versions.  Held:
 - the head's logits and the loss at f32 atol 1e-5 (different summation
@@ -15,9 +18,9 @@ in interpret mode, the port the kernels' plain versions.  Held:
   ``bqkv`` at 2e-3 (its gradient is zero up to rounding, and Adam's
   first step turns that noise into steps of ~lr either way, as
   ``tests/test_torch_training.py`` holds it).
-JAX compiles once per shape (one module fixture); torch runs on one
-thread.  Then ``chip_smoke.wide_parts`` — the card's parts (b) and (c)
-— rehearsed at this size on the CPU."""
+JAX compiles once per shape (one run per head width, cached for the
+module); torch runs on one thread.  Then ``chip_smoke.wide_parts`` —
+the card's parts (b) and (c) — rehearsed at this size on the CPU."""
 import importlib
 import json
 import os
@@ -47,6 +50,9 @@ fa = importlib.import_module("deeplearning4j_torch.kernels.flash_attention")
 
 WIDE = dict(vocab_size=50, max_len=512, d_model=512, n_layers=2, n_heads=2,
             d_ff=256, seq_len=512, compute_dtype=None, seed=7)
+# the configuration at each head width: WIDE (2 heads of 256), and d 384
+# for 2 heads of 192
+WIDTHS = {256: WIDE, 192: {**WIDE, "d_model": 384}}
 B, T = 2, 512
 LOGIT_TOL, PARAM_TOL, KEY_BIAS_TOL = 1e-5, 1e-4, 2e-3
 
@@ -73,24 +79,37 @@ def _logits(net, x):
                                      net._compute_dtype)
 
 
+_JAX_RUNS = {}
+
+
+def _jax_run(dh):
+    """The JAX package's run at head width ``dh``, once per module: its
+    configuration, initial params, the logits and loss on one batch, and
+    its params after one Adam step on it."""
+    if dh not in _JAX_RUNS:
+        cfg = WIDTHS[dh]
+        rng = np.random.default_rng(3)
+        x = rng.integers(0, cfg["vocab_size"], (B, T)).astype(np.int32)
+        y = rng.integers(0, cfg["vocab_size"], (B, T)).astype(np.int32)
+        jnet = JaxGpt(**cfg).init_graph()
+        params0 = _np_tree(jnet.params_tree)
+        logits = np.asarray(_logits(jnet, jax.numpy.asarray(x)))
+        loss = jnet.score(JDataSet(x, y))
+        jnet.fit(JDataSet(x, y))
+        _JAX_RUNS[dh] = {"cfg": cfg, "x": x, "y": y, "params0": params0,
+                         "logits": logits, "loss": loss,
+                         "params1": _np_tree(jnet.params_tree)}
+    return _JAX_RUNS[dh]
+
+
 @pytest.fixture(scope="module")
 def jax_run():
-    """The JAX package's run, once: its initial params, the logits and
-    loss on one batch, and its params after one Adam step on it."""
-    rng = np.random.default_rng(3)
-    x = rng.integers(0, WIDE["vocab_size"], (B, T)).astype(np.int32)
-    y = rng.integers(0, WIDE["vocab_size"], (B, T)).astype(np.int32)
-    jnet = JaxGpt(**WIDE).init_graph()
-    params0 = _np_tree(jnet.params_tree)
-    logits = np.asarray(_logits(jnet, jax.numpy.asarray(x)))
-    loss = jnet.score(JDataSet(x, y))
-    jnet.fit(JDataSet(x, y))
-    return {"x": x, "y": y, "params0": params0, "logits": logits,
-            "loss": loss, "params1": _np_tree(jnet.params_tree)}
+    """The JAX package's run at 2 heads of 256."""
+    return _jax_run(256)
 
 
 def _port(run):
-    pnet = Gpt(**WIDE).init_graph(device="cpu")
+    pnet = Gpt(**run["cfg"]).init_graph(device="cpu")
     return load_numpy_params(pnet, run["params0"], device="cpu")
 
 
@@ -109,9 +128,14 @@ def test_wide_gpt_logits_and_loss_match_jax(jax_run, one_thread):
                                atol=LOGIT_TOL)
 
 
-def test_wide_gpt_adam_step_matches_jax(jax_run, one_thread):
+@pytest.mark.parametrize("dh", [256, 192])
+def test_wide_gpt_adam_step_matches_jax(dh, one_thread):
+    jax_run = _jax_run(dh)
     pnet = _port(jax_run)
+    fa.reset_route_log()
     pnet.fit(DataSet(jax_run["x"], jax_run["y"]))
+    # every block's forward took the flash route at this head dim
+    assert set(fa.route_log()) == {("flash", T, dh)}
     want = dict(iter_leaves(jax_run["params1"]))
     moved = 0
     for path, leaf in iter_leaves(pnet.params_tree):
@@ -131,7 +155,8 @@ def test_wide_gpt_adam_step_matches_jax(jax_run, one_thread):
 
 # the card's phase 10b parts (b) and (c) at this test's size: (b) at
 # 2 heads of 256 (K3 at t 1024, K4 at t 512, two fit steps at t 1024),
-# (c) at 2 heads of 192 (d 384); launch counts are the card's alone
+# (c) at 2 heads of 192 (d 384; K3 at t 1024, two fit steps); launch
+# counts are the card's alone
 REHEARSAL = {"gpt": {k: WIDE[k] for k in ("vocab_size", "d_model",
                                           "n_layers", "d_ff")}
              | {"max_len": 1024},
@@ -146,13 +171,15 @@ def test_wide_phase_rehearsal_on_cpu(capsys, one_thread):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["phase"] == "wide/gpt"
     assert row["head_dim"] == 256 and row["narrow"]["head_dim"] == 192
-    assert set(counts) == {"fwd", "fwd_single", "fit", "narrow"}
+    assert set(counts) == {"fwd", "fwd_single", "fit", "narrow",
+                           "narrow_fit"}
     for window in ("fwd", "fwd_single", "narrow"):
         assert row[window]["kernel_vs_plain"]      # the replays ran
-    fit = row["fit"]
-    assert len(fit["losses"]) == 3 and fit["losses"][-1] < fit["losses"][0]
-    assert fit["plain_attention"]["loss_curve_max_rel_diff"] <= 1e-3
-    assert set(fit["kernel_vs_plain"]) == {"flash_fwd/o", "flash_fwd/lse",
-                                           "flash_bwd_dkdv/dk",
-                                           "flash_bwd_dkdv/dv",
-                                           "flash_bwd_dq/dq"}
+    # (b)'s fit steps at 2 heads of 256, (c)'s at 2 heads of 192
+    for fit in (row["fit"], row["narrow"]["fit"]):
+        assert len(fit["losses"]) == 3
+        assert fit["losses"][-1] < fit["losses"][0]
+        assert fit["plain_attention"]["loss_curve_max_rel_diff"] <= 1e-3
+        assert set(fit["kernel_vs_plain"]) == {
+            "flash_fwd/o", "flash_fwd/lse", "flash_bwd_dkdv/dk",
+            "flash_bwd_dkdv/dv", "flash_bwd_dq/dq"}
