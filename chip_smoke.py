@@ -658,6 +658,13 @@ FLASH_CASES = [
     ("ragged_bias_dh160_k4", 2, 333, 3, 160, False, "random", True),
     ("causal_dh256", 2, 1000, 3, 256, True, None, False),
     ("causal_pad_dh256_k4", 2, 512, 3, 256, True, "pad", True),
+    # past dh 256: the bf16 forward on 64-row wgmma tiles with the output
+    # panels split across the warpgroups (64-key tiles at dh 320, 32 from
+    # 384), f32 and the backward on the chunked kernels
+    ("ragged_causal_bias_dh320", 2, 777, 2, 320, True, "random", False),
+    ("causal_pad_dh320_k4", 2, 512, 2, 320, True, "pad", True),
+    ("ragged_bias_dh384", 2, 333, 2, 384, False, "random", False),
+    ("causal_dh512", 2, 333, 2, 512, True, None, False),
 ]
 
 
@@ -3819,7 +3826,8 @@ INFER_CFG = {"vgg_b": 2, "tl_b": 16, "tl_steps": 10, "tl_classes": 5,
              "zoo_kwargs": {}, "attn_b": 32, "attn_t": 512,
              "attn_t_long": 1024, "attn_heads": 12, "attn_head": 64,
              "attn_steps": 5, "attn_long_steps": 2,
-             # (g): past head dim 256, on the chunked kernels
+             # (g): past head dim 256: K3 and K4 on the 64-row wgmma
+             # kernel, K5 and K6 on the chunked kernels
              "wide_b": 16, "wide_heads": 2, "wide_head": 320,
              "wide_steps": 2, "wide_long_steps": 2}
 # (a) the card against the CPU in f64 on the same f32-representable
@@ -4400,7 +4408,8 @@ def infer_attention(torch, np, cfg, device, sync, part="f"):
     K6); each window after a warm-up step whose launches' operands are
     replayed through the kernels against their plain versions before the
     counts are reset.  Part (g) is the same at ``wide_heads`` heads of
-    ``wide_head`` (past 256: the chunked kernels), b ``wide_b``,
+    ``wide_head`` (past 256: K3 and K4 on the 64-row wgmma kernel, K5
+    and K6 chunked), b ``wide_b``,
     ``wide_steps`` and ``wide_long_steps`` steps; its windows are
     labelled ``dh<head>_masked`` and ``dh<head>_long``."""
     from deeplearning4j_torch.data import DataSet
@@ -4538,7 +4547,8 @@ def phase_infer(torch, np):
     seeded padding (K4, K5, K6 once a step each) and 2 unmasked steps at
     t 1024 (K3, K5, K6), every launch's operands replayed against the
     plain versions; (g) the same classifier past the fast kernels' head
-    dims, 2 heads of 320 (the chunked kernels), b 16, 2 steps at t 512
+    dims, 2 heads of 320 (K3/K4 on the 64-row wgmma kernel, K5/K6
+    chunked), b 16, 2 steps at t 512
     masked and 2 at t 1024.  Returns (f) and (g)'s launch counts."""
     from deeplearning4j_torch.zoo import VGG16
     try:
@@ -7326,11 +7336,12 @@ def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True,
 
 
 def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
-                        ts=(2048, 512), causal=True):
+                        ts=(2048, 512), causal=True, bwd=True):
     """K3, K5 and K6 at the training path's shapes (bf16, b 8, t 2048,
     ``h`` heads of ``dh`` (6 of 128), causal, bthd views of a [b, t, 3d]
     projection) and K4 at t 512, against their plain versions (``b``,
-    ``ts`` = (K3/K5/K6's t, K4's t) and ``causal`` for other paths);
+    ``ts`` = (K3/K5/K6's t, K4's t) and ``causal`` for other paths;
+    without ``bwd`` K3 and K4 alone, for a path that runs no backward);
     yardsticks: one
     ``F.scaled_dot_product_attention(is_causal=causal)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
@@ -7364,44 +7375,48 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
                    for s in sets]
         kern = {
             "fwd": lambda i: fwd(*sets[i % NB][1:4], None, causal=causal,
-                                 scale=scale),
-            "dkdv": lambda i: fa.flash_bwd_dkdv(
-                *sets[i % NB][1:4], None, sets[i % NB][4],
-                outs[i % NB][1], deltas[i % NB], causal=causal,
-                scale=scale),
-            "dq": lambda i: fa.flash_bwd_dq(
-                *sets[i % NB][1:4], None, sets[i % NB][4], outs[i % NB][1],
-                deltas[i % NB], causal=causal, scale=scale)}
+                                 scale=scale)}
         plain = {
             "fwd": lambda i: fa.flash_fwd_reference(
                 *plain_in[i % NB][:3], None, causal=causal, scale=scale,
-                single=single),
-            "bwd": lambda i: fa.flash_bwd_reference(
-                *plain_in[i % NB][:3], None, plain_in[i % NB][3],
-                outs[i % NB][1], deltas[i % NB], causal=causal,
-                scale=scale)}
+                single=single)}
         # errors of this run at these shapes (absolute, bf16)
         ro, _ = plain["fwd"](0)
-        rq, rk, rv, _ = plain["bwd"](0)
-        dk, dv, _ = kern["dkdv"](0)
         errs = {"fwd": float((bh(outs[0][0]).float() - ro.float())
-                             .abs().max()),
-                "dkdv": max(float((bh(dk).float() - rk.float()).abs().max()),
-                            float((bh(dv).float() - rv.float()).abs().max())),
-                "dq": float((bh(kern["dq"](0)).float() - rq.float())
-                            .abs().max())}
-        del ro, rq, rk, rv, dk, dv
+                             .abs().max())}
+        del ro
+        if bwd:
+            kern["dkdv"] = lambda i: fa.flash_bwd_dkdv(
+                *sets[i % NB][1:4], None, sets[i % NB][4],
+                outs[i % NB][1], deltas[i % NB], causal=causal,
+                scale=scale)
+            kern["dq"] = lambda i: fa.flash_bwd_dq(
+                *sets[i % NB][1:4], None, sets[i % NB][4], outs[i % NB][1],
+                deltas[i % NB], causal=causal, scale=scale)
+            plain["bwd"] = lambda i: fa.flash_bwd_reference(
+                *plain_in[i % NB][:3], None, plain_in[i % NB][3],
+                outs[i % NB][1], deltas[i % NB], causal=causal,
+                scale=scale)
+            rq, rk, rv, _ = plain["bwd"](0)
+            dk, dv, _ = kern["dkdv"](0)
+            errs["dkdv"] = max(
+                float((bh(dk).float() - rk.float()).abs().max()),
+                float((bh(dv).float() - rv.float()).abs().max()))
+            errs["dq"] = float((bh(kern["dq"](0)).float() - rq.float())
+                               .abs().max())
+            del rq, rk, rv, dk, dv
         ms = {f"kernel_{n}": time_ms(torch, fn) for n, fn in kern.items()}
         ms.update({f"plain_{n}": time_ms(torch, fn, n_inner=8, reps=5)
                    for n, fn in plain.items()})
         ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
         lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
             *sdpa_in[i % NB][:3], is_causal=causal, scale=scale))
-        lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale, NB,
-                                            causal=causal)
+        if bwd:
+            lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale,
+                                                NB, causal=causal)
         names = ({"fwd": "flash_fwd_single"} if single else
                  {"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
-                  "dq": "flash_bwd_dq"})
+                  "dq": "flash_bwd_dq"} if bwd else {"fwd": "flash_fwd"})
         # (products, [b, t, h, dh] operands, f32 stats): fwd q k v -> O,
         # LSE; dkdv q k v dO -> dK dV, reading LSE and delta; dq likewise
         # -> dQ
@@ -7423,7 +7438,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
                 "shapes": {"b": b, "t": t, "h": h, "dh": dh,
                            "dtype": "bfloat16", "causal": causal}}
         rows[names["fwd"]]["kernel_ms_again"] = ms["kernel_fwd_again"]
-        if not single:
+        if not single and bwd:
             for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
                 rows[name]["library_reps_ms"] = lib_bwd_reps
         del sets, outs, deltas, plain_in, sdpa_in
@@ -7836,10 +7851,12 @@ def phase_profile(torch, np):
 # Gpt() at its widths (12 x 768, ff 3072, vocab 32000, bf16, seeded random
 # weights) with wider heads — the reference's zoo.Gpt(n_heads=...)
 # (deeplearning4j_tpu/zoo/gpt.py:62): (b) 3 heads of 256, (c) 4 of 192,
-# forward and backward on the wgmma builds at those head dims.
+# forward and backward on the wgmma builds at those head dims; (d) 2 heads
+# of 384, the forward alone (K3 and K4 on the 64-row wgmma kernel; the
+# backward past 256 is still the chunked build).
 WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
             "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
-            "kernels": True}
+            "wider": {"n_heads": 2}, "kernels": True}
 
 
 def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
@@ -7881,10 +7898,13 @@ def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
     return [first] + outs, wall, cnt, errs, peak
 
 
-def wide_forward(torch, np, fa, net, cfg, t, label, sync):
+def wide_forward(torch, np, fa, net, cfg, t, label, sync, plain=None):
     """One counted ``output()`` of ``net`` at [b, t] after a warm-up (K3
     past t 512, K4 at it; once a layer): finite probabilities of shape
-    [b, t, vocab]."""
+    [b, t, vocab].  With ``plain`` (the same seeded net on plain
+    attention) its ``output()`` on the same tokens runs no flash kernel,
+    and the two agree within ``FLASH_TOL["bfloat16"]`` by
+    :func:`flash_err`."""
     b, vocab = cfg["b"], cfg["vocab"]
     x = train_batch(np, b, t, vocab, 4)[0]
     fwd = "flash_fwd" if t > 512 else "flash_fwd_single"
@@ -7896,9 +7916,21 @@ def wide_forward(torch, np, fa, net, cfg, t, label, sync):
     if tuple(y.shape) != (b, t, vocab) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"{label}: output {tuple(y.shape)}, finite "
                              f"{bool(torch.isfinite(y).all())}")
-    return {"b": b, "t": t, "ms": wall * 1e3, "tokens_per_s": b * t / wall,
-            "peak_allocated_bytes": peak, "launches": cnt,
-            "kernel_vs_plain": errs}
+    res = {"b": b, "t": t, "ms": wall * 1e3, "tokens_per_s": b * t / wall,
+           "peak_allocated_bytes": peak, "launches": cnt,
+           "kernel_vs_plain": errs}
+    if plain is not None:
+        for name in FLASH_WRAPPERS:
+            getattr(fa, name).launches = 0
+        yp = plain.output(x)
+        p_cnt = {name: getattr(fa, name).launches for name in FLASH_WRAPPERS}
+        err, detail = flash_err(torch, y.float(), yp.float())
+        del yp
+        if not err <= FLASH_TOL["bfloat16"] or any(p_cnt.values()):
+            raise AssertionError(f"{label}: output vs plain attention {err} "
+                                 f"({detail}), plain launches {p_cnt}")
+        res["plain_attention"] = {"err": err, **detail}
+    return res
 
 
 def wide_fit(torch, np, fa, net, make_plain, cfg, label, sync,
@@ -7943,13 +7975,15 @@ def wide_fit(torch, np, fa, net, make_plain, cfg, label, sync,
 
 
 def wide_parts(torch, np, device, cfg, sync, card):
-    """Parts (b) and (c) of :func:`phase_wide` on ``device`` at ``cfg``'s
+    """Parts (b)-(d) of :func:`phase_wide` on ``device`` at ``cfg``'s
     sizes: (b) Gpt(n_heads=cfg["heads"]) — one output() at t (K3) and one
     at t_single (K4), then ``steps`` fit steps at t (K3, K5 and K6 once a
     layer a step, :func:`wide_fit`, one more step profiled), each window
     after a warm-up (:func:`wide_window`); (c) the same forward at t and
-    the same fit steps with ``cfg["narrow"]``.  Emits ``wide/gpt`` and
-    returns the launch counts by window."""
+    the same fit steps with ``cfg["narrow"]``; (d) (b)'s two output()
+    windows with ``cfg["wider"]``, each held to the same net on plain
+    attention.  Emits ``wide/gpt`` and returns the launch counts by
+    window."""
     from deeplearning4j_torch.zoo import Gpt
     fa = flash_module()
     t_phase = time.perf_counter()
@@ -7957,31 +7991,39 @@ def wide_parts(torch, np, device, cfg, sync, card):
     row = {"phase": "wide/gpt", "card": card, "weights": "random (seeded)",
            "tol": FLASH_TOL["bfloat16"]}
     counts = {}
+    both = (("fwd", t), ("fwd_single", cfg["t_single"]))
     for part, gpt, windows in (
-            ("b", {**cfg["gpt"], "n_heads": cfg["heads"]},
-             (("fwd", t), ("fwd_single", cfg["t_single"]))),
-            ("c", {**cfg["gpt"], **cfg["narrow"]}, (("fwd", t),))):
+            ("b", {**cfg["gpt"], "n_heads": cfg["heads"]}, both),
+            ("c", {**cfg["gpt"], **cfg["narrow"]}, (("fwd", t),)),
+            ("d", {**cfg["gpt"], **cfg["wider"]}, both)):
         def make(use_flash=True, gpt=gpt):
             return Gpt(seed=0, seq_len=t, use_flash=use_flash,
                        **gpt).init_graph(device=device)
         net = make()
+        plain = make(False) if part == "d" else None
         sub = {"n_layers": len(net.layers) - 2, "heads": gpt["n_heads"],
                "head_dim": gpt.get("d_model", 768) // gpt["n_heads"]}
         for label, tt in windows:
             sub[label] = wide_forward(torch, np, fa, net, cfg, tt,
-                                      f"wide/{part}/{label}", sync)
-        sub["fit"] = wide_fit(torch, np, fa, net, lambda: make(False), cfg,
-                              f"wide/{part}/fit", sync, profile=part == "b")
-        del net
+                                      f"wide/{part}/{label}", sync, plain)
+        if part != "d":
+            sub["fit"] = wide_fit(torch, np, fa, net, lambda: make(False),
+                                  cfg, f"wide/{part}/fit", sync,
+                                  profile=part == "b")
+        del net, plain
         if part == "b":
             row.update(sub)
             counts.update({w: sub[w]["launches"]
                            for w in ("fwd", "fwd_single", "fit")})
-        else:
+        elif part == "c":
             fwd = sub.pop("fwd")
             row["narrow"] = {"gpt": cfg["narrow"], **sub, **fwd}
             counts["narrow"] = fwd["launches"]
             counts["narrow_fit"] = sub["fit"]["launches"]
+        else:
+            row["wider"] = {"gpt": cfg["wider"], **sub}
+            counts["wider"] = sub["fwd"]["launches"]
+            counts["wider_single"] = sub["fwd_single"]["launches"]
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     return counts
@@ -7990,10 +8032,11 @@ def wide_parts(torch, np, device, cfg, sync, card):
 def phase_wide(torch, np, pa):
     """Phase 10b: (a) the head-dim-256 builds timed at the width of the
     path (K1 and K2 at 3 heads of 256; K3-K6 at b 8, 3 heads of 256,
-    t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, each
-    beside its plain version, SDPA and the bound; then (b) and (c),
-    :func:`wide_parts` at ``WIDE_CFG``.  Returns (the timings by build,
-    the launch counts by window)."""
+    t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, K3
+    and K4 at 2 heads of 384 and 2 of 512, each beside its plain version,
+    SDPA and the bound; then (b)-(d), :func:`wide_parts` at
+    ``WIDE_CFG``.  Returns (the timings by build, the launch counts by
+    window)."""
     mid = path_mid(np)
     timing = {
         "dh256_decode": phase_timings(torch, pa, mid, h=3, dh=256,
@@ -8003,7 +8046,12 @@ def phase_wide(torch, np, pa):
         "dh256": phase_timings_flash(torch, h=3, dh=256,
                                      phase="timings/flash_dh256"),
         "dh192": phase_timings_flash(torch, h=4, dh=192,
-                                     phase="timings/flash_dh192")}
+                                     phase="timings/flash_dh192"),
+        # the forward alone past 256: (d)'s 2 heads of 384, and 2 of 512
+        "dh384": phase_timings_flash(torch, h=2, dh=384,
+                                     phase="timings/flash_dh384", bwd=False),
+        "dh512": phase_timings_flash(torch, h=2, dh=512,
+                                     phase="timings/flash_dh512", bwd=False)}
     try:
         counts = wide_parts(torch, np, "cuda", WIDE_CFG,
                             torch.cuda.synchronize, card_line())
@@ -8120,8 +8168,9 @@ def main(argv=None) -> int:
             v_timing = phase_timings_verify(torch, pa, mid)
             f_timing = phase_timings_flash(torch)
             b_timing = phase_timings_bert(torch, np)
-            # K3-K6 at infer (g)'s shapes: 2 heads of 320 (the chunked
-            # kernels), b 16, t 1024 (K3, K5, K6) and t 512 (K4)
+            # K3-K6 at infer (g)'s shapes: 2 heads of 320 (K3/K4 on the
+            # 64-row wgmma kernel, K5/K6 chunked), b 16, t 1024 (K3, K5,
+            # K6) and t 512 (K4)
             w_timing = phase_timings_flash(
                 torch, h=INFER_CFG["wide_heads"], dh=INFER_CFG["wide_head"],
                 phase=f"timings/flash_dh{INFER_CFG['wide_head']}",
@@ -8214,8 +8263,8 @@ def main(argv=None) -> int:
                     # (phase 9e (e))
                     rows[-1]["periphery"] = {"launches": p_counts[name]}
                 if w_timing is not None and name in w_timing:
-                    # the chunked build past head dim 256 (phase 9b (g)),
-                    # timed at its shapes
+                    # the builds past head dim 256 (phase 9b (g)), timed
+                    # at its shapes
                     wide = f"dh{INFER_CFG['wide_head']}_"
                     rows[-1][f"dh{INFER_CFG['wide_head']}"] = {
                         "launches": (sum(c[name] for w, c in i_counts.items()
@@ -8225,14 +8274,22 @@ def main(argv=None) -> int:
                 if wide_res is not None:
                     # the builds at head dims 256 and 192 (phase 10b):
                     # timed in (a), launched on Gpt(n_heads=3)'s forward
-                    # and fit steps in (b) and Gpt(n_heads=4)'s in (c)
+                    # and fit steps in (b) and Gpt(n_heads=4)'s in (c);
+                    # the forward at 384 on Gpt(n_heads=2)'s in (d), and
+                    # at 512 (timed only, no path runs it)
                     w_time, w_cnt = wide_res
                     for dh, windows in (("dh256", ("fwd", "fwd_single",
                                                    "fit")),
                                         ("dh192", ("narrow",
-                                                   "narrow_fit"))):
+                                                   "narrow_fit")),
+                                        ("dh384", ("wider", "wider_single")),
+                                        ("dh512", None)):
+                        if name not in w_time[dh]:
+                            continue
                         rows[-1][dh] = {
-                            "launches": sum(w_cnt[w][name] for w in windows),
+                            "launches": (None if windows is None else
+                                         sum(w_cnt[w][name]
+                                             for w in windows)),
                             **wide_sub(w_time[dh][name])}
                 if sd_launches is not None:
                     # the same kernel on the imported graphs (phase 9c):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash kernels at head dims 256 and 192 of two
-checkouts in turns on one CUDA card.
+"""Time the port's bf16 flash kernels at head dims 256, 192, 320 and 384
+of two checkouts in turns on one CUDA card.
 
     python3 scripts/flash_turns.py BEFORE_DIR AFTER_DIR
 
@@ -14,12 +14,15 @@ checkout's ``deeplearning4j_torch`` (its kernels built in its own
 forward's LSE — bthd views of a [b, t, 3d] projection, at 3 heads of
 256 and at 4 heads of 192 — by CUDA-graph replay over 4 rotating input
 sets (``chip_smoke.time_ms``'s measure, from this script's checkout).
-Each turn also times SDPA's whole backward (dq, dk and dv at once,
-``chip_smoke.sdpa_bwd_ms``) on the same inputs as the yardstick, and
-holds its kernels to their plain versions (``chip_smoke.flash_err``,
-``FLASH_TOL``).  Prints one JSON line per turn, then a summary with the
-card's name and power limit; exits nonzero without a card or when a
-kernel disagrees."""
+Past 256 the forward alone: at ``chip_smoke.py`` phase ``infer`` (g)'s
+shape (b 16, 2 heads of 320, not causal, K3 at t 1024, K4 at t 512)
+and at phase ``wide`` (d)'s (b 8, 2 heads of 384, causal, t 2048 and
+512).  Each turn also times SDPA's whole backward (dq, dk and dv at
+once, ``chip_smoke.sdpa_bwd_ms``) on the same inputs as the yardstick
+where it times the backward, and holds its kernels to their plain
+versions (``chip_smoke.flash_err``, ``FLASH_TOL``).  Prints one JSON
+line per turn, then a summary with the card's name and power limit;
+exits nonzero without a card or when a kernel disagrees."""
 import importlib
 import importlib.util
 import json
@@ -28,8 +31,12 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = ((256, 3), (192, 4))      # (head dim, heads)
-B, T_STREAM, T_SINGLE, N_SETS = 8, 2048, 512, 4
+# (head dim, heads, b, K3's t (and K5/K6's), K4's t, causal, backward)
+SHAPES = ((256, 3, 8, 2048, 512, True, True),
+          (192, 4, 8, 2048, 512, True, True),
+          (320, 2, 16, 1024, 512, False, False),
+          (384, 2, 8, 2048, 512, True, False))
+N_SETS = 4
 
 
 def _chip_smoke():
@@ -40,16 +47,16 @@ def _chip_smoke():
     return mod
 
 
-def _sets(torch, g, h, dh, t):
-    """N_SETS bf16 (q, k, v, dO) bthd views of [B, t, 3 h dh]
+def _sets(torch, g, b, h, dh, t):
+    """N_SETS bf16 (q, k, v, dO) bthd views of [b, t, 3 h dh]
     projections."""
     sets = []
     for _ in range(N_SETS):
-        qkv = torch.randn((B, t, 3 * h * dh), generator=g,
+        qkv = torch.randn((b, t, 3 * h * dh), generator=g,
                           device="cuda").to(torch.bfloat16)
-        do = torch.randn((B, t, h, dh), generator=g,
+        do = torch.randn((b, t, h, dh), generator=g,
                          device="cuda").to(torch.bfloat16)
-        sets.append([z.reshape(B, t, h, dh)
+        sets.append([z.reshape(b, t, h, dh)
                      for z in qkv.split(h * dh, dim=-1)] + [do])
     return sets
 
@@ -72,11 +79,11 @@ def turn(tree: str) -> dict:
         out["err"][key] = err
 
     bh = fa._to_bh
-    for dh, h in SHAPES:
-        kw = dict(causal=True, scale=dh ** -0.5)
-        for name, t in (("flash_fwd", T_STREAM),
-                        ("flash_fwd_single", T_SINGLE)):
-            sets = _sets(torch, g, h, dh, t)
+    for dh, h, b, t_stream, t_single, causal, backward in SHAPES:
+        kw = dict(causal=causal, scale=dh ** -0.5)
+        for name, t in (("flash_fwd", t_stream),
+                        ("flash_fwd_single", t_single)):
+            sets = _sets(torch, g, b, h, dh, t)
             fn = getattr(fa, name)
             o, _ = fn(*sets[0][:3], None, **kw)
             ro, _ = fa.flash_fwd_reference(*(bh(x) for x in sets[0][:3]),
@@ -88,8 +95,10 @@ def turn(tree: str) -> dict:
                 torch, lambda i: fn(*sets[i % N_SETS][:3], None, **kw))
             del sets, o, ro
             torch.cuda.empty_cache()
-        # the backward at t 2048 on this turn's forward
-        sets = _sets(torch, g, h, dh, T_STREAM)
+        if not backward:
+            continue
+        # the backward at t_stream on this turn's forward
+        sets = _sets(torch, g, b, h, dh, t_stream)
         outs = [fa.flash_fwd(*s[:3], None, **kw) for s in sets]
         deltas = [fa.row_delta(s[3], o) for s, (o, _) in zip(sets, outs)]
         bwd = {
@@ -112,7 +121,7 @@ def turn(tree: str) -> dict:
         sdpa_in = [tuple(x.transpose(1, 2).contiguous() for x in s)
                    for s in sets]
         out["ms"][f"sdpa_bwd/dh{dh}"] = cs.sdpa_bwd_ms(
-            torch, F, sdpa_in, kw["scale"], N_SETS, causal=True)[0]
+            torch, F, sdpa_in, kw["scale"], N_SETS, causal=causal)[0]
         del sets, outs, deltas, sdpa_in
         torch.cuda.empty_cache()
     return out

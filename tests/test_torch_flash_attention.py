@@ -120,11 +120,14 @@ def test_wide_head_dims_match_jax_fwd_and_grads(case):
 
 
 # (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
-# largest build: the head dims the chunked kernels take (272 padded to
-# 320, 320 and 512), t 256 in two key blocks (K3) and in one (K4)
+# 256 build: head dims padded to a multiple of 64 (272 padded to 320,
+# 320, 384 and 512; bf16 on the card takes the 64-row wgmma kernel up to
+# 512, f32 the chunked kernels), t 256 in two key blocks (K3) and in one
+# (K4)
 CHUNKED_CASES = [
     ("dh272_causal_bias", 1, 2, 256, 272, 128, 128, True, "random", "bthd"),
     ("dh320_causal_bias", 1, 2, 256, 320, 128, 128, True, "random", "bhtd"),
+    ("dh384_causal_bias", 1, 2, 256, 384, 128, 128, True, "random", "bthd"),
     ("dh512_single_bias", 1, 2, 256, 512, 256, 256, True, "pad", "bthd"),
 ]
 
@@ -133,7 +136,8 @@ CHUNKED_CASES = [
                          ids=[c[0] for c in CHUNKED_CASES])
 def test_chunked_head_dims_match_jax_fwd_and_grads(case):
     """The plain route past head dim 256 (where the CUDA route takes the
-    chunked kernels, the head dim padded to a multiple of 64) against the
+    wide wgmma forward in bf16 up to dh 512 and the chunked kernels
+    otherwise, the head dim padded to a multiple of 64) against the
     JAX package's ``flash_attention`` in interpret mode, whose kernels
     take any head dim: forward and every gradient within 1e-5 (absolute,
     and relative for the key-bias gradient's sums of dS over 256 queries,
@@ -467,16 +471,19 @@ def test_cuda_k3_ragged_t(dh, causal, with_bias, single):
 @pytest.mark.gpu
 @pytest.mark.parametrize("single", [False, True],
                          ids=["flash_fwd", "flash_fwd_single"])
-@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("dh", [192, 256, 320, 384, 512])
 @pytest.mark.parametrize("t", [2000, 2048])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_cuda_wide_fwd_causal_long_t(dh, t, with_bias, single):
-    """K3 (or K4) in bf16 at head dims 192 and 256 (64-key tiles), causal
-    at t 2048 and at a ragged t 2000, with and without a key bias: each
-    128-row query tile walks up to 32 key tiles — interior ones on the
-    branch-free path (no bias), the two on its diagonal masked, the last
-    one ragged at t 2000, every one biased with the bias.  Held as
-    :func:`test_cuda_k3_ragged_t` holds it (O at 2e-2, LSE at 1e-5)."""
+    """K3 (or K4) in bf16 at head dims 192 and 256 (128-row query tiles,
+    64-key tiles) and 320, 384 and 512 (64-row query tiles, 64-key tiles
+    at 320 and 32-key ones from 384, the output panels split across the
+    two warpgroups), causal at t 2048 and at a ragged t 2000, with and
+    without a key bias: each query tile walks up to 64 key tiles —
+    interior ones on the branch-free path (no bias), those on its
+    diagonal masked, the last one ragged at t 2000, every one biased with
+    the bias.  Held as :func:`test_cuda_k3_ragged_t` holds it (O at 2e-2,
+    LSE at 1e-5)."""
     _cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(dh + t + with_bias)
     b, h = 1, 2
@@ -538,15 +545,17 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
                          ids=["flash_fwd", "flash_fwd_single"])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256, 272, 320, 512])
+@pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256, 272, 320, 384,
+                                448, 512])
 def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
     """K3 (or K4), K5 and K6 on the card at head dims past the first
     builds — zero-padded to 64 or 128 (16, 32, 96) or to the 192 build
     (160) by the wrappers, the 192 and 256 builds themselves (bf16 on
-    wgmma with 64-row tiles, f32 on FMA tiles), and the
-    chunked kernels past 256 (272 padded to 320, 320, 512) — causal with
-    a key bias at a ragged t, against the plain versions on the unpadded
-    operands; each element held to its own size.  These raised before."""
+    wgmma with 64-row tiles, f32 on FMA tiles), and past 256 (272 padded
+    to 320, 320, 384, 448, 512: the bf16 forward on the 64-row wgmma
+    kernel, the rest on the chunked kernels) — causal with a key bias at
+    a ragged t, against the plain versions on the unpadded operands; each
+    element held to its own size.  These raised before."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(dh)
@@ -577,6 +586,38 @@ def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
     for got, want in ((bh(o), ro), (bh(dq), rq), (bh(dk), rk), (bh(dv), rv),
                       (db, rb)):
         assert _elem_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("single", [False, True],
+                         ids=["flash_fwd", "flash_fwd_single"])
+@pytest.mark.parametrize("dh", [320, 512])
+def test_cuda_wide_fwd_launches_the_wide_kernel(dh, single):
+    """One bf16 launch of K3 (or K4) at head dims 320 and 512 under
+    ``torch.profiler`` runs ``flash_fwd_bf16_wide_kernel`` and not the
+    chunked build, while an f32 launch at the same shape runs
+    ``flash_fwd_chunked_kernel``: the route is by dtype and head dim."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, _, bias = _ragged_bf16(dh + single, dh, True)
+    wrapper = fa.flash_fwd_single if single else fa.flash_fwd
+    kw = dict(causal=True, scale=dh ** -0.5)
+
+    def kernels(dtype):
+        args = [x.to(dtype) for x in (q, k, v)]
+        wrapper(*args, bias, **kw)           # built and configured
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wrapper(*args, bias, **kw)
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()]
+
+    bf16 = kernels(torch.bfloat16)
+    assert any("flash_fwd_bf16_wide_kernel" in n for n in bf16), bf16
+    assert not any("flash_fwd_chunked_kernel" in n for n in bf16), bf16
+    f32 = kernels(torch.float32)
+    assert any("flash_fwd_chunked_kernel" in n for n in f32), f32
 
 
 @pytest.mark.gpu

@@ -20,7 +20,9 @@ in interpret mode, the port the kernels' plain versions.  Held:
   ``tests/test_torch_training.py`` holds it).
 JAX compiles once per shape (one run per head width, cached for the
 module); torch runs on one thread.  Then ``chip_smoke.wide_parts`` —
-the card's parts (b) and (c) — rehearsed at this size on the CPU."""
+the card's parts (b), (c) and (d) — rehearsed at this size on the CPU,
+with stand-ins that count the wrappers' calls as the card's wrappers
+count their launches."""
 import importlib
 import json
 import os
@@ -153,28 +155,69 @@ def test_wide_gpt_adam_step_matches_jax(dh, one_thread):
     assert moved > 0                      # the step changed the params
 
 
-# the card's phase 10b parts (b) and (c) at this test's size: (b) at
-# 2 heads of 256 (K3 at t 1024, K4 at t 512, two fit steps at t 1024),
-# (c) at 2 heads of 192 (d 384; K3 at t 1024, two fit steps); launch
-# counts are the card's alone
+# the card's phase 10b parts (b)-(d) at this test's size: (b) at 2 heads
+# of 256 (K3 at t 1024, K4 at t 512, two fit steps at t 1024), (c) at 2
+# heads of 192 (d 384; K3 at t 1024, two fit steps), (d) at 2 heads of
+# 384 (d 768; K3 at t 1024, K4 at t 512, each against plain attention);
+# the card holds the launch counts in the phase, this test the stand-ins'
 REHEARSAL = {"gpt": {k: WIDE[k] for k in ("vocab_size", "d_model",
                                           "n_layers", "d_ff")}
              | {"max_len": 1024},
              "vocab": WIDE["vocab_size"], "b": B, "t": 1024,
              "t_single": T, "steps": 2, "heads": 2,
-             "narrow": {"n_heads": 2, "d_model": 384}, "kernels": False}
+             "narrow": {"n_heads": 2, "d_model": 384},
+             "wider": {"n_heads": 2, "d_model": 768}, "kernels": False}
 
 
-def test_wide_phase_rehearsal_on_cpu(capsys, one_thread):
+@pytest.fixture
+def counting_wrappers(monkeypatch):
+    """Each flash wrapper replaced by a stand-in that calls it and adds
+    one to its own ``launches``, as a wrapper on the card counts its
+    kernel's launches (the CPU route counts none)."""
+    def stand_in(real):
+        def wrapper(*a, **kw):
+            out = real(*a, **kw)
+            wrapper.launches += 1
+            return out
+        wrapper.__name__, wrapper.launches = real.__name__, 0
+        return wrapper
+    for name in chip_smoke.FLASH_WRAPPERS:
+        monkeypatch.setattr(fa, name, stand_in(getattr(fa, name)))
+
+
+def test_wide_phase_rehearsal_on_cpu(capsys, one_thread, counting_wrappers):
     counts = chip_smoke.wide_parts(torch, np, "cpu", REHEARSAL,
                                    lambda: None, "cpu rehearsal")
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["phase"] == "wide/gpt"
     assert row["head_dim"] == 256 and row["narrow"]["head_dim"] == 192
+    assert row["wider"]["head_dim"] == 384
     assert set(counts) == {"fwd", "fwd_single", "fit", "narrow",
-                           "narrow_fit"}
+                           "narrow_fit", "wider", "wider_single"}
+    # each counted window's calls: once a layer, a step (2 fit steps)
+    n, steps = WIDE["n_layers"], REHEARSAL["steps"]
+    fwd = {w: 0 for w in chip_smoke.FLASH_WRAPPERS}
+    for window, want in (
+            ("fwd", {**fwd, "flash_fwd": n}),
+            ("fwd_single", {**fwd, "flash_fwd_single": n}),
+            ("fit", {**fwd, "flash_fwd": n * steps,
+                     "flash_bwd_dkdv": n * steps,
+                     "flash_bwd_dq": n * steps}),
+            ("narrow", {**fwd, "flash_fwd": n}),
+            ("wider", {**fwd, "flash_fwd": n}),
+            ("wider_single", {**fwd, "flash_fwd_single": n})):
+        assert counts[window] == want, window
+    assert counts["narrow_fit"] == counts["fit"]
     for window in ("fwd", "fwd_single", "narrow"):
         assert row[window]["kernel_vs_plain"]      # the replays ran
+    # (d): the replays ran, and the output held to plain attention
+    for window in ("fwd", "fwd_single"):
+        part = row["wider"][window]
+        assert set(part["kernel_vs_plain"]) == {
+            ("flash_fwd" if window == "fwd" else "flash_fwd_single") + k
+            for k in ("/o", "/lse")}
+        assert part["plain_attention"]["err"] <= chip_smoke.FLASH_TOL[
+            "bfloat16"]
     # (b)'s fit steps at 2 heads of 256, (c)'s at 2 heads of 192
     for fit in (row["fit"], row["narrow"]["fit"]):
         assert len(fit["losses"]) == 3
