@@ -84,7 +84,7 @@ Phases:
                0.1 s at 99%, and chat's availability; burn windows (1.5 s,
                4 s) at 14.4, pending 0.5 s, clear 1 s), a DegradeLadder
                attached to the fleet and an Autoscaler (1..2 replicas,
-               cooldown 3 s, reactive signals disarmed), every loop
+               cooldown 20 s, reactive signals disarmed), every loop
                started; (b) phase 6(a)'s 16 requests as chat plus 16 bulk
                requests at once: the alert goes pending then firing, the
                ladder climbs to shed_batch and a bulk submit is rejected
@@ -293,7 +293,9 @@ Phases:
                phase 10 of K1 and K2 at 3 heads of 256, and of K3-K6 at
                b 8, t 2048 causal (K4 at t 512) at 3 heads of 256 and at
                4 heads of 192 — forward and backward on wgmma with
-               64-row tiles; (b) the main path of those builds:
+               64-row tiles — and at 2 heads of 384 and 2 of 512 (the
+               64-row forward, the panel backward with 32-row streamed
+               tiles); (b) the main path of those builds:
                default-width zoo.Gpt(n_heads=3) (12 x 768, 3 heads of
                256, vocab 32000, bf16, seeded weights), b 8: one output()
                at t 2048 (K3 = 12) and one at t 512 (K4 = 12), then 2 fit
@@ -305,7 +307,11 @@ Phases:
                and a profiled step; (c) Gpt(n_heads=4) (4 heads of 192)
                the same way: its output() at t 2048 (K3 = 12) and 2 fit
                steps (K3 = K5 = K6 = 12 a step), replayed, counted and
-               held to plain attention's loss curve.
+               held to plain attention's loss curve; (d) Gpt(n_heads=2)
+               (2 heads of 384): output() at t 2048 (K3 = 12) and t 512
+               (K4 = 12), each held to plain attention's output, and 2 fit
+               steps at t 2048 (K3 = K5 = K6 = 12 a step) held to its
+               loss curve.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
@@ -660,11 +666,14 @@ FLASH_CASES = [
     ("causal_pad_dh256_k4", 2, 512, 3, 256, True, "pad", True),
     # past dh 256: the bf16 forward on 64-row wgmma tiles with the output
     # panels split across the warpgroups (64-key tiles at dh 320, 32 from
-    # 384), f32 and the backward on the chunked kernels
+    # 384), the bf16 backward on the panel kernels (32-row streamed tiles,
+    # the output panels split the same way; one ring stage at 448 and
+    # 512), f32 on the chunked kernels
     ("ragged_causal_bias_dh320", 2, 777, 2, 320, True, "random", False),
     ("causal_pad_dh320_k4", 2, 512, 2, 320, True, "pad", True),
     ("ragged_bias_dh384", 2, 333, 2, 384, False, "random", False),
     ("causal_dh512", 2, 333, 2, 512, True, None, False),
+    ("ragged_causal_bias_dh448", 2, 777, 2, 448, True, "random", False),
 ]
 
 
@@ -1296,10 +1305,17 @@ def fleet_parts(torch, np, pa, net, kw, system, reqs, vocab, card):
 # (1.5 s, 4 s) burn-window pair at the SRE page threshold 14.4, pending
 # for 0.5 s before firing and clear for 1 s before resolving.  The
 # reactive autoscaling signals are disarmed (a queue-wait target of 1e9
-# s), so the phase's one scale-up is the alert's pre-warm.
+# s), so the phase's one scale-up is the alert's pre-warm.  The burst's
+# first tokens come in waves (the requests queued behind the first slots
+# start as those finish), so the alert can resolve in a gap between
+# waves and fire again at the next.  A scale-down can come one
+# autoscaler cooldown after the scale-up at the earliest, and a second
+# scale-up one more after that: at 20 s each the burst (4-6 s on the
+# card, 11-13 s with every serving dispatch 80 ms slower,
+# scripts/slo_stress.py) is over long before.
 SLO_CARD = {"ttft_s": 0.1, "windows": ((1.5, 4.0, 14.4, "page"),),
             "for_s": 0.5, "clear_for_s": 1.0, "interval_s": 0.25,
-            "hold_down_s": 1.0, "cooldown_s": 3.0,
+            "hold_down_s": 1.0, "cooldown_s": 20.0,
             "near_tie": NEAR_TIE_BF16, "deadline_s": 120.0}
 SLO_TENANTS = {"chat": "interactive", "bulk": "batch"}
 
@@ -1428,7 +1444,8 @@ class SloPlane:
         iv = cfg["interval_s"]
         self.tsdb = telemetry.get_tsdb()
         common = dict(target=0.99, window_s=60.0, windows=cfg["windows"],
-                      for_s=cfg["for_s"], clear_for_s=cfg["clear_for_s"])
+                      for_s=cfg["for_s"], clear_for_s=cfg["clear_for_s"],
+                      min_events=cfg.get("min_events", 1))
         self.engine = AlertEngine(
             [SLOSpec("chat-ttft", objective="ttft",
                      threshold_s=cfg["ttft_s"], **common),
@@ -1889,13 +1906,17 @@ def slo_costs(plane, fleet):
 
 def slo_turns(torch, np, net, kw, reqs, cfg):
     """Part (f), second half: phase 6(a)'s requests on one replica with
-    no plane and with the whole plane attached at rung 0 (a ttft bar of
-    1000 s, one replica at most: it never acts), in turns off, on, on,
-    off.  Returns new tokens/s per turn."""
+    no plane and with the whole plane attached at rung 0, in turns off,
+    on, on, off.  Returns new tokens/s per turn.  The plane evaluates
+    as in part (b) and never acts: one replica at most, and objectives
+    that count only past 1e9 events in a window, so no alert can fire
+    and the ladder's projection stays uncovered (0).  A high ttft bar
+    cannot do that: the histogram's top bucket is 10 s, and a first
+    token later than that is bad whatever the bar."""
     from deeplearning4j_torch.serving import ServingFleet
     new_tokens = sum(n for _, n, _ in reqs)
     turns = []
-    quiet = dict(cfg, ttft_s=1000.0)
+    quiet = dict(cfg, min_events=10 ** 9)
     with ServingFleet(net, n_replicas=1, **kw) as fleet:
         fleet.submit(reqs[0][0], 8, timeout=900)           # warm-up
         for mode in ("off", "on", "on", "off"):
@@ -3827,7 +3848,7 @@ INFER_CFG = {"vgg_b": 2, "tl_b": 16, "tl_steps": 10, "tl_classes": 5,
              "attn_t_long": 1024, "attn_heads": 12, "attn_head": 64,
              "attn_steps": 5, "attn_long_steps": 2,
              # (g): past head dim 256: K3 and K4 on the 64-row wgmma
-             # kernel, K5 and K6 on the chunked kernels
+             # kernel, K5 and K6 on the panel kernels
              "wide_b": 16, "wide_heads": 2, "wide_head": 320,
              "wide_steps": 2, "wide_long_steps": 2}
 # (a) the card against the CPU in f64 on the same f32-representable
@@ -4409,7 +4430,7 @@ def infer_attention(torch, np, cfg, device, sync, part="f"):
     replayed through the kernels against their plain versions before the
     counts are reset.  Part (g) is the same at ``wide_heads`` heads of
     ``wide_head`` (past 256: K3 and K4 on the 64-row wgmma kernel, K5
-    and K6 chunked), b ``wide_b``,
+    and K6 on the panel kernels), b ``wide_b``,
     ``wide_steps`` and ``wide_long_steps`` steps; its windows are
     labelled ``dh<head>_masked`` and ``dh<head>_long``."""
     from deeplearning4j_torch.data import DataSet
@@ -4547,8 +4568,8 @@ def phase_infer(torch, np):
     seeded padding (K4, K5, K6 once a step each) and 2 unmasked steps at
     t 1024 (K3, K5, K6), every launch's operands replayed against the
     plain versions; (g) the same classifier past the fast kernels' head
-    dims, 2 heads of 320 (K3/K4 on the 64-row wgmma kernel, K5/K6
-    chunked), b 16, 2 steps at t 512
+    dims, 2 heads of 320 (K3/K4 on the 64-row wgmma kernel, K5/K6 on
+    the panel kernels), b 16, 2 steps at t 512
     masked and 2 at t 1024.  Returns (f) and (g)'s launch counts."""
     from deeplearning4j_torch.zoo import VGG16
     try:
@@ -7336,12 +7357,11 @@ def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True,
 
 
 def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
-                        ts=(2048, 512), causal=True, bwd=True):
+                        ts=(2048, 512), causal=True):
     """K3, K5 and K6 at the training path's shapes (bf16, b 8, t 2048,
     ``h`` heads of ``dh`` (6 of 128), causal, bthd views of a [b, t, 3d]
     projection) and K4 at t 512, against their plain versions (``b``,
-    ``ts`` = (K3/K5/K6's t, K4's t) and ``causal`` for other paths;
-    without ``bwd`` K3 and K4 alone, for a path that runs no backward);
+    ``ts`` = (K3/K5/K6's t, K4's t) and ``causal`` for other paths);
     yardsticks: one
     ``F.scaled_dot_product_attention(is_causal=causal)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
@@ -7385,38 +7405,36 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
         errs = {"fwd": float((bh(outs[0][0]).float() - ro.float())
                              .abs().max())}
         del ro
-        if bwd:
-            kern["dkdv"] = lambda i: fa.flash_bwd_dkdv(
-                *sets[i % NB][1:4], None, sets[i % NB][4],
-                outs[i % NB][1], deltas[i % NB], causal=causal,
-                scale=scale)
-            kern["dq"] = lambda i: fa.flash_bwd_dq(
-                *sets[i % NB][1:4], None, sets[i % NB][4], outs[i % NB][1],
-                deltas[i % NB], causal=causal, scale=scale)
-            plain["bwd"] = lambda i: fa.flash_bwd_reference(
-                *plain_in[i % NB][:3], None, plain_in[i % NB][3],
-                outs[i % NB][1], deltas[i % NB], causal=causal,
-                scale=scale)
-            rq, rk, rv, _ = plain["bwd"](0)
-            dk, dv, _ = kern["dkdv"](0)
-            errs["dkdv"] = max(
-                float((bh(dk).float() - rk.float()).abs().max()),
-                float((bh(dv).float() - rv.float()).abs().max()))
-            errs["dq"] = float((bh(kern["dq"](0)).float() - rq.float())
-                               .abs().max())
-            del rq, rk, rv, dk, dv
+        kern["dkdv"] = lambda i: fa.flash_bwd_dkdv(
+            *sets[i % NB][1:4], None, sets[i % NB][4],
+            outs[i % NB][1], deltas[i % NB], causal=causal,
+            scale=scale)
+        kern["dq"] = lambda i: fa.flash_bwd_dq(
+            *sets[i % NB][1:4], None, sets[i % NB][4], outs[i % NB][1],
+            deltas[i % NB], causal=causal, scale=scale)
+        plain["bwd"] = lambda i: fa.flash_bwd_reference(
+            *plain_in[i % NB][:3], None, plain_in[i % NB][3],
+            outs[i % NB][1], deltas[i % NB], causal=causal,
+            scale=scale)
+        rq, rk, rv, _ = plain["bwd"](0)
+        dk, dv, _ = kern["dkdv"](0)
+        errs["dkdv"] = max(
+            float((bh(dk).float() - rk.float()).abs().max()),
+            float((bh(dv).float() - rv.float()).abs().max()))
+        errs["dq"] = float((bh(kern["dq"](0)).float() - rq.float())
+                           .abs().max())
+        del rq, rk, rv, dk, dv
         ms = {f"kernel_{n}": time_ms(torch, fn) for n, fn in kern.items()}
         ms.update({f"plain_{n}": time_ms(torch, fn, n_inner=8, reps=5)
                    for n, fn in plain.items()})
         ms["kernel_fwd_again"] = time_ms(torch, kern["fwd"])
         lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
             *sdpa_in[i % NB][:3], is_causal=causal, scale=scale))
-        if bwd:
-            lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale,
-                                                NB, causal=causal)
+        lib_bwd, lib_bwd_reps = sdpa_bwd_ms(torch, F, sdpa_in, scale, NB,
+                                            causal=causal)
         names = ({"fwd": "flash_fwd_single"} if single else
                  {"fwd": "flash_fwd", "dkdv": "flash_bwd_dkdv",
-                  "dq": "flash_bwd_dq"} if bwd else {"fwd": "flash_fwd"})
+                  "dq": "flash_bwd_dq"})
         # (products, [b, t, h, dh] operands, f32 stats): fwd q k v -> O,
         # LSE; dkdv q k v dO -> dK dV, reading LSE and delta; dq likewise
         # -> dQ
@@ -7438,7 +7456,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
                 "shapes": {"b": b, "t": t, "h": h, "dh": dh,
                            "dtype": "bfloat16", "causal": causal}}
         rows[names["fwd"]]["kernel_ms_again"] = ms["kernel_fwd_again"]
-        if not single and bwd:
+        if not single:
             for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
                 rows[name]["library_reps_ms"] = lib_bwd_reps
         del sets, outs, deltas, plain_in, sdpa_in
@@ -7852,8 +7870,8 @@ def phase_profile(torch, np):
 # weights) with wider heads — the reference's zoo.Gpt(n_heads=...)
 # (deeplearning4j_tpu/zoo/gpt.py:62): (b) 3 heads of 256, (c) 4 of 192,
 # forward and backward on the wgmma builds at those head dims; (d) 2 heads
-# of 384, the forward alone (K3 and K4 on the 64-row wgmma kernel; the
-# backward past 256 is still the chunked build).
+# of 384, K3 and K4 on the 64-row wgmma kernel, K5 and K6 on the panel
+# kernels.
 WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
             "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
             "wider": {"n_heads": 2}, "kernels": True}
@@ -7981,9 +7999,9 @@ def wide_parts(torch, np, device, cfg, sync, card):
     layer a step, :func:`wide_fit`, one more step profiled), each window
     after a warm-up (:func:`wide_window`); (c) the same forward at t and
     the same fit steps with ``cfg["narrow"]``; (d) (b)'s two output()
-    windows with ``cfg["wider"]``, each held to the same net on plain
-    attention.  Emits ``wide/gpt`` and returns the launch counts by
-    window."""
+    windows, each held to the same net on plain attention, and (b)'s fit
+    steps with ``cfg["wider"]``.  Emits ``wide/gpt`` and returns the
+    launch counts by window."""
     from deeplearning4j_torch.zoo import Gpt
     fa = flash_module()
     t_phase = time.perf_counter()
@@ -8006,10 +8024,13 @@ def wide_parts(torch, np, device, cfg, sync, card):
         for label, tt in windows:
             sub[label] = wide_forward(torch, np, fa, net, cfg, tt,
                                       f"wide/{part}/{label}", sync, plain)
-        if part != "d":
-            sub["fit"] = wide_fit(torch, np, fa, net, lambda: make(False),
-                                  cfg, f"wide/{part}/fit", sync,
-                                  profile=part == "b")
+        # (d)'s plain net has only run output(): it is the fresh
+        # plain-attention control
+        sub["fit"] = wide_fit(torch, np, fa, net,
+                              (lambda: plain) if plain is not None
+                              else lambda: make(False),
+                              cfg, f"wide/{part}/fit", sync,
+                              profile=part == "b")
         del net, plain
         if part == "b":
             row.update(sub)
@@ -8024,6 +8045,7 @@ def wide_parts(torch, np, device, cfg, sync, card):
             row["wider"] = {"gpt": cfg["wider"], **sub}
             counts["wider"] = sub["fwd"]["launches"]
             counts["wider_single"] = sub["fwd_single"]["launches"]
+            counts["wider_fit"] = sub["fit"]["launches"]
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     return counts
@@ -8032,11 +8054,10 @@ def wide_parts(torch, np, device, cfg, sync, card):
 def phase_wide(torch, np, pa):
     """Phase 10b: (a) the head-dim-256 builds timed at the width of the
     path (K1 and K2 at 3 heads of 256; K3-K6 at b 8, 3 heads of 256,
-    t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, K3
-    and K4 at 2 heads of 384 and 2 of 512, each beside its plain version,
-    SDPA and the bound; then (b)-(d), :func:`wide_parts` at
-    ``WIDE_CFG``.  Returns (the timings by build, the launch counts by
-    window)."""
+    t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, 2 of
+    384 and 2 of 512, each beside its plain version, SDPA and the bound;
+    then (b)-(d), :func:`wide_parts` at ``WIDE_CFG``.  Returns (the
+    timings by build, the launch counts by window)."""
     mid = path_mid(np)
     timing = {
         "dh256_decode": phase_timings(torch, pa, mid, h=3, dh=256,
@@ -8047,11 +8068,11 @@ def phase_wide(torch, np, pa):
                                      phase="timings/flash_dh256"),
         "dh192": phase_timings_flash(torch, h=4, dh=192,
                                      phase="timings/flash_dh192"),
-        # the forward alone past 256: (d)'s 2 heads of 384, and 2 of 512
+        # past 256: (d)'s 2 heads of 384, and 2 of 512
         "dh384": phase_timings_flash(torch, h=2, dh=384,
-                                     phase="timings/flash_dh384", bwd=False),
+                                     phase="timings/flash_dh384"),
         "dh512": phase_timings_flash(torch, h=2, dh=512,
-                                     phase="timings/flash_dh512", bwd=False)}
+                                     phase="timings/flash_dh512")}
     try:
         counts = wide_parts(torch, np, "cuda", WIDE_CFG,
                             torch.cuda.synchronize, card_line())
@@ -8169,8 +8190,8 @@ def main(argv=None) -> int:
             f_timing = phase_timings_flash(torch)
             b_timing = phase_timings_bert(torch, np)
             # K3-K6 at infer (g)'s shapes: 2 heads of 320 (K3/K4 on the
-            # 64-row wgmma kernel, K5/K6 chunked), b 16, t 1024 (K3, K5,
-            # K6) and t 512 (K4)
+            # 64-row wgmma kernel, K5/K6 on the panel kernels), b 16,
+            # t 1024 (K3, K5, K6) and t 512 (K4)
             w_timing = phase_timings_flash(
                 torch, h=INFER_CFG["wide_heads"], dh=INFER_CFG["wide_head"],
                 phase=f"timings/flash_dh{INFER_CFG['wide_head']}",
@@ -8275,14 +8296,15 @@ def main(argv=None) -> int:
                     # the builds at head dims 256 and 192 (phase 10b):
                     # timed in (a), launched on Gpt(n_heads=3)'s forward
                     # and fit steps in (b) and Gpt(n_heads=4)'s in (c);
-                    # the forward at 384 on Gpt(n_heads=2)'s in (d), and
-                    # at 512 (timed only, no path runs it)
+                    # those at 384 on Gpt(n_heads=2)'s in (d), and at
+                    # 512 (timed only, no path runs them)
                     w_time, w_cnt = wide_res
                     for dh, windows in (("dh256", ("fwd", "fwd_single",
                                                    "fit")),
                                         ("dh192", ("narrow",
                                                    "narrow_fit")),
-                                        ("dh384", ("wider", "wider_single")),
+                                        ("dh384", ("wider", "wider_single",
+                                                   "wider_fit")),
                                         ("dh512", None)):
                         if name not in w_time[dh]:
                             continue

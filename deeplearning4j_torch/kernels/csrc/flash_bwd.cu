@@ -76,9 +76,20 @@
 //   tiles in shared memory, plain FMAs on the inputs' exact values.  At
 //   dh 256 the tiles take ~213 KB of shared memory.  A simple kernel that
 //   is right, bound by its FMAs, not the tensor cores.
-// * past head dim 256 (any multiple of 64): the same FMA route chunked —
-//   S and dP summed over 64-column chunks, each block owning 128 output
-//   columns of dQ or of dK and dV (flash_bwd_chunked_kernel).
+// * bf16 K5 and K6 at head dims 320, 384, 448 and 512
+//   (flash_bwd_dkdv_panel_kernel, flash_bwd_dq_panel_kernel): the wide
+//   kernels' machinery with the streamed operands in 32-row tiles, each
+//   64 x 32 score tile split by 16-column quarters between the
+//   warpgroups (wgmma m64n16k16) and staged in shared memory as bf16, and
+//   the output's 64-column panels split between the warpgroups; K5 runs
+//   two blocks a key tile, one for dV and one for dK and dBias.  See
+//   PanelBwdLayout.
+// * f32 past head dim 256, and bf16 past 512 (any multiple of 64): the
+//   FMA route chunked — S and dP summed over 64-column chunks, each block
+//   owning 128 output columns of dQ or of dK and dV
+//   (flash_bwd_chunked_kernel).
+#include <type_traits>
+
 #include "flash_hopper.cuh"
 
 using namespace flash;
@@ -977,6 +988,495 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 K5 and K6 past head dim 256 (320, 384, 448, 512): 32-row streamed
+// tiles, the output panels split across the warpgroups
+// ---------------------------------------------------------------------------
+// WideLayout does not fit there: its 64-row resident pair and two-stage
+// ring of 64-row pairs take 768 DH bytes (245,760 at dh 320), and one
+// warpgroup cannot hold dV or dK over the whole head dim (DH / 2 f32
+// registers a thread; wgmma stops at N 256).  So a block owns 64 keys
+// (K5) or 64 query rows (K6), both warpgroups on the same 64 (wgmma's M),
+// and the other axis streams in tiles of kStream = 32 rows:
+// * the two warpgroups split each 64 x 32 score-like tile by 16-column
+//   quarters — S^T = K Q^T and dP^T = V dO^T with keys as M (K5), S = Q
+//   K^T and dP = dO V^T with query rows as M (K6) — wgmma m64n16k16 over
+//   DH / 16 k-steps, both operands K-major;
+// * the tile the output product needs is rounded to bf16 and staged in
+//   one swizzled 64-row panel (64 of its 128 bytes a row): P^T (K5's dV
+//   role), dS^T * scale (K5's dK role) or dS * scale (K6); a barrier;
+// * each warpgroup owns a contiguous run of 64-column output panels (as
+//   the forward's flash_fwd_bf16_wide_kernel: 3 + 2 at dh 320, 3 + 3 at
+//   384, 4 + 3 at 448, 4 + 4 at 512; 96 / 64 up to 128 / 128 f32
+//   registers a thread) and accumulates them with wgmma m64n{its
+//   columns}k16, A the staged panel (K-major, two k-steps of 32 bytes),
+//   B the streamed tile read MN-major through the transpose bit (a k-step
+//   16 rows, 2048 bytes; the next 64 columns a 32-row panel, 4096 bytes,
+//   further).
+// K5 has two blocks a key tile, one an output: the dV role computes S^T
+// alone (K, Q, dO and the LSE: no V, no delta) and writes dV; the dK role
+// computes S^T and dP^T and writes dK and dBias — five products where
+// the wide kernel runs four (1.25x the bound's flops; a split by columns
+// would repeat both S^T and dP^T, 1.5x).  The role is the low bit of the
+// block's place in the launch order, so the two blocks of a key tile
+// start together and read the same Q/dO tiles from L2; low key tiles
+// first.  K6 runs one block a 64-row query tile, the heaviest causal
+// tile first; each warpgroup owns its own columns of dQ, so nothing is
+// summed across them.
+// As the wide kernels: thread 0 issues the TMA copies ahead (no producer
+// warp), P in base 2 with the scale folded in, interior tiles branch-free
+// and the diagonal (of a 64-key tile: two 32-row query tiles), ragged and
+// biased ones masked, tiles wholly on the causal diagonal's masked side
+// skipped, each output written once at the end with no atomics.  Shared
+// memory (PanelBwdLayout): the resident pair 256 DH bytes + the ring's
+// stages x 128 DH (a 32-row pair) + the staging panel 8,192 + the stats
+// ring, the dBias half, the mbarriers and the 1024-byte alignment slack
+// (1,816) <= 232,448:
+//   dh 320, 2 stages: 81,920 + 81,920 + 8,192 + 1,816 = 173,848
+//   dh 384, 2 stages: 98,304 + 98,304 + 8,192 + 1,816 = 206,616
+//   dh 448, 1 stage: 114,688 + 57,344 + 8,192 + 1,816 = 182,040 (2: 239,384)
+//   dh 512, 1 stage: 131,072 + 65,536 + 8,192 + 1,816 = 206,616
+// With one stage the next tile's TMA is issued after the barrier that
+// ends the current tile's output product, so the copy does not overlap
+// the products.
+constexpr int kPanelRows = 64;   // keys a K5 block / rows a K6 block (wgmma's M)
+constexpr int kStream = 32;      // rows of a streamed tile
+constexpr int kStatStages = 2;   // K5's LSE/delta ring, one tile ahead
+
+template <int DH>
+struct PanelBwdLayout {
+  static constexpr int NP = DH / kPanel;
+  static constexpr int NP0 = (NP + 1) / 2;             // warpgroup 0's output panels
+  static constexpr int kCols0 = NP0 * kPanel;          // its output columns
+  static constexpr int kCols1 = DH - kCols0;           // warpgroup 1's
+  static constexpr uint32_t kResPanel = 128 * kPanelRows;   // 64 rows of 128 B
+  static constexpr uint32_t kResTile = NP * kResPanel;      // 128 DH bytes
+  static constexpr uint32_t kStrPanel = 128 * kStream;      // 32 rows of 128 B
+  static constexpr uint32_t kStrTile = NP * kStrPanel;      // 64 DH bytes
+  static constexpr uint32_t kStageBytes = 128 * kPanelRows;   // the staged score tile
+  static constexpr uint32_t kStatBytes = 2 * kStream * sizeof(float);   // LSE, delta
+  static constexpr uint32_t kDbBytes = kPanelRows * sizeof(float);      // dBias half
+  // everything but the ring (three mbarriers at most), then two ring
+  // stages where they fit, else one
+  static constexpr uint32_t kFixed =
+      2 * kResTile + kStageBytes + kStatStages * kStatBytes + kDbBytes + 8 * 3 + 1024;
+  static constexpr int kStages = kFixed + 2 * 2 * kStrTile <= 232448 ? 2 : 1;
+  // resident pair (K5: K, V; K6: Q, dO), the streamed pair's rings, the
+  // staging panel, the stats ring, the dBias half, the mbarriers
+  static constexpr uint32_t kRes0 = 0, kRes1 = kResTile;
+  static constexpr uint32_t kRing0 = 2 * kResTile;
+  static constexpr uint32_t kRing1 = kRing0 + kStages * kStrTile;
+  static constexpr uint32_t kStage = kRing1 + kStages * kStrTile;
+  static constexpr uint32_t kStat = kStage + kStageBytes;
+  static constexpr uint32_t kDb = kStat + kStatStages * kStatBytes;
+  static constexpr uint32_t kBar = kDb + kDbBytes;   // resident pair + one a stage
+  static constexpr size_t kBytes = kBar + 8 * (1 + kStages) + 1024;   // + alignment slack
+  static_assert(DH % kPanel == 0 && DH > 256 && DH <= 512, "dh 320, 384, 448 or 512");
+  static_assert(kBytes <= 232448, "K5/K6 panel tiles exceed a block's shared memory");
+  static_assert(kCols0 <= 256 && kCols1 <= 256, "wgmma stops at N 256");
+};
+
+// An f32 fragment element pair as bf16 at (row, col), col even, of the
+// staging panel: 128 bytes a row, 16-byte chunk index ^ (row % 8).
+__device__ __forceinline__ void stage_pair(unsigned char* panel, int row, int col, float lo,
+                                           float hi) {
+  const uint32_t off = row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | (2 * (col & 7)));
+  *reinterpret_cast<uint32_t*>(panel + off) = pack_bf16(lo, hi);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dkdv_panel_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = PanelBwdLayout<DH>;
+  constexpr int NK = DH / 16;   // k-steps of K Q^T and V dO^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  unsigned char* smem = smem_raw + (sb - raw);
+  const uint32_t k_s = sb + L::kRes0, v_s = sb + L::kRes1, a_s = sb + L::kStage;
+  auto q_s = [&](int st) { return sb + L::kRing0 + st * L::kStrTile; };
+  auto do_s = [&](int st) { return sb + L::kRing1 + st * L::kStrTile; };
+  const uint32_t bar_kv = sb + L::kBar;
+  auto bar_q = [&](int st) { return bar_kv + 8 + 8 * st; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, qd = lane & 3;
+  const int t = a.t;
+  // the role is the low bit of the block's place in the launch order (a
+  // grid of (slices, 2 x key tiles)); the key tiles go low first
+  const int lin = blockIdx.x + gridDim.x * blockIdx.y;
+  const bool dk_role = lin & 1;
+  const int2 blk = grouped_index(lin >> 1, gridDim.x, (t + kPanelRows - 1) / kPanelRows);
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int k0 = blk.y * kPanelRows;
+  const int key[2] = {k0 + 16 * wi + g, k0 + 16 * wi + g + 8};   // both warpgroups
+  // causal: query tiles wholly above this key tile see none of its keys
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = (t - q_begin + kStream - 1) / kStream;
+
+  // thread 0 issues the TMA copies of query tile j + kAhead before tile j
+  // is computed (with one stage: of tile j, after the barrier that frees
+  // the stage); the first 32 threads (dK role: 64) copy tile j + 1's LSE
+  // (and delta) rows, zeros past t — there Q and dO are zeros as well, so
+  // P^T dO and dS are 0 — one cp.async group a tile, empty past the last
+  constexpr int kAhead = L::kStages - 1;
+  auto issue = [&](int j) {
+    const int st = j % L::kStages;
+    mbar_expect(bar_q(st), 2 * L::kStrTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(q_s(st) + p * L::kStrPanel, tq, bar_q(st), kPanel * p, hi,
+               q_begin + j * kStream, bi);
+      tma_load(do_s(st) + p * L::kStrPanel, tdo, bar_q(st), kPanel * p, hi,
+               q_begin + j * kStream, bi);
+    }
+  };
+  auto copy_stats = [&](int j) {
+    if (j < n_tiles && tid < (dk_role ? 2 : 1) * kStream) {
+      const int i = tid % kStream;
+      const int row = q_begin + j * kStream + i;
+      const float* src = (tid < kStream ? a.lse : a.delta) + (long long)bh * t + min(row, t - 1);
+      cp_async4(sb + L::kStat + (j % kStatStages) * L::kStatBytes + 4 * tid, src,
+                row < t ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + L::kStages; ++i) mbar_init(bar_kv + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the dV role brings K alone
+    mbar_expect(bar_kv, (dk_role ? 2 : 1) * L::kResTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(k_s + p * L::kResPanel, tk, bar_kv, kPanel * p, hi, k0, bi);
+      if (dk_role) tma_load(v_s + p * L::kResPanel, tv, bar_kv, kPanel * p, hi, k0, bi);
+    }
+    for (int j = 0; j < kAhead && j < n_tiles; ++j) issue(j);
+  }
+  copy_stats(0);
+
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  float bk[2];   // the bias of this thread's two keys, constant over the block
+#pragma unroll
+  for (int r = 0; r < 2; ++r) bk[r] = bias && key[r] < t ? bias[key[r]] : 0.f;
+  const float c = a.scale * kLog2e;
+  float db[2] = {0.f, 0.f};   // dK role: the sums of dS over this warpgroup's quarters
+  mbar_wait(bar_kv, 0);
+
+  // one warpgroup's whole walk over the query tiles, for its N output
+  // columns from column col0 (each warpgroup runs its own instantiation)
+  auto walk = [&](auto n_cols) {
+    constexpr int N = decltype(n_cols)::value;
+    constexpr int ND = N / 8;   // this warpgroup's output column blocks
+    const int col0 = wg * L::kCols0;
+    float acc[ND][4];   // dV (dV role) or dK (dK role) at this warpgroup's columns
+#pragma unroll
+    for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % L::kStages;
+      const int q0 = q_begin + j * kStream;
+      cp_async_wait<0>();
+      // tile j's stats visible; tile j - 1 read by everyone: its stage,
+      // its stats entry and the staging panel are free
+      block_sync();
+      if (tid == 0 && j + kAhead < n_tiles) issue(j + kAhead);
+      copy_stats(j + 1);
+      mbar_wait(bar_q(st), (j / L::kStages) & 1);
+
+      // this warpgroup's 16 queries of the transposed tiles, all 64 keys:
+      // S^T = K Q^T (and, dK role, dP^T = V dO^T), both K-major — a k-step
+      // 32 bytes inside the swizzled row, a panel every four; the
+      // warpgroup's 16 rows of the streamed tile start 2048 bytes in
+      float sT[2][4], dpT[2][4];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t ka = (kk / 4) * L::kResPanel + (kk % 4) * 32;
+        const uint32_t kb = (kk / 4) * L::kStrPanel + (kk % 4) * 32 + wg * 16 * 128;
+        Wgmma<16>::ss(sT, sw128_desc(k_s + ka, 16, 1024), sw128_desc(q_s(st) + kb, 16, 1024),
+                      kk > 0);
+        if (dk_role)
+          Wgmma<16>::ss(dpT, sw128_desc(v_s + ka, 16, 1024), sw128_desc(do_s(st) + kb, 16, 1024),
+                        kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      keep(sT);
+      if (dk_role) keep(dpT);
+
+      // P^T in base 2 from each query column's LSE; the dK role's dS^T =
+      // P^T (dP^T - delta), summed into dBias and scaled.  Then the
+      // quarter goes to the staging panel as bf16: P^T (dV role) or dS^T
+      // * scale (dK role)
+      const float* lse_s =
+          reinterpret_cast<const float*>(smem + L::kStat + (j % kStatStages) * L::kStatBytes);
+      const float* dl_s = lse_s + kStream;
+      const bool interior = !bias && (!a.causal || q0 >= k0 + kPanelRows);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cq = 16 * wg + 8 * jj + 2 * qd;   // query column in the tile
+        const float2 lse = *reinterpret_cast<const float2*>(lse_s + cq);
+        const float2 dl =
+            dk_role ? *reinterpret_cast<const float2*>(dl_s + cq) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float lse_e = (e & 1) ? lse.y : lse.x;
+          float p;
+          if (interior) {
+            p = ex2(fmaf(sT[jj][e], c, -lse_e * kLog2e));
+          } else {
+            const int qrow = q0 + cq + (e & 1);
+            p = qrow >= t || (a.causal && key[r] > qrow)
+                    ? 0.f
+                    : ex2((fmaf(sT[jj][e], a.scale, bk[r]) - lse_e) * kLog2e);
+          }
+          if (dk_role) {
+            const float ds = p * (dpT[jj][e] - ((e & 1) ? dl.y : dl.x));
+            db[r] += ds;
+            sT[jj][e] = ds * a.scale;
+          } else {
+            sT[jj][e] = p;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          stage_pair(smem + L::kStage, 16 * wi + g + 8 * r, cq, sT[jj][2 * r], sT[jj][2 * r + 1]);
+      }
+      fence_async_smem();
+      block_sync();   // both warpgroups' quarters staged
+
+      // acc += (staged, 64 keys x 32 queries) . (dO or Q at this
+      // warpgroup's columns): A K-major (a k-step 32 bytes inside the
+      // swizzled row), B MN-major through the transpose bit (a k-step 16
+      // query rows, 2048 bytes; the next 64 head columns a 32-row panel
+      // further)
+      const uint32_t b_s = (dk_role ? q_s(st) : do_s(st)) + (col0 / kPanel) * L::kStrPanel;
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStream / 16; ++kc)
+        Wgmma<N>::ss_tb(acc, sw128_desc(a_s + kc * 32, 16, 1024),
+                        sw128_desc(b_s + kc * 16 * 128, L::kStrPanel, 1024), 1);
+      wg_commit();
+      wg_wait0();
+      keep(acc);
+    }
+
+    if (dk_role)
+      store_frag_rows<ND>(static_cast<bf16*>(a.dk) + bi * a.sdk.b + hi * a.sdk.h + col0, a.sdk.t,
+                          acc, key, t, qd);
+    else
+      store_frag_rows<ND>(static_cast<bf16*>(a.dv) + bi * a.sdv.b + hi * a.sdv.h + col0, a.sdv.t,
+                          acc, key, t, qd);
+  };
+  if (wg == 0)
+    walk(std::integral_constant<int, L::kCols0>{});
+  else
+    walk(std::integral_constant<int, L::kCols1>{});
+
+  if (dk_role && a.dbias) {   // the warpgroups' halves of dBias meet in shared memory
+    float* db_s = reinterpret_cast<float*>(smem + L::kDb);
+    float sum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] = quad_sum(db[r]);
+      if (wg == 1 && qd == 0) db_s[16 * wi + g + 8 * r] = sum[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (wg == 0 && qd == 0 && key[r] < t)
+        a.dbias[(long long)bh * t + key[r]] = sum[r] + db_s[16 * wi + g + 8 * r];
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_bwd_dq_panel_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = PanelBwdLayout<DH>;
+  constexpr int NK = DH / 16;   // k-steps of Q K^T and dO V^T
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  unsigned char* smem = smem_raw + (sb - raw);
+  const uint32_t q_s = sb + L::kRes0, do_s = sb + L::kRes1, a_s = sb + L::kStage;
+  auto k_s = [&](int st) { return sb + L::kRing0 + st * L::kStrTile; };
+  auto v_s = [&](int st) { return sb + L::kRing1 + st * L::kStrTile; };
+  const uint32_t bar_q = sb + L::kBar;
+  auto bar_kv = [&](int st) { return bar_q + 8 + 8 * st; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, qd = lane & 3;
+  const int t = a.t;
+  const int n_q = (t + kPanelRows - 1) / kPanelRows;
+  const int2 blk = grouped_block(n_q);   // heaviest causal tile first
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int q0 = (n_q - 1 - blk.y) * kPanelRows;
+  const int row[2] = {q0 + 16 * wi + g, q0 + 16 * wi + g + 8};   // both warpgroups
+  const int k_end = a.causal ? min(t, q0 + kPanelRows) : t;
+  const int n_k = (k_end + kStream - 1) / kStream;
+
+  // thread 0 issues the TMA copies of key tile j + kAhead before tile j is
+  // computed (with one stage: of tile j, after the barrier that frees it)
+  constexpr int kAhead = L::kStages - 1;
+  auto issue = [&](int j) {
+    const int st = j % L::kStages;
+    mbar_expect(bar_kv(st), 2 * L::kStrTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(k_s(st) + p * L::kStrPanel, tk, bar_kv(st), kPanel * p, hi, j * kStream, bi);
+      tma_load(v_s(st) + p * L::kStrPanel, tv, bar_kv(st), kPanel * p, hi, j * kStream, bi);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 1 + L::kStages; ++i) mbar_init(bar_q + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_q, 2 * L::kResTile);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      tma_load(q_s + p * L::kResPanel, tq, bar_q, kPanel * p, hi, q0, bi);
+      tma_load(do_s + p * L::kResPanel, tdo, bar_q, kPanel * p, hi, q0, bi);
+    }
+    for (int j = 0; j < kAhead && j < n_k; ++j) issue(j);
+  }
+
+  // each row's LSE (and in base 2) and delta, read once; rows at or past
+  // t get LSE = 1e30 (p == 0) and delta 0
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  float lse[2], lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < t;
+    lse[r] = in ? a.lse[(long long)bh * t + row[r]] : kPos;
+    lse2[r] = lse[r] * kLog2e;
+    dl[r] = in ? a.delta[(long long)bh * t + row[r]] : 0.f;
+  }
+  const float c = a.scale * kLog2e;
+  mbar_wait(bar_q, 0);
+
+  // one warpgroup's whole walk over the key tiles, for its N columns of
+  // dQ from column col0 (each warpgroup runs its own instantiation)
+  auto walk = [&](auto n_cols) {
+    constexpr int N = decltype(n_cols)::value;
+    constexpr int ND = N / 8;   // this warpgroup's output column blocks
+    const int col0 = wg * L::kCols0;
+    float dq[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+    for (int j = 0; j < n_k; ++j) {
+      const int st = j % L::kStages;
+      const int kw0 = j * kStream + 16 * wg;   // this warpgroup's 16 keys
+      // tile j - 1 read by both warpgroups: its stage and the staging
+      // panel are free
+      block_sync();
+      if (tid == 0 && j + kAhead < n_k) issue(j + kAhead);
+      mbar_wait(bar_kv(st), (j / L::kStages) & 1);
+
+      // S = Q K^T and dP = dO V^T at all 64 rows x this warpgroup's 16
+      // keys, both K-major; its 16 rows of the streamed tile start 2048
+      // bytes into each panel
+      float s[2][4], dp[2][4];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t qa = (kk / 4) * L::kResPanel + (kk % 4) * 32;
+        const uint32_t kb = (kk / 4) * L::kStrPanel + (kk % 4) * 32 + wg * 16 * 128;
+        Wgmma<16>::ss(s, sw128_desc(q_s + qa, 16, 1024), sw128_desc(k_s(st) + kb, 16, 1024),
+                      kk > 0);
+        Wgmma<16>::ss(dp, sw128_desc(do_s + qa, 16, 1024), sw128_desc(v_s(st) + kb, 16, 1024),
+                      kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      keep(s);
+      keep(dp);
+
+      // P from each row's LSE in base 2, dS * scale = P (dP - delta)
+      // scale; interior quarters (no bias, every key below t and, causal,
+      // at or below the block's first row) are branch-free, the rest mask
+      const bool interior = !bias && (a.causal ? kw0 + 15 <= q0 : kw0 + 16 <= t);
+      if (interior) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = ex2(fmaf(s[jj][e], c, -lse2[r]));
+            s[jj][e] = p * (dp[jj][e] - dl[r]) * a.scale;
+          }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int cb = kw0 + 8 * jj + 2 * qd;
+          const float b0 = bias && cb < t ? bias[cb] : 0.f;
+          const float b1 = bias && cb + 1 < t ? bias[cb + 1] : 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int col = cb + (e & 1);
+            const float p =
+                col >= t || row[r] >= t || (a.causal && col > row[r])
+                    ? 0.f
+                    : ex2((fmaf(s[jj][e], a.scale, (e & 1) ? b1 : b0) - lse[r]) * kLog2e);
+            s[jj][e] = p * (dp[jj][e] - dl[r]) * a.scale;
+          }
+        }
+      }
+      // dS * scale to the staging panel as bf16: rows = query rows, this
+      // warpgroup's 16 key columns
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          stage_pair(smem + L::kStage, 16 * wi + g + 8 * r, 16 * wg + 8 * jj + 2 * qd,
+                     s[jj][2 * r], s[jj][2 * r + 1]);
+      fence_async_smem();
+      block_sync();   // both warpgroups' quarters staged
+
+      // dQ[:, col0 .. col0 + N) += (staged, 64 rows x 32 keys) . K[:,
+      // those columns]: A K-major, K MN-major through the transpose bit
+      // (a k-step 16 key rows, 2048 bytes; the next 64 head columns a
+      // 32-row panel further)
+      const uint32_t b_s = k_s(st) + (col0 / kPanel) * L::kStrPanel;
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStream / 16; ++kc)
+        Wgmma<N>::ss_tb(dq, sw128_desc(a_s + kc * 32, 16, 1024),
+                        sw128_desc(b_s + kc * 16 * 128, L::kStrPanel, 1024), 1);
+      wg_commit();
+      wg_wait0();
+      keep(dq);
+    }
+
+    store_frag_rows<ND>(static_cast<bf16*>(a.dq) + bi * a.sdq.b + hi * a.sdq.h + col0, a.sdq.t,
+                        dq, row, t, qd);
+  };
+  if (wg == 0)
+    walk(std::integral_constant<int, L::kCols0>{});
+  else
+    walk(std::integral_constant<int, L::kCols1>{});
+}
+
+// ---------------------------------------------------------------------------
 // plain route (f32): f32 tiles in shared memory, FMAs
 // ---------------------------------------------------------------------------
 template <int DH>
@@ -1275,6 +1775,25 @@ int launch_wide(const BwdArgs& a, int b, bool dq_pass, cudaStream_t s) {
                 kBwThreads, s, m[0], m[1], m[2], m[3], a);
 }
 
+// bf16 at head dims 320, 384, 448 and 512: K5 two blocks (dV, dK) a
+// 64-key tile, its Q/dO in 32-row tiles; K6 one block a 64-row query
+// tile, its K/V in 32-row tiles
+template <int DH>
+int launch_panel(const BwdArgs& a, int b, bool dq_pass, cudaStream_t s) {
+  CUtensorMap m[4];
+  const int n_tiles = (a.t + kPanelRows - 1) / kPanelRows;
+  if (dq_pass) {
+    if (int rc = make_maps<DH>(a, b, kPanelRows, kStream, m)) return rc;
+    static bool configured = false;
+    return launch(flash_bwd_dq_panel_kernel<DH>, PanelBwdLayout<DH>::kBytes, configured,
+                  dim3(b * a.h, n_tiles), kBwThreads, s, m[0], m[1], m[2], m[3], a);
+  }
+  if (int rc = make_maps<DH>(a, b, kStream, kPanelRows, m)) return rc;
+  static bool configured = false;
+  return launch(flash_bwd_dkdv_panel_kernel<DH>, PanelBwdLayout<DH>::kBytes, configured,
+                dim3(b * a.h, 2 * n_tiles), kBwThreads, s, m[0], m[1], m[2], m[3], a);
+}
+
 // bf16 up to head dim 128 (v3): K5 reads Q/dO in 64-row tiles beside
 // 128-key blocks, K6 Q/dO in 128-row blocks beside 64-key tiles
 template <int DH>
@@ -1313,9 +1832,18 @@ int launch_chunked(const BwdArgs& a, int b, int dh, bool dq_pass, cudaStream_t s
 
 int launch_any(const BwdArgs& a, int b, int dh, int is_bf16, bool dq_pass,
                cudaStream_t s) {
-  if (dh > 256)
-    return is_bf16 ? launch_chunked<__nv_bfloat16>(a, b, dh, dq_pass, s)
-                   : launch_chunked<float>(a, b, dh, dq_pass, s);
+  if (dh > 256) {
+    if (is_bf16) {   // the panel kernels up to 512, then the chunked build
+      switch (dh) {
+        case 320: return launch_panel<320>(a, b, dq_pass, s);
+        case 384: return launch_panel<384>(a, b, dq_pass, s);
+        case 448: return launch_panel<448>(a, b, dq_pass, s);
+        case 512: return launch_panel<512>(a, b, dq_pass, s);
+      }
+      return launch_chunked<__nv_bfloat16>(a, b, dh, dq_pass, s);
+    }
+    return launch_chunked<float>(a, b, dh, dq_pass, s);
+  }
   switch (dh) {
     case 64: return launch_dh<64>(a, b, is_bf16, dq_pass, s);
     case 128: return launch_dh<128>(a, b, is_bf16, dq_pass, s);

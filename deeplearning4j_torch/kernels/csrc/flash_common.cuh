@@ -14,10 +14,9 @@
 //   rows, the f32 accumulator of one product turns into the A fragment
 //   of the next (P) without shared memory, and B fragments that need a
 //   transpose come from ldmatrix.trans.
-// * f32 (tests, parity checks; the bf16 forward runs wgmma at every head
-//   dim up to 512, the bf16 backward up to 256): f32 tiles in shared
-//   memory and plain FMAs (`mm`), so a run has f32 products of its inputs
-//   throughout.
+// * f32 (tests, parity checks; the bf16 forward and backward run wgmma at
+//   every head dim up to 512): f32 tiles in shared memory and plain FMAs
+//   (`mm`), so a run has f32 products of its inputs throughout.
 //   Past 256 (any multiple of 64) in f32, and in bf16 where no wgmma
 //   build takes the head dim (rounded where the bf16 kernels round), the
 //   same arithmetic runs chunked: score sums walk the head dim 64 columns

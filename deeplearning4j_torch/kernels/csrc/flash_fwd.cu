@@ -508,12 +508,6 @@ struct WideFwdLayout {
   static_assert(kBytes <= 232448, "Q and the K/V ring exceed a block's shared memory");
 };
 
-// a barrier of the block's 256 threads that may sit in code each
-// warpgroup reaches on its own path (barrier.sync without .aligned)
-__device__ __forceinline__ void block_sync() {
-  asm volatile("barrier.sync 1, 256;\n" ::: "memory");
-}
-
 template <int DH, bool kSingle>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap tq,

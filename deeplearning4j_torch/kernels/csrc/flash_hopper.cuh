@@ -1,6 +1,6 @@
 // Hopper machinery shared by the bf16 flash kernels on wgmma (flash_fwd.cu:
-// K3 v3 and K4 v3, flash_bwd.cu: K5 v3 and K6 v3 and their builds at head
-// dims 192 and 256): TMA tensor maps over the bthd views, mbarriers,
+// K3 v3 and K4 v3 and their builds past head dim 128, flash_bwd.cu: K5 v3
+// and K6 v3 and their builds past head dim 128): TMA tensor maps over the bthd views, mbarriers,
 // wgmma descriptors of 128-byte-swizzled tiles, the wgmma instructions,
 // base-2 exponentials and cp.async.
 //
@@ -118,6 +118,8 @@ __device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
 // B from shared memory MN-major (transposed).
 template <int N>
 struct Wgmma;
+// FLASH_WG_D4(j) is accumulator column block j's four operands.
+#define FLASH_WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
 template <>
 struct Wgmma<64> {
   static __device__ __forceinline__ void ss(float (&d)[8][4], uint64_t da, uint64_t db,
@@ -204,10 +206,42 @@ struct Wgmma<128> {
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
+  // warpgroup 1's 128 output columns of K5 and K6 at head dim 320 (as
+  // Wgmma<192>::ss_tb)
+  static __device__ __forceinline__ void ss_tb(float (&d)[16][4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1), FLASH_WG_D4(2), FLASH_WG_D4(3),
+          FLASH_WG_D4(4), FLASH_WG_D4(5), FLASH_WG_D4(6), FLASH_WG_D4(7),
+          FLASH_WG_D4(8), FLASH_WG_D4(9), FLASH_WG_D4(10), FLASH_WG_D4(11),
+          FLASH_WG_D4(12), FLASH_WG_D4(13), FLASH_WG_D4(14), FLASH_WG_D4(15)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 };
 
-// FLASH_WG_D4(j) is accumulator column block j's four operands.
-#define FLASH_WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+// The backward's score quarters past head dim 256: 64 rows x 16 columns
+// of S^T and dP^T (K5) or S and dP (K6) (ss, both K-major).
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void ss(float (&d)[2][4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : FLASH_WG_D4(0), FLASH_WG_D4(1)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 // The backward's half tiles at head dims 192 and 256: 64 rows x 32
 // columns of S or dP (ss, both K-major).
@@ -336,17 +370,27 @@ struct Wgmma<256> {
 };
 #undef FLASH_WG_D4
 
-// The block's place in the launch order: the (batch, head) slices go in
-// groups of kHeadGroup, so the tiles the running blocks share stay within
-// L2; within a group every slice's tile 0 goes first, then tile 1, ...
-// Returns (batch * head slice, tile index in launch order).
-__device__ __forceinline__ int2 grouped_block(int n_tiles) {
-  const int n_bh = gridDim.x;
-  const int lin = blockIdx.x + n_bh * blockIdx.y;
+// Place `lin` of the launch order over n_bh (batch, head) slices of
+// n_tiles tiles: the slices go in groups of kHeadGroup, so the tiles the
+// running blocks share stay within L2; within a group every slice's tile
+// 0 goes first, then tile 1, ...  Returns (batch * head slice, tile
+// index in launch order).
+__device__ __forceinline__ int2 grouped_index(int lin, int n_bh, int n_tiles) {
   const int grp = lin / (kHeadGroup * n_tiles);
   const int in_grp = min(kHeadGroup, n_bh - grp * kHeadGroup);
   const int r_in = lin - grp * kHeadGroup * n_tiles;
   return make_int2(grp * kHeadGroup + r_in % in_grp, r_in / in_grp);
+}
+
+// grouped_index of this block, on a grid of (slices, tiles)
+__device__ __forceinline__ int2 grouped_block(int n_tiles) {
+  return grouped_index(blockIdx.x + gridDim.x * blockIdx.y, gridDim.x, n_tiles);
+}
+
+// a barrier of the block's 256 threads that may sit in code each
+// warpgroup reaches on its own path (barrier.sync without .aligned)
+__device__ __forceinline__ void block_sync() {
+  asm volatile("barrier.sync 1, 256;\n" ::: "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

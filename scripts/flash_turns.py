@@ -14,12 +14,12 @@ checkout's ``deeplearning4j_torch`` (its kernels built in its own
 forward's LSE — bthd views of a [b, t, 3d] projection, at 3 heads of
 256 and at 4 heads of 192 — by CUDA-graph replay over 4 rotating input
 sets (``chip_smoke.time_ms``'s measure, from this script's checkout).
-Past 256 the forward alone: at ``chip_smoke.py`` phase ``infer`` (g)'s
-shape (b 16, 2 heads of 320, not causal, K3 at t 1024, K4 at t 512)
+Past 256 the same at ``chip_smoke.py`` phase ``infer`` (g)'s shape (b
+16, 2 heads of 320, not causal, K3, K5 and K6 at t 1024, K4 at t 512)
 and at phase ``wide`` (d)'s (b 8, 2 heads of 384, causal, t 2048 and
 512).  Each turn also times SDPA's whole backward (dq, dk and dv at
 once, ``chip_smoke.sdpa_bwd_ms``) on the same inputs as the yardstick
-where it times the backward, and holds its kernels to their plain
+of the backward, and holds its kernels to their plain
 versions (``chip_smoke.flash_err``, ``FLASH_TOL``).  Prints one JSON
 line per turn, then a summary with the card's name and power limit;
 exits nonzero without a card or when a kernel disagrees."""
@@ -31,11 +31,11 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (head dim, heads, b, K3's t (and K5/K6's), K4's t, causal, backward)
-SHAPES = ((256, 3, 8, 2048, 512, True, True),
-          (192, 4, 8, 2048, 512, True, True),
-          (320, 2, 16, 1024, 512, False, False),
-          (384, 2, 8, 2048, 512, True, False))
+# (head dim, heads, b, K3's t (and K5/K6's), K4's t, causal)
+SHAPES = ((256, 3, 8, 2048, 512, True),
+          (192, 4, 8, 2048, 512, True),
+          (320, 2, 16, 1024, 512, False),
+          (384, 2, 8, 2048, 512, True))
 N_SETS = 4
 
 
@@ -79,7 +79,7 @@ def turn(tree: str) -> dict:
         out["err"][key] = err
 
     bh = fa._to_bh
-    for dh, h, b, t_stream, t_single, causal, backward in SHAPES:
+    for dh, h, b, t_stream, t_single, causal in SHAPES:
         kw = dict(causal=causal, scale=dh ** -0.5)
         for name, t in (("flash_fwd", t_stream),
                         ("flash_fwd_single", t_single)):
@@ -95,8 +95,6 @@ def turn(tree: str) -> dict:
                 torch, lambda i: fn(*sets[i % N_SETS][:3], None, **kw))
             del sets, o, ro
             torch.cuda.empty_cache()
-        if not backward:
-            continue
         # the backward at t_stream on this turn's forward
         sets = _sets(torch, g, b, h, dh, t_stream)
         outs = [fa.flash_fwd(*s[:3], None, **kw) for s in sets]

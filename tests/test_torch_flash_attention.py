@@ -121,14 +121,15 @@ def test_wide_head_dims_match_jax_fwd_and_grads(case):
 
 # (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
 # 256 build: head dims padded to a multiple of 64 (272 padded to 320,
-# 320, 384 and 512; bf16 on the card takes the 64-row wgmma kernel up to
-# 512, f32 the chunked kernels), t 256 in two key blocks (K3) and in one
-# (K4)
+# 320, 384, 448 and 512; bf16 on the card takes the 64-row wgmma forward
+# and the panel backward up to 512, f32 the chunked kernels), t 256 in
+# two key blocks (K3) and in one (K4)
 CHUNKED_CASES = [
     ("dh272_causal_bias", 1, 2, 256, 272, 128, 128, True, "random", "bthd"),
     ("dh320_causal_bias", 1, 2, 256, 320, 128, 128, True, "random", "bhtd"),
     ("dh384_causal_bias", 1, 2, 256, 384, 128, 128, True, "random", "bthd"),
     ("dh512_single_bias", 1, 2, 256, 512, 256, 256, True, "pad", "bthd"),
+    ("dh448_causal_bias", 1, 2, 256, 448, 128, 128, True, "random", "bhtd"),
 ]
 
 
@@ -136,8 +137,9 @@ CHUNKED_CASES = [
                          ids=[c[0] for c in CHUNKED_CASES])
 def test_chunked_head_dims_match_jax_fwd_and_grads(case):
     """The plain route past head dim 256 (where the CUDA route takes the
-    wide wgmma forward in bf16 up to dh 512 and the chunked kernels
-    otherwise, the head dim padded to a multiple of 64) against the
+    wide wgmma forward and the panel backward in bf16 up to dh 512 and
+    the chunked kernels otherwise, the head dim padded to a multiple of
+    64) — the version the card's kernels are held to — against the
     JAX package's ``flash_attention`` in interpret mode, whose kernels
     take any head dim: forward and every gradient within 1e-5 (absolute,
     and relative for the key-bias gradient's sums of dS over 256 queries,
@@ -506,14 +508,15 @@ def test_cuda_wide_fwd_causal_long_t(dh, t, with_bias, single):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128, 192, 256])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256, 320, 384, 448, 512])
 @pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
                                               (True, True)])
 def test_cuda_k5_ragged_t(dh, causal, with_bias):
     """K5 alone in bf16 at the ragged t of :func:`test_cuda_k3_ragged_t`
-    (its key blocks — 128 keys, 64 at dh 192 and 256 — and 64-row query
-    tiles both ragged), on the plain forward's O and LSE: dK, dV and
-    dBias held to the plain backward at 2e-2 with the same measure."""
+    (its key blocks — 128 keys, 64 from dh 192 — and query tiles — 64
+    rows, 32 past dh 256 — both ragged), on the plain forward's O and
+    LSE: dK, dV and dBias held to the plain backward at 2e-2 with the
+    same measure."""
     _cuda_or_skip()
     q, k, v, do, bias = _ragged_bf16(7 + dh + 2 * causal + with_bias, dh,
                                      with_bias)
@@ -552,8 +555,8 @@ def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
     builds — zero-padded to 64 or 128 (16, 32, 96) or to the 192 build
     (160) by the wrappers, the 192 and 256 builds themselves (bf16 on
     wgmma with 64-row tiles, f32 on FMA tiles), and past 256 (272 padded
-    to 320, 320, 384, 448, 512: the bf16 forward on the 64-row wgmma
-    kernel, the rest on the chunked kernels) — causal with a key bias at
+    to 320, 320, 384, 448, 512: bf16 on the 64-row wgmma forward and the
+    panel backward, f32 on the chunked kernels) — causal with a key bias at
     a ragged t, against the plain versions on the unpadded operands; each
     element held to its own size.  These raised before."""
     _cuda_or_skip()
@@ -621,14 +624,56 @@ def test_cuda_wide_fwd_launches_the_wide_kernel(dh, single):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128, 192, 256])
+@pytest.mark.parametrize("dh", [320, 512])
+def test_cuda_wide_bwd_launches_the_panel_kernels(dh):
+    """One bf16 launch of K5 and one of K6 at head dims 320 and 512 under
+    ``torch.profiler`` run ``flash_bwd_dkdv_panel_kernel`` and
+    ``flash_bwd_dq_panel_kernel`` and not the chunked build, while f32
+    launches at the same shape run ``flash_bwd_chunked_kernel``: the route
+    is by dtype and head dim — the backward twin of
+    :func:`test_cuda_wide_fwd_launches_the_wide_kernel`."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do, bias = _ragged_bf16(dh + 5, dh, True)
+    kw = dict(causal=True, scale=dh ** -0.5)
+    bh = fa._to_bh
+    b, _, h, _ = q.shape
+    _, lse = fa.flash_fwd_reference(bh(q), bh(k), bh(v), bias, **kw)
+
+    def kernels(dtype):
+        q_, k_, v_, do_ = (x.to(dtype) for x in (q, k, v, do))
+        delta = fa.row_delta(do_, q_)   # any f32 [b*h, t] rows will do
+
+        def both():
+            fa.flash_bwd_dkdv(q_, k_, v_, bias, do_, lse, delta,
+                              need_dbias=True, **kw)
+            fa.flash_bwd_dq(q_, k_, v_, bias, do_, lse, delta, **kw)
+        both()                               # built and configured
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            both()
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()]
+
+    bf16 = kernels(torch.bfloat16)
+    for name in ("flash_bwd_dkdv_panel_kernel", "flash_bwd_dq_panel_kernel"):
+        assert any(name in n for n in bf16), bf16
+    assert not any("flash_bwd_chunked_kernel" in n for n in bf16), bf16
+    f32 = kernels(torch.float32)
+    assert any("flash_bwd_chunked_kernel" in n for n in f32), f32
+    assert not any("_panel_kernel" in n for n in f32), f32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 192, 256, 320, 384, 448, 512])
 @pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True),
                                               (True, True), (False, False)])
 def test_cuda_k6_ragged_t(dh, causal, with_bias):
     """K6 alone in bf16 at the ragged t of :func:`test_cuda_k3_ragged_t`
-    (its query blocks — 128 rows, 64 at dh 192 and 256 — and 64-key
-    tiles both ragged), on the plain forward's O and LSE: dQ held to the
-    plain backward at 2e-2 with the same measure."""
+    (its query blocks — 128 rows, 64 from dh 192 — and key tiles — 64
+    keys, 32 past dh 256 — both ragged), on the plain forward's O and
+    LSE: dQ held to the plain backward at 2e-2 with the same measure."""
     _cuda_or_skip()
     q, k, v, do, bias = _ragged_bf16(13 + dh + 2 * causal + with_bias, dh,
                                      with_bias)
@@ -650,19 +695,31 @@ def test_cuda_k6_ragged_t(dh, causal, with_bias):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("dh", [192, 256, 320, 384, 448, 512])
 @pytest.mark.parametrize("t", [2000, 2048])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_cuda_wide_bwd_causal_long_t(dh, t, with_bias):
-    """K5 and K6 in bf16 at head dims 192 and 256 (64 x 64 tiles), causal
-    at t 2048 and at a ragged t 2000, with and without a key bias — the
-    backward twin of :func:`test_cuda_wide_fwd_causal_long_t`: each
-    64-key block of K5 walks up to 32 query tiles and each 64-row block
-    of K6 up to 32 key tiles, interior ones branch-free (no bias), the
-    diagonal one masked, the last one ragged at t 2000.  On the plain
+    """K5 and K6 in bf16 at head dims 192 and 256 (64 x 64 tiles) and
+    320, 384, 448 and 512 (64-row blocks, 32-row streamed tiles, the
+    output panels split across the warpgroups, K5's dV and dK on separate
+    blocks), causal at t 2048 and at a ragged t 2000, with and without a
+    key bias — the backward twin of
+    :func:`test_cuda_wide_fwd_causal_long_t`: each 64-key block of K5
+    walks up to 32 (past 256: 64) query tiles and each 64-row block of K6
+    up to 32 (64) key tiles, interior ones branch-free (no bias), the
+    diagonal ones masked, the last one ragged at t 2000.  On the plain
     forward's O and LSE, dQ, dK, dV and dBias held to the plain backward
-    with the measure of :func:`test_cuda_kernels_match_plain` at 2e-2."""
+    with the measure of :func:`test_cuda_kernels_match_plain`: at 2e-2
+    up to dh 256, and past it at ``chip_smoke.FLASH_TOL``'s bf16 3e-2.
+    There a single bf16 rounding of dS * scale that falls the other way
+    in an early causal row (few keys, P near 1) moves an output element
+    near 0 by one ulp of dS * scale: on an H100 two of the sixteen cases
+    read 2.0e-2 to 2.5e-2 (dQ and dK at dh 384, t 2048 and dh 448, t
+    2000), where the plain version itself reads 5.9e-2 to 7.9e-2 against
+    the same function in f64 (``scripts/flash_bwd_f64.py``); the other
+    cases read <= 8e-3."""
     _cuda_or_skip()
+    tol = 2e-2 if dh <= 256 else 3e-2
     g = torch.Generator(device="cuda").manual_seed(dh + t + with_bias + 1)
     b, h = 1, 2
     qkv = torch.randn((b, t, 3 * h * dh), generator=g,
@@ -686,8 +743,8 @@ def test_cuda_wide_bwd_causal_long_t(dh, t, with_bias):
     assert [w.launches for w in (fa.flash_bwd_dkdv, fa.flash_bwd_dq)] == [
         n + 1 for n in counts]
     for got, want in ((dq, rq), (dk, rk), (dv, rv)):
-        assert _elem_err(bh(got), want) <= 2e-2
+        assert _elem_err(bh(got), want) <= tol
     if with_bias:
-        assert _elem_err(db, rb) <= 2e-2
+        assert _elem_err(db, rb) <= tol
     else:
         assert db is None

@@ -158,7 +158,8 @@ def test_wide_gpt_adam_step_matches_jax(dh, one_thread):
 # the card's phase 10b parts (b)-(d) at this test's size: (b) at 2 heads
 # of 256 (K3 at t 1024, K4 at t 512, two fit steps at t 1024), (c) at 2
 # heads of 192 (d 384; K3 at t 1024, two fit steps), (d) at 2 heads of
-# 384 (d 768; K3 at t 1024, K4 at t 512, each against plain attention);
+# 384 (d 768; K3 at t 1024, K4 at t 512, each against plain attention,
+# and two fit steps against plain attention's loss curve);
 # the card holds the launch counts in the phase, this test the stand-ins'
 REHEARSAL = {"gpt": {k: WIDE[k] for k in ("vocab_size", "d_model",
                                           "n_layers", "d_ff")}
@@ -193,7 +194,8 @@ def test_wide_phase_rehearsal_on_cpu(capsys, one_thread, counting_wrappers):
     assert row["head_dim"] == 256 and row["narrow"]["head_dim"] == 192
     assert row["wider"]["head_dim"] == 384
     assert set(counts) == {"fwd", "fwd_single", "fit", "narrow",
-                           "narrow_fit", "wider", "wider_single"}
+                           "narrow_fit", "wider", "wider_single",
+                           "wider_fit"}
     # each counted window's calls: once a layer, a step (2 fit steps)
     n, steps = WIDE["n_layers"], REHEARSAL["steps"]
     fwd = {w: 0 for w in chip_smoke.FLASH_WRAPPERS}
@@ -208,6 +210,7 @@ def test_wide_phase_rehearsal_on_cpu(capsys, one_thread, counting_wrappers):
             ("wider_single", {**fwd, "flash_fwd_single": n})):
         assert counts[window] == want, window
     assert counts["narrow_fit"] == counts["fit"]
+    assert counts["wider_fit"] == counts["fit"]
     for window in ("fwd", "fwd_single", "narrow"):
         assert row[window]["kernel_vs_plain"]      # the replays ran
     # (d): the replays ran, and the output held to plain attention
@@ -218,8 +221,9 @@ def test_wide_phase_rehearsal_on_cpu(capsys, one_thread, counting_wrappers):
             for k in ("/o", "/lse")}
         assert part["plain_attention"]["err"] <= chip_smoke.FLASH_TOL[
             "bfloat16"]
-    # (b)'s fit steps at 2 heads of 256, (c)'s at 2 heads of 192
-    for fit in (row["fit"], row["narrow"]["fit"]):
+    # (b)'s fit steps at 2 heads of 256, (c)'s at 2 heads of 192, (d)'s
+    # at 2 heads of 384
+    for fit in (row["fit"], row["narrow"]["fit"], row["wider"]["fit"]):
         assert len(fit["losses"]) == 3
         assert fit["losses"][-1] < fit["losses"][0]
         assert fit["plain_attention"]["loss_curve_max_rel_diff"] <= 1e-3
