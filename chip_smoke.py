@@ -38,8 +38,10 @@ Phases:
                (seven key tiles) and
                dh 32 (zero-padded to 64 by the wrappers) on K3-K6.
                Past the fast kernels' head dims: K1 and K2 at dh 12 (rows
-               not 16-byte aligned), 160 and 256 (the any-dh kernel), K3-K6
-               at dh 160 (padded to the 192 build) and 256.
+               not 16-byte aligned) and 160 (the any-dh kernel), 192 and
+               256 (the wide builds in bf16, the any-dh kernel in f32; K1
+               also at block 8 and on its own split edges), K3-K6 at dh
+               160 (padded to the 192 build) and 256.
   3. pangrams — the checked-in pangrams Gpt served by GenerationServer on
                the card (f32) equals the port's offline generate(), up to
                the near-tie rule; a shared prefix runs the cache-hit path.
@@ -290,7 +292,9 @@ Phases:
                (b 32, t 512, 12 x 64, phase 8(b)'s padding as the bias,
                SDPA with it as a float attn_mask).
  10b. wide   — the head dims past 128 (``WIDE_CFG``): (a) timings as in
-               phase 10 of K1 and K2 at 3 heads of 256, and of K3-K6 at
+               phase 10 of K1 and K2 at 3 heads of 256 and 4 of 192 (the
+               wide builds) and 3 of 160 (the any-dh kernel), and of
+               K3-K6 at
                b 8, t 2048 causal (K4 at t 512) at 3 heads of 256 and at
                4 heads of 192 — forward and backward on wgmma with
                64-row tiles — and at 2 heads of 384 and 2 of 512 (the
@@ -311,7 +315,14 @@ Phases:
                (2 heads of 384): output() at t 2048 (K3 = 12) and t 512
                (K4 = 12), each held to plain attention's output, and 2 fit
                steps at t 2048 (K3 = K5 = K6 = 12 a step) held to its
-               loss curve.
+               loss curve; (e) Gpt(n_heads=3) served through
+               GenerationServer in bf16 (8 slots, max_len 1024, block 16,
+               tick_batch 8): phase 4(b)'s first 8 requests (K1 = 12 a
+               tick on the wide decode build), then 4 greedy ones with
+               speculative SPEC_FULL (K2 = 12 a verify pass, W 5) — each
+               window after a warm-up whose K1/K2 operands are replayed
+               against the plain versions, counts from 0, greedy streams
+               held to offline generate() (bf16 near-tie rule), tokens/s.
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
@@ -384,8 +395,12 @@ PAGED_TOL = {"K1": {"float32": 1.5e-6, "bfloat16": 3e-2},
 # reads 1.27.
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
-# (head dim, heads) of the K1/K2 cases the fast kernels do not take
-ANY_DH = ((12, 6), (160, 3), (256, 3))
+# (head dim, heads) of the K1/K2 cases the fast kernels do not take: the
+# any-dh kernel at 12 and 160 (and f32 at 192 and 256), the wide builds in
+# bf16 at 192 (zoo.Gpt(n_heads=4)) and 256 (Gpt(n_heads=3))
+ANY_DH = ((12, 6), (160, 3), (192, 4), (256, 3))
+# the head dims of the wide builds (bf16), with their heads at d 768
+WIDE_DH = ((192, 4), (256, 3))
 # optimize_for_tpu's counts on tests/fixtures/bert_base_graph_only.pb: the
 # JAX package's on the same file (held by tests/test_torch_rewrites.py)
 BERT_BASE_REWRITES = {"parallel_matmuls": 12, "layer_norm": 25, "gelu": 12,
@@ -395,7 +410,15 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Print ``obj`` as one JSON line; a phase's line gets ``t_s``, the
+    seconds since this process started, so a run's lines show where its
+    time budget goes."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -491,8 +514,9 @@ def phase_kernel(torch, pa):
     # K1 splits the context into chunks of C rows (C = 64 at these shapes):
     # positions on split edges and the table's last row; then slots whose
     # context fits the first split beside slots that fill every split
-    C = pa.decode_split_rows(8, 6, 64 * 16, torch.cuda.get_device_properties(
-        0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    C = pa.decode_split_rows(8, 6, 64 * 16, sms)
+    Cw = pa.decode_split_rows(8, 3, 64 * 16, sms)   # 3 heads of 256
     cases = [
         ("path", dict(B=8, h=6, dh=128, bs=16, mb=64, positions=path_pos)),
         ("split_edges", dict(B=8, h=6, dh=128, bs=16, mb=64,
@@ -506,11 +530,21 @@ def phase_kernel(torch, pa):
         ("bs8", dict(B=8, h=6, dh=128, bs=8, mb=128,
                      positions=[0, 7, 8, 9, 511, 1023, 300, 64])),
     ] + [
-        # head dims the fast kernel does not take (any-dh kernel): not a
-        # multiple of 8 (bf16 rows 24 bytes, not 16-byte aligned), and
-        # above 128 (a 256-wide register row)
+        # head dims the fast kernel does not take: not a multiple of 8
+        # (bf16 rows 24 bytes, not 16-byte aligned) and 160 on the any-dh
+        # kernel, 192 and 256 on the wide builds in bf16 (the any-dh
+        # kernel in f32)
         (f"dh{dh}", dict(B=8, h=h, dh=dh, bs=16, mb=64, positions=path_pos))
-        for dh, h in ANY_DH]
+        for dh, h in ANY_DH] + [
+        # the wide builds at block 8 and on their own split edges (their
+        # chunk at 3 heads), slots filling one split beside slots filling
+        # all
+        ("dh256_bs8", dict(B=8, h=3, dh=256, bs=8, mb=128,
+                           positions=[0, 7, 8, 9, 511, 1023, 300, 64])),
+        ("dh256_split_edges", dict(
+            B=8, h=3, dh=256, bs=16, mb=64,
+            positions=[Cw - 1, Cw, Cw + 1, 1023, 0, 2 * Cw - 1, 1023,
+                       Cw // 2]))]
     errs, details = {}, {}
     for name, kw in cases:
         for dname, dtype in (("float32", torch.float32),
@@ -534,7 +568,7 @@ def phase_kernel(torch, pa):
         (f"verify_dh{dh}_w{W}", dict(B=8, h=h, dh=dh, bs=16, mb=64, W=W,
                                      positions=[0, 15, 16, 17, 511,
                                                 1024 - W + 1, 700, 250]))
-        for (dh, h), W in zip(ANY_DH, (5, 17, 5))]
+        for (dh, h), W in zip(ANY_DH, (5, 17, 17, 5))]
     for name, kw in vcases:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
@@ -7572,11 +7606,36 @@ def phase_timings_bert(torch, np, phase="timings/bert"):
     return rows
 
 
+def paged_bound(positions, h, dh, bs, L, W=None):
+    """(bound ms, "bytes" | "operations", bytes, flops) of one bf16 K1 call
+    (``W`` None) or K2 call (``W`` rows a slot) at ``positions``: the K
+    and V rows of each slot's context read once, q read and the output
+    written once, the table entries and positions read; 4 flops per
+    (query, key) pair and head column."""
+    esz = 2
+    if W is None:
+        ctx, n_q = [p + 1 for p in positions], len(positions)
+        keys = sum(ctx)
+    else:
+        ctx, n_q = [min(p + W, L) for p in positions], len(positions) * W
+        keys = sum(min(p + w + 1, L) for p in positions for w in range(W))
+    n_bytes = (sum(ctx) * h * dh * 2 * esz          # K and V rows read
+               + 2 * n_q * h * dh * esz             # q read, out written
+               + sum((c - 1) // bs + 1 for c in ctx) * 4
+               + len(positions) * 4)
+    n_flops = 4 * keys * h * dh
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, n_flops)
+
+
 def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings"):
     """Median per-call times at the path shapes (bf16, 8 slots, ``h``
     heads of ``dh`` (6 of 128), block 16, 64-entry tables).  Calls cycle
     over 12 layers' pools (~300 MB), as one decode tick does, so the
-    50 MB L2 cannot hold the working set."""
+    50 MB L2 cannot hold the working set.  ``build``: the builds the
+    first call launched (``pa.paged_decode_attention.builds``)."""
     import torch.nn.functional as F
     dev, dtype = "cuda", torch.bfloat16
     B, bs, mb, NL = 8, 16, 64, 12
@@ -7602,29 +7661,22 @@ def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings"):
     q4 = q[:, :, None, :]
     lib = lambda i: F.scaled_dot_product_attention(
         q4, kl[i % NL], vl[i % NL], attn_mask=mask, scale=scale)
+    pa.paged_decode_attention.builds = {}
     err = float((kern(0).float() - plain(0).float()).abs().max())
+    builds = sorted(pa.paged_decode_attention.builds)
     ms = {name: time_ms(torch, fn) for name, fn in
           (("kernel", kern), ("plain", plain), ("library", lib),
            ("kernel_again", kern))}
-    ctx = sum(p + 1 for p in positions)
-    esz = 2
-    n_bytes = (ctx * h * dh * 2 * esz              # K and V rows read
-               + 2 * B * h * dh * esz              # q read, out written
-               + sum(p // bs + 1 for p in positions) * 4 + B * 4)
-    n_flops = 4 * ctx * h * dh
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_BF16_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
+    bound, by, n_bytes, n_flops = paged_bound(positions, h, dh, bs, mb * bs)
     out = {"phase": phase, "shapes": {"B": B, "h": h, "dh": dh,
                                           "bs": bs, "max_blocks": mb,
                                           "dtype": "bfloat16",
                                           "pos": positions},
            "kernel_ms": ms["kernel"], "kernel_ms_again": ms["kernel_again"],
            "plain_ms": ms["plain"], "library_ms": ms["library"],
-           "bound_ms": bound, "bound_by": ("bytes" if t_bytes >= t_ops
-                                           else "operations"),
+           "bound_ms": bound, "bound_by": by,
            "bytes": n_bytes, "flops": n_flops, "max_abs_err": err,
-           "card": card_line()}
+           "build": builds, "card": card_line()}
     emit(out)
     return out
 
@@ -7635,7 +7687,7 @@ def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
     heads of ``dh`` (6 of 128), block 16, 64-entry tables, chunks
     starting at ``positions``; 12 layers' pools in rotation as for K1.
     The yardstick is one SDPA call over K/V gathered beforehand with a
-    [B, 1, W, L] causal mask."""
+    [B, 1, W, L] causal mask; ``build`` as :func:`phase_timings`."""
     import torch.nn.functional as F
     dev, dtype = "cuda", torch.bfloat16
     B, bs, mb, NL = 8, 16, 64, 12
@@ -7661,29 +7713,22 @@ def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
     qh = q.transpose(1, 2).contiguous()                   # [B, h, W, dh]
     lib = lambda i: F.scaled_dot_product_attention(
         qh, kl[i % NL], vl[i % NL], attn_mask=mask, scale=scale)
+    pa.paged_verify_attention.builds = {}
     err = float((kern(0).float() - plain(0).float()).abs().max())
+    builds = sorted(pa.paged_verify_attention.builds)
     ms = {name: time_ms(torch, fn) for name, fn in
           (("kernel", kern), ("plain", plain), ("library", lib),
            ("kernel_again", kern))}
-    ctx = [min(p + W, L) for p in positions]     # K/V rows the call reads
-    keys = sum(min(p + w + 1, L) for p in positions for w in range(W))
-    esz = 2
-    n_bytes = (sum(ctx) * h * dh * 2 * esz        # K and V rows read
-               + 2 * B * W * h * dh * esz         # q read, out written
-               + sum((c - 1) // bs + 1 for c in ctx) * 4 + B * 4)
-    n_flops = 4 * keys * h * dh
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_BF16_FLOPS * 1e3
+    bound, by, n_bytes, n_flops = paged_bound(positions, h, dh, bs, L, W)
     out = {"phase": phase,
            "shapes": {"B": B, "W": W, "h": h, "dh": dh, "bs": bs,
                       "max_blocks": mb, "dtype": "bfloat16",
                       "pos0": positions},
            "kernel_ms": ms["kernel"], "kernel_ms_again": ms["kernel_again"],
            "plain_ms": ms["plain"], "library_ms": ms["library"],
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms": bound, "bound_by": by,
            "bytes": n_bytes, "flops": n_flops, "max_abs_err": err,
-           "card": card_line()}
+           "build": builds, "card": card_line()}
     emit(out)
     return out
 
@@ -7874,7 +7919,14 @@ def phase_profile(torch, np):
 # kernels.
 WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
             "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
-            "wider": {"n_heads": 2}, "kernels": True}
+            "wider": {"n_heads": 2}, "kernels": True,
+            # part (e): Gpt(n_heads=3) served as phase 4(b) serves Gpt()
+            "serve": {"gpt": {"n_heads": 3},
+                      "server": {"n_slots": 8, "max_len": 1024,
+                                 "block_size": 16, "tick_batch": 8,
+                                 "compute_dtype": "bfloat16"},
+                      "requests": 8, "spec_requests": 4,
+                      "speculative": SPEC_FULL}}
 
 
 def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
@@ -8051,19 +8103,186 @@ def wide_parts(torch, np, device, cfg, sync, card):
     return counts
 
 
+def paged_capture(gen_mod):
+    """Wrap the two paged wrappers as the generation module calls them
+    (``paged_decode_attention``, ``paged_verify_attention``) so each
+    records a copy of its first call's operands; returns (records,
+    restore)."""
+    names = ("paged_decode_attention", "paged_verify_attention")
+    saved = {n: getattr(gen_mod, n) for n in names}
+    rec = {}
+
+    def wrap(name, orig):
+        def w(*a, **kw):
+            if name not in rec:
+                rec[name] = ([x.detach().clone() if hasattr(x, "detach")
+                              else x for x in a], dict(kw))
+            return orig(*a, **kw)
+        return w
+    for n, f in saved.items():
+        setattr(gen_mod, n, wrap(n, f))
+
+    def restore():
+        for n, f in saved.items():
+            setattr(gen_mod, n, f)
+    return rec, restore
+
+
+def paged_kernel_errors(torch, pa, rec, label):
+    """Each captured paged launch replayed through its wrapper (the
+    kernel on the card) against the plain version on the same operands,
+    held to ``PAGED_TOL`` by ``flash_err``; ``label`` names the window in
+    a failure."""
+    errs = {}
+    for name, (a, kw) in rec.items():
+        kern = "K1" if name == "paged_decode_attention" else "K2"
+        out = getattr(pa, name)(*a, **kw)
+        ref = getattr(pa, f"{name}_reference")(*a[:5], kw["scale"])
+        x, r = out.float(), ref.float()
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: {name} non-finite")
+        err = flash_err(torch, x, r)[0]
+        tol = PAGED_TOL[kern][str(a[0].dtype).replace("torch.", "")]
+        if not err <= tol:
+            raise AssertionError(f"{label}: {name} vs plain {err} > {tol}")
+        errs[name] = err
+    return errs
+
+
+def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
+    """Part (e) of :func:`phase_wide`: ``Gpt(**cfg["serve"]["gpt"])`` at
+    ``cfg``'s other widths (seeded weights) served through
+    GenerationServer (``cfg["serve"]["server"]``): the first
+    ``requests`` of ``reqs`` (greedy and sampled; ``system`` the shared
+    prompt the warm-up seeds), then the first ``spec_requests`` greedy
+    ones with ``speculative``.  Each window comes after a warm-up whose
+    K1 (and K2) operands are replayed through the kernels against their
+    plain versions (:func:`paged_kernel_errors`), whose route must be the
+    wide builds' (``pa.call_route``); then the counts start from 0: K1 =
+    n_layers a tick (the plain window) and K2 = n_layers a verify pass,
+    more than none (the speculative one), every launch through the wide
+    builds (``<wrapper>.builds`` on the card).  Greedy streams are
+    held to offline ``generate()`` under the bf16 near-tie rule, sampled
+    ones finish inside the vocabulary.  Emits ``wide/serve`` and returns
+    the launch counts by window."""
+    from deeplearning4j_torch import telemetry
+    from deeplearning4j_torch.models import generation as gen_mod
+    from deeplearning4j_torch.models.generation import TransformerGenerator
+    from deeplearning4j_torch.parallel import GenerationServer
+    from deeplearning4j_torch.zoo import Gpt
+    sv = cfg["serve"]
+    t_phase = time.perf_counter()
+    ticks = telemetry.get_registry().counter("generation_server_ticks_total")
+    vocab = cfg["vocab"]
+    gpt = {**cfg["gpt"], **sv["gpt"]}
+    net = Gpt(seed=0, **gpt).init_graph(device=device)
+    n_layers = len(net.layers) - 2
+    kw = dict(sv["server"], device=device)
+    reqs = reqs[:sv["requests"]]
+    greedy = [i for i, (_, _, smp) in enumerate(reqs) if smp is None]
+    gen = TransformerGenerator(net, compute_dtype=kw["compute_dtype"],
+                               device=device)
+    refs = {i: gen.generate(reqs[i][0][None], reqs[i][1])[0]
+            for i in greedy}
+    warm = np.concatenate([system, [7, 7, 7]]).astype(np.int32)
+    row = {"phase": "wide/serve", "card": card, "weights": "random (seeded)",
+           "gpt": sv["gpt"], "n_layers": n_layers,
+           "head_dim": gpt.get("d_model", 768) // gpt["n_heads"],
+           **sv["server"]}
+    counts = {}
+    for part, extra, part_reqs in (
+            ("plain", {}, reqs),
+            ("spec", {"speculative": sv["speculative"]},
+             [reqs[i] for i in greedy[:sv["spec_requests"]]])):
+        k1 = gen_mod.paged_decode_attention
+        k2 = gen_mod.paged_verify_attention
+        with GenerationServer(net, **kw, **extra) as srv:
+            rec, restore = paged_capture(gen_mod)
+            try:
+                srv.submit(warm, 8)        # also seeds the shared prompt
+            finally:
+                restore()
+            want = {"paged_decode_attention"} | (
+                {"paged_verify_attention"} if extra else set())
+            if set(rec) != want:
+                raise AssertionError(f"wide/serve/{part}: captured "
+                                     f"{sorted(rec)}")
+            errs = paged_kernel_errors(torch, pa, rec, f"wide/serve/{part}")
+            # the route each window's calls take (a function of their
+            # shapes, which the warm-up's share)
+            routes = {n: pa.call_route(
+                a[0], a[1], a[3], n == "paged_verify_attention",
+                kw.get("split_rows"),
+                torch.cuda.get_device_properties(a[0].device)
+                .multi_processor_count if a[0].is_cuda
+                else pa.H100_SMS)[0] for n, (a, kw) in rec.items()}
+            if cfg["kernels"] and set(routes.values()) != {"wide"}:
+                raise AssertionError(f"wide/serve/{part}: routes {routes}")
+            del rec
+            sync()
+            t0 = ticks.value
+            for k in (k1, k2):
+                k.launches, k.builds = 0, {}
+            outs, ttfts, wall = serve(srv, part_reqs)
+            l1, l2, dt = k1.launches, k2.launches, ticks.value - t0
+            builds = {"paged_decode_attention": dict(k1.builds),
+                      "paged_verify_attention": dict(k2.builds)}
+        check_finished(part_reqs, outs, vocab)
+        pairs = ([(outs[i], refs[i]) for i in greedy] if part == "plain"
+                 else [(o, refs[i]) for o, i in zip(outs, greedy)])
+        ties = check_streams(torch, gen, pairs, NEAR_TIE_BF16)
+        if cfg["kernels"] and device != "cpu" and builds != {
+                "paged_decode_attention": {"wide": l1} if l1 else {},
+                "paged_verify_attention": {"wide": l2} if l2 else {}}:
+            raise AssertionError(f"wide/serve/{part}: launches by build "
+                                 f"{builds}, want the wide builds' alone")
+        if cfg["kernels"]:
+            if part == "plain" and not (l1 > 0 and l1 == n_layers * dt
+                                        and l2 == 0):
+                raise AssertionError(f"wide/serve/plain: K1 {l1} != "
+                                     f"{n_layers} layers x {dt} ticks, "
+                                     f"K2 {l2}")
+            if part == "spec" and not (l2 > 0 and l2 == n_layers * dt
+                                       and l1 > 0):
+                raise AssertionError(f"wide/serve/spec: K2 {l2} != "
+                                     f"{n_layers} layers x {dt} verify "
+                                     f"passes (or none), K1 {l1}")
+        new_tokens = sum(n for _, n, _ in part_reqs)
+        row[part] = {"requests": len(part_reqs), "greedy": len(pairs),
+                     "new_tokens": new_tokens, "seconds": wall,
+                     "new_tokens_per_s": new_tokens / wall,
+                     "ttft_p50_s": pct(ttfts, 0.50),
+                     "ttft_p99_s": pct(ttfts, 0.99), "ticks": dt,
+                     "k1_launches": l1, "k2_launches": l2,
+                     "routes": routes, "builds": builds,
+                     "kernel_vs_plain": errs, "near_ties": ties}
+        counts[part] = {"paged_decode_attention": l1,
+                        "paged_verify_attention": l2}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    del net, gen
+    return counts
+
+
 def phase_wide(torch, np, pa):
     """Phase 10b: (a) the head-dim-256 builds timed at the width of the
     path (K1 and K2 at 3 heads of 256; K3-K6 at b 8, 3 heads of 256,
     t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, 2 of
-    384 and 2 of 512, each beside its plain version, SDPA and the bound;
-    then (b)-(d), :func:`wide_parts` at ``WIDE_CFG``.  Returns (the
+    384 and 2 of 512, each beside its plain version, SDPA and the bound,
+    the paged ones held to the build they must launch (the wide builds at
+    192 and 256, the any-dh kernel at 160); then (b)-(d),
+    :func:`wide_parts` at ``WIDE_CFG``, and (e), :func:`wide_serve`.  Returns (the
     timings by build, the launch counts by window)."""
     mid = path_mid(np)
     timing = {
-        "dh256_decode": phase_timings(torch, pa, mid, h=3, dh=256,
-                                      phase="timings/dh256"),
-        "dh256_verify": phase_timings_verify(torch, pa, mid, h=3, dh=256,
-                                             phase="timings/verify_dh256"),
+        # K1 and K2 on the wide builds (3 heads of 256, 4 of 192) and on
+        # the any-dh kernel (3 heads of 160)
+        **{f"dh{dh}_{kind}": fn(torch, pa, mid, h=h, dh=dh,
+                                phase=f"timings/{pre}dh{dh}")
+           for dh, h in WIDE_DH + ((160, 3),)
+           for kind, fn, pre in (("decode", phase_timings, ""),
+                                 ("verify", phase_timings_verify,
+                                  "verify_"))},
         "dh256": phase_timings_flash(torch, h=3, dh=256,
                                      phase="timings/flash_dh256"),
         "dh192": phase_timings_flash(torch, h=4, dh=192,
@@ -8073,9 +8292,21 @@ def phase_wide(torch, np, pa):
                                      phase="timings/flash_dh384"),
         "dh512": phase_timings_flash(torch, h=2, dh=512,
                                      phase="timings/flash_dh512")}
+    for dh, _ in WIDE_DH + ((160, 3),):
+        for kind in ("decode", "verify"):
+            want = ["wide" if dh in (192, 256) else "any_dh"]
+            got = timing[f"dh{dh}_{kind}"]["build"]
+            if got != want:
+                raise AssertionError(f"wide/a: paged {kind} at dh {dh} "
+                                     f"launched {got}, want {want}")
     try:
+        card = card_line()
         counts = wide_parts(torch, np, "cuda", WIDE_CFG,
-                            torch.cuda.synchronize, card_line())
+                            torch.cuda.synchronize, card)
+        system, reqs = mixed_requests(np, WIDE_CFG["vocab"])
+        counts["serve"] = wide_serve(torch, np, pa, "cuda", WIDE_CFG,
+                                     torch.cuda.synchronize, card, system,
+                                     reqs)
     finally:
         torch.cuda.empty_cache()
     return timing, counts
@@ -8239,11 +8470,32 @@ def main(argv=None) -> int:
                                 (1, "paged_verify_attention")):
                     rows[i]["dist"] = {"launches": d_counts["serve"][name]}
             if wide_res is not None:
-                # the any-dh builds at 3 heads of 256 (phase 10b (a)); no
-                # path of this script runs them
-                for i, key in ((0, "dh256_decode"), (1, "dh256_verify")):
-                    rows[i]["dh256"] = {"launches": None,
-                                        **wide_sub(wide_res[0][key])}
+                # K1 and K2 past head dim 128 (phase 10b): the wide builds
+                # timed in (a) at 3 heads of 256, launched by (e)'s
+                # Gpt(n_heads=3) server (both windows), and at 4 heads of
+                # 192 (timed only); the any-dh kernel at 3 heads of 160
+                # (timed only).  ``build``: the kernel of the build each
+                # timed call launched (``<wrapper>.builds``); the ``gpu``
+                # test test_cuda_wide_builds_launch_the_wide_kernels holds
+                # each build to that kernel by torch.profiler
+                w_time, w_cnt = wide_res
+                for i, name, kind, src in (
+                        (0, "paged_decode_attention", "decode",
+                         "paged_decode.cu"),
+                        (1, "paged_verify_attention", "verify",
+                         "paged_verify.cu")):
+                    for dh in (256, 192, 160):
+                        rows[i][f"dh{dh}"] = {
+                            "launches": (sum(c[name] for c in
+                                             w_cnt["serve"].values())
+                                         if dh == 256 else None),
+                            "build": {
+                                "wide": f"paged_{kind}_wide_kernel",
+                                "any_dh": "paged_any_dh_kernel"}[
+                                w_time[f"dh{dh}_{kind}"]["build"][0]],
+                            "source": "deeplearning4j_torch/kernels/csrc/"
+                            + (src if dh != 160 else "paged_any_dh.cuh"),
+                            **wide_sub(w_time[f"dh{dh}_{kind}"])}
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",

@@ -1,6 +1,6 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu: K3 and K4,
-// flash_bwd.cu: K5 and K6) and the paged verify kernel (paged_verify.cu:
-// K2).
+// flash_bwd.cu: K5 and K6) and the paged kernels (paged_verify.cu: K2;
+// the mbarriers and bulk copies also paged_decode.cu: K1).
 //
 // Flash operands are [b, t, h, dh] views given as pointer + (batch, time,
 // head) element strides with dh contiguous, so a kernel reads the q/k/v
@@ -73,6 +73,43 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// mbarriers (one arrival, the thread that posts the expected bytes) and
+// copies that complete on them: the flash kernels' TMA tiles
+// (flash_hopper.cuh) and the paged kernels' bulk copies of pages and rows
+// (paged_decode.cu, paged_verify.cu)
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// global -> shared by the copy engine, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // (batch, time, head) element strides of one [b, t, h, dh] operand

@@ -262,4 +262,10 @@ inline int launch(const void* q, const void* k_pool, const void* v_pool,
   return is_bf16 ? launch_t<__nv_bfloat16>(a, B, s) : launch_t<float>(a, B, s);
 }
 
+// f32 values of the split partials a launch needs: (m, l, acc[dh]) for
+// each (row, head, split).
+inline long long part_floats(int B, int W, int h, int dh, int n_split) {
+  return (long long)B * W * h * n_split * (dh + 2);
+}
+
 }  // namespace paged_any_dh

@@ -42,14 +42,44 @@
 //   merge launch per layer would add to every tick.  A slot whose
 //   context fits one split writes O directly.
 // Templated on float and bf16; dh <= 128 and a multiple of 8 (rows are
-// read as whole 16-byte vectors, scores and P.V as element pairs).  Any
-// other head dim up to 256 takes paged_any_dh.cuh's kernel through
+// read as whole 16-byte vectors, scores and P.V as element pairs).
+//
+// The wide build (dl4j_paged_decode_attention_wide): bf16 at head dims
+// 192 and 256, the widths of zoo.Gpt(n_heads=4) and Gpt(n_heads=3) at
+// d 768.  Same bound (the K/V bytes of the context); same grid, chunk,
+// ticket and P rounding as v4.  What it does about the bytes:
+// * whole pages by the copy engine.  A pool page of one (block, head) is
+//   bs x dh contiguous elements (8 KB at bs 16, dh 256), so one thread
+//   issues one cp.async.bulk for the page's K rows and one for its V
+//   rows, both completing on the stage's mbarrier (expect_tx).  Only the
+//   rows below the context are copied (a prefix of the page, still one
+//   copy), and pages past it are never read: the table is read only
+//   below the context;
+// * a ring of min(3, pages a split covers) stages, each one page of K
+//   and V (32 KB of K/V in flight per block at bs 16, dh 256; the
+//   serving shape's 32-row chunks give each block 2 pages, ~2.7 blocks
+//   an SM);
+// * each warp scores whole rows with one 16-byte shared load a lane
+//   (lane l holds q[8 l .. 8 l + 7]; 24 lanes at dh 192) and keeps its
+//   own online softmax over the rows warp, warp + 4, ... of every page,
+//   four at once, with P rounded to bf16 at its running max as v4;
+// * the last split's merge keeps its loads in flight together: a
+//   partial is acc[dh] then (m, l) (rows of dh + 4 floats, read as
+//   float4), each thread reads one split's (m, l), and two halves of the
+//   block sum alternate splits of each float4 column — a window of 128
+//   splits at a time under a running max.
+// Split edges must fall on page edges: the wrapper sends a call here only
+// where bs divides the chunk and bs <= 64 (a stage's page fits the ring);
+// the entry refuses q or pools off 16-byte alignment (the wrapper raises).
+// Any other head dim up to 256, f32 at 192 and 256, and the block sizes
+// this build does not take go to paged_any_dh.cuh's kernel through
 // dl4j_paged_decode_attention_any.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "paged_any_dh.cuh"
 
 namespace {
@@ -317,6 +347,287 @@ int launch(const Args& a, int B, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the wide build: bf16 at head dims 192 and 256, pages by bulk copy
+// ---------------------------------------------------------------------------
+constexpr int kWideStages = 3;    // ring stages, one page of K and V each
+constexpr int kWideMaxBs = 64;    // rows of the largest page a stage holds
+constexpr int kWideRows = 4;      // rows a warp scores at once
+// a split's partial: acc[dh], then m and l, padded to a whole float4 (so
+// the merge reads acc as float4)
+__host__ __device__ constexpr int wide_part_floats(int dh) { return dh + 4; }
+
+struct WideArgs {
+  Args a;
+  int n_stage;   // min(kWideStages, chunk / bs)
+};
+
+__device__ __forceinline__ void unpack8(float (&f)[8], const uint4& v) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(p[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_wide_kernel(const WideArgs wa) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kLanes = DH / 8;   // lanes holding 8 head columns each
+  const Args& a = wa.a;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[kWideStages];
+  __shared__ float wm_s[kWarps], wl_s[kWarps];
+  __shared__ __align__(16) float wacc_s[kWarps][DH];
+  __shared__ float wt_s[kThreads];   // the merge's weights of a window of splits
+  __shared__ int last_s;
+
+  const int head = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int h = a.h, bs = a.bs, n_stage = wa.n_stage;
+  const int n_ctx = min(a.pos[b] + 1, a.max_blocks * bs);
+  const int c0 = split * a.chunk;
+  if (c0 >= n_ctx) return;                        // a dead split
+  const int c1 = min(n_ctx, c0 + a.chunk);
+  const int n_live = (n_ctx + a.chunk - 1) / a.chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* tbl = a.table + (long long)b * a.max_blocks;
+  const bf16* kp = static_cast<const bf16*>(a.k_pool);
+  const bf16* vp = static_cast<const bf16*>(a.v_pool);
+  const long long bh = (long long)b * h + head;
+  const int page0 = c0 / bs;                      // c0 sits on a page edge
+  const int n_pages = (c1 - 1) / bs - page0 + 1;
+  const int page = bs * DH;                       // elements of one page
+  bf16* ring = reinterpret_cast<bf16*>(smem);     // [stage][K page, V page]
+  const uint32_t bar0 = flash::smem_u32(bars);
+
+  if (tid == 0) {
+    for (int i = 0; i < n_stage; ++i) flash::mbar_init(bar0 + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // page i of the split (pool block `blk`) into its stage: its rows
+  // below c1 (a prefix of the page, contiguous in the pool), K then V
+  auto issue = [&](int i, int blk) {
+    const int rows = min(bs, c1 - (page0 + i) * bs);
+    const uint32_t bytes = (uint32_t)rows * DH * 2;
+    const long long off = ((long long)blk * h + head) * page;
+    bf16* ks = ring + (i % n_stage) * 2 * page;
+    const uint32_t bar = bar0 + 8 * (i % n_stage);
+    flash::mbar_expect(bar, 2 * bytes);
+    flash::bulk_g2s(flash::smem_u32(ks), kp + off, bytes, bar);
+    flash::bulk_g2s(flash::smem_u32(ks + page), vp + off, bytes, bar);
+  };
+  if (tid == 0) {
+    int blk[kWideStages];   // the first pages' table entries, loaded together
+#pragma unroll
+    for (int i = 0; i < kWideStages; ++i)
+      blk[i] = i < n_stage && i < n_pages ? tbl[page0 + i] : 0;
+#pragma unroll
+    for (int i = 0; i < kWideStages; ++i)
+      if (i < n_stage && i < n_pages) issue(i, blk[i]);
+  }
+
+  // q, scaled: lane l holds columns [8 l, 8 l + 8) (none past dh)
+  float qv[8], acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) qv[e] = acc[e] = 0.f;
+  if (lane < kLanes) {
+    unpack8(qv, *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.q) + bh * DH +
+                                                 8 * lane));
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qv[e] *= a.scale;
+  }
+
+  float m_w = -INFINITY, l_w = 0.f;
+  for (int i = 0; i < n_pages; ++i) {
+    const int st = i % n_stage;
+    // the table entry of the page that refills this stage, read early
+    const int blk_next = tid == 0 && i + n_stage < n_pages ? tbl[page0 + i + n_stage] : 0;
+    flash::mbar_wait(bar0 + 8 * st, (i / n_stage) & 1);
+    const bf16* ks = ring + st * 2 * page;
+    const bf16* vs = ks + page;
+    const int rows = min(bs, c1 - (page0 + i) * bs);   // rows past c1 never read
+    for (int r0 = warp; r0 < rows; r0 += kWarps * kWideRows) {
+      float s[kWideRows];
+#pragma unroll
+      for (int u = 0; u < kWideRows; ++u) {
+        const int r = r0 + kWarps * u;
+        float part = 0.f;
+        if (r < rows && lane < kLanes) {
+          float kf[8];
+          unpack8(kf, *reinterpret_cast<const uint4*>(ks + r * DH + 8 * lane));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part = fmaf(qv[e], kf[e], part);
+        }
+        s[u] = part;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < kWideRows; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+      float m_tile = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < kWideRows; ++u) {
+        if (r0 + kWarps * u >= rows) s[u] = -INFINITY;   // no key at all
+        m_tile = fmaxf(m_tile, s[u]);
+      }
+      const float m_new = fmaxf(m_w, m_tile);    // finite: row r0 is live
+      const float corr = expf(m_w - m_new);      // 0 on the warp's first rows
+      float l_tile = 0.f, pv[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pv[e] = 0.f;
+#pragma unroll
+      for (int u = 0; u < kWideRows; ++u) {
+        const int r = r0 + kWarps * u;
+        if (r >= rows) continue;
+        const float p = expf(s[u] - m_new);
+        l_tile += p;
+        const float pr = round_to(p, bf16());   // P in V's dtype, as v4
+        if (lane < kLanes) {
+          float vf[8];
+          unpack8(vf, *reinterpret_cast<const uint4*>(vs + r * DH + 8 * lane));
+#pragma unroll
+          for (int e = 0; e < 8; ++e) pv[e] = fmaf(pr, vf[e], pv[e]);
+        }
+      }
+      l_w = l_w * corr + l_tile;
+      m_w = m_new;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = fmaf(acc[e], corr, pv[e]);
+    }
+    __syncthreads();   // every warp is done with stage st ...
+    if (tid == 0 && i + n_stage < n_pages) issue(i + n_stage, blk_next);   // ... refill it
+  }
+
+  // merge the four warps' states into the split's (m, l, acc)
+  if (lane == 0) {
+    wm_s[warp] = m_w;
+    wl_s[warp] = l_w;
+  }
+  if (lane < kLanes) {
+    *reinterpret_cast<float4*>(&wacc_s[warp][8 * lane]) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(&wacc_s[warp][8 * lane + 4]) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+  __syncthreads();
+  float m_s = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) m_s = fmaxf(m_s, wm_s[w]);   // finite (warp 0 saw c0)
+  float f[kWarps], l_s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    f[w] = expf(wm_s[w] - m_s);                  // 0 for a warp with no row
+    l_s = fmaf(wl_s[w], f[w], l_s);
+  }
+  bf16* out = static_cast<bf16*>(a.out) + bh * DH;
+  constexpr int kPart = wide_part_floats(DH);   // acc[DH], m, l, pad
+  float* part = a.part + (bh * a.n_split + split) * kPart;
+  for (int d = tid; d < DH; d += kThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o = fmaf(wacc_s[w][d], f[w], o);
+    if (n_live == 1)                             // the whole context here
+      store(out + d, o / l_s);
+    else
+      part[d] = o;
+  }
+  if (n_live == 1) return;
+  if (tid == 0) {
+    part[DH] = m_s;
+    part[DH + 1] = l_s;
+  }
+  __threadfence();                 // the partial is visible device-wide ...
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(a.counter + bh, 1);   // ... before the ticket
+    last_s = ticket == n_live - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // the last split: merge every live split's partial (read past L1), a
+  // window of 128 splits at a time (one a thread) under a running max:
+  // each thread reads its split's (m, l), the block reduces the window's
+  // max, the splits' weights exp(m_s - m) go to shared memory, and two
+  // halves of the block sum alternate splits of each float4 column of
+  // acc, so the window's loads are in flight together
+  const float* base = a.part + bh * a.n_split * kPart;
+  constexpr int kC4 = DH / 4;                   // float4 columns of acc
+  const int c4 = tid % kC4, half = tid / kC4;   // half 2 (dh 192) idles
+  float m = -INFINITY, l = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s0 = 0; s0 < n_live; s0 += kThreads) {
+    const int n = min(kThreads, n_live - s0);
+    const float2 ml = tid < n ? __ldcg(reinterpret_cast<const float2*>(
+                                    base + (s0 + tid) * kPart + DH))
+                              : make_float2(-INFINITY, 0.f);
+    float mw = flash::warp_max(ml.x);
+    __syncthreads();   // the last window's maxima and weights are consumed
+    if (lane == 0) wm_s[warp] = mw;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, wm_s[w]);
+    const float m_new = fmaxf(m, mw);            // finite: every split saw a row
+    const float sc = expf(m - m_new);            // 0 on the first window
+    l *= sc;
+    o = make_float4(o.x * sc, o.y * sc, o.z * sc, o.w * sc);
+    m = m_new;
+    if (tid < n) {
+      const float wgt = expf(ml.x - m);
+      wt_s[tid] = wgt;
+      l = fmaf(ml.y, wgt, l);
+    }
+    __syncthreads();
+    if (half < 2) {
+      const float* ps = base + s0 * kPart + 4 * c4;
+#pragma unroll 8
+      for (int s = half; s < n; s += 2) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(ps + s * kPart));
+        const float wgt = wt_s[s];
+        o = make_float4(fmaf(x.x, wgt, o.x), fmaf(x.y, wgt, o.y), fmaf(x.z, wgt, o.z),
+                        fmaf(x.w, wgt, o.w));
+      }
+    }
+  }
+  l = flash::warp_sum(l);
+  __syncthreads();   // every thread has read wm_s and wt_s
+  if (lane == 0) wl_s[warp] = l;
+  if (half == 1) *reinterpret_cast<float4*>(&wacc_s[0][4 * c4]) = o;
+  __syncthreads();
+  if (half == 0) {
+    const float4 x = *reinterpret_cast<const float4*>(&wacc_s[0][4 * c4]);
+    float lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) lt += wl_s[w];
+    const float inv = 1.f / lt;
+    uint32_t* o2 = reinterpret_cast<uint32_t*>(out + 4 * c4);
+    o2[0] = flash::pack_bf16((o.x + x.x) * inv, (o.y + x.y) * inv);
+    o2[1] = flash::pack_bf16((o.z + x.z) * inv, (o.w + x.w) * inv);
+  }
+  if (tid == 0) a.counter[bh] = 0;   // ready for the next launch
+}
+
+template <int DH>
+int launch_wide(const WideArgs& wa, int B, cudaStream_t s) {
+  const size_t stage = (size_t)2 * wa.a.bs * DH * sizeof(__nv_bfloat16);
+  // once per instantiation, on the first (uncaptured) launch
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_wide_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)((size_t)kWideStages * 2 * kWideMaxBs * DH * sizeof(__nv_bfloat16)));
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid(wa.a.h, B, wa.a.n_split);
+  paged_decode_wide_kernel<DH><<<grid, kThreads, wa.n_stage * stage, s>>>(wa);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain-C entry for ctypes.  `part` is f32 scratch of B * h * n_split *
@@ -367,4 +678,56 @@ extern "C" int dl4j_paged_decode_attention_any(
   return paged_any_dh::launch(q, k_pool, v_pool, table, pos, out, part,
                               counter, B, 1, h, bs, dh, max_blocks, chunk,
                               scale, is_bf16, stream);
+}
+
+// The wide build: bf16 at dh 192 and 256, whole pages by bulk copy.
+// Arguments as dl4j_paged_decode_attention, but `part` holds B * h *
+// n_split * (dh + 4) f32 (acc, then m and l); `chunk` a multiple of bs
+// (split edges on page edges), bs <= 64, q and the pools 16-byte aligned.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() (0 on success), cudaErrorInvalidValue for a call
+// this build does not take.
+extern "C" int dl4j_paged_decode_attention_wide(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* out, void* part, void* counter, int B, int h,
+    int bs, int dh, int max_blocks, int chunk, float scale, int is_bf16,
+    void* stream) {
+  if (!is_bf16 || (dh != 192 && dh != 256) || B <= 0 || h <= 0 || bs <= 0 ||
+      bs > kWideMaxBs || max_blocks <= 0 || chunk <= 0 || chunk % bs || B > 65535 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
+       reinterpret_cast<uintptr_t>(v_pool)) % 16)
+    return (int)cudaErrorInvalidValue;
+  WideArgs wa;
+  Args& a = wa.a;
+  a.q = q;
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.table = static_cast<const int*>(table);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.counter = static_cast<int*>(counter);
+  a.h = h;
+  a.bs = bs;
+  a.dh = dh;
+  a.max_blocks = max_blocks;
+  a.chunk = chunk;
+  a.n_split = (max_blocks * bs + chunk - 1) / chunk;
+  a.scale = scale;
+  wa.n_stage = chunk / bs < kWideStages ? chunk / bs : kWideStages;
+  if (a.n_split > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dh == 256 ? launch_wide<256>(wa, B, s) : launch_wide<192>(wa, B, s);
+}
+
+// f32 values of split-partial scratch one launch needs, by build (0: the
+// v4 entry, whose partial is (m, l, acc[dh]); 1: the wide build, acc[dh],
+// m, l and a pad; 2: the any-dh kernel), for B slots of W query rows
+// (1 here), h heads, head dim dh and n_split splits.  The wrapper sizes
+// its scratch from this, so each layout is known here alone.
+extern "C" long long dl4j_paged_decode_part_floats(int build, int B, int W,
+                                                  int h, int dh,
+                                                  int n_split) {
+  if (build == 2) return paged_any_dh::part_floats(B, W, h, dh, n_split);
+  return (long long)B * h * n_split * (build == 1 ? wide_part_floats(dh) : dh + 2);
 }

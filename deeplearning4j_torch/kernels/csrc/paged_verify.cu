@@ -47,9 +47,43 @@
 //   divides by the total l, writes the rows below W, and resets the
 //   counter to 0 for the next launch.  A group whose context fits one
 //   split writes its rows directly.
-// Templated on float and bf16; dh <= 128 and a multiple of 8.  Any other
-// head dim up to 256 takes paged_any_dh.cuh's kernel (each query row
-// on its own) through dl4j_paged_verify_attention_any.
+// Templated on float and bf16; dh <= 128 and a multiple of 8.
+//
+// The wide build (dl4j_paged_verify_attention_wide): bf16 at head dims
+// 192 and 256 (zoo.Gpt(n_heads=4) and Gpt(n_heads=3) at d 768).  Same
+// bound: the slot's context rows read once for all W rows; at these
+// widths the any-dh kernel read them once a row, W times the bytes.
+// What it does about them:
+// * v3's grid (h * n_grp, B, S), chunk and last-split merge: each block
+//   takes a group of 16 rows, so every page of the context is read once
+//   per (slot, head, row group);
+// * 64-key tiles of K and V arrive by the copy engine: warp 0 issues one
+//   cp.async.bulk per context row of K and of V (dh * 2 bytes, a row of
+//   its page) into rows of dh + 8 elements, a pitch that ldmatrix and the
+//   fragment loads read without bank conflicts, all completing on the
+//   stage's mbarrier.  The ring holds min(2, tiles a split covers)
+//   stages; rows past the split are never copied (the table is read only
+//   below the group's context);
+// * both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   accumulate).  Q K^T: each of the 4 warps scores 16 keys of the tile
+//   for the 16 rows, Q's fragments read from shared memory each k-step
+//   (16 x 256 of Q would take 64 registers a thread).  A block-wide row
+//   max over the tile (through shared memory) gives every warp the same
+//   running max, so P is rounded to bf16 once, staged in shared memory,
+//   and P.V splits the OUTPUT columns: warp w owns dh / 4 of them (a
+//   16 x 64 accumulator, 32 registers a thread at dh 256) over all 64
+//   keys.  The 0 x NaN rule of v3 holds: keys the group's first row does
+//   not see (k > pos0 + w0: seen by deeper rows only) and rows past the
+//   context take a scalar P.V that skips each (row, key) pair the mask
+//   hides, then each warp zeroes its columns of those V rows before its
+//   tensor-core product;
+// * the four warps share the running max and denominator, so a split's
+//   partial needs no merge across warps: each warp writes its columns.
+//   The last split's merge reads each split's (m, l) once (16 lanes a
+//   row) and keeps four splits' float4 columns in flight a thread.
+// Any other head dim up to 256, and f32 at 192 and 256, take
+// paged_any_dh.cuh's kernel (each query row on its own) through
+// dl4j_paged_verify_attention_any.
 #include "flash_common.cuh"
 #include "paged_any_dh.cuh"
 
@@ -60,6 +94,9 @@ namespace {
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 16;      // query rows a block takes: one A fragment
+// a partial row of v3 and of the wide build: acc[dh], then m and l,
+// padded to a whole float4
+__host__ __device__ constexpr int part_row_floats(int dh) { return dh + 4; }
 constexpr int kTile = 64;       // keys per tile, 16 a warp
 constexpr int kStages = 2;
 constexpr int kMaxDh = 128;
@@ -485,6 +522,370 @@ int launch(const Args& a, int B, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the wide build: bf16 at head dims 192 and 256, rows by bulk copy
+// ---------------------------------------------------------------------------
+constexpr int kWideStages = 2;
+
+struct WideArgs {
+  Args a;
+  int n_stage;   // min(kWideStages, chunk / kTile)
+};
+
+template <int DH>
+struct WideLayout {
+  static constexpr int LD = DH + 8;          // K, V and Q row pitch (elements)
+  static constexpr int PLD = kTile + 8;      // P row pitch
+  static constexpr int kCols = DH / kWarps;  // output columns a warp owns
+  static constexpr int kNj = kCols / 8;      // ... as column blocks of 8
+  static constexpr size_t kTileBytes = (size_t)kTile * LD * sizeof(__nv_bfloat16);
+  static constexpr size_t kStage = 2 * kTileBytes;   // K tile, then V tile
+  static constexpr size_t kQBytes = (size_t)kGroup * LD * sizeof(__nv_bfloat16);
+  static constexpr size_t kPBytes = (size_t)kGroup * PLD * sizeof(__nv_bfloat16);
+  // the ring of n stages, then Q, then P
+  static constexpr size_t bytes(int n) { return n * kStage + kQBytes + kPBytes; }
+  static_assert(kNj % 2 == 0, "P.V takes column blocks in pairs");
+  static_assert(kStage >= (size_t)kMaxSplit * kGroup * sizeof(float),
+                "the last split's merge weights fit one stage");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_wide_kernel(const WideArgs wa) {
+  using bf16 = __nv_bfloat16;
+  using L = WideLayout<DH>;
+  constexpr int LD = L::LD, PLD = L::PLD, kNj = L::kNj;
+  const Args& a = wa.a;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[kWideStages];
+  __shared__ float red_m[kWarps][kGroup], red_l[kWarps][kGroup];
+  __shared__ float lrow_s[kGroup];
+  __shared__ int last_s;
+
+  const int grp = blockIdx.x % a.n_grp, head = blockIdx.x / a.n_grp;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int h = a.h, bs = a.bs, n_stage = wa.n_stage;
+  const int w0 = grp * kGroup;
+  const int n_rows = min(kGroup, a.W - w0);
+  const int p0 = a.pos0[b] + w0;                      // the group's row 0
+  const int n_ctx = min(p0 + n_rows, a.max_blocks * bs);
+  const int c0 = split * a.chunk;
+  if (c0 >= n_ctx) return;                            // a dead split
+  const int c1 = min(n_ctx, c0 + a.chunk);
+  const int n_live = (n_ctx + a.chunk - 1) / a.chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int* tbl = a.table + (long long)b * a.max_blocks;
+  const bf16* kp = static_cast<const bf16*>(a.k_pool);
+  const bf16* vp = static_cast<const bf16*>(a.v_pool);
+  const long long bh = (long long)b * h + head;
+  const int cidx = (int)bh * a.n_grp + grp;
+  const int n_tiles = (c1 - c0 + kTile - 1) / kTile;
+  bf16* ring = reinterpret_cast<bf16*>(smem);         // [stage][K tile, V tile]
+  bf16* q_s = reinterpret_cast<bf16*>(smem + n_stage * L::kStage);
+  bf16* p_s = q_s + kGroup * LD;
+  const uint32_t bar0 = smem_u32(bars);
+
+  if (tid == 0) {
+    for (int i = 0; i < n_stage; ++i) mbar_init(bar0 + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // tile i into its stage, by warp 0: one bulk copy per live row of K and
+  // of V (rows at or past c1 are never copied)
+  auto issue = [&](int i) {
+    const int t0 = c0 + i * kTile;
+    const int n = min(kTile, c1 - t0);
+    bf16* ks = ring + (i % n_stage) * 2 * kTile * LD;
+    const uint32_t bar = bar0 + 8 * (i % n_stage);
+    long long off[kTile / 32];   // a lane's rows lane, lane + 32: table reads together
+#pragma unroll
+    for (int u = 0; u < kTile / 32; ++u) {
+      const int j = t0 + lane + 32 * u;
+      off[u] = lane + 32 * u < n
+                   ? (((long long)tbl[j / bs] * h + head) * bs + (j % bs)) * DH
+                   : -1;
+    }
+    if (lane == 0) mbar_expect(bar, (uint32_t)n * DH * 2 * 2);
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kTile / 32; ++u) {
+      if (off[u] < 0) continue;
+      const int r = lane + 32 * u;
+      bulk_g2s(smem_u32(ks + r * LD), kp + off[u], DH * 2, bar);
+      bulk_g2s(smem_u32(ks + kTile * LD + r * LD), vp + off[u], DH * 2, bar);
+    }
+  };
+  if (warp == 0)
+    for (int i = 0; i < n_stage && i < n_tiles; ++i) issue(i);
+
+  // the group's rows of q (zero for rows >= W), 16-byte vectors
+  for (int c = tid; c < kGroup * (DH / 8); c += kThreads) {
+    const int r = c / (DH / 8), v = c - r * (DH / 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n_rows)
+      val = *reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(a.q) + (((long long)b * a.W + w0 + r) * h + head) * DH +
+          8 * v);
+    *reinterpret_cast<uint4*>(q_s + r * LD + 8 * v) = val;
+  }
+  __syncthreads();
+
+  // rows g and g + 8: the running max and denominator (the same in every
+  // warp) and this warp's accumulator over its output columns
+  const int col0 = warp * L::kCols;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float acc[kNj][4];
+#pragma unroll
+  for (int j = 0; j < kNj; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % n_stage;
+    mbar_wait(bar0 + 8 * st, (i / n_stage) & 1);
+    const bf16* ks = ring + st * 2 * kTile * LD;
+    bf16* vs = ring + st * 2 * kTile * LD + kTile * LD;
+    const int t0 = c0 + i * kTile;
+    const int kw = t0 + 16 * warp;   // this warp's first key
+
+    // S = Q K^T over the warp's 16 keys: [16 rows] x [2 x 8 keys]
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qf[4];
+      load_a<LD>(qf, q_s, 0, 16 * kk, g, qd);
+      mma_abt<2, LD>(s, qf, ks, 16 * warp, 16 * kk, g, qd);
+    }
+    // mask (row r sees key k iff r < rows, k < c1 and k <= p0 + r); the
+    // tile's row max across the four warps
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1);
+        const int key = kw + 8 * j + 2 * qd + (e & 1);
+        const bool vis = r < n_rows && key < c1 && key <= p0 + r;
+        s[j][e] = vis ? s[j][e] * a.scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const float m = quad_max(mx[r2]);
+      if (qd == 0) red_m[warp][g + 8 * r2] = m;
+    }
+    __syncthreads();
+    float corr[2];
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int r = g + 8 * r2;
+      float m_new = m_r[r2];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, red_m[w][r]);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;   // no key yet
+      corr[r2] = expf(m_r[r2] - m_use);                       // 0 on the first
+      m_r[r2] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 2 * r2; e < 2 * r2 + 2; ++e) {
+          s[j][e] = expf(s[j][e] - m_use);   // 0 where masked
+          sum += s[j][e];
+        }
+      sum = quad_sum(sum);
+      if (qd == 0) red_l[warp][r] = sum;
+    }
+    // P, rounded to bf16 at the running max (as v3), into shared memory
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = 16 * warp + 8 * j + 2 * qd;
+      *reinterpret_cast<uint32_t*>(p_s + g * PLD + k) = pack_bf16(s[j][0], s[j][1]);
+      *reinterpret_cast<uint32_t*>(p_s + (g + 8) * PLD + k) = pack_bf16(s[j][2], s[j][3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += red_l[w][g + 8 * r2];
+      l_r[r2] = l_r[r2] * corr[r2] + sum;
+#pragma unroll
+      for (int jd = 0; jd < kNj; ++jd) {
+        acc[jd][2 * r2] *= corr[r2];
+        acc[jd][2 * r2 + 1] *= corr[r2];
+      }
+    }
+
+    // keys from kz on go around the tensor cores: those only deeper rows
+    // see (k > p0) through a scalar P.V that skips each (row, key) pair
+    // the mask hides, and past the context nothing; then this warp's
+    // columns of their V rows are zeroed, so the tensor-core product
+    // multiplies no unread or hidden row (0 x NaN)
+    const int kz = max(0, min(min(p0 + 1, c1) - t0, kTile));
+    if (kz < kTile) {
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int r = g + 8 * r2;
+        const int n_vis = r < n_rows ? max(0, min(kTile, min(p0 + r + 1, c1) - t0)) : 0;
+        for (int kk = kz; kk < n_vis; ++kk) {
+          const float p = __bfloat162float(p_s[r * PLD + kk]);
+          const bf16* vrow = vs + kk * LD + col0 + 2 * qd;
+#pragma unroll
+          for (int jd = 0; jd < kNj; ++jd) {
+            const float2 vv = load2(vrow + 8 * jd);
+            acc[jd][2 * r2] = fmaf(p, vv.x, acc[jd][2 * r2]);
+            acc[jd][2 * r2 + 1] = fmaf(p, vv.y, acc[jd][2 * r2 + 1]);
+          }
+        }
+      }
+      __syncwarp();
+      for (int c = lane; c < (kTile - kz) * kNj; c += 32) {
+        const int kk = kz + c / kNj;
+        *reinterpret_cast<uint4*>(vs + kk * LD + col0 + 8 * (c % kNj)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      __syncwarp();
+    }
+    // acc += P V over this warp's columns, the tile's 64 keys
+#pragma unroll
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      uint32_t pf[4];
+      load_a<PLD>(pf, p_s, 0, 16 * kc, g, qd);
+      mma_ab<kNj, LD>(acc, pf, vs + col0, 16 * kc, lane);
+    }
+    __syncthreads();   // stage st, P and the row sums are free ...
+    if (warp == 0 && i + n_stage < n_tiles) issue(i + n_stage);   // ... refill
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+  if (n_live == 1) {   // the group's whole context here
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int r = g + 8 * r2;
+      if (r >= n_rows) continue;
+      const float inv = 1.f / l_r[r2];
+      bf16* orow = out + (((long long)b * a.W + w0 + r) * h + head) * DH + col0 + 2 * qd;
+#pragma unroll
+      for (int jd = 0; jd < kNj; ++jd)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
+            pack_bf16(acc[jd][2 * r2] * inv, acc[jd][2 * r2 + 1] * inv);
+    }
+    return;
+  }
+  // the split's partial: (acc[dh], m, l) a row, each warp its columns
+  constexpr int dp = part_row_floats(DH);
+  float* part = a.part + ((long long)cidx * a.n_split + split) * kGroup * dp;
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int r = g + 8 * r2;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int jd = 0; jd < kNj; ++jd)
+      *reinterpret_cast<float2*>(part + r * dp + col0 + 8 * jd + 2 * qd) =
+          make_float2(acc[jd][2 * r2], acc[jd][2 * r2 + 1]);
+    if (warp == 0 && qd == 0) {
+      part[r * dp + DH] = m_r[r2];
+      part[r * dp + DH + 1] = l_r[r2];
+    }
+  }
+  __threadfence();   // the partial is visible device-wide ...
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(a.counter + cidx, 1);   // ... before the ticket
+    last_s = ticket == n_live - 1;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // the last split: each row's max over the live splits, then its
+  // denominator and every split's weight exp(m_s - m) (0 where the row saw
+  // no key) into the free ring — 16 lanes a row, over the splits, each
+  // split's (m, l) read once (past L1); then each thread sums its float4
+  // columns of the output (kK of them, (row, column) pairs tid + 128 k)
+  // over the splits, the loads of four splits' columns in flight at once
+  const float* base = a.part + (long long)cidx * a.n_split * kGroup * dp;
+  const long long stride = (long long)kGroup * dp;
+  float* wt = reinterpret_cast<float*>(smem);   // [split][row]
+  const int sub = tid & 15;                     // lane of the row's 16
+  for (int r = tid >> 4; r < kGroup; r += kThreads / 16) {
+    const bool row = r < n_rows;
+    const float* pr = base + r * dp + DH;
+    const float2 ml0 = row && sub < n_live
+                           ? __ldcg(reinterpret_cast<const float2*>(pr + sub * stride))
+                           : make_float2(-INFINITY, 0.f);
+    float m = ml0.x;
+    for (int s2 = sub + 16; row && s2 < n_live; s2 += 16) m = fmaxf(m, __ldcg(pr + s2 * stride));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    if (row && sub < n_live) {
+      const float f = ml0.x == -INFINITY ? 0.f : expf(ml0.x - m);
+      wt[sub * kGroup + r] = f;
+      l = ml0.y * f;
+    }
+    for (int s2 = sub + 16; row && s2 < n_live; s2 += 16) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(pr + s2 * stride));
+      const float f = ml.x == -INFINITY ? 0.f : expf(ml.x - m);
+      wt[s2 * kGroup + r] = f;
+      l = fmaf(ml.y, f, l);
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (row && sub == 0) lrow_s[r] = l;
+  }
+  __syncthreads();
+  constexpr int kC4 = DH / 4;                                   // float4 columns a row
+  constexpr int kK = (kGroup * kC4 + kThreads - 1) / kThreads;  // a thread's (8 / 6)
+  const int n_c4 = n_rows * kC4;
+  float4 o[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) o[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s2 = 0; s2 < n_live; ++s2) {
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int i = tid + kThreads * k;
+      if (i >= n_c4) continue;
+      const int r = i / kC4;
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(
+          base + s2 * stride + r * dp + 4 * (i - r * kC4)));
+      const float f = wt[s2 * kGroup + r];
+      o[k] = make_float4(fmaf(x.x, f, o[k].x), fmaf(x.y, f, o[k].y), fmaf(x.z, f, o[k].z),
+                         fmaf(x.w, f, o[k].w));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const int i = tid + kThreads * k;
+    if (i >= n_c4) continue;
+    const int r = i / kC4, c = 4 * (i - r * kC4);
+    const float inv = 1.f / lrow_s[r];
+    bf16* orow = out + (((long long)b * a.W + w0 + r) * h + head) * DH + c;
+    *reinterpret_cast<uint32_t*>(orow) = pack_bf16(o[k].x * inv, o[k].y * inv);
+    *reinterpret_cast<uint32_t*>(orow + 2) = pack_bf16(o[k].z * inv, o[k].w * inv);
+  }
+  if (tid == 0) a.counter[cidx] = 0;   // ready for the next launch
+}
+
+template <int DH>
+int launch_wide(const WideArgs& wa, int B, cudaStream_t s) {
+  using L = WideLayout<DH>;
+  // once per instantiation, on the first (uncaptured) launch
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(paged_verify_wide_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::bytes(kWideStages));
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid(wa.a.h * wa.a.n_grp, B, wa.a.n_split);
+  paged_verify_wide_kernel<DH><<<grid, kThreads, L::bytes(wa.n_stage), s>>>(wa);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain-C entry for ctypes.  `part` is f32 scratch of B * h * n_grp *
@@ -539,4 +940,60 @@ extern "C" int dl4j_paged_verify_attention_any(
   return paged_any_dh::launch(q, k_pool, v_pool, table, pos0, out, part,
                               counter, B, W, h, bs, dh, max_blocks, chunk,
                               scale, is_bf16, stream);
+}
+
+// The wide build: bf16 at dh 192 and 256, context rows by bulk copy.
+// Arguments, scratch and counters as dl4j_paged_verify_attention (`chunk`
+// a multiple of 64, at most 512 splits); q and the pools 16-byte
+// aligned.  Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for a call this build does not take.
+extern "C" int dl4j_paged_verify_attention_wide(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos0, void* out, void* part, void* counter, int B, int W, int h,
+    int bs, int dh, int max_blocks, int chunk, float scale, int is_bf16,
+    void* stream) {
+  if (!is_bf16 || (dh != 192 && dh != 256) || B <= 0 || W <= 0 || h <= 0 || bs <= 0 ||
+      max_blocks <= 0 || chunk <= 0 || chunk % kTile || B > 65535 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
+       reinterpret_cast<uintptr_t>(v_pool)) % 16)
+    return (int)cudaErrorInvalidValue;
+  WideArgs wa;
+  Args& a = wa.a;
+  a.q = q;
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.table = static_cast<const int*>(table);
+  a.pos0 = static_cast<const int*>(pos0);
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.counter = static_cast<int*>(counter);
+  a.W = W;
+  a.h = h;
+  a.bs = bs;
+  a.dh = dh;
+  a.max_blocks = max_blocks;
+  a.chunk = chunk;
+  a.n_split = (max_blocks * bs + chunk - 1) / chunk;
+  a.n_grp = (W + kGroup - 1) / kGroup;
+  a.scale = scale;
+  wa.n_stage = chunk / kTile < kWideStages ? chunk / kTile : kWideStages;
+  if (a.n_split > kMaxSplit || (long long)h * a.n_grp > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dh == 256 ? launch_wide<256>(wa, B, s) : launch_wide<192>(wa, B, s);
+}
+
+// f32 values of split-partial scratch one launch needs, by build (0: the
+// v3 entry and 1: the wide build, a partial of 16 rows of (acc[dh], m, l,
+// pad) per (slot, head, row group, split); 2: the any-dh kernel, each of
+// the W rows on its own), for B slots of W query rows, h heads, head dim
+// dh and n_split splits.  The wrapper sizes its scratch from this, so
+// each layout is known here alone.
+extern "C" long long dl4j_paged_verify_part_floats(int build, int B, int W,
+                                                  int h, int dh,
+                                                  int n_split) {
+  if (build == 2) return paged_any_dh::part_floats(B, W, h, dh, n_split);
+  const long long n_grp = (W + kGroup - 1) / kGroup;
+  return (long long)B * h * n_grp * n_split * kGroup * part_row_floats(dh);
 }

@@ -24,10 +24,14 @@ Two implementations behind each of two wrappers.  The decode read,
   of the slot's table entries, the last split of a (slot, head) merging
   the partials — with no gathered copy and no host read of ``pos``.
   :func:`decode_split_rows` picks the chunk from the table's capacity.
-  Head dims above 128 or not a multiple of 8 (up to 256) take
-  ``csrc/paged_any_dh.cuh``'s kernel instead: rows read element by
-  element, q and the accumulator in a register width padded to 128 or
-  256, zero past dh.
+  bf16 at head dims 192 and 256 takes the wide build of the same file
+  (``dl4j_paged_decode_attention_wide``): whole pages by bulk copy into
+  a shared-memory ring, where the split edges fall on page edges
+  (:func:`wide_decode_takes`).  Every other head dim above 128 or not a
+  multiple of 8 (up to 256), and the block sizes the wide build does not
+  take, take ``csrc/paged_any_dh.cuh``'s kernel instead: rows read
+  element by element, q and the accumulator in a register width padded
+  to 128 or 256, zero past dh.
 
 The speculative verification read, ``paged_verify_attention`` (W query
 rows per slot, row j at position ``pos0 + j``):
@@ -42,15 +46,24 @@ rows per slot, row j at position ``pos0 + j``):
   tensor-core fragment over its chunk of the table, the last split of a
   (slot, head, group) merging the partials in the same launch.  Any W:
   rows go in groups of 16 (:func:`verify_split_rows` picks the chunk).
-  The other head dims up to 256 take ``paged_any_dh.cuh``'s kernel, each
+  bf16 at head dims 192 and 256 takes its wide build
+  (``dl4j_paged_verify_attention_wide``): context rows by bulk copy,
+  read once per group of rows, both products on tensor cores with the
+  output columns split across the warps.  The other head dims up to 256
+  (and f32 at 192 and 256) take ``paged_any_dh.cuh``'s kernel, each
   query row on its own.
 
 Each wrapper routes by the tensors' device: CPU tensors take the plain
-version, CUDA tensors launch the kernel or raise — there is no fallback.
+version, CUDA tensors launch the kernel their shapes name
+(:func:`call_route`) or raise — there is no fallback: a build's C entry
+refuses a call it does not take (the wide builds, q or pools off 16-byte
+alignment) and the wrapper raises.  Each source also says how much
+split-partial scratch a launch of each of its builds needs
+(``dl4j_<lib>_part_floats``), so the partials' layouts live there.
 ``paged_route_total{path="kernel"|"reference"}`` counts the routes of
-both, and ``<wrapper>.launches`` counts each wrapper's kernel launches
+both, ``<wrapper>.launches`` counts each wrapper's kernel launches
 (chip runs read them to prove the serving path went through the
-kernels).
+kernels) and ``<wrapper>.builds`` the same launches by build.
 """
 from __future__ import annotations
 
@@ -72,6 +85,8 @@ _ROUTE_REFERENCE = _ROUTE_TOTAL.labels(path="reference")
 
 _MAX_DH = 256        # head dims the kernels take
 _FAST_DH = 128       # the fast kernels: dh <= this and a multiple of 8
+_WIDE_DH = (192, 256)   # the wide builds' head dims (bf16)
+_WIDE_MAX_BS = 64    # rows of the largest page a wide decode stage holds
 _VERIFY_GROUP = 16   # verify query rows a kernel block takes (one fragment)
 _VERIFY_TILE = 64    # the verify kernel's key tile; its chunk is a multiple
 _VERIFY_MAX_SPLIT = 512   # splits the verify kernel's merge takes
@@ -176,6 +191,37 @@ def _fast_dh(dh: int) -> bool:
     return dh <= _FAST_DH and dh % 8 == 0
 
 
+def _wide_dh(dh: int, dtype) -> bool:
+    """Whether the wide builds take head dim ``dh`` in ``dtype`` (bf16 at
+    192 and 256: rows of 24 or 32 16-byte vectors, one a lane)."""
+    return dh in _WIDE_DH and dtype == torch.bfloat16
+
+
+def kernel_route(dh: int, dtype, bs: int, chunk: int,
+                 verify: bool = False) -> str:
+    """The build a CUDA call of these shapes takes: ``"fast"`` (v4 / v3:
+    dh <= 128 and a multiple of 8), ``"wide"`` (bf16 at dh 192 and 256 —
+    the verify build copies rows and takes any block size, the decode
+    build copies pages and needs :func:`wide_decode_takes`) or
+    ``"any_dh"``.  ``chunk``: the call's context rows per split.  A
+    function of the shapes alone: a build's C entry refuses what it does
+    not take (operands off 16-byte alignment included) and the wrapper
+    raises."""
+    if _fast_dh(dh):
+        return "fast"
+    if _wide_dh(dh, dtype) and (verify or wide_decode_takes(bs, chunk)):
+        return "wide"
+    return "any_dh"
+
+
+def wide_decode_takes(bs: int, chunk: int) -> bool:
+    """Whether the wide decode build takes pages of ``bs`` rows at context
+    chunk ``chunk``: the split edges fall on page edges (bs divides the
+    chunk) and a page fits a ring stage (bs <= 64).  A function of the
+    shapes alone."""
+    return chunk % bs == 0 and bs <= _WIDE_MAX_BS
+
+
 _SPLIT_QUANTUM = 32     # the decode kernel's chunk is a multiple of this
 H100_SMS = 132
 
@@ -245,63 +291,83 @@ def _sm_count(device) -> int:
     return n
 
 
-def _launch_any_dh(lib: str, symbol: str, q, k_pool, v_pool, block_table,
-                   pos, W: int, scale: float, split_rows=None):
-    """Launch ``paged_any_dh.cuh``'s kernel (entry ``symbol`` of ``lib``)
-    over ``q`` [B, h, dh] (decode) or [B, W, h, dh] (verify), each query
-    row on its own; raise on a refused launch."""
+def call_route(q, k_pool, block_table, verify: bool = False,
+               split_rows=None, n_sm: int = H100_SMS):
+    """(build, chunk) of a CUDA call with these operands:
+    :func:`kernel_route` at the call's chunk (:func:`decode_chunk` or
+    :func:`verify_chunk`; ``split_rows`` as there), on a card of ``n_sm``
+    SMs."""
+    chunk = (verify_chunk if verify else decode_chunk)(
+        q, k_pool, block_table, split_rows, n_sm)
+    return kernel_route(q.shape[-1], q.dtype, k_pool.shape[2], chunk,
+                        verify), chunk
+
+
+_BUILDS = {"fast": (0, ""), "wide": (1, "_wide"), "any_dh": (2, "_any")}
+
+
+def _part_floats(lib: str, build: str, B: int, W: int, h: int, dh: int,
+                 n_split: int) -> int:
+    """f32 values of split partials a launch of ``build`` from ``lib``
+    needs, from the library's own ``dl4j_<lib>_part_floats`` (each build's
+    partial layout lives in its source alone)."""
+    symbol = f"dl4j_{lib}_part_floats"
+    fn = _KERNEL_FNS.get(symbol)
+    if fn is None:
+        from deeplearning4j_torch.kernels import _build
+        fn = getattr(_build.load(lib), symbol)
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 6
+        _KERNEL_FNS[symbol] = fn
+    return int(fn(_BUILDS[build][0], B, W, h, dh, n_split))
+
+
+def _launch(lib: str, q, k_pool, v_pool, block_table, pos, scale: float,
+            split_rows=None):
+    """Launch the kernel of this call's route from ``lib`` (``paged_decode``
+    over q [B, h, dh] or ``paged_verify`` over q [B, W, h, dh]: v4 / v3,
+    the wide build or the any-dh kernel) on the current stream — q, the
+    pools, table and positions, the output, the split partials and
+    ticket counters (scratch allocated here), the shapes, the scale and
+    the bf16 flag — and return the output; raise on a refused launch."""
+    verify = lib == "paged_verify"
     B, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    W = q.shape[1] if verify else 1
+    _check_dh(f"{lib.replace('_', ' ')} kernel", dh)
     bs, mb = k_pool.shape[2], block_table.shape[1]
-    chunk = decode_chunk(q, k_pool, block_table, split_rows,
-                         _sm_count(q.device), W)
+    n_sm = _sm_count(q.device)
+    route, chunk = call_route(q, k_pool, block_table, verify, split_rows,
+                              n_sm)
+    if route == "any_dh":         # each query row on its own
+        chunk = decode_chunk(q, k_pool, block_table, split_rows, n_sm, W)
+        n_counter = B * W * h
+    else:                         # v3 and the wide verify: rows in groups
+        n_counter = B * h * -(-W // _VERIFY_GROUP)
     n_split = -(-(mb * bs) // chunk)
-    ints = ((B, h, bs, dh, mb, chunk) if q.dim() == 3
-            else (B, W, h, bs, dh, mb, chunk))
+    ints = (B, W, h, bs, dh, mb, chunk) if verify else (B, h, bs, dh, mb,
+                                                        chunk)
+    symbol = f"dl4j_{lib}_attention{_BUILDS[route][1]}"
     fn = _kernel_fn(lib, symbol, 8, len(ints))
     out = torch.empty_like(q)
-    part = torch.empty(B * W * h * n_split * (dh + 2), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(_part_floats(lib, route, B, W, h, dh, n_split),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _split_counters(q.device, stream, B * W * h)
+    counters = _split_counters(q.device, stream, n_counter)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), counters.data_ptr(), *ints, float(scale),
             int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"paged any-dh kernel launch failed ({symbol}): "
-                           f"CUDA error {rc}")
-    return out
-
-
-def _launch(q, k_pool, v_pool, block_table, pos, scale: float,
-            split_rows=None):
-    """Launch the decode kernel on the current stream; raise on a refused
-    launch.  Its f32 partials go to scratch allocated here."""
-    B, h, dh = q.shape
-    _check_dh("paged decode kernel", dh)
-    if not _fast_dh(dh):
-        return _launch_any_dh("paged_decode",
-                              "dl4j_paged_decode_attention_any", q, k_pool,
-                              v_pool, block_table, pos, 1, scale,
-                              split_rows)
-    bs, mb = k_pool.shape[2], block_table.shape[1]
-    chunk = decode_chunk(q, k_pool, block_table, split_rows,
-                         _sm_count(q.device))
-    n_split = -(-(mb * bs) // chunk)
-    fn = _kernel_fn("paged_decode", "dl4j_paged_decode_attention", 8, 6)
-    out = torch.empty_like(q)
-    part = torch.empty(B * h * n_split * (dh + 2), dtype=torch.float32,
-                       device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _split_counters(q.device, stream, B * h)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            part.data_ptr(), counters.data_ptr(), B, h, bs, dh, mb, chunk,
-            float(scale), int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged decode kernel launch failed: CUDA "
+        raise RuntimeError(f"paged kernel launch failed ({symbol}): CUDA "
                            f"error {rc}")
-    return out
+    return out, route
+
+
+def _count(wrapper, build: str):
+    """One kernel launch of ``wrapper`` through ``build``."""
+    wrapper.launches += 1
+    wrapper.builds[build] = wrapper.builds.get(build, 0) + 1
+    _ROUTE_KERNEL.inc()
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
@@ -314,9 +380,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     scratch sink); ``block_table`` [B, max_blocks] int32; ``pos`` [B]
     int32 — attend over positions <= pos (the row written this tick
     included).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (float32 or bfloat16, any dh up to 256).  ``split_rows``
-    (slots, heads): this call is one shard of a sharded tick, and the
-    split-K chunk follows that unsharded shape (:func:`decode_chunk`)."""
+    the kernel (float32 or bfloat16, any dh up to 256; bf16 at 192 and 256
+    on the wide build).  ``split_rows`` (slots, heads): this call is one
+    shard of a sharded tick, and the split-K chunk follows that unsharded
+    shape (:func:`decode_chunk`)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_decode_attention", "[B, h, dh]", q, k_pool, v_pool,
@@ -329,15 +396,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
-    out = _launch(q, k_pool, v_pool, block_table, pos, float(scale),
-                  split_rows)
-    paged_decode_attention.launches += 1
-    _ROUTE_KERNEL.inc()
+    out, build = _launch("paged_decode", q, k_pool, v_pool, block_table,
+                         pos, float(scale), split_rows)
+    _count(paged_decode_attention, build)
     return out
 
 
 #: CUDA kernel launches since the last reset (set it to 0 to start a count)
 paged_decode_attention.launches = 0
+#: the same launches by build, "fast" | "wide" | "any_dh" (set it to {}
+#: to start a count)
+paged_decode_attention.builds = {}
 
 
 def paged_verify_attention_reference(q, k_pool, v_pool, block_table,
@@ -378,39 +447,6 @@ def verify_split_rows(B: int, W: int, h: int, capacity: int,
     return -(-chunk // _VERIFY_TILE) * _VERIFY_TILE
 
 
-def _launch_verify(q, k_pool, v_pool, block_table, pos0, scale: float,
-                   split_rows=None):
-    """Launch the verify kernel on the current stream; raise on a refused
-    launch.  ``q`` is read, and the output written, in the [B, W, h, dh]
-    layout as it stands; the f32 partials go to scratch allocated here."""
-    B, W, h, dh = q.shape
-    _check_dh("paged verify kernel", dh)
-    if not _fast_dh(dh):
-        return _launch_any_dh("paged_verify",
-                              "dl4j_paged_verify_attention_any", q, k_pool,
-                              v_pool, block_table, pos0, W, scale,
-                              split_rows)
-    bs, mb = k_pool.shape[2], block_table.shape[1]
-    chunk = verify_chunk(q, k_pool, block_table, split_rows,
-                         _sm_count(q.device))
-    n_split = -(-(mb * bs) // chunk)
-    n_grp = -(-W // _VERIFY_GROUP)
-    fn = _kernel_fn("paged_verify", "dl4j_paged_verify_attention", 8, 7)
-    out = torch.empty_like(q)
-    part = torch.empty(B * h * n_grp * n_split * _VERIFY_GROUP * (dh + 4),
-                       dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _split_counters(q.device, stream, B * h * n_grp)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), pos0.data_ptr(), out.data_ptr(),
-            part.data_ptr(), counters.data_ptr(), B, W, h, bs, dh, mb,
-            chunk, float(scale), int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged verify kernel launch failed: CUDA "
-                           f"error {rc}")
-    return out
-
-
 def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
                            scale: Optional[float] = None,
                            split_rows=None):
@@ -437,12 +473,13 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
     if q.device.type != "cuda":
         raise ValueError(f"paged_verify_attention: unsupported device "
                          f"{q.device}")
-    out = _launch_verify(q, k_pool, v_pool, block_table, pos0, float(scale),
-                         split_rows)
-    paged_verify_attention.launches += 1
-    _ROUTE_KERNEL.inc()
+    out, build = _launch("paged_verify", q, k_pool, v_pool, block_table,
+                         pos0, float(scale), split_rows)
+    _count(paged_verify_attention, build)
     return out
 
 
 #: CUDA kernel launches since the last reset (set it to 0 to start a count)
 paged_verify_attention.launches = 0
+#: the same launches by build (as ``paged_decode_attention.builds``)
+paged_verify_attention.builds = {}

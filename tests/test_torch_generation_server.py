@@ -9,7 +9,8 @@ accepted only as a near tie: the teacher-forced logits of the two tokens
 at the first divergence within ``NEAR_TIE`` (1e-4) of each other.
 
 Across frameworks: one JAX ``GenerationServer`` and the port's server on
-the pangrams checkpoint give equal greedy tokens."""
+the pangrams checkpoint, and on a tiny Gpt with 2 heads of 256, give
+equal greedy tokens."""
 import time
 
 import numpy as np
@@ -23,6 +24,7 @@ from deeplearning4j_torch.models.generation import (  # noqa: E402
 from deeplearning4j_torch.parallel import GenerationServer  # noqa: E402
 from deeplearning4j_torch.resilience import (  # noqa: E402
     CancelledError, DeadlineExceededError, RetryableServerError)
+from deeplearning4j_torch.utils import load_numpy_params  # noqa: E402
 from deeplearning4j_torch.zoo import Gpt  # noqa: E402
 
 TINY = dict(vocab_size=50, max_len=32, d_model=32, n_layers=2, n_heads=4,
@@ -471,5 +473,44 @@ def test_slice_matches_jax_server():
             first = srv.submit(prompts[0], n_new=12, timeout=300)
             hs = [srv.submit_async(p, n_new=12) for p in prompts[1:]]
             outs[name] = [first] + [h.result(timeout=300) for h in hs]
+    for a, b in zip(outs["jax"], outs["torch"]):
+        np.testing.assert_array_equal(b, a)
+
+
+# a tiny Gpt at the head width of zoo.Gpt(n_heads=3): 2 heads of 256
+WIDE_HEADS = dict(vocab_size=50, max_len=64, d_model=512, n_layers=2,
+                  n_heads=2, d_ff=256, seq_len=16, compute_dtype=None,
+                  seed=5)
+
+
+def test_wide_heads_server_matches_jax_server():
+    """Greedy streams of the JAX package's GenerationServer and the
+    port's on one tiny Gpt with 2 heads of 256 (vocab 50, d 512, 2
+    layers, ff 256; the width whose bf16 paged reads run the wide builds
+    of K1 and K2 on the card), the JAX parameters carried into the port
+    with ``load_numpy_params``, are equal (a shared prefix, so the second
+    request takes the prefix-cache path)."""
+    jax = pytest.importorskip("jax")
+    from deeplearning4j_tpu.parallel import (
+        GenerationServer as JaxGenerationServer)
+    from deeplearning4j_tpu.zoo.gpt import Gpt as JaxGpt
+
+    jnet = JaxGpt(**WIDE_HEADS).init_graph()
+    params = jax.tree_util.tree_map(np.asarray, jnet.params_tree)
+    pnet = load_numpy_params(Gpt(**WIDE_HEADS).init_graph(device="cpu"),
+                             params, device="cpu")
+    rng = np.random.default_rng(17)
+    shared = rng.integers(0, 50, 9).astype(np.int32)
+    prompts = [np.concatenate([shared, [1, 2]]).astype(np.int32),
+               np.concatenate([shared, [4]]).astype(np.int32)]
+    outs = {}
+    for name, srv in (
+            ("jax", JaxGenerationServer(jnet, n_slots=2, block_size=8,
+                                        tick_batch=1, tick_timeout_s=None)),
+            ("torch", GenerationServer(pnet, n_slots=2, block_size=8,
+                                       tick_batch=1, device="cpu"))):
+        with srv:
+            outs[name] = [srv.submit(p, n_new=8, timeout=300)
+                          for p in prompts]
     for a, b in zip(outs["jax"], outs["torch"]):
         np.testing.assert_array_equal(b, a)

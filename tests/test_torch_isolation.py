@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: nothing under ``deeplearning4j_torch/``
-and nothing in ``chip_smoke.py`` imports JAX or the JAX package (whose
+and nothing in ``chip_smoke.py`` or the port's chip scripts imports JAX or the JAX package (whose
 ``__init__`` imports jax), and importing the port leaves jax unloaded."""
 import ast
 import pathlib
@@ -16,7 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
 
 def _port_files():
     return sorted((ROOT / "deeplearning4j_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + [
+        # the port's chip scripts
+        ROOT / "scripts" / n for n in ("flash_turns.py", "paged_turns.py",
+                                       "slo_stress.py")]
 
 
 def _forbidden(name: str) -> bool:

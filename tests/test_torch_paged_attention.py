@@ -352,14 +352,14 @@ def test_cuda_verify_kernel_matches_plain(dtype, tol):
 
 
 def _verify_on_card(seed, dtype, B, W, positions, h=6, dh=128, bs=16,
-                    mb=64):
+                    mb=64, split_rows=None):
     """The verify kernel against the plain version on the card, over the
     valid rows only: slot b has a budget of 1..W written rows (W for a
     slot within W of the table's end), and the kernel's pools hold NaN in
     the scratch block 0 and in every row past a slot's last written one —
     rows a deeper (unwritten) query row may see, which must never reach a
     shallower row as 0 * NaN.  Returns (valid kernel rows, valid plain
-    rows)."""
+    rows).  ``split_rows``: the wrapper's (the chunk's shape)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     L = mb * bs
@@ -379,7 +379,8 @@ def _verify_on_card(seed, dtype, B, W, positions, h=6, dh=128, bs=16,
             k_bad[blk, :, j % bs] = v_bad[blk, :, j % bs] = float("nan")
     pos0 = torch.tensor(positions, dtype=torch.int32, device="cuda")
     l0 = pa.paged_verify_attention.launches
-    out = pa.paged_verify_attention(q, k_bad, v_bad, tbl, pos0)
+    out = pa.paged_verify_attention(q, k_bad, v_bad, tbl, pos0,
+                                    split_rows=split_rows)
     ref = pa.paged_verify_attention_reference(q, kp, vp, tbl, pos0,
                                               1.0 / dh ** 0.5)
     torch.cuda.synchronize()
@@ -429,7 +430,8 @@ def test_cuda_verify_kernel_split_edges(W, dtype, tol):
 
 
 # -- head dims past the fast kernels: dh 12 (rows not 16-byte aligned in
-# bf16), 160 and 256 (a 256-wide register row in the any-dh kernel)
+# bf16), 160 and 256 (a 256-wide register row in the any-dh kernel; bf16
+# at 256 takes the wide build, below)
 ANY_DH = [12, 160, 256]
 
 
@@ -471,12 +473,60 @@ def test_any_head_dim_verify_plain_matches_jax_reference(dh, W):
 
 def test_head_dim_routes_and_limit():
     """Which kernel a head dim takes on the card (the fast one only at
-    multiples of 8 up to 128), and the one limit left: above 256."""
+    multiples of 8 up to 128; the wide builds at 192 and 256 in bf16; the
+    any-dh kernel at 12, 136 and 160, and in f32 at 192 and 256), and the
+    one limit left: above 256."""
     assert [pa._fast_dh(d) for d in (8, 64, 128, 12, 136, 160, 256)] == \
         [True, True, True, False, False, False, False]
+    dims = (8, 64, 128, 12, 136, 160, 192, 256)
+    for verify in (False, True):
+        assert [pa.kernel_route(d, torch.bfloat16, 16, 64, verify)
+                for d in dims] == ["fast"] * 3 + ["any_dh"] * 3 + \
+            ["wide"] * 2
+        assert [pa.kernel_route(d, torch.float32, 16, 64, verify)
+                for d in dims] == ["fast"] * 3 + ["any_dh"] * 5
     with pytest.raises(ValueError, match="up to 256"):
         pa._check_dh("paged decode kernel", 264)
     pa._check_dh("paged decode kernel", 256)
+
+
+@pytest.mark.parametrize("dh", [192, 256])
+def test_wide_decode_refuses_pages_off_the_split_edges(dh):
+    """The wide decode build copies whole pages, so it takes a block size
+    only where the split edges fall on page edges (bs divides the chunk)
+    and a page fits a ring stage (bs <= 64); every other block size takes
+    the any-dh kernel.  The verify build copies rows: any block size."""
+    takes = [(bs, C) for bs in (8, 12, 16, 24, 32, 48, 64, 128)
+             for C in (32, 64, 96) if pa.wide_decode_takes(bs, C)]
+    assert takes == [(8, 32), (8, 64), (8, 96), (12, 96), (16, 32),
+                     (16, 64), (16, 96), (24, 96), (32, 32), (32, 64),
+                     (32, 96), (48, 96), (64, 64)]
+    for bs, C in ((12, 32), (24, 64), (128, 128), (48, 64)):
+        assert pa.kernel_route(dh, torch.bfloat16, bs, C) == "any_dh"
+        assert pa.kernel_route(dh, torch.bfloat16, bs, C, True) == "wide"
+
+
+@pytest.mark.parametrize("dh,h", [(256, 3), (192, 4)])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_wide_decode_chunk_is_page_aligned_and_fills_the_card(dh, h, bs):
+    """The decode chunk at the wide builds' serving shapes (8 slots, 3
+    heads of 256 or 4 of 192, a 1024-row table): a whole number of pages
+    at blocks 8 and 16 (the wide build takes it), splits that cover the
+    table's pages once each, and >= 2 live (slot, head, split) blocks per
+    SM of an H100 at ``chip_smoke.py``'s timing contexts; the verify
+    chunk (one 64-key tile a block) >= 1 per SM."""
+    B, cap, sms = 8, 1024, 132
+    C = pa.decode_split_rows(B, h, cap, sms)
+    assert C % bs == 0 and pa.kernel_route(dh, torch.bfloat16, bs, C) == \
+        "wide"
+    S = -(-cap // C)
+    pages = [p for s in range(S) for p in range(s * C // bs,
+                                                 min(cap, (s + 1) * C) // bs)]
+    assert pages == list(range(cap // bs))
+    ctx = [p + 1 for p in (444, 385, 377, 326, 427, 173, 709, 794)]
+    assert h * sum(-(-n // C) for n in ctx) >= 2 * sms
+    Cv = pa.verify_split_rows(B, 5, h, cap, sms)
+    assert h * sum(-(-(n + 4) // Cv) for n in ctx) >= sms
 
 
 @pytest.mark.gpu
@@ -485,8 +535,9 @@ def test_head_dim_routes_and_limit():
 @pytest.mark.parametrize("dh", ANY_DH)
 def test_cuda_any_head_dim_decode_matches_plain(dh, dtype, tol):
     """On the card: the decode wrapper at dh 12, 160 and 256 (the any-dh
-    kernel) against the plain version at the serving path's slots and
-    positions, each element held to its own size."""
+    kernel; the wide build in bf16 at 256) against the plain version at
+    the serving path's slots and positions, each element held to its own
+    size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
                     "tests/test_torch_*.py on the card)")
@@ -515,9 +566,9 @@ def test_cuda_any_head_dim_decode_matches_plain(dh, dtype, tol):
                                        ("bfloat16", 5e-2)])
 @pytest.mark.parametrize("dh", ANY_DH)
 def test_cuda_any_head_dim_verify_matches_plain(dh, dtype, tol):
-    """On the card: the verify wrapper at dh 12, 160 and 256 with W = 5,
-    NaN in block 0 and past every slot's written rows, valid rows held
-    to the plain version."""
+    """On the card: the verify wrapper at dh 12, 160 and 256 (the wide
+    build in bf16 at 256) with W = 5, NaN in block 0 and past every
+    slot's written rows, valid rows held to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
                     "tests/test_torch_*.py on the card)")
@@ -526,3 +577,248 @@ def test_cuda_any_head_dim_verify_matches_plain(dh, dtype, tol):
                                h=3, dh=dh)
     assert bool(torch.isfinite(out).all())
     assert _scaled_err(out, ref) <= tol
+
+
+# -- the wide builds (bf16 at dh 192 and 256): K1 copies pages, K2 rows;
+# f32 at these head dims takes the any-dh kernel
+WIDE = [(192, 4), (256, 3)]
+
+
+def _decode_on_card(seed, dtype, h, dh, bs, mb, positions,
+                    split_rows=None):
+    """The decode wrapper on the card against the plain version: NaN in
+    the scratch block 0, in every row of a slot's last block past its
+    position and in every block no table entry reaches (unused entries
+    point at block 0).  ``split_rows``: the wrapper's.  Returns (kernel,
+    plain)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    B = len(positions)
+    need = [p // bs + 1 for p in positions]
+    nb = 1 + sum(need) + 3
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, h, dh), generator=g, device="cuda").to(dt)
+    perm = (torch.randperm(nb - 1, generator=g, device="cuda") + 1).tolist()
+    tbl = torch.zeros((B, mb), dtype=torch.int32)
+    k_bad, v_bad = kp.clone(), vp.clone()
+    k_bad[0] = v_bad[0] = float("nan")
+    for b, n in enumerate(need):
+        ids, perm = perm[:n], perm[n:]
+        tbl[b, :n] = torch.tensor(ids, dtype=torch.int32)
+        off = positions[b] % bs
+        k_bad[ids[-1], :, off + 1:] = v_bad[ids[-1], :, off + 1:] = \
+            float("nan")
+    for blk in perm:
+        k_bad[blk] = v_bad[blk] = float("nan")
+    tbl = tbl.cuda()
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    l0 = pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(q, k_bad, v_bad, tbl, pos,
+                                    split_rows=split_rows)
+    ref = pa.paged_decode_attention_reference(q, kp, vp, tbl, pos,
+                                              1.0 / dh ** 0.5)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == l0 + 1
+    return out, ref
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
+                    "tests/test_torch_*.py on the card)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("dh,h", WIDE)
+def test_cuda_wide_decode_matches_plain(dh, h, bs, dtype, tol):
+    """On the card: the decode wrapper at dh 192 and 256 (the wide build
+    in bf16, the any-dh kernel in f32) on its split edges (C - 1, C,
+    C + 1, 2C - 1 and the table's last row, for the chunk C it takes),
+    a context ending mid-page, a slot filling one split beside slots
+    filling all; NaN past every context never reaches an output."""
+    _need_card()
+    mb, L = 1024 // bs, 1024
+    C = pa.decode_split_rows(8, h, L, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert pa.kernel_route(dh, getattr(torch, dtype), bs, C) == (
+        "wide" if dtype == "bfloat16" else "any_dh")
+    out, ref = _decode_on_card(dh + bs, dtype, h, dh, bs, mb,
+                               [C - 1, C, C + 1, L - 1, 0, 2 * C - 1,
+                                5 * bs + bs // 2, C // 2])
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,h", WIDE)
+def test_cuda_wide_decode_refused_block_takes_any_dh(dh, h):
+    """On the card: bf16 at a block of 12 rows, which does not divide the
+    chunk, takes the any-dh kernel, held to the plain version."""
+    _need_card()
+    C = pa.decode_split_rows(8, h, 1020, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert pa.kernel_route(dh, torch.bfloat16, 12, C) == "any_dh"
+    out, ref = _decode_on_card(7, "bfloat16", h, dh, 12, 85,
+                               [0, 11, 12, 13, 500, 1019, 700, 250])
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("W", [1, 5, 17])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("dh,h", WIDE)
+def test_cuda_wide_verify_matches_plain(dh, h, bs, W, dtype, tol):
+    """On the card: the verify wrapper at dh 192 and 256 (the wide build
+    in bf16, the any-dh kernel in f32) with chunks starting and contexts
+    ending on its split edges, mid-page and at the table's end; NaN in
+    block 0 and past every slot's written rows (which deeper, unwritten
+    query rows may see) never reaches a valid row as 0 * NaN."""
+    _need_card()
+    L = 1024
+    C = pa.verify_split_rows(8, W, h, L, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    positions = [C - 1, C, C + 1, L - W, max(C - W, 0), 5 * bs + 3,
+                 2 * C - W + 1, L - 1]
+    out, ref = _verify_on_card(dh + W + bs, dtype, 8, W, positions, h=h,
+                               dh=dh, bs=bs, mb=L // bs)
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [192, 256])
+def test_cuda_wide_long_context_merges(dh):
+    """On the card, bf16: one head with contexts of up to 16,000 rows, so
+    the wide decode build merges up to 500 splits (windows of 128 under a
+    running max) and the wide verify build up to 250 (more splits than a
+    row's 16 merge lanes), each held to the plain version with NaN past
+    every context."""
+    _need_card()
+    L = 16384
+    assert pa.decode_split_rows(2, 1, L) == 32
+    assert pa.verify_split_rows(2, 5, 1, L) == 64
+    out, ref = _decode_on_card(dh, "bfloat16", 1, dh, 16, L // 16,
+                               [16000, 9000])
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= 3e-2
+    out, ref = _verify_on_card(dh + 1, "bfloat16", 2, 5, [16000, 9000],
+                               h=1, dh=dh, bs=16, mb=L // 16)
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split_rows", [(88, 1), (132, 1)])
+@pytest.mark.parametrize("dh,h", WIDE)
+def test_cuda_wide_builds_with_deeper_rings(dh, h, split_rows):
+    """On the card, bf16: the wide builds with the split-K chunk forced
+    larger through ``split_rows`` (K1 128 and 224 rows, K2 128 and 256
+    keys), so each split cycles its ring — K1's 3 stages over 8 to 14
+    pages, K2's 2 over 2 to 4 key tiles — on its own split edges, held to
+    the plain version with NaN past every context."""
+    _need_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    C = pa.decode_split_rows(*split_rows, 1024, sms)
+    Cv = pa.verify_split_rows(split_rows[0], 5, split_rows[1], 1024, sms)
+    assert C >= 128 and Cv >= 128
+    out, ref = _decode_on_card(dh + C, "bfloat16", h, dh, 16, 64,
+                               [C - 1, C, C + 1, 1023, 0, 2 * C - 1,
+                                5 * 16 + 8, C // 2], split_rows=split_rows)
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= 3e-2
+    out, ref = _verify_on_card(dh + Cv, "bfloat16", 8, 5,
+                               [Cv - 1, Cv, Cv + 1, 1019, Cv - 5, 83,
+                                2 * Cv - 4, 1023], h=h, dh=dh,
+                               split_rows=split_rows)
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= 5e-2
+
+
+def _paged_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs, read by
+    ``torch.profiler`` (after an unprofiled call that builds them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if "paged_" in e.key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,h", WIDE)
+def test_cuda_wide_builds_launch_the_wide_kernels(dh, h):
+    """One bf16 call of K1 and of K2 (W 5) at head dims 192 and 256 under
+    ``torch.profiler`` runs ``paged_decode_wide_kernel`` /
+    ``paged_verify_wide_kernel`` and not the any-dh kernel, while f32 at
+    the same shapes runs ``paged_any_dh_kernel``: the route is by dtype
+    and head dim, as the card sees it, and ``<wrapper>.builds`` counts
+    each launch under the build that ran."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(dh + h)
+    B, W, bs, mb = 8, 5, 16, 64
+    nb = 1 + B * mb
+    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda")
+    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda")
+    q1 = torch.randn((B, h, dh), generator=g, device="cuda")
+    q2 = torch.randn((B, W, h, dh), generator=g, device="cuda")
+    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
+        B, mb) + 1).to(torch.int32)
+    pos = torch.tensor([0, 15, 16, 17, 511, 1000, 700, 250],
+                       dtype=torch.int32, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        k, v = kp.to(dt), vp.to(dt)
+        for w in (pa.paged_decode_attention, pa.paged_verify_attention):
+            w.builds = {}
+        dec = _paged_kernels(lambda: pa.paged_decode_attention(
+            q1.to(dt), k, v, tbl, pos))
+        ver = _paged_kernels(lambda: pa.paged_verify_attention(
+            q2.to(dt), k, v, tbl, pos))
+        build = "wide" if dt == torch.bfloat16 else "any_dh"
+        # two calls each (one to build, one profiled), counted by build
+        assert pa.paged_decode_attention.builds == {build: 2}
+        assert pa.paged_verify_attention.builds == {build: 2}
+        for kind, names in (("decode", dec), ("verify", ver)):
+            if dt == torch.bfloat16:
+                assert any(f"paged_{kind}_wide_kernel" in n
+                           for n in names), names
+                assert not any("paged_any_dh_kernel" in n
+                               for n in names), names
+            else:
+                assert any("paged_any_dh_kernel" in n for n in names), names
+                assert not any("wide_kernel" in n for n in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("verify", [False, True])
+def test_cuda_wide_misaligned_operand_raises(verify):
+    """bf16 at dh 256 with q off 16-byte alignment (a contiguous view two
+    bytes into its storage): the wide build refuses the bulk copies'
+    source and the wrapper raises — no other kernel takes the call."""
+    _need_card()
+    B, W, h, dh, bs, mb = 2, 5, 1, 256, 16, 4
+    shape = (B, W, h, dh) if verify else (B, h, dh)
+    n = int(np.prod(shape))
+    q = torch.zeros(n + 1, dtype=torch.bfloat16,
+                    device="cuda")[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    pool = torch.zeros((1 + B * mb, h, bs, dh), dtype=torch.bfloat16,
+                       device="cuda")
+    tbl = torch.arange(1, 1 + B * mb, dtype=torch.int32,
+                       device="cuda").reshape(B, mb)
+    pos = torch.tensor([3, 40], dtype=torch.int32, device="cuda")
+    wrapper = (pa.paged_verify_attention if verify
+               else pa.paged_decode_attention)
+    launches = wrapper.launches
+    with pytest.raises(RuntimeError, match="_wide"):
+        wrapper(q, pool, pool, tbl, pos)
+    assert wrapper.launches == launches
