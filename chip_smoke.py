@@ -292,9 +292,9 @@ Phases:
                (b 32, t 512, 12 x 64, phase 8(b)'s padding as the bias,
                SDPA with it as a float attn_mask).
  10b. wide   — the head dims past 128 (``WIDE_CFG``): (a) timings as in
-               phase 10 of K1 and K2 at 3 heads of 256 and 4 of 192 (the
-               wide builds) and 3 of 160 (the any-dh kernel), and of
-               K3-K6 at
+               phase 10 of K1 and K2 in bf16 at 3 heads of 256, 4 of 192,
+               3 of 160, 2 of 384 and 2 of 512 (the wide builds) and in
+               f32 at 3 of 256 (the any-dh kernel), and of K3-K6 at
                b 8, t 2048 causal (K4 at t 512) at 3 heads of 256 and at
                4 heads of 192 — forward and backward on wgmma with
                64-row tiles — and at 2 heads of 384 and 2 of 512 (the
@@ -322,7 +322,11 @@ Phases:
                speculative SPEC_FULL (K2 = 12 a verify pass, W 5) — each
                window after a warm-up whose K1/K2 operands are replayed
                against the plain versions, counts from 0, greedy streams
-               held to offline generate() (bf16 near-tie rule), tokens/s.
+               held to offline generate() (bf16 near-tie rule), tokens/s;
+               (f) Gpt(n_heads=2) (2 heads of 384) served the same way:
+               phase 4(b)'s first 4 requests (K1 = 12 a tick), then its
+               2 greedy ones speculative (K2 = 12 a verify pass, W 5),
+               every launch on the wide builds (class 384 for K2).
 
 ``--phases`` runs a subset (e.g. ``--phases build,kernel``,
 ``--phases build,resume`` for resumable training alone,
@@ -341,7 +345,9 @@ the training shapes (K4 also at BERT-base's, 12 heads of 64 with a
 padding bias; K6 beside SDPA's backward), and ``k2`` the verify kernel
 at phase 4(b)'s mid contexts with W = 5 beside one SDPA call, three
 medians each, for quick comparisons of kernel versions in turns; ``kbert``
-runs phase 10's BERT-shape timings alone, and ``bertops`` charges one BERT
+runs phase 10's BERT-shape timings alone, ``chunked`` times K3-K6 on
+the chunked FMA build (f32 at 2 heads of 384, bf16 at 2 of 576) beside
+SDPA and the bound, and ``bertops`` charges one BERT
 main-path step's device time to the PyTorch ops that launched it.
 ``--phases build,wide`` runs phase 10b alone.
 """
@@ -361,7 +367,7 @@ PHASES = ("build", "kernel", "pangrams", "full", "spec", "fleet", "slo",
           "train", "resume", "rnn", "bert", "resnet", "infer", "samediff",
           "mesh", "dist", "periphery", "timings", "wide")
 EXTRA_PHASES = ("profile", "k2", "k3", "k4", "k5", "k6", "kbert",
-                "bertops")  # only when asked
+                "bertops", "chunked")  # only when asked
 # near-tie rule: where a served stream and the offline stream diverge,
 # the teacher-forced logits of the two tokens at the first divergence
 # must lie within this much of each other (f32 logits; the two paths
@@ -396,11 +402,18 @@ PAGED_TOL = {"K1": {"float32": 1.5e-6, "bfloat16": 3e-2},
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 SPEC_FULL = {"k": 4, "rounds": 2, "draft_layers": 2, "adaptive": True}
 # (head dim, heads) of the K1/K2 cases the fast kernels do not take: the
-# any-dh kernel at 12 and 160 (and f32 at 192 and 256), the wide builds in
-# bf16 at 192 (zoo.Gpt(n_heads=4)) and 256 (Gpt(n_heads=3))
+# any-dh kernel at 12 and in f32 past 128 (its register widths 256 and
+# 512); the wide builds in bf16 at 160 (the head dim read at run time),
+# 192 (zoo.Gpt(n_heads=4)) and 256 (Gpt(n_heads=3)).  WIDER_DH: past 256
+# and off the multiples of 16, after the first set (whose cases keep
+# their seeds): the wide builds at 200 (half a 16-column k-step past the
+# last whole one), 384 (Gpt(n_heads=2)) and 512; the any-dh kernel at
+# 1032 (bf16 too; column slabs past 1024)
 ANY_DH = ((12, 6), (160, 3), (192, 4), (256, 3))
-# the head dims of the wide builds (bf16), with their heads at d 768
-WIDE_DH = ((192, 4), (256, 3))
+WIDER_DH = ((200, 3), (384, 2), (512, 2), (1032, 1))
+# the head dims of the wide builds (bf16) that phase wide (a) times, with
+# their heads (at d 768 up to 384)
+WIDE_DH = ((192, 4), (256, 3), (160, 3), (384, 2), (512, 2))
 # optimize_for_tpu's counts on tests/fixtures/bert_base_graph_only.pb: the
 # JAX package's on the same file (held by tests/test_torch_rewrites.py)
 BERT_BASE_REWRITES = {"parallel_matmuls": 12, "layer_norm": 25, "gelu": 12,
@@ -408,6 +421,7 @@ BERT_BASE_REWRITES = {"parallel_matmuls": 12, "layer_norm": 25, "gelu": 12,
 ROOT_DIR = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
+H100_F32_FLOPS = 67e12              # float32 outside the tensor cores
 
 
 T0 = time.perf_counter()
@@ -531,9 +545,9 @@ def phase_kernel(torch, pa):
                      positions=[0, 7, 8, 9, 511, 1023, 300, 64])),
     ] + [
         # head dims the fast kernel does not take: not a multiple of 8
-        # (bf16 rows 24 bytes, not 16-byte aligned) and 160 on the any-dh
-        # kernel, 192 and 256 on the wide builds in bf16 (the any-dh
-        # kernel in f32)
+        # (bf16 rows 24 bytes, not 16-byte aligned) on the any-dh kernel,
+        # 160 to 256 on the wide builds in bf16 (the any-dh kernel in
+        # f32)
         (f"dh{dh}", dict(B=8, h=h, dh=dh, bs=16, mb=64, positions=path_pos))
         for dh, h in ANY_DH] + [
         # the wide builds at block 8 and on their own split edges (their
@@ -545,17 +559,6 @@ def phase_kernel(torch, pa):
             B=8, h=3, dh=256, bs=16, mb=64,
             positions=[Cw - 1, Cw, Cw + 1, 1023, 0, 2 * Cw - 1, 1023,
                        Cw // 2]))]
-    errs, details = {}, {}
-    for name, kw in cases:
-        for dname, dtype in (("float32", torch.float32),
-                             ("bfloat16", torch.bfloat16)):
-            err, detail = kernel_case(torch, pa, dtype=dtype,
-                                      seed=len(errs), **kw)
-            errs[f"{name}/{dname}"] = err
-            details[f"{name}/{dname}"] = detail
-            if not err <= PAGED_TOL["K1"][dname]:
-                raise AssertionError(f"K1 {name}/{dname}: error {err} > "
-                                     f"{PAGED_TOL['K1'][dname]} ({detail})")
     # K2 at the path shapes (one slot within W of the table's end) and
     # the pangrams shapes
     vcases = [
@@ -569,16 +572,27 @@ def phase_kernel(torch, pa):
                                      positions=[0, 15, 16, 17, 511,
                                                 1024 - W + 1, 700, 250]))
         for (dh, h), W in zip(ANY_DH, (5, 17, 17, 5))]
-    for name, kw in vcases:
+    # past 256 (WIDER_DH), K1 then K2 (W 5 and 17), after the cases above
+    # (each case's seed is its place in the order)
+    wider = [(f"dh{dh}", "K1", dict(B=8, h=h, dh=dh, bs=16, mb=64,
+                                    positions=path_pos))
+             for dh, h in WIDER_DH] + [
+        (f"verify_dh{dh}_w{W}", "K2",
+         dict(B=8, h=h, dh=dh, bs=16, mb=64, W=W,
+              positions=[0, 15, 16, 17, 511, 1024 - W + 1, 700, 250]))
+        for (dh, h), W in zip(WIDER_DH, (5, 5, 17, 5))]
+    errs, details = {}, {}
+    for name, kern, kw in ([(n, "K1", kw) for n, kw in cases]
+                           + [(n, "K2", kw) for n, kw in vcases] + wider):
+        case = kernel_case if kern == "K1" else verify_case
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            err, detail = verify_case(torch, pa, dtype=dtype,
-                                      seed=len(errs), **kw)
+            err, detail = case(torch, pa, dtype=dtype, seed=len(errs), **kw)
             errs[f"{name}/{dname}"] = err
             details[f"{name}/{dname}"] = detail
-            if not err <= PAGED_TOL["K2"][dname]:
-                raise AssertionError(f"K2 {name}/{dname}: error {err} > "
-                                     f"{PAGED_TOL['K2'][dname]} ({detail})")
+            if not err <= PAGED_TOL[kern][dname]:
+                raise AssertionError(f"{kern} {name}/{dname}: error {err} > "
+                                     f"{PAGED_TOL[kern][dname]} ({detail})")
     errs.update(phase_flash_kernel(torch))
     emit({"phase": "kernel", "error": errs, "paged_tolerance": PAGED_TOL,
           "flash_tolerance": FLASH_TOL, "k1_split_rows": C,
@@ -7369,33 +7383,37 @@ def sdpa_bwd_ms(torch, F, sets, scale, n_sets, causal=True, mask=None):
 
 
 def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True,
-                key_lens=None):
+                key_lens=None, dtype="bfloat16"):
     """(bound ms, 'bytes' | 'operations', flops, bytes): the larger of
-    the flops over the bf16 tensor-core peak and the bytes over HBM
-    bandwidth.  Flops: 2 dh per (query, key) pair per product over the
-    pairs the causal mask leaves — or, with ``key_lens`` (each batch
-    row's valid keys under a padding bias), over every query and the
-    valid keys of its row, the pairs this data needs; bytes:
-    ``n_tensors`` [b, t, h, dh] bf16 operands and ``n_stats`` [b*h, t]
-    f32 stats, each read or written once."""
+    the flops over the peak of ``dtype`` (bf16 tensor cores, or f32
+    outside them) and the bytes over HBM bandwidth.  Flops: 2 dh per
+    (query, key) pair per product over the pairs the causal mask leaves
+    — or, with ``key_lens`` (each batch row's valid keys under a padding
+    bias), over every query and the valid keys of its row, the pairs
+    this data needs; bytes:
+    ``n_tensors`` [b, t, h, dh] operands in ``dtype`` and ``n_stats``
+    [b*h, t] f32 stats, each read or written once."""
     if key_lens is not None:
         pairs_all = t * int(sum(key_lens))
     else:
         pairs_all = b * (t * (t + 1) // 2 if causal else t * t)
+    f32 = dtype == "float32"
     flops = 2 * dh * n_products * pairs_all * h
-    n_bytes = n_tensors * b * t * h * dh * 2 + n_stats * b * h * t * 4
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+    n_bytes = (n_tensors * b * t * h * dh * (4 if f32 else 2)
+               + n_stats * b * h * t * 4)
+    t_ops = flops / (H100_F32_FLOPS if f32 else H100_BF16_FLOPS) * 1e3
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, n_bytes)
 
 
 def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
-                        ts=(2048, 512), causal=True):
-    """K3, K5 and K6 at the training path's shapes (bf16, b 8, t 2048,
-    ``h`` heads of ``dh`` (6 of 128), causal, bthd views of a [b, t, 3d]
-    projection) and K4 at t 512, against their plain versions (``b``,
-    ``ts`` = (K3/K5/K6's t, K4's t) and ``causal`` for other paths);
+                        ts=(2048, 512), causal=True, dtype="bfloat16"):
+    """K3, K5 and K6 at the training path's shapes (``dtype``, bf16 unless
+    asked, b 8, t 2048, ``h`` heads of ``dh`` (6 of 128), causal, bthd
+    views of a [b, t, 3d] projection) and K4 at t 512, against their
+    plain versions (``b``, ``ts`` = (K3/K5/K6's t, K4's t) and
+    ``causal`` for other paths);
     yardsticks: one
     ``F.scaled_dot_product_attention(is_causal=causal)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
@@ -7405,7 +7423,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
     backward with the spread of its 9 replays."""
     import torch.nn.functional as F
     fa = flash_module()
-    dev, dt, NB = "cuda", torch.bfloat16, 4
+    dev, dt, NB = "cuda", getattr(torch, dtype), 4
     scale = dh ** -0.5
     g = torch.Generator(device=dev).manual_seed(9)
     bh = fa._to_bh
@@ -7434,7 +7452,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
             "fwd": lambda i: fa.flash_fwd_reference(
                 *plain_in[i % NB][:3], None, causal=causal, scale=scale,
                 single=single)}
-        # errors of this run at these shapes (absolute, bf16)
+        # errors of this run at these shapes (absolute, in dtype)
         ro, _ = plain["fwd"](0)
         errs = {"fwd": float((bh(outs[0][0]).float() - ro.float())
                              .abs().max())}
@@ -7475,7 +7493,8 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
         spec = {"fwd": (2, 4, 1), "dkdv": (4, 6, 2), "dq": (3, 5, 2)}
         for part, name in names.items():
             bound, by, flops, n_bytes = flash_bound(
-                spec[part][0], b, t, h, dh, *spec[part][1:], causal=causal)
+                spec[part][0], b, t, h, dh, *spec[part][1:], causal=causal,
+                dtype=dtype)
             rows[name] = {
                 "kernel_ms": ms[f"kernel_{part}"],
                 "plain_ms": ms["plain_fwd" if part == "fwd" else
@@ -7488,7 +7507,7 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
                 "bound_ms": bound, "bound_by": by, "flops": flops,
                 "bytes": n_bytes, "max_abs_err": errs[part],
                 "shapes": {"b": b, "t": t, "h": h, "dh": dh,
-                           "dtype": "bfloat16", "causal": causal}}
+                           "dtype": dtype, "causal": causal}}
         rows[names["fwd"]]["kernel_ms_again"] = ms["kernel_fwd_again"]
         if not single:
             for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
@@ -7606,13 +7625,14 @@ def phase_timings_bert(torch, np, phase="timings/bert"):
     return rows
 
 
-def paged_bound(positions, h, dh, bs, L, W=None):
-    """(bound ms, "bytes" | "operations", bytes, flops) of one bf16 K1 call
-    (``W`` None) or K2 call (``W`` rows a slot) at ``positions``: the K
-    and V rows of each slot's context read once, q read and the output
-    written once, the table entries and positions read; 4 flops per
-    (query, key) pair and head column."""
-    esz = 2
+def paged_bound(positions, h, dh, bs, L, W=None, dtype="bfloat16"):
+    """(bound ms, "bytes" | "operations", bytes, flops) of one K1 call
+    (``W`` None) or K2 call (``W`` rows a slot) at ``positions`` in
+    ``dtype``: the K and V rows of each slot's context read once, q read
+    and the output written once, the table entries and positions read;
+    4 flops per (query, key) pair and head column, over the bf16
+    tensor-core peak or, in float32, the f32 peak."""
+    esz = 2 if dtype == "bfloat16" else 4
     if W is None:
         ctx, n_q = [p + 1 for p in positions], len(positions)
         keys = sum(ctx)
@@ -7625,19 +7645,20 @@ def paged_bound(positions, h, dh, bs, L, W=None):
                + len(positions) * 4)
     n_flops = 4 * keys * h * dh
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_BF16_FLOPS * 1e3
+    t_ops = n_flops / (H100_BF16_FLOPS if esz == 2 else H100_F32_FLOPS) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", n_bytes, n_flops)
 
 
-def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings"):
-    """Median per-call times at the path shapes (bf16, 8 slots, ``h``
+def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings",
+                  dtype="bfloat16"):
+    """Median per-call times at the path shapes (``dtype``, 8 slots, ``h``
     heads of ``dh`` (6 of 128), block 16, 64-entry tables).  Calls cycle
     over 12 layers' pools (~300 MB), as one decode tick does, so the
     50 MB L2 cannot hold the working set.  ``build``: the builds the
     first call launched (``pa.paged_decode_attention.builds``)."""
     import torch.nn.functional as F
-    dev, dtype = "cuda", torch.bfloat16
+    dev, dname, dtype = "cuda", dtype, getattr(torch, dtype)
     B, bs, mb, NL = 8, 16, 64, 12
     g = torch.Generator(device=dev).manual_seed(5)
     nb = 1 + B * mb
@@ -7667,10 +7688,11 @@ def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings"):
     ms = {name: time_ms(torch, fn) for name, fn in
           (("kernel", kern), ("plain", plain), ("library", lib),
            ("kernel_again", kern))}
-    bound, by, n_bytes, n_flops = paged_bound(positions, h, dh, bs, mb * bs)
+    bound, by, n_bytes, n_flops = paged_bound(positions, h, dh, bs, mb * bs,
+                                              dtype=dname)
     out = {"phase": phase, "shapes": {"B": B, "h": h, "dh": dh,
                                           "bs": bs, "max_blocks": mb,
-                                          "dtype": "bfloat16",
+                                          "dtype": dname,
                                           "pos": positions},
            "kernel_ms": ms["kernel"], "kernel_ms_again": ms["kernel_again"],
            "plain_ms": ms["plain"], "library_ms": ms["library"],
@@ -7682,14 +7704,14 @@ def phase_timings(torch, pa, positions, h=6, dh=128, phase="timings"):
 
 
 def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
-                         phase="timings/verify"):
-    """K2 at the path shapes with W = 5 (k = 4): bf16, 8 slots, ``h``
+                         phase="timings/verify", dtype="bfloat16"):
+    """K2 at the path shapes with W = 5 (k = 4): ``dtype``, 8 slots, ``h``
     heads of ``dh`` (6 of 128), block 16, 64-entry tables, chunks
     starting at ``positions``; 12 layers' pools in rotation as for K1.
     The yardstick is one SDPA call over K/V gathered beforehand with a
     [B, 1, W, L] causal mask; ``build`` as :func:`phase_timings`."""
     import torch.nn.functional as F
-    dev, dtype = "cuda", torch.bfloat16
+    dev, dname, dtype = "cuda", dtype, getattr(torch, dtype)
     B, bs, mb, NL = 8, 16, 64, 12
     L = mb * bs
     g = torch.Generator(device=dev).manual_seed(6)
@@ -7719,10 +7741,11 @@ def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
     ms = {name: time_ms(torch, fn) for name, fn in
           (("kernel", kern), ("plain", plain), ("library", lib),
            ("kernel_again", kern))}
-    bound, by, n_bytes, n_flops = paged_bound(positions, h, dh, bs, L, W)
+    bound, by, n_bytes, n_flops = paged_bound(positions, h, dh, bs, L, W,
+                                              dtype=dname)
     out = {"phase": phase,
            "shapes": {"B": B, "W": W, "h": h, "dh": dh, "bs": bs,
-                      "max_blocks": mb, "dtype": "bfloat16",
+                      "max_blocks": mb, "dtype": dname,
                       "pos0": positions},
            "kernel_ms": ms["kernel"], "kernel_ms_again": ms["kernel_again"],
            "plain_ms": ms["plain"], "library_ms": ms["library"],
@@ -7731,6 +7754,29 @@ def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
            "build": builds, "card": card_line()}
     emit(out)
     return out
+
+
+# -- extra phase: chunked ---------------------------------------------
+# (dtype, heads, head dim) past the wgmma builds, where K3-K6 take the
+# chunked FMA build: f32 past 256 (zoo.Gpt(n_heads=2)'s 384), bf16 past
+# 512 (2 heads of 576)
+CHUNKED_SHAPES = (("float32", 2, 384), ("bfloat16", 2, 576))
+
+
+def phase_chunked(torch):
+    """K3-K6 on the chunked FMA build at ``CHUNKED_SHAPES``, timed as
+    phase 10b (a) times the wgmma builds (:func:`phase_timings_flash`:
+    b 8, t 2048 causal, K4 at t 512) beside their plain versions, SDPA
+    and the bound, so the builds never redesigned can be ranked by how
+    far they stand from their library call.  Emits one
+    ``timings/chunked_<dtype>_dh<dh>`` line a shape."""
+    try:
+        return {f"{dt}_dh{dh}": phase_timings_flash(
+            torch, h=h, dh=dh, dtype=dt,
+            phase=f"timings/chunked_{dt}_dh{dh}")
+            for dt, h, dh in CHUNKED_SHAPES}
+    finally:
+        torch.cuda.empty_cache()
 
 
 # -- extra phases: k2, k3, k4, k5, k6 ----------------------------------
@@ -7916,7 +7962,8 @@ def phase_profile(torch, np):
 # (deeplearning4j_tpu/zoo/gpt.py:62): (b) 3 heads of 256, (c) 4 of 192,
 # forward and backward on the wgmma builds at those head dims; (d) 2 heads
 # of 384, K3 and K4 on the 64-row wgmma kernel, K5 and K6 on the panel
-# kernels.
+# kernels; served: (e) 3 heads of 256 and (f) 2 of 384, K1 and K2 on
+# their wide builds.
 WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
             "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
             "wider": {"n_heads": 2}, "kernels": True,
@@ -7926,7 +7973,16 @@ WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
                                  "block_size": 16, "tick_batch": 8,
                                  "compute_dtype": "bfloat16"},
                       "requests": 8, "spec_requests": 4,
-                      "speculative": SPEC_FULL}}
+                      "speculative": SPEC_FULL},
+            # part (f): Gpt(n_heads=2) (2 heads of 384) served the same
+            # way, phase 4(b)'s first 4 requests, then its 2 greedy ones
+            # speculative
+            "serve_wider": {"gpt": {"n_heads": 2},
+                            "server": {"n_slots": 8, "max_len": 1024,
+                                       "block_size": 16, "tick_batch": 8,
+                                       "compute_dtype": "bfloat16"},
+                            "requests": 4, "spec_requests": 2,
+                            "speculative": SPEC_FULL}}
 
 
 def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
@@ -8149,10 +8205,12 @@ def paged_kernel_errors(torch, pa, rec, label):
     return errs
 
 
-def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
-    """Part (e) of :func:`phase_wide`: ``Gpt(**cfg["serve"]["gpt"])`` at
-    ``cfg``'s other widths (seeded weights) served through
-    GenerationServer (``cfg["serve"]["server"]``): the first
+def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs,
+               key="serve"):
+    """Parts (e) and (f) of :func:`phase_wide` (``key`` "serve" and
+    "serve_wider"): ``Gpt(**cfg[key]["gpt"])`` at ``cfg``'s other widths
+    (seeded weights) served through GenerationServer
+    (``cfg[key]["server"]``): the first
     ``requests`` of ``reqs`` (greedy and sampled; ``system`` the shared
     prompt the warm-up seeds), then the first ``spec_requests`` greedy
     ones with ``speculative``.  Each window comes after a warm-up whose
@@ -8163,14 +8221,14 @@ def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
     more than none (the speculative one), every launch through the wide
     builds (``<wrapper>.builds`` on the card).  Greedy streams are
     held to offline ``generate()`` under the bf16 near-tie rule, sampled
-    ones finish inside the vocabulary.  Emits ``wide/serve`` and returns
+    ones finish inside the vocabulary.  Emits ``wide/<key>`` and returns
     the launch counts by window."""
     from deeplearning4j_torch import telemetry
     from deeplearning4j_torch.models import generation as gen_mod
     from deeplearning4j_torch.models.generation import TransformerGenerator
     from deeplearning4j_torch.parallel import GenerationServer
     from deeplearning4j_torch.zoo import Gpt
-    sv = cfg["serve"]
+    sv = cfg[key]
     t_phase = time.perf_counter()
     ticks = telemetry.get_registry().counter("generation_server_ticks_total")
     vocab = cfg["vocab"]
@@ -8185,7 +8243,8 @@ def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
     refs = {i: gen.generate(reqs[i][0][None], reqs[i][1])[0]
             for i in greedy}
     warm = np.concatenate([system, [7, 7, 7]]).astype(np.int32)
-    row = {"phase": "wide/serve", "card": card, "weights": "random (seeded)",
+    row = {"phase": f"wide/{key}", "card": card,
+           "weights": "random (seeded)",
            "gpt": sv["gpt"], "n_layers": n_layers,
            "head_dim": gpt.get("d_model", 768) // gpt["n_heads"],
            **sv["server"]}
@@ -8205,9 +8264,9 @@ def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
             want = {"paged_decode_attention"} | (
                 {"paged_verify_attention"} if extra else set())
             if set(rec) != want:
-                raise AssertionError(f"wide/serve/{part}: captured "
+                raise AssertionError(f"wide/{key}/{part}: captured "
                                      f"{sorted(rec)}")
-            errs = paged_kernel_errors(torch, pa, rec, f"wide/serve/{part}")
+            errs = paged_kernel_errors(torch, pa, rec, f"wide/{key}/{part}")
             # the route each window's calls take (a function of their
             # shapes, which the warm-up's share)
             routes = {n: pa.call_route(
@@ -8217,7 +8276,7 @@ def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
                 .multi_processor_count if a[0].is_cuda
                 else pa.H100_SMS)[0] for n, (a, kw) in rec.items()}
             if cfg["kernels"] and set(routes.values()) != {"wide"}:
-                raise AssertionError(f"wide/serve/{part}: routes {routes}")
+                raise AssertionError(f"wide/{key}/{part}: routes {routes}")
             del rec
             sync()
             t0 = ticks.value
@@ -8234,17 +8293,17 @@ def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
         if cfg["kernels"] and device != "cpu" and builds != {
                 "paged_decode_attention": {"wide": l1} if l1 else {},
                 "paged_verify_attention": {"wide": l2} if l2 else {}}:
-            raise AssertionError(f"wide/serve/{part}: launches by build "
+            raise AssertionError(f"wide/{key}/{part}: launches by build "
                                  f"{builds}, want the wide builds' alone")
         if cfg["kernels"]:
             if part == "plain" and not (l1 > 0 and l1 == n_layers * dt
                                         and l2 == 0):
-                raise AssertionError(f"wide/serve/plain: K1 {l1} != "
+                raise AssertionError(f"wide/{key}/plain: K1 {l1} != "
                                      f"{n_layers} layers x {dt} ticks, "
                                      f"K2 {l2}")
             if part == "spec" and not (l2 > 0 and l2 == n_layers * dt
                                        and l1 > 0):
-                raise AssertionError(f"wide/serve/spec: K2 {l2} != "
+                raise AssertionError(f"wide/{key}/spec: K2 {l2} != "
                                      f"{n_layers} layers x {dt} verify "
                                      f"passes (or none), K1 {l1}")
         new_tokens = sum(n for _, n, _ in part_reqs)
@@ -8265,21 +8324,26 @@ def wide_serve(torch, np, pa, device, cfg, sync, card, system, reqs):
 
 
 def phase_wide(torch, np, pa):
-    """Phase 10b: (a) the head-dim-256 builds timed at the width of the
-    path (K1 and K2 at 3 heads of 256; K3-K6 at b 8, 3 heads of 256,
-    t 2048 causal, K4 at t 512) and K3-K6 again at 4 heads of 192, 2 of
-    384 and 2 of 512, each beside its plain version, SDPA and the bound,
-    the paged ones held to the build they must launch (the wide builds at
-    192 and 256, the any-dh kernel at 160); then (b)-(d),
-    :func:`wide_parts` at ``WIDE_CFG``, and (e), :func:`wide_serve`.  Returns (the
-    timings by build, the launch counts by window)."""
+    """Phase 10b: (a) the paged builds past head dim 128 timed at the
+    serving path's shape (K1 and K2 in bf16 at ``WIDE_DH``: 4 heads of
+    192, 3 of 256, 3 of 160, 2 of 384 and 2 of 512, all on the wide
+    builds; in f32 at 3 heads of 256 on the any-dh kernel) and K3-K6 at
+    b 8, 3 heads of 256, t 2048 causal, K4 at t 512, and again at 4
+    heads of 192, 2 of 384 and 2 of 512, each beside its plain version,
+    SDPA and the bound, the paged ones held to the build they must
+    launch; then (b)-(d), :func:`wide_parts` at ``WIDE_CFG``, and (e)
+    and (f), :func:`wide_serve`.  Returns (the timings by build, the
+    launch counts by window)."""
     mid = path_mid(np)
+    paged = [(dh, h, "bfloat16") for dh, h in WIDE_DH] + [
+        (256, 3, "float32")]
     timing = {
-        # K1 and K2 on the wide builds (3 heads of 256, 4 of 192) and on
-        # the any-dh kernel (3 heads of 160)
-        **{f"dh{dh}_{kind}": fn(torch, pa, mid, h=h, dh=dh,
-                                phase=f"timings/{pre}dh{dh}")
-           for dh, h in WIDE_DH + ((160, 3),)
+        # K1 and K2 on the wide builds (bf16) and on the any-dh kernel
+        # (f32 at 3 heads of 256)
+        **{f"dh{dh}{'' if dt == 'bfloat16' else '_f32'}_{kind}": fn(
+            torch, pa, mid, h=h, dh=dh, dtype=dt,
+            phase=f"timings/{pre}dh{dh}{'' if dt == 'bfloat16' else '_f32'}")
+           for dh, h, dt in paged
            for kind, fn, pre in (("decode", phase_timings, ""),
                                  ("verify", phase_timings_verify,
                                   "verify_"))},
@@ -8292,21 +8356,23 @@ def phase_wide(torch, np, pa):
                                      phase="timings/flash_dh384"),
         "dh512": phase_timings_flash(torch, h=2, dh=512,
                                      phase="timings/flash_dh512")}
-    for dh, _ in WIDE_DH + ((160, 3),):
+    for dh, _, dt in paged:
         for kind in ("decode", "verify"):
-            want = ["wide" if dh in (192, 256) else "any_dh"]
-            got = timing[f"dh{dh}_{kind}"]["build"]
-            if got != want:
+            want = ["wide" if dt == "bfloat16" else "any_dh"]
+            key = f"dh{dh}{'' if dt == 'bfloat16' else '_f32'}_{kind}"
+            if timing[key]["build"] != want:
                 raise AssertionError(f"wide/a: paged {kind} at dh {dh} "
-                                     f"launched {got}, want {want}")
+                                     f"({dt}) launched "
+                                     f"{timing[key]['build']}, want {want}")
     try:
         card = card_line()
         counts = wide_parts(torch, np, "cuda", WIDE_CFG,
                             torch.cuda.synchronize, card)
         system, reqs = mixed_requests(np, WIDE_CFG["vocab"])
-        counts["serve"] = wide_serve(torch, np, pa, "cuda", WIDE_CFG,
+        for key in ("serve", "serve_wider"):
+            counts[key] = wide_serve(torch, np, pa, "cuda", WIDE_CFG,
                                      torch.cuda.synchronize, card, system,
-                                     reqs)
+                                     reqs, key)
     finally:
         torch.cuda.empty_cache()
     return timing, counts
@@ -8381,7 +8447,7 @@ def main(argv=None) -> int:
         v_launches, v_timing, t_counts, f_timing = None, None, None, None
         b_counts, b_timing, s_launches, r_counts = None, None, None, None
         i_counts, sd_launches, m_counts, d_counts = None, None, None, None
-        p_counts, w_timing, wide_res = None, None, None
+        p_counts, w_timing, wide_res, c_timing = None, None, None, None
         if "kernel" in phases:
             phase_kernel(torch, pa)
         if "pangrams" in phases:
@@ -8440,6 +8506,8 @@ def main(argv=None) -> int:
                 phase_solo(torch, which)
         if "k2" in phases:
             phase_solo_verify(torch, pa, path_mid(np))
+        if "chunked" in phases:
+            c_timing = phase_chunked(torch)
         if "wide" in phases:
             wide_res = phase_wide(torch, np, pa)
         if None not in (launches, timing, v_launches, v_timing, t_counts,
@@ -8471,31 +8539,36 @@ def main(argv=None) -> int:
                     rows[i]["dist"] = {"launches": d_counts["serve"][name]}
             if wide_res is not None:
                 # K1 and K2 past head dim 128 (phase 10b): the wide builds
-                # timed in (a) at 3 heads of 256, launched by (e)'s
-                # Gpt(n_heads=3) server (both windows), and at 4 heads of
-                # 192 (timed only); the any-dh kernel at 3 heads of 160
-                # (timed only).  ``build``: the kernel of the build each
-                # timed call launched (``<wrapper>.builds``); the ``gpu``
-                # test test_cuda_wide_builds_launch_the_wide_kernels holds
-                # each build to that kernel by torch.profiler
+                # timed in (a) at every bf16 width of WIDE_DH — launched
+                # by (e)'s Gpt(n_heads=3) server at 256 and (f)'s
+                # Gpt(n_heads=2) at 384 (both windows of each), timed only
+                # at 192, 160 and 512 — and the any-dh kernel in f32 at 3
+                # heads of 256 (timed only).  ``build``: the kernel of the
+                # build each timed call launched (``<wrapper>.builds``);
+                # the ``gpu`` test
+                # test_cuda_wide_builds_launch_the_wide_kernels holds each
+                # build to that kernel by torch.profiler
                 w_time, w_cnt = wide_res
+                served = {"dh256": "serve", "dh384": "serve_wider"}
                 for i, name, kind, src in (
                         (0, "paged_decode_attention", "decode",
                          "paged_decode.cu"),
                         (1, "paged_verify_attention", "verify",
                          "paged_verify.cu")):
-                    for dh in (256, 192, 160):
-                        rows[i][f"dh{dh}"] = {
+                    for tag in [f"dh{dh}" for dh, _ in WIDE_DH] + [
+                            "dh256_f32"]:
+                        build = w_time[f"{tag}_{kind}"]["build"][0]
+                        rows[i][tag] = {
                             "launches": (sum(c[name] for c in
-                                             w_cnt["serve"].values())
-                                         if dh == 256 else None),
+                                             w_cnt[served[tag]].values())
+                                         if tag in served else None),
                             "build": {
                                 "wide": f"paged_{kind}_wide_kernel",
-                                "any_dh": "paged_any_dh_kernel"}[
-                                w_time[f"dh{dh}_{kind}"]["build"][0]],
+                                "any_dh": "paged_any_dh_kernel"}[build],
                             "source": "deeplearning4j_torch/kernels/csrc/"
-                            + (src if dh != 160 else "paged_any_dh.cuh"),
-                            **wide_sub(w_time[f"dh{dh}_{kind}"])}
+                            + (src if build == "wide"
+                               else "paged_any_dh.cuh"),
+                            **wide_sub(w_time[f"{tag}_{kind}"])}
             # (wrapper, source, TPU kernel, main path it runs on)
             for name, src, tpu, t in (
                     ("flash_fwd", "flash_fwd.cu", "flash_attention.py:95",
@@ -8565,6 +8638,12 @@ def main(argv=None) -> int:
                                          sum(w_cnt[w][name]
                                              for w in windows)),
                             **wide_sub(w_time[dh][name])}
+                if c_timing is not None:
+                    # the chunked FMA build (extra phase ``chunked``):
+                    # timed only, no path runs it
+                    for tag, ct in c_timing.items():
+                        rows[-1][f"chunked_{tag}"] = {
+                            "launches": None, **wide_sub(ct[name])}
                 if sd_launches is not None:
                     # the same kernel on the imported graphs (phase 9c):
                     # BERT-base's counted fine-tune and gpt_toy's

@@ -1,8 +1,10 @@
-// Paged attention at any head dim up to 256: the instantiation of K1
-// (paged_decode.cu) and K2 (paged_verify.cu) for head dims their fast
-// kernels do not take (above 128, or not a multiple of 8).
+// Paged attention at any head dim: the instantiation of K1
+// (paged_decode.cu) and K2 (paged_verify.cu) for the head dims and
+// dtypes their fast and wide builds do not take (a head dim that is not
+// a multiple of 8, f32 past 128, bf16 past 512, and block sizes the wide
+// decode build refuses).
 //
-// Replaces, for those head dims, the TPU kernels of
+// Replaces, for those calls, the TPU kernels of
 // deeplearning4j_tpu/kernels/paged_attention.py: _decode_kernel and
 // _verify_kernel, which take any head dim.  The fast kernels read rows as
 // whole 16-byte vectors and hold q in registers as 128 / 64 lane pairs; a
@@ -11,8 +13,14 @@
 // table).  This kernel reads rows element by element instead (a warp's
 // lanes on neighbouring elements, so a row still arrives in whole
 // 32-byte sectors) and holds q and the output accumulator in a register
-// width padded to 128 or 256 (kPer = 4 or 8 elements a lane), zero past
-// dh, so the padding adds nothing to a dot product.
+// width padded to 128, 256, 512 or 1024 (kPer = 4, 8, 16 or 32 elements a
+// lane), zero past dh, so the padding adds nothing to a dot product.
+// Past 1024 the head dim goes in slabs of 1024 output columns, one slab a
+// block (grid.x = h * n_slab): each slab's block scores its rows over the
+// whole head dim with q read through L1 (no register copy), accumulates
+// its own columns in registers, and keeps its own partials, ticket and
+// merge, so the slabs of a (row, head) never wait on each other (K and V
+// are read once a slab, a cost only past 1024).
 //
 // Query rows: a decode slot has one (W = 1); a verify slot has W, row w
 // at position pos[b] + w.  Each row is its own "virtual slot" b * W + w
@@ -23,15 +31,16 @@
 //
 // Bound: memory, as K1 and K2: one multiply-add per K/V element loaded.
 //
-// Design: K1's split-K carried over.  Grid (h, B * W, S): split s covers
-// context rows [s C, (s+1) C) for a chunk C the wrapper picks from the
-// table's capacity; a split at or past the row's context exits at once.
-// Each of the 4 warps scores 4 rows at a time (rows warp * 4 + 16 i of
-// the split), keeps its own online softmax with P rounded to V's dtype at
-// its running max (as K1), and the warps merge through shared memory.  A
-// split writes its partial (m, l, acc[dh]) in f32 to scratch; the last
-// live split of a (row, head) — a __threadfence() and an atomicAdd ticket
-// on its counter — merges every partial, writes O and resets the counter.
+// Design: K1's split-K carried over.  Grid (h * n_slab, B * W, S): split s
+// covers context rows [s C, (s+1) C) for a chunk C the wrapper picks from
+// the table's capacity; a split at or past the row's context exits at
+// once.  Each of the 4 warps scores 4 rows at a time (rows warp * 4 + 16 i
+// of the split), keeps its own online softmax with P rounded to V's dtype
+// at its running max (as K1), and the warps merge through shared memory.
+// A split writes its partial (m, l, acc[slab columns]) in f32 to scratch;
+// the last live split of a (row, head, slab) — a __threadfence() and an
+// atomicAdd ticket on its counter — merges every partial, writes O and
+// resets the counter.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,7 +53,7 @@ namespace paged_any_dh {
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;        // rows a warp scores at once
-constexpr int kMaxDh = 256;
+constexpr int kSlabCols = 1024; // output columns a block takes past 1024
 
 struct Args {
   const void* q;        // [B * W, h, dh]
@@ -53,9 +62,10 @@ struct Args {
   const int* table;     // [B, max_blocks]
   const int* pos;       // [B]: row w of slot b sits at pos[b] + w
   void* out;            // [B * W, h, dh]
-  float* part;          // [B * W, h, S, dh + 2] f32: m, l, acc[dh] per split
-  int* counter;         // [B * W * h] int32, 0 between launches
+  float* part;          // [B * W, h, n_slab, S, pw + 2] f32: m, l, acc[pw]
+  int* counter;         // [B * W * h * n_slab] int32, 0 between launches
   int W, h, bs, dh, max_blocks, chunk, n_split;
+  int n_slab, pw;       // column slabs of the head dim, and their width
   float scale;
 };
 
@@ -74,16 +84,19 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// kPer: elements of the padded head dim a lane holds (dh <= 32 kPer)
-template <typename T, int kPer>
+// kPer: elements of a slab's padded width a lane holds (pw <= 32 kPer);
+// kSlab: the head dim goes in slabs of kSlabCols columns (q read through
+// L1 for the scores), else one slab of dh columns with q in registers
+template <typename T, int kPer, bool kSlab>
 __global__ void __launch_bounds__(kThreads) paged_any_dh_kernel(const Args a) {
   __shared__ float wm_s[kWarps], wl_s[kWarps];
   __shared__ float wacc_s[kWarps][32 * kPer];
   __shared__ int last_s;
 
-  const int head = blockIdx.x, vb = blockIdx.y, split = blockIdx.z;
+  const int head = blockIdx.x / a.n_slab, slab = blockIdx.x - head * a.n_slab;
+  const int vb = blockIdx.y, split = blockIdx.z;
   const int b = vb / a.W, w = vb - b * a.W;
-  const int h = a.h, dh = a.dh, bs = a.bs;
+  const int h = a.h, dh = a.dh, bs = a.bs, pw = a.pw;
   const int n_ctx = min(a.pos[b] + w + 1, a.max_blocks * bs);
   const int c0 = split * a.chunk;
   if (c0 >= n_ctx) return;                        // a dead split
@@ -94,14 +107,19 @@ __global__ void __launch_bounds__(kThreads) paged_any_dh_kernel(const Args a) {
   const T* kp = static_cast<const T*>(a.k_pool);
   const T* vp = static_cast<const T*>(a.v_pool);
   const long long bh = (long long)vb * h + head;
+  const long long cidx = bh * a.n_slab + slab;    // this block's (row, head, slab)
+  const int col0 = slab * kSlabCols;              // its columns [col0, col0 + cols)
+  const int cols = min(pw, dh - col0);
 
-  // q, scaled, zero past dh: lane holds elements lane + 32 i
+  // q, scaled, zero past dh: lane holds elements lane + 32 i (one slab)
   const T* qrow = static_cast<const T*>(a.q) + bh * dh;
-  float qv[kPer];
+  float qv[kSlab ? 1 : kPer];
+  if constexpr (!kSlab) {
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int d = lane + 32 * i;
-    qv[i] = d < dh ? ld(qrow + d) * a.scale : 0.f;
+    for (int i = 0; i < kPer; ++i) {
+      const int d = lane + 32 * i;
+      qv[i] = d < dh ? ld(qrow + d) * a.scale : 0.f;
+    }
   }
 
   float m_w = -INFINITY, l_w = 0.f, acc[kPer];
@@ -116,10 +134,15 @@ __global__ void __launch_bounds__(kThreads) paged_any_dh_kernel(const Args a) {
       off[u] = j < c1 ? (((long long)tbl[j / bs] * h + head) * bs + (j % bs)) * dh : -1;
       float part = 0.f;
       if (off[u] >= 0) {
+        if constexpr (kSlab) {                   // the whole head dim, q through L1
+          for (int d = lane; d < dh; d += 32)
+            part = fmaf(ld(qrow + d) * a.scale, ld(kp + off[u] + d), part);
+        } else {
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int d = lane + 32 * i;
-          if (d < dh) part = fmaf(qv[i], ld(kp + off[u] + d), part);
+          for (int i = 0; i < kPer; ++i) {
+            const int d = lane + 32 * i;
+            if (d < dh) part = fmaf(qv[i], ld(kp + off[u] + d), part);
+          }
         }
       }
       s[u] = part;
@@ -148,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) paged_any_dh_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const int d = lane + 32 * i;
-        if (d < dh) pv[i] = fmaf(pr, ld(vp + off[u] + d), pv[i]);
+        if (d < cols) pv[i] = fmaf(pr, ld(vp + off[u] + col0 + d), pv[i]);
       }
     }
     l_w = l_w * corr + l_tile;
@@ -174,9 +197,9 @@ __global__ void __launch_bounds__(kThreads) paged_any_dh_kernel(const Args a) {
     f[v] = expf(wm_s[v] - m_s);                  // 0 for a warp with no row
     l_s = fmaf(wl_s[v], f[v], l_s);
   }
-  T* out = static_cast<T*>(a.out) + bh * dh;
-  float* part = a.part + (bh * a.n_split + split) * (dh + 2);
-  for (int d = tid; d < dh; d += kThreads) {
+  T* out = static_cast<T*>(a.out) + bh * dh + col0;
+  float* part = a.part + (cidx * a.n_split + split) * (pw + 2);
+  for (int d = tid; d < cols; d += kThreads) {
     float o = 0.f;
 #pragma unroll
     for (int v = 0; v < kWarps; ++v) o = fmaf(wacc_s[v][d], f[v], o);
@@ -193,52 +216,61 @@ __global__ void __launch_bounds__(kThreads) paged_any_dh_kernel(const Args a) {
   __threadfence();                 // the partial is visible device-wide ...
   __syncthreads();
   if (tid == 0) {
-    const int ticket = atomicAdd(a.counter + bh, 1);   // ... before the ticket
+    const int ticket = atomicAdd(a.counter + cidx, 1);   // ... before the ticket
     last_s = ticket == n_live - 1;
   }
   __syncthreads();
   if (!last_s) return;
   __threadfence();
   // the last split: merge every live split's partial (read past L1)
-  const float* base = a.part + bh * a.n_split * (dh + 2);
+  const float* base = a.part + cidx * a.n_split * (pw + 2);
   float m = -INFINITY;
-  for (int s = 0; s < n_live; ++s) m = fmaxf(m, __ldcg(base + s * (dh + 2)));
+  for (int s = 0; s < n_live; ++s) m = fmaxf(m, __ldcg(base + s * (pw + 2)));
   float l = 0.f;
   for (int s = 0; s < n_live; ++s) {
-    const float* ps = base + s * (dh + 2);
+    const float* ps = base + s * (pw + 2);
     l = fmaf(__ldcg(ps + 1), expf(__ldcg(ps) - m), l);
   }
-  for (int d = tid; d < dh; d += kThreads) {
+  for (int d = tid; d < cols; d += kThreads) {
     float o = 0.f;
     for (int s = 0; s < n_live; ++s) {
-      const float* ps = base + s * (dh + 2);
+      const float* ps = base + s * (pw + 2);
       o = fmaf(__ldcg(ps + 2 + d), expf(__ldcg(ps) - m), o);
     }
     store(out + d, o / l);
   }
-  if (tid == 0) a.counter[bh] = 0;   // ready for the next launch
+  if (tid == 0) a.counter[cidx] = 0;   // ready for the next launch
 }
 
 template <typename T>
 int launch_t(const Args& a, int B, cudaStream_t s) {
-  const dim3 grid(a.h, B * a.W, a.n_split);
+  const dim3 grid(a.h * a.n_slab, B * a.W, a.n_split);
   if (a.dh <= 128)
-    paged_any_dh_kernel<T, 4><<<grid, kThreads, 0, s>>>(a);
+    paged_any_dh_kernel<T, 4, false><<<grid, kThreads, 0, s>>>(a);
+  else if (a.dh <= 256)
+    paged_any_dh_kernel<T, 8, false><<<grid, kThreads, 0, s>>>(a);
+  else if (a.dh <= 512)
+    paged_any_dh_kernel<T, 16, false><<<grid, kThreads, 0, s>>>(a);
+  else if (a.dh <= kSlabCols)
+    paged_any_dh_kernel<T, 32, false><<<grid, kThreads, 0, s>>>(a);
   else
-    paged_any_dh_kernel<T, 8><<<grid, kThreads, 0, s>>>(a);
+    paged_any_dh_kernel<T, kSlabCols / 32, true><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+// column slabs of head dim dh: one up to kSlabCols, else slabs of kSlabCols
+inline int n_slabs(int dh) { return (dh + kSlabCols - 1) / kSlabCols; }
+
 // Validate and launch.  `chunk` > 0 (any multiple of 1), n_split =
-// ceil(max_blocks * bs / chunk); `part` f32 scratch of B * W * h *
-// n_split * (dh + 2) values, `counter` B * W * h int32 zeros (left zero).
+// ceil(max_blocks * bs / chunk); `part` f32 scratch of part_floats(...)
+// values, `counter` counters(...) int32 zeros (left zero).
 inline int launch(const void* q, const void* k_pool, const void* v_pool,
                   const void* table, const void* pos, void* out, void* part,
                   void* counter, int B, int W, int h, int bs, int dh,
                   int max_blocks, int chunk, float scale, int is_bf16,
                   void* stream) {
-  if (B <= 0 || W <= 0 || h <= 0 || bs <= 0 || dh <= 0 || dh > kMaxDh ||
-      max_blocks <= 0 || chunk <= 0 || (long long)B * W > 65535)
+  if (B <= 0 || W <= 0 || h <= 0 || bs <= 0 || dh <= 0 || max_blocks <= 0 ||
+      chunk <= 0 || (long long)B * W > 65535 || (long long)h * n_slabs(dh) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -256,16 +288,24 @@ inline int launch(const void* q, const void* k_pool, const void* v_pool,
   a.max_blocks = max_blocks;
   a.chunk = chunk;
   a.n_split = (max_blocks * bs + chunk - 1) / chunk;
+  a.n_slab = n_slabs(dh);
+  a.pw = dh < kSlabCols ? dh : kSlabCols;
   a.scale = scale;
   if (a.n_split > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_t<__nv_bfloat16>(a, B, s) : launch_t<float>(a, B, s);
 }
 
-// f32 values of the split partials a launch needs: (m, l, acc[dh]) for
-// each (row, head, split).
+// f32 values of the split partials a launch needs: (m, l, acc[pw]) for
+// each (row, head, slab, split).
 inline long long part_floats(int B, int W, int h, int dh, int n_split) {
-  return (long long)B * W * h * n_split * (dh + 2);
+  const int pw = dh < kSlabCols ? dh : kSlabCols;
+  return (long long)B * W * h * n_slabs(dh) * n_split * (pw + 2);
+}
+
+// int32 ticket counters a launch needs: one a (row, head, slab).
+inline long long counters(int B, int W, int h, int dh) {
+  return (long long)B * W * h * n_slabs(dh);
 }
 
 }  // namespace paged_any_dh

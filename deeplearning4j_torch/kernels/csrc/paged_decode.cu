@@ -44,10 +44,11 @@
 // Templated on float and bf16; dh <= 128 and a multiple of 8 (rows are
 // read as whole 16-byte vectors, scores and P.V as element pairs).
 //
-// The wide build (dl4j_paged_decode_attention_wide): bf16 at head dims
-// 192 and 256, the widths of zoo.Gpt(n_heads=4) and Gpt(n_heads=3) at
-// d 768.  Same bound (the K/V bytes of the context); same grid, chunk,
-// ticket and P rounding as v4.  What it does about the bytes:
+// The wide build (dl4j_paged_decode_attention_wide): bf16 at every head
+// dim in (128, 512] that is a multiple of 8 — zoo.Gpt(n_heads=4, 3, 2) at
+// d 768 are 192, 256 and 384.  Same bound (the K/V bytes of the context);
+// same grid, chunk, ticket and P rounding as v4.  What it does about the
+// bytes:
 // * whole pages by the copy engine.  A pool page of one (block, head) is
 //   bs x dh contiguous elements (8 KB at bs 16, dh 256), so one thread
 //   issues one cp.async.bulk for the page's K rows and one for its V
@@ -55,25 +56,35 @@
 //   rows below the context are copied (a prefix of the page, still one
 //   copy), and pages past it are never read: the table is read only
 //   below the context;
-// * a ring of min(3, pages a split covers) stages, each one page of K
-//   and V (32 KB of K/V in flight per block at bs 16, dh 256; the
-//   serving shape's 32-row chunks give each block 2 pages, ~2.7 blocks
-//   an SM);
-// * each warp scores whole rows with one 16-byte shared load a lane
-//   (lane l holds q[8 l .. 8 l + 7]; 24 lanes at dh 192) and keeps its
-//   own online softmax over the rows warp, warp + 4, ... of every page,
-//   four at once, with P rounded to bf16 at its running max as v4;
+// * a ring of n_stage = min(3, pages a split covers, kWideRingBytes /
+//   page pair) stages, each one page of K and V (32 KB of K/V in flight
+//   per block at bs 16, dh 256; the serving shape's 32-row chunks give
+//   each block 2 pages, ~2.7 blocks an SM).  The ring is sized by bytes,
+//   not by head dim: at dh 512 a 64-row page pair (128 KiB) takes the
+//   ring alone;
+// * each warp scores whole rows with one 16-byte shared load a lane a
+//   vector (lane l holds q[8 l .. 8 l + 7], and past dh 256 also
+//   q[8 (l + 32) ..]) and keeps its own online softmax over the rows
+//   warp, warp + 4, ... of every page, four at once, with P rounded to
+//   bf16 at its running max as v4.  The head dim is a template constant
+//   at the multiples of 64 and a runtime value elsewhere: two builds,
+//   kVec 1 and 2, serve every other multiple of 8 (a dh read at run time
+//   is slower at 192 and 256 on an H100, so the multiples of 64 keep
+//   folded builds; `scripts/paged_turns.py --runtime-dh` times both);
+// * the warps' accumulators merge through the ring once it is free, so a
+//   block's shared memory is its ring (33 KB at the serving shape, 6
+//   blocks an SM at dh 256, 8 at 192);
 // * the last split's merge keeps its loads in flight together: a
 //   partial is acc[dh] then (m, l) (rows of dh + 4 floats, read as
-//   float4), each thread reads one split's (m, l), and two halves of the
-//   block sum alternate splits of each float4 column — a window of 128
-//   splits at a time under a running max.
+//   float4), each thread reads one split's (m, l), and 128 / (dh / 4)
+//   groups of the block sum alternate splits of each float4 column — a
+//   window of 128 splits at a time under a running max.
 // Split edges must fall on page edges: the wrapper sends a call here only
-// where bs divides the chunk and bs <= 64 (a stage's page fits the ring);
-// the entry refuses q or pools off 16-byte alignment (the wrapper raises).
-// Any other head dim up to 256, f32 at 192 and 256, and the block sizes
-// this build does not take go to paged_any_dh.cuh's kernel through
-// dl4j_paged_decode_attention_any.
+// where bs divides the chunk and a page pair fits the ring; the entry
+// refuses every other call, q or pools off 16-byte alignment included
+// (the wrapper raises).  A head dim that is not a multiple of 8, f32 past
+// 128, bf16 past 512, and the block sizes this build does not take go to
+// paged_any_dh.cuh's kernel through dl4j_paged_decode_attention_any.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -348,18 +359,47 @@ int launch(const Args& a, int B, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// the wide build: bf16 at head dims 192 and 256, pages by bulk copy
+// the wide build: bf16 at head dims 136 .. 512 (multiples of 8), pages by
+// bulk copy
 // ---------------------------------------------------------------------------
-constexpr int kWideStages = 3;    // ring stages, one page of K and V each
-constexpr int kWideMaxBs = 64;    // rows of the largest page a stage holds
+constexpr int kWideStages = 3;    // ring stages at most, one page of K and V each
+constexpr int kWideMaxDh = 512;   // the widest head dim (kVec 2: 64 lanes of 8)
 constexpr int kWideRows = 4;      // rows a warp scores at once
+// The ring's bytes: three stages of 64-row pages at dh 256 (K and V, bf16),
+// the largest ring this build ran with at 192 and 256.  A launch takes
+// n_stage = min(3, chunk / bs, kWideRingBytes / (2 bs dh 2)) stages: at
+// dh 512 a 64-row page pair is 128 KiB (one stage), at bs 16 32 KiB (three
+// stages, 96 KiB).  A page pair above the ring (bs dh > 49,152) is
+// refused (wide_decode_takes in the wrapper).
+constexpr size_t kWideRingBytes = (size_t)kWideStages * 2 * 64 * 256 * sizeof(__nv_bfloat16);
+// static shared memory beside the ring: the barriers, the warps' (m, l),
+// the merge's weights, the flag.  The warps' accumulators (kWarps x dh
+// f32) go over the ring once it is free, so the dynamic part is the
+// larger of the two (wide_dynamic_bytes) and the static part stays small:
+// at the serving shape (2 stages of 16-row pages, dh 256) a block holds
+// 33 KB, 6 blocks an SM
+constexpr size_t kWideStatic = kWideStages * sizeof(uint64_t) + 2 * kWarps * sizeof(float) +
+                               kThreads * sizeof(float) + sizeof(int);
+static_assert(kWideRingBytes >= (size_t)kWarps * kWideMaxDh * sizeof(float) &&
+                  kWideRingBytes + kWideStatic <= 232448,
+              "the ring holds the accumulators, and it and the static buffers fit a "
+              "block's shared memory");
 // a split's partial: acc[dh], then m and l, padded to a whole float4 (so
 // the merge reads acc as float4)
 __host__ __device__ constexpr int wide_part_floats(int dh) { return dh + 4; }
 
+// ring stages of a launch: min(kWideStages, chunk / bs, what kWideRingBytes
+// holds); 0 where one page pair does not fit
+inline int wide_stages(int bs, int dh, int chunk) {
+  const size_t pair = (size_t)2 * bs * dh * sizeof(__nv_bfloat16);
+  const size_t fit = kWideRingBytes / pair;
+  int n = chunk / bs < kWideStages ? chunk / bs : kWideStages;
+  return fit < (size_t)n ? (int)fit : n;
+}
+
 struct WideArgs {
   Args a;
-  int n_stage;   // min(kWideStages, chunk / bs)
+  int n_stage;   // wide_stages(bs, dh, chunk)
 };
 
 __device__ __forceinline__ void unpack8(float (&f)[8], const uint4& v) {
@@ -372,21 +412,26 @@ __device__ __forceinline__ void unpack8(float (&f)[8], const uint4& v) {
   }
 }
 
-template <int DH>
+// kVec: 16-byte vectors of a row a lane holds (1 up to dh 256, 2 up to
+// 512): lane l holds columns [8 l, 8 l + 8) and, with kVec 2, [8 (l + 32),
+// 8 (l + 32) + 8), none past dh.  DH: the head dim as a compile-time
+// constant (the multiples of 64, Gpt(n_heads=4, 3, 2)'s 192, 256 and 384
+// among them: every offset folded), or 0: read at run time (the other
+// multiples of 8, one build a kVec)
+template <int kVec, int DH>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_wide_kernel(const WideArgs wa) {
   using bf16 = __nv_bfloat16;
-  constexpr int kLanes = DH / 8;   // lanes holding 8 head columns each
   const Args& a = wa.a;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kWideStages];
   __shared__ float wm_s[kWarps], wl_s[kWarps];
-  __shared__ __align__(16) float wacc_s[kWarps][DH];
   __shared__ float wt_s[kThreads];   // the merge's weights of a window of splits
   __shared__ int last_s;
 
   const int head = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int h = a.h, bs = a.bs, n_stage = wa.n_stage;
+  const int h = a.h, bs = a.bs, dh = DH ? DH : a.dh, n_stage = wa.n_stage;
+  const int n_vec = dh / 8;                       // 16-byte vectors a row
   const int n_ctx = min(a.pos[b] + 1, a.max_blocks * bs);
   const int c0 = split * a.chunk;
   if (c0 >= n_ctx) return;                        // a dead split
@@ -399,8 +444,9 @@ paged_decode_wide_kernel(const WideArgs wa) {
   const long long bh = (long long)b * h + head;
   const int page0 = c0 / bs;                      // c0 sits on a page edge
   const int n_pages = (c1 - 1) / bs - page0 + 1;
-  const int page = bs * DH;                       // elements of one page
+  const int page = bs * dh;                       // elements of one page
   bf16* ring = reinterpret_cast<bf16*>(smem);     // [stage][K page, V page]
+  float* wacc = reinterpret_cast<float*>(smem);   // [warp][dh], once the ring is free
   const uint32_t bar0 = flash::smem_u32(bars);
 
   if (tid == 0) {
@@ -412,7 +458,7 @@ paged_decode_wide_kernel(const WideArgs wa) {
   // below c1 (a prefix of the page, contiguous in the pool), K then V
   auto issue = [&](int i, int blk) {
     const int rows = min(bs, c1 - (page0 + i) * bs);
-    const uint32_t bytes = (uint32_t)rows * DH * 2;
+    const uint32_t bytes = (uint32_t)rows * dh * 2;
     const long long off = ((long long)blk * h + head) * page;
     bf16* ks = ring + (i % n_stage) * 2 * page;
     const uint32_t bar = bar0 + 8 * (i % n_stage);
@@ -430,15 +476,18 @@ paged_decode_wide_kernel(const WideArgs wa) {
       if (i < n_stage && i < n_pages) issue(i, blk[i]);
   }
 
-  // q, scaled: lane l holds columns [8 l, 8 l + 8) (none past dh)
-  float qv[8], acc[8];
+  // q, scaled: lane l holds columns [8 (l + 32 v), + 8) (none past dh)
+  float qv[kVec][8], acc[kVec][8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) qv[e] = acc[e] = 0.f;
-  if (lane < kLanes) {
-    unpack8(qv, *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.q) + bh * DH +
-                                                 8 * lane));
+  for (int v = 0; v < kVec; ++v) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qv[e] *= a.scale;
+    for (int e = 0; e < 8; ++e) qv[v][e] = acc[v][e] = 0.f;
+    if (lane + 32 * v < n_vec) {
+      unpack8(qv[v], *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.q) + bh * dh +
+                                                     8 * (lane + 32 * v)));
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qv[v][e] *= a.scale;
+    }
   }
 
   float m_w = -INFINITY, l_w = 0.f;
@@ -456,11 +505,15 @@ paged_decode_wide_kernel(const WideArgs wa) {
       for (int u = 0; u < kWideRows; ++u) {
         const int r = r0 + kWarps * u;
         float part = 0.f;
-        if (r < rows && lane < kLanes) {
-          float kf[8];
-          unpack8(kf, *reinterpret_cast<const uint4*>(ks + r * DH + 8 * lane));
 #pragma unroll
-          for (int e = 0; e < 8; ++e) part = fmaf(qv[e], kf[e], part);
+        for (int v = 0; v < kVec; ++v) {
+          const int c = lane + 32 * v;
+          if (r < rows && c < n_vec) {
+            float kf[8];
+            unpack8(kf, *reinterpret_cast<const uint4*>(ks + r * dh + 8 * c));
+#pragma unroll
+            for (int e = 0; e < 8; ++e) part = fmaf(qv[v][e], kf[e], part);
+          }
         }
         s[u] = part;
       }
@@ -476,9 +529,11 @@ paged_decode_wide_kernel(const WideArgs wa) {
       }
       const float m_new = fmaxf(m_w, m_tile);    // finite: row r0 is live
       const float corr = expf(m_w - m_new);      // 0 on the warp's first rows
-      float l_tile = 0.f, pv[8];
+      float l_tile = 0.f, pv[kVec][8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) pv[e] = 0.f;
+      for (int v = 0; v < kVec; ++v)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) pv[v][e] = 0.f;
 #pragma unroll
       for (int u = 0; u < kWideRows; ++u) {
         const int r = r0 + kWarps * u;
@@ -486,32 +541,43 @@ paged_decode_wide_kernel(const WideArgs wa) {
         const float p = expf(s[u] - m_new);
         l_tile += p;
         const float pr = round_to(p, bf16());   // P in V's dtype, as v4
-        if (lane < kLanes) {
-          float vf[8];
-          unpack8(vf, *reinterpret_cast<const uint4*>(vs + r * DH + 8 * lane));
 #pragma unroll
-          for (int e = 0; e < 8; ++e) pv[e] = fmaf(pr, vf[e], pv[e]);
+        for (int v = 0; v < kVec; ++v) {
+          const int c = lane + 32 * v;
+          if (c < n_vec) {
+            float vf[8];
+            unpack8(vf, *reinterpret_cast<const uint4*>(vs + r * dh + 8 * c));
+#pragma unroll
+            for (int e = 0; e < 8; ++e) pv[v][e] = fmaf(pr, vf[e], pv[v][e]);
+          }
         }
       }
       l_w = l_w * corr + l_tile;
       m_w = m_new;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = fmaf(acc[e], corr, pv[e]);
+      for (int v = 0; v < kVec; ++v)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[v][e] = fmaf(acc[v][e], corr, pv[v][e]);
     }
     __syncthreads();   // every warp is done with stage st ...
     if (tid == 0 && i + n_stage < n_pages) issue(i + n_stage, blk_next);   // ... refill it
   }
 
-  // merge the four warps' states into the split's (m, l, acc)
+  // merge the four warps' states into the split's (m, l, acc); every
+  // warp is past the loop's last barrier, so the ring is free
   if (lane == 0) {
     wm_s[warp] = m_w;
     wl_s[warp] = l_w;
   }
-  if (lane < kLanes) {
-    *reinterpret_cast<float4*>(&wacc_s[warp][8 * lane]) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(&wacc_s[warp][8 * lane + 4]) =
-        make_float4(acc[4], acc[5], acc[6], acc[7]);
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const int c = lane + 32 * v;
+    if (c < n_vec) {
+      *reinterpret_cast<float4*>(wacc + warp * dh + 8 * c) =
+          make_float4(acc[v][0], acc[v][1], acc[v][2], acc[v][3]);
+      *reinterpret_cast<float4*>(wacc + warp * dh + 8 * c + 4) =
+          make_float4(acc[v][4], acc[v][5], acc[v][6], acc[v][7]);
+    }
   }
   __syncthreads();
   float m_s = -INFINITY;
@@ -523,13 +589,13 @@ paged_decode_wide_kernel(const WideArgs wa) {
     f[w] = expf(wm_s[w] - m_s);                  // 0 for a warp with no row
     l_s = fmaf(wl_s[w], f[w], l_s);
   }
-  bf16* out = static_cast<bf16*>(a.out) + bh * DH;
-  constexpr int kPart = wide_part_floats(DH);   // acc[DH], m, l, pad
+  bf16* out = static_cast<bf16*>(a.out) + bh * dh;
+  const int kPart = wide_part_floats(dh);       // acc[dh], m, l, pad
   float* part = a.part + (bh * a.n_split + split) * kPart;
-  for (int d = tid; d < DH; d += kThreads) {
+  for (int d = tid; d < dh; d += kThreads) {
     float o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) o = fmaf(wacc_s[w][d], f[w], o);
+    for (int w = 0; w < kWarps; ++w) o = fmaf(wacc[w * dh + d], f[w], o);
     if (n_live == 1)                             // the whole context here
       store(out + d, o / l_s);
     else
@@ -537,8 +603,8 @@ paged_decode_wide_kernel(const WideArgs wa) {
   }
   if (n_live == 1) return;
   if (tid == 0) {
-    part[DH] = m_s;
-    part[DH + 1] = l_s;
+    part[dh] = m_s;
+    part[dh + 1] = l_s;
   }
   __threadfence();                 // the partial is visible device-wide ...
   __syncthreads();
@@ -552,18 +618,20 @@ paged_decode_wide_kernel(const WideArgs wa) {
   // the last split: merge every live split's partial (read past L1), a
   // window of 128 splits at a time (one a thread) under a running max:
   // each thread reads its split's (m, l), the block reduces the window's
-  // max, the splits' weights exp(m_s - m) go to shared memory, and two
-  // halves of the block sum alternate splits of each float4 column of
+  // max, the splits' weights exp(m_s - m) go to shared memory, and
+  // n_grp = 128 / (dh / 4) groups of the block (3 at dh 136-168, 2 at
+  // 176-256, 1 past 256) sum alternate splits of each float4 column of
   // acc, so the window's loads are in flight together
   const float* base = a.part + bh * a.n_split * kPart;
-  constexpr int kC4 = DH / 4;                   // float4 columns of acc
-  const int c4 = tid % kC4, half = tid / kC4;   // half 2 (dh 192) idles
+  const int n_c4 = dh / 4;                      // float4 columns of acc
+  const int n_grp = kThreads / n_c4;            // >= 1: dh <= 512
+  const int c4 = tid % n_c4, grp = tid / n_c4;  // grp >= n_grp idles
   float m = -INFINITY, l = 0.f;
   float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s0 = 0; s0 < n_live; s0 += kThreads) {
     const int n = min(kThreads, n_live - s0);
     const float2 ml = tid < n ? __ldcg(reinterpret_cast<const float2*>(
-                                    base + (s0 + tid) * kPart + DH))
+                                    base + (s0 + tid) * kPart + dh))
                               : make_float2(-INFINITY, 0.f);
     float mw = flash::warp_max(ml.x);
     __syncthreads();   // the last window's maxima and weights are consumed
@@ -582,10 +650,10 @@ paged_decode_wide_kernel(const WideArgs wa) {
       l = fmaf(ml.y, wgt, l);
     }
     __syncthreads();
-    if (half < 2) {
+    if (grp < n_grp) {
       const float* ps = base + s0 * kPart + 4 * c4;
 #pragma unroll 8
-      for (int s = half; s < n; s += 2) {
+      for (int s = grp; s < n; s += n_grp) {
         const float4 x = __ldcg(reinterpret_cast<const float4*>(ps + s * kPart));
         const float wgt = wt_s[s];
         o = make_float4(fmaf(x.x, wgt, o.x), fmaf(x.y, wgt, o.y), fmaf(x.z, wgt, o.z),
@@ -596,35 +664,48 @@ paged_decode_wide_kernel(const WideArgs wa) {
   l = flash::warp_sum(l);
   __syncthreads();   // every thread has read wm_s and wt_s
   if (lane == 0) wl_s[warp] = l;
-  if (half == 1) *reinterpret_cast<float4*>(&wacc_s[0][4 * c4]) = o;
+  // groups 1 .. n_grp - 1 hand their sums to group 0 through wacc
+  float* red = wacc;
+  if (grp > 0 && grp < n_grp) *reinterpret_cast<float4*>(red + (grp - 1) * dh + 4 * c4) = o;
   __syncthreads();
-  if (half == 0) {
-    const float4 x = *reinterpret_cast<const float4*>(&wacc_s[0][4 * c4]);
+  if (grp == 0) {
+    for (int g2 = 1; g2 < n_grp; ++g2) {
+      const float4 x = *reinterpret_cast<const float4*>(red + (g2 - 1) * dh + 4 * c4);
+      o = make_float4(o.x + x.x, o.y + x.y, o.z + x.z, o.w + x.w);
+    }
     float lt = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) lt += wl_s[w];
     const float inv = 1.f / lt;
     uint32_t* o2 = reinterpret_cast<uint32_t*>(out + 4 * c4);
-    o2[0] = flash::pack_bf16((o.x + x.x) * inv, (o.y + x.y) * inv);
-    o2[1] = flash::pack_bf16((o.z + x.z) * inv, (o.w + x.w) * inv);
+    o2[0] = flash::pack_bf16(o.x * inv, o.y * inv);
+    o2[1] = flash::pack_bf16(o.z * inv, o.w * inv);
   }
   if (tid == 0) a.counter[bh] = 0;   // ready for the next launch
 }
 
-template <int DH>
+// dynamic shared memory of a launch: the ring, or the warps' accumulators
+// where they are larger (pages of under 4 rows)
+inline size_t wide_dynamic_bytes(int bs, int dh, int n_stage) {
+  const size_t ring = (size_t)n_stage * 2 * bs * dh * sizeof(__nv_bfloat16);
+  const size_t accs = (size_t)kWarps * dh * sizeof(float);
+  return ring > accs ? ring : accs;
+}
+
+template <int kVec, int DH>
 int launch_wide(const WideArgs& wa, int B, cudaStream_t s) {
-  const size_t stage = (size_t)2 * wa.a.bs * DH * sizeof(__nv_bfloat16);
   // once per instantiation, on the first (uncaptured) launch
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_wide_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)((size_t)kWideStages * 2 * kWideMaxBs * DH * sizeof(__nv_bfloat16)));
+    cudaError_t e = cudaFuncSetAttribute(paged_decode_wide_kernel<kVec, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kWideRingBytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid(wa.a.h, B, wa.a.n_split);
-  paged_decode_wide_kernel<DH><<<grid, kThreads, wa.n_stage * stage, s>>>(wa);
+  paged_decode_wide_kernel<kVec, DH>
+      <<<grid, kThreads, wide_dynamic_bytes(wa.a.bs, wa.a.dh, wa.n_stage), s>>>(wa);
   return (int)cudaGetLastError();
 }
 
@@ -665,10 +746,10 @@ extern "C" int dl4j_paged_decode_attention(
   return is_bf16 ? launch<__nv_bfloat16>(a, B, s) : launch<float>(a, B, s);
 }
 
-// Any head dim up to 256 (one query row a slot): paged_any_dh.cuh's
-// kernel.  `part` is f32 scratch of B * h * n_split * (dh + 2) values,
-// `counter` B * h int32 zeros (left zero); n_split = ceil(max_blocks * bs
-// / chunk).  Launches on `stream`, allocates nothing, does not
+// Any head dim (one query row a slot): paged_any_dh.cuh's kernel.
+// `part` and `counter` as dl4j_paged_decode_part_floats and
+// dl4j_paged_decode_counters say for build 2 (counters int32 zeros, left
+// zero); n_split = ceil(max_blocks * bs / chunk).  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError() (0 on success).
 extern "C" int dl4j_paged_decode_attention_any(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
@@ -680,10 +761,11 @@ extern "C" int dl4j_paged_decode_attention_any(
                               scale, is_bf16, stream);
 }
 
-// The wide build: bf16 at dh 192 and 256, whole pages by bulk copy.
-// Arguments as dl4j_paged_decode_attention, but `part` holds B * h *
-// n_split * (dh + 4) f32 (acc, then m and l); `chunk` a multiple of bs
-// (split edges on page edges), bs <= 64, q and the pools 16-byte aligned.
+// The wide build: bf16 at dh in (128, 512], a multiple of 8, whole pages
+// by bulk copy.  Arguments as dl4j_paged_decode_attention, but `part`
+// holds B * h * n_split * (dh + 4) f32 (acc, then m and l); `chunk` a
+// multiple of bs (split edges on page edges), a page pair of at most
+// kWideRingBytes (4 bs dh <= 196,608), q and the pools 16-byte aligned.
 // Launches on `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() (0 on success), cudaErrorInvalidValue for a call
 // this build does not take.
@@ -692,8 +774,9 @@ extern "C" int dl4j_paged_decode_attention_wide(
     const void* pos, void* out, void* part, void* counter, int B, int h,
     int bs, int dh, int max_blocks, int chunk, float scale, int is_bf16,
     void* stream) {
-  if (!is_bf16 || (dh != 192 && dh != 256) || B <= 0 || h <= 0 || bs <= 0 ||
-      bs > kWideMaxBs || max_blocks <= 0 || chunk <= 0 || chunk % bs || B > 65535 ||
+  if (!is_bf16 || dh <= kMaxDh || dh > kWideMaxDh || dh % 8 || B <= 0 || h <= 0 ||
+      bs <= 0 || max_blocks <= 0 || chunk <= 0 || chunk % bs || B > 65535 ||
+      wide_stages(bs, dh, chunk) < 1 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
        reinterpret_cast<uintptr_t>(v_pool)) % 16)
     return (int)cudaErrorInvalidValue;
@@ -714,10 +797,18 @@ extern "C" int dl4j_paged_decode_attention_wide(
   a.chunk = chunk;
   a.n_split = (max_blocks * bs + chunk - 1) / chunk;
   a.scale = scale;
-  wa.n_stage = chunk / bs < kWideStages ? chunk / bs : kWideStages;
+  wa.n_stage = wide_stages(bs, dh, chunk);
   if (a.n_split > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dh == 256 ? launch_wide<256>(wa, B, s) : launch_wide<192>(wa, B, s);
+  switch (dh) {   // the multiples of 64 with dh folded, the rest at run time
+    case 192: return launch_wide<1, 192>(wa, B, s);
+    case 256: return launch_wide<1, 256>(wa, B, s);
+    case 320: return launch_wide<2, 320>(wa, B, s);
+    case 384: return launch_wide<2, 384>(wa, B, s);
+    case 448: return launch_wide<2, 448>(wa, B, s);
+    case 512: return launch_wide<2, 512>(wa, B, s);
+    default: return dh <= 256 ? launch_wide<1, 0>(wa, B, s) : launch_wide<2, 0>(wa, B, s);
+  }
 }
 
 // f32 values of split-partial scratch one launch needs, by build (0: the
@@ -730,4 +821,12 @@ extern "C" long long dl4j_paged_decode_part_floats(int build, int B, int W,
                                                   int n_split) {
   if (build == 2) return paged_any_dh::part_floats(B, W, h, dh, n_split);
   return (long long)B * h * n_split * (build == 1 ? wide_part_floats(dh) : dh + 2);
+}
+
+// int32 ticket counters one launch needs, by build as above: one a (slot,
+// head), and on the any-dh kernel one a (row, head, column slab).
+extern "C" long long dl4j_paged_decode_counters(int build, int B, int W, int h,
+                                               int dh) {
+  if (build == 2) return paged_any_dh::counters(B, W, h, dh);
+  return (long long)B * h;
 }

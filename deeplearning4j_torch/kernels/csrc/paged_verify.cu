@@ -49,40 +49,56 @@
 //   split writes its rows directly.
 // Templated on float and bf16; dh <= 128 and a multiple of 8.
 //
-// The wide build (dl4j_paged_verify_attention_wide): bf16 at head dims
-// 192 and 256 (zoo.Gpt(n_heads=4) and Gpt(n_heads=3) at d 768).  Same
-// bound: the slot's context rows read once for all W rows; at these
-// widths the any-dh kernel read them once a row, W times the bytes.
-// What it does about them:
+// The wide build (dl4j_paged_verify_attention_wide): bf16 at every head
+// dim in (128, 512] that is a multiple of 8 (zoo.Gpt(n_heads=4, 3, 2) at
+// d 768 are 192, 256 and 384).  Same bound: the slot's context rows read
+// once for all W rows; at these widths the any-dh kernel read them once a
+// row, W times the bytes.  What it does about them:
 // * v3's grid (h * n_grp, B, S), chunk and last-split merge: each block
 //   takes a group of 16 rows, so every page of the context is read once
 //   per (slot, head, row group);
+// * width classes: the kernel is compiled for DHP = 192, 256, ..., 512,
+//   each twice: with dh == DHP folded (kExact) and with dh in (DHP - 64,
+//   DHP) read at run time.  Tiles and split partials are laid out at DHP
+//   (so each warp owns DHP / 4 output columns, an even number of 8-column
+//   blocks, as P.V's paired ldmatrix needs — dh 160 / 4 / 8 is 5 — and
+//   the last split's merge has compile-time offsets: computed from a
+//   runtime dh they made K2 far slower at 192 and 256 on an H100, and
+//   the rest of a runtime dh some; `scripts/paged_turns.py --runtime-dh`
+//   times what folding dh buys); the copies
+//   move dh columns a row; the pad columns [dh, DHP) of every ring row and
+//   of Q are zeroed once per block before the first copy (the copies
+//   never write them, and a non-finite pad of K would put 0 x NaN into
+//   every score); Q K^T runs ceil(dh / 16) k-steps, P.V skips each warp's
+//   column blocks past dh, and no column past dh is stored;
 // * 64-key tiles of K and V arrive by the copy engine: warp 0 issues one
 //   cp.async.bulk per context row of K and of V (dh * 2 bytes, a row of
-//   its page) into rows of dh + 8 elements, a pitch that ldmatrix and the
-//   fragment loads read without bank conflicts, all completing on the
-//   stage's mbarrier.  The ring holds min(2, tiles a split covers)
-//   stages; rows past the split are never copied (the table is read only
-//   below the group's context);
+//   its page) into rows of DHP + 8 elements, a pitch that ldmatrix and
+//   the fragment loads read without bank conflicts, all completing on the
+//   stage's mbarrier.  The ring holds min(kStages, tiles a split covers)
+//   stages, kStages = 2 where two fit a block's shared memory beside Q
+//   and P (DHP <= 384) and 1 past (WideLayout's static_assert holds each
+//   class to 232,448 bytes); rows past the split are never copied (the
+//   table is read only below the group's context);
 // * both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
 //   accumulate).  Q K^T: each of the 4 warps scores 16 keys of the tile
 //   for the 16 rows, Q's fragments read from shared memory each k-step
 //   (16 x 256 of Q would take 64 registers a thread).  A block-wide row
 //   max over the tile (through shared memory) gives every warp the same
 //   running max, so P is rounded to bf16 once, staged in shared memory,
-//   and P.V splits the OUTPUT columns: warp w owns dh / 4 of them (a
-//   16 x 64 accumulator, 32 registers a thread at dh 256) over all 64
-//   keys.  The 0 x NaN rule of v3 holds: keys the group's first row does
-//   not see (k > pos0 + w0: seen by deeper rows only) and rows past the
-//   context take a scalar P.V that skips each (row, key) pair the mask
-//   hides, then each warp zeroes its columns of those V rows before its
-//   tensor-core product;
+//   and P.V splits the OUTPUT columns: warp w owns DHP / 4 of them (a
+//   16 x 64 accumulator, 32 registers a thread at 256; 64 at 512) over
+//   all 64 keys.  The 0 x NaN rule of v3 holds: keys the group's first
+//   row does not see (k > pos0 + w0: seen by deeper rows only) and rows
+//   past the context take a scalar P.V that skips each (row, key) pair
+//   the mask hides, then each warp zeroes its columns of those V rows
+//   before its tensor-core product;
 // * the four warps share the running max and denominator, so a split's
 //   partial needs no merge across warps: each warp writes its columns.
 //   The last split's merge reads each split's (m, l) once (16 lanes a
 //   row) and keeps four splits' float4 columns in flight a thread.
-// Any other head dim up to 256, and f32 at 192 and 256, take
-// paged_any_dh.cuh's kernel (each query row on its own) through
+// A head dim that is not a multiple of 8, f32 past 128 and bf16 past 512
+// take paged_any_dh.cuh's kernel (each query row on its own) through
 // dl4j_paged_verify_attention_any.
 #include "flash_common.cuh"
 #include "paged_any_dh.cuh"
@@ -94,9 +110,9 @@ namespace {
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 16;      // query rows a block takes: one A fragment
-// a partial row of v3 and of the wide build: acc[dh], then m and l,
-// padded to a whole float4
-__host__ __device__ constexpr int part_row_floats(int dh) { return dh + 4; }
+// a partial row of v3 (width dh) and of the wide build (width DHP):
+// acc[width], then m and l, padded to a whole float4
+__host__ __device__ constexpr int part_row_floats(int width) { return width + 4; }
 constexpr int kTile = 64;       // keys per tile, 16 a warp
 constexpr int kStages = 2;
 constexpr int kMaxDh = 128;
@@ -523,20 +539,30 @@ int launch(const Args& a, int B, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// the wide build: bf16 at head dims 192 and 256, rows by bulk copy
+// the wide build: bf16 at head dims 136 .. 512 (multiples of 8), rows by
+// bulk copy, in padded width classes of 64 columns
 // ---------------------------------------------------------------------------
-constexpr int kWideStages = 2;
+constexpr int kWideMaxStages = 2;
+constexpr int kSmemMax = 232448;   // shared memory a block may have (H100)
+// the kernel's static shared memory: the barriers, the warps' row maxima
+// and sums, the rows' denominators, the last-split flag
+constexpr size_t kWideStatic = kWideMaxStages * sizeof(uint64_t) +
+                               2 * (size_t)kWarps * kGroup * sizeof(float) +
+                               kGroup * sizeof(float) + sizeof(int);
 
 struct WideArgs {
   Args a;
-  int n_stage;   // min(kWideStages, chunk / kTile)
+  int n_stage;   // min(WideLayout<DHP>::kStages, chunk / kTile)
 };
 
-template <int DH>
+// DHP: the padded width class (a multiple of 64, 192 .. 512) of the
+// runtime head dims dh in (DHP - 64, DHP]; tiles are laid out at DHP, the
+// copies move dh columns a row, the pad columns [dh, DHP) are zero
+template <int DHP>
 struct WideLayout {
-  static constexpr int LD = DH + 8;          // K, V and Q row pitch (elements)
+  static constexpr int LD = DHP + 8;         // K, V and Q row pitch (elements)
   static constexpr int PLD = kTile + 8;      // P row pitch
-  static constexpr int kCols = DH / kWarps;  // output columns a warp owns
+  static constexpr int kCols = DHP / kWarps; // output columns a warp owns
   static constexpr int kNj = kCols / 8;      // ... as column blocks of 8
   static constexpr size_t kTileBytes = (size_t)kTile * LD * sizeof(__nv_bfloat16);
   static constexpr size_t kStage = 2 * kTileBytes;   // K tile, then V tile
@@ -544,27 +570,38 @@ struct WideLayout {
   static constexpr size_t kPBytes = (size_t)kGroup * PLD * sizeof(__nv_bfloat16);
   // the ring of n stages, then Q, then P
   static constexpr size_t bytes(int n) { return n * kStage + kQBytes + kPBytes; }
+  // two ring stages where they fit beside the static buffers (up to DHP
+  // 384: 215,552 bytes at 384), else one (448: 133,632; 512: 152,064)
+  static constexpr int kStages =
+      2 * kStage + kQBytes + kPBytes + kWideStatic <= (size_t)kSmemMax ? 2 : 1;
+  static_assert(kStages * kStage + kQBytes + kPBytes + kWideStatic <= (size_t)kSmemMax,
+                "the ring, Q, P and the static buffers fit a block's shared memory");
   static_assert(kNj % 2 == 0, "P.V takes column blocks in pairs");
   static_assert(kStage >= (size_t)kMaxSplit * kGroup * sizeof(float),
                 "the last split's merge weights fit one stage");
 };
 
-template <int DH>
+// kExact: dh == DHP, a compile-time constant (every offset folded, as
+// at 192 and 256 for Gpt(n_heads=4, 3)); else dh is read at run time.
+// Either way a partial row is laid out at DHP (part_row_floats(DHP): the
+// merge's offsets are compile-time; columns [dh, DHP) are never written
+// and their sums never stored)
+template <int DHP, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 paged_verify_wide_kernel(const WideArgs wa) {
   using bf16 = __nv_bfloat16;
-  using L = WideLayout<DH>;
+  using L = WideLayout<DHP>;
   constexpr int LD = L::LD, PLD = L::PLD, kNj = L::kNj;
   const Args& a = wa.a;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[kWideStages];
+  __shared__ __align__(8) uint64_t bars[kWideMaxStages];
   __shared__ float red_m[kWarps][kGroup], red_l[kWarps][kGroup];
   __shared__ float lrow_s[kGroup];
   __shared__ int last_s;
 
   const int grp = blockIdx.x % a.n_grp, head = blockIdx.x / a.n_grp;
   const int b = blockIdx.y, split = blockIdx.z;
-  const int h = a.h, bs = a.bs, n_stage = wa.n_stage;
+  const int h = a.h, bs = a.bs, dh = kExact ? DHP : a.dh, n_stage = wa.n_stage;
   const int w0 = grp * kGroup;
   const int n_rows = min(kGroup, a.W - w0);
   const int p0 = a.pos0[b] + w0;                      // the group's row 0
@@ -586,13 +623,26 @@ paged_verify_wide_kernel(const WideArgs wa) {
   bf16* p_s = q_s + kGroup * LD;
   const uint32_t bar0 = smem_u32(bars);
 
+  // the pad columns [dh, DHP) of every ring row and of Q, zeroed once: the
+  // copies never write them, and Q K^T's last k-step and P.V's last
+  // column blocks read them (a stale non-finite pad of K would put 0 x NaN
+  // into every score)
+  if (!kExact && dh < DHP) {
+    const int n_pad = (DHP - dh) / 8;                  // 16-byte vectors a row
+    const int n_ring = n_stage * 2 * kTile;            // ring rows, then Q's
+    for (int c = tid; c < (n_ring + kGroup) * n_pad; c += kThreads) {
+      const int r = c / n_pad, v = c - r * n_pad;
+      bf16* row = r < n_ring ? ring + r * LD : q_s + (r - n_ring) * LD;
+      *reinterpret_cast<uint4*>(row + dh + 8 * v) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   if (tid == 0) {
     for (int i = 0; i < n_stage; ++i) mbar_init(bar0 + 8 * i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   // tile i into its stage, by warp 0: one bulk copy per live row of K and
-  // of V (rows at or past c1 are never copied)
+  // of V, dh columns (rows at or past c1 are never copied)
   auto issue = [&](int i) {
     const int t0 = c0 + i * kTile;
     const int n = min(kTile, c1 - t0);
@@ -603,37 +653,41 @@ paged_verify_wide_kernel(const WideArgs wa) {
     for (int u = 0; u < kTile / 32; ++u) {
       const int j = t0 + lane + 32 * u;
       off[u] = lane + 32 * u < n
-                   ? (((long long)tbl[j / bs] * h + head) * bs + (j % bs)) * DH
+                   ? (((long long)tbl[j / bs] * h + head) * bs + (j % bs)) * dh
                    : -1;
     }
-    if (lane == 0) mbar_expect(bar, (uint32_t)n * DH * 2 * 2);
+    if (lane == 0) mbar_expect(bar, (uint32_t)n * dh * 2 * 2);
     __syncwarp();
 #pragma unroll
     for (int u = 0; u < kTile / 32; ++u) {
       if (off[u] < 0) continue;
       const int r = lane + 32 * u;
-      bulk_g2s(smem_u32(ks + r * LD), kp + off[u], DH * 2, bar);
-      bulk_g2s(smem_u32(ks + kTile * LD + r * LD), vp + off[u], DH * 2, bar);
+      bulk_g2s(smem_u32(ks + r * LD), kp + off[u], dh * 2, bar);
+      bulk_g2s(smem_u32(ks + kTile * LD + r * LD), vp + off[u], dh * 2, bar);
     }
   };
   if (warp == 0)
     for (int i = 0; i < n_stage && i < n_tiles; ++i) issue(i);
 
   // the group's rows of q (zero for rows >= W), 16-byte vectors
-  for (int c = tid; c < kGroup * (DH / 8); c += kThreads) {
-    const int r = c / (DH / 8), v = c - r * (DH / 8);
+  const int n_vec = dh / 8;
+  for (int c = tid; c < kGroup * n_vec; c += kThreads) {
+    const int r = c / n_vec, v = c - r * n_vec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < n_rows)
       val = *reinterpret_cast<const uint4*>(
-          static_cast<const bf16*>(a.q) + (((long long)b * a.W + w0 + r) * h + head) * DH +
+          static_cast<const bf16*>(a.q) + (((long long)b * a.W + w0 + r) * h + head) * dh +
           8 * v);
     *reinterpret_cast<uint4*>(q_s + r * LD + 8 * v) = val;
   }
   __syncthreads();
 
   // rows g and g + 8: the running max and denominator (the same in every
-  // warp) and this warp's accumulator over its output columns
+  // warp) and this warp's accumulator over its output columns, of which
+  // `cols` lie below dh (none past it are stored)
   const int col0 = warp * L::kCols;
+  const int cols = kExact ? L::kCols : dh - col0;
+  const int n_k16 = (dh + 15) / 16;                 // Q K^T k-steps
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   float acc[kNj][4];
 #pragma unroll
@@ -652,7 +706,7 @@ paged_verify_wide_kernel(const WideArgs wa) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < n_k16; ++kk) {
       uint32_t qf[4];
       load_a<LD>(qf, q_s, 0, 16 * kk, g, qd);
       mma_abt<2, LD>(s, qf, ks, 16 * warp, 16 * kk, g, qd);
@@ -734,6 +788,7 @@ paged_verify_wide_kernel(const WideArgs wa) {
           const bf16* vrow = vs + kk * LD + col0 + 2 * qd;
 #pragma unroll
           for (int jd = 0; jd < kNj; ++jd) {
+            if (!kExact && 8 * jd >= cols) continue;
             const float2 vv = load2(vrow + 8 * jd);
             acc[jd][2 * r2] = fmaf(p, vv.x, acc[jd][2 * r2]);
             acc[jd][2 * r2 + 1] = fmaf(p, vv.y, acc[jd][2 * r2 + 1]);
@@ -748,12 +803,12 @@ paged_verify_wide_kernel(const WideArgs wa) {
       }
       __syncwarp();
     }
-    // acc += P V over this warp's columns, the tile's 64 keys
+    // acc += P V over this warp's columns below dh, the tile's 64 keys
 #pragma unroll
     for (int kc = 0; kc < kTile / 16; ++kc) {
       uint32_t pf[4];
       load_a<PLD>(pf, p_s, 0, 16 * kc, g, qd);
-      mma_ab<kNj, LD>(acc, pf, vs + col0, 16 * kc, lane);
+      mma_ab<kNj, LD>(acc, pf, vs + col0, 16 * kc, lane, cols);
     }
     __syncthreads();   // stage st, P and the row sums are free ...
     if (warp == 0 && i + n_stage < n_tiles) issue(i + n_stage);   // ... refill
@@ -766,16 +821,17 @@ paged_verify_wide_kernel(const WideArgs wa) {
       const int r = g + 8 * r2;
       if (r >= n_rows) continue;
       const float inv = 1.f / l_r[r2];
-      bf16* orow = out + (((long long)b * a.W + w0 + r) * h + head) * DH + col0 + 2 * qd;
+      bf16* orow = out + (((long long)b * a.W + w0 + r) * h + head) * dh + col0 + 2 * qd;
 #pragma unroll
       for (int jd = 0; jd < kNj; ++jd)
-        *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
-            pack_bf16(acc[jd][2 * r2] * inv, acc[jd][2 * r2 + 1] * inv);
+        if (kExact || 8 * jd < cols)
+          *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
+              pack_bf16(acc[jd][2 * r2] * inv, acc[jd][2 * r2 + 1] * inv);
     }
     return;
   }
   // the split's partial: (acc[dh], m, l) a row, each warp its columns
-  constexpr int dp = part_row_floats(DH);
+  constexpr int dp = part_row_floats(DHP);
   float* part = a.part + ((long long)cidx * a.n_split + split) * kGroup * dp;
 #pragma unroll
   for (int r2 = 0; r2 < 2; ++r2) {
@@ -783,11 +839,12 @@ paged_verify_wide_kernel(const WideArgs wa) {
     if (r >= n_rows) continue;
 #pragma unroll
     for (int jd = 0; jd < kNj; ++jd)
-      *reinterpret_cast<float2*>(part + r * dp + col0 + 8 * jd + 2 * qd) =
-          make_float2(acc[jd][2 * r2], acc[jd][2 * r2 + 1]);
+      if (kExact || 8 * jd < cols)
+        *reinterpret_cast<float2*>(part + r * dp + col0 + 8 * jd + 2 * qd) =
+            make_float2(acc[jd][2 * r2], acc[jd][2 * r2 + 1]);
     if (warp == 0 && qd == 0) {
-      part[r * dp + DH] = m_r[r2];
-      part[r * dp + DH + 1] = l_r[r2];
+      part[r * dp + DHP] = m_r[r2];
+      part[r * dp + DHP + 1] = l_r[r2];
     }
   }
   __threadfence();   // the partial is visible device-wide ...
@@ -811,7 +868,7 @@ paged_verify_wide_kernel(const WideArgs wa) {
   const int sub = tid & 15;                     // lane of the row's 16
   for (int r = tid >> 4; r < kGroup; r += kThreads / 16) {
     const bool row = r < n_rows;
-    const float* pr = base + r * dp + DH;
+    const float* pr = base + r * dp + DHP;
     const float2 ml0 = row && sub < n_live
                            ? __ldcg(reinterpret_cast<const float2*>(pr + sub * stride))
                            : make_float2(-INFINITY, 0.f);
@@ -836,8 +893,8 @@ paged_verify_wide_kernel(const WideArgs wa) {
     if (row && sub == 0) lrow_s[r] = l;
   }
   __syncthreads();
-  constexpr int kC4 = DH / 4;                                   // float4 columns a row
-  constexpr int kK = (kGroup * kC4 + kThreads - 1) / kThreads;  // a thread's (8 / 6)
+  constexpr int kC4 = DHP / 4;                                  // float4 columns a row
+  constexpr int kK = (kGroup * kC4 + kThreads - 1) / kThreads;  // a thread's (DHP / 32)
   const int n_c4 = n_rows * kC4;
   float4 o[kK];
 #pragma unroll
@@ -861,28 +918,31 @@ paged_verify_wide_kernel(const WideArgs wa) {
     const int i = tid + kThreads * k;
     if (i >= n_c4) continue;
     const int r = i / kC4, c = 4 * (i - r * kC4);
+    if (!kExact && c >= dh) continue;                          // a pad column
     const float inv = 1.f / lrow_s[r];
-    bf16* orow = out + (((long long)b * a.W + w0 + r) * h + head) * DH + c;
+    bf16* orow = out + (((long long)b * a.W + w0 + r) * h + head) * dh + c;
     *reinterpret_cast<uint32_t*>(orow) = pack_bf16(o[k].x * inv, o[k].y * inv);
     *reinterpret_cast<uint32_t*>(orow + 2) = pack_bf16(o[k].z * inv, o[k].w * inv);
   }
   if (tid == 0) a.counter[cidx] = 0;   // ready for the next launch
 }
 
-template <int DH>
-int launch_wide(const WideArgs& wa, int B, cudaStream_t s) {
-  using L = WideLayout<DH>;
+template <int DHP, bool kExact>
+int launch_wide(WideArgs wa, int B, cudaStream_t s) {
+  using L = WideLayout<DHP>;
   // once per instantiation, on the first (uncaptured) launch
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(paged_verify_wide_kernel<DH>,
+    cudaError_t e = cudaFuncSetAttribute(paged_verify_wide_kernel<DHP, kExact>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::bytes(kWideStages));
+                                         (int)L::bytes(L::kStages));
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
+  const int tiles = wa.a.chunk / kTile;
+  wa.n_stage = tiles < L::kStages ? tiles : L::kStages;
   const dim3 grid(wa.a.h * wa.a.n_grp, B, wa.a.n_split);
-  paged_verify_wide_kernel<DH><<<grid, kThreads, L::bytes(wa.n_stage), s>>>(wa);
+  paged_verify_wide_kernel<DHP, kExact><<<grid, kThreads, L::bytes(wa.n_stage), s>>>(wa);
   return (int)cudaGetLastError();
 }
 
@@ -926,10 +986,10 @@ extern "C" int dl4j_paged_verify_attention(
   return is_bf16 ? launch<__nv_bfloat16>(a, B, s) : launch<float>(a, B, s);
 }
 
-// Any head dim up to 256: paged_any_dh.cuh's kernel, each of the W query
-// rows of a slot on its own.  `part` is f32 scratch of B * W * h *
-// n_split * (dh + 2) values, `counter` B * W * h int32 zeros (left zero);
-// n_split = ceil(max_blocks * bs / chunk).  Launches on `stream`,
+// Any head dim: paged_any_dh.cuh's kernel, each of the W query rows of a
+// slot on its own.  `part` and `counter` as dl4j_paged_verify_part_floats
+// and dl4j_paged_verify_counters say for build 2 (counters int32 zeros,
+// left zero); n_split = ceil(max_blocks * bs / chunk).  Launches on `stream`,
 // allocates nothing, does not synchronise; returns cudaGetLastError() (0
 // on success).
 extern "C" int dl4j_paged_verify_attention_any(
@@ -942,19 +1002,20 @@ extern "C" int dl4j_paged_verify_attention_any(
                               scale, is_bf16, stream);
 }
 
-// The wide build: bf16 at dh 192 and 256, context rows by bulk copy.
-// Arguments, scratch and counters as dl4j_paged_verify_attention (`chunk`
-// a multiple of 64, at most 512 splits); q and the pools 16-byte
-// aligned.  Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a call this build does not take.
+// The wide build: bf16 at dh in (128, 512], a multiple of 8, context rows
+// by bulk copy, in the width class DHP = dh rounded up to 64.  Arguments,
+// scratch and counters as dl4j_paged_verify_attention (`chunk` a multiple
+// of 64, at most 512 splits); q and the pools 16-byte aligned.  Launches
+// on `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() (0 on success), cudaErrorInvalidValue for a call
+// this build does not take.
 extern "C" int dl4j_paged_verify_attention_wide(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* pos0, void* out, void* part, void* counter, int B, int W, int h,
     int bs, int dh, int max_blocks, int chunk, float scale, int is_bf16,
     void* stream) {
-  if (!is_bf16 || (dh != 192 && dh != 256) || B <= 0 || W <= 0 || h <= 0 || bs <= 0 ||
-      max_blocks <= 0 || chunk <= 0 || chunk % kTile || B > 65535 ||
+  if (!is_bf16 || dh <= kMaxDh || dh > 512 || dh % 8 || B <= 0 || W <= 0 || h <= 0 ||
+      bs <= 0 || max_blocks <= 0 || chunk <= 0 || chunk % kTile || B > 65535 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
        reinterpret_cast<uintptr_t>(v_pool)) % 16)
     return (int)cudaErrorInvalidValue;
@@ -977,23 +1038,41 @@ extern "C" int dl4j_paged_verify_attention_wide(
   a.n_split = (max_blocks * bs + chunk - 1) / chunk;
   a.n_grp = (W + kGroup - 1) / kGroup;
   a.scale = scale;
-  wa.n_stage = chunk / kTile < kWideStages ? chunk / kTile : kWideStages;
   if (a.n_split > kMaxSplit || (long long)h * a.n_grp > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dh == 256 ? launch_wide<256>(wa, B, s) : launch_wide<192>(wa, B, s);
+  const bool exact = dh % 64 == 0;
+  switch ((dh + 63) / 64) {
+    case 3: return exact ? launch_wide<192, true>(wa, B, s) : launch_wide<192, false>(wa, B, s);
+    case 4: return exact ? launch_wide<256, true>(wa, B, s) : launch_wide<256, false>(wa, B, s);
+    case 5: return exact ? launch_wide<320, true>(wa, B, s) : launch_wide<320, false>(wa, B, s);
+    case 6: return exact ? launch_wide<384, true>(wa, B, s) : launch_wide<384, false>(wa, B, s);
+    case 7: return exact ? launch_wide<448, true>(wa, B, s) : launch_wide<448, false>(wa, B, s);
+    default: return exact ? launch_wide<512, true>(wa, B, s) : launch_wide<512, false>(wa, B, s);
+  }
 }
 
 // f32 values of split-partial scratch one launch needs, by build (0: the
-// v3 entry and 1: the wide build, a partial of 16 rows of (acc[dh], m, l,
-// pad) per (slot, head, row group, split); 2: the any-dh kernel, each of
-// the W rows on its own), for B slots of W query rows, h heads, head dim
-// dh and n_split splits.  The wrapper sizes its scratch from this, so
-// each layout is known here alone.
+// v3 entry, a partial of 16 rows of (acc[dh], m, l, pad) per (slot, head,
+// row group, split); 1: the wide build, the same rows laid out at the
+// width class DHP, dh rounded up to 64; 2: the any-dh kernel, each of the
+// W rows on its own), for B slots of W query rows, h heads, head dim dh
+// and n_split splits.  The wrapper sizes its scratch from this, so each
+// layout is known here alone.
 extern "C" long long dl4j_paged_verify_part_floats(int build, int B, int W,
                                                   int h, int dh,
                                                   int n_split) {
   if (build == 2) return paged_any_dh::part_floats(B, W, h, dh, n_split);
   const long long n_grp = (W + kGroup - 1) / kGroup;
-  return (long long)B * h * n_grp * n_split * kGroup * part_row_floats(dh);
+  const int width = build == 1 ? (dh + 63) / 64 * 64 : dh;
+  return (long long)B * h * n_grp * n_split * kGroup * part_row_floats(width);
+}
+
+// int32 ticket counters one launch needs, by build as above: one a (slot,
+// head, row group), and on the any-dh kernel one a (row, head, column
+// slab).
+extern "C" long long dl4j_paged_verify_counters(int build, int B, int W, int h,
+                                               int dh) {
+  if (build == 2) return paged_any_dh::counters(B, W, h, dh);
+  return (long long)B * h * ((W + kGroup - 1) / kGroup);
 }

@@ -24,14 +24,17 @@ Two implementations behind each of two wrappers.  The decode read,
   of the slot's table entries, the last split of a (slot, head) merging
   the partials — with no gathered copy and no host read of ``pos``.
   :func:`decode_split_rows` picks the chunk from the table's capacity.
-  bf16 at head dims 192 and 256 takes the wide build of the same file
-  (``dl4j_paged_decode_attention_wide``): whole pages by bulk copy into
-  a shared-memory ring, where the split edges fall on page edges
-  (:func:`wide_decode_takes`).  Every other head dim above 128 or not a
-  multiple of 8 (up to 256), and the block sizes the wide build does not
-  take, take ``csrc/paged_any_dh.cuh``'s kernel instead: rows read
-  element by element, q and the accumulator in a register width padded
-  to 128 or 256, zero past dh.
+  The wide build of the same file
+  (``dl4j_paged_decode_attention_wide``) takes bf16 at every head dim
+  in (128, 512] that is a multiple of 8: whole pages by bulk copy into a
+  shared-memory ring sized by bytes, where the split edges fall on page
+  edges and a page pair fits the ring (:func:`wide_decode_takes`).
+  ``csrc/paged_any_dh.cuh``'s kernel takes every other call — a head dim
+  that is not a multiple of 8, f32 past 128, bf16 past 512, and the
+  block sizes the wide build does not take: rows read element by
+  element, q and the accumulator in a register width padded to 128, 256,
+  512 or 1024, zero past dh, and past 1024 in column slabs of 1024, one
+  a block.  No head dim is refused.
 
 The speculative verification read, ``paged_verify_attention`` (W query
 rows per slot, row j at position ``pos0 + j``):
@@ -46,11 +49,12 @@ rows per slot, row j at position ``pos0 + j``):
   tensor-core fragment over its chunk of the table, the last split of a
   (slot, head, group) merging the partials in the same launch.  Any W:
   rows go in groups of 16 (:func:`verify_split_rows` picks the chunk).
-  bf16 at head dims 192 and 256 takes its wide build
-  (``dl4j_paged_verify_attention_wide``): context rows by bulk copy,
-  read once per group of rows, both products on tensor cores with the
-  output columns split across the warps.  The other head dims up to 256
-  (and f32 at 192 and 256) take ``paged_any_dh.cuh``'s kernel, each
+  bf16 at every head dim in (128, 512] that is a multiple of 8 takes its
+  wide build (``dl4j_paged_verify_attention_wide``, compiled for width
+  classes 192, 256, ..., 512 with the pad columns zeroed): context rows
+  by bulk copy, read once per group of rows, both products on tensor
+  cores with the output columns split across the warps.  Every other
+  head dim and f32 past 128 take ``paged_any_dh.cuh``'s kernel, each
   query row on its own.
 
 Each wrapper routes by the tensors' device: CPU tensors take the plain
@@ -58,8 +62,9 @@ version, CUDA tensors launch the kernel their shapes name
 (:func:`call_route`) or raise — there is no fallback: a build's C entry
 refuses a call it does not take (the wide builds, q or pools off 16-byte
 alignment) and the wrapper raises.  Each source also says how much
-split-partial scratch a launch of each of its builds needs
-(``dl4j_<lib>_part_floats``), so the partials' layouts live there.
+split-partial scratch and how many ticket counters a launch of each of
+its builds needs (``dl4j_<lib>_part_floats``, ``dl4j_<lib>_counters``),
+so the partials' layouts live there.
 ``paged_route_total{path="kernel"|"reference"}`` counts the routes of
 both, ``<wrapper>.launches`` counts each wrapper's kernel launches
 (chip runs read them to prove the serving path went through the
@@ -83,10 +88,11 @@ _ROUTE_TOTAL = telemetry.counter(
 _ROUTE_KERNEL = _ROUTE_TOTAL.labels(path="kernel")
 _ROUTE_REFERENCE = _ROUTE_TOTAL.labels(path="reference")
 
-_MAX_DH = 256        # head dims the kernels take
 _FAST_DH = 128       # the fast kernels: dh <= this and a multiple of 8
-_WIDE_DH = (192, 256)   # the wide builds' head dims (bf16)
-_WIDE_MAX_BS = 64    # rows of the largest page a wide decode stage holds
+_WIDE_MAX_DH = 512   # the wide builds (bf16): 128 < dh <= this, dh % 8 == 0
+# the wide decode build's ring (paged_decode.cu kWideRingBytes): a page
+# pair of K and V, 2 * bs * dh bf16 values, must fit it
+_WIDE_RING_BYTES = 3 * 2 * 64 * 256 * 2
 _VERIFY_GROUP = 16   # verify query rows a kernel block takes (one fragment)
 _VERIFY_TILE = 64    # the verify kernel's key tile; its chunk is a multiple
 _VERIFY_MAX_SPLIT = 512   # splits the verify kernel's merge takes
@@ -179,47 +185,45 @@ def _kernel_fn(lib: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def _check_dh(what: str, dh: int):
-    if dh > _MAX_DH:
-        raise ValueError(f"{what}: dh={dh}; the kernels take head dims up "
-                         f"to {_MAX_DH}")
-
-
 def _fast_dh(dh: int) -> bool:
     """Whether the fast kernels take ``dh`` (rows as whole 16-byte
-    vectors); every other head dim up to 256 takes the any-dh kernel."""
+    vectors); every other head dim takes the wide builds or the any-dh
+    kernel."""
     return dh <= _FAST_DH and dh % 8 == 0
 
 
 def _wide_dh(dh: int, dtype) -> bool:
     """Whether the wide builds take head dim ``dh`` in ``dtype`` (bf16 at
-    192 and 256: rows of 24 or 32 16-byte vectors, one a lane)."""
-    return dh in _WIDE_DH and dtype == torch.bfloat16
+    every multiple of 8 in (128, 512]: rows of 17 to 64 16-byte vectors,
+    one or two a lane)."""
+    return (dtype == torch.bfloat16 and dh % 8 == 0
+            and _FAST_DH < dh <= _WIDE_MAX_DH)
 
 
 def kernel_route(dh: int, dtype, bs: int, chunk: int,
                  verify: bool = False) -> str:
     """The build a CUDA call of these shapes takes: ``"fast"`` (v4 / v3:
-    dh <= 128 and a multiple of 8), ``"wide"`` (bf16 at dh 192 and 256 —
-    the verify build copies rows and takes any block size, the decode
-    build copies pages and needs :func:`wide_decode_takes`) or
-    ``"any_dh"``.  ``chunk``: the call's context rows per split.  A
-    function of the shapes alone: a build's C entry refuses what it does
-    not take (operands off 16-byte alignment included) and the wrapper
-    raises."""
+    dh <= 128 and a multiple of 8), ``"wide"`` (bf16 at a multiple of 8
+    in (128, 512] — the verify build copies rows and takes any block
+    size, the decode build copies pages and needs
+    :func:`wide_decode_takes`) or ``"any_dh"`` (every other call, at any
+    head dim).  ``chunk``: the call's context rows per split.  A function
+    of the shapes alone: a build's C entry refuses what it does not take
+    (operands off 16-byte alignment included) and the wrapper raises."""
     if _fast_dh(dh):
         return "fast"
-    if _wide_dh(dh, dtype) and (verify or wide_decode_takes(bs, chunk)):
+    if _wide_dh(dh, dtype) and (verify or wide_decode_takes(bs, chunk, dh)):
         return "wide"
     return "any_dh"
 
 
-def wide_decode_takes(bs: int, chunk: int) -> bool:
-    """Whether the wide decode build takes pages of ``bs`` rows at context
-    chunk ``chunk``: the split edges fall on page edges (bs divides the
-    chunk) and a page fits a ring stage (bs <= 64).  A function of the
-    shapes alone."""
-    return chunk % bs == 0 and bs <= _WIDE_MAX_BS
+def wide_decode_takes(bs: int, chunk: int, dh: int) -> bool:
+    """Whether the wide decode build takes pages of ``bs`` rows of head dim
+    ``dh`` at context chunk ``chunk``: the split edges fall on page edges
+    (bs divides the chunk) and a page pair of K and V fills at least one
+    stage of its ring (2 bs dh bf16 values in 196,608 bytes: bs <= 96 at
+    dh 512, 192 at 256).  A function of the shapes alone."""
+    return chunk % bs == 0 and 2 * bs * dh * 2 <= _WIDE_RING_BYTES
 
 
 _SPLIT_QUANTUM = 32     # the decode kernel's chunk is a multiple of this
@@ -306,20 +310,21 @@ def call_route(q, k_pool, block_table, verify: bool = False,
 _BUILDS = {"fast": (0, ""), "wide": (1, "_wide"), "any_dh": (2, "_any")}
 
 
-def _part_floats(lib: str, build: str, B: int, W: int, h: int, dh: int,
-                 n_split: int) -> int:
-    """f32 values of split partials a launch of ``build`` from ``lib``
-    needs, from the library's own ``dl4j_<lib>_part_floats`` (each build's
-    partial layout lives in its source alone)."""
-    symbol = f"dl4j_{lib}_part_floats"
+def _scratch(lib: str, what: str, build: str, *ints) -> int:
+    """What a launch of ``build`` from ``lib`` needs, from the library's
+    own ``dl4j_<lib>_<what>``: ``part_floats`` (f32 values of split
+    partials; ints B, W, h, dh, n_split) or ``counters`` (int32 ticket
+    counters; ints B, W, h, dh) — each build's layouts live in its source
+    alone."""
+    symbol = f"dl4j_{lib}_{what}"
     fn = _KERNEL_FNS.get(symbol)
     if fn is None:
         from deeplearning4j_torch.kernels import _build
         fn = getattr(_build.load(lib), symbol)
         fn.restype = ctypes.c_longlong
-        fn.argtypes = [ctypes.c_int] * 6
+        fn.argtypes = [ctypes.c_int] * (1 + len(ints))
         _KERNEL_FNS[symbol] = fn
-    return int(fn(_BUILDS[build][0], B, W, h, dh, n_split))
+    return int(fn(_BUILDS[build][0], *ints))
 
 
 def _launch(lib: str, q, k_pool, v_pool, block_table, pos, scale: float,
@@ -333,26 +338,24 @@ def _launch(lib: str, q, k_pool, v_pool, block_table, pos, scale: float,
     verify = lib == "paged_verify"
     B, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
     W = q.shape[1] if verify else 1
-    _check_dh(f"{lib.replace('_', ' ')} kernel", dh)
     bs, mb = k_pool.shape[2], block_table.shape[1]
     n_sm = _sm_count(q.device)
     route, chunk = call_route(q, k_pool, block_table, verify, split_rows,
                               n_sm)
     if route == "any_dh":         # each query row on its own
         chunk = decode_chunk(q, k_pool, block_table, split_rows, n_sm, W)
-        n_counter = B * W * h
-    else:                         # v3 and the wide verify: rows in groups
-        n_counter = B * h * -(-W // _VERIFY_GROUP)
     n_split = -(-(mb * bs) // chunk)
     ints = (B, W, h, bs, dh, mb, chunk) if verify else (B, h, bs, dh, mb,
                                                         chunk)
     symbol = f"dl4j_{lib}_attention{_BUILDS[route][1]}"
     fn = _kernel_fn(lib, symbol, 8, len(ints))
     out = torch.empty_like(q)
-    part = torch.empty(_part_floats(lib, route, B, W, h, dh, n_split),
+    part = torch.empty(_scratch(lib, "part_floats", route, B, W, h, dh,
+                                n_split),
                        dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _split_counters(q.device, stream, n_counter)
+    counters = _split_counters(q.device, stream,
+                               _scratch(lib, "counters", route, B, W, h, dh))
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), counters.data_ptr(), *ints, float(scale),
@@ -380,10 +383,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos,
     scratch sink); ``block_table`` [B, max_blocks] int32; ``pos`` [B]
     int32 — attend over positions <= pos (the row written this tick
     included).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (float32 or bfloat16, any dh up to 256; bf16 at 192 and 256
-    on the wide build).  ``split_rows`` (slots, heads): this call is one
-    shard of a sharded tick, and the split-K chunk follows that unsharded
-    shape (:func:`decode_chunk`)."""
+    the kernel (float32 or bfloat16, any dh: bf16 at multiples of 8 in
+    (128, 512] on the wide build where :func:`wide_decode_takes`, every
+    other call past 128 or off a multiple of 8 on the any-dh kernel).
+    ``split_rows`` (slots, heads): this call is one shard of a sharded
+    tick, and the split-K chunk follows that unsharded shape
+    (:func:`decode_chunk`)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     _check("paged_decode_attention", "[B, h, dh]", q, k_pool, v_pool,
@@ -459,7 +464,9 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, pos0,
     ``q`` [B, W, h, dh]; pools / table as :func:`paged_decode_attention`;
     ``pos0`` [B] int32.  Returns [B, W, h, dh].  CPU tensors take the
     plain version; CUDA tensors launch the kernel (float32 or bfloat16,
-    any dh up to 256, any W).  ``split_rows`` as in
+    any dh, any W: bf16 at multiples of 8 in (128, 512] on the wide
+    build, every other call past 128 or off a multiple of 8 on the any-dh
+    kernel).  ``split_rows`` as in
     :func:`paged_decode_attention`."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's paged attention kernels at head dims 256 and 192 of
-two checkouts in turns on one CUDA card.
+"""Time the port's paged attention kernels at head dims 256, 192 and 160
+of two checkouts in turns on one CUDA card.
 
     python3 scripts/paged_turns.py BEFORE_DIR AFTER_DIR
 
@@ -12,13 +12,22 @@ checkout's ``deeplearning4j_torch`` (its kernels built in its own
 ``paged_verify_attention`` (K2, W 5) in bf16 at ``chip_smoke.py``
 phase ``timings``' shapes — 8 slots at ``path_mid``'s contexts, block
 16, 64-entry tables, 12 layers' pools in rotation so the 50 MB L2
-cannot hold them — at 3 heads of 256 and 4 heads of 192, by CUDA-graph
+cannot hold them — at 3 heads of 256, 4 of 192 and 3 of 160, by CUDA-graph
 replay (``chip_smoke.time_ms``, from this script's checkout), beside
 one SDPA call over the same K/V gathered beforehand and the bound
 (``chip_smoke.paged_bound``).  Each turn holds its kernels to their
 plain versions (``chip_smoke.flash_err``, ``PAGED_TOL``).  Prints one
 JSON line per turn, then a summary with the card's name and power
 limit; exits nonzero without a card or when a kernel disagrees.
+
+    python3 scripts/paged_turns.py --runtime-dh
+
+runs the same turns with this checkout as BEFORE and, as AFTER, a copy
+of its package (under ``archive_check/runtime_dh``, which git ignores)
+whose wide builds read every head dim at run time: the builds with the
+head dim folded in (K1 at the multiples of 64, K2 where dh is its width
+class) switched off by a source edit — what folding them buys at 256
+and 192 (at 160 both trees run the same runtime builds).
 
     python3 scripts/paged_turns.py --stages
 
@@ -34,11 +43,12 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = ((256, 3), (192, 4))    # (head dim, heads) at d 768
+SHAPES = ((256, 3), (192, 4), (160, 3))   # (head dim, heads)
 B, BS, MB, NL, W = 8, 16, 64, 12, 5
 
 
@@ -61,7 +71,7 @@ def turn(tree: str) -> dict:
     cs = _chip_smoke()
     positions = cs.path_mid(np)
     dev, dtype, L = "cuda", torch.bfloat16, MB * BS
-    out = {"tree": tree, "ms": {}, "err": {}, "bound_ms": {}}
+    out = {"tree": tree, "ms": {}, "err": {}, "bound_ms": {}, "build": {}}
     for dh, h in SHAPES:
         g = torch.Generator(device=dev).manual_seed(dh)
         nb = 1 + B * MB
@@ -100,6 +110,9 @@ def turn(tree: str) -> dict:
             if not err <= cs.PAGED_TOL[kern]["bfloat16"]:
                 raise AssertionError(f"{tree}: {key} kernel vs plain {err}")
             out["err"][key] = err
+            wrapper.builds = {}
+            wrapper(q, kp[0], vp[0], table, pos, scale)
+            out["build"][key] = sorted(getattr(wrapper, "builds", {}))
             out["ms"][key] = cs.time_ms(
                 torch, lambda i: wrapper(q, kp[i % NL], vp[i % NL], table,
                                          pos, scale))
@@ -173,6 +186,34 @@ def stages() -> dict:
     return {"stages": rows, "card": cs.card_line()}
 
 
+# the source edits that switch the folded wide builds off (--runtime-dh)
+CSRC = "deeplearning4j_torch/kernels/csrc"
+RUNTIME_DH_EDITS = (
+    (f"{CSRC}/paged_decode.cu", "  switch (dh) {   // the multiples",
+     "  switch (-1) {   // the multiples"),
+    (f"{CSRC}/paged_verify.cu", "  const bool exact = dh % 64 == 0;",
+     "  const bool exact = false;"))
+
+
+def runtime_dh_tree() -> str:
+    """A copy of this checkout's package (what a turn imports) with
+    ``RUNTIME_DH_EDITS`` applied."""
+    dst = os.path.join(ROOT, "archive_check", "runtime_dh")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "deeplearning4j_torch"),
+                    os.path.join(dst, "deeplearning4j_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for path, old, new in RUNTIME_DH_EDITS:
+        with open(os.path.join(dst, path)) as f:
+            src = f.read()
+        if src.count(old) != 1:
+            raise RuntimeError(f"{path}: the edit's anchor {old!r} is not "
+                               "there once")
+        with open(os.path.join(dst, path), "w") as f:
+            f.write(src.replace(old, new))
+    return dst
+
+
 def main(argv) -> int:
     if argv[:1] == ["--stages"]:
         import torch
@@ -184,6 +225,8 @@ def main(argv) -> int:
     if argv[:1] == ["--turn"]:
         print(json.dumps(turn(argv[1])), flush=True)
         return 0
+    if argv[:1] == ["--runtime-dh"]:
+        argv = [ROOT, runtime_dh_tree()]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2

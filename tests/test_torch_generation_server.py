@@ -477,27 +477,30 @@ def test_slice_matches_jax_server():
         np.testing.assert_array_equal(b, a)
 
 
-# a tiny Gpt at the head width of zoo.Gpt(n_heads=3): 2 heads of 256
+# tiny Gpts at the head widths of zoo.Gpt(n_heads=3) and Gpt(n_heads=2):
+# 2 heads of 256 (d 512) and 2 of 384 (d 768)
 WIDE_HEADS = dict(vocab_size=50, max_len=64, d_model=512, n_layers=2,
                   n_heads=2, d_ff=256, seq_len=16, compute_dtype=None,
                   seed=5)
 
 
-def test_wide_heads_server_matches_jax_server():
+@pytest.mark.parametrize("d_model", [512, 768])
+def test_wide_heads_server_matches_jax_server(d_model):
     """Greedy streams of the JAX package's GenerationServer and the
-    port's on one tiny Gpt with 2 heads of 256 (vocab 50, d 512, 2
-    layers, ff 256; the width whose bf16 paged reads run the wide builds
-    of K1 and K2 on the card), the JAX parameters carried into the port
-    with ``load_numpy_params``, are equal (a shared prefix, so the second
-    request takes the prefix-cache path)."""
+    port's on one tiny Gpt with 2 heads of 256 or 384 (vocab 50, d 512 or
+    768, 2 layers, ff 256; the widths whose bf16 paged reads run the wide
+    builds of K1 and K2 on the card), the JAX parameters carried into the
+    port with ``load_numpy_params``, are equal (a shared prefix, so the
+    second request takes the prefix-cache path)."""
     jax = pytest.importorskip("jax")
     from deeplearning4j_tpu.parallel import (
         GenerationServer as JaxGenerationServer)
     from deeplearning4j_tpu.zoo.gpt import Gpt as JaxGpt
 
-    jnet = JaxGpt(**WIDE_HEADS).init_graph()
+    cfg = {**WIDE_HEADS, "d_model": d_model}
+    jnet = JaxGpt(**cfg).init_graph()
     params = jax.tree_util.tree_map(np.asarray, jnet.params_tree)
-    pnet = load_numpy_params(Gpt(**WIDE_HEADS).init_graph(device="cpu"),
+    pnet = load_numpy_params(Gpt(**cfg).init_graph(device="cpu"),
                              params, device="cpu")
     rng = np.random.default_rng(17)
     shared = rng.integers(0, 50, 9).astype(np.int32)

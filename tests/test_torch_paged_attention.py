@@ -430,9 +430,9 @@ def test_cuda_verify_kernel_split_edges(W, dtype, tol):
 
 
 # -- head dims past the fast kernels: dh 12 (rows not 16-byte aligned in
-# bf16), 160 and 256 (a 256-wide register row in the any-dh kernel; bf16
-# at 256 takes the wide build, below)
-ANY_DH = [12, 160, 256]
+# bf16), 160, 256 and 384 (zoo.Gpt(n_heads=2); bf16 past 128 takes the
+# wide builds, below, f32 the any-dh kernel's register widths)
+ANY_DH = [12, 160, 256, 384]
 
 
 @pytest.mark.parametrize("dh", ANY_DH)
@@ -472,38 +472,57 @@ def test_any_head_dim_verify_plain_matches_jax_reference(dh, W):
 
 
 def test_head_dim_routes_and_limit():
-    """Which kernel a head dim takes on the card (the fast one only at
-    multiples of 8 up to 128; the wide builds at 192 and 256 in bf16; the
-    any-dh kernel at 12, 136 and 160, and in f32 at 192 and 256), and the
-    one limit left: above 256."""
+    """Which kernel a head dim takes on the card: the fast one only at
+    multiples of 8 up to 128; the wide builds in bf16 at every multiple
+    of 8 in (128, 512]; the any-dh kernel at 12 and 100, in f32 past 128,
+    in bf16 at 520 and at a block size the wide decode build refuses.
+    No head dim is refused: 264, 640 and 1032 route with no error."""
     assert [pa._fast_dh(d) for d in (8, 64, 128, 12, 136, 160, 256)] == \
         [True, True, True, False, False, False, False]
-    dims = (8, 64, 128, 12, 136, 160, 192, 256)
+    wide = (136, 160, 192, 200, 256, 384, 512)
+    dims = (8, 64, 128, 12, 100) + wide + (520,)
     for verify in (False, True):
         assert [pa.kernel_route(d, torch.bfloat16, 16, 64, verify)
-                for d in dims] == ["fast"] * 3 + ["any_dh"] * 3 + \
-            ["wide"] * 2
+                for d in dims] == ["fast"] * 3 + ["any_dh"] * 2 + \
+            ["wide"] * len(wide) + ["any_dh"]
         assert [pa.kernel_route(d, torch.float32, 16, 64, verify)
-                for d in dims] == ["fast"] * 3 + ["any_dh"] * 5
-    with pytest.raises(ValueError, match="up to 256"):
-        pa._check_dh("paged decode kernel", 264)
-    pa._check_dh("paged decode kernel", 256)
+                for d in dims] == ["fast"] * 3 + ["any_dh"] * (len(dims) - 3)
+    for d in wide:      # a block of 12 rows does not divide the chunk
+        assert pa.kernel_route(d, torch.bfloat16, 12, 64) == "any_dh"
+        assert pa.kernel_route(d, torch.bfloat16, 12, 64, True) == "wide"
+    B, W, h, bs, mb = 2, 5, 2, 16, 4
+    for d, want in ((264, "wide"), (640, "any_dh"), (1032, "any_dh")):
+        for dt in (torch.bfloat16, torch.float32):
+            pool = torch.empty((1 + B * mb, h, bs, d), dtype=dt)
+            tbl = torch.ones((B, mb), dtype=torch.int32)
+            for q, verify in ((torch.empty((B, h, d), dtype=dt), False),
+                              (torch.empty((B, W, h, d), dtype=dt), True)):
+                route, chunk = pa.call_route(q, pool, tbl, verify)
+                assert route == (want if dt == torch.bfloat16
+                                 else "any_dh"), (d, dt, verify)
+                assert chunk > 0
 
 
-@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("dh", [192, 256, 512])
 def test_wide_decode_refuses_pages_off_the_split_edges(dh):
     """The wide decode build copies whole pages, so it takes a block size
     only where the split edges fall on page edges (bs divides the chunk)
-    and a page fits a ring stage (bs <= 64); every other block size takes
-    the any-dh kernel.  The verify build copies rows: any block size."""
-    takes = [(bs, C) for bs in (8, 12, 16, 24, 32, 48, 64, 128)
-             for C in (32, 64, 96) if pa.wide_decode_takes(bs, C)]
-    assert takes == [(8, 32), (8, 64), (8, 96), (12, 96), (16, 32),
-                     (16, 64), (16, 96), (24, 96), (32, 32), (32, 64),
-                     (32, 96), (48, 96), (64, 64)]
-    for bs, C in ((12, 32), (24, 64), (128, 128), (48, 64)):
+    and a page pair of K and V fits its ring (2 bs dh bf16 values in
+    196,608 bytes); every other block size takes the any-dh kernel.  The
+    verify build copies rows: any block size."""
+    takes = [(bs, C) for bs in (8, 12, 16, 24, 32, 48, 64, 96, 128)
+             for C in (32, 64, 96, 128) if pa.wide_decode_takes(bs, C, dh)]
+    fits = [(8, 32), (8, 64), (8, 96), (8, 128), (12, 96), (16, 32),
+            (16, 64), (16, 96), (16, 128), (24, 96), (32, 32), (32, 64),
+            (32, 96), (32, 128), (48, 96), (64, 64), (64, 128), (96, 96)]
+    # past 96 rows a page pair at dh 512 (4 x 128 x 512 bytes) outgrows
+    # the ring; at 192 and 256 a 128-row page still fits
+    assert takes == fits + ([(128, 128)] if dh < 512 else [])
+    for bs, C in ((12, 32), (24, 64), (48, 64), (96, 128)):
         assert pa.kernel_route(dh, torch.bfloat16, bs, C) == "any_dh"
         assert pa.kernel_route(dh, torch.bfloat16, bs, C, True) == "wide"
+    assert (pa.kernel_route(dh, torch.bfloat16, 128, 128)
+            == ("any_dh" if dh == 512 else "wide"))
 
 
 @pytest.mark.parametrize("dh,h", [(256, 3), (192, 4)])
@@ -529,59 +548,58 @@ def test_wide_decode_chunk_is_page_aligned_and_fills_the_card(dh, h, bs):
     assert h * sum(-(-(n + 4) // Cv) for n in ctx) >= sms
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 3e-2)])
-@pytest.mark.parametrize("dh", ANY_DH)
-def test_cuda_any_head_dim_decode_matches_plain(dh, dtype, tol):
-    """On the card: the decode wrapper at dh 12, 160 and 256 (the any-dh
-    kernel; the wide build in bf16 at 256) against the plain version at
-    the serving path's slots and positions, each element held to its own
-    size."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
-                    "tests/test_torch_*.py on the card)")
-    g = torch.Generator(device="cuda").manual_seed(dh)
-    dt = getattr(torch, dtype)
-    B, h, bs, mb = 8, 3, 16, 64
-    nb = 1 + B * mb
-    kp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
-    vp = torch.randn((nb, h, bs, dh), generator=g, device="cuda").to(dt)
-    q = torch.randn((B, h, dh), generator=g, device="cuda").to(dt)
-    tbl = (torch.randperm(nb - 1, generator=g, device="cuda").reshape(
-        B, mb) + 1).to(torch.int32)
-    pos = torch.tensor([0, 15, 16, 17, 511, 1023, 700, 250],
-                       dtype=torch.int32, device="cuda")
-    l0 = pa.paged_decode_attention.launches
-    out = pa.paged_decode_attention(q, kp, vp, tbl, pos)
-    ref = pa.paged_decode_attention_reference(q, kp, vp, tbl, pos,
-                                              1.0 / dh ** 0.5)
-    torch.cuda.synchronize()
-    assert pa.paged_decode_attention.launches == l0 + 1
-    assert _scaled_err(out, ref) <= tol
+# (dtype, head dim) of the card's any-head-dim cases: bf16 at 12 (rows
+# not 16-byte aligned), through the wide builds' range (136 .. 512, the
+# width classes' edges and middles) and past it (520, the any-dh
+# kernel); f32 at 12, 160 and 384 (the any-dh kernel's register widths)
+# and 1032 (past 1024: two column slabs)
+CARD_DH = [("bfloat16", d) for d in (12, 136, 160, 200, 256, 384, 512,
+                                     520)] + \
+    [("float32", d) for d in (12, 160, 384, 1032)]
+CARD_TOL = {"decode": {"float32": 1e-5, "bfloat16": 3e-2},
+            "verify": {"float32": 1e-5, "bfloat16": 5e-2}}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 5e-2)])
-@pytest.mark.parametrize("dh", ANY_DH)
-def test_cuda_any_head_dim_verify_matches_plain(dh, dtype, tol):
-    """On the card: the verify wrapper at dh 12, 160 and 256 (the wide
-    build in bf16 at 256) with W = 5, NaN in block 0 and past every
-    slot's written rows, valid rows held to the plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run: python -m pytest -m gpu "
-                    "tests/test_torch_*.py on the card)")
-    out, ref = _verify_on_card(dh, dtype, 8, 5,
-                               [0, 15, 16, 17, 511, 1020, 700, 250],
-                               h=3, dh=dh)
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype,dh", CARD_DH)
+def test_cuda_any_head_dim_decode_matches_plain(dtype, dh, bs):
+    """On the card: the decode wrapper at every head dim of ``CARD_DH``
+    (the wide build in bf16 where it takes the block size, the any-dh
+    kernel elsewhere) at blocks 8 to 64 against the plain version at the
+    serving path's positions, NaN in block 0, past each slot's position
+    and in every block no table entry reaches, each element held to its
+    own size."""
+    _need_card()
+    h = 3 if dh < 384 else 2
+    out, ref = _decode_on_card(dh + bs, dtype, h, dh, bs, 1024 // bs,
+                               [0, 15, 16, 17, 511, 1023, 700, 250])
     assert bool(torch.isfinite(out).all())
-    assert _scaled_err(out, ref) <= tol
+    assert _scaled_err(out, ref) <= CARD_TOL["decode"][dtype]
 
 
-# -- the wide builds (bf16 at dh 192 and 256): K1 copies pages, K2 rows;
-# f32 at these head dims takes the any-dh kernel
-WIDE = [(192, 4), (256, 3)]
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype,dh", CARD_DH)
+def test_cuda_any_head_dim_verify_matches_plain(dtype, dh, bs):
+    """On the card: the verify wrapper at the same head dims and blocks
+    with W = 5, NaN in block 0 and past every slot's written rows, valid
+    rows held to the plain version."""
+    _need_card()
+    h = 3 if dh < 384 else 2
+    out, ref = _verify_on_card(dh + bs, dtype, 8, 5,
+                               [0, 15, 16, 17, 511, 1020, 700, 250],
+                               h=h, dh=dh, bs=bs, mb=1024 // bs)
+    assert bool(torch.isfinite(out).all())
+    assert _scaled_err(out, ref) <= CARD_TOL["verify"][dtype]
+
+
+# -- the wide builds (bf16 at the multiples of 8 in (128, 512]): K1
+# copies pages, K2 rows; f32 at these head dims takes the any-dh kernel.
+# (head dim, heads): Gpt(n_heads=4, 3, 2) at d 768, the width classes'
+# edges (136, 512) and a dh off a multiple of 16 (200)
+WIDE = [(192, 4), (256, 3), (136, 3), (160, 3), (200, 3), (384, 2),
+        (512, 2)]
 
 
 def _decode_on_card(seed, dtype, h, dh, bs, mb, positions,
@@ -693,11 +711,12 @@ def test_cuda_wide_verify_matches_plain(dh, h, bs, W, dtype, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("dh", [136, 192, 256, 384, 512])
 def test_cuda_wide_long_context_merges(dh):
     """On the card, bf16: one head with contexts of up to 16,000 rows, so
     the wide decode build merges up to 500 splits (windows of 128 under a
-    running max) and the wide verify build up to 250 (more splits than a
+    running max, summed by 3 groups of the block at dh 136, 2 at 192 and
+    256, 1 past) and the wide verify build up to 250 (more splits than a
     row's 16 merge lanes), each held to the plain version with NaN past
     every context."""
     _need_card()
@@ -721,8 +740,9 @@ def test_cuda_wide_builds_with_deeper_rings(dh, h, split_rows):
     """On the card, bf16: the wide builds with the split-K chunk forced
     larger through ``split_rows`` (K1 128 and 224 rows, K2 128 and 256
     keys), so each split cycles its ring — K1's 3 stages over 8 to 14
-    pages, K2's 2 over 2 to 4 key tiles — on its own split edges, held to
-    the plain version with NaN past every context."""
+    pages, K2's 2 over 2 to 4 key tiles (1 stage past 384) — on its own
+    split edges, held to the plain version with NaN past every
+    context."""
     _need_card()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     C = pa.decode_split_rows(*split_rows, 1024, sms)
@@ -757,12 +777,15 @@ def _paged_kernels(fn):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh,h", WIDE)
 def test_cuda_wide_builds_launch_the_wide_kernels(dh, h):
-    """One bf16 call of K1 and of K2 (W 5) at head dims 192 and 256 under
-    ``torch.profiler`` runs ``paged_decode_wide_kernel`` /
-    ``paged_verify_wide_kernel`` and not the any-dh kernel, while f32 at
-    the same shapes runs ``paged_any_dh_kernel``: the route is by dtype
-    and head dim, as the card sees it, and ``<wrapper>.builds`` counts
-    each launch under the build that ran."""
+    """One bf16 call of K1 and of K2 (W 5) at each head dim of ``WIDE``
+    under ``torch.profiler`` runs ``paged_decode_wide_kernel<kVec, DH>``
+    (1 vector a lane up to 256, 2 past; DH the head dim at the multiples
+    of 64, else 0: read at run time) / ``paged_verify_wide_kernel<DHP,
+    exact>`` (dh's width class, rounded up to 64; exact where dh is it)
+    and not the any-dh kernel, while f32 at the same shapes runs
+    ``paged_any_dh_kernel``: the route is by dtype and head dim, as the
+    card sees it, and ``<wrapper>.builds`` counts each launch under the
+    build that ran."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(dh + h)
     B, W, bs, mb = 8, 5, 16, 64
@@ -787,9 +810,12 @@ def test_cuda_wide_builds_launch_the_wide_kernels(dh, h):
         # two calls each (one to build, one profiled), counted by build
         assert pa.paged_decode_attention.builds == {build: 2}
         assert pa.paged_verify_attention.builds == {build: 2}
+        exact = dh % 64 == 0
+        inst = {"decode": f"{1 if dh <= 256 else 2}, {dh if exact else 0}",
+                "verify": f"{-(-dh // 64) * 64}, {str(exact).lower()}"}
         for kind, names in (("decode", dec), ("verify", ver)):
             if dt == torch.bfloat16:
-                assert any(f"paged_{kind}_wide_kernel" in n
+                assert any(f"paged_{kind}_wide_kernel<{inst[kind]}>" in n
                            for n in names), names
                 assert not any("paged_any_dh_kernel" in n
                                for n in names), names

@@ -1,12 +1,14 @@
-"""The card's phase ``wide`` part (e) rehearsed on the CPU.
+"""The card's phase ``wide`` parts (e) and (f) rehearsed on the CPU.
 
-Part (e) serves ``zoo.Gpt(n_heads=3)`` (3 heads of 256 at d 768), whose
-bf16 decode and verify reads run the wide builds of K1 and K2.  Here
-``chip_smoke.wide_serve`` runs at a tiny size with the same head width —
-a 2-layer ``Gpt(vocab 50, d 512, 2 heads of 256, ff 256)`` — with
-stand-ins that count the paged wrappers' calls as the card's wrappers
-count their launches.  (The same tiny model served by the JAX package's
-GenerationServer and the port's: ``tests/test_torch_generation_server.py
+Part (e) serves ``zoo.Gpt(n_heads=3)`` (3 heads of 256 at d 768) and
+part (f) ``Gpt(n_heads=2)`` (2 heads of 384), whose bf16 decode and
+verify reads run the wide builds of K1 and K2.  Here
+``chip_smoke.wide_serve`` runs at a tiny size with the same head widths —
+2-layer ``Gpt``s (vocab 50, ff 256) with 2 heads of 256 (d 512) and 2 of
+384 (d 768) — with stand-ins that count the paged wrappers' calls as the
+card's wrappers count their launches.  (The same tiny models served by
+the JAX package's GenerationServer and the port's:
+``tests/test_torch_generation_server.py
 ::test_wide_heads_server_matches_jax_server``.)"""
 import json
 import os
@@ -47,6 +49,10 @@ REHEARSAL = {
               "requests": 4, "spec_requests": 2,
               "speculative": {"k": 4, "rounds": 2, "draft_layers": 1,
                               "adaptive": True}}}
+# the card's part (f) at this size: the same server and requests, 2 heads
+# of 384 at d 768 (the card's first 4 requests and 2 speculative ones)
+REHEARSAL["serve_wider"] = {**REHEARSAL["serve"],
+                            "gpt": {"n_heads": 2, "d_model": 768}}
 
 
 def _rehearsal_requests():
@@ -82,14 +88,17 @@ def counting_paged(monkeypatch):
                             stand_in(getattr(generation, name)))
 
 
-def test_wide_serve_rehearsal_on_cpu(capsys, one_thread, counting_paged):
+@pytest.mark.parametrize("key,head_dim", [("serve", 256),
+                                          ("serve_wider", 384)])
+def test_wide_serve_rehearsal_on_cpu(capsys, one_thread, counting_paged,
+                                     key, head_dim):
     from deeplearning4j_torch.kernels import paged_attention as pa
     system, reqs = _rehearsal_requests()
     counts = chip_smoke.wide_serve(torch, np, pa, "cpu", REHEARSAL,
                                    lambda: None, "cpu rehearsal", system,
-                                   reqs)
+                                   reqs, key)
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert row["phase"] == "wide/serve" and row["head_dim"] == 256
+    assert row["phase"] == f"wide/{key}" and row["head_dim"] == head_dim
     n = TINY["n_layers"]
     plain, spec = row["plain"], row["spec"]
     assert (plain["requests"], plain["greedy"]) == (4, 2)
