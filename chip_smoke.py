@@ -414,6 +414,10 @@ WIDER_DH = ((200, 3), (384, 2), (512, 2), (1032, 1))
 # the head dims of the wide builds (bf16) that phase wide (a) times, with
 # their heads (at d 768 up to 384)
 WIDE_DH = ((192, 4), (256, 3), (160, 3), (384, 2), (512, 2))
+# (head dim, heads) at which phase wide (a) times K3 and K4 on the cluster
+# kernel (bf16 past 512): part (g)'s one head of 768, the chunked phase's
+# 2 of 576, and 4 of 1024
+CLUSTER_DH = ((768, 1), (576, 2), (1024, 4))
 # optimize_for_tpu's counts on tests/fixtures/bert_base_graph_only.pb: the
 # JAX package's on the same file (held by tests/test_torch_rewrites.py)
 BERT_BASE_REWRITES = {"parallel_matmuls": 12, "layer_norm": 25, "gelu": 12,
@@ -481,12 +485,30 @@ def kernel_case(torch, pa, B, h, dh, bs, mb, positions, dtype, seed):
     return flash_err(torch, out.float(), ref.float())
 
 
-def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed):
+def verify_reference_f64(torch, pa, q, k_pool, v_pool, block_table, pos0,
+                         scale):
+    """K2's function in f64 throughout (scores, softmax and P V), rows as
+    :func:`paged_verify_attention_reference` lays them out: the yardstick
+    that tells summation-order noise of the f32 versions from a defect."""
+    kl = pa.paged_gather(k_pool.double(), block_table)
+    vl = pa.paged_gather(v_pool.double(), block_table)
+    L, W = kl.shape[2], q.shape[1]
+    s = torch.einsum("bwhd,bhkd->bwhk", q.double(), kl) * scale
+    pos = (pos0.long()[:, None] + torch.arange(W, device=q.device))[:, :, None,
+                                                                   None]
+    s = torch.where(torch.arange(L, device=q.device) <= pos, s, -math.inf)
+    return torch.einsum("bwhk,bhkd->bwhd", torch.softmax(s, dim=-1), vl)
+
+
+def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed,
+                f64=False):
     """K2 vs the plain version on shuffled tables.  Each slot has a budget
     of 1..W valid rows (a slot near the table's end keeps all W: its
     deeper rows see the whole table); block 0, unneeded table entries and
     every row past a slot's last valid position are NaN in the kernel's
-    pool.  Returns :func:`flash_err` over the valid rows."""
+    pool.  Returns :func:`flash_err` over the valid rows; with ``f64`` its
+    detail also holds the kernel's and the plain version's errors against
+    :func:`verify_reference_f64` on the same inputs."""
     dev, L = "cuda", mb * bs
     g = torch.Generator(device=dev).manual_seed(seed)
     budget = [W if p + W > L else 1 + (b * 7 + seed) % W
@@ -520,7 +542,13 @@ def verify_case(torch, pa, B, h, dh, bs, mb, W, positions, dtype, seed):
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"K2 read poisoned rows (B={B} W={W} h={h} "
                              f"dh={dh} bs={bs} {dtype})")
-    return flash_err(torch, got, want)
+    err, detail = flash_err(torch, got, want)
+    if f64:
+        r64 = verify_reference_f64(torch, pa, q, kp, vp, table, pos0,
+                                   scale)[valid]
+        detail["kernel_vs_f64"] = flash_err(torch, got.double(), r64)[0]
+        detail["plain_vs_f64"] = flash_err(torch, want.double(), r64)[0]
+    return err, detail
 
 
 def phase_kernel(torch, pa):
@@ -623,12 +651,15 @@ def key_bias(torch, kind, b, h, t, g):
 
 
 def flash_case(torch, fa, b, t, h, dh, dtype, causal, bias_kind, single,
-               seed):
+               seed, f64=False):
     """K3 (or K4 with ``single``), K5 and K6 against their plain versions
     on bthd views of a [b, t + 8, 3 h dh] projection whose rows past t
     are NaN (as are dO's), so a finite, matching result proves no kernel
     reads a row at or past t.  Returns {output: (error, detail)}, the
-    error as :func:`flash_err` takes it."""
+    error as :func:`flash_err` takes it; with ``f64`` each detail also
+    holds the kernel's and the plain version's errors against the plain
+    versions run in f64 throughout on the same inputs (their own LSE and
+    delta)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     tp = t + 8
@@ -671,6 +702,19 @@ def flash_case(torch, fa, b, t, h, dh, dtype, causal, bias_kind, single,
             raise AssertionError(f"flash {name}: non-finite values (a row "
                                  f"past t={t} leaked, or overflow)")
         errs[name] = flash_err(torch, x, r)
+    if f64:
+        q6, k6, v6, do6 = (bh(x.double()) for x in (q, k, v, do))
+        b6 = None if bias is None else bias.double()
+        o6, l6 = fa.flash_fwd_reference(q6, k6, v6, b6, single=single, **kw)
+        d6 = (do6 * o6).sum(-1)
+        g6 = fa.flash_bwd_reference(q6, k6, v6, b6, do6, l6, d6, **kw)
+        ref = {"o": o6, "lse": l6, "dq": g6[0], "dk": g6[1], "dv": g6[2],
+               "dbias": g6[3]}
+        for name, (_, detail) in errs.items():
+            detail["kernel_vs_f64"] = flash_err(torch, got[name].double(),
+                                                ref[name])[0]
+            detail["plain_vs_f64"] = flash_err(torch, want[name].double(),
+                                               ref[name])[0]
     return errs
 
 
@@ -722,7 +766,22 @@ FLASH_CASES = [
     ("ragged_bias_dh384", 2, 333, 2, 384, False, "random", False),
     ("causal_dh512", 2, 333, 2, 512, True, None, False),
     ("ragged_causal_bias_dh448", 2, 777, 2, 448, True, "random", False),
+    # past dh 512: the bf16 forward on the cluster kernel (3 blocks of 3
+    # panels at 576, 3 of 4 at 768, 4 at 1024, 8 at 2048: the partial
+    # scores summed across the cluster), the bf16 backward and f32 on the
+    # chunked kernels
+    ("ragged_causal_bias_dh576", 2, 777, 1, 576, True, "random", False),
+    ("causal_pad_dh768_k4", 2, 512, 1, 768, True, "pad", True),
+    ("ragged_dh1024", 1, 333, 2, 1024, False, None, False),
+    ("causal_dh2048", 1, 200, 1, 2048, True, None, False),
 ]
+# cases that run in one dtype: the cluster kernel's 8-block case in bf16
+# alone.  In f32 (the chunked kernels) at dh 2048 the kernels and the
+# plain versions each lie 0.7e-5 to 1.4e-5 from the same function in f64
+# (scripts/flash_case_f64.py on an H100; dK's plain version the furthest),
+# so the two f32 summation orders differ by up to 2.1e-5 there, past
+# FLASH_TOL's f32 bound, which the cases at 576 to 1024 meet (<= 3.9e-6)
+FLASH_DTYPES = {"causal_dh2048": ("bfloat16",)}
 
 
 def phase_flash_kernel(torch):
@@ -736,6 +795,8 @@ def phase_flash_kernel(torch):
             FLASH_CASES):
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
+            if dname not in FLASH_DTYPES.get(name, (dname,)):
+                continue
             case = flash_case(torch, fa, b, t, h, dh, dtype, causal, bias,
                               single, seed=100 + i)
             for out, (err, detail) in case.items():
@@ -4421,9 +4482,9 @@ def infer_capture(fa):
                 rec[name] = ([x.detach().clone() if hasattr(x, "detach")
                               else x for x in a], dict(kw))
             return orig(*a, **kw)
-        # the backward wrappers count through their module name, which
-        # this shim holds while installed
-        w.launches = 0
+        # the wrappers count through their module name, which this shim
+        # holds while installed
+        w.launches, w.builds = 0, {}
         return w
     for n, f in saved.items():
         setattr(fa, n, wrap(n, f))
@@ -7408,12 +7469,13 @@ def flash_bound(n_products, b, t, h, dh, n_tensors, n_stats, causal=True,
 
 
 def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
-                        ts=(2048, 512), causal=True, dtype="bfloat16"):
+                        ts=(2048, 512), causal=True, dtype="bfloat16",
+                        bwd=True):
     """K3, K5 and K6 at the training path's shapes (``dtype``, bf16 unless
     asked, b 8, t 2048, ``h`` heads of ``dh`` (6 of 128), causal, bthd
     views of a [b, t, 3d] projection) and K4 at t 512, against their
     plain versions (``b``, ``ts`` = (K3/K5/K6's t, K4's t) and
-    ``causal`` for other paths);
+    ``causal`` for other paths; ``bwd=False``: K3 and K4 alone);
     yardsticks: one
     ``F.scaled_dot_product_attention(is_causal=causal)`` call (forward) and
     its backward through autograd alone (dq, dk and dv together, on a
@@ -7457,6 +7519,30 @@ def phase_timings_flash(torch, h=6, dh=128, phase="timings/flash", b=8,
         errs = {"fwd": float((bh(outs[0][0]).float() - ro.float())
                              .abs().max())}
         del ro
+        if not bwd or single:
+            ms = {"kernel_fwd": time_ms(torch, kern["fwd"]),
+                  "plain_fwd": time_ms(torch, plain["fwd"], n_inner=8,
+                                       reps=5),
+                  "kernel_fwd_again": time_ms(torch, kern["fwd"])}
+            lib_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                *sdpa_in[i % NB][:3], is_causal=causal, scale=scale))
+            name = "flash_fwd_single" if single else "flash_fwd"
+            bound, by, flops, n_bytes = flash_bound(
+                2, b, t, h, dh, 4, 1, causal=causal, dtype=dtype)
+            rows[name] = {
+                "kernel_ms": ms["kernel_fwd"], "plain_ms": ms["plain_fwd"],
+                "library_ms": lib_fwd, "plain_scope": "kernel",
+                "library_scope": "kernel", "bound_ms": bound,
+                "bound_by": by, "flops": flops, "bytes": n_bytes,
+                "max_abs_err": errs["fwd"],
+                "kernel_ms_again": ms["kernel_fwd_again"],
+                "build": fa.fwd_build(fa.kernel_head_dim(dh),
+                                      dt == torch.bfloat16),
+                "shapes": {"b": b, "t": t, "h": h, "dh": dh,
+                           "dtype": dtype, "causal": causal}}
+            del sets, outs, deltas, plain_in, sdpa_in
+            torch.cuda.empty_cache()
+            continue
         kern["dkdv"] = lambda i: fa.flash_bwd_dkdv(
             *sets[i % NB][1:4], None, sets[i % NB][4],
             outs[i % NB][1], deltas[i % NB], causal=causal,
@@ -7758,17 +7844,19 @@ def phase_timings_verify(torch, pa, positions, W=5, h=6, dh=128,
 
 # -- extra phase: chunked ---------------------------------------------
 # (dtype, heads, head dim) past the wgmma builds, where K3-K6 take the
-# chunked FMA build: f32 past 256 (zoo.Gpt(n_heads=2)'s 384), bf16 past
-# 512 (2 heads of 576)
+# chunked FMA build: f32 past 256 (zoo.Gpt(n_heads=2)'s 384), and the
+# bf16 backward past 512 (2 heads of 576; the bf16 forward there runs the
+# cluster kernel)
 CHUNKED_SHAPES = (("float32", 2, 384), ("bfloat16", 2, 576))
 
 
 def phase_chunked(torch):
-    """K3-K6 on the chunked FMA build at ``CHUNKED_SHAPES``, timed as
-    phase 10b (a) times the wgmma builds (:func:`phase_timings_flash`:
-    b 8, t 2048 causal, K4 at t 512) beside their plain versions, SDPA
-    and the bound, so the builds never redesigned can be ranked by how
-    far they stand from their library call.  Emits one
+    """K3-K6 at ``CHUNKED_SHAPES`` — the chunked FMA build, but K3 and K4
+    in bf16, which take the cluster kernel — timed as phase 10b (a)
+    times the wgmma builds (:func:`phase_timings_flash`: b 8, t 2048
+    causal, K4 at t 512) beside their plain versions, SDPA and the
+    bound, so the builds never redesigned can be ranked by how far they
+    stand from their library call.  Emits one
     ``timings/chunked_<dtype>_dh<dh>`` line a shape."""
     try:
         return {f"{dt}_dh{dh}": phase_timings_flash(
@@ -7963,10 +8051,12 @@ def phase_profile(torch, np):
 # forward and backward on the wgmma builds at those head dims; (d) 2 heads
 # of 384, K3 and K4 on the 64-row wgmma kernel, K5 and K6 on the panel
 # kernels; served: (e) 3 heads of 256 and (f) 2 of 384, K1 and K2 on
-# their wide builds.
+# their wide builds; (g) one head of 768, K3 and K4 on the cluster kernel
+# (forward only: past 512 the backward is the chunked build).
 WIDE_CFG = {"gpt": {}, "vocab": 32000, "b": 8, "t": 2048, "t_single": 512,
             "steps": 2, "heads": 3, "narrow": {"n_heads": 4},
-            "wider": {"n_heads": 2}, "kernels": True,
+            "wider": {"n_heads": 2}, "widest": {"n_heads": 1},
+            "kernels": True,
             # part (e): Gpt(n_heads=3) served as phase 4(b) serves Gpt()
             "serve": {"gpt": {"n_heads": 3},
                       "server": {"n_slots": 8, "max_len": 1024,
@@ -8012,6 +8102,8 @@ def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
         torch.cuda.reset_peak_memory_stats()
     for name in FLASH_WRAPPERS:
         getattr(fa, name).launches = 0
+    for name in ("flash_fwd", "flash_fwd_single"):
+        getattr(fa, name).builds = {}
     t0 = time.perf_counter()
     outs = [run() for _ in range(reps)]
     sync()
@@ -8024,13 +8116,15 @@ def wide_window(torch, fa, label, run, want, cfg, sync, reps=1):
     return [first] + outs, wall, cnt, errs, peak
 
 
-def wide_forward(torch, np, fa, net, cfg, t, label, sync, plain=None):
+def wide_forward(torch, np, fa, net, cfg, t, label, sync, plain=None,
+                 build=None):
     """One counted ``output()`` of ``net`` at [b, t] after a warm-up (K3
     past t 512, K4 at it; once a layer): finite probabilities of shape
     [b, t, vocab].  With ``plain`` (the same seeded net on plain
     attention) its ``output()`` on the same tokens runs no flash kernel,
     and the two agree within ``FLASH_TOL["bfloat16"]`` by
-    :func:`flash_err`."""
+    :func:`flash_err`.  With ``build`` (and the card) every counted
+    launch went through that build (``<wrapper>.builds``)."""
     b, vocab = cfg["b"], cfg["vocab"]
     x = train_batch(np, b, t, vocab, 4)[0]
     fwd = "flash_fwd" if t > 512 else "flash_fwd_single"
@@ -8038,12 +8132,16 @@ def wide_forward(torch, np, fa, net, cfg, t, label, sync, plain=None):
             for n in FLASH_WRAPPERS}
     ys, wall, cnt, errs, peak = wide_window(
         torch, fa, label, lambda: net.output(x), want, cfg, sync)
+    builds = dict(getattr(fa, fwd).builds)
+    if build is not None and cfg["kernels"] and builds != {build: want[fwd]}:
+        raise AssertionError(f"{label}: launches by build {builds}, want "
+                             f"{want[fwd]} on {build}")
     y = ys[-1]
     if tuple(y.shape) != (b, t, vocab) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"{label}: output {tuple(y.shape)}, finite "
                              f"{bool(torch.isfinite(y).all())}")
     res = {"b": b, "t": t, "ms": wall * 1e3, "tokens_per_s": b * t / wall,
-           "peak_allocated_bytes": peak, "launches": cnt,
+           "peak_allocated_bytes": peak, "launches": cnt, "builds": builds,
            "kernel_vs_plain": errs}
     if plain is not None:
         for name in FLASH_WRAPPERS:
@@ -8101,15 +8199,17 @@ def wide_fit(torch, np, fa, net, make_plain, cfg, label, sync,
 
 
 def wide_parts(torch, np, device, cfg, sync, card):
-    """Parts (b)-(d) of :func:`phase_wide` on ``device`` at ``cfg``'s
-    sizes: (b) Gpt(n_heads=cfg["heads"]) — one output() at t (K3) and one
-    at t_single (K4), then ``steps`` fit steps at t (K3, K5 and K6 once a
-    layer a step, :func:`wide_fit`, one more step profiled), each window
-    after a warm-up (:func:`wide_window`); (c) the same forward at t and
-    the same fit steps with ``cfg["narrow"]``; (d) (b)'s two output()
-    windows, each held to the same net on plain attention, and (b)'s fit
-    steps with ``cfg["wider"]``.  Emits ``wide/gpt`` and returns the
-    launch counts by window."""
+    """Parts (b)-(d) and (g) of :func:`phase_wide` on ``device`` at
+    ``cfg``'s sizes: (b) Gpt(n_heads=cfg["heads"]) — one output() at t
+    (K3) and one at t_single (K4), then ``steps`` fit steps at t (K3, K5
+    and K6 once a layer a step, :func:`wide_fit`, one more step
+    profiled), each window after a warm-up (:func:`wide_window`); (c) the
+    same forward at t and the same fit steps with ``cfg["narrow"]``; (d)
+    (b)'s two output() windows, each held to the same net on plain
+    attention, and (b)'s fit steps with ``cfg["wider"]``; (g) (d)'s two
+    output() windows with ``cfg["widest"]``, every launch on the cluster
+    build (no fit steps).  Emits ``wide/gpt`` and returns the launch
+    counts by window."""
     from deeplearning4j_torch.zoo import Gpt
     fa = flash_module()
     t_phase = time.perf_counter()
@@ -8121,24 +8221,27 @@ def wide_parts(torch, np, device, cfg, sync, card):
     for part, gpt, windows in (
             ("b", {**cfg["gpt"], "n_heads": cfg["heads"]}, both),
             ("c", {**cfg["gpt"], **cfg["narrow"]}, (("fwd", t),)),
-            ("d", {**cfg["gpt"], **cfg["wider"]}, both)):
+            ("d", {**cfg["gpt"], **cfg["wider"]}, both),
+            ("g", {**cfg["gpt"], **cfg["widest"]}, both)):
         def make(use_flash=True, gpt=gpt):
             return Gpt(seed=0, seq_len=t, use_flash=use_flash,
                        **gpt).init_graph(device=device)
         net = make()
-        plain = make(False) if part == "d" else None
+        plain = make(False) if part in "dg" else None
         sub = {"n_layers": len(net.layers) - 2, "heads": gpt["n_heads"],
                "head_dim": gpt.get("d_model", 768) // gpt["n_heads"]}
         for label, tt in windows:
-            sub[label] = wide_forward(torch, np, fa, net, cfg, tt,
-                                      f"wide/{part}/{label}", sync, plain)
+            sub[label] = wide_forward(
+                torch, np, fa, net, cfg, tt, f"wide/{part}/{label}", sync,
+                plain, build="cluster" if part == "g" else None)
         # (d)'s plain net has only run output(): it is the fresh
         # plain-attention control
-        sub["fit"] = wide_fit(torch, np, fa, net,
-                              (lambda: plain) if plain is not None
-                              else lambda: make(False),
-                              cfg, f"wide/{part}/fit", sync,
-                              profile=part == "b")
+        if part != "g":
+            sub["fit"] = wide_fit(torch, np, fa, net,
+                                  (lambda: plain) if plain is not None
+                                  else lambda: make(False),
+                                  cfg, f"wide/{part}/fit", sync,
+                                  profile=part == "b")
         del net, plain
         if part == "b":
             row.update(sub)
@@ -8149,11 +8252,15 @@ def wide_parts(torch, np, device, cfg, sync, card):
             row["narrow"] = {"gpt": cfg["narrow"], **sub, **fwd}
             counts["narrow"] = fwd["launches"]
             counts["narrow_fit"] = sub["fit"]["launches"]
-        else:
+        elif part == "d":
             row["wider"] = {"gpt": cfg["wider"], **sub}
             counts["wider"] = sub["fwd"]["launches"]
             counts["wider_single"] = sub["fwd_single"]["launches"]
             counts["wider_fit"] = sub["fit"]["launches"]
+        else:
+            row["widest"] = {"gpt": cfg["widest"], **sub}
+            counts["widest"] = sub["fwd"]["launches"]
+            counts["widest_single"] = sub["fwd_single"]["launches"]
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     return counts
@@ -8329,11 +8436,12 @@ def phase_wide(torch, np, pa):
     192, 3 of 256, 3 of 160, 2 of 384 and 2 of 512, all on the wide
     builds; in f32 at 3 heads of 256 on the any-dh kernel) and K3-K6 at
     b 8, 3 heads of 256, t 2048 causal, K4 at t 512, and again at 4
-    heads of 192, 2 of 384 and 2 of 512, each beside its plain version,
-    SDPA and the bound, the paged ones held to the build they must
-    launch; then (b)-(d), :func:`wide_parts` at ``WIDE_CFG``, and (e)
-    and (f), :func:`wide_serve`.  Returns (the timings by build, the
-    launch counts by window)."""
+    heads of 192, 2 of 384 and 2 of 512, and K3 and K4 alone at
+    ``CLUSTER_DH`` (1 head of 768, 2 of 576, 4 of 1024), each beside its
+    plain version, SDPA and the bound, each held to the build it must
+    launch; then (b)-(d) and (g), :func:`wide_parts` at ``WIDE_CFG``,
+    and (e) and (f), :func:`wide_serve`.  Returns (the timings by build,
+    the launch counts by window)."""
     mid = path_mid(np)
     paged = [(dh, h, "bfloat16") for dh, h in WIDE_DH] + [
         (256, 3, "float32")]
@@ -8355,7 +8463,18 @@ def phase_wide(torch, np, pa):
         "dh384": phase_timings_flash(torch, h=2, dh=384,
                                      phase="timings/flash_dh384"),
         "dh512": phase_timings_flash(torch, h=2, dh=512,
-                                     phase="timings/flash_dh512")}
+                                     phase="timings/flash_dh512"),
+        # past 512, K3 and K4 alone on the cluster kernel: (g)'s one head
+        # of 768, 2 heads of 576 (3 x 192 columns a cluster) and 4 of
+        # 1024 (4 x 256)
+        **{f"dh{dh}": phase_timings_flash(torch, h=h, dh=dh, bwd=False,
+                                          phase=f"timings/flash_dh{dh}")
+           for dh, h in CLUSTER_DH}}
+    for dh, _ in CLUSTER_DH:
+        got = {n: r["build"] for n, r in timing[f"dh{dh}"].items()}
+        if set(got.values()) != {"cluster"}:
+            raise AssertionError(f"wide/a: K3/K4 at dh {dh} took {got}, "
+                                 "want the cluster build")
     for dh, _, dt in paged:
         for kind in ("decode", "verify"):
             want = ["wide" if dt == "bfloat16" else "any_dh"]
@@ -8630,7 +8749,12 @@ def main(argv=None) -> int:
                                                    "narrow_fit")),
                                         ("dh384", ("wider", "wider_single",
                                                    "wider_fit")),
-                                        ("dh512", None)):
+                                        ("dh512", None),
+                                        # the cluster kernel: at 768 on
+                                        # Gpt(n_heads=1)'s forward in (g)
+                                        ("dh768", ("widest",
+                                                   "widest_single")),
+                                        ("dh576", None), ("dh1024", None)):
                         if name not in w_time[dh]:
                             continue
                         rows[-1][dh] = {
@@ -8638,6 +8762,11 @@ def main(argv=None) -> int:
                                          sum(w_cnt[w][name]
                                              for w in windows)),
                             **wide_sub(w_time[dh][name])}
+                        if "build" in w_time[dh][name]:
+                            rows[-1][dh]["build"] = {
+                                "cluster": "flash_fwd_bf16_cluster_kernel"
+                            }.get(w_time[dh][name]["build"],
+                                  w_time[dh][name]["build"])
                 if c_timing is not None:
                     # the chunked FMA build (extra phase ``chunked``):
                     # timed only, no path runs it
@@ -8662,6 +8791,22 @@ def main(argv=None) -> int:
                         "library_ms": bt["library_ms"],
                         "max_abs_err": bt["max_abs_err"],
                         "shapes": bt["shapes"]}
+            if wide_res is not None:
+                # the cluster kernel (bf16 K3 and K4 past head dim 512) in
+                # rows of its own: launched on (g)'s Gpt(n_heads=1)
+                # forward, timed in (a) at that shape (b 8, one head of
+                # 768, t 2048 causal; K4 t 512)
+                w_time, w_cnt = wide_res
+                for name, tpu, window in (
+                        ("flash_fwd", "flash_attention.py:95", "widest"),
+                        ("flash_fwd_single", "flash_attention.py:164",
+                         "widest_single")):
+                    ct = w_time["dh768"][name]
+                    rows.append({**kernel_row(
+                        f"{name}/cluster", "flash_fwd.cu", tpu,
+                        w_cnt[window][name], ct["max_abs_err"], ct),
+                        "build": "flash_fwd_bf16_cluster_kernel",
+                        "shapes": ct["shapes"]})
             emit({"kernels": rows})
         card = card_line()
     except Exception:

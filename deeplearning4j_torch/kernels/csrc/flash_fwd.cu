@@ -67,10 +67,17 @@
 //   64-row query tile a block, both warpgroups computing its whole S and
 //   each accumulating its own run of output panels
 //   (flash_fwd_bf16_wide_kernel, WideFwdLayout).
-// * f32 past head dim 256, and bf16 past 512 (any multiple of 64; the TPU
-//   kernels take any head dim): the FMA route chunked — S summed over
+// * bf16 at every multiple of 64 in (512, 2048]: the head columns split
+//   across a thread-block cluster of ceil(dh / 256) blocks, 3 or 4 panels
+//   each; each block's partial scores summed across the cluster through
+//   distributed shared memory (flash_fwd_bf16_cluster_kernel,
+//   ClusterFwdLayout).
+// * f32 past head dim 256, and bf16 past 2048 (any multiple of 64; the
+//   TPU kernels take any head dim): the FMA route chunked — S summed over
 //   64-column chunks of Q and K, each block owning 128 output columns and
 //   recomputing S for them (flash_fwd_chunked_kernel).
+// The route is by dtype and head dim alone (fwd_build); no launch falls
+// back to another build.
 // TPU artefacts left behind: the lane-replicated [blk, 128] stat tiles, the
 // (1, 8, blk_k) bias broadcast and interpret mode.  Known limits, left to
 // later work: each 128-row query block reads every K/V tile below its
@@ -631,6 +638,368 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 K3 and K4 past head dim 512: the head columns split across a cluster
+// ---------------------------------------------------------------------------
+// Past 512 one block holds neither Q of the whole head dim nor O's
+// columns in registers.  Here a thread-block cluster of C = ceil(dh /
+// 256) blocks (at most 8, the portable size) serves one (batch, head)
+// slice's 128 query rows.  The head dim's 64-column panels are dealt out
+// as evenly as possible, so a block owns 3 or 4 of them (192 or 256
+// columns: dh 576 -> 3 x 192, 768 -> 3 x 256, 1024 -> 4 x 256, 2048 ->
+// 8 x 256).  Each block moves only its own columns: Q once, K and V a
+// tile at a time, by TMA from the whole-head-dim maps offset by its
+// first column; the cluster reads each K/V row once a query tile.
+// A key tile (64 keys) per block:
+//   1. S_r = Q[:, cols_r] K[:, cols_r]^T on wgmma (m64n64k16, a
+//      warpgroup's 64 rows), the block's partial scores;
+//   2. S = the sum of the C partials in f32, every element summed in
+//      rank order 0..C-1 by one block, so every block holds
+//      bit-identical S and so the same row max, denominator, P and LSE;
+//   3. softmax in registers as in v3 (mask_tile, tile_stats, tile_p),
+//      and O[:, cols_r] += P V[:, cols_r] (m64n{192, 256}k16, P the
+//      register A operand).
+// The sum (2.) is a reduce-scatter and an all-gather through distributed
+// shared memory, by stores that need no reply (st.async, each counted in
+// bytes on the receiver's mbarrier): every vector of a block's partial
+// goes to the block that sums that share of S, which sums its share over
+// the C partials and sends each sum to every block.  A block so sends
+// and receives 2 (C - 1) / C of a tile's S (43 KB at C = 3) and waits
+// only on its own mbarriers; no cluster barrier runs inside the walk.
+// The walk is pipelined one tile deep: while tile j's sums travel, the
+// block computes tile j + 1's partial, and sends it once tile j's sums
+// are in, so it travels during tile j's softmax and P V.  Each receiving
+// buffer is refilled only after its reader is done with it, with no
+// barrier for that: a block sends tile j + 1's partial only after all of
+// tile j's sums came, each sent after its sender read tile j's partials;
+// tile j's sums go to buffer j % 2, and tile j + 2's sums need this
+// block's tile j + 2 partial, sent after it read tile j's.  On an H100
+// moving these bytes between SMs costs about as much as the products
+// (scripts/flash_cluster_costs.py times copies with the exchange, its
+// data or the overlap taken out; PERF.md).  K4 sums S across the
+// cluster in both of its passes.  Each block stores its own output
+// columns; rank 0 the LSE.  A block's two code paths (3 or 4 panels)
+// are one function per kSingle: two kernels, four walks.
+// Shared memory, sized for 4 panels: Q 128 x 256 bf16 (65,536), one K
+// tile 64 x 256 bf16 (32,768; tile j + 1's copy lands while tile j's
+// exchange runs), one V tile (32,768), two tiles' summed S 2 x 128 x 64
+// f32 (65,536) and the partials of this block's share of S, one run a
+// rank (at most 2,056 16-byte vectors: 32,896): 229,504 bytes + 64 of
+// mbarriers + 1,024 of alignment slack = 230,592 <= 232,448.  Registers
+// as v3 at dh 256: O 128 f32 a thread at 4 panels, S 32, P 16.
+constexpr int kClusterMax = 8;      // blocks a cluster (the portable size)
+constexpr int kClusterPanels = 4;   // a block's most panels (256 columns)
+constexpr int kClusterMaxDh = kClusterMax * kClusterPanels * kPanel;   // 2048
+
+struct ClusterFwdLayout {
+  static constexpr int kRows = kWgRows;   // query rows a block (64 a warpgroup)
+  static constexpr int kKeys = 64;        // keys a K/V tile
+  static constexpr int NP = kClusterPanels;
+  static constexpr uint32_t kQPanel = 128 * kRows;
+  static constexpr uint32_t kKvPanel = 128 * kKeys;
+  static constexpr uint32_t kQBytes = NP * kQPanel;          // 65,536
+  static constexpr uint32_t kKvBytes = NP * kKvPanel;        // one K or V tile: 32,768
+  static constexpr uint32_t kSlotBytes = kRows * kKeys * 4;  // S in f32: 32,768
+  static constexpr int kVecs = kSlotBytes / 16;              // 16-byte vectors of a tile's S
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQBytes;          // one K tile
+  static constexpr uint32_t kV = kK + kKvBytes;    // one V tile
+  static constexpr uint32_t kSum = kV + kKvBytes;  // two tiles' summed S (tile j in j % 2)
+  // the partials of this block's share of S, one run a rank (runs of
+  // ceil(kVecs / C) vectors: at most kVecs + C - 1 in all)
+  static constexpr uint32_t kPart = kSum + 2 * kSlotBytes;
+  static constexpr uint32_t kBar = kPart + (kVecs + kClusterMax) * 16;
+  static constexpr size_t kBytes = kBar + 64 + 1024;   // 6 mbarriers, alignment slack
+  static_assert(kVecs == kWgThreads * (kKeys / 8),
+                "a thread's scores are kKeys / 8 16-byte vectors of S");
+  static_assert(kBar == 229504, "Q 64 KiB, K 32 KiB, V 32 KiB, two S 64 KiB, the partials 32 KiB");
+  static_assert(kBytes <= 232448, "Q, K, V and S exceed a block's shared memory");
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// split-phase cluster barrier: every thread of every block of the cluster
+// arrives (its shared-memory writes released), then waits (acquired)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of `addr` (this block's) in block `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// 16 bytes into block `rank`'s shared memory at the offset of `addr` (an
+// address of this block's), counted on that block's mbarrier at the
+// offset of `bar`: a store that needs no reply
+__device__ __forceinline__ void st_async4(uint32_t addr, uint32_t bar, uint32_t rank,
+                                          const float (&v)[4]) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(cluster_map(addr, rank)),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(cluster_map(bar, rank))
+      : "memory");
+}
+// mbar_wait for a phase that other blocks' stores complete
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <bool kSingle>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv, const FwdArgs a,
+                                  int dh) {
+  using bf16 = __nv_bfloat16;
+  using L = ClusterFwdLayout;
+  constexpr int BR = L::kRows, BC = L::kKeys;
+  constexpr int NJ = BC / 8;   // score column blocks per key tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  // every block of the kernel has the same layout, so a slot sits at the
+  // same offset in each block's window
+  const uint32_t sb = (raw + 1023) & ~1023u;   // 1024-byte-aligned swizzle atoms
+  const uint32_t q_s = sb + L::kQ, k_s = sb + L::kK, v_s = sb + L::kV;
+  const uint32_t sum_s = sb + L::kSum, part_s = sb + L::kPart;
+  // mbarriers: Q's, K's, V's, the partials', tile j's sums' (j % 2)
+  const uint32_t bar_q = sb + L::kBar, bar_k = bar_q + 8, bar_v = bar_q + 16;
+  const uint32_t bar_part = bar_q + 24, bar_sum = bar_q + 32;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, qd = lane & 3;
+  // this block's panels: the first `extra` ranks take one more
+  const uint32_t rank = cluster_rank(), n_rank = cluster_size();
+  const int n_panels = dh / kPanel;
+  const int base = n_panels / (int)n_rank, extra = n_panels % (int)n_rank;
+  const int np = base + ((int)rank < extra);   // 3 or 4
+  const int col0 = ((int)rank * base + min((int)rank, extra)) * kPanel;
+  const int t = a.t;
+  const int n_q = (t + BR - 1) / BR;
+  // the cluster's (batch * head, query tile), heaviest causal tile first
+  const int2 blk = grouped_index(blockIdx.y + gridDim.y * blockIdx.z, gridDim.y, n_q);
+  const int bh = blk.x;
+  const int bi = bh / a.h, hi = bh - bi * a.h;
+  const int q0 = (n_q - 1 - blk.y) * BR;
+  const float* bias = a.bias ? a.bias + (long long)bh * t : nullptr;
+  const int row[2] = {q0 + 64 * wg + 16 * wi + g, q0 + 64 * wg + 16 * wi + g + 8};
+  const int k_end = a.causal ? min(t, q0 + BR) : t;
+  const int n_k = (k_end + BC - 1) / BC;
+  const int n_seq = kSingle ? 2 * n_k : n_k;   // K4: j < n_k its first pass (K alone)
+
+  // A tile's S is kVecs 16-byte vectors, thread tid's i-th at i
+  // kWgThreads + tid (neighbouring threads on neighbouring vectors: no
+  // bank conflict).  Block r sums vectors [v_lo, v_hi), the r-th of C
+  // near-equal shares; vec_owner(v) is the block that sums v, and rank
+  // q's partial of it lands in that block's run q (runs of `run`
+  // vectors).
+  constexpr int kVecs = L::kVecs;
+  const int run = (kVecs + (int)n_rank - 1) / (int)n_rank;
+  const int v_lo = (int)rank * kVecs / (int)n_rank;
+  const int v_hi = ((int)rank + 1) * kVecs / (int)n_rank;
+  auto vec_owner = [&](int v) { return (uint32_t)(((v + 1) * (int)n_rank - 1) / kVecs); };
+
+  // K4 walks the key tiles twice: sequence tiles j < n_k its first pass
+  // (K alone), j >= n_k its second (K and V of key tile j - n_k)
+  auto key_tile = [&](int j) { return kSingle && j >= n_k ? j - n_k : j; };
+  auto uses_v = [&](int j) { return !kSingle || j >= n_k; };
+  // thread 0's copies into the one K buffer (sequence tile j: its j-th)
+  // and the one V buffer (key tile kt: its kt-th), each once both
+  // warpgroups are done with the buffer's last tile; and the byte counts
+  // of tile j's exchange: C partials of this block's share, then the
+  // whole S
+  auto issue_k = [&](int j) {
+    mbar_expect(bar_k, np * L::kKvPanel);
+    for (int p = 0; p < np; ++p)
+      tma_load(k_s + p * L::kKvPanel, tk, bar_k, col0 + kPanel * p, hi, key_tile(j) * BC, bi);
+  };
+  auto issue_v = [&](int kt) {
+    mbar_expect(bar_v, np * L::kKvPanel);
+    for (int p = 0; p < np; ++p)
+      tma_load(v_s + p * L::kKvPanel, tv, bar_v, col0 + kPanel * p, hi, kt * BC, bi);
+  };
+  auto expect_exchange = [&](int j) {
+    mbar_expect(bar_part, (uint32_t)(n_rank * (v_hi - v_lo) * 16));
+    mbar_expect(bar_sum + 8 * (j & 1), kVecs * 16);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 6; ++i) mbar_init(bar_q + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();   // every block's mbarriers set before any block stores to it
+  cluster_wait();
+  if (tid == 0) {
+    mbar_expect(bar_q, np * L::kQPanel);
+    for (int p = 0; p < np; ++p)
+      tma_load(q_s + p * L::kQPanel, tq, bar_q, col0 + kPanel * p, hi, q0, bi);
+    issue_k(0);
+    if (uses_v(0)) issue_v(key_tile(0));
+    expect_exchange(0);
+  }
+
+  const float c = a.scale * kLog2e;
+  const float thr = 0.5f * kNeg * kLog2e;   // the reference's p = 0 test, base 2
+  // the block's whole walk for its NPB panels
+  auto walk = [&](auto n_panels_c) {
+    constexpr int NPB = decltype(n_panels_c)::value;
+    constexpr int N = NPB * kPanel;   // this block's output columns
+    constexpr int ND = N / 8;         // its output column blocks
+    constexpr int NK = N / 16;        // k-steps of its partial Q K^T
+    float o[ND][4];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m2[2] = {-INFINITY, -INFINITY};   // running row max of y
+    float l[2] = {0.f, 0.f};                // this thread's part of the denominator
+    float inv_l[2] = {1.f, 1.f};            // K4's second pass: 1 / the row's denominator
+    float s[NJ][4];                         // a partial, then a summed S
+    mbar_wait(bar_q, 0);
+
+    // s = Q[:, cols_r] K[:, cols_r]^T of sequence tile j, both K-major
+    auto scores = [&](int j) {
+      mbar_wait(bar_k, j & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t kb = (kk % 4) * 32;
+        Wgmma<BC>::ss(s, sw128_desc(q_s + (kk / 4) * L::kQPanel + kb + wg * 64 * 128, 16, 1024),
+                      sw128_desc(k_s + (kk / 4) * L::kKvPanel + kb, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      keep(s);
+    };
+    // each vector of this block's partial to the block that sums it
+    auto send_partial = [&]() {
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int v = i * kWgThreads + tid;
+        const uint32_t o = vec_owner(v);
+        st_async4(part_s + ((int)rank * run + v - (int)o * kVecs / (int)n_rank) * 16, bar_part,
+                  o, s[i]);
+      }
+    };
+    scores(0);
+    send_partial();
+    __syncthreads();   // the K buffer read by both warpgroups
+    if (tid == 0 && n_seq > 1) issue_k(1);
+
+    for (int j = 0; j < n_seq; ++j) {
+      const bool pass1 = !uses_v(j);
+      const int kt = key_tile(j), k0 = kt * BC;
+      const uint32_t sum_j = sum_s + (j & 1) * L::kSlotBytes, bar_sum_j = bar_sum + 8 * (j & 1);
+      // 1. this block's share of tile j's S: the C partials summed in
+      //    rank order, each sum sent to every block
+      mbar_wait_cluster(bar_part, j & 1);
+      for (int v = v_lo + tid; v < v_hi; v += kWgThreads) {
+        // four ranks' loads in flight at a time, added in rank order
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int r0 = 0; r0 < kClusterMax; r0 += 4) {
+          float4 x[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (r0 + r < (int)n_rank) x[r] = ld_shared4(part_s + ((r0 + r) * run + v - v_lo) * 16);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (r0 + r < (int)n_rank) {
+              sum[0] += x[r].x, sum[1] += x[r].y, sum[2] += x[r].z, sum[3] += x[r].w;
+            }
+        }
+        for (uint32_t q = 0; q < n_rank; ++q) st_async4(sum_j + v * 16, bar_sum_j, q, sum);
+      }
+      // 2. the next tile's partial while tile j's sums are on their way
+      if (j + 1 < n_seq) scores(j + 1);
+      // 3. tile j's S: every share's sum is here, so every block has
+      //    read its partials of tile j and the next partial may go
+      mbar_wait_cluster(bar_sum_j, (j >> 1) & 1);
+      if (j + 1 < n_seq) send_partial();
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const float4 x = ld_shared4(sum_j + (i * kWgThreads + tid) * 16);
+        s[i][0] = x.x, s[i][1] = x.y, s[i][2] = x.z, s[i][3] = x.w;
+      }
+      if (kSingle && j == n_k) {   // K4: the first pass is done
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = quad_sum(l[r]);
+          inv_l[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+        }
+      }
+      const bool interior =
+          !bias && c > 0.f && k0 + BC <= t && (!a.causal || k0 + BC - 1 <= q0);
+      if (!interior) mask_tile<NJ>(s, a, bias, c, k0, row, qd);
+      if (pass1) {   // K4, first pass: each row's max and denominator
+        tile_stats<NJ>(s, m2, l, interior, c, thr);
+      } else {
+        tile_p<kSingle, NJ, ND>(s, o, m2, l, inv_l, interior, c, thr);
+        // O[:, cols_r] += P V[:, cols_r]: P rounded to bf16 (K3: before
+        // the division by l; K4: after it), V MN-major — a k-step is 16
+        // key rows (2048 bytes), the next 64 columns a panel further (LBO)
+        uint32_t pf[NJ / 2][4];
+#pragma unroll
+        for (int kc = 0; kc < NJ / 2; ++kc) pack_a<NJ>(pf[kc], s, kc);
+        mbar_wait(bar_v, kt & 1);
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < NJ / 2; ++kc)
+          Wgmma<N>::rs(o, pf[kc], sw128_desc(v_s + kc * 16 * 128, L::kKvPanel, 1024), 1);
+        wg_commit();
+        wg_wait0();
+        keep(o);
+        keep(pf);
+      }
+      // 4. tile j + 1's K and tile j's V read by both warpgroups: the next
+      //    copies, and tile j + 1's byte counts (tile j's are all in)
+      __syncthreads();
+      if (tid == 0) {
+        if (j + 2 < n_seq) issue_k(j + 2);
+        if (j + 1 < n_seq) {
+          if (uses_v(j + 1)) issue_v(key_tile(j + 1));
+          expect_exchange(j + 1);
+        }
+      }
+    }
+
+    // each block stores its own columns; rank 0 the LSE
+    store_o_rows<kSingle, ND>(a, static_cast<bf16*>(a.o) + bi * a.so.b + hi * a.so.h + col0, o,
+                              m2, l, row, a.lse + (long long)bh * t, qd, rank == 0);
+  };
+  if (np == kClusterPanels)
+    walk(std::integral_constant<int, kClusterPanels>{});
+  else
+    walk(std::integral_constant<int, kClusterPanels - 1>{});
+  cluster_arrive();   // no block leaves while its stores to a peer are in flight
+  cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
 // plain route (f32): f32 tiles in shared memory, FMAs
 // ---------------------------------------------------------------------------
 template <int DH>
@@ -767,7 +1136,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_plain_kernel(FwdArgs a)
 }
 
 // ---------------------------------------------------------------------------
-// chunked route (f32 and bf16 past dh 256): the plain route's arithmetic
+// chunked route (f32 past dh 256, bf16 past 2048): the plain route's arithmetic
 // with the head dim in chunks
 // ---------------------------------------------------------------------------
 // S = Q K^T sums over 64-column chunks of Q and K staged in turn (in the
@@ -998,27 +1367,91 @@ int launch_chunked(const FwdArgs& a, int b, int dh, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// one cluster of ceil(dh / 256) blocks per (batch * head, 128-row query
+// tile), the cluster dimension a launch attribute; a cluster the card
+// cannot place (cudaErrorClusterOutOfResources) is returned, never
+// re-routed
+template <bool kSingle>
+int launch_cluster(const FwdArgs& a, int b, int dh, cudaStream_t s) {
+  using L = ClusterFwdLayout;
+  static bool configured = false;
+  const int n_panels = dh / kPanel;
+  const int n_rank = (n_panels + kClusterPanels - 1) / kClusterPanels;
+  if (dh % kPanel || n_rank > kClusterMax || n_panels / n_rank < kClusterPanels - 1)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  int rc = make_map(&tq, a.q, a.sq, b, a.h, a.t, dh, L::kRows);
+  if (!rc) rc = make_map(&tk, a.k, a.sk, b, a.h, a.t, dh, L::kKeys);
+  if (!rc) rc = make_map(&tv, a.v, a.sv, b, a.h, a.t, dh, L::kKeys);
+  if (rc) return rc;
+  auto kern = flash_fwd_bf16_cluster_kernel<kSingle>;
+  if (!configured) {   // once, on the first (uncaptured) launch
+    cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_rank, b * a.h, (a.t + L::kRows - 1) / L::kRows);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_rank;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, tq, tk, tv, a, dh);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The build a call takes, by dtype and head dim alone (the wrapper counts
+// its launches by this, dl4j_flash_fwd_build)
+enum FwdBuild { kBuildWgmma, kBuildWide, kBuildCluster, kBuildPlain, kBuildChunked };
+
+int fwd_build(int dh, int is_bf16) {
+  if (dh == 64 || dh == 128 || dh == 192 || dh == 256) return is_bf16 ? kBuildWgmma : kBuildPlain;
+  if (!is_bf16) return kBuildChunked;   // f32 past 256
+  if (dh <= 512) return kBuildWide;     // 320, 384, 448, 512
+  return dh <= kClusterMaxDh ? kBuildCluster : kBuildChunked;
+}
+
 template <bool kSingle>
 int launch_any(const FwdArgs& a, int b, int dh, int is_bf16, cudaStream_t s) {
-  switch (dh) {
-    case 64: return launch_dh<64, kSingle>(a, b, is_bf16, s);
-    case 128: return launch_dh<128, kSingle>(a, b, is_bf16, s);
-    case 192: return launch_dh<192, kSingle>(a, b, is_bf16, s);
-    case 256: return launch_dh<256, kSingle>(a, b, is_bf16, s);
+  switch (fwd_build(dh, is_bf16)) {
+    case kBuildWgmma:
+    case kBuildPlain:
+      switch (dh) {
+        case 64: return launch_dh<64, kSingle>(a, b, is_bf16, s);
+        case 128: return launch_dh<128, kSingle>(a, b, is_bf16, s);
+        case 192: return launch_dh<192, kSingle>(a, b, is_bf16, s);
+        default: return launch_dh<256, kSingle>(a, b, is_bf16, s);
+      }
+    case kBuildWide:
+      switch (dh) {
+        case 320: return launch_wide<320, kSingle>(a, b, s);
+        case 384: return launch_wide<384, kSingle>(a, b, s);
+        case 448: return launch_wide<448, kSingle>(a, b, s);
+        default: return launch_wide<512, kSingle>(a, b, s);
+      }
+    case kBuildCluster: return launch_cluster<kSingle>(a, b, dh, s);
   }
-  if (is_bf16) {   // past 256: the wide kernel up to 512, then the chunked build
-    switch (dh) {
-      case 320: return launch_wide<320, kSingle>(a, b, s);
-      case 384: return launch_wide<384, kSingle>(a, b, s);
-      case 448: return launch_wide<448, kSingle>(a, b, s);
-      case 512: return launch_wide<512, kSingle>(a, b, s);
-    }
-    return launch_chunked<__nv_bfloat16, kSingle>(a, b, dh, s);
-  }
-  return launch_chunked<float, kSingle>(a, b, dh, s);
+  return is_bf16 ? launch_chunked<__nv_bfloat16, kSingle>(a, b, dh, s)
+                 : launch_chunked<float, kSingle>(a, b, dh, s);
 }
 
 }  // namespace
+
+// The build dl4j_flash_fwd launches for head dim `dh` (a built size) and
+// dtype: 0 the wgmma kernel (bf16 to 256), 1 the wide kernel (bf16 320 to
+// 512), 2 the cluster kernel (bf16 past 512 to 2048), 3 the plain FMA
+// kernel (f32 to 256), 4 the chunked FMA kernel (f32 past 256, bf16 past
+// 2048); -1 for a head dim no build takes.
+extern "C" int dl4j_flash_fwd_build(int dh, int is_bf16) {
+  return valid_head_dim(dh) ? fwd_build(dh, is_bf16) : -1;
+}
 
 // Plain-C entry for ctypes.  `strides` holds the (batch, time, head)
 // element strides of q, k, v and o, in that order (12 values).  Launches

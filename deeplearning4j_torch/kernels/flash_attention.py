@@ -29,8 +29,13 @@ tensor cores at all four, with 64-row tiles at 192 and 256; every f32
 build on plain FMA tiles), and past 256 for any multiple of 64, as the
 reference's kernels take any head dim (bf16 up to 512 on the tensor
 cores, with the output's 64-column panels split across two warpgroups;
-f32, and bf16 past 512, on FMA tiles with the head dim walked in
-chunks); every
+the bf16 forward past 512 up to 2048 on the tensor cores of a
+thread-block cluster, each block owning 3 or 4 of the panels and the
+partial scores summed across the cluster; f32, the bf16 backward past
+512 and the bf16 forward past 2048 on FMA tiles with the head dim walked
+in chunks); ``fwd_build`` names the forward build a launch takes and
+``flash_fwd.builds`` / ``flash_fwd_single.builds`` count launches by
+it; every
 wrapper zero-pads q, k, v and dO along the head dim to the
 next of those (:func:`pad_head_dim`) on both routes, and slices the
 padding off O, dQ, dK and dV.  That is exact: zero columns add nothing to Q K^T or to dO
@@ -245,6 +250,36 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
+#: K3/K4's builds, by the id ``dl4j_flash_fwd_build`` returns: the wgmma
+#: kernel (bf16 to dh 256), the wide kernel (bf16 320-512), the cluster
+#: kernel (bf16 past 512 to 2048), the plain FMA kernel (f32 to 256) and
+#: the chunked FMA kernel (f32 past 256, bf16 past 2048)
+FWD_BUILDS = ("wgmma", "wide", "cluster", "plain", "chunked")
+_FWD_BUILD_OF = {}
+
+
+def fwd_build(dh: int, bf16: bool) -> str:
+    """The build a CUDA K3/K4 launch at kernel head dim ``dh`` (a size
+    :func:`kernel_head_dim` returns) takes, as the built library routes
+    it (its ``dl4j_flash_fwd_build``, the function its launcher switches
+    on): a function of the dtype and head dim alone."""
+    key = (dh, bool(bf16))
+    build = _FWD_BUILD_OF.get(key)
+    if build is None:
+        fn = _KERNEL_FNS.get("dl4j_flash_fwd_build")
+        if fn is None:
+            from deeplearning4j_torch.kernels import _build
+            fn = _build.load("flash_fwd").dl4j_flash_fwd_build
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            _KERNEL_FNS["dl4j_flash_fwd_build"] = fn
+        idx = fn(dh, int(bf16))
+        if not 0 <= idx < len(FWD_BUILDS):
+            raise ValueError(f"no K3/K4 build takes head dim {dh}")
+        build = _FWD_BUILD_OF[key] = FWD_BUILDS[idx]
+    return build
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (each counts its own launches)
 # ---------------------------------------------------------------------------
@@ -289,6 +324,8 @@ def _fwd(wrapper, q, k, v, bias, causal, scale, single):
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(rc, name)
     wrapper.launches += 1
+    build = fwd_build(dhp, q.dtype == torch.bfloat16)
+    wrapper.builds[build] = wrapper.builds.get(build, 0) + 1
     return _unpad(o, dh), lse
 
 
@@ -374,6 +411,10 @@ flash_fwd.launches = 0
 flash_fwd_single.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
+#: the same forward launches by build (:data:`FWD_BUILDS`; set to {} to
+#: start a count)
+flash_fwd.builds = {}
+flash_fwd_single.builds = {}
 
 
 def row_delta(do, o):

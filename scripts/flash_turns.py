@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash kernels at head dims 256, 192, 320 and 384
-of two checkouts in turns on one CUDA card.
+"""Time the port's bf16 flash kernels at head dims 256, 192, 320, 384,
+576 and 768 of two checkouts in turns on one CUDA card.
 
     python3 scripts/flash_turns.py BEFORE_DIR AFTER_DIR
 
@@ -17,7 +17,10 @@ sets (``chip_smoke.time_ms``'s measure, from this script's checkout).
 Past 256 the same at ``chip_smoke.py`` phase ``infer`` (g)'s shape (b
 16, 2 heads of 320, not causal, K3, K5 and K6 at t 1024, K4 at t 512)
 and at phase ``wide`` (d)'s (b 8, 2 heads of 384, causal, t 2048 and
-512).  Each turn also times SDPA's whole backward (dq, dk and dv at
+512).  Past 512, K3 and K4 alone (the backward there is the chunked
+build in both trees): at the extra phase ``chunked``'s 2 heads of 576
+and at ``wide`` (g)'s one head of 768 (b 8, causal, t 2048 and 512).
+Each turn also times SDPA's whole backward (dq, dk and dv at
 once, ``chip_smoke.sdpa_bwd_ms``) on the same inputs as the yardstick
 of the backward, and holds its kernels to their plain
 versions (``chip_smoke.flash_err``, ``FLASH_TOL``).  Prints one JSON
@@ -31,11 +34,14 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (head dim, heads, b, K3's t (and K5/K6's), K4's t, causal)
-SHAPES = ((256, 3, 8, 2048, 512, True),
-          (192, 4, 8, 2048, 512, True),
-          (320, 2, 16, 1024, 512, False),
-          (384, 2, 8, 2048, 512, True))
+# (head dim, heads, b, K3's t (and K5/K6's), K4's t, causal, backward
+# timed)
+SHAPES = ((256, 3, 8, 2048, 512, True, True),
+          (192, 4, 8, 2048, 512, True, True),
+          (320, 2, 16, 1024, 512, False, True),
+          (384, 2, 8, 2048, 512, True, True),
+          (576, 2, 8, 2048, 512, True, False),
+          (768, 1, 8, 2048, 512, True, False))
 N_SETS = 4
 
 
@@ -79,7 +85,7 @@ def turn(tree: str) -> dict:
         out["err"][key] = err
 
     bh = fa._to_bh
-    for dh, h, b, t_stream, t_single, causal in SHAPES:
+    for dh, h, b, t_stream, t_single, causal, with_bwd in SHAPES:
         kw = dict(causal=causal, scale=dh ** -0.5)
         for name, t in (("flash_fwd", t_stream),
                         ("flash_fwd_single", t_single)):
@@ -95,6 +101,8 @@ def turn(tree: str) -> dict:
                 torch, lambda i: fn(*sets[i % N_SETS][:3], None, **kw))
             del sets, o, ro
             torch.cuda.empty_cache()
+        if not with_bwd:
+            continue
         # the backward at t_stream on this turn's forward
         sets = _sets(torch, g, b, h, dh, t_stream)
         outs = [fa.flash_fwd(*s[:3], None, **kw) for s in sets]

@@ -122,14 +122,17 @@ def test_wide_head_dims_match_jax_fwd_and_grads(case):
 # (name, b, h, t, d, blk_q, blk_k, causal, bias kind, layout) past the
 # 256 build: head dims padded to a multiple of 64 (272 padded to 320,
 # 320, 384, 448 and 512; bf16 on the card takes the 64-row wgmma forward
-# and the panel backward up to 512, f32 the chunked kernels), t 256 in
-# two key blocks (K3) and in one (K4)
+# and the panel backward up to 512, f32 the chunked kernels; past 512 the
+# bf16 forward takes the cluster kernel: 576 in 3 blocks of 192 columns,
+# 768 in 3 of 256), t 256 in two key blocks (K3) and in one (K4)
 CHUNKED_CASES = [
     ("dh272_causal_bias", 1, 2, 256, 272, 128, 128, True, "random", "bthd"),
     ("dh320_causal_bias", 1, 2, 256, 320, 128, 128, True, "random", "bhtd"),
     ("dh384_causal_bias", 1, 2, 256, 384, 128, 128, True, "random", "bthd"),
     ("dh512_single_bias", 1, 2, 256, 512, 256, 256, True, "pad", "bthd"),
     ("dh448_causal_bias", 1, 2, 256, 448, 128, 128, True, "random", "bhtd"),
+    ("dh576_causal_bias", 1, 1, 256, 576, 128, 128, True, "random", "bthd"),
+    ("dh768_single_pad", 1, 1, 256, 768, 256, 256, False, "pad", "bhtd"),
 ]
 
 
@@ -137,9 +140,10 @@ CHUNKED_CASES = [
                          ids=[c[0] for c in CHUNKED_CASES])
 def test_chunked_head_dims_match_jax_fwd_and_grads(case):
     """The plain route past head dim 256 (where the CUDA route takes the
-    wide wgmma forward and the panel backward in bf16 up to dh 512 and
-    the chunked kernels otherwise, the head dim padded to a multiple of
-    64) — the version the card's kernels are held to — against the
+    wide wgmma forward and the panel backward in bf16 up to dh 512, the
+    cluster forward in bf16 past 512 up to 2048, and the chunked kernels
+    otherwise, the head dim padded to a multiple of 64) — the version the
+    card's kernels are held to — against the
     JAX package's ``flash_attention`` in interpret mode, whose kernels
     take any head dim: forward and every gradient within 1e-5 (absolute,
     and relative for the key-bias gradient's sums of dS over 256 queries,
@@ -473,14 +477,16 @@ def test_cuda_k3_ragged_t(dh, causal, with_bias, single):
 @pytest.mark.gpu
 @pytest.mark.parametrize("single", [False, True],
                          ids=["flash_fwd", "flash_fwd_single"])
-@pytest.mark.parametrize("dh", [192, 256, 320, 384, 512])
+@pytest.mark.parametrize("dh", [192, 256, 320, 384, 512, 768])
 @pytest.mark.parametrize("t", [2000, 2048])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_cuda_wide_fwd_causal_long_t(dh, t, with_bias, single):
     """K3 (or K4) in bf16 at head dims 192 and 256 (128-row query tiles,
-    64-key tiles) and 320, 384 and 512 (64-row query tiles, 64-key tiles
+    64-key tiles), 320, 384 and 512 (64-row query tiles, 64-key tiles
     at 320 and 32-key ones from 384, the output panels split across the
-    two warpgroups), causal at t 2048 and at a ragged t 2000, with and
+    two warpgroups) and 768 (the cluster kernel: 128-row query tiles,
+    64-key tiles, 3 blocks of 256 columns summing their partial scores),
+    causal at t 2048 and at a ragged t 2000, with and
     without a key bias: each query tile walks up to 64 key tiles —
     interior ones on the branch-free path (no bias), those on its
     diagonal masked, the last one ragged at t 2000, every one biased with
@@ -549,16 +555,19 @@ def test_cuda_k5_ragged_t(dh, causal, with_bias):
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("dh", [16, 32, 96, 160, 192, 256, 272, 320, 384,
-                                448, 512])
+                                448, 512, 576, 768, 1024, 2048, 2112])
 def test_cuda_kernels_at_padded_head_dims(dh, dtype, tol, single):
     """K3 (or K4), K5 and K6 on the card at head dims past the first
     builds — zero-padded to 64 or 128 (16, 32, 96) or to the 192 build
     (160) by the wrappers, the 192 and 256 builds themselves (bf16 on
     wgmma with 64-row tiles, f32 on FMA tiles), and past 256 (272 padded
     to 320, 320, 384, 448, 512: bf16 on the 64-row wgmma forward and the
-    panel backward, f32 on the chunked kernels) — causal with a key bias at
-    a ragged t, against the plain versions on the unpadded operands; each
-    element held to its own size.  These raised before."""
+    panel backward, f32 on the chunked kernels; 576, 768, 1024 and 2048:
+    the bf16 forward on the cluster kernel, 3 to 8 blocks a cluster, the
+    rest chunked; 2112, past the cluster's 2048: all chunked) — causal
+    with a key bias at a ragged t, against the plain versions on the
+    unpadded operands; each element held to its own size.  These raised
+    before."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(dh)
@@ -621,6 +630,45 @@ def test_cuda_wide_fwd_launches_the_wide_kernel(dh, single):
     assert not any("flash_fwd_chunked_kernel" in n for n in bf16), bf16
     f32 = kernels(torch.float32)
     assert any("flash_fwd_chunked_kernel" in n for n in f32), f32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("single", [False, True],
+                         ids=["flash_fwd", "flash_fwd_single"])
+@pytest.mark.parametrize("dh", [576, 2048])
+def test_cuda_cluster_fwd_launches_the_cluster_kernel(dh, single):
+    """One bf16 launch of K3 (or K4) at head dims 576 (a cluster of 3
+    blocks) and 2048 (8) under ``torch.profiler`` runs
+    ``flash_fwd_bf16_cluster_kernel`` and never the chunked build, and
+    the wrapper counts it on the cluster build; an f32 launch at the same
+    shape, and a bf16 one at 2112 (past the cluster's 2048), run
+    ``flash_fwd_chunked_kernel``: the route is by dtype and head dim."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+    wrapper = fa.flash_fwd_single if single else fa.flash_fwd
+    kw = dict(causal=True)
+
+    def kernels(dh_, dtype):
+        q, k, v, _, bias = _ragged_bf16(dh_ + single, dh_, True)
+        args = [x.to(dtype) for x in (q, k, v)]
+        wrapper(*args, bias, scale=dh_ ** -0.5, **kw)   # built, configured
+        torch.cuda.synchronize()
+        wrapper.builds = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wrapper(*args, bias, scale=dh_ ** -0.5, **kw)
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()], dict(wrapper.builds)
+
+    bf16, builds = kernels(dh, torch.bfloat16)
+    assert any("flash_fwd_bf16_cluster_kernel" in n for n in bf16), bf16
+    assert not any("flash_fwd_chunked_kernel" in n for n in bf16), bf16
+    assert builds == {"cluster": 1}
+    for dh_, dtype in ((dh, torch.float32), (2112, torch.bfloat16)):
+        names, builds = kernels(dh_, dtype)
+        assert any("flash_fwd_chunked_kernel" in n for n in names), names
+        assert not any("_cluster_kernel" in n for n in names), names
+        assert builds == {"chunked": 1}
 
 
 @pytest.mark.gpu

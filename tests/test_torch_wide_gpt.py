@@ -155,11 +155,12 @@ def test_wide_gpt_adam_step_matches_jax(dh, one_thread):
     assert moved > 0                      # the step changed the params
 
 
-# the card's phase 10b parts (b)-(d) at this test's size: (b) at 2 heads
-# of 256 (K3 at t 1024, K4 at t 512, two fit steps at t 1024), (c) at 2
-# heads of 192 (d 384; K3 at t 1024, two fit steps), (d) at 2 heads of
-# 384 (d 768; K3 at t 1024, K4 at t 512, each against plain attention,
-# and two fit steps against plain attention's loss curve);
+# the card's phase 10b parts (b)-(d) and (g) at this test's size: (b) at 2
+# heads of 256 (K3 at t 1024, K4 at t 512, two fit steps at t 1024), (c)
+# at 2 heads of 192 (d 384; K3 at t 1024, two fit steps), (d) at 2 heads
+# of 384 (d 768; K3 at t 1024, K4 at t 512, each against plain attention,
+# and two fit steps against plain attention's loss curve), (g) at one
+# head of 768 (d 768; (d)'s two forward windows, no fit steps);
 # the card holds the launch counts in the phase, this test the stand-ins'
 REHEARSAL = {"gpt": {k: WIDE[k] for k in ("vocab_size", "d_model",
                                           "n_layers", "d_ff")}
@@ -167,7 +168,8 @@ REHEARSAL = {"gpt": {k: WIDE[k] for k in ("vocab_size", "d_model",
              "vocab": WIDE["vocab_size"], "b": B, "t": 1024,
              "t_single": T, "steps": 2, "heads": 2,
              "narrow": {"n_heads": 2, "d_model": 384},
-             "wider": {"n_heads": 2, "d_model": 768}, "kernels": False}
+             "wider": {"n_heads": 2, "d_model": 768},
+             "widest": {"n_heads": 1, "d_model": 768}, "kernels": False}
 
 
 @pytest.fixture
@@ -193,9 +195,10 @@ def test_wide_phase_rehearsal_on_cpu(capsys, one_thread, counting_wrappers):
     assert row["phase"] == "wide/gpt"
     assert row["head_dim"] == 256 and row["narrow"]["head_dim"] == 192
     assert row["wider"]["head_dim"] == 384
+    assert row["widest"]["head_dim"] == 768 and "fit" not in row["widest"]
     assert set(counts) == {"fwd", "fwd_single", "fit", "narrow",
                            "narrow_fit", "wider", "wider_single",
-                           "wider_fit"}
+                           "wider_fit", "widest", "widest_single"}
     # each counted window's calls: once a layer, a step (2 fit steps)
     n, steps = WIDE["n_layers"], REHEARSAL["steps"]
     fwd = {w: 0 for w in chip_smoke.FLASH_WRAPPERS}
@@ -207,20 +210,24 @@ def test_wide_phase_rehearsal_on_cpu(capsys, one_thread, counting_wrappers):
                      "flash_bwd_dq": n * steps}),
             ("narrow", {**fwd, "flash_fwd": n}),
             ("wider", {**fwd, "flash_fwd": n}),
-            ("wider_single", {**fwd, "flash_fwd_single": n})):
+            ("wider_single", {**fwd, "flash_fwd_single": n}),
+            ("widest", {**fwd, "flash_fwd": n}),
+            ("widest_single", {**fwd, "flash_fwd_single": n})):
         assert counts[window] == want, window
     assert counts["narrow_fit"] == counts["fit"]
     assert counts["wider_fit"] == counts["fit"]
     for window in ("fwd", "fwd_single", "narrow"):
         assert row[window]["kernel_vs_plain"]      # the replays ran
-    # (d): the replays ran, and the output held to plain attention
-    for window in ("fwd", "fwd_single"):
-        part = row["wider"][window]
-        assert set(part["kernel_vs_plain"]) == {
-            ("flash_fwd" if window == "fwd" else "flash_fwd_single") + k
-            for k in ("/o", "/lse")}
-        assert part["plain_attention"]["err"] <= chip_smoke.FLASH_TOL[
-            "bfloat16"]
+    # (d) and (g): the replays ran, and the output held to plain attention
+    for part_key in ("wider", "widest"):
+        for window in ("fwd", "fwd_single"):
+            part = row[part_key][window]
+            assert set(part["kernel_vs_plain"]) == {
+                ("flash_fwd" if window == "fwd" else "flash_fwd_single") + k
+                for k in ("/o", "/lse")}
+            assert part["plain_attention"]["err"] <= chip_smoke.FLASH_TOL[
+                "bfloat16"]
+            assert part["builds"] == {}     # the CPU route counts none
     # (b)'s fit steps at 2 heads of 256, (c)'s at 2 heads of 192, (d)'s
     # at 2 heads of 384
     for fit in (row["fit"], row["narrow"]["fit"], row["wider"]["fit"]):
